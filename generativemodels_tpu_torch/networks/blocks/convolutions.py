@@ -1,0 +1,68 @@
+"""N-D convolution wrapper and resampling helpers, channels-first.
+
+Counterpart of generativemodels_tpu/networks/blocks/convolutions.py.
+`ConvND` is a `torch.nn.Conv{1,2,3}d` with torch-style symmetric padding,
+held as the child `conv` so that its keys read `<name>.conv.weight`, as in
+the reference's MONAI `Convolution`. The JAX module's TPU lowerings (the
+depth-tap 3D decomposition and the fused upsample-conv) compute the same
+function and have no counterpart here.
+"""
+from __future__ import annotations
+
+from collections.abc import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
+_AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+class ConvND(nn.Module):
+    """Convolution over `spatial_dims` spatial axes of (B, C, *spatial).
+
+    Args:
+        spatial_dims: 1, 2 or 3.
+        in_channels: input channels.
+        features: output channels.
+        kernel_size, strides, padding: int or per-axis tuple; padding is
+            symmetric, torch-style.
+        zero_init: zero the weight and bias (the reference `zero_module`).
+        nearest_upsample: upsample the input x2 (nearest-neighbour) first.
+    """
+
+    def __init__(
+        self,
+        spatial_dims: int,
+        in_channels: int,
+        features: int,
+        kernel_size: int | Sequence[int] = 3,
+        strides: int | Sequence[int] = 1,
+        padding: int | Sequence[int] = 0,
+        zero_init: bool = False,
+        nearest_upsample: bool = False,
+    ) -> None:
+        super().__init__()
+        self.conv = _CONV[spatial_dims](
+            in_channels, features, kernel_size, stride=strides, padding=padding
+        )
+        if zero_init:
+            nn.init.zeros_(self.conv.weight)
+            nn.init.zeros_(self.conv.bias)
+        self.nearest_upsample = nearest_upsample
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.nearest_upsample:
+            x = upsample_nearest(x, 2)
+        return self.conv(x)
+
+
+def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
+    """Average pooling (stride = window) over the spatial axes of (B, C, *spatial)."""
+    return _AVG_POOL[x.ndim - 2](x, window)
+
+
+def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """Nearest-neighbour x`scale` upsampling of (B, C, *spatial)."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")

@@ -1,0 +1,506 @@
+"""Timestep-conditioned 2D/3D diffusion UNet, channels-first.
+
+Counterpart of generativemodels_tpu/networks/nets/diffusion_model_unet.py
+for the self-attention UNet: ResnetBlock (unfused path), Downsample,
+Upsample, DownBlock/MidBlock/UpBlock and DiffusionModelUNet with class
+embedding and the ControlNet residual arguments. Modules carry the
+reference's torch state-dict keys (`down_blocks.{i}.resnets.{j}`,
+`.attentions.{j}`, `time_embed.0/.2`, `out.0/.2`, `<conv>.conv.weight`), so
+networks/convert.py maps JAX parameters onto them one to one.
+
+Not ported yet: cross-attention conditioning (`with_conditioning`),
+`use_checkpointing`, `cached_down`/`return_down`, the fused 3D ResnetBlock
+kernel path and DiffusionModelEncoder.
+"""
+from __future__ import annotations
+
+from collections.abc import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops import get_timestep_embedding
+from ..blocks.attention_blocks import AttentionBlock
+from ..blocks.convolutions import ConvND, avg_pool, upsample_nearest
+
+__all__ = [
+    "DiffusionModelUNet",
+    "ResnetBlock",
+    "Downsample",
+    "Upsample",
+    "DownBlock",
+    "MidBlock",
+    "UpBlock",
+]
+
+
+def ensure_tuple_rep(v, n: int) -> tuple:
+    if isinstance(v, (list, tuple)):
+        if len(v) != n:
+            raise ValueError(f"expected sequence of length {n}, got {len(v)}")
+        return tuple(v)
+    return (v,) * n
+
+
+def _group_norm(channels: int, groups: int, eps: float) -> nn.GroupNorm:
+    return nn.GroupNorm(groups, channels, eps=eps, affine=True)
+
+
+class Downsample(nn.Module):
+    """Stride-2 conv (or avg-pool) downsampling."""
+
+    def __init__(
+        self,
+        spatial_dims: int,
+        num_channels: int,
+        use_conv: bool,
+        out_channels: int | None = None,
+        padding: int = 1,
+    ) -> None:
+        super().__init__()
+        self.num_channels = num_channels
+        out_channels = out_channels or num_channels
+        if use_conv:
+            self.op = ConvND(
+                spatial_dims, num_channels, out_channels, kernel_size=3, strides=2, padding=padding
+            )
+        else:
+            if num_channels != out_channels:
+                raise ValueError("num_channels and out_channels must be equal when use_conv=False")
+            self.op = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] != self.num_channels:
+            raise ValueError(f"Input channels ({x.shape[1]}) != expected ({self.num_channels})")
+        return self.op(x) if self.op is not None else avg_pool(x, 2)
+
+
+class Upsample(nn.Module):
+    """Nearest x2 upsample with optional 3x3 conv."""
+
+    def __init__(
+        self,
+        spatial_dims: int,
+        num_channels: int,
+        use_conv: bool,
+        out_channels: int | None = None,
+        padding: int = 1,
+    ) -> None:
+        super().__init__()
+        self.num_channels = num_channels
+        self.conv = (
+            ConvND(
+                spatial_dims, num_channels, out_channels or num_channels, kernel_size=3,
+                padding=padding, nearest_upsample=True,
+            )
+            if use_conv
+            else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] != self.num_channels:
+            raise ValueError("Input channels should be equal to num_channels")
+        return self.conv(x) if self.conv is not None else upsample_nearest(x, 2)
+
+
+class ResnetBlock(nn.Module):
+    """GroupNorm+SiLU conv block with additive timestep conditioning.
+
+    norm1 -> silu -> [up/down] -> conv1 -> (+ time proj) -> norm2 -> silu ->
+    conv2 (zero-init) -> + skip(x). The zero-initialised second conv makes a
+    fresh block the identity.
+    """
+
+    def __init__(
+        self,
+        spatial_dims: int,
+        in_channels: int,
+        temb_channels: int,
+        out_channels: int | None = None,
+        up: bool = False,
+        down: bool = False,
+        norm_num_groups: int = 32,
+        norm_eps: float = 1e-6,
+    ) -> None:
+        super().__init__()
+        out_channels = out_channels or in_channels
+        self.spatial_dims = spatial_dims
+        self.up = up
+        self.down = down
+        self.norm1 = _group_norm(in_channels, norm_num_groups, norm_eps)
+        self.conv1 = ConvND(spatial_dims, in_channels, out_channels, kernel_size=3, padding=1)
+        self.time_emb_proj = nn.Linear(temb_channels, out_channels)
+        self.norm2 = _group_norm(out_channels, norm_num_groups, norm_eps)
+        self.conv2 = ConvND(
+            spatial_dims, out_channels, out_channels, kernel_size=3, padding=1, zero_init=True
+        )
+        self.skip_connection = (
+            None
+            if out_channels == in_channels
+            else ConvND(spatial_dims, in_channels, out_channels, kernel_size=1)
+        )
+
+    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        h = F.silu(self.norm1(x))
+        if self.up:
+            x = upsample_nearest(x, 2)
+            h = upsample_nearest(h, 2)
+        elif self.down:
+            x = avg_pool(x, 2)
+            h = avg_pool(h, 2)
+        h = self.conv1(h)
+
+        temb = self.time_emb_proj(F.silu(emb))
+        h = h + temb.reshape(*temb.shape, *([1] * self.spatial_dims))
+
+        h = self.conv2(F.silu(self.norm2(h)))
+        skip = x if self.skip_connection is None else self.skip_connection(x)
+        return skip + h
+
+
+class DownBlock(nn.Module):
+    """Down path stage: [resnet (+ attn)] x N, then downsampler."""
+
+    def __init__(
+        self,
+        spatial_dims: int,
+        in_channels: int,
+        out_channels: int,
+        temb_channels: int,
+        num_res_blocks: int = 1,
+        norm_num_groups: int = 32,
+        norm_eps: float = 1e-6,
+        add_downsample: bool = True,
+        resblock_updown: bool = False,
+        downsample_padding: int = 1,
+        with_attn: bool = False,
+        num_head_channels: int = 1,
+        use_flash_attention: bool | None = None,
+    ) -> None:
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            ResnetBlock(
+                spatial_dims, in_channels if i == 0 else out_channels, temb_channels,
+                out_channels, norm_num_groups=norm_num_groups, norm_eps=norm_eps,
+            )
+            for i in range(num_res_blocks)
+        )
+        self.attentions = (
+            nn.ModuleList(
+                AttentionBlock(
+                    spatial_dims, out_channels, num_head_channels, norm_num_groups, norm_eps,
+                    use_flash_attention=use_flash_attention,
+                )
+                for _ in range(num_res_blocks)
+            )
+            if with_attn
+            else None
+        )
+        if not add_downsample:
+            self.downsampler = None
+        elif resblock_updown:
+            self.downsampler = ResnetBlock(
+                spatial_dims, out_channels, temb_channels, out_channels, down=True,
+                norm_num_groups=norm_num_groups, norm_eps=norm_eps,
+            )
+        else:
+            self.downsampler = Downsample(
+                spatial_dims, out_channels, use_conv=True, out_channels=out_channels,
+                padding=downsample_padding,
+            )
+
+    def forward(
+        self, hidden_states: torch.Tensor, temb: torch.Tensor
+    ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+        output_states = []
+        for i, resnet in enumerate(self.resnets):
+            hidden_states = resnet(hidden_states, temb)
+            if self.attentions is not None:
+                hidden_states = self.attentions[i](hidden_states)
+            output_states.append(hidden_states)
+        if self.downsampler is not None:
+            if isinstance(self.downsampler, ResnetBlock):
+                hidden_states = self.downsampler(hidden_states, temb)
+            else:
+                hidden_states = self.downsampler(hidden_states)
+            output_states.append(hidden_states)
+        return hidden_states, output_states
+
+
+class MidBlock(nn.Module):
+    """resnet -> self-attention -> resnet."""
+
+    def __init__(
+        self,
+        spatial_dims: int,
+        in_channels: int,
+        temb_channels: int,
+        norm_num_groups: int = 32,
+        norm_eps: float = 1e-6,
+        num_head_channels: int = 1,
+        use_flash_attention: bool | None = None,
+    ) -> None:
+        super().__init__()
+
+        def resnet():
+            return ResnetBlock(
+                spatial_dims, in_channels, temb_channels, in_channels,
+                norm_num_groups=norm_num_groups, norm_eps=norm_eps,
+            )
+
+        self.resnet_1 = resnet()
+        self.attention = AttentionBlock(
+            spatial_dims, in_channels, num_head_channels, norm_num_groups, norm_eps,
+            use_flash_attention=use_flash_attention,
+        )
+        self.resnet_2 = resnet()
+
+    def forward(self, hidden_states: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        hidden_states = self.resnet_1(hidden_states, temb)
+        hidden_states = self.attention(hidden_states)
+        return self.resnet_2(hidden_states, temb)
+
+
+class UpBlock(nn.Module):
+    """Up path stage: [cat skip, resnet (+ attn)] x N, then upsampler."""
+
+    def __init__(
+        self,
+        spatial_dims: int,
+        in_channels: int,
+        prev_output_channel: int,
+        out_channels: int,
+        temb_channels: int,
+        num_res_blocks: int = 1,
+        norm_num_groups: int = 32,
+        norm_eps: float = 1e-6,
+        add_upsample: bool = True,
+        resblock_updown: bool = False,
+        with_attn: bool = False,
+        num_head_channels: int = 1,
+        use_flash_attention: bool | None = None,
+    ) -> None:
+        super().__init__()
+        resnets = []
+        for i in range(num_res_blocks):
+            res_skip_channels = in_channels if (i == num_res_blocks - 1) else out_channels
+            resnet_in_channels = prev_output_channel if i == 0 else out_channels
+            resnets.append(
+                ResnetBlock(
+                    spatial_dims, resnet_in_channels + res_skip_channels, temb_channels,
+                    out_channels, norm_num_groups=norm_num_groups, norm_eps=norm_eps,
+                )
+            )
+        self.resnets = nn.ModuleList(resnets)
+        self.attentions = (
+            nn.ModuleList(
+                AttentionBlock(
+                    spatial_dims, out_channels, num_head_channels, norm_num_groups, norm_eps,
+                    use_flash_attention=use_flash_attention,
+                )
+                for _ in range(num_res_blocks)
+            )
+            if with_attn
+            else None
+        )
+        if not add_upsample:
+            self.upsampler = None
+        elif resblock_updown:
+            self.upsampler = ResnetBlock(
+                spatial_dims, out_channels, temb_channels, out_channels, up=True,
+                norm_num_groups=norm_num_groups, norm_eps=norm_eps,
+            )
+        else:
+            self.upsampler = Upsample(
+                spatial_dims, out_channels, use_conv=True, out_channels=out_channels
+            )
+
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        res_hidden_states_list: list[torch.Tensor],
+        temb: torch.Tensor,
+    ) -> torch.Tensor:
+        res_list = list(res_hidden_states_list)
+        for i, resnet in enumerate(self.resnets):
+            hidden_states = torch.cat([hidden_states, res_list.pop()], dim=1)
+            hidden_states = resnet(hidden_states, temb)
+            if self.attentions is not None:
+                hidden_states = self.attentions[i](hidden_states)
+        if self.upsampler is not None:
+            if isinstance(self.upsampler, ResnetBlock):
+                hidden_states = self.upsampler(hidden_states, temb)
+            else:
+                hidden_states = self.upsampler(hidden_states)
+        return hidden_states
+
+
+def _validate_unet_args(
+    num_channels, attention_levels, norm_num_groups, num_head_channels, num_res_blocks
+):
+    if any((c % norm_num_groups) != 0 for c in num_channels):
+        raise ValueError("all num_channels must be multiples of norm_num_groups")
+    if len(num_channels) != len(attention_levels):
+        raise ValueError("num_channels must have the same length as attention_levels")
+    if len(num_head_channels) != len(attention_levels):
+        raise ValueError("num_head_channels must have the same length as attention_levels")
+    if len(num_res_blocks) != len(num_channels):
+        raise ValueError("num_res_blocks must have the same length as num_channels")
+
+
+class DiffusionModelUNet(nn.Module):
+    """UNet with timestep embedding and self-attention levels.
+
+    Forward contract: ``model(x, timesteps, context=None, class_labels=None,
+    down_block_additional_residuals=None, mid_block_additional_residual=None)``
+    with x in (B, C, *spatial); returns float32 (B, out_channels, *spatial).
+
+    Args mirror the JAX module's. `with_conditioning=True` (cross-attention)
+    is not ported yet and raises NotImplementedError.
+    """
+
+    def __init__(
+        self,
+        spatial_dims: int,
+        in_channels: int,
+        out_channels: int,
+        num_res_blocks: Sequence[int] | int = (2, 2, 2, 2),
+        num_channels: Sequence[int] = (32, 64, 64, 64),
+        attention_levels: Sequence[bool] = (False, False, True, True),
+        norm_num_groups: int = 32,
+        norm_eps: float = 1e-6,
+        resblock_updown: bool = False,
+        num_head_channels: int | Sequence[int] = 8,
+        with_conditioning: bool = False,
+        num_class_embeds: int | None = None,
+        use_flash_attention: bool | None = None,
+    ) -> None:
+        super().__init__()
+        if with_conditioning:
+            raise NotImplementedError("cross-attention conditioning is not ported yet")
+        num_channels = tuple(num_channels)
+        attention_levels = tuple(attention_levels)
+        head_channels = ensure_tuple_rep(num_head_channels, len(attention_levels))
+        res_blocks = ensure_tuple_rep(num_res_blocks, len(num_channels))
+        _validate_unet_args(
+            num_channels, attention_levels, norm_num_groups, head_channels, res_blocks
+        )
+        self.spatial_dims = spatial_dims
+        self.num_channels = num_channels
+        self.num_class_embeds = num_class_embeds
+
+        time_embed_dim = num_channels[0] * 4
+        self.time_embed = nn.Sequential(
+            nn.Linear(num_channels[0], time_embed_dim),
+            nn.SiLU(),
+            nn.Linear(time_embed_dim, time_embed_dim),
+        )
+        if num_class_embeds is not None:
+            self.class_embedding = nn.Embedding(num_class_embeds, time_embed_dim)
+        self.conv_in = ConvND(spatial_dims, in_channels, num_channels[0], kernel_size=3, padding=1)
+
+        common = dict(
+            spatial_dims=spatial_dims, temb_channels=time_embed_dim,
+            norm_num_groups=norm_num_groups, norm_eps=norm_eps,
+            use_flash_attention=use_flash_attention,
+        )
+        down_blocks = []
+        output_channel = num_channels[0]
+        for i in range(len(num_channels)):
+            input_channel = output_channel
+            output_channel = num_channels[i]
+            down_blocks.append(
+                DownBlock(
+                    in_channels=input_channel, out_channels=output_channel,
+                    num_res_blocks=res_blocks[i], add_downsample=i < len(num_channels) - 1,
+                    resblock_updown=resblock_updown, with_attn=attention_levels[i],
+                    num_head_channels=head_channels[i], **common,
+                )
+            )
+        self.down_blocks = nn.ModuleList(down_blocks)
+
+        self.middle_block = MidBlock(
+            in_channels=num_channels[-1], num_head_channels=head_channels[-1], **common
+        )
+
+        up_blocks = []
+        reversed_channels = list(reversed(num_channels))
+        reversed_res_blocks = list(reversed(res_blocks))
+        reversed_attention = list(reversed(attention_levels))
+        reversed_heads = list(reversed(head_channels))
+        output_channel = reversed_channels[0]
+        for i in range(len(reversed_channels)):
+            prev_output_channel = output_channel
+            output_channel = reversed_channels[i]
+            input_channel = reversed_channels[min(i + 1, len(num_channels) - 1)]
+            up_blocks.append(
+                UpBlock(
+                    in_channels=input_channel, prev_output_channel=prev_output_channel,
+                    out_channels=output_channel, num_res_blocks=reversed_res_blocks[i] + 1,
+                    add_upsample=i < len(num_channels) - 1, resblock_updown=resblock_updown,
+                    with_attn=reversed_attention[i], num_head_channels=reversed_heads[i],
+                    **common,
+                )
+            )
+        self.up_blocks = nn.ModuleList(up_blocks)
+
+        self.out = nn.Sequential(
+            _group_norm(num_channels[0], norm_num_groups, norm_eps),
+            nn.SiLU(),
+            ConvND(spatial_dims, num_channels[0], out_channels, kernel_size=3, padding=1,
+                   zero_init=True),
+        )
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        timesteps: torch.Tensor,
+        context: torch.Tensor | None = None,
+        class_labels: torch.Tensor | None = None,
+        down_block_additional_residuals: Sequence[torch.Tensor] | None = None,
+        mid_block_additional_residual: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        if context is not None:
+            raise ValueError("model should have with_conditioning = True if context is provided")
+
+        # 1. time embedding
+        t_emb = get_timestep_embedding(timesteps, self.num_channels[0]).to(x.dtype)
+        emb = self.time_embed(t_emb)
+
+        # 2. class embedding
+        if self.num_class_embeds is not None:
+            if class_labels is None:
+                raise ValueError("class_labels should be provided when num_class_embeds > 0")
+            emb = emb + self.class_embedding(class_labels).to(emb.dtype)
+
+        # 3. initial convolution
+        h = self.conv_in(x)
+
+        # 4. down path
+        down_block_res_samples = [h]
+        for block in self.down_blocks:
+            h, res_samples = block(h, emb)
+            down_block_res_samples.extend(res_samples)
+
+        # ControlNet residual injection
+        if down_block_additional_residuals is not None:
+            down_block_res_samples = [
+                s + r.to(s.dtype)
+                for s, r in zip(down_block_res_samples, down_block_additional_residuals)
+            ]
+
+        # 5. mid
+        h = self.middle_block(h, emb)
+        if mid_block_additional_residual is not None:
+            h = h + mid_block_additional_residual.to(h.dtype)
+
+        # 6. up path
+        for block in self.up_blocks:
+            n_res = len(block.resnets)
+            res_samples = down_block_res_samples[-n_res:]
+            down_block_res_samples = down_block_res_samples[:-n_res]
+            h = block(h, res_samples, emb)
+
+        # 7. output head (zero-init conv)
+        return self.out(h).float()
