@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU: build and check its kernel, then serve.
+"""Drive the PyTorch port on one NVIDIA GPU: build and check its kernels, serve, train.
 
 Run from the root of a checkout, with no arguments:
 
@@ -7,19 +7,28 @@ Run from the root of a checkout, with no arguments:
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. card and build: the card's name and power limit (nvidia-smi), the torch
-     and CUDA versions, the TF32 settings, and the build of
-     generativemodels_tpu_torch/csrc/flash_fwd.cu with its time;
-  2. kernel against its plain version: O and lse of the flash-attention
-     forward kernel against `flash_attention_reference` at the shapes the
-     serving path and its neighbours use, with both times (CUDA events);
-  3. the slice: `recipes.serve.build_sampler` at the full serving config
+     and CUDA versions, the TF32 settings, and the builds of
+     generativemodels_tpu_torch/csrc/flash_fwd.cu and flash_bwd.cu (one nvcc
+     each, started together) with their times and ptxas reports;
+  2. kernels against their plain versions: O and lse of the flash-attention
+     forward kernel against `flash_attention_reference`, and dq, dk, dv of
+     the backward kernels against `flash_attention_backward_reference`, at
+     the shapes the serving and training paths and their neighbours use,
+     with both times (CUDA events);
+  3. serving: `recipes.serve.build_sampler` at the full serving config
      (2D UNet (128, 256, 256), 64x64, batch 4, DDIM-50) with every
      parameter drawn from a seeded generator, behind `start_server`,
      answering /healthz and three POST /sample requests (seeds 0, 1, 0);
-     the kernel's launches counted over those requests; the kernel path
-     held against the plain attention path for one UNet forward and for
-     every step of one DDIM-50 chain.
-The second-to-last line is one JSON object describing the kernel; the last
+     the forward kernel's launches counted over those requests; the kernel
+     path held against the plain attention path for one UNet forward and
+     for every step of one DDIM-50 chain;
+  4. training: (a) `recipes.train_2d_ddpm.main` at its defaults (f32, batch
+     64, 64x64) for ten steps, (b) the bench.py config (bf16 compute, batch
+     128) through `make_diffusion_train_step` for ten steps, each with the
+     three kernels' launches counted over the run; (c) one step's parameter
+     gradients with seeded random weights, the kernel path against the
+     plain attention path, without and with `use_checkpointing`.
+The second-to-last line is one JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
 """
@@ -31,6 +40,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 
@@ -38,8 +48,15 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
-KERNEL_SOURCE = "generativemodels_tpu_torch/csrc/flash_fwd.cu"
-REPLACES = "generativemodels_tpu/ops/flash_attention.py:202"  # _fwd_kernel
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+CSRC = "generativemodels_tpu_torch/csrc/"
+TPU_KERNELS = "generativemodels_tpu/ops/flash_attention.py"
+# JSON name: (launcher in ops, source, the Pallas kernel it replaces)
+KERNELS = {
+    "flash_fwd": ("FLASH_FWD", "flash_fwd.cu", f"{TPU_KERNELS}:202"),  # _fwd_kernel
+    "flash_bwd_dq": ("FLASH_BWD_DQ", "flash_bwd.cu", f"{TPU_KERNELS}:343"),  # _dq_kernel
+    "flash_bwd_dkv": ("FLASH_BWD_DKV", "flash_bwd.cu", f"{TPU_KERNELS}:475"),  # _dkv_kernel
+}
 
 # (name, (BH, Sq, Sk, D), dtype name, causal)
 KERNEL_CASES = (
@@ -53,6 +70,17 @@ KERNEL_CASES = (
 # f32: the kernel and the plain version differ only in summation order;
 # bf16: O is rounded to bf16 (one ulp near 1 is 2**-7), lse stays f32
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
+# (name, (BH, Sq, Sk, D), dtype name, causal) of the backward kernels
+BACKWARD_CASES = (
+    ("train_bench_bf16", (128, 1024, 1024, 256), "bfloat16", False),  # bench.py, batch 128
+    ("train_recipe_f32", (64, 1024, 1024, 256), "float32", False),  # the recipe, batch 64
+    ("causal_f32", (4, 1024, 1024, 128), "float32", True),
+    ("ragged_cross_f32", (2, 1000, 777, 64), "float32", False),
+    ("head64_bf16", (2, 4096, 4096, 64), "bfloat16", False),
+)
+# max|diff| / max|ref| of dq, dk, dv: f32 sums over 1024+ keys in another
+# order; bf16 rounds ds, p and the outputs to bf16
+BACKWARD_TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 SERVE = dict(spatial_dims=2, size=64, channels=(128, 256, 256), norm_groups=32, batch=4,
              ddim_steps=50)
 SEEDS = (0, 1, 0)
@@ -61,6 +89,11 @@ SEEDS = (0, 1, 0)
 LAUNCHES_PER_FORWARD = 3
 FORWARD_RTOL = 1e-4  # kernel path vs plain path, one UNet forward, relative to max |out|
 CHAIN_ATOL = 1e-3  # the same for each step of a DDIM-50 chain, absolute
+TRAIN_STEPS = 10
+# bench.py's training config: the recipe's model in bf16 compute at batch 128
+BENCH = dict(channels=(128, 256, 256), size=64, batch=128, lr=2.5e-5)
+GRAD_BATCH = 4
+GRAD_RTOL = 1e-3  # kernel path vs plain path, max|diff| / max|grad| of every parameter
 
 
 def log(msg: str) -> None:
@@ -119,6 +152,59 @@ def check_kernel(torch, ops) -> dict:
         if not ok:
             raise AssertionError(f"kernel case {name} out of tolerance")
         results[name] = dict(max_abs_err=max(err_o, err_lse), ms=ms, plain_ms=plain_ms)
+    return results
+
+
+def check_backward(torch, ops) -> dict:
+    """Phase 2, backward: dq of kernel 2 and dk, dv of kernel 3 against the
+    plain backward, from the forward kernel's O and log2 lse."""
+    from generativemodels_tpu_torch.ops.flash_attention import _backward_rows, _prescaled
+
+    results = {}
+    g = torch.Generator("cuda").manual_seed(1)
+    for name, (bh, sq, sk, d), dtype_name, causal in BACKWARD_CASES:
+        dtype = getattr(torch, dtype_name)
+
+        def rand(n):
+            return torch.randn((bh, n, d), generator=g, device="cuda").to(dtype)
+
+        q, k, v, dout = rand(sq), rand(sk), rand(sk), rand(sq)
+        scale = d**-0.5
+        out, lse2 = ops.FLASH_FWD(q, k, v, scale=scale, causal=causal, log2_lse=True)
+        qp = _prescaled(q, scale)
+        do2, delta = _backward_rows(out, dout)
+
+        def dq_kernel():
+            return ops.FLASH_BWD_DQ(qp, k, v, do2, lse2, delta, causal=causal)
+
+        def dkv_kernel():
+            return ops.FLASH_BWD_DKV(qp, k, v, do2, lse2, delta, causal=causal)
+
+        def plain():
+            return ops.flash_attention_backward_reference(qp, k, v, out, lse2, dout, causal=causal)
+
+        got = (dq_kernel(), *dkv_kernel())
+        want = plain()
+        torch.cuda.synchronize()
+        abs_err, rel_err = {}, {}
+        for label, a, b in zip(("dq", "dk", "dv"), got, want):
+            abs_err[label] = (a.float() - b.float()).abs().max().item()
+            rel_err[label] = abs_err[label] / b.float().abs().max().item()
+        del got, want
+        ms_dq, ms_dkv, plain_ms = time_ms(dq_kernel), time_ms(dkv_kernel), time_ms(plain)
+        tol = BACKWARD_TOLERANCE[dtype_name]
+        ok = all(e <= tol for e in rel_err.values())
+        log(f"backward {name}: (BH={bh}, Sq={sq}, Sk={sk}, D={d}) {dtype_name} causal={causal} "
+            + " ".join(f"max|d{x[1:]}|/max={rel_err[x]:.3e}" for x in ("dq", "dk", "dv"))
+            + f" tol={tol:g}; dq kernel {ms_dq:.4f} ms, dkv kernel {ms_dkv:.4f} ms "
+            f"(sum {ms_dq + ms_dkv:.4f}), plain backward {plain_ms:.4f} ms -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"backward case {name} out of tolerance")
+        results[name] = dict(
+            dq=dict(max_abs_err=abs_err["dq"], ms=ms_dq, plain_ms=plain_ms),
+            dkv=dict(max_abs_err=max(abs_err["dk"], abs_err["dv"]), ms=ms_dkv, plain_ms=plain_ms),
+        )
     return results
 
 
@@ -255,6 +341,163 @@ def run_slice(torch, ops, serve, nets) -> dict:
     return dict(launches=launches, seconds_per_request=seconds)
 
 
+def reset_launches(ops) -> None:
+    for launcher, _, _ in KERNELS.values():
+        getattr(ops, launcher).launches = 0
+
+
+def read_launches(ops) -> dict:
+    return {name: getattr(ops, launcher).launches for name, (launcher, _, _) in KERNELS.items()}
+
+
+def check_launches(counts: dict, expected: dict, what: str) -> None:
+    log(f"train: {what}: launches {counts} (expected {expected})")
+    if counts != expected:
+        raise AssertionError(f"{what}: kernel launches {counts}, expected {expected}")
+
+
+def train_recipe(torch, ops, recipe) -> dict:
+    """Phase 4 (a): the recipe's main at its defaults for TRAIN_STEPS steps."""
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    out = recipe.main(["--steps", str(TRAIN_STEPS), "--device", DEVICE])
+    seconds = time.perf_counter() - t0
+    counts = read_launches(ops)
+    losses, sps = out["losses"], out["steps_per_sec"]
+    log(f"train: recipe main, defaults (f32, UNet (128, 256, 256), 64x64, batch 64, lr 2.5e-5), "
+        f"{TRAIN_STEPS} steps in {seconds:.2f} s (first steps include cuDNN set-up); "
+        f"{sps:.3f} steps/s over steps 3-{TRAIN_STEPS}; losses "
+        + ", ".join(f"{x:.5f}" for x in losses))
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"recipe losses not finite: {losses}")
+    per_step = dict(flash_fwd=3, flash_bwd_dq=3, flash_bwd_dkv=3)
+    check_launches(counts, {n: c * TRAIN_STEPS for n, c in per_step.items()}, "recipe main")
+    return dict(launches=counts, steps_per_sec=sps)
+
+
+def train_bench(torch, ops, nets, parallel, schedulers) -> float:
+    """Phase 4 (b): bench.py's config (bf16 compute, batch 128) through
+    make_diffusion_train_step; returns steps/s over the steps after two."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = nets.DiffusionModelUNet(
+            spatial_dims=2, in_channels=1, out_channels=1, num_res_blocks=1,
+            num_channels=BENCH["channels"], attention_levels=(False, True, True),
+            num_head_channels=BENCH["channels"][-1], dtype=torch.bfloat16,
+        )
+    model = model.to(DEVICE).train()
+    step = parallel.make_diffusion_train_step(
+        schedulers.DDPMScheduler(num_train_timesteps=1000, device=DEVICE)
+    )
+    state = parallel.init_train_state(model, torch.optim.Adam(model.parameters(), lr=BENCH["lr"]))
+    g = torch.Generator(DEVICE).manual_seed(2)
+    images = torch.rand((BENCH["batch"], 1, BENCH["size"], BENCH["size"]), generator=g,
+                        device=DEVICE)
+    reset_launches(ops)
+    losses = []
+    for i in range(TRAIN_STEPS):
+        state, loss = step(state, images, g)
+        losses.append(loss)
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    sps = (TRAIN_STEPS - 2) / (time.perf_counter() - t0)
+    counts = read_launches(ops)
+    losses = [float(x) for x in losses]
+    log(f"train: bench.py config (bf16 compute, batch {BENCH['batch']}, 64x64) through "
+        f"make_diffusion_train_step: {sps:.3f} steps/s over steps 3-{TRAIN_STEPS}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+        + ", ".join(f"{x:.5f}" for x in losses))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bench-config losses not finite: {losses}")
+    check_launches(counts, {n: 3 * TRAIN_STEPS for n in KERNELS}, "bench config")
+    del state, model
+    torch.cuda.empty_cache()
+    return sps
+
+
+def check_gradients(torch, ops, nets, parallel, schedulers, recipe) -> None:
+    """Phase 4 (c): one step's parameter gradients with seeded random weights,
+    the kernel path (without and with use_checkpointing) against the plain
+    attention path, from the same images, noise and timesteps."""
+    cfg = dict(
+        spatial_dims=2, in_channels=1, out_channels=1, num_res_blocks=1,
+        num_channels=BENCH["channels"], attention_levels=(False, True, True),
+        num_head_channels=BENCH["channels"][-1], norm_num_groups=32,
+    )
+    kernel_model = nets.DiffusionModelUNet(**cfg).to(DEVICE)
+    randomize(torch, kernel_model)
+    models = {}
+    for label, extra in (("plain", dict(use_flash_attention=False)),
+                         ("checkpointed", dict(use_checkpointing=True))):
+        m = nets.DiffusionModelUNet(**cfg, **extra)
+        m.load_state_dict(kernel_model.state_dict(), strict=True)
+        models[label] = m.to(DEVICE)
+    step = parallel.make_diffusion_train_step(
+        schedulers.DDPMScheduler(num_train_timesteps=1000, device=DEVICE)
+    )
+    g = torch.Generator(DEVICE).manual_seed(3)
+    images = recipe.synthetic_batch(g, GRAD_BATCH, BENCH["size"], DEVICE) * 2 - 1
+    noise = torch.randn(images.shape, generator=g, device=DEVICE)
+    timesteps = torch.randint(0, 1000, (GRAD_BATCH,), generator=g, device=DEVICE)
+
+    def grads(model):
+        model.zero_grad(set_to_none=True)
+        step.loss_fn(model, images, noise, timesteps).backward()
+        torch.cuda.synchronize()
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    want = grads(models["plain"])
+    # the to_k biases' gradient is zero in exact arithmetic (softmax ignores a
+    # shift shared by all keys): each parameter's error is taken relative to
+    # its largest gradient, but to no less than 1e-3 of the model's largest
+    floor = 1e-3 * max(w.abs().max().item() for w in want.values())
+    for label, model, fwd in (("kernel path", kernel_model, 3),
+                              ("kernel path, use_checkpointing", models["checkpointed"], 6)):
+        reset_launches(ops)
+        got = grads(model)
+        counts = read_launches(ops)
+        worst, worst_name = 0.0, ""
+        for n, w in want.items():
+            rel = (got[n] - w).abs().max().item() / max(w.abs().max().item(), floor)
+            if rel > worst:
+                worst, worst_name = rel, n
+        log(f"train: gradients at batch {GRAD_BATCH}, {label} vs plain path: worst "
+            f"max|diff|/max|grad| = {worst:.3e} at {worst_name} (tol {GRAD_RTOL:g})")
+        check_launches(counts, dict(flash_fwd=fwd, flash_bwd_dq=3, flash_bwd_dkv=3),
+                       f"one step, {label}")
+        if not worst <= GRAD_RTOL:
+            raise AssertionError(f"{label}: gradients disagree with the plain path")
+
+
+def build_kernels(build_library) -> None:
+    """Phase 1: one nvcc for each source, all started together."""
+    results = {}
+
+    def build(name):
+        t0 = time.perf_counter()
+        try:
+            lib, build_log = build_library(name)
+            results[name] = (lib, build_log, time.perf_counter() - t0)
+        except Exception as exc:  # reported and re-raised below, in this thread
+            results[name] = exc
+
+    threads = [threading.Thread(target=build, args=(name,)) for name in SOURCES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for name in SOURCES:
+        if isinstance(results[name], Exception):
+            raise results[name]
+        lib, build_log, seconds = results[name]
+        log(f"build: {lib.name} in {seconds:.2f} s")
+        for line in build_log.splitlines():
+            if "Compiling entry function" in line or "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+
+
 def main() -> int:
     import torch
 
@@ -266,10 +509,11 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from generativemodels_tpu_torch import ops
-    from generativemodels_tpu_torch.networks import nets
+    from generativemodels_tpu_torch import ops, parallel
+    from generativemodels_tpu_torch.networks import nets, schedulers
     from generativemodels_tpu_torch.ops.native import build_library
     from generativemodels_tpu_torch.recipes import serve
+    from generativemodels_tpu_torch.recipes import train_2d_ddpm as recipe
 
     # phase 1: card and build
     log(card_line())
@@ -279,27 +523,35 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32} (full float32)")
-    t0 = time.perf_counter()
-    lib, build_log = build_library("flash_fwd.cu")
-    log(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
-    for line in build_log.splitlines():
-        if "Compiling entry function" in line or "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    build_kernels(build_library)
 
-    # phase 2: kernel against its plain version
-    kernel = check_kernel(torch, ops)
+    # phase 2: kernels against their plain versions
+    forward = check_kernel(torch, ops)
+    backward = check_backward(torch, ops)
 
-    # phase 3: the slice through its entry points
+    # phase 3: serving through its entry points
     served = run_slice(torch, ops, serve, nets)
     log(f"slice: seconds per DDIM-{SERVE['ddim_steps']} request at batch {SERVE['batch']}: "
         + ", ".join(f"{s:.3f}" for s in served["seconds_per_request"]))
 
-    main_case = kernel["serve_f32"]
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": served["launches"], "max_abs_err": main_case["max_abs_err"],
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-    }]}))
+    # phase 4: training through its entry points
+    trained = train_recipe(torch, ops, recipe)
+    train_bench(torch, ops, nets, parallel, schedulers)
+    check_gradients(torch, ops, nets, parallel, schedulers, recipe)
+
+    # the numbers of each kernel at its main path's shape: serving for the
+    # forward, the recipe's batch 64 for the backward; launches from the
+    # recipe's run
+    numbers = dict(
+        flash_fwd=forward["serve_f32"],
+        flash_bwd_dq=backward["train_recipe_f32"]["dq"],
+        flash_bwd_dkv=backward["train_recipe_f32"]["dkv"],
+    )
+    print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=CSRC + source, replaces=replaces,
+             launches=trained["launches"][name], **numbers[name])
+        for name, (_, source, replaces) in KERNELS.items()
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

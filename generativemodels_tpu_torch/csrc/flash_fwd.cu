@@ -5,7 +5,8 @@
 // contract: q arrives prescaled by scale*log2(e) (rounded to q's type, as the
 // JAX wrapper does), scores live in the log2 domain and are clamped at 80,
 // there is no running max, p = exp2(s), l = sum(p), O = (p V) / max(l, 1e-30)
-// and lse = ln2 * log2(max(l, 1e-30)), the natural-log row logsumexp.
+// and lse = lse_mul * log2(max(l, 1e-30)): with lse_mul = ln2 the natural-log
+// row logsumexp, with lse_mul = 1 the log2-domain lse the backward reads.
 // Masked keys (ragged kv edge, causal upper triangle) get p == 0 exactly.
 // For bf16 inputs p is rounded to bf16 before the PV product, and both
 // products take bf16 operands (exact in f32) with f32 accumulation; for f32
@@ -41,7 +42,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 8;
 constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kBlockK = 32;                     // keys per tile: one per lane
-constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -113,7 +113,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int sq, int sk, int num_qb,
-                 int causal, float qscale) {
+                 int causal, float qscale, float lse_mul) {
   static_assert(D % 32 == 0, "head width must be a multiple of 32");
   constexpr int kLdK = D + 4;
   constexpr int kCols = D / 32;  // accumulator columns per lane
@@ -215,13 +215,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     T* orow = o + (static_cast<size_t>(bh) * sq + row) * D;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) orow[lane + 32 * j] = from_float<T>(acc[i][j] / l);
-    if (lane == 0) lse[static_cast<size_t>(bh) * sq + row] = log2f(l) * kLn2;
+    if (lane == 0) lse[static_cast<size_t>(bh) * sq + row] = log2f(l) * lse_mul;
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
-           int sk, int causal, float qscale, cudaStream_t stream) {
+           int sk, int causal, float qscale, float lse_mul, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   auto kernel = flash_fwd_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -230,18 +230,18 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   const int num_qb = (sq + kBlockQ - 1) / kBlockQ;
   kernel<<<num_qb * bh, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), sq, sk, num_qb, causal, qscale);
+      static_cast<T*>(o), static_cast<float*>(lse), sq, sk, num_qb, causal, qscale, lse_mul);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
-             int sk, int d, int causal, float qscale, cudaStream_t stream) {
+             int sk, int d, int causal, float qscale, float lse_mul, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, sq, sk, causal, qscale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, causal, qscale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, causal, qscale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, lse, bh, sq, sk, causal, qscale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, bh, sq, sk, causal, qscale, lse_mul, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, causal, qscale, lse_mul, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, causal, qscale, lse_mul, stream);
+    case 256: return launch<T, 256>(q, k, v, o, lse, bh, sq, sk, causal, qscale, lse_mul, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -250,15 +250,18 @@ int launch_d(const void* q, const void* k, const void* v, void* o, void* lse, in
 
 // q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d) in one type (dtype 0 =
 // f32, 1 = bf16), lse (bh, sq) f32; all contiguous. qscale is scale*log2(e)
-// already rounded to the input type. Launches on `stream` of `device` and
-// returns cudaGetLastError() of the launch (0 on success).
+// already rounded to the input type; lse_mul is ln2 for a natural-log lse, 1
+// for a log2 one. Launches on `stream` of `device` and returns
+// cudaGetLastError() of the launch (0 on success).
 extern "C" int gm_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             int bh, int sq, int sk, int d, int dtype, int causal, float qscale,
-                            int device, void* stream) {
+                            float lse_mul, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(q, k, v, o, lse, bh, sq, sk, d, causal, qscale, s);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, causal, qscale, s);
+  if (dtype == 0) return launch_d<float>(q, k, v, o, lse, bh, sq, sk, d, causal, qscale, lse_mul, s);
+  if (dtype == 1) {
+    return launch_d<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, causal, qscale, lse_mul, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

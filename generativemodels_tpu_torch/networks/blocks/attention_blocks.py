@@ -2,8 +2,8 @@
 
 Counterpart of generativemodels_tpu/networks/blocks/attention_blocks.py
 (`AttentionBlock` only so far). Attention goes through
-ops.dot_product_attention, which takes the flash kernel on CUDA tensors at
-long sequences.
+ops.dot_product_attention, which takes the flash kernels on CUDA tensors at
+long sequences, forward and backward.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from ...ops import dot_product_attention
+from .layers import GroupNorm, Linear
 
 
 class AttentionBlock(nn.Module):
@@ -20,7 +21,8 @@ class AttentionBlock(nn.Module):
     projection but never applies it in forward, and trained checkpoints bake
     that in, so by default there is no output projection and no dead
     parameter. `apply_final_proj=True` adds a real one (not loadable from
-    reference checkpoints).
+    reference checkpoints). `dtype` is the computation type of the norm and
+    the projections (parameters stay float32).
     """
 
     def __init__(
@@ -32,17 +34,20 @@ class AttentionBlock(nn.Module):
         norm_eps: float = 1e-6,
         use_flash_attention: bool | None = None,
         apply_final_proj: bool = False,
+        dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
         self.spatial_dims = spatial_dims
         self.num_channels = num_channels
         self.num_heads = num_channels // num_head_channels if num_head_channels is not None else 1
         self.use_flash_attention = use_flash_attention
-        self.norm = nn.GroupNorm(norm_num_groups, num_channels, eps=norm_eps, affine=True)
-        self.to_q = nn.Linear(num_channels, num_channels)
-        self.to_k = nn.Linear(num_channels, num_channels)
-        self.to_v = nn.Linear(num_channels, num_channels)
-        self.proj_attn = nn.Linear(num_channels, num_channels) if apply_final_proj else None
+        self.norm = GroupNorm(norm_num_groups, num_channels, eps=norm_eps, dtype=dtype)
+        self.to_q = Linear(num_channels, num_channels, dtype=dtype)
+        self.to_k = Linear(num_channels, num_channels, dtype=dtype)
+        self.to_v = Linear(num_channels, num_channels, dtype=dtype)
+        self.proj_attn = (
+            Linear(num_channels, num_channels, dtype=dtype) if apply_final_proj else None
+        )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c = x.shape[:2]

@@ -3,9 +3,11 @@
 Counterpart of generativemodels_tpu/networks/blocks/convolutions.py.
 `ConvND` is a `torch.nn.Conv{1,2,3}d` with torch-style symmetric padding,
 held as the child `conv` so that its keys read `<name>.conv.weight`, as in
-the reference's MONAI `Convolution`. The JAX module's TPU lowerings (the
-depth-tap 3D decomposition and the fused upsample-conv) compute the same
-function and have no counterpart here.
+the reference's MONAI `Convolution`. Its `dtype` mirrors the JAX module's
+casts: parameters stay float32, input and kernel are cast to `dtype`, and
+the bias is cast and added after the convolution. The JAX module's TPU
+lowerings (the depth-tap 3D decomposition and the fused upsample-conv)
+compute the same function and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from collections.abc import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .layers import compute_dtype
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
 _AVG_POOL = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
@@ -30,6 +34,8 @@ class ConvND(nn.Module):
             symmetric, torch-style.
         zero_init: zero the weight and bias (the reference `zero_module`).
         nearest_upsample: upsample the input x2 (nearest-neighbour) first.
+        dtype: computation type (e.g. torch.bfloat16); None computes in the
+            promotion of the input's type and float32.
     """
 
     def __init__(
@@ -42,6 +48,7 @@ class ConvND(nn.Module):
         padding: int | Sequence[int] = 0,
         zero_init: bool = False,
         nearest_upsample: bool = False,
+        dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
         self.conv = _CONV[spatial_dims](
@@ -51,11 +58,19 @@ class ConvND(nn.Module):
             nn.init.zeros_(self.conv.weight)
             nn.init.zeros_(self.conv.bias)
         self.nearest_upsample = nearest_upsample
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self.conv.weight, self.conv.bias
+        dtype = compute_dtype(self.dtype, x, weight)
+        x = x.to(dtype)
         if self.nearest_upsample:
             x = upsample_nearest(x, 2)
-        return self.conv(x)
+        if dtype == weight.dtype:
+            return self.conv(x)
+        return self.conv._conv_forward(x, weight.to(dtype), None) + bias.to(dtype).reshape(
+            -1, *([1] * (x.ndim - 2))
+        )
 
 
 def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:

@@ -1,0 +1,54 @@
+"""Linear and GroupNorm with a compute dtype, as flax's nn.Dense and nn.GroupNorm.
+
+The JAX package builds its blocks from flax layers whose `dtype` sets the
+computation type over float32 parameters. These subclasses keep torch's
+modules and state-dict keys and add the same `dtype`:
+
+- `Linear`: input, weight and bias cast to `dtype`; the bias is added after
+  the product, in `dtype`, as flax adds it.
+- `GroupNorm`: statistics and normalisation in float32 (flax reduces in
+  float32 whatever the input type), the result cast to `dtype`.
+
+With `dtype=None` both compute in float32, as flax promotes to the float32
+parameters.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def compute_dtype(dtype: torch.dtype | None, x: torch.Tensor, param: torch.Tensor) -> torch.dtype:
+    """`dtype`, else the promotion of the input's and the parameter's types."""
+    return dtype or torch.promote_types(x.dtype, param.dtype)
+
+
+class Linear(nn.Linear):
+    def __init__(
+        self, in_features: int, out_features: int, dtype: torch.dtype | None = None
+    ) -> None:
+        super().__init__(in_features, out_features)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = compute_dtype(self.dtype, x, self.weight)
+        if dtype == self.weight.dtype:
+            return F.linear(x.to(dtype), self.weight, self.bias)
+        return F.linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    def __init__(
+        self,
+        num_groups: int,
+        num_channels: int,
+        eps: float = 1e-6,
+        dtype: torch.dtype | None = None,
+    ) -> None:
+        super().__init__(num_groups, num_channels, eps=eps, affine=True)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        return y.to(compute_dtype(self.dtype, x, self.weight))

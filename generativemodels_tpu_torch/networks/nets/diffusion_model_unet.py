@@ -8,9 +8,15 @@ reference's torch state-dict keys (`down_blocks.{i}.resnets.{j}`,
 `.attentions.{j}`, `time_embed.0/.2`, `out.0/.2`, `<conv>.conv.weight`), so
 networks/convert.py maps JAX parameters onto them one to one.
 
+`dtype` mirrors the JAX module's mixed precision: parameters stay float32,
+every conv, linear layer and GroupNorm computes in `dtype` (GroupNorm's
+statistics in float32, as flax's), and the output is float32.
+`use_checkpointing` recomputes block activations in the backward
+(`torch.utils.checkpoint`, where the JAX module uses `nn.remat`).
+
 Not ported yet: cross-attention conditioning (`with_conditioning`),
-`use_checkpointing`, `cached_down`/`return_down`, the fused 3D ResnetBlock
-kernel path and DiffusionModelEncoder.
+`cached_down`/`return_down`, the fused 3D ResnetBlock kernel path and
+DiffusionModelEncoder.
 """
 from __future__ import annotations
 
@@ -19,10 +25,12 @@ from collections.abc import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops import get_timestep_embedding
 from ..blocks.attention_blocks import AttentionBlock
 from ..blocks.convolutions import ConvND, avg_pool, upsample_nearest
+from ..blocks.layers import GroupNorm, Linear
 
 __all__ = [
     "DiffusionModelUNet",
@@ -43,8 +51,12 @@ def ensure_tuple_rep(v, n: int) -> tuple:
     return (v,) * n
 
 
-def _group_norm(channels: int, groups: int, eps: float) -> nn.GroupNorm:
-    return nn.GroupNorm(groups, channels, eps=eps, affine=True)
+def _run_block(remat: bool, block: nn.Module, *args):
+    """`block(*args)`, recomputed in the backward when `remat` and autograd
+    is recording."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
 
 
 class Downsample(nn.Module):
@@ -57,13 +69,15 @@ class Downsample(nn.Module):
         use_conv: bool,
         out_channels: int | None = None,
         padding: int = 1,
+        dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
         self.num_channels = num_channels
         out_channels = out_channels or num_channels
         if use_conv:
             self.op = ConvND(
-                spatial_dims, num_channels, out_channels, kernel_size=3, strides=2, padding=padding
+                spatial_dims, num_channels, out_channels, kernel_size=3, strides=2,
+                padding=padding, dtype=dtype,
             )
         else:
             if num_channels != out_channels:
@@ -86,13 +100,14 @@ class Upsample(nn.Module):
         use_conv: bool,
         out_channels: int | None = None,
         padding: int = 1,
+        dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
         self.num_channels = num_channels
         self.conv = (
             ConvND(
                 spatial_dims, num_channels, out_channels or num_channels, kernel_size=3,
-                padding=padding, nearest_upsample=True,
+                padding=padding, nearest_upsample=True, dtype=dtype,
             )
             if use_conv
             else None
@@ -122,23 +137,27 @@ class ResnetBlock(nn.Module):
         down: bool = False,
         norm_num_groups: int = 32,
         norm_eps: float = 1e-6,
+        dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
         out_channels = out_channels or in_channels
         self.spatial_dims = spatial_dims
         self.up = up
         self.down = down
-        self.norm1 = _group_norm(in_channels, norm_num_groups, norm_eps)
-        self.conv1 = ConvND(spatial_dims, in_channels, out_channels, kernel_size=3, padding=1)
-        self.time_emb_proj = nn.Linear(temb_channels, out_channels)
-        self.norm2 = _group_norm(out_channels, norm_num_groups, norm_eps)
+        self.norm1 = GroupNorm(norm_num_groups, in_channels, norm_eps, dtype=dtype)
+        self.conv1 = ConvND(
+            spatial_dims, in_channels, out_channels, kernel_size=3, padding=1, dtype=dtype
+        )
+        self.time_emb_proj = Linear(temb_channels, out_channels, dtype=dtype)
+        self.norm2 = GroupNorm(norm_num_groups, out_channels, norm_eps, dtype=dtype)
         self.conv2 = ConvND(
-            spatial_dims, out_channels, out_channels, kernel_size=3, padding=1, zero_init=True
+            spatial_dims, out_channels, out_channels, kernel_size=3, padding=1, zero_init=True,
+            dtype=dtype,
         )
         self.skip_connection = (
             None
             if out_channels == in_channels
-            else ConvND(spatial_dims, in_channels, out_channels, kernel_size=1)
+            else ConvND(spatial_dims, in_channels, out_channels, kernel_size=1, dtype=dtype)
         )
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -177,12 +196,13 @@ class DownBlock(nn.Module):
         with_attn: bool = False,
         num_head_channels: int = 1,
         use_flash_attention: bool | None = None,
+        dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
         self.resnets = nn.ModuleList(
             ResnetBlock(
                 spatial_dims, in_channels if i == 0 else out_channels, temb_channels,
-                out_channels, norm_num_groups=norm_num_groups, norm_eps=norm_eps,
+                out_channels, norm_num_groups=norm_num_groups, norm_eps=norm_eps, dtype=dtype,
             )
             for i in range(num_res_blocks)
         )
@@ -190,7 +210,7 @@ class DownBlock(nn.Module):
             nn.ModuleList(
                 AttentionBlock(
                     spatial_dims, out_channels, num_head_channels, norm_num_groups, norm_eps,
-                    use_flash_attention=use_flash_attention,
+                    use_flash_attention=use_flash_attention, dtype=dtype,
                 )
                 for _ in range(num_res_blocks)
             )
@@ -202,12 +222,12 @@ class DownBlock(nn.Module):
         elif resblock_updown:
             self.downsampler = ResnetBlock(
                 spatial_dims, out_channels, temb_channels, out_channels, down=True,
-                norm_num_groups=norm_num_groups, norm_eps=norm_eps,
+                norm_num_groups=norm_num_groups, norm_eps=norm_eps, dtype=dtype,
             )
         else:
             self.downsampler = Downsample(
                 spatial_dims, out_channels, use_conv=True, out_channels=out_channels,
-                padding=downsample_padding,
+                padding=downsample_padding, dtype=dtype,
             )
 
     def forward(
@@ -240,19 +260,20 @@ class MidBlock(nn.Module):
         norm_eps: float = 1e-6,
         num_head_channels: int = 1,
         use_flash_attention: bool | None = None,
+        dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
 
         def resnet():
             return ResnetBlock(
                 spatial_dims, in_channels, temb_channels, in_channels,
-                norm_num_groups=norm_num_groups, norm_eps=norm_eps,
+                norm_num_groups=norm_num_groups, norm_eps=norm_eps, dtype=dtype,
             )
 
         self.resnet_1 = resnet()
         self.attention = AttentionBlock(
             spatial_dims, in_channels, num_head_channels, norm_num_groups, norm_eps,
-            use_flash_attention=use_flash_attention,
+            use_flash_attention=use_flash_attention, dtype=dtype,
         )
         self.resnet_2 = resnet()
 
@@ -280,6 +301,7 @@ class UpBlock(nn.Module):
         with_attn: bool = False,
         num_head_channels: int = 1,
         use_flash_attention: bool | None = None,
+        dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
         resnets = []
@@ -289,7 +311,7 @@ class UpBlock(nn.Module):
             resnets.append(
                 ResnetBlock(
                     spatial_dims, resnet_in_channels + res_skip_channels, temb_channels,
-                    out_channels, norm_num_groups=norm_num_groups, norm_eps=norm_eps,
+                    out_channels, norm_num_groups=norm_num_groups, norm_eps=norm_eps, dtype=dtype,
                 )
             )
         self.resnets = nn.ModuleList(resnets)
@@ -297,7 +319,7 @@ class UpBlock(nn.Module):
             nn.ModuleList(
                 AttentionBlock(
                     spatial_dims, out_channels, num_head_channels, norm_num_groups, norm_eps,
-                    use_flash_attention=use_flash_attention,
+                    use_flash_attention=use_flash_attention, dtype=dtype,
                 )
                 for _ in range(num_res_blocks)
             )
@@ -309,11 +331,11 @@ class UpBlock(nn.Module):
         elif resblock_updown:
             self.upsampler = ResnetBlock(
                 spatial_dims, out_channels, temb_channels, out_channels, up=True,
-                norm_num_groups=norm_num_groups, norm_eps=norm_eps,
+                norm_num_groups=norm_num_groups, norm_eps=norm_eps, dtype=dtype,
             )
         else:
             self.upsampler = Upsample(
-                spatial_dims, out_channels, use_conv=True, out_channels=out_channels
+                spatial_dims, out_channels, use_conv=True, out_channels=out_channels, dtype=dtype
             )
 
     def forward(
@@ -357,7 +379,9 @@ class DiffusionModelUNet(nn.Module):
     with x in (B, C, *spatial); returns float32 (B, out_channels, *spatial).
 
     Args mirror the JAX module's. `with_conditioning=True` (cross-attention)
-    is not ported yet and raises NotImplementedError.
+    is not ported yet and raises NotImplementedError. `use_checkpointing` is
+    a bool (every block) or one entry per level; the mid block follows the
+    last entry. `dtype` is the computation type (e.g. torch.bfloat16).
     """
 
     def __init__(
@@ -375,6 +399,8 @@ class DiffusionModelUNet(nn.Module):
         with_conditioning: bool = False,
         num_class_embeds: int | None = None,
         use_flash_attention: bool | None = None,
+        use_checkpointing: bool | Sequence[bool] = False,
+        dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
         if with_conditioning:
@@ -386,24 +412,37 @@ class DiffusionModelUNet(nn.Module):
         _validate_unet_args(
             num_channels, attention_levels, norm_num_groups, head_channels, res_blocks
         )
+        if isinstance(use_checkpointing, bool):
+            use_checkpointing = (use_checkpointing,) * len(num_channels)
+        else:
+            use_checkpointing = tuple(bool(c) for c in use_checkpointing)
+            if len(use_checkpointing) != len(num_channels):
+                raise ValueError(
+                    "use_checkpointing sequence must have one entry per level: "
+                    f"got {len(use_checkpointing)} for {len(num_channels)} levels"
+                )
         self.spatial_dims = spatial_dims
         self.num_channels = num_channels
         self.num_class_embeds = num_class_embeds
+        self.use_checkpointing = use_checkpointing
+        self.dtype = dtype
 
         time_embed_dim = num_channels[0] * 4
         self.time_embed = nn.Sequential(
-            nn.Linear(num_channels[0], time_embed_dim),
+            Linear(num_channels[0], time_embed_dim, dtype=dtype),
             nn.SiLU(),
-            nn.Linear(time_embed_dim, time_embed_dim),
+            Linear(time_embed_dim, time_embed_dim, dtype=dtype),
         )
         if num_class_embeds is not None:
             self.class_embedding = nn.Embedding(num_class_embeds, time_embed_dim)
-        self.conv_in = ConvND(spatial_dims, in_channels, num_channels[0], kernel_size=3, padding=1)
+        self.conv_in = ConvND(
+            spatial_dims, in_channels, num_channels[0], kernel_size=3, padding=1, dtype=dtype
+        )
 
         common = dict(
             spatial_dims=spatial_dims, temb_channels=time_embed_dim,
             norm_num_groups=norm_num_groups, norm_eps=norm_eps,
-            use_flash_attention=use_flash_attention,
+            use_flash_attention=use_flash_attention, dtype=dtype,
         )
         down_blocks = []
         output_channel = num_channels[0]
@@ -446,10 +485,10 @@ class DiffusionModelUNet(nn.Module):
         self.up_blocks = nn.ModuleList(up_blocks)
 
         self.out = nn.Sequential(
-            _group_norm(num_channels[0], norm_num_groups, norm_eps),
+            GroupNorm(norm_num_groups, num_channels[0], norm_eps, dtype=dtype),
             nn.SiLU(),
             ConvND(spatial_dims, num_channels[0], out_channels, kernel_size=3, padding=1,
-                   zero_init=True),
+                   zero_init=True, dtype=dtype),
         )
 
     def forward(
@@ -464,6 +503,9 @@ class DiffusionModelUNet(nn.Module):
         if context is not None:
             raise ValueError("model should have with_conditioning = True if context is provided")
 
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+
         # 1. time embedding
         t_emb = get_timestep_embedding(timesteps, self.num_channels[0]).to(x.dtype)
         emb = self.time_embed(t_emb)
@@ -477,10 +519,12 @@ class DiffusionModelUNet(nn.Module):
         # 3. initial convolution
         h = self.conv_in(x)
 
-        # 4. down path
+        # 4. down path; level i's blocks recompute in the backward when
+        # use_checkpointing[i] (the mid block follows the last level)
+        remat = self.use_checkpointing
         down_block_res_samples = [h]
-        for block in self.down_blocks:
-            h, res_samples = block(h, emb)
+        for level, block in enumerate(self.down_blocks):
+            h, res_samples = _run_block(remat[level], block, h, emb)
             down_block_res_samples.extend(res_samples)
 
         # ControlNet residual injection
@@ -491,16 +535,16 @@ class DiffusionModelUNet(nn.Module):
             ]
 
         # 5. mid
-        h = self.middle_block(h, emb)
+        h = _run_block(remat[-1], self.middle_block, h, emb)
         if mid_block_additional_residual is not None:
             h = h + mid_block_additional_residual.to(h.dtype)
 
         # 6. up path
-        for block in self.up_blocks:
+        for i, block in enumerate(self.up_blocks):
             n_res = len(block.resnets)
             res_samples = down_block_res_samples[-n_res:]
             down_block_res_samples = down_block_res_samples[:-n_res]
-            h = block(h, res_samples, emb)
+            h = _run_block(remat[len(remat) - 1 - i], block, h, res_samples, emb)
 
         # 7. output head (zero-init conv)
         return self.out(h).float()

@@ -4,7 +4,8 @@ Route: `nvcc` by hand into a library with a plain C interface, loaded with
 ctypes (no PyTorch headers, so a build takes seconds). The library goes
 into `generativemodels_tpu_torch/_build/`, named by a hash of the source
 and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. The build happens at first use, never at import.
+loaded as it is. The build happens at first use, never at import; builds
+of different sources may run at once, in threads.
 """
 from __future__ import annotations
 
@@ -25,7 +26,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_build_lock = threading.Lock()
+_locks_lock = threading.Lock()
+_build_locks: dict[str, threading.Lock] = {}
 
 
 def find_nvcc() -> str:
@@ -50,7 +52,9 @@ def build_library(source_name: str) -> tuple[Path, str]:
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{source.stem}-{digest}.so"
     log = lib.with_suffix(".log")
-    with _build_lock:
+    with _locks_lock:
+        lock = _build_locks.setdefault(source_name, threading.Lock())
+    with lock:
         if lib.exists():
             return lib, log.read_text() if log.exists() else ""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

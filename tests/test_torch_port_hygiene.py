@@ -24,7 +24,8 @@ def _port_modules() -> list[str]:
 
 def test_port_modules_import_without_jax():
     modules = _port_modules()
-    assert "generativemodels_tpu_torch.recipes.serve" in modules
+    for name in ("recipes.serve", "recipes.train_2d_ddpm", "parallel.train", "utils.profiling"):
+        assert f"generativemodels_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
