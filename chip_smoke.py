@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU: build and check its kernels, serve, train.
+"""Drive the PyTorch port on one NVIDIA GPU: build and check its kernels, serve,
+train, and sample the 3D 128^3 model.
 
 Run from the root of a checkout, with no arguments:
 
@@ -8,13 +9,17 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and the script exits non-zero:
   1. card and build: the card's name and power limit (nvidia-smi), the torch
      and CUDA versions, the TF32 settings, and the builds of
-     generativemodels_tpu_torch/csrc/flash_fwd.cu and flash_bwd.cu (one nvcc
-     each, started together) with their times and ptxas reports;
+     generativemodels_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu and
+     fused_conv.cu (one nvcc each, started together) with their times and
+     ptxas reports;
   2. kernels against their plain versions: O and lse of the flash-attention
-     forward kernel against `flash_attention_reference`, and dq, dk, dv of
-     the backward kernels against `flash_attention_backward_reference`, at
-     the shapes the serving and training paths and their neighbours use,
-     with both times (CUDA events);
+     forward kernel against `flash_attention_reference`, dq, dk, dv of the
+     backward kernels against `flash_attention_backward_reference`, and the
+     fused GroupNorm-SiLU-conv3d kernel against
+     `fused_norm_silu_conv3d_reference`, at the shapes the serving, training
+     and 3D sampling paths and their neighbours use, with both times (CUDA
+     events), the least time the card could take (bound) and the time of a
+     library call as a yardstick;
   3. serving: `recipes.serve.build_sampler` at the full serving config
      (2D UNet (128, 256, 256), 64x64, batch 4, DDIM-50) with every
      parameter drawn from a seeded generator, behind `start_server`,
@@ -27,7 +32,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      128) through `make_diffusion_train_step` for ten steps, each with the
      three kernels' launches counted over the run; (c) one step's parameter
      gradients with seeded random weights, the kernel path against the
-     plain attention path, without and with `use_checkpointing`.
+     plain attention path, without and with `use_checkpointing`;
+  5. 3D sampling: bench.py's 3D UNet (32, 64, 128) in bf16 at 128^3, batch
+     1, with GMTPU_FUSED_RESBLOCK=1, sampled through
+     `DiffusionInferer.sample` once with DDIM-50 and three times with
+     DPM-Solver++(2M)-10, the fused-conv and flash launches counted; the
+     kernel path held against the unfused, plain-attention path for one
+     forward in f32 and in bf16 and for every step of a DPM-10 chain; one
+     profiled forward; then one POST /sample to
+     `serve.build_sampler(solver="dpmsolver", ddim_steps=10)` on the 2D
+     serving config.
 The second-to-last line is one JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -48,7 +62,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "fused_conv.cu")
 CSRC = "generativemodels_tpu_torch/csrc/"
 TPU_KERNELS = "generativemodels_tpu/ops/flash_attention.py"
 # JSON name: (launcher in ops, source, the Pallas kernel it replaces)
@@ -56,7 +70,13 @@ KERNELS = {
     "flash_fwd": ("FLASH_FWD", "flash_fwd.cu", f"{TPU_KERNELS}:202"),  # _fwd_kernel
     "flash_bwd_dq": ("FLASH_BWD_DQ", "flash_bwd.cu", f"{TPU_KERNELS}:343"),  # _dq_kernel
     "flash_bwd_dkv": ("FLASH_BWD_DKV", "flash_bwd.cu", f"{TPU_KERNELS}:475"),  # _dkv_kernel
+    "fused_conv": ("FUSED_CONV", "fused_conv.cu", "generativemodels_tpu/ops/fused_conv.py:93"),
 }
+# the card's published peaks (H100 SXM data sheet, dense, 700 W): f32 on the
+# CUDA cores (the kernels' f32 contract uses no TF32), bf16 on the tensor
+# cores, and the device memory's rate
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_BYTES = 3.35e12
 
 # (name, (BH, Sq, Sk, D), dtype name, causal)
 KERNEL_CASES = (
@@ -66,6 +86,7 @@ KERNEL_CASES = (
     ("head64_bf16", (2, 4096, 4096, 64), "bfloat16", False),
     ("causal_f32", (4, 1024, 1024, 128), "float32", True),
     ("ragged_cross_f32", (2, 1000, 777, 64), "float32", False),
+    ("3d_level2_bf16", (2, 32768, 32768, 64), "bfloat16", False),  # the 3D UNet's attention
 )
 # f32: the kernel and the plain version differ only in summation order;
 # bf16: O is rounded to bf16 (one ulp near 1 is 2**-7), lse stays f32
@@ -94,6 +115,57 @@ TRAIN_STEPS = 10
 BENCH = dict(channels=(128, 256, 256), size=64, batch=128, lr=2.5e-5)
 GRAD_BATCH = 4
 GRAD_RTOL = 1e-3  # kernel path vs plain path, max|diff| / max|grad| of every parameter
+# kernel 5 at each distinct (Cin, Cout, residual, level) of the 3D UNet's
+# forward at 128^3, batch 1: (name, (B, D, H, W), Cin, Cout, residual, dtype)
+FUSED_CASES = (
+    ("128_32to32", (1, 128, 128, 128), 32, 32, False, "bfloat16"),  # down 0
+    ("128_32to32r", (1, 128, 128, 128), 32, 32, True, "bfloat16"),
+    ("128_96to32", (1, 128, 128, 128), 96, 32, False, "bfloat16"),  # up 2
+    ("128_64to32", (1, 128, 128, 128), 64, 32, False, "bfloat16"),
+    ("64_32to64", (1, 64, 64, 64), 32, 64, False, "bfloat16"),  # down 1
+    ("64_64to64r", (1, 64, 64, 64), 64, 64, True, "bfloat16"),
+    ("64_192to64", (1, 64, 64, 64), 192, 64, False, "bfloat16"),  # up 1
+    ("64_96to64", (1, 64, 64, 64), 96, 64, False, "bfloat16"),
+    ("32_64to128", (1, 32, 32, 32), 64, 128, False, "bfloat16"),  # down 2
+    ("32_128to128r", (1, 32, 32, 32), 128, 128, True, "bfloat16"),
+    ("32_128to128", (1, 32, 32, 32), 128, 128, False, "bfloat16"),  # mid
+    ("32_256to128", (1, 32, 32, 32), 256, 128, False, "bfloat16"),  # up 0
+    ("32_192to128", (1, 32, 32, 32), 192, 128, False, "bfloat16"),
+    ("128_96to32_f32", (1, 128, 128, 128), 96, 32, False, "float32"),
+    ("32_128to128r_f32", (1, 32, 32, 32), 128, 128, True, "float32"),
+    ("ragged_f32", (2, 5, 7, 9), 40, 24, True, "float32"),
+)
+FUSED_MAIN_CASE = "128_96to32"  # the kernels line's numbers for kernel 5
+# max|diff| / max|ref|: f32 differs from the plain version in summation
+# order over 27 * Cin products; bf16 rounds the output to bf16 (2**-8 of
+# its value) after f32 sums in another order
+FUSED_TOLERANCE = {"float32": 1e-5, "bfloat16": 1e-2}
+# bench.py's 3D sampling config: 3D UNet (32, 64, 128), attention on the last
+# level only, 64 head channels, bf16 compute, 128^3, batch 1
+THREE_D = dict(channels=(32, 64, 128), size=128, batch=1, head_channels=64, norm_groups=32)
+DDIM_STEPS_3D = 50
+DPM_STEPS = 10
+DPM_SEEDS = (0, 1, 2)
+# kernel path vs unfused plain-attention path, one 3D forward in f32:
+# max|diff| / max|out|; f32 sums in another order, and the fused route's
+# GroupNorm variance is E[x^2] - E[x]^2 with the temb folded in algebra
+FORWARD_RTOL_3D = 1e-4
+# in bf16 both paths round to bf16 at other places (the fused route rounds
+# the normalised activation once and the conv output after its bias; the
+# unfused route after the norm, the SiLU and the conv): the kernel path may
+# differ from the plain bf16 path by at most twice the plain bf16 path's own
+# distance from the plain f32 path (a forward, and every DPM-10 step), the
+# triangle bound if the kernel path rounds no worse than the plain one
+BF16_RATIO_3D = 2.0
+# kernel groups of the 3D forward's profile, matched in this order by name
+PROFILE_GROUPS = (
+    ("fused_conv (kernel 5)", ("fused_conv",)),
+    ("flash_fwd (kernel 1)", ("flash_fwd",)),
+    ("layout copies and casts", ("copy", "nchwToNhwc", "nhwcToNchw", "Memcpy")),
+    ("cuDNN convolutions", ("xmma", "cudnn", "conv", "gemm")),
+    ("GroupNorm and statistics", ("Moments", "reduce_kernel", "group_norm", "pow_tensor")),
+    ("other", ("",)),
+)
 
 
 def log(msg: str) -> None:
@@ -123,6 +195,50 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def bound(flop: float, nbytes: float, dtype_name: str) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the peak rate for their type and the bytes over the memory rate."""
+    by_ops = flop / PEAK_FLOPS[dtype_name] * 1e3
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    return dict(bound_ms=max(by_ops, by_bytes),
+                bound_by="operations" if by_ops >= by_bytes else "bytes")
+
+
+def attention_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs the mask leaves live: the work this run's data needs."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, row + 1) for row in range(sq))
+
+
+def library_attention_ms(torch, q, k, v, scale: float, causal: bool,
+                         dout=None) -> tuple[float, str]:
+    """A yardstick only, never used by the port: one PyTorch call of the same
+    attention, `scaled_dot_product_attention`, timed forward (dout None) or
+    backward (dq, dk, dv from an output of the same inputs).
+
+    The (BH, S, D) inputs go in as (BH, 1, S, D) views: SDPA's fused
+    backends take only 4-D inputs and would otherwise fall back to its
+    unfused math path. One fused backend is pinned, flash for bf16 and
+    memory-efficient for f32 (flash takes no f32), so a fallback raises
+    instead of being timed. Returns (ms, the backend's name)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    backend = (SDPBackend.FLASH_ATTENTION if q.dtype == torch.bfloat16
+               else SDPBackend.EFFICIENT_ATTENTION)
+    q, k, v = (t.detach().unsqueeze(1) for t in (q, k, v))
+    with sdpa_kernel(backend):
+        if dout is None:
+            return time_ms(lambda: sdpa(q, k, v, scale=scale, is_causal=causal)), backend.name
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        out = sdpa(q, k, v, scale=scale, is_causal=causal)
+        dout = dout.unsqueeze(1)
+        ms = time_ms(lambda: torch.autograd.grad(out, (q, k, v), dout, retain_graph=True))
+    del out
+    return ms, backend.name
+
+
 def check_kernel(torch, ops) -> dict:
     """Phase 2: each case's kernel output against the plain version."""
     results = {}
@@ -145,13 +261,21 @@ def check_kernel(torch, ops) -> dict:
         plain_ms = time_ms(
             lambda: ops.flash_attention_reference(q, k, v, scale=scale, causal=causal)
         )
+        library_ms, backend = library_attention_ms(torch, q, k, v, scale, causal)
+        esize = q.element_size()
+        lim = bound(4 * bh * attention_pairs(sq, sk, causal) * d,
+                    bh * d * esize * (2 * sq + 2 * sk) + 4 * bh * sq, dtype_name)
         ok = err_o <= tol and err_lse <= tol and bool(torch.isfinite(o.float()).all())
         log(f"kernel {name}: (BH={bh}, Sq={sq}, Sk={sk}, D={d}) {dtype_name} causal={causal} "
             f"max|dO|={err_o:.3e} max|dlse|={err_lse:.3e} tol={tol:g} "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms -> {'ok' if ok else 'FAIL'}")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA ({backend}) {library_ms:.4f} ms, "
+            f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel case {name} out of tolerance")
-        results[name] = dict(max_abs_err=max(err_o, err_lse), ms=ms, plain_ms=plain_ms)
+        results[name] = dict(max_abs_err=max(err_o, err_lse), ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, **lim)
+        del q, k, v, o, lse, o_ref, lse_ref
+        torch.cuda.empty_cache()
     return results
 
 
@@ -192,19 +316,90 @@ def check_backward(torch, ops) -> dict:
             rel_err[label] = abs_err[label] / b.float().abs().max().item()
         del got, want
         ms_dq, ms_dkv, plain_ms = time_ms(dq_kernel), time_ms(dkv_kernel), time_ms(plain)
+        # SDPA's backward computes all of dq, dk, dv: the yardstick of both rows
+        library_ms, backend = library_attention_ms(torch, q, k, v, scale, causal, dout=dout)
+        pairs, esize = attention_pairs(sq, sk, causal), q.element_size()
+        rows = 8 * bh * sq  # lse2 and delta, f32
+        lim_dq = bound(6 * bh * pairs * d, bh * d * esize * (3 * sq + 2 * sk) + rows, dtype_name)
+        lim_dkv = bound(8 * bh * pairs * d, bh * d * esize * (2 * sq + 4 * sk) + rows,
+                        dtype_name)
         tol = BACKWARD_TOLERANCE[dtype_name]
         ok = all(e <= tol for e in rel_err.values())
         log(f"backward {name}: (BH={bh}, Sq={sq}, Sk={sk}, D={d}) {dtype_name} causal={causal} "
             + " ".join(f"max|d{x[1:]}|/max={rel_err[x]:.3e}" for x in ("dq", "dk", "dv"))
-            + f" tol={tol:g}; dq kernel {ms_dq:.4f} ms, dkv kernel {ms_dkv:.4f} ms "
-            f"(sum {ms_dq + ms_dkv:.4f}), plain backward {plain_ms:.4f} ms -> "
-            f"{'ok' if ok else 'FAIL'}")
+            + f" tol={tol:g}; dq kernel {ms_dq:.4f} ms (bound {lim_dq['bound_ms']:.4f}), "
+            f"dkv kernel {ms_dkv:.4f} ms (bound {lim_dkv['bound_ms']:.4f}) "
+            f"(sum {ms_dq + ms_dkv:.4f}), plain backward {plain_ms:.4f} ms, SDPA ({backend}) "
+            f"backward {library_ms:.4f} ms -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"backward case {name} out of tolerance")
         results[name] = dict(
-            dq=dict(max_abs_err=abs_err["dq"], ms=ms_dq, plain_ms=plain_ms),
-            dkv=dict(max_abs_err=max(abs_err["dk"], abs_err["dv"]), ms=ms_dkv, plain_ms=plain_ms),
+            dq=dict(max_abs_err=abs_err["dq"], ms=ms_dq, plain_ms=plain_ms,
+                    library_ms=library_ms, **lim_dq),
+            dkv=dict(max_abs_err=max(abs_err["dk"], abs_err["dv"]), ms=ms_dkv, plain_ms=plain_ms,
+                     library_ms=library_ms, **lim_dkv),
         )
+    return results
+
+
+def check_fused_conv(torch, ops) -> dict:
+    """Phase 2, kernel 5: the fused GroupNorm-SiLU-conv3d kernel against
+    `fused_norm_silu_conv3d_reference`, with x, the residual and the output
+    channels-first seen as NDHWC, as the UNet's fused route hands them over.
+    The yardstick is F.conv3d alone on the same x and kernel: it computes
+    neither the normalisation nor the SiLU nor the epilogue."""
+    import torch.nn.functional as F
+
+    results = {}
+    g = torch.Generator("cuda").manual_seed(4)
+    for name, (b, d, h, w), cin, cout, residual, dtype_name in FUSED_CASES:
+        dtype = getattr(torch, dtype_name)
+
+        def rand(*shape, mul=1.0):
+            return mul * torch.randn(shape, generator=g, device="cuda")
+
+        x_cf = rand(b, cin, d, h, w).to(dtype)
+        x = x_cf.permute(0, 2, 3, 4, 1)
+        kernel = rand(3, 3, 3, cin, cout, mul=(27 * cin) ** -0.5).to(dtype)
+        groups = 8 if cin % 32 else 32
+        scale, shift = ops.fold_groupnorm_affine(x, 1.0 + rand(cin, mul=0.1),
+                                                 rand(cin, mul=0.1), groups)
+        bias = rand(cout, mul=0.1)
+        res = rand(b, cout, d, h, w).to(dtype).permute(0, 2, 3, 4, 1) if residual else None
+
+        def run_kernel():
+            return ops.FUSED_CONV(x, kernel, scale, shift, bias, res)
+
+        def run_plain():
+            return ops.fused_norm_silu_conv3d_reference(x, kernel, scale, shift, bias, res)
+
+        got, want = run_kernel(), run_plain()
+        torch.cuda.synchronize()
+        ref_max = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        finite = bool(torch.isfinite(got.float()).all())
+        del got, want
+        ms, plain_ms = time_ms(run_kernel), time_ms(run_plain)
+        w_oidhw = kernel.permute(4, 3, 0, 1, 2).contiguous()
+        library_ms = time_ms(lambda: F.conv3d(x_cf, w_oidhw, bias.to(dtype), padding=1))
+        voxels = b * d * h * w
+        esize = x.element_size()
+        nbytes = (voxels * (cin + cout * (2 if residual else 1)) * esize
+                  + kernel.numel() * esize + 4 * (2 * b * cin + cout))
+        lim = bound(2 * voxels * 27 * cin * cout, nbytes, dtype_name)
+        tol = FUSED_TOLERANCE[dtype_name]
+        ok = finite and err <= tol * ref_max
+        log(f"fused_conv {name}: (B={b}, D={d}, H={h}, W={w}) {cin}->{cout}"
+            f"{' +residual' if residual else ''} {dtype_name} max|diff|={err:.3e} "
+            f"(max|ref| {ref_max:.3e}, tol {tol:g} of it) kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, F.conv3d alone {library_ms:.4f} ms, bound "
+            f"{lim['bound_ms']:.4f} ms ({lim['bound_by']}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fused_conv case {name} out of tolerance")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             **lim)
+        del x_cf, x, res
+        torch.cuda.empty_cache()
     return results
 
 
@@ -370,7 +565,7 @@ def train_recipe(torch, ops, recipe) -> dict:
         + ", ".join(f"{x:.5f}" for x in losses))
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"recipe losses not finite: {losses}")
-    per_step = dict(flash_fwd=3, flash_bwd_dq=3, flash_bwd_dkv=3)
+    per_step = dict(flash_fwd=3, flash_bwd_dq=3, flash_bwd_dkv=3, fused_conv=0)  # 2D: no kernel 5
     check_launches(counts, {n: c * TRAIN_STEPS for n, c in per_step.items()}, "recipe main")
     return dict(launches=counts, steps_per_sec=sps)
 
@@ -411,7 +606,8 @@ def train_bench(torch, ops, nets, parallel, schedulers) -> float:
         + ", ".join(f"{x:.5f}" for x in losses))
     if not all(np.isfinite(losses)):
         raise AssertionError(f"bench-config losses not finite: {losses}")
-    check_launches(counts, {n: 3 * TRAIN_STEPS for n in KERNELS}, "bench config")
+    check_launches(counts, dict(flash_fwd=3 * TRAIN_STEPS, flash_bwd_dq=3 * TRAIN_STEPS,
+                                flash_bwd_dkv=3 * TRAIN_STEPS, fused_conv=0), "bench config")
     del state, model
     torch.cuda.empty_cache()
     return sps
@@ -465,10 +661,251 @@ def check_gradients(torch, ops, nets, parallel, schedulers, recipe) -> None:
                 worst, worst_name = rel, n
         log(f"train: gradients at batch {GRAD_BATCH}, {label} vs plain path: worst "
             f"max|diff|/max|grad| = {worst:.3e} at {worst_name} (tol {GRAD_RTOL:g})")
-        check_launches(counts, dict(flash_fwd=fwd, flash_bwd_dq=3, flash_bwd_dkv=3),
+        check_launches(counts, dict(flash_fwd=fwd, flash_bwd_dq=3, flash_bwd_dkv=3, fused_conv=0),
                        f"one step, {label}")
         if not worst <= GRAD_RTOL:
             raise AssertionError(f"{label}: gradients disagree with the plain path")
+
+
+def model_3d(torch, nets, dtype=None, use_flash_attention=None):
+    """bench.py's 3D UNet config on the card (random weights set by the caller)."""
+    return nets.DiffusionModelUNet(
+        spatial_dims=3, in_channels=1, out_channels=1, num_res_blocks=1,
+        num_channels=THREE_D["channels"], attention_levels=(False, False, True),
+        num_head_channels=THREE_D["head_channels"], norm_num_groups=THREE_D["norm_groups"],
+        use_flash_attention=use_flash_attention, dtype=dtype,
+    ).to(DEVICE).eval()
+
+
+class Unfused:
+    """A model called with GMTPU_FUSED_RESBLOCK=0: its ResnetBlocks take the
+    unfused route (the variable is read at each call)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __call__(self, *args, **kwargs):
+        os.environ["GMTPU_FUSED_RESBLOCK"] = "0"
+        try:
+            return self.model(*args, **kwargs)
+        finally:
+            os.environ["GMTPU_FUSED_RESBLOCK"] = "1"
+
+
+def expected_launches_3d(model) -> dict:
+    """One forward's launches, counted from the model: two fused convs for
+    each ResnetBlock that neither up- nor downsamples, one flash forward for
+    each attention block (all at the 32^3 level: 32768 tokens, 64-wide heads,
+    over the dispatcher's 1024-token threshold)."""
+    from generativemodels_tpu_torch.networks.blocks.attention_blocks import AttentionBlock
+    from generativemodels_tpu_torch.networks.nets.diffusion_model_unet import ResnetBlock
+
+    blocks = [m for m in model.modules() if isinstance(m, ResnetBlock)]
+    attn = [m for m in model.modules() if isinstance(m, AttentionBlock)]
+    return dict(fused_conv=2 * sum(not (m.up or m.down) for m in blocks), flash_fwd=len(attn))
+
+
+def dpm_chain_step_diffs(scheduler, models, noise) -> list[float]:
+    """Run models[0]'s DPM-Solver++ chain; at every step also step the other
+    models from the same x_t and the same solver state. Returns, for each
+    pair of neighbours in `models`, the largest difference of their steps'
+    outputs over the chain."""
+    state = scheduler.init_state(noise.shape, noise.dtype)
+    x, worst = noise, [0.0] * (len(models) - 1)
+    for t in scheduler.timesteps:
+        tt = t.expand(x.shape[0])
+        steps = [scheduler.step(state, model(x, tt), t, x) for model in models]
+        for i, ((xa, _), (xb, _)) in enumerate(zip(steps, steps[1:])):
+            worst[i] = max(worst[i], (xa - xb).abs().max().item())
+        x, state = steps[0]
+    return worst
+
+
+def sample_3d(torch, inferers, scheduler, model, seed: int):
+    """One sample through DiffusionInferer.sample; (image, seconds on the host
+    clock ending in a synchronize)."""
+    shape = (THREE_D["batch"], 1) + (THREE_D["size"],) * 3
+    g = torch.Generator(DEVICE).manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        noise = torch.randn(shape, generator=g, device=DEVICE)
+        image = inferers.DiffusionInferer(scheduler).sample(noise, model, generator=g)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if image.shape != shape or not bool(torch.isfinite(image).all()):
+        raise AssertionError(f"bad 3D sample: shape {tuple(image.shape)}")
+    return image, seconds
+
+
+def counts_3d(ops) -> dict:
+    """The launches of the 3D path's kernels, 5 and 1."""
+    return {n: c for n, c in read_launches(ops).items() if n in ("fused_conv", "flash_fwd")}
+
+
+def check_3d_counts(counts: dict, per_forward: dict, forwards: int, what: str) -> None:
+    expected = {n: c * forwards for n, c in per_forward.items()}
+    log(f"3d: {what}: launches {counts} (expected {expected}: {per_forward} a forward)")
+    if counts != expected:
+        raise AssertionError(f"{what}: launches {counts}, expected {expected}")
+
+
+def run_3d(torch, ops, nets, schedulers, inferers):
+    """Phase 5: the 3D 128^3 sampling slice with the fused ResnetBlock route.
+    Returns the model and the fused-conv launches of the DDIM-50 sample."""
+    os.environ["GMTPU_FUSED_RESBLOCK"] = "1"
+    model = model_3d(torch, nets, dtype=torch.bfloat16)
+    randomize(torch, model)
+    per_forward = expected_launches_3d(model)
+    torch.cuda.reset_peak_memory_stats()
+    ddim = schedulers.DDIMScheduler(num_train_timesteps=1000, device=DEVICE)
+    ddim.set_timesteps(DDIM_STEPS_3D)
+    reset_launches(ops)
+    _, seconds = sample_3d(torch, inferers, ddim, model, seed=0)
+    check_3d_counts(counts_3d(ops), per_forward, DDIM_STEPS_3D, f"DDIM-{DDIM_STEPS_3D} sample")
+    launches = read_launches(ops)["fused_conv"]
+    log(f"3d: DDIM-{DDIM_STEPS_3D} sample at {THREE_D['size']}^3, batch {THREE_D['batch']}, "
+        f"bf16: {seconds:.3f} s")
+    dpm = schedulers.DPMSolverMultistepScheduler(num_train_timesteps=1000, device=DEVICE)
+    dpm.set_timesteps(DPM_STEPS)
+    dpm_seconds = []
+    reset_launches(ops)
+    for seed in DPM_SEEDS:
+        _, sec = sample_3d(torch, inferers, dpm, model, seed=seed)
+        dpm_seconds.append(sec)
+    check_3d_counts(counts_3d(ops), per_forward, DPM_STEPS * len(DPM_SEEDS),
+                    f"{len(DPM_SEEDS)} DPM-Solver++(2M)-{DPM_STEPS} samples")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"3d: DPM-Solver++(2M)-{DPM_STEPS} samples: "
+        + ", ".join(f"{x:.3f}" for x in dpm_seconds) + f" s; peak memory {peak:.2f} GiB")
+    return model, launches
+
+
+def compare_3d(torch, ops, nets, schedulers, kernel_bf16) -> None:
+    """Phase 5: the kernel path (fused route, flash kernel) against the
+    unfused, plain-attention path with the same weights: one forward in f32
+    and in bf16, and every step of a bf16 DPM-10 chain. The bf16 checks are
+    held to the plain path's own bf16 rounding, measured against its f32
+    run on the same inputs."""
+    shape = (THREE_D["batch"], 1) + (THREE_D["size"],) * 3
+    state = kernel_bf16.state_dict()
+    g = torch.Generator(DEVICE).manual_seed(9)
+    x = torch.randn(shape, generator=g, device=DEVICE)
+    t = torch.tensor([500], device=DEVICE)
+    plain = {}
+    with torch.inference_mode():
+        outs = {}
+        for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            plain[label] = model_3d(torch, nets, dtype=dtype, use_flash_attention=False)
+            plain[label].load_state_dict(state, strict=True)
+            if dtype is None:
+                kernel = model_3d(torch, nets)
+                kernel.load_state_dict(state, strict=True)
+            else:
+                kernel = kernel_bf16
+            reset_launches(ops)
+            outs[label, "kernel"] = kernel(x, t)
+            kernel_counts = read_launches(ops)
+            # the kernel path really ran kernels 5 and 1, or the check below
+            # would hold the plain path against itself
+            check_3d_counts(counts_3d(ops), expected_launches_3d(kernel), 1,
+                            f"{label} forward, kernel path")
+            outs[label, "plain"] = Unfused(plain[label])(x, t)
+            if read_launches(ops) != kernel_counts:
+                raise AssertionError("the plain path launched a kernel")
+            del kernel
+        ref = outs["f32", "plain"]
+        scale = ref.abs().max().item()
+
+        def rel(a, b):
+            return (outs[a] - outs[b]).abs().max().item() / scale
+
+        fwd_f32 = rel(("f32", "kernel"), ("f32", "plain"))
+        fwd_bf16 = rel(("bf16", "kernel"), ("bf16", "plain"))
+        own_bf16 = rel(("bf16", "plain"), ("f32", "plain"))
+        kernel_bf16_err = rel(("bf16", "kernel"), ("f32", "plain"))
+        del outs, ref
+        noise = torch.randn(shape, generator=g, device=DEVICE)
+        dpm = schedulers.DPMSolverMultistepScheduler(num_train_timesteps=1000, device=DEVICE)
+        dpm.set_timesteps(DPM_STEPS)
+        step_kp, step_own = dpm_chain_step_diffs(
+            dpm, [kernel_bf16, Unfused(plain["bf16"]), Unfused(plain["f32"])], noise)
+    del plain
+    torch.cuda.empty_cache()
+    log(f"3d: one forward at t=500, max|diff|/max|out of the plain f32 path| "
+        f"({scale:.3e}): kernel vs plain path in f32 {fwd_f32:.3e} (tol {FORWARD_RTOL_3D:g}); "
+        f"in bf16 {fwd_bf16:.3e} (tol {BF16_RATIO_3D:g} x the plain bf16 path's own rounding, "
+        f"{own_bf16:.3e} against the plain f32 path; the kernel path's bf16 run is "
+        f"{kernel_bf16_err:.3e} from it)")
+    log(f"3d: every step of a bf16 DPM-{DPM_STEPS} chain from the same x_t and state: kernel "
+        f"vs plain path max|diff| = {step_kp:.3e} (tol {BF16_RATIO_3D:g} x {step_own:.3e}, the "
+        f"plain bf16 step's own distance from the plain f32 step)")
+    if not fwd_f32 <= FORWARD_RTOL_3D:
+        raise AssertionError("3D forward (f32): kernel path disagrees with the plain path")
+    if not fwd_bf16 <= BF16_RATIO_3D * own_bf16:
+        raise AssertionError("3D forward (bf16): kernel path disagrees with the plain path")
+    if not step_kp <= BF16_RATIO_3D * step_own:
+        raise AssertionError("DPM chain: kernel path disagrees with the plain path")
+
+
+def profile_3d(torch, model) -> None:
+    """Phase 5: device time of one kernel-path bf16 forward by kernel and by
+    group, from torch.profiler (CUDA activity), and the device's busy share
+    of the forward's wall time (host clock, ending in a synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    shape = (THREE_D["batch"], 1) + (THREE_D["size"],) * 3
+    x = torch.randn(shape, device=DEVICE)
+    t = torch.tensor([500], device=DEVICE)
+    with torch.inference_mode():
+        model(x, t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model(x, t)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    total = sum(e.device_time_total for e in events)
+    if total == 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"3d: profile of one bf16 forward: {total / 1e3:.3f} ms of device time in "
+        f"{sum(e.count for e in events)} kernels, {wall * 1e3:.3f} ms of wall time (busy "
+        f"share {total / 1e6 / wall:.3f})")
+    groups = dict.fromkeys((name for name, _ in PROFILE_GROUPS), 0.0)
+    for e in events:
+        name = next(n for n, keys in PROFILE_GROUPS if any(k in e.key for k in keys))
+        groups[name] += e.device_time_total
+    for name, us in groups.items():
+        log(f"  group {name}: {us / 1e3:.3f} ms ({100 * us / total:.1f}%)")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:14]:
+        log(f"  {e.device_time_total / 1e3:9.3f} ms {100 * e.device_time_total / total:5.1f}% "
+            f"x{e.count:<4d} {e.key[:110]}")
+
+
+def serve_dpmsolver(torch, ops, serve) -> float:
+    """Phase 5: one POST /sample to the DPM-Solver++ sampler on the 2D serving config."""
+    config = dict(SERVE, ddim_steps=DPM_STEPS)
+    sampler, shape = serve.build_sampler(device=DEVICE, solver="dpmsolver", **config)
+    randomize(torch, sampler.model)
+    httpd = serve.start_server(serve._SamplerState(sampler, shape), port=0)
+    try:
+        ops.FLASH_FWD.launches = 0
+        t0 = time.perf_counter()
+        img = post_sample(httpd.server_port, 0, shape[0])
+        seconds = time.perf_counter() - t0
+        launches = ops.FLASH_FWD.launches
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    expected = LAUNCHES_PER_FORWARD * DPM_STEPS
+    log(f"serve --solver dpmsolver: POST /sample -> {img.shape} in {seconds:.3f} s, flash_fwd "
+        f"launches {launches} (expected {expected})")
+    if img.shape != shape or not np.isfinite(img).all():
+        raise AssertionError("bad DPM-Solver++ image batch")
+    if launches != expected:
+        raise AssertionError(f"flash_fwd launched {launches} times, expected {expected}")
+    return seconds
 
 
 def build_kernels(build_library) -> None:
@@ -509,7 +946,7 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from generativemodels_tpu_torch import ops, parallel
+    from generativemodels_tpu_torch import inferers, ops, parallel
     from generativemodels_tpu_torch.networks import nets, schedulers
     from generativemodels_tpu_torch.ops.native import build_library
     from generativemodels_tpu_torch.recipes import serve
@@ -528,6 +965,7 @@ def main() -> int:
     # phase 2: kernels against their plain versions
     forward = check_kernel(torch, ops)
     backward = check_backward(torch, ops)
+    fused = check_fused_conv(torch, ops)
 
     # phase 3: serving through its entry points
     served = run_slice(torch, ops, serve, nets)
@@ -539,17 +977,28 @@ def main() -> int:
     train_bench(torch, ops, nets, parallel, schedulers)
     check_gradients(torch, ops, nets, parallel, schedulers, recipe)
 
+    # phase 5: 3D sampling through its entry points, then DPM-Solver++ serving
+    model_3d_bf16, fused_launches = run_3d(torch, ops, nets, schedulers, inferers)
+    compare_3d(torch, ops, nets, schedulers, model_3d_bf16)
+    profile_3d(torch, model_3d_bf16)
+    del model_3d_bf16
+    torch.cuda.empty_cache()
+    serve_dpmsolver(torch, ops, serve)
+
     # the numbers of each kernel at its main path's shape: serving for the
-    # forward, the recipe's batch 64 for the backward; launches from the
-    # recipe's run
+    # forward, the recipe's batch 64 for the backward, the 128^3 96->32 call
+    # for kernel 5; launches from the recipe's run (kernels 1-3) and from the
+    # DDIM-50 3D sample (kernel 5)
     numbers = dict(
         flash_fwd=forward["serve_f32"],
         flash_bwd_dq=backward["train_recipe_f32"]["dq"],
         flash_bwd_dkv=backward["train_recipe_f32"]["dkv"],
+        fused_conv=fused[FUSED_MAIN_CASE],
     )
+    launches = dict(trained["launches"], fused_conv=fused_launches)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=CSRC + source, replaces=replaces,
-             launches=trained["launches"][name], **numbers[name])
+             launches=launches[name], **numbers[name])
         for name, (_, source, replaces) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

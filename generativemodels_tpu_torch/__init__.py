@@ -15,6 +15,7 @@ from .networks.nets import DiffusionModelUNet  # noqa: E402,F401
 from .networks.schedulers import (  # noqa: E402,F401
     DDIMScheduler,
     DDPMScheduler,
+    DPMSolverMultistepScheduler,
     NoiseSchedules,
     Scheduler,
 )

@@ -5,10 +5,11 @@ Counterpart of generativemodels_tpu/inferers/inferer.py (`__call__` and
 timestep tensor, in place of the JAX `lax.scan`; each timestep stays a
 0-d device tensor, so the loop never waits on the host. `diffusion_model`
 is any callable `(x, timesteps, context=None)` returning the prediction.
-Stochastic steps draw from an explicit `torch.Generator`.
+Stochastic steps draw from an explicit `torch.Generator`. A stateful
+scheduler (one with `init_state`, as DPM-Solver++) threads its state through
+`step(state, model_output, t, sample)`, as the JAX scan carries it.
 
-Not ported yet: `get_likelihood`, SPADE `seg`, and stateful schedulers
-(PNDM, DPM-Solver++).
+Not ported yet: `get_likelihood` and SPADE `seg`.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ ModelFn = Callable[..., torch.Tensor]
 
 
 class DiffusionInferer:
-    """Pairs a diffusion model callable with a scheduler (DDPM or DDIM)."""
+    """Pairs a diffusion model callable with a scheduler (DDPM, DDIM or DPM-Solver++)."""
 
     def __init__(self, scheduler) -> None:
         self.scheduler = scheduler
@@ -57,15 +58,21 @@ class DiffusionInferer:
     ) -> torch.Tensor:
         """Full reverse-diffusion loop from `input_noise`.
 
-        `generator` draws the DDPM ancestral noise and the DDIM eta > 0
-        noise; it defaults to one seeded with 0 on the noise's device.
+        `generator` draws the DDPM ancestral noise, the DDIM eta > 0 noise
+        and the SDE DPM-Solver++ noise; it defaults to one seeded with 0 on
+        the noise's device.
         """
         if mode not in ("crossattn", "concat"):
             raise NotImplementedError(f"{mode} condition is not supported")
         scheduler = scheduler or self.scheduler
         if generator is None:
             generator = torch.Generator(input_noise.device).manual_seed(0)
+        # stateful schedulers (DPM-Solver++) carry an explicit state:
+        # step(state, model_output, t, sample)
+        is_stateful = hasattr(scheduler, "init_state")
         is_ddpm = isinstance(scheduler, DDPMScheduler)
+        if is_stateful:
+            state = scheduler.init_state(input_noise.shape, input_noise.dtype, generator=generator)
 
         image = input_noise
         for t in scheduler.timesteps:
@@ -73,7 +80,9 @@ class DiffusionInferer:
             if mode == "concat":
                 x, ctx = torch.cat([image, conditioning], dim=1), None
             model_output = diffusion_model(x, t.expand(image.shape[0]), context=ctx)
-            if is_ddpm:
+            if is_stateful:
+                image, state = scheduler.step(state, model_output, t, image)
+            elif is_ddpm:
                 image, _ = scheduler.step(model_output, t, image, generator=generator)
             else:  # DDIM
                 image, _ = scheduler.step(

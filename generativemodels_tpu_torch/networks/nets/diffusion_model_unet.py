@@ -14,12 +14,18 @@ statistics in float32, as flax's), and the output is float32.
 `use_checkpointing` recomputes block activations in the backward
 (`torch.utils.checkpoint`, where the JAX module uses `nn.remat`).
 
+With GMTPU_FUSED_RESBLOCK=1 (or "always"), read at each call as the JAX
+module reads it at trace time, a 3D ResnetBlock that neither up- nor
+downsamples runs `ResnetBlock._fused_call`: both of its GroupNorm-SiLU-conv
+chains go through `ops.fused_norm_silu_conv3d` (kernel 5 on CUDA), with the
+block's own parameters, so the state-dict keys do not change.
+
 Not ported yet: cross-attention conditioning (`with_conditioning`),
-`cached_down`/`return_down`, the fused 3D ResnetBlock kernel path and
-DiffusionModelEncoder.
+`cached_down`/`return_down` and DiffusionModelEncoder.
 """
 from __future__ import annotations
 
+import os
 from collections.abc import Sequence
 
 import torch
@@ -27,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ...ops import get_timestep_embedding
+from ...ops import fold_groupnorm_affine, fused_norm_silu_conv3d, get_timestep_embedding
 from ..blocks.attention_blocks import AttentionBlock
 from ..blocks.convolutions import ConvND, avg_pool, upsample_nearest
 from ..blocks.layers import GroupNorm, Linear
@@ -119,12 +125,19 @@ class Upsample(nn.Module):
         return self.conv(x) if self.conv is not None else upsample_nearest(x, 2)
 
 
+def _fused_resblock_enabled() -> bool:
+    """GMTPU_FUSED_RESBLOCK=1/always routes 3D interior ResnetBlocks
+    through the fused kernel (ops/fused_conv.py), as in the JAX module."""
+    return os.environ.get("GMTPU_FUSED_RESBLOCK", "0") in ("1", "always")
+
+
 class ResnetBlock(nn.Module):
     """GroupNorm+SiLU conv block with additive timestep conditioning.
 
     norm1 -> silu -> [up/down] -> conv1 -> (+ time proj) -> norm2 -> silu ->
     conv2 (zero-init) -> + skip(x). The zero-initialised second conv makes a
-    fresh block the identity.
+    fresh block the identity. With GMTPU_FUSED_RESBLOCK set, the 3D
+    non-resampling case runs `_fused_call`.
     """
 
     def __init__(
@@ -144,6 +157,7 @@ class ResnetBlock(nn.Module):
         self.spatial_dims = spatial_dims
         self.up = up
         self.down = down
+        self.dtype = dtype
         self.norm1 = GroupNorm(norm_num_groups, in_channels, norm_eps, dtype=dtype)
         self.conv1 = ConvND(
             spatial_dims, in_channels, out_channels, kernel_size=3, padding=1, dtype=dtype
@@ -161,6 +175,14 @@ class ResnetBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        if (
+            self.spatial_dims == 3
+            and not self.up
+            and not self.down
+            and _fused_resblock_enabled()
+        ):
+            return self._fused_call(x, emb)
+
         h = F.silu(self.norm1(x))
         if self.up:
             x = upsample_nearest(x, 2)
@@ -176,6 +198,45 @@ class ResnetBlock(nn.Module):
         h = self.conv2(F.silu(self.norm2(h)))
         skip = x if self.skip_connection is None else self.skip_connection(x)
         return skip + h
+
+    def _fused_call(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        """The JAX `_fused_call`: each GroupNorm-SiLU-conv chain is one
+        `fused_norm_silu_conv3d`, from the block's own parameters.
+
+        Layout: the kernel is channels-last and the port channels-first. The
+        route hands it `x.permute(0, 2, 3, 4, 1)`, a (B, D, H, W, C) view of
+        the channels-first tensor that the kernel reads through its strides,
+        and gets back a view of a channels-first output: no layout copy.
+        As in JAX, x is cast to the compute type before the statistics, the
+        time projection is computed in float32 (the unfused route computes
+        it in `dtype`), the temb is folded into norm2's affine instead of
+        being added to h, and the residual is the skip in `dtype`.
+        """
+        dtype = self.dtype or x.dtype
+        groups, eps = self.norm1.num_groups, self.norm1.eps
+        x = x.to(dtype).contiguous()
+        xl = x.permute(0, 2, 3, 4, 1)
+
+        def kernel(conv):  # (Cout, Cin, 3, 3, 3) -> (3, 3, 3, Cin, Cout), a view
+            # cast to x's type where it is used: by the launcher on CUDA, by
+            # the plain version on the CPU
+            return conv.conv.weight.permute(2, 3, 4, 1, 0)
+
+        s1, t1 = fold_groupnorm_affine(xl, self.norm1.weight, self.norm1.bias, groups, eps)
+        h = fused_norm_silu_conv3d(xl, kernel(self.conv1), s1, t1, bias=self.conv1.conv.bias)
+
+        temb = F.linear(
+            F.silu(emb.float()), self.time_emb_proj.weight, self.time_emb_proj.bias
+        )  # (B, C) f32
+        skip = x if self.skip_connection is None else self.skip_connection(x)
+
+        s2, t2 = fold_groupnorm_affine(h, self.norm2.weight, self.norm2.bias, groups, eps,
+                                       temb=temb)
+        out = fused_norm_silu_conv3d(
+            h, kernel(self.conv2), s2, t2, bias=self.conv2.conv.bias,
+            residual=skip.to(dtype).permute(0, 2, 3, 4, 1),
+        )
+        return out.permute(0, 4, 1, 2, 3)
 
 
 class DownBlock(nn.Module):

@@ -1,5 +1,11 @@
 from .ddim import DDIMPredictionType, DDIMScheduler
 from .ddpm import DDPMPredictionType, DDPMScheduler, DDPMVarianceType
+from .dpmsolver import (
+    DPMSolverAlgorithmType,
+    DPMSolverMultistepScheduler,
+    DPMSolverPredictionType,
+    DPMSolverState,
+)
 from .scheduler import NoiseSchedules, Scheduler
 
 __all__ = [
@@ -8,6 +14,10 @@ __all__ = [
     "DDPMPredictionType",
     "DDPMScheduler",
     "DDPMVarianceType",
+    "DPMSolverAlgorithmType",
+    "DPMSolverMultistepScheduler",
+    "DPMSolverPredictionType",
+    "DPMSolverState",
     "NoiseSchedules",
     "Scheduler",
 ]

@@ -24,11 +24,10 @@ are not ported to the kernels and raise NotImplementedError there.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
-from .native import load_library
+from .native import Launcher
 
 LOG2E = 1.4426950408889634  # log2(e)
 LN2 = 0.6931471805599453  # 1/LOG2E
@@ -158,41 +157,7 @@ def flash_attention_backward_reference(
     return dq, dk, (dv * LOG2E).to(dtype)
 
 
-class _Launcher:
-    """Binds one entry point of a `csrc/` source, built at first use.
-
-    `launches` counts the kernel launches made through this object and
-    nothing else, so a run can show that its attention went through the
-    kernel.
-    """
-
-    source = ""
-    symbol = ""
-    argtypes: tuple = ()
-
-    def __init__(self) -> None:
-        self.launches = 0
-        self._fn = None
-        self._lock = threading.Lock()
-
-    def _function(self):
-        with self._lock:
-            if self._fn is None:
-                fn = getattr(load_library(self.source), self.symbol)
-                fn.argtypes = list(self.argtypes) + [ctypes.c_int, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-                self._fn = fn
-            return self._fn
-
-    def _launch(self, device: torch.device, *args) -> None:
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = self._function()(*args, device.index, stream)
-        if err != 0:
-            raise RuntimeError(f"{self.symbol} launch failed with CUDA error {err}")
-        self.launches += 1
-
-
-class FlashForwardKernel(_Launcher):
+class FlashForwardKernel(Launcher):
     """Launcher of `csrc/flash_fwd.cu` (replaces `_fwd_kernel`)."""
 
     source = "flash_fwd.cu"
@@ -222,7 +187,7 @@ class FlashForwardKernel(_Launcher):
 _BWD_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
 
 
-class _FlashBackwardKernel(_Launcher):
+class _FlashBackwardKernel(Launcher):
     source = "flash_bwd.cu"
 
     def _run(self, outputs, q, k, v, dout, lse2, delta, causal: bool) -> None:

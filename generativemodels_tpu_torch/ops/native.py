@@ -1,11 +1,12 @@
-"""Build a CUDA source of the package into a shared library and load it.
+"""Build a CUDA source of the package into a shared library, load it, bind it.
 
 Route: `nvcc` by hand into a library with a plain C interface, loaded with
 ctypes (no PyTorch headers, so a build takes seconds). The library goes
 into `generativemodels_tpu_torch/_build/`, named by a hash of the source
 and the flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is. The build happens at first use, never at import; builds
-of different sources may run at once, in threads.
+of different sources may run at once, in threads. `Launcher` binds one
+entry point of a built library and counts its launches.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -83,3 +86,37 @@ def load_library(source_name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<source_name>`."""
     path, _ = build_library(source_name)
     return ctypes.CDLL(str(path))
+
+
+class Launcher:
+    """Binds one entry point of a `csrc/` source, built at first use.
+
+    `launches` counts the kernel launches made through this object and
+    nothing else, so a run can show that its main path went through the
+    kernel.
+    """
+
+    source = ""
+    symbol = ""
+    argtypes: tuple = ()
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._fn = None
+        self._lock = threading.Lock()
+
+    def _function(self):
+        with self._lock:
+            if self._fn is None:
+                fn = getattr(load_library(self.source), self.symbol)
+                fn.argtypes = list(self.argtypes) + [ctypes.c_int, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                self._fn = fn
+            return self._fn
+
+    def _launch(self, device: torch.device, *args) -> None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = self._function()(*args, device.index, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} launch failed with CUDA error {err}")
+        self.launches += 1

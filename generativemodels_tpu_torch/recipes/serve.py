@@ -1,9 +1,11 @@
-"""Sampling server: a DDIM sampler behind a tiny HTTP API.
+"""Sampling server: a DDIM or DPM-Solver++ sampler behind a tiny HTTP API.
 
 Counterpart of generativemodels_tpu/recipes/serve.py. The model and the
-DDIM plan live on `--device` (default cuda); each request runs the reverse
-chain eagerly, and the UNet's long-sequence self-attention goes through the
-hand-written flash-attention kernel on CUDA.
+sampling plan live on `--device` (default cuda); each request runs the
+reverse chain eagerly, and the UNet's long-sequence self-attention goes
+through the hand-written flash-attention kernel on CUDA. `--solver`
+picks DDIM (default), DPM-Solver++ (2M) (`dpmsolver`) or its SDE variant
+(`sde-dpmsolver`); `--ddim-steps` is the step count for any solver.
 
 API:
     GET  /healthz            -> {"status": "ok", "batch": B, "shape": [...]}
@@ -14,8 +16,9 @@ API:
 Usage:
     python -m generativemodels_tpu_torch.recipes.serve --device cuda --port 8765
     python -m generativemodels_tpu_torch.recipes.serve --oneshot --out sample.npy
+    python -m generativemodels_tpu_torch.recipes.serve --solver dpmsolver --ddim-steps 10
 
-Not ported yet: `--checkpoint-dir`, `--export-path` and `--solver dpmsolver`.
+Not ported yet: `--checkpoint-dir` and `--export-path`.
 """
 from __future__ import annotations
 
@@ -32,7 +35,9 @@ import torch
 
 from ..inferers import DiffusionInferer
 from ..networks.nets import DiffusionModelUNet
-from ..networks.schedulers import DDIMScheduler
+from ..networks.schedulers import DDIMScheduler, DPMSolverMultistepScheduler
+
+SOLVERS = ("ddim", "dpmsolver", "sde-dpmsolver")
 
 
 def require_device(device: torch.device | str) -> torch.device:
@@ -68,11 +73,15 @@ def build_sampler(
     batch: int = 1,
     ddim_steps: int = 50,
     device: torch.device | str = "cuda",
+    solver: str = "ddim",
 ) -> tuple[Sampler, tuple[int, ...]]:
-    """Build the DDIM sampler and its output shape (B, 1, *spatial).
+    """Build the sampler and its output shape (B, 1, *spatial).
 
-    The model's weights are PyTorch's default initialisation from seed 0.
+    `solver` is one of SOLVERS; `ddim_steps` is its step count. The
+    model's weights are PyTorch's default initialisation from seed 0.
     """
+    if solver not in SOLVERS:
+        raise ValueError(f"solver must be one of {SOLVERS}, got {solver!r}")
     device = require_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
@@ -84,7 +93,13 @@ def build_sampler(
         )
     model = model.to(device).eval()
     shape = (batch, 1) + (size,) * spatial_dims
-    scheduler = DDIMScheduler(num_train_timesteps=1000, device=device)
+    if solver == "ddim":
+        scheduler = DDIMScheduler(num_train_timesteps=1000, device=device)
+    else:
+        scheduler = DPMSolverMultistepScheduler(
+            num_train_timesteps=1000, device=device,
+            algorithm_type="sde-dpmsolver++" if solver == "sde-dpmsolver" else "dpmsolver++",
+        )
     scheduler.set_timesteps(ddim_steps)
     return Sampler(model, DiffusionInferer(scheduler), shape, device), shape
 
@@ -177,7 +192,10 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--norm-groups", type=int, default=32)
     parser.add_argument("--batch", type=int, default=1,
                         help="serving batch (requests round up)")
-    parser.add_argument("--ddim-steps", type=int, default=50)
+    parser.add_argument("--ddim-steps", type=int, default=50,
+                        help="sampling step count (any --solver)")
+    parser.add_argument("--solver", type=str, default="ddim", choices=SOLVERS,
+                        help="dpmsolver = DPM-Solver++ (2M), sde-dpmsolver its SDE variant")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--port", type=int, default=8765)
     parser.add_argument("--oneshot", action="store_true",
@@ -193,12 +211,12 @@ def main(argv: list[str] | None = None) -> None:
     fn, shape = build_sampler(
         spatial_dims=args.spatial_dims, size=args.size, channels=tuple(args.channels),
         norm_groups=args.norm_groups, batch=args.batch, ddim_steps=args.ddim_steps,
-        device=device,
+        device=device, solver=args.solver,
     )
 
     t0 = time.time()
     first = fn(args.seed).cpu()
-    print(f"warmup sample ({tuple(first.shape)}, DDIM-{args.ddim_steps}): "
+    print(f"warmup sample ({tuple(first.shape)}, {args.solver}-{args.ddim_steps}): "
           f"{time.time() - t0:.1f}s (kernel build included on a first run)")
 
     if args.oneshot:

@@ -1,4 +1,5 @@
-"""The CUDA flash-attention kernels against their plain versions.
+"""The CUDA kernels against their plain versions: flash attention (kernels
+1-3) and the fused GroupNorm-SiLU-conv3d (kernel 5).
 
 Imports neither JAX nor the JAX package, so it runs on a machine with a card
 and no JAX. Tests marked `cuda` skip without a GPU; on the card run
@@ -9,6 +10,10 @@ and no JAX. Tests marked `cuda` skip without a GPU; on the card run
 1e-5 for f32 (summation order only), 2e-2 for bf16 (O rounded to bf16).
 Backward (dq, dk, dv of kernels 2 and 3), relative to the largest gradient:
 1e-4 for f32 (summation order over up to 1024 keys), 2e-2 for bf16.
+Kernel 5, relative to the largest output, against a plain version whose
+f32 convolution runs without TF32: 1e-5 for f32 (summation order of
+27 * Cin products), 1e-2 for bf16 (the output is rounded to bf16, 2**-8 of
+its value, and a rare activation rounds the other way at a tie).
 """
 from __future__ import annotations
 
@@ -19,11 +24,14 @@ from generativemodels_tpu_torch.ops import (
     FLASH_BWD_DKV,
     FLASH_BWD_DQ,
     FLASH_FWD,
+    FUSED_CONV,
     flash_attention,
     flash_attention_backward,
     flash_attention_backward_reference,
     flash_attention_reference,
     flash_attention_with_lse,
+    fused_norm_silu_conv3d,
+    fused_norm_silu_conv3d_reference,
 )
 from generativemodels_tpu_torch.ops.flash_attention import _prescaled
 
@@ -119,3 +127,74 @@ def test_unported_contracts_raise_on_gpu(cuda_device):
     with pytest.raises(ValueError, match="head width"):
         FLASH_FWD(q[..., :16].contiguous(), q[..., :16].contiguous(), q[..., :16].contiguous(),
                   scale=0.1)
+
+
+def test_fused_conv_launcher_rejects_cpu_tensors():
+    x = torch.zeros(1, 4, 4, 4, 8)
+    before = FUSED_CONV.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        FUSED_CONV(x, torch.zeros(3, 3, 3, 8, 8), torch.ones(1, 8), torch.zeros(1, 8),
+                   torch.zeros(8))
+    assert FUSED_CONV.launches == before
+
+
+def _conv_inputs(device, b, d, h, w, cin, cout, dtype, channels_first, res_dtype):
+    g = torch.Generator(device).manual_seed(2)
+
+    def rand(*shape, mul=1.0):
+        return mul * torch.randn(shape, generator=g, device=device)
+
+    x = rand(b, cin, d, h, w) if channels_first else rand(b, d, h, w, cin)
+    x = x.to(dtype)
+    if channels_first:
+        x = x.permute(0, 2, 3, 4, 1)
+    res = None
+    if res_dtype is not None:
+        res = rand(b, cout, d, h, w).to(res_dtype).permute(0, 2, 3, 4, 1)
+    return (x, rand(3, 3, 3, cin, cout, mul=(27 * cin) ** -0.5).to(dtype),
+            1.0 + 0.1 * rand(b, cin), 0.1 * rand(b, cin), 0.1 * rand(cout), res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape, dtype, channels_first, res_dtype, apply_act",
+    [
+        ((1, 8, 16, 32, 32, 32), torch.float32, False, None, True),
+        ((1, 8, 16, 32, 32, 32), torch.bfloat16, True, torch.bfloat16, True),
+        ((2, 5, 7, 9, 40, 24), torch.float32, True, torch.float32, True),  # ragged
+        ((2, 5, 7, 9, 40, 24), torch.bfloat16, False, torch.float32, False),
+        ((1, 4, 6, 33, 96, 64), torch.bfloat16, True, None, True),
+        ((1, 4, 8, 8, 64, 128), torch.float32, True, torch.float32, True),
+        ((1, 3, 4, 70, 8, 130), torch.bfloat16, False, torch.bfloat16, True),  # 2 Cout tiles
+    ],
+)
+def test_fused_conv_matches_reference_on_gpu(cuda_device, monkeypatch, shape, dtype,
+                                             channels_first, res_dtype, apply_act):
+    # the plain version's f32 convolution in full f32: cuDNN takes TF32 by default
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, w, scale, shift, bias, res = _conv_inputs(cuda_device, *shape, dtype, channels_first,
+                                                 res_dtype)
+    before = FUSED_CONV.launches
+    got = fused_norm_silu_conv3d(x, w, scale, shift, bias, res, apply_act=apply_act)
+    want = fused_norm_silu_conv3d_reference(x, w, scale, shift, bias, res, apply_act)
+    torch.cuda.synchronize()
+    assert FUSED_CONV.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    if channels_first:  # the output keeps x's channels-first memory
+        assert got.permute(0, 4, 1, 2, 3).is_contiguous()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_fused_conv_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros(1, 4, 4, 4, 8, device=cuda_device)
+    w = torch.zeros(3, 3, 3, 8, 8, device=cuda_device)
+    one, zero = torch.ones(1, 8, device=cuda_device), torch.zeros(8, device=cuda_device)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        FUSED_CONV(x.half(), w.half(), one, one, zero)
+    with pytest.raises(ValueError, match="contiguous"):
+        FUSED_CONV(x[:, :, :, ::2], w, one, one, zero)
+    with pytest.raises(ValueError, match="scale"):
+        FUSED_CONV(x, w, torch.ones(1, 4, device=cuda_device), one, zero)
