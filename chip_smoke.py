@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU: build and check its kernels, serve,
-train, and sample the 3D 128^3 model.
+train, sample the 3D 128^3 model and train it.
 
 Run from the root of a checkout, with no arguments:
 
@@ -14,7 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      ptxas reports;
   2. kernels against their plain versions: O and lse of the flash-attention
      forward kernel against `flash_attention_reference`, dq, dk, dv of the
-     backward kernels against `flash_attention_backward_reference`, and the
+     split backward kernels and of the fused backward kernel against
+     `flash_attention_backward_reference` (the fused one also against the
+     split ones, with its run-to-run dq spread), and the
      fused GroupNorm-SiLU-conv3d kernel against
      `fused_norm_silu_conv3d_reference`, at the shapes the serving, training
      and 3D sampling paths and their neighbours use, with both times (CUDA
@@ -41,7 +43,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      forward in f32 and in bf16 and for every step of a DPM-10 chain; one
      profiled forward; then one POST /sample to
      `serve.build_sampler(solver="dpmsolver", ddim_steps=10)` on the 2D
-     serving config.
+     serving config;
+  6. 3D training: (a) `recipes.train_3d_ddpm.main` at bench.py's 3D training
+     config (UNet (32, 64, 128), bf16, 128^3, batch 1, no remat, lr 2.5e-5)
+     for ten steps, once with the split backward and once with
+     GMTPU_FLASH_FUSED_BWD=1, the launches counted; (b) one step's
+     parameter gradients with seeded random weights: in f32 at 64^3 the
+     split- and fused-kernel paths against the plain attention path, in
+     bf16 at 128^3 the fused path against the split path; (c) one profiled
+     training step at 128^3 with each backward.
 The second-to-last line is one JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -49,6 +59,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import base64
+import contextlib
 import io
 import json
 import os
@@ -70,6 +81,8 @@ KERNELS = {
     "flash_fwd": ("FLASH_FWD", "flash_fwd.cu", f"{TPU_KERNELS}:202"),  # _fwd_kernel
     "flash_bwd_dq": ("FLASH_BWD_DQ", "flash_bwd.cu", f"{TPU_KERNELS}:343"),  # _dq_kernel
     "flash_bwd_dkv": ("FLASH_BWD_DKV", "flash_bwd.cu", f"{TPU_KERNELS}:475"),  # _dkv_kernel
+    # _dfused_kernel, under GMTPU_FLASH_FUSED_BWD=1
+    "flash_bwd_fused": ("FLASH_BWD_FUSED", "flash_bwd.cu", f"{TPU_KERNELS}:572"),
     "fused_conv": ("FUSED_CONV", "fused_conv.cu", "generativemodels_tpu/ops/fused_conv.py:93"),
 }
 # the card's published peaks (H100 SXM data sheet, dense, 700 W): f32 on the
@@ -98,10 +111,20 @@ BACKWARD_CASES = (
     ("causal_f32", (4, 1024, 1024, 128), "float32", True),
     ("ragged_cross_f32", (2, 1000, 777, 64), "float32", False),
     ("head64_bf16", (2, 4096, 4096, 64), "bfloat16", False),
+    ("3d_level2_bf16", (2, 32768, 32768, 64), "bfloat16", False),  # the 3D training step's
 )
 # max|diff| / max|ref| of dq, dk, dv: f32 sums over 1024+ keys in another
 # order; bf16 rounds ds, p and the outputs to bf16
 BACKWARD_TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
+# the fused kernel's dq against the split kernel's, relative to max|dq|: the
+# same f32 products summed in another order (the key blocks' parts as the
+# atomics land); a bf16 dq may also round to the other side of a tie, one
+# bf16 ulp (2**-7 of the value's power of two)
+FUSED_DQ_RTOL = 1e-5
+# the plain backward holds several f32 (Sq, Sk) matrices of each head at
+# once: above this many elements in one it runs one head at a time (the 3D
+# shape: 4.3 GB a matrix)
+PLAIN_BACKWARD_MAX = 2**28
 SERVE = dict(spatial_dims=2, size=64, channels=(128, 256, 256), norm_groups=32, batch=4,
              ddim_steps=50)
 SEEDS = (0, 1, 0)
@@ -165,6 +188,42 @@ PROFILE_GROUPS = (
     ("cuDNN convolutions", ("xmma", "cudnn", "conv", "gemm")),
     ("GroupNorm and statistics", ("Moments", "reduce_kernel", "group_norm", "pow_tensor")),
     ("other", ("",)),
+)
+# bench.py's 3D training config (measure_3d_train_steps_per_sec) as recipe flags
+TRAIN_3D_ARGS = ("--size", "128", "--batch", "1", "--channels", "32", "64", "128",
+                 "--dtype", "bf16", "--no-remat", "--lr", "2.5e-5")
+# one 3D training step's launches: four attention blocks (down 2, mid, two in
+# up 0), each one forward and one backward; the training route keeps the
+# unfused ResnetBlock, as the JAX one does, so no kernel 5
+TRAIN_3D_LAUNCHES = {
+    "split": dict(flash_fwd=4, flash_bwd_dq=4, flash_bwd_dkv=4),
+    "fused": dict(flash_fwd=4, flash_bwd_fused=4),
+}
+GRAD_SIZE_3D = 64  # the f32 gradient check: attention at 16^3 = 4096 tokens, plain path fits
+# the bf16 gradients at 128^3, fused path vs split path, in the norm of all
+# parameters' gradients together, ||diff|| / ||grad||: the two differ only in
+# dq's f32 summation order, which moves a bf16 dq element by one ulp (2**-8
+# of it) at most; each layer before the attention may then round its bf16
+# backward to the other side, a few ulps of a gradient element at most, so
+# even every element off by 2**-8 would give 3.9e-3. The largest
+# max|diff| / max|grad| of one parameter is printed beside it, not checked:
+# where a small gradient is a sum of bf16 terms that cancel (the time
+# embedding's bias), one re-rounded term is ~1e-2 of it, as two runs of the
+# same fused path show
+BF16_GRAD_RTOL_3D = 1e-2
+# kernel groups of a 3D training step's profile, matched in this order by name
+TRAIN_PROFILE_GROUPS = (
+    ("flash_bwd_fused (kernel 4)", ("flash_bwd_fused",)),
+    ("flash_bwd_dq (kernel 2)", ("flash_bwd_dq",)),
+    ("flash_bwd_dkv (kernel 3)", ("flash_bwd_dkv",)),
+    ("flash_fwd (kernel 1)", ("flash_fwd",)),
+    ("cuDNN convolutions and cuBLAS products", ("xmma", "cudnn", "conv", "gemm", "Conv")),
+    ("GroupNorm forward and backward", ("Moments", "GroupNorm", "group_norm", "FusedParams",
+                                        "InternalGradients")),
+    ("copies, casts and fills", ("copy", "nchwToNhwc", "nhwcToNchw", "Memcpy", "Memset",
+                                 "fill")),
+    ("Adam", ("multi_tensor", "adam", "Adam")),
+    ("other (SiLU, adds, upsampling, loss)", ("",)),
 )
 
 
@@ -279,9 +338,20 @@ def check_kernel(torch, ops) -> dict:
     return results
 
 
+def fused_dq_atomics(bh: int, sq: int, sk: int, d: int, causal: bool) -> int:
+    """Kernel 4's float4 dq atomics: one for each 4 columns of each query row
+    that each key block's q loop reaches (64-key blocks at D <= 64, else 32;
+    under the causal mask the loop starts at the block's first key)."""
+    keys = 64 if d <= 64 else 32
+    rows = sum(sq - min(sq, k0) if causal else sq for k0 in range(0, sk, keys))
+    return bh * rows * d // 4
+
+
 def check_backward(torch, ops) -> dict:
-    """Phase 2, backward: dq of kernel 2 and dk, dv of kernel 3 against the
-    plain backward, from the forward kernel's O and log2 lse."""
+    """Phase 2, backward: dq of kernel 2, dk, dv of kernel 3 and all three of
+    kernel 4 against the plain backward, from the forward kernel's O and log2
+    lse; kernel 4 also against kernels 2 + 3 on the same inputs, and against
+    itself (dq's atomics sum in an order that varies from run to run)."""
     from generativemodels_tpu_torch.ops.flash_attention import _backward_rows, _prescaled
 
     results = {}
@@ -304,18 +374,43 @@ def check_backward(torch, ops) -> dict:
         def dkv_kernel():
             return ops.FLASH_BWD_DKV(qp, k, v, do2, lse2, delta, causal=causal)
 
+        def fused_kernel():
+            return ops.FLASH_BWD_FUSED(qp, k, v, do2, lse2, delta, causal=causal)
+
         def plain():
-            return ops.flash_attention_backward_reference(qp, k, v, out, lse2, dout, causal=causal)
+            if sq * sk <= PLAIN_BACKWARD_MAX:
+                return ops.flash_attention_backward_reference(
+                    qp, k, v, out, lse2, dout, causal=causal)
+            heads = [ops.flash_attention_backward_reference(
+                qp[i:i + 1], k[i:i + 1], v[i:i + 1], out[i:i + 1], lse2[i:i + 1],
+                dout[i:i + 1], causal=causal) for i in range(bh)]
+            return tuple(torch.cat(parts) for parts in zip(*heads))
 
         got = (dq_kernel(), *dkv_kernel())
+        fused, fused_again = fused_kernel(), fused_kernel()
         want = plain()
         torch.cuda.synchronize()
-        abs_err, rel_err = {}, {}
-        for label, a, b in zip(("dq", "dk", "dv"), got, want):
+        abs_err, rel_err, fused_abs, fused_rel = {}, {}, {}, {}
+        for label, a, f, b in zip(("dq", "dk", "dv"), got, fused, want):
+            ref = b.float().abs().max().item()
             abs_err[label] = (a.float() - b.float()).abs().max().item()
-            rel_err[label] = abs_err[label] / b.float().abs().max().item()
-        del got, want
+            rel_err[label] = abs_err[label] / ref
+            fused_abs[label] = (f.float() - b.float()).abs().max().item()
+            fused_rel[label] = fused_abs[label] / ref
+        # kernel 4 against kernels 2 + 3: dk, dv to the bit, dq by FUSED_DQ_RTOL
+        same_dkv = torch.equal(fused[1], got[1]) and torch.equal(fused[2], got[2])
+        dq_f, dq_s = fused[0].float(), got[0].float()
+        margin = FUSED_DQ_RTOL * dq_s.abs().max()
+        if dtype == torch.bfloat16:
+            margin = margin + torch.exp2(torch.floor(torch.log2(dq_s.abs().clamp_min(1e-30))) - 7)
+        dq_vs_split = ((dq_f - dq_s).abs().max() / dq_s.abs().max()).item()
+        dq_ok = bool(((dq_f - dq_s).abs() <= margin).all())
+        spread = (fused_again[0].float() - dq_f).abs().max().item()
+        spread_count = int((fused_again[0] != fused[0]).sum().item())
+        del got, want, fused, fused_again, dq_f, dq_s, margin
+        torch.cuda.empty_cache()
         ms_dq, ms_dkv, plain_ms = time_ms(dq_kernel), time_ms(dkv_kernel), time_ms(plain)
+        ms_fused = time_ms(fused_kernel)
         # SDPA's backward computes all of dq, dk, dv: the yardstick of both rows
         library_ms, backend = library_attention_ms(torch, q, k, v, scale, causal, dout=dout)
         pairs, esize = attention_pairs(sq, sk, causal), q.element_size()
@@ -323,22 +418,40 @@ def check_backward(torch, ops) -> dict:
         lim_dq = bound(6 * bh * pairs * d, bh * d * esize * (3 * sq + 2 * sk) + rows, dtype_name)
         lim_dkv = bound(8 * bh * pairs * d, bh * d * esize * (2 * sq + 4 * sk) + rows,
                         dtype_name)
+        lim_fused = bound(10 * bh * pairs * d, bh * d * esize * (3 * sq + 4 * sk) + rows,
+                          dtype_name)
         tol = BACKWARD_TOLERANCE[dtype_name]
         ok = all(e <= tol for e in rel_err.values())
+        fused_ok = all(e <= tol for e in fused_rel.values()) and same_dkv and dq_ok
         log(f"backward {name}: (BH={bh}, Sq={sq}, Sk={sk}, D={d}) {dtype_name} causal={causal} "
             + " ".join(f"max|d{x[1:]}|/max={rel_err[x]:.3e}" for x in ("dq", "dk", "dv"))
             + f" tol={tol:g}; dq kernel {ms_dq:.4f} ms (bound {lim_dq['bound_ms']:.4f}), "
             f"dkv kernel {ms_dkv:.4f} ms (bound {lim_dkv['bound_ms']:.4f}) "
             f"(sum {ms_dq + ms_dkv:.4f}), plain backward {plain_ms:.4f} ms, SDPA ({backend}) "
             f"backward {library_ms:.4f} ms -> {'ok' if ok else 'FAIL'}")
+        log(f"fused backward {name}: "
+            + " ".join(f"max|d{x[1:]}|/max={fused_rel[x]:.3e}" for x in ("dq", "dk", "dv"))
+            + f" tol={tol:g}; against kernels 2 + 3: dk, dv equal to the bit {same_dkv}, "
+            f"max|ddq|/max|dq| {dq_vs_split:.3e} (within {FUSED_DQ_RTOL:g}"
+            + (" + one bf16 ulp" if dtype == torch.bfloat16 else "") + f": {dq_ok}); "
+            f"two launches: max|ddq| {spread:.3e} in {spread_count} elements; "
+            f"{fused_dq_atomics(bh, sq, sk, d, causal):.4e} float4 dq atomics; fused kernel "
+            f"{ms_fused:.4f} ms (bound {lim_fused['bound_ms']:.4f} ms, {lim_fused['bound_by']}) "
+            f"against kernels 2 + 3 {ms_dq + ms_dkv:.4f} ms -> {'ok' if fused_ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"backward case {name} out of tolerance")
+        if not fused_ok:
+            raise AssertionError(f"fused backward case {name} out of tolerance")
         results[name] = dict(
             dq=dict(max_abs_err=abs_err["dq"], ms=ms_dq, plain_ms=plain_ms,
                     library_ms=library_ms, **lim_dq),
             dkv=dict(max_abs_err=max(abs_err["dk"], abs_err["dv"]), ms=ms_dkv, plain_ms=plain_ms,
                      library_ms=library_ms, **lim_dkv),
+            fused=dict(max_abs_err=max(fused_abs.values()), ms=ms_fused, plain_ms=plain_ms,
+                       library_ms=library_ms, **lim_fused),
         )
+        del q, k, v, dout, out, lse2, qp, do2, delta
+        torch.cuda.empty_cache()
     return results
 
 
@@ -545,6 +658,11 @@ def read_launches(ops) -> dict:
     return {name: getattr(ops, launcher).launches for name, (launcher, _, _) in KERNELS.items()}
 
 
+def expected_launches(steps: int = 1, **per_step) -> dict:
+    """Launch counts of every kernel in KERNELS: `per_step` times `steps`, 0 for the rest."""
+    return {name: per_step.get(name, 0) * steps for name in KERNELS}
+
+
 def check_launches(counts: dict, expected: dict, what: str) -> None:
     log(f"train: {what}: launches {counts} (expected {expected})")
     if counts != expected:
@@ -565,8 +683,9 @@ def train_recipe(torch, ops, recipe) -> dict:
         + ", ".join(f"{x:.5f}" for x in losses))
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
         raise AssertionError(f"recipe losses not finite: {losses}")
-    per_step = dict(flash_fwd=3, flash_bwd_dq=3, flash_bwd_dkv=3, fused_conv=0)  # 2D: no kernel 5
-    check_launches(counts, {n: c * TRAIN_STEPS for n, c in per_step.items()}, "recipe main")
+    # 2D: no kernel 5, and the split backward (GMTPU_FLASH_FUSED_BWD unset)
+    check_launches(counts, expected_launches(TRAIN_STEPS, flash_fwd=3, flash_bwd_dq=3,
+                                             flash_bwd_dkv=3), "recipe main")
     return dict(launches=counts, steps_per_sec=sps)
 
 
@@ -606,11 +725,32 @@ def train_bench(torch, ops, nets, parallel, schedulers) -> float:
         + ", ".join(f"{x:.5f}" for x in losses))
     if not all(np.isfinite(losses)):
         raise AssertionError(f"bench-config losses not finite: {losses}")
-    check_launches(counts, dict(flash_fwd=3 * TRAIN_STEPS, flash_bwd_dq=3 * TRAIN_STEPS,
-                                flash_bwd_dkv=3 * TRAIN_STEPS, fused_conv=0), "bench config")
+    check_launches(counts, expected_launches(TRAIN_STEPS, flash_fwd=3, flash_bwd_dq=3,
+                                             flash_bwd_dkv=3), "bench config")
     del state, model
     torch.cuda.empty_cache()
     return sps
+
+
+def max_grad_diff(got: dict, want: dict) -> tuple[float, str]:
+    """The worst max|diff| / max|grad| over the parameters and its name. Each
+    parameter's largest gradient is taken no smaller than 1e-3 of the
+    model's largest: the to_k biases' gradient is zero in exact arithmetic
+    (softmax ignores a shift shared by all keys)."""
+    floor = 1e-3 * max(w.abs().max().item() for w in want.values())
+    worst, worst_name = 0.0, ""
+    for n, w in want.items():
+        rel = (got[n].float() - w.float()).abs().max().item() / max(w.abs().max().item(), floor)
+        if rel > worst:
+            worst, worst_name = rel, n
+    return worst, worst_name
+
+
+def grad_norm_diff(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over all parameters' gradients together."""
+    num = sum(((got[n].float() - w.float()) ** 2).sum() for n, w in want.items())
+    den = sum((w.float() ** 2).sum() for w in want.values())
+    return (num / den).sqrt().item()
 
 
 def check_gradients(torch, ops, nets, parallel, schedulers, recipe) -> None:
@@ -645,23 +785,15 @@ def check_gradients(torch, ops, nets, parallel, schedulers, recipe) -> None:
         return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
     want = grads(models["plain"])
-    # the to_k biases' gradient is zero in exact arithmetic (softmax ignores a
-    # shift shared by all keys): each parameter's error is taken relative to
-    # its largest gradient, but to no less than 1e-3 of the model's largest
-    floor = 1e-3 * max(w.abs().max().item() for w in want.values())
     for label, model, fwd in (("kernel path", kernel_model, 3),
                               ("kernel path, use_checkpointing", models["checkpointed"], 6)):
         reset_launches(ops)
         got = grads(model)
         counts = read_launches(ops)
-        worst, worst_name = 0.0, ""
-        for n, w in want.items():
-            rel = (got[n] - w).abs().max().item() / max(w.abs().max().item(), floor)
-            if rel > worst:
-                worst, worst_name = rel, n
+        worst, worst_name = max_grad_diff(got, want)
         log(f"train: gradients at batch {GRAD_BATCH}, {label} vs plain path: worst "
             f"max|diff|/max|grad| = {worst:.3e} at {worst_name} (tol {GRAD_RTOL:g})")
-        check_launches(counts, dict(flash_fwd=fwd, flash_bwd_dq=3, flash_bwd_dkv=3, fused_conv=0),
+        check_launches(counts, expected_launches(flash_fwd=fwd, flash_bwd_dq=3, flash_bwd_dkv=3),
                        f"one step, {label}")
         if not worst <= GRAD_RTOL:
             raise AssertionError(f"{label}: gradients disagree with the plain path")
@@ -865,16 +997,21 @@ def profile_3d(torch, model) -> None:
             model(x, t)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+    report_profile(prof, wall, PROFILE_GROUPS, "3d: profile of one bf16 forward")
+
+
+def report_profile(prof, wall: float, profile_groups, what: str) -> None:
+    """Log the device time of a profiled window by group and by kernel, and
+    the device's busy share of its wall time (host clock)."""
     events = [e for e in prof.key_averages() if e.device_time_total > 0]
     total = sum(e.device_time_total for e in events)
     if total == 0:
         raise AssertionError("the profiler saw no device time")
-    log(f"3d: profile of one bf16 forward: {total / 1e3:.3f} ms of device time in "
-        f"{sum(e.count for e in events)} kernels, {wall * 1e3:.3f} ms of wall time (busy "
-        f"share {total / 1e6 / wall:.3f})")
-    groups = dict.fromkeys((name for name, _ in PROFILE_GROUPS), 0.0)
+    log(f"{what}: {total / 1e3:.3f} ms of device time in {sum(e.count for e in events)} "
+        f"kernels, {wall * 1e3:.3f} ms of wall time (busy share {total / 1e6 / wall:.3f})")
+    groups = dict.fromkeys((name for name, _ in profile_groups), 0.0)
     for e in events:
-        name = next(n for n, keys in PROFILE_GROUPS if any(k in e.key for k in keys))
+        name = next(n for n, keys in profile_groups if any(k in e.key for k in keys))
         groups[name] += e.device_time_total
     for name, us in groups.items():
         log(f"  group {name}: {us / 1e3:.3f} ms ({100 * us / total:.1f}%)")
@@ -906,6 +1043,141 @@ def serve_dpmsolver(torch, ops, serve) -> float:
     if launches != expected:
         raise AssertionError(f"flash_fwd launched {launches} times, expected {expected}")
     return seconds
+
+
+@contextlib.contextmanager
+def fused_backward(flag: str):
+    """Within the block, GMTPU_FLASH_FUSED_BWD is `flag` (read at each
+    backward); afterwards it is unset, so the split backward runs."""
+    os.environ["GMTPU_FLASH_FUSED_BWD"] = flag
+    try:
+        yield
+    finally:
+        os.environ.pop("GMTPU_FLASH_FUSED_BWD", None)
+
+
+BACKWARDS = (("split", "0"), ("fused", "1"))
+
+
+def train_3d_recipe(torch, ops, recipe3d) -> dict:
+    """Phase 6 (a): `recipes.train_3d_ddpm.main` at bench.py's 3D training
+    config for TRAIN_STEPS steps, once with each backward. Returns, for each,
+    the launches, steps/s (over the steps after two) and peak memory."""
+    results = {}
+    for label, flag in BACKWARDS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        with fused_backward(flag):
+            out = recipe3d.main([*TRAIN_3D_ARGS, "--steps", str(TRAIN_STEPS), "--device", DEVICE])
+        seconds = time.perf_counter() - t0
+        counts = read_launches(ops)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        losses, sps = out["losses"], out["steps_per_sec"]
+        log(f"train3d: recipe main, bench.py's 3D config (UNet (32, 64, 128), bf16, 128^3, "
+            f"batch 1, no remat, lr 2.5e-5), {label} backward: {TRAIN_STEPS} steps in "
+            f"{seconds:.2f} s; {sps:.4f} steps/s over steps 3-{TRAIN_STEPS} "
+            f"({1e3 / sps:.2f} ms a step); peak memory {peak:.2f} GiB; losses "
+            + ", ".join(f"{x:.5f}" for x in losses))
+        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"3D recipe losses not finite: {losses}")
+        check_launches(counts, expected_launches(TRAIN_STEPS, **TRAIN_3D_LAUNCHES[label]),
+                       f"3D recipe main, {label} backward")
+        results[label] = dict(launches=counts, steps_per_sec=sps, peak_gib=peak)
+        del out
+    return results
+
+
+def check_gradients_3d(torch, ops, nets, parallel, schedulers, recipe3d) -> None:
+    """Phase 6 (b): one step's parameter gradients of bench.py's 3D UNet with
+    seeded random weights, every path from the same volume, noise and
+    timestep: in f32 at GRAD_SIZE_3D^3 the split-kernel and the fused-kernel
+    paths against the plain attention path; in bf16 at 128^3 the fused path
+    against the split path, and against itself (the spread of dq's atomics)."""
+    step = parallel.make_diffusion_train_step(
+        schedulers.DDPMScheduler(num_train_timesteps=1000, device=DEVICE)
+    )
+
+    def draws(size: int, seed: int):
+        g = torch.Generator(DEVICE).manual_seed(seed)
+        images = recipe3d.synthetic_volume(g, 1, size, DEVICE) * 2 - 1
+        noise = torch.randn(images.shape, generator=g, device=DEVICE)
+        return images, noise, torch.randint(0, 1000, (1,), generator=g, device=DEVICE)
+
+    def grads(model, data, flag: str, expected: dict, what: str) -> dict:
+        model.zero_grad(set_to_none=True)
+        reset_launches(ops)
+        with fused_backward(flag):
+            step.loss_fn(model, *data).backward()
+        torch.cuda.synchronize()
+        check_launches(read_launches(ops), expected_launches(**expected), what)
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    data = draws(GRAD_SIZE_3D, 5)
+    kernel_model = model_3d(torch, nets)
+    randomize(torch, kernel_model)
+    plain = model_3d(torch, nets, use_flash_attention=False)
+    plain.load_state_dict(kernel_model.state_dict(), strict=True)
+    want = grads(plain, data, "0", {}, f"3D f32 step at {GRAD_SIZE_3D}^3, plain path")
+    for label, flag in BACKWARDS:
+        got = grads(kernel_model, data, flag, TRAIN_3D_LAUNCHES[label],
+                    f"3D f32 step at {GRAD_SIZE_3D}^3, {label} backward")
+        worst, worst_name = max_grad_diff(got, want)
+        log(f"train3d: gradients in f32 at {GRAD_SIZE_3D}^3, {label}-kernel path vs plain path: "
+            f"worst max|diff|/max|grad| = {worst:.3e} at {worst_name} (tol {GRAD_RTOL:g})")
+        if not worst <= GRAD_RTOL:
+            raise AssertionError(f"3D f32 gradients, {label} backward, disagree with the plain path")
+    del kernel_model, plain, want, got
+
+    data = draws(THREE_D["size"], 6)
+    model = model_3d(torch, nets, dtype=torch.bfloat16)
+    randomize(torch, model)
+    what = f"3D bf16 step at {THREE_D['size']}^3"
+    split = grads(model, data, "0", TRAIN_3D_LAUNCHES["split"], f"{what}, split backward")
+    fused = grads(model, data, "1", TRAIN_3D_LAUNCHES["fused"], f"{what}, fused backward")
+    again = grads(model, data, "1", TRAIN_3D_LAUNCHES["fused"], f"{what}, fused backward")
+    norm, worst = grad_norm_diff(fused, split), max_grad_diff(fused, split)
+    spread_norm, spread = grad_norm_diff(again, fused), max_grad_diff(again, fused)
+    log(f"train3d: gradients in bf16 at {THREE_D['size']}^3, fused path vs split path: "
+        f"||diff||/||grad|| = {norm:.3e} (tol {BF16_GRAD_RTOL_3D:g}), worst max|diff|/max|grad| "
+        f"= {worst[0]:.3e} at {worst[1]}; the fused path against itself: {spread_norm:.3e}, "
+        f"worst {spread[0]:.3e} at {spread[1]}")
+    if not norm <= BF16_GRAD_RTOL_3D:
+        raise AssertionError("3D bf16 gradients: the fused path disagrees with the split path")
+    del model, split, fused, again
+    torch.cuda.empty_cache()
+
+
+def profile_train_3d(torch, nets, parallel, schedulers) -> None:
+    """Phase 6 (c): device time of one bench.py 3D training step (bf16,
+    128^3, batch 1, Adam) with each backward, by group and by kernel, and the
+    busy share of the step's wall time (host clock, ending in a synchronize)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = model_3d(torch, nets, dtype=torch.bfloat16).train()
+    randomize(torch, model)
+    step = parallel.make_diffusion_train_step(
+        schedulers.DDPMScheduler(num_train_timesteps=1000, device=DEVICE)
+    )
+    state = parallel.init_train_state(model, torch.optim.Adam(model.parameters(), lr=2.5e-5))
+    g = torch.Generator(DEVICE).manual_seed(8)
+    images = torch.rand((THREE_D["batch"], 1) + (THREE_D["size"],) * 3, generator=g,
+                        device=DEVICE) * 2 - 1
+    for label, flag in BACKWARDS:
+        with fused_backward(flag):
+            for _ in range(2):
+                state, _ = step(state, images, g)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, _ = step(state, images, g)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        report_profile(prof, wall, TRAIN_PROFILE_GROUPS,
+                       f"train3d: profile of one bf16 training step, {label} backward")
+    del state, model
+    torch.cuda.empty_cache()
 
 
 def build_kernels(build_library) -> None:
@@ -951,7 +1223,9 @@ def main() -> int:
     from generativemodels_tpu_torch.ops.native import build_library
     from generativemodels_tpu_torch.recipes import serve
     from generativemodels_tpu_torch.recipes import train_2d_ddpm as recipe
+    from generativemodels_tpu_torch.recipes import train_3d_ddpm as recipe3d
 
+    t_start = time.perf_counter()
     # phase 1: card and build
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, "
@@ -985,17 +1259,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_dpmsolver(torch, ops, serve)
 
+    # phase 6: 3D training through its entry points, with each backward; the
+    # training route keeps the unfused ResnetBlock (phase 5 turned it on)
+    os.environ["GMTPU_FUSED_RESBLOCK"] = "0"
+    trained_3d = train_3d_recipe(torch, ops, recipe3d)
+    check_gradients_3d(torch, ops, nets, parallel, schedulers, recipe3d)
+    profile_train_3d(torch, nets, parallel, schedulers)
+
     # the numbers of each kernel at its main path's shape: serving for the
-    # forward, the recipe's batch 64 for the backward, the 128^3 96->32 call
-    # for kernel 5; launches from the recipe's run (kernels 1-3) and from the
-    # DDIM-50 3D sample (kernel 5)
+    # forward, the recipe's batch 64 for the split backward, the 3D training
+    # step's attention for the fused backward, the 128^3 96->32 call for
+    # kernel 5; launches from the 2D recipe's run (kernels 1-3), the fused 3D
+    # recipe's run (kernel 4) and the DDIM-50 3D sample (kernel 5)
     numbers = dict(
         flash_fwd=forward["serve_f32"],
         flash_bwd_dq=backward["train_recipe_f32"]["dq"],
         flash_bwd_dkv=backward["train_recipe_f32"]["dkv"],
+        flash_bwd_fused=backward["3d_level2_bf16"]["fused"],
         fused_conv=fused[FUSED_MAIN_CASE],
     )
-    launches = dict(trained["launches"], fused_conv=fused_launches)
+    launches = dict(trained["launches"], fused_conv=fused_launches,
+                    flash_bwd_fused=trained_3d["fused"]["launches"]["flash_bwd_fused"])
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=CSRC + source, replaces=replaces,
              launches=launches[name], **numbers[name])

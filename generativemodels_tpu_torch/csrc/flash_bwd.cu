@@ -1,13 +1,16 @@
 // Flash-attention backward for Hopper (sm_90a), plain C interface for ctypes.
 //
-// Replaces the Pallas TPU kernels of the split backward `_flash_bwd` in
-// generativemodels_tpu/ops/flash_attention.py: `_dq_kernel` (with _dq_tile)
-// becomes flash_bwd_dq_kernel, `_dkv_kernel` (with _dkv_tile) becomes
-// flash_bwd_dkv_kernel. Default contract, as flash_fwd.cu: q arrives
-// prescaled by scale*log2(e) (rounded to q's type), dO arrives multiplied by
-// ln2 (rounded to dO's type), lse2 is the forward's log2-domain lse and
-// delta = rowsum(dO ln2 * O) in f32; those three come from plain torch ops,
-// as JAX computes them in XLA outside its kernels. Both kernels recompute
+// Replaces the Pallas TPU kernels of the backward `_flash_bwd` in
+// generativemodels_tpu/ops/flash_attention.py: the split backward's
+// `_dq_kernel` (with _dq_tile) becomes flash_bwd_dq_kernel and `_dkv_kernel`
+// (with _dkv_tile) becomes flash_bwd_dkv_kernel; the fused backward's
+// `_dfused_kernel` (with _dfused_tile, run under GMTPU_FLASH_FUSED_BWD=1)
+// becomes flash_bwd_fused_kernel. The last two share one body, dkv_block.
+// Default contract, as flash_fwd.cu: q arrives prescaled by scale*log2(e)
+// (rounded to q's type), dO arrives multiplied by ln2 (rounded to dO's
+// type), lse2 is the forward's log2-domain lse and delta = rowsum(dO ln2 * O)
+// in f32; those three come from plain torch ops, as JAX computes them in XLA
+// outside its kernels. Every kernel recomputes
 //   p  = exp2(min(q.k, 80) - lse2)    (0 exactly for masked keys and rows)
 //   ds = p * (do.v - delta)           (the clamp's gradient is the identity)
 // and then dq = ds K; dk = ds^T Q; dv = round(p)^T dO * log2(e). For bf16
@@ -15,12 +18,13 @@
 // product takes bf16 operands (exact in f32) with f32 accumulation; for f32
 // inputs everything is f32 on the CUDA cores, with no TF32.
 //
-// What bounds it on this card: at the training shape (BH=128, S=1024,
-// D=256) the two kernels do 3 + 4 = 7 BH*S*S*D multiply-adds (the forward
+// What bounds it on this card: at the 2D training shape (BH=128, S=1024,
+// D=256) the split kernels do 3 + 4 = 7 BH*S*S*D multiply-adds (the forward
 // does 2) on 4 operand tensors of 64 MB (bf16) that a block reads tile by
-// tile from L2, so they are bound by arithmetic. This first version runs
-// all products as f32 FMAs on the CUDA cores with operands in shared memory,
-// so shared-memory bandwidth and the FMA rate bound it, far below the
+// tile from L2, so they are bound by arithmetic; the fused kernel shares the
+// s and dp recomputations and does 5. This first version runs all products
+// as f32 FMAs on the CUDA cores with operands in shared memory, so
+// shared-memory bandwidth and the FMA rate bound it, far below the
 // tensor-core rate; wgmma with TMA is later work.
 // What the design does about it:
 // - dq (kernel 2): one block per (bh, 32 query rows), 4 warps of 8 rows,
@@ -38,11 +42,28 @@
 //   columns of each (64 registers). K and V of the block stay in shared
 //   memory; Q and dO tiles are padded as K and V are in dq. The P and dS
 //   rows of a warp's keys are private to that warp.
-// Both are deterministic: dq rows belong to one block, dK/dV rows to one
-// block, and no atomics are used. Under the causal mask, tiles wholly above
-// the diagonal are skipped (the conditions of _dq_kernel and _dkv_kernel);
-// rows past Sq and keys past Sk get p == 0 and are not written. Shared
-// memory is dynamic (about 135 KB at D=256), above the 48 KB static limit.
+// - fused (kernel 4): kernel 3's loop with a third product per q tile, the
+//   tile's dq part ds^T K over the block's keys, which every thread reads
+//   from shared memory after a block barrier (ds of all warps' keys). The
+//   TPU kernel writes one f32 partial-dq slab per kv tile and sums them in
+//   XLA; at the 3D shape (BH=2, S=32768, D=64) that would be hundreds of
+//   16 MiB slabs. Here each block adds its part into one zeroed f32 (BH, Sq,
+//   D) buffer with vector atomics (atomicAdd on float4, sm_90): a thread
+//   owns 4 columns of D/32 rows, so a warp adds 16-byte pieces of whole rows.
+//   The atomics number BH * Sq * D/4 * ceil(Sk / BK) (5.4e8 at the 3D shape
+//   with BK = 64), so the block takes BK = 64 keys (8 warps of 8 keys) at
+//   D <= 64; at D >= 128 the dK and dV accumulators leave room for 32 keys
+//   only. dK and dV follow kernel 3's per-element order (the same q tiles in
+//   the same order, the same FMA chain; the extra causal q tiles of a
+//   64-key block add exact zeros), so they equal kernel 3's to the bit. dq
+//   sums the blocks' parts in the order the atomics land, which varies from
+//   run to run within f32 rounding; the caller casts it once.
+// Kernels 2 and 3 are deterministic: dq rows belong to one block, dK/dV
+// rows to one block, and no atomics are used. Under the causal mask, tiles
+// wholly above the diagonal are skipped (the conditions of _dq_kernel and
+// _dkv_kernel); rows past Sq and keys past Sk get p == 0 and are not
+// written. Shared memory is dynamic (about 140 KB at D=256), above the
+// 48 KB static limit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,12 +71,17 @@
 
 namespace {
 
-constexpr int kBlock = 32;  // query rows of a q tile and keys of a kv tile
+constexpr int kBlock = 32;  // query rows of a q tile, keys of kernel 2's kv tile
 constexpr int kDqThreads = 128;  // 4 warps x 8 query rows
 constexpr int kDqRowsPerWarp = 8;
-constexpr int kDkvThreads = 256;  // 8 warps x 4 keys
-constexpr int kDkvKeysPerWarp = 4;
+constexpr int kDkvWarps = 8;
+constexpr int kDkvThreads = 32 * kDkvWarps;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Keys a warp owns in the dkv-shaped kernels: kernel 3 always 4 (32-key
+// blocks); kernel 4 8 at D <= 64 (64-key blocks), else 4.
+template <bool Fused, int D>
+constexpr int kKeysPerWarpOf = Fused && D <= 64 ? 8 : 4;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -79,14 +105,14 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Copy `kBlock` rows of width D (row-major, contiguous) into shared memory
-// as f32 with row stride `ld`; rows at or past `valid` are zero-filled.
-template <typename T, int D, int NThreads>
+// Copy `Rows` rows of width D (row-major, contiguous) into shared memory as
+// f32 with row stride `ld`; rows at or past `valid` are zero-filled.
+template <typename T, int D, int NThreads, int Rows = kBlock>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* __restrict__ src,
                                           int valid) {
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int kVecsPerRow = D / kVec;
-  for (int i = threadIdx.x; i < kBlock * kVecsPerRow; i += NThreads) {
+  for (int i = threadIdx.x; i < Rows * kVecsPerRow; i += NThreads) {
     const int r = i / kVecsPerRow;
     const int c = (i % kVecsPerRow) * kVec;
     float vals[kVec];
@@ -124,11 +150,14 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-template <int D>
+// Shared memory of kernel 2 (Keys = 32) and of the dkv-shaped kernels (Keys
+// = their block's keys): two tiles of Keys rows at stride D, two of 32 rows
+// at stride D + 4, two Keys x 32 tiles (dkv: P and dS; dq uses one), lse2
+// and delta rows.
+template <int D, int Keys = kBlock>
 constexpr size_t smem_bytes() {
-  // two tiles at stride D, two at stride D + 4, two 32 x 32 tiles (dkv: P
-  // and dS; dq uses one), lse2 and delta rows
-  return sizeof(float) * (2 * kBlock * D + 2 * kBlock * (D + 4) + 2 * kBlock * kBlock + 2 * kBlock);
+  return sizeof(float) *
+         (2 * Keys * D + 2 * kBlock * (D + 4) + 2 * Keys * kBlock + 2 * kBlock);
 }
 
 // Kernel 2. Grid: one block per (bh, 32-row query block), flattened into blockIdx.x.
@@ -244,43 +273,55 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-// Kernel 3. Grid: one block per (bh, 32-key block), flattened into blockIdx.x.
-template <typename T, int D>
-__global__ void __launch_bounds__(kDkvThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse2,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int sq, int sk, int num_kb, int causal) {
+// The block of kernels 3 (Fused = false) and 4 (Fused = true). Grid: one
+// block per (bh, kKeys-key block), flattened into blockIdx.x. Kernel 4 also
+// adds each q tile's dq part into `dq_acc`, f32 (bh, sq, D), zeroed by the
+// caller; kernel 3 gets nullptr there.
+template <typename T, int D, bool Fused>
+__device__ __forceinline__ void dkv_block(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse2, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int sq, int sk,
+    int num_kb, int causal) {
   static_assert(D % 32 == 0, "head width must be a multiple of 32");
+  constexpr int kKeysPerWarp = kKeysPerWarpOf<Fused, D>;
+  constexpr int kKeys = kDkvWarps * kKeysPerWarp;  // keys of the block
   constexpr int kLd = D + 4;
   constexpr int kCols = D / 32;  // accumulator columns per lane
   extern __shared__ __align__(16) float smem[];
-  float* sK = smem;                  // kBlock x D
-  float* sV = sK + kBlock * D;       // kBlock x D
-  float* sQ = sV + kBlock * D;       // kBlock x kLd
+  float* sK = smem;                  // kKeys x D
+  float* sV = sK + kKeys * D;        // kKeys x D
+  float* sQ = sV + kKeys * D;        // kBlock x kLd
   float* sDO = sQ + kBlock * kLd;    // kBlock x kLd
-  float* sP = sDO + kBlock * kLd;    // kBlock keys x kBlock rows
-  float* sDS = sP + kBlock * kBlock; // kBlock keys x kBlock rows
-  float* sLse = sDS + kBlock * kBlock;
+  float* sP = sDO + kBlock * kLd;    // kKeys keys x kBlock rows
+  float* sDS = sP + kKeys * kBlock;  // kKeys keys x kBlock rows
+  float* sLse = sDS + kKeys * kBlock;
   float* sDelta = sLse + kBlock;
 
   const int bh = blockIdx.x / num_kb;
-  const int k0 = (blockIdx.x % num_kb) * kBlock;
+  const int k0 = (blockIdx.x % num_kb) * kKeys;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int c0 = warp * kDkvKeysPerWarp;  // first tile key of this warp
-  const int kvalid = min(kBlock, sk - k0);
+  const int c0 = warp * kKeysPerWarp;  // first tile key of this warp
+  const int kvalid = min(kKeys, sk - k0);
   const size_t key0 = static_cast<size_t>(bh) * sk + k0;
 
-  load_tile<T, D, kDkvThreads>(sK, D, k + key0 * D, kvalid);
-  load_tile<T, D, kDkvThreads>(sV, D, v + key0 * D, kvalid);
+  load_tile<T, D, kDkvThreads, kKeys>(sK, D, k + key0 * D, kvalid);
+  load_tile<T, D, kDkvThreads, kKeys>(sV, D, v + key0 * D, kvalid);
 
-  float acc_k[kDkvKeysPerWarp][kCols], acc_v[kDkvKeysPerWarp][kCols];
+  float acc_k[kKeysPerWarp][kCols], acc_v[kKeysPerWarp][kCols];
 #pragma unroll
-  for (int i = 0; i < kDkvKeysPerWarp; ++i) {
+  for (int i = 0; i < kKeysPerWarp; ++i) {
 #pragma unroll
     for (int j = 0; j < kCols; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
   }
+
+  // kernel 4's dq part: a thread owns the 4 columns at `dq_col` of the
+  // kDqRows tile rows from `dq_row`
+  constexpr int kColVecs = D / 4;
+  constexpr int kDqRows = kBlock * kColVecs / kDkvThreads;  // D / 32
+  const int dq_col = (threadIdx.x % kColVecs) * 4;
+  const int dq_row = (threadIdx.x / kColVecs) * kDqRows;
 
   const T* qb = q + static_cast<size_t>(bh) * sq * D;
   const T* ob = dout + static_cast<size_t>(bh) * sq * D;
@@ -295,9 +336,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     __syncthreads();
 
     // s[i] = q[lane] . k[c0 + i], dp[i] = do[lane] . v[c0 + i]
-    float s[kDkvKeysPerWarp], dp[kDkvKeysPerWarp];
+    float s[kKeysPerWarp], dp[kKeysPerWarp];
 #pragma unroll
-    for (int i = 0; i < kDkvKeysPerWarp; ++i) s[i] = dp[i] = 0.f;
+    for (int i = 0; i < kKeysPerWarp; ++i) s[i] = dp[i] = 0.f;
     const float* qrow = sQ + lane * kLd;
     const float* orow = sDO + lane * kLd;
 #pragma unroll 2
@@ -305,7 +346,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       const float4 qq = *reinterpret_cast<const float4*>(qrow + d);
       const float4 oo = *reinterpret_cast<const float4*>(orow + d);
 #pragma unroll
-      for (int i = 0; i < kDkvKeysPerWarp; ++i) {
+      for (int i = 0; i < kKeysPerWarp; ++i) {
         s[i] = dot4(qq, *reinterpret_cast<const float4*>(sK + (c0 + i) * D + d), s[i]);
         dp[i] = dot4(oo, *reinterpret_cast<const float4*>(sV + (c0 + i) * D + d), dp[i]);
       }
@@ -315,22 +356,26 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const float lse_r = sLse[lane];
     const float delta_r = sDelta[lane];
 #pragma unroll
-    for (int i = 0; i < kDkvKeysPerWarp; ++i) {
+    for (int i = 0; i < kKeysPerWarp; ++i) {
       const int col = k0 + c0 + i;
       const bool live = row < sq && col < sk && (!causal || col <= row);
       const float p = live ? exp2f(fminf(s[i], 80.f) - lse_r) : 0.f;
       sP[(c0 + i) * kBlock + lane] = round_to<T>(p);
       sDS[(c0 + i) * kBlock + lane] = round_to<T>(p * (dp[i] - delta_r));
     }
-    __syncwarp();
+    if constexpr (Fused) {
+      __syncthreads();  // the dq part reads the dS rows of every warp's keys
+    } else {
+      __syncwarp();
+    }
 
     // acc_v[i][j] += sum_r p[c0 + i][r] * do[r][lane + 32 j]
     // acc_k[i][j] += sum_r ds[c0 + i][r] * q[r][lane + 32 j]
 #pragma unroll 1
     for (int r = 0; r < kBlock; r += 4) {
-      float4 pp[kDkvKeysPerWarp], dd[kDkvKeysPerWarp];
+      float4 pp[kKeysPerWarp], dd[kKeysPerWarp];
 #pragma unroll
-      for (int i = 0; i < kDkvKeysPerWarp; ++i) {
+      for (int i = 0; i < kKeysPerWarp; ++i) {
         pp[i] = *reinterpret_cast<const float4*>(sP + (c0 + i) * kBlock + r);
         dd[i] = *reinterpret_cast<const float4*>(sDS + (c0 + i) * kBlock + r);
       }
@@ -342,16 +387,42 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         const float4 qq = make_float4(sQ[(r + 0) * kLd + cj], sQ[(r + 1) * kLd + cj],
                                       sQ[(r + 2) * kLd + cj], sQ[(r + 3) * kLd + cj]);
 #pragma unroll
-        for (int i = 0; i < kDkvKeysPerWarp; ++i) {
+        for (int i = 0; i < kKeysPerWarp; ++i) {
           acc_v[i][j] = dot4(pp[i], oo, acc_v[i][j]);
           acc_k[i][j] = dot4(dd[i], qq, acc_k[i][j]);
+        }
+      }
+    }
+
+    if constexpr (Fused) {
+      // part[m] = sum_c ds[c][dq_row + m] * k[c][dq_col .. dq_col + 3]
+      float4 part[kDqRows];
+#pragma unroll
+      for (int m = 0; m < kDqRows; ++m) part[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int c = 0; c < kKeys; ++c) {
+        const float4 kk = *reinterpret_cast<const float4*>(sK + c * D + dq_col);
+#pragma unroll
+        for (int m = 0; m < kDqRows; ++m) {
+          const float ds = sDS[c * kBlock + dq_row + m];
+          part[m].x = fmaf(ds, kk.x, part[m].x);
+          part[m].y = fmaf(ds, kk.y, part[m].y);
+          part[m].z = fmaf(ds, kk.z, part[m].z);
+          part[m].w = fmaf(ds, kk.w, part[m].w);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kDqRows; ++m) {
+        if (dq_row + m < qvalid) {
+          atomicAdd(reinterpret_cast<float4*>(dq_acc + (row0 + dq_row + m) * D + dq_col),
+                    part[m]);
         }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < kDkvKeysPerWarp; ++i) {
+  for (int i = 0; i < kKeysPerWarp; ++i) {
     const int key = k0 + c0 + i;
     if (key >= sk) continue;
     const size_t off = (static_cast<size_t>(bh) * sk + key) * D;
@@ -364,9 +435,30 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+// Kernel 3 and kernel 4: one signature, so that one launcher serves both.
+template <typename T, int D>
+__global__ void __launch_bounds__(kDkvThreads) flash_bwd_dkv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse2, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int sq, int sk,
+    int num_kb, int causal) {
+  dkv_block<T, D, false>(q, k, v, dout, lse2, delta, dk, dv, dq_acc, sq, sk, num_kb, causal);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kDkvThreads) flash_bwd_fused_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse2, const float* __restrict__ delta,
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int sq, int sk,
+    int num_kb, int causal) {
+  dkv_block<T, D, true>(q, k, v, dout, lse2, delta, dk, dv, dq_acc, sq, sk, num_kb, causal);
+}
+
+enum class Entry { kDq, kDkv, kFused };
+
 struct Args {
   const void *q, *k, *v, *dout, *lse2, *delta;
-  void *out0, *out1;  // dq, or dk and dv
+  void *out0, *out1, *out2;  // dq; or dk and dv; or the f32 dq buffer, dk and dv
   int bh, sq, sk, causal;
   cudaStream_t stream;
 };
@@ -386,39 +478,51 @@ int launch_dq(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool Fused>
 int launch_dkv(const Args& a) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  constexpr int keys = kDkvWarps * kKeysPerWarpOf<Fused, D>;
+  constexpr size_t smem = smem_bytes<D, keys>();
+  auto kernel = Fused ? flash_bwd_fused_kernel<T, D> : flash_bwd_dkv_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int num_kb = (a.sk + kBlock - 1) / kBlock;
+  const int num_kb = (a.sk + keys - 1) / keys;
+  void* dk = Fused ? a.out1 : a.out0;
+  void* dv = Fused ? a.out2 : a.out1;
   kernel<<<num_kb * a.bh, kDkvThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse2),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.sq,
-      a.sk, num_kb, a.causal);
+      static_cast<const float*>(a.delta), static_cast<T*>(dk), static_cast<T*>(dv),
+      Fused ? static_cast<float*>(a.out0) : nullptr, a.sq, a.sk, num_kb, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool Dkv, typename T>
+template <Entry E, typename T, int D>
+int launch_entry(const Args& a) {
+  if constexpr (E == Entry::kDq) {
+    return launch_dq<T, D>(a);
+  } else {
+    return launch_dkv<T, D, E == Entry::kFused>(a);
+  }
+}
+
+template <Entry E, typename T>
 int launch_d(const Args& a, int d) {
   switch (d) {
-    case 32: return Dkv ? launch_dkv<T, 32>(a) : launch_dq<T, 32>(a);
-    case 64: return Dkv ? launch_dkv<T, 64>(a) : launch_dq<T, 64>(a);
-    case 128: return Dkv ? launch_dkv<T, 128>(a) : launch_dq<T, 128>(a);
-    case 256: return Dkv ? launch_dkv<T, 256>(a) : launch_dq<T, 256>(a);
+    case 32: return launch_entry<E, T, 32>(a);
+    case 64: return launch_entry<E, T, 64>(a);
+    case 128: return launch_entry<E, T, 128>(a);
+    case 256: return launch_entry<E, T, 256>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool Dkv>
+template <Entry E>
 int launch(const Args& a, int d, int dtype, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dtype == 0) return launch_d<Dkv, float>(a, d);
-  if (dtype == 1) return launch_d<Dkv, __nv_bfloat16>(a, d);
+  if (dtype == 0) return launch_d<E, float>(a, d);
+  if (dtype == 1) return launch_d<E, __nv_bfloat16>(a, d);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -431,9 +535,9 @@ int launch(const Args& a, int d, int dtype, int device) {
 extern "C" int gm_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse2, const void* delta, void* dq, int bh, int sq,
                                int sk, int d, int dtype, int causal, int device, void* stream) {
-  const Args a{q, k, v, dout, lse2, delta, dq, nullptr, bh, sq, sk, causal,
+  const Args a{q, k, v, dout, lse2, delta, dq, nullptr, nullptr, bh, sq, sk, causal,
                static_cast<cudaStream_t>(stream)};
-  return launch<false>(a, d, dtype, device);
+  return launch<Entry::kDq>(a, d, dtype, device);
 }
 
 // The same inputs; dk and dv (bh, sk, d) in the input type.
@@ -441,7 +545,18 @@ extern "C" int gm_flash_bwd_dkv(const void* q, const void* k, const void* v, con
                                 const void* lse2, const void* delta, void* dk, void* dv, int bh,
                                 int sq, int sk, int d, int dtype, int causal, int device,
                                 void* stream) {
-  const Args a{q, k, v, dout, lse2, delta, dk, dv, bh, sq, sk, causal,
+  const Args a{q, k, v, dout, lse2, delta, dk, dv, nullptr, bh, sq, sk, causal,
                static_cast<cudaStream_t>(stream)};
-  return launch<true>(a, d, dtype, device);
+  return launch<Entry::kDkv>(a, d, dtype, device);
+}
+
+// The same inputs; one launch adds dq into `dq_acc`, f32 (bh, sq, d) and
+// zeroed by the caller, and writes dk and dv (bh, sk, d) in the input type.
+extern "C" int gm_flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout,
+                                  const void* lse2, const void* delta, void* dq_acc, void* dk,
+                                  void* dv, int bh, int sq, int sk, int d, int dtype, int causal,
+                                  int device, void* stream) {
+  const Args a{q, k, v, dout, lse2, delta, dq_acc, dk, dv, bh, sq, sk, causal,
+               static_cast<cudaStream_t>(stream)};
+  return launch<Entry::kFused>(a, d, dtype, device);
 }

@@ -3,6 +3,7 @@ from .embeddings import get_timestep_embedding
 from .flash_attention import (
     FLASH_BWD_DKV,
     FLASH_BWD_DQ,
+    FLASH_BWD_FUSED,
     FLASH_FWD,
     flash_attention,
     flash_attention_backward,
@@ -20,6 +21,7 @@ from .fused_conv import (
 __all__ = [
     "FLASH_BWD_DKV",
     "FLASH_BWD_DQ",
+    "FLASH_BWD_FUSED",
     "FLASH_FWD",
     "FUSED_CONV",
     "dot_product_attention",

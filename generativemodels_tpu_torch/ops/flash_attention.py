@@ -2,11 +2,12 @@
 
 Counterpart of generativemodels_tpu/ops/flash_attention.py. The Pallas TPU
 kernels become kernels written for Hopper: the forward `_fwd_kernel` is
-`csrc/flash_fwd.cu`, the split backward `_dq_kernel` and `_dkv_kernel` is
-`csrc/flash_bwd.cu`; each source's header says what bounds it and how it is
-laid out. `flash_attention_reference` and `flash_attention_backward_reference`
-are plain PyTorch code for the same functions and contract: the CPU path,
-and what the kernels are held against.
+`csrc/flash_fwd.cu`; the split backward `_dq_kernel` and `_dkv_kernel` and
+the fused backward `_dfused_kernel` are `csrc/flash_bwd.cu`; each source's
+header says what bounds it and how it is laid out.
+`flash_attention_reference` and `flash_attention_backward_reference` are
+plain PyTorch code for the same functions and contract: the CPU path, and
+what the kernels are held against.
 
 The contract is the JAX default (exp2 domain, `no_max`): q is prescaled by
 scale*log2(e) in q's type, scores are clamped at 80 with no running max,
@@ -16,7 +17,9 @@ f32 accumulation; for bf16, p is rounded to bf16 before the PV product.
 The backward treats the clamp as the identity, as the JAX backward does.
 
 `flash_attention` is differentiable through `_FlashAttention`, whose
-backward runs the two backward kernels (or the plain backward on the CPU).
+backward runs the two split backward kernels or, with
+GMTPU_FLASH_FUSED_BWD=1 (read at each backward, as the JAX backward reads
+it), the fused one (the plain backward on the CPU in both cases).
 A wrapper takes the plain version only for tensors on the CPU. On a CUDA
 tensor it launches the kernel or raises; `upcast=True` and `no_max=False`
 are not ported to the kernels and raise NotImplementedError there.
@@ -24,6 +27,7 @@ are not ported to the kernels and raise NotImplementedError there.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -127,6 +131,10 @@ def flash_attention_backward_reference(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch backward of the default contract, formula by formula
     the JAX split backward (`_flash_bwd` with `_dq_kernel` and `_dkv_kernel`).
+    It is the plain version of the fused backward too: `_dfused_kernel`
+    computes the same function (s and dp once, dq summed over the key tiles
+    in f32 before the one cast), so the CPU path serves both settings of
+    GMTPU_FLASH_FUSED_BWD.
 
     Args:
         q_prescaled: (BH, Sq, D), q already multiplied by the rounded
@@ -233,6 +241,26 @@ class FlashBackwardDkvKernel(_FlashBackwardKernel):
         return dk, dv
 
 
+class FlashBackwardFusedKernel(_FlashBackwardKernel):
+    """Launcher of the fused entry point of `csrc/flash_bwd.cu` (replaces
+    `_dfused_kernel`)."""
+
+    symbol = "gm_flash_bwd_fused"
+    argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) * 3 + _BWD_ARGTYPES[6:]
+
+    def __call__(
+        self, q, k, v, dout, lse2, delta, *, causal: bool = False
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(dq, dk, dv) from the same inputs as the split launchers, in one
+        launch. The kernel adds dq into one zeroed f32 buffer with atomics,
+        in place of the TPU kernel's f32 partial slab per kv tile; the
+        buffer is cast once to the input type here."""
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        self._run((dq, dk, dv), q, k, v, dout, lse2, delta, causal)
+        return dq.to(q.dtype), dk, dv
+
+
 def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
@@ -269,6 +297,13 @@ def _check_backward_rows(q, dout, lse2, delta) -> None:
 FLASH_FWD = FlashForwardKernel()
 FLASH_BWD_DQ = FlashBackwardDqKernel()
 FLASH_BWD_DKV = FlashBackwardDkvKernel()
+FLASH_BWD_FUSED = FlashBackwardFusedKernel()
+
+
+def _fused_backward_enabled() -> bool:
+    """GMTPU_FLASH_FUSED_BWD=1 selects the fused backward (kernel 4), read at
+    each backward as `generativemodels_tpu/ops/flash_attention.py` reads it."""
+    return os.environ.get("GMTPU_FLASH_FUSED_BWD", "0") == "1"
 
 
 def flash_attention_backward(
@@ -281,14 +316,17 @@ def flash_attention_backward(
     *,
     causal: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward of the default contract: kernels 2 and 3 on CUDA tensors,
+    """The backward of the default contract: on CUDA tensors kernels 2 and 3,
+    or kernel 4 alone when `_fused_backward_enabled()`;
     `flash_attention_backward_reference` (same arguments, same results) on
-    CPU tensors."""
+    CPU tensors, whatever the setting."""
     if q_prescaled.device.type == "cpu":
         return flash_attention_backward_reference(
             q_prescaled, k, v, out, lse2, dout, causal=causal
         )
     dout, delta = _backward_rows(out, dout)
+    if _fused_backward_enabled():
+        return FLASH_BWD_FUSED(q_prescaled, k, v, dout, lse2, delta, causal=causal)
     dq = FLASH_BWD_DQ(q_prescaled, k, v, dout, lse2, delta, causal=causal)
     dk, dv = FLASH_BWD_DKV(q_prescaled, k, v, dout, lse2, delta, causal=causal)
     return dq, dk, dv
@@ -296,7 +334,8 @@ def flash_attention_backward(
 
 class _FlashAttention(torch.autograd.Function):
     """Kernel 1 forward (plain version on the CPU); backward by kernels 2 and
-    3 (plain backward on the CPU), never by autograd through the clamp."""
+    3 or kernel 4 (plain backward on the CPU), never by autograd through the
+    clamp."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float, causal: bool):

@@ -1,0 +1,109 @@
+"""The port's backward under GMTPU_FLASH_FUSED_BWD=1 against `jax.grad` of
+the JAX kernel with its fused backward.
+
+The JAX side differentiates `flash_attention(..., interpret=True,
+block_q=128, block_k=128)` with the variable set by `monkeypatch.setenv`,
+so its custom VJP runs the Pallas kernel `_dfused_kernel` in interpret
+mode: dq as per-kv-tile partial slabs summed outside the kernel. The port's
+CPU gradients run with the same setting; on CPU tensors the plain backward
+`flash_attention_backward_reference` serves it, because the fused kernel
+computes the same function as the split ones (on the card, kernel 4 is held
+against it by tests/test_torch_kernels_gpu.py and chip_smoke.py). The
+inputs are those of tests/test_ops.py's TestFlashFusedBackward (seeds 11
+and 12: several kv tiles, causal, ragged kv) and a clamp case (q x 100,
+natural logits far past the no-max clamp), with the loss sum(out**2) on both
+sides. f32 compares at rtol 1e-5 and atol 1e-5 x max(1, max|grad|), as
+tests/test_torch_flash_backward.py does (summation order only); bf16 at
+2e-2 of the largest gradient (p, ds and the outputs rounded to bf16).
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from generativemodels_tpu.ops.flash_attention import flash_attention as jflash
+from generativemodels_tpu_torch.ops import (
+    FLASH_BWD_DKV,
+    FLASH_BWD_DQ,
+    FLASH_BWD_FUSED,
+    FLASH_FWD,
+    flash_attention,
+)
+
+F32_TOL = 1e-5
+BF16_REL = 2e-2
+SCALE = 1 / 8.0
+
+# name: (numpy seed, BH, Sq, Sk, D, causal, q multiplier)
+CASES = {
+    "multi_ktile": (11, 2, 256, 512, 64, False, 1.0),  # 4 kv tiles of 128, 2 q tiles
+    "causal": (11, 2, 256, 256, 64, True, 1.0),
+    "ragged_kv": (12, 2, 256, 320, 64, False, 1.0),  # a padded last kv tile
+    "clamp": (11, 2, 256, 512, 64, False, 100.0),
+}
+
+
+def _inputs(seed, bh, sq, sk, d, mult):
+    rng = np.random.RandomState(seed)
+    q = rng.standard_normal((bh, sq, d)).astype(np.float32)
+    k = rng.standard_normal((bh, sk, d)).astype(np.float32)
+    v = rng.standard_normal((bh, sk, d)).astype(np.float32)
+    return q * np.float32(mult), k, v
+
+
+def _jax_grads(q, k, v, *, causal, dtype=jnp.float32):
+    def f(q, k, v):
+        out = jflash(q, k, v, scale=SCALE, causal=causal, interpret=True,
+                     block_q=128, block_k=128)
+        return jnp.sum(out.astype(jnp.float32) ** 2)
+
+    args = [jnp.asarray(a, dtype=dtype) for a in (q, k, v)]
+    return [np.asarray(x, dtype=np.float32) for x in jax.grad(f, argnums=(0, 1, 2))(*args)]
+
+
+def _port_grads(q, k, v, *, causal, dtype=torch.float32):
+    qkv = [torch.from_numpy(a).to(dtype).requires_grad_() for a in (q, k, v)]
+    out = flash_attention(*qkv, scale=SCALE, causal=causal)
+    (out.float() ** 2).sum().backward()
+    return [t.grad.float().numpy() for t in qkv]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_fused_backward_matches_jax(name, monkeypatch):
+    monkeypatch.setenv("GMTPU_FLASH_FUSED_BWD", "1")
+    seed, bh, sq, sk, d, causal, mult = CASES[name]
+    q, k, v = _inputs(seed, bh, sq, sk, d, mult)
+    want = _jax_grads(q, k, v, causal=causal)
+    got = _port_grads(q, k, v, causal=causal)
+    for w, x, label in zip(want, got, ("dq", "dk", "dv")):
+        scale_of_w = np.abs(w).max()
+        assert scale_of_w > 1e-3, label  # the check is not empty
+        np.testing.assert_allclose(
+            x, w, rtol=F32_TOL, atol=F32_TOL * max(1.0, scale_of_w), err_msg=label
+        )
+
+
+def test_fused_backward_matches_jax_bf16(monkeypatch):
+    monkeypatch.setenv("GMTPU_FLASH_FUSED_BWD", "1")
+    q, k, v = _inputs(12, 2, 256, 320, 64, 1.0)
+    want = _jax_grads(q, k, v, causal=False, dtype=jnp.bfloat16)
+    got = _port_grads(q, k, v, causal=False, dtype=torch.bfloat16)
+    for w, x, label in zip(want, got, ("dq", "dk", "dv")):
+        assert np.abs(x - w).max() <= BF16_REL * np.abs(w).max(), label
+
+
+def test_fused_switch_launches_no_kernel_on_cpu(monkeypatch):
+    """On CPU tensors the switch changes nothing: the plain backward, no launch."""
+    q, k, v = _inputs(2, 2, 96, 80, 32, 1.0)
+    counters = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV, FLASH_BWD_FUSED)
+    before = [c.launches for c in counters]
+    split = _port_grads(q, k, v, causal=False)
+    monkeypatch.setenv("GMTPU_FLASH_FUSED_BWD", "1")
+    fused = _port_grads(q, k, v, causal=False)
+    assert [c.launches for c in counters] == before
+    for a, b in zip(split, fused):
+        assert np.isfinite(b).all()
+        np.testing.assert_array_equal(a, b)

@@ -1,5 +1,5 @@
 """The CUDA kernels against their plain versions: flash attention (kernels
-1-3) and the fused GroupNorm-SiLU-conv3d (kernel 5).
+1-4) and the fused GroupNorm-SiLU-conv3d (kernel 5).
 
 Imports neither JAX nor the JAX package, so it runs on a machine with a card
 and no JAX. Tests marked `cuda` skip without a GPU; on the card run
@@ -8,8 +8,14 @@ and no JAX. Tests marked `cuda` skip without a GPU; on the card run
 
 (`--noconftest`: tests/conftest.py configures JAX). Forward tolerances:
 1e-5 for f32 (summation order only), 2e-2 for bf16 (O rounded to bf16).
-Backward (dq, dk, dv of kernels 2 and 3), relative to the largest gradient:
-1e-4 for f32 (summation order over up to 1024 keys), 2e-2 for bf16.
+Backward (dq, dk, dv of kernels 2 and 3, and of the fused kernel 4),
+relative to the largest gradient: 1e-4 for f32 (summation order over up to
+1024 keys), 2e-2 for bf16. Kernel 4 against kernels 2 + 3 on the same
+inputs: dk and dv equal to the bit (the same FMA order); dq within 1e-5 of
+its largest value in f32 (f32 sums of the key blocks' parts in the order
+the atomics land), and in bf16 within one bf16 ulp of its value (those sums
+may round to the other side of a bf16 tie) plus that 1e-5 (sums that
+cancel).
 Kernel 5, relative to the largest output, against a plain version whose
 f32 convolution runs without TF32: 1e-5 for f32 (summation order of
 27 * Cin products), 1e-2 for bf16 (the output is rounded to bf16, 2**-8 of
@@ -23,6 +29,7 @@ import torch
 from generativemodels_tpu_torch.ops import (
     FLASH_BWD_DKV,
     FLASH_BWD_DQ,
+    FLASH_BWD_FUSED,
     FLASH_FWD,
     FUSED_CONV,
     flash_attention,
@@ -105,6 +112,49 @@ def test_backward_kernels_match_reference_on_gpu(cuda_device, shape, dtype, caus
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
         assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+
+
+def _backward_inputs(device, bh, sq, sk, d, dtype, causal, seed=3):
+    g = torch.Generator(device).manual_seed(seed)
+    q, k, v = (torch.randn((bh, s, d), generator=g, device=device).to(dtype) for s in (sq, sk, sk))
+    dout = torch.randn((bh, sq, d), generator=g, device=device).to(dtype)
+    out, lse2 = FLASH_FWD(q, k, v, scale=d**-0.5, causal=causal, log2_lse=True)
+    return _prescaled(q, d**-0.5), k, v, out, lse2, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "bh, sq, sk, causal",
+    [(2, 300, 300, False), (2, 200, 333, False), (3, 257, 257, True)],
+    ids=["self", "ragged", "causal"],
+)
+def test_fused_backward_kernel_on_gpu(cuda_device, monkeypatch, d, dtype, bh, sq, sk, causal):
+    args = _backward_inputs(cuda_device, bh, sq, sk, d, dtype, causal)
+    counters = (FLASH_BWD_DQ, FLASH_BWD_DKV, FLASH_BWD_FUSED)
+    before = [c.launches for c in counters]
+    monkeypatch.setenv("GMTPU_FLASH_FUSED_BWD", "1")
+    fused = flash_attention_backward(*args, causal=causal)
+    torch.cuda.synchronize()
+    # the switch launched kernel 4 alone
+    assert [c.launches for c in counters] == [before[0], before[1], before[2] + 1]
+    monkeypatch.setenv("GMTPU_FLASH_FUSED_BWD", "0")
+    split = flash_attention_backward(*args, causal=causal)
+    want = flash_attention_backward_reference(*args, causal=causal)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(fused, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
+    torch.testing.assert_close(fused[1], split[1], rtol=0, atol=0)
+    torch.testing.assert_close(fused[2], split[2], rtol=0, atol=0)
+    dq_f, dq_s = fused[0].float(), split[0].float()
+    if dtype == torch.float32:
+        assert (dq_f - dq_s).abs().max().item() <= 1e-5 * dq_s.abs().max().item()
+    else:  # one bf16 ulp (2**-7 of the value's power of two) and the f32 margin
+        ulp = torch.exp2(torch.floor(torch.log2(dq_s.abs().clamp_min(1e-30))) - 7)
+        assert bool(((dq_f - dq_s).abs() <= ulp + 1e-5 * dq_s.abs().max()).all())
 
 
 @pytest.mark.cuda
