@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU: build and check its kernels, serve,
-train, sample the 3D 128^3 model and train it.
+train, sample the 3D 128^3 model and train it, and run the attention probes.
 
 Run from the root of a checkout, with no arguments:
 
@@ -9,9 +9,9 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure raises and the script exits non-zero:
   1. card and build: the card's name and power limit (nvidia-smi), the torch
      and CUDA versions, the TF32 settings, and the builds of
-     generativemodels_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu and
-     fused_conv.cu (one nvcc each, started together) with their times and
-     ptxas reports;
+     generativemodels_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu,
+     fused_conv.cu and flash_probes.cu (one nvcc each, started together)
+     with their times and ptxas reports;
   2. kernels against their plain versions: O and lse of the flash-attention
      forward kernel against `flash_attention_reference`, dq, dk, dv of the
      split backward kernels and of the fused backward kernel against
@@ -51,7 +51,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      parameter gradients with seeded random weights: in f32 at 64^3 the
      split- and fused-kernel paths against the plain attention path, in
      bf16 at 128^3 the fused path against the split path; (c) one profiled
-     training step at 128^3 with each backward.
+     training step at 128^3 with each backward;
+  7. the attention-forward probes (kernels 6 and 7): (a) each of the ten
+     kernel variants (seven of `ops.flash_overlap`, three of
+     `ops.flash_vpu`) against its plain version at three shapes, the
+     probes' own (2, 32768, 32768, 64) bf16 on its first 2048 query rows;
+     (b) the entry points `probes.probe_overlap.main` and
+     `probes.probe_attn_vpu.main` at their defaults, which time every
+     variant at (2, 32768, 32768, 64) bf16, with the launches of kernels 1,
+     6 and 7 counted, each time printed beside its TFLOP/s, the bound, the
+     plain version's time, kernel 1's (phase 2) and flash SDPA's.
 The second-to-last line is one JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -73,7 +82,7 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "fused_conv.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "fused_conv.cu", "flash_probes.cu")
 CSRC = "generativemodels_tpu_torch/csrc/"
 TPU_KERNELS = "generativemodels_tpu/ops/flash_attention.py"
 # JSON name: (launcher in ops, source, the Pallas kernel it replaces)
@@ -84,6 +93,11 @@ KERNELS = {
     # _dfused_kernel, under GMTPU_FLASH_FUSED_BWD=1
     "flash_bwd_fused": ("FLASH_BWD_FUSED", "flash_bwd.cu", f"{TPU_KERNELS}:572"),
     "fused_conv": ("FUSED_CONV", "fused_conv.cu", "generativemodels_tpu/ops/fused_conv.py:93"),
+    # the attention-forward probes, run by their entry points in phase 7
+    "flash_probe_overlap": ("FLASH_PROBE_OVERLAP", "flash_probes.cu",
+                            "benchmarks/probe_overlap.py:94"),  # _kernel
+    "flash_probe_vpu": ("FLASH_PROBE_VPU", "flash_probes.cu",
+                        "benchmarks/probe_attn_vpu.py:45"),  # _fwd_kernel_var
 }
 # the card's published peaks (H100 SXM data sheet, dense, 700 W): f32 on the
 # CUDA cores (the kernels' f32 contract uses no TF32), bf16 on the tensor
@@ -225,6 +239,22 @@ TRAIN_PROFILE_GROUPS = (
     ("Adam", ("multi_tensor", "adam", "Adam")),
     ("other (SiLU, adds, upsampling, loss)", ("",)),
 )
+
+# phase 7 (a): (name, (BH, Sq, Sk, D), query rows held against the plain
+# version, None for all); the plain version over all keys is exact for the
+# rows it computes, so the probes' shape is checked on its first 2048 rows
+PROBE_CASES = (
+    ("head64", (2, 4096, 4096, 64), None),
+    ("3d_level2", (2, 32768, 32768, 64), 2048),
+    ("small", (1, 128, 192, 64), None),
+)
+# `ops.flash_probes.relative_error`: bf16 output, p rounded to bf16 after f32
+# sums in another order, and the packed bf16 exp rounds its argument to bf16;
+# mxu_only on the rows whose plain |l| >= 1, each against its own max
+PROBE_TOLERANCE = 2e-2
+# the variant of each probe kernel whose numbers stand in the kernels line
+PROBE_MAIN_VARIANT = {"flash_probe_overlap": "full", "flash_probe_vpu": "both"}
+PLAIN_PROBE_ITERS = 3  # the plain versions take 40-275 ms a call at the probes' shape
 
 
 def log(msg: str) -> None:
@@ -1180,6 +1210,111 @@ def profile_train_3d(torch, nets, parallel, schedulers) -> None:
     torch.cuda.empty_cache()
 
 
+def probe_calls(ops, scale: float) -> list:
+    """(kernel name, variant, kernel call, plain call) of the ten kernel
+    variants of phase 7; a plain call returns O and, for mxu_only, the row
+    sums its rows are held by."""
+    calls = []
+    for variant in ops.OVERLAP_VARIANTS:
+        def fn(q, k, v, variant=variant):
+            return ops.flash_overlap(q, k, v, scale=scale, variant=variant)
+
+        def plain(q, k, v, variant=variant):
+            out, l = ops.flash_overlap_reference(q, k, v, scale=scale, variant=variant,
+                                                 with_l=True)
+            return out, (l if variant == "mxu_only" else None)
+
+        calls.append(("flash_probe_overlap", variant, fn, plain))
+    for variant, (prescaled, bf16_p) in ops.VPU_VARIANTS.items():
+        opts = dict(scale=scale, prescaled=prescaled, bf16_p=bf16_p)
+        calls.append(("flash_probe_vpu", variant,
+                      lambda q, k, v, opts=opts: ops.flash_vpu(q, k, v, **opts),
+                      lambda q, k, v, opts=opts: (ops.flash_vpu_reference(q, k, v, **opts), None)))
+    return calls
+
+
+def check_probes(torch, ops) -> dict:
+    """Phase 7 (a): each kernel variant against its plain version at
+    PROBE_CASES; returns {(case, variant): max|diff|} (None for mxu_only)."""
+    from generativemodels_tpu_torch.ops.flash_probes import relative_error
+
+    errors = {}
+    g = torch.Generator("cuda").manual_seed(7)
+    for case, (bh, sq, sk, d), rows in PROBE_CASES:
+        q, k, v = (torch.randn((bh, n, d), generator=g, device="cuda").to(torch.bfloat16)
+                   for n in (sq, sk, sk))
+        held_q = q if rows is None else q[:, :rows].contiguous()
+        for kernel, variant, fn, plain in probe_calls(ops, d**-0.5):
+            got = fn(q, k, v)[:, :held_q.shape[1]]
+            want, l = plain(held_q, k, v)
+            torch.cuda.synchronize()
+            rel, held = relative_error(got, want, l)
+            # mxu_only's held rows include those with l <= -1, whose output
+            # divides by the 1e-30 floor: no absolute error is read there
+            abs_err = (got.float() - want.float()).abs().max().item() if l is None else None
+            ok = rel <= PROBE_TOLERANCE and bool(torch.isfinite(got.float()).all())
+            log(f"probe {case} (BH={bh}, Sq={sq}, Sk={sk}, D={d}) {kernel} {variant}: "
+                f"relative error {rel:.3e} (tol {PROBE_TOLERANCE:g}) over {held} of "
+                f"{bh * held_q.shape[1]} rows, max|diff| {abs_err} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"probe case {case} {variant} out of tolerance")
+            errors[(case, variant)] = abs_err
+            del got, want, l
+        del q, k, v, held_q
+        torch.cuda.empty_cache()
+    return errors
+
+
+def run_probes(torch, ops, probes, kernel1_ms: float, errors: dict) -> tuple[dict, dict]:
+    """Phase 7 (b): both entry points at their defaults, the launches of
+    kernels 1, 6 and 7 counted over the two runs; each variant's time beside
+    its TFLOP/s, the bound, its plain version's time, kernel 1's time at the
+    same shape (phase 2) and flash SDPA's. Returns the kernels line's numbers
+    and launches of the two probe kernels."""
+    from generativemodels_tpu_torch.probes import probe_attn_vpu, probe_overlap
+
+    reset_launches(ops)
+    results = {"flash_probe_overlap": probe_overlap.main([]),
+               "flash_probe_vpu": probe_attn_vpu.main([])}
+    torch.cuda.synchronize()
+    counts = read_launches(ops)
+    calls = 1 + probes.WARMUP + probes.ITERS  # a variant: the slice check, then timing
+    expected = expected_launches(
+        flash_fwd=calls, flash_probe_overlap=calls * len(ops.OVERLAP_VARIANTS),
+        flash_probe_vpu=calls * len(ops.VPU_VARIANTS))
+    log(f"probes: launches {counts} (expected {expected})")
+    if counts != expected:
+        raise AssertionError(f"probe entry points: kernel launches {counts}, expected {expected}")
+
+    bh, seq, d = probe_overlap.BH, probe_overlap.SEQ, probe_overlap.D
+    scale = d**-0.5
+    q, k, v = probes.random_inputs(bh, seq, d, torch.device("cuda"))
+    flop = 4 * bh * seq * seq * d
+    lim = bound(flop, 2 * bh * seq * d * 4, "bfloat16")  # q, k, v read, o written
+    library_ms, backend = library_attention_ms(torch, q, k, v, scale, False)
+    plains = {variant: plain for _, variant, _, plain in probe_calls(ops, scale)}
+    plains["base"] = lambda q, k, v: (ops.flash_attention_reference(q, k, v, scale=scale)[0],
+                                      None)
+    numbers = {}
+    for kernel, entries in results.items():
+        for entry in entries:
+            variant, ms = entry["variant"], entry["ms"]
+            plain_ms = time_ms(lambda: plains[variant](q, k, v), iters=PLAIN_PROBE_ITERS)
+            log(f"probe {kernel} {variant}: {ms:.4f} ms, {flop / ms / 1e9:.1f} TFLOP/s, "
+                f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}), plain {plain_ms:.4f} ms, "
+                f"kernel 1 {kernel1_ms:.4f} ms, SDPA ({backend}) {library_ms:.4f} ms; "
+                f"vs exact softmax {entry['maxdiff_vs_einsum']}, vs plain "
+                f"{entry['maxdiff_vs_plain']:.3e} ({entry['rows_vs_plain']} rows)")
+            if not ms >= lim["bound_ms"]:
+                raise AssertionError(f"probe {variant}: {ms} ms is below the bound")
+            if variant == PROBE_MAIN_VARIANT.get(kernel):
+                numbers[kernel] = dict(max_abs_err=errors[("3d_level2", variant)], ms=ms,
+                                       plain_ms=plain_ms, library_ms=library_ms, **lim)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return numbers, {name: counts[name] for name in PROBE_MAIN_VARIANT}
+
+
 def build_kernels(build_library) -> None:
     """Phase 1: one nvcc for each source, all started together."""
     results = {}
@@ -1218,7 +1353,7 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from generativemodels_tpu_torch import inferers, ops, parallel
+    from generativemodels_tpu_torch import inferers, ops, parallel, probes
     from generativemodels_tpu_torch.networks import nets, schedulers
     from generativemodels_tpu_torch.ops.native import build_library
     from generativemodels_tpu_torch.recipes import serve
@@ -1266,20 +1401,29 @@ def main() -> int:
     check_gradients_3d(torch, ops, nets, parallel, schedulers, recipe3d)
     profile_train_3d(torch, nets, parallel, schedulers)
 
+    # phase 7: the attention-forward probes (kernels 6 and 7), each kernel
+    # variant against its plain version, then both entry points
+    probe_errors = check_probes(torch, ops)
+    probe_numbers, probe_launches = run_probes(torch, ops, probes,
+                                               forward["3d_level2_bf16"]["ms"], probe_errors)
+
     # the numbers of each kernel at its main path's shape: serving for the
     # forward, the recipe's batch 64 for the split backward, the 3D training
     # step's attention for the fused backward, the 128^3 96->32 call for
-    # kernel 5; launches from the 2D recipe's run (kernels 1-3), the fused 3D
-    # recipe's run (kernel 4) and the DDIM-50 3D sample (kernel 5)
+    # kernel 5, the probes' shape for kernels 6 and 7; launches from the 2D
+    # recipe's run (kernels 1-3), the fused 3D recipe's run (kernel 4), the
+    # DDIM-50 3D sample (kernel 5) and the probe entry points (kernels 6, 7)
     numbers = dict(
         flash_fwd=forward["serve_f32"],
         flash_bwd_dq=backward["train_recipe_f32"]["dq"],
         flash_bwd_dkv=backward["train_recipe_f32"]["dkv"],
         flash_bwd_fused=backward["3d_level2_bf16"]["fused"],
         fused_conv=fused[FUSED_MAIN_CASE],
+        **probe_numbers,
     )
     launches = dict(trained["launches"], fused_conv=fused_launches,
-                    flash_bwd_fused=trained_3d["fused"]["launches"]["flash_bwd_fused"])
+                    flash_bwd_fused=trained_3d["fused"]["launches"]["flash_bwd_fused"],
+                    **probe_launches)
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=CSRC + source, replaces=replaces,

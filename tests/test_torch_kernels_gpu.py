@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions: flash attention (kernels
-1-4) and the fused GroupNorm-SiLU-conv3d (kernel 5).
+1-4), the fused GroupNorm-SiLU-conv3d (kernel 5) and the two attention-forward
+probes (kernels 6 and 7).
 
 Imports neither JAX nor the JAX package, so it runs on a machine with a card
 and no JAX. Tests marked `cuda` skip without a GPU; on the card run
@@ -20,6 +21,10 @@ Kernel 5, relative to the largest output, against a plain version whose
 f32 convolution runs without TF32: 1e-5 for f32 (summation order of
 27 * Cin products), 1e-2 for bf16 (the output is rounded to bf16, 2**-8 of
 its value, and a rare activation rounds the other way at a tie).
+Kernels 6 and 7, relative to the largest output: 2e-2 (bf16 output, p
+rounded to bf16 after f32 sums in another order; the packed bf16 exp rounds
+its argument to bf16); `mxu_only` on the rows whose plain row sum has
+|l| >= 1, each against its own largest value (`relative_error`).
 """
 from __future__ import annotations
 
@@ -31,16 +36,25 @@ from generativemodels_tpu_torch.ops import (
     FLASH_BWD_DQ,
     FLASH_BWD_FUSED,
     FLASH_FWD,
+    FLASH_PROBE_OVERLAP,
+    FLASH_PROBE_VPU,
     FUSED_CONV,
+    OVERLAP_VARIANTS,
+    VPU_VARIANTS,
     flash_attention,
     flash_attention_backward,
     flash_attention_backward_reference,
     flash_attention_reference,
     flash_attention_with_lse,
+    flash_overlap,
+    flash_overlap_reference,
+    flash_vpu,
+    flash_vpu_reference,
     fused_norm_silu_conv3d,
     fused_norm_silu_conv3d_reference,
 )
 from generativemodels_tpu_torch.ops.flash_attention import _prescaled
+from generativemodels_tpu_torch.ops.flash_probes import relative_error
 
 
 @pytest.fixture
@@ -248,3 +262,74 @@ def test_fused_conv_rejects_what_it_does_not_take(cuda_device):
         FUSED_CONV(x[:, :, :, ::2], w, one, one, zero)
     with pytest.raises(ValueError, match="scale"):
         FUSED_CONV(x, w, torch.ones(1, 4, device=cuda_device), one, zero)
+
+
+def test_probe_launchers_reject_cpu_tensors():
+    q = torch.zeros(1, 64, 64, dtype=torch.bfloat16)
+    before = FLASH_PROBE_OVERLAP.launches, FLASH_PROBE_VPU.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        FLASH_PROBE_OVERLAP(q, q, q, scale=0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        FLASH_PROBE_VPU(q, q, q, scale=0.125, prescaled=True, bf16_p=True)
+    assert (FLASH_PROBE_OVERLAP.launches, FLASH_PROBE_VPU.launches) == before
+
+
+def _probe_inputs(device, bh, sq, sk, seed=4):
+    g = torch.Generator(device).manual_seed(seed)
+    return tuple(torch.randn((bh, s, 64), generator=g, device=device).to(torch.bfloat16)
+                 for s in (sq, sk, sk))
+
+
+PROBE_SHAPES = [(1, 128, 192), (2, 1024, 2048), (3, 256, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", OVERLAP_VARIANTS)
+@pytest.mark.parametrize("bh, sq, sk", PROBE_SHAPES)
+def test_overlap_probe_kernel_on_gpu(cuda_device, variant, bh, sq, sk):
+    q, k, v = _probe_inputs(cuda_device, bh, sq, sk)
+    before = FLASH_PROBE_OVERLAP.launches
+    got = flash_overlap(q, k, v, scale=0.125, variant=variant)
+    want, l = flash_overlap_reference(q, k, v, scale=0.125, variant=variant, with_l=True)
+    torch.cuda.synchronize()
+    assert FLASH_PROBE_OVERLAP.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    err, rows = relative_error(got, want, l if variant == "mxu_only" else None)
+    assert rows > 0 and err <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(VPU_VARIANTS))
+@pytest.mark.parametrize("bh, sq, sk", PROBE_SHAPES)
+def test_vpu_probe_kernel_on_gpu(cuda_device, variant, bh, sq, sk):
+    prescaled, bf16_p = VPU_VARIANTS[variant]
+    q, k, v = _probe_inputs(cuda_device, bh, sq, sk, seed=5)
+    before = FLASH_PROBE_VPU.launches
+    got = flash_vpu(q, k, v, scale=0.125, prescaled=prescaled, bf16_p=bf16_p)
+    want = flash_vpu_reference(q, k, v, scale=0.125, prescaled=prescaled, bf16_p=bf16_p)
+    torch.cuda.synchronize()
+    assert FLASH_PROBE_VPU.launches == before + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert relative_error(got, want)[0] <= 2e-2
+
+
+@pytest.mark.cuda
+def test_probe_kernels_reject_what_they_do_not_take(cuda_device):
+    q = torch.zeros(2, 128, 64, device=cuda_device, dtype=torch.bfloat16)
+    opts = dict(scale=0.125, prescaled=True, bf16_p=True)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_overlap(q.float(), q.float(), q.float(), scale=0.125)
+    with pytest.raises(ValueError, match="multiples"):
+        flash_overlap(q[:, :100], q, q, scale=0.125)
+    with pytest.raises(ValueError, match="multiples"):  # q2 takes 128-row blocks
+        flash_overlap(q[:, :64], q, q, scale=0.125, variant="q2")
+    with pytest.raises(ValueError, match="contiguous"):
+        wide = torch.zeros(2, 128, 128, device=cuda_device, dtype=torch.bfloat16)
+        flash_vpu(wide[..., :64], q, q, **opts)
+    with pytest.raises(ValueError, match="block_k"):
+        flash_vpu(q, q, q, block_k=128, **opts)
+    with pytest.raises(ValueError, match="device"):
+        flash_vpu(q, q.cpu(), q.cpu(), **opts)
+    with pytest.raises(ValueError, match="head width"):
+        flash_overlap(q[..., :32].contiguous(), q[..., :32].contiguous(),
+                      q[..., :32].contiguous(), scale=0.125)
