@@ -13,10 +13,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      fused_conv.cu and flash_probes.cu (one nvcc each, started together)
      with their times and ptxas reports;
   2. kernels against their plain versions: O and lse of the flash-attention
-     forward kernel against `flash_attention_reference`, dq, dk, dv of the
-     split backward kernels and of the fused backward kernel against
-     `flash_attention_backward_reference` (the fused one also against the
-     split ones, with its run-to-run dq spread), and the
+     forward kernel against `flash_attention_reference` (then the forward
+     against the plain attention path at seq 256-1024, the numbers behind
+     the flash threshold), dq, dk, dv of the split backward kernels and of
+     the fused backward kernel against `flash_attention_backward_reference`
+     (the fused one also against the split ones, and against itself: its
+     dq must be the same to the bit over two launches), and the
      fused GroupNorm-SiLU-conv3d kernel against
      `fused_norm_silu_conv3d_reference`, at the shapes the serving, training
      and 3D sampling paths and their neighbours use, with both times (CUDA
@@ -100,10 +102,15 @@ KERNELS = {
                         "benchmarks/probe_attn_vpu.py:45"),  # _fwd_kernel_var
 }
 # the card's published peaks (H100 SXM data sheet, dense, 700 W): f32 on the
-# CUDA cores (the kernels' f32 contract uses no TF32), bf16 on the tensor
-# cores, and the device memory's rate
+# CUDA cores (kernels 2-5 run their f32 products there, with no TF32), bf16
+# on the tensor cores, and the device memory's rate
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+# kernel 1's f32 path runs each f32 product as three TF32 products on the
+# tensor cores (3xTF32): its useful operations cost three at the TF32 rate,
+# 495 TFLOP/s, so its bound is useful operations x 3 / 495e12 (not / 67e12,
+# which a 3xTF32 kernel may beat)
+PEAK_3XTF32 = 495e12 / 3
 
 # (name, (BH, Sq, Sk, D), dtype name, causal)
 KERNEL_CASES = (
@@ -114,10 +121,23 @@ KERNEL_CASES = (
     ("causal_f32", (4, 1024, 1024, 128), "float32", True),
     ("ragged_cross_f32", (2, 1000, 777, 64), "float32", False),
     ("3d_level2_bf16", (2, 32768, 32768, 64), "bfloat16", False),  # the 3D UNet's attention
+    ("train_bench_bf16", (128, 1024, 1024, 256), "bfloat16", False),  # bench.py, batch 128
+    ("head32_bf16", (4, 1024, 1024, 32), "bfloat16", False),
+    ("causal_bf16", (4, 1024, 1024, 128), "bfloat16", True),
+    ("ragged_cross_bf16", (2, 1000, 777, 64), "bfloat16", False),
 )
-# f32: the kernel and the plain version differ only in summation order;
-# bf16: O is rounded to bf16 (one ulp near 1 is 2**-7), lse stays f32
+# O, max|diff|: f32 differs from the plain version only in summation order
+# (the 3xTF32 products keep f32 accuracy); bf16 O is rounded to bf16 (one
+# ulp near 1 is 2**-7)
 TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
+# lse, max|diff|: an f32 log of the same row sums in another order, in both
+# types (the bf16 row sum follows the same rounding rule as the plain version)
+LSE_TOLERANCE = {"float32": 1e-5, "bfloat16": 1e-4}
+# the flash threshold (`ops/attention.py::_FLASH_MIN_SEQ`, 1024, set on a
+# TPU): kernel 1 against the plain attention path through
+# `dot_product_attention` at these sequence lengths, as (B, heads, D, dtype)
+THRESHOLD_SEQS = (256, 512, 1024)
+THRESHOLD_CASES = ((2, 2, 64, "bfloat16"), (4, 1, 256, "float32"))
 # (name, (BH, Sq, Sk, D), dtype name, causal) of the backward kernels
 BACKWARD_CASES = (
     ("train_bench_bf16", (128, 1024, 1024, 256), "bfloat16", False),  # bench.py, batch 128
@@ -284,10 +304,11 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(flop: float, nbytes: float, dtype_name: str) -> dict:
+def bound(flop: float, nbytes: float, dtype_name: str, peak: float | None = None) -> dict:
     """The least time the card could take: the larger of the operations over
-    the peak rate for their type and the bytes over the memory rate."""
-    by_ops = flop / PEAK_FLOPS[dtype_name] * 1e3
+    the peak rate for their type (or `peak`) and the bytes over the memory
+    rate."""
+    by_ops = flop / (peak or PEAK_FLOPS[dtype_name]) * 1e3
     by_bytes = nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(by_ops, by_bytes),
                 bound_by="operations" if by_ops >= by_bytes else "bytes")
@@ -345,7 +366,7 @@ def check_kernel(torch, ops) -> dict:
         torch.cuda.synchronize()
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
-        tol = TOLERANCE[dtype_name]
+        tol, lse_tol = TOLERANCE[dtype_name], LSE_TOLERANCE[dtype_name]
         ms = time_ms(lambda: ops.FLASH_FWD(q, k, v, scale=scale, causal=causal))
         plain_ms = time_ms(
             lambda: ops.flash_attention_reference(q, k, v, scale=scale, causal=causal)
@@ -353,10 +374,12 @@ def check_kernel(torch, ops) -> dict:
         library_ms, backend = library_attention_ms(torch, q, k, v, scale, causal)
         esize = q.element_size()
         lim = bound(4 * bh * attention_pairs(sq, sk, causal) * d,
-                    bh * d * esize * (2 * sq + 2 * sk) + 4 * bh * sq, dtype_name)
-        ok = err_o <= tol and err_lse <= tol and bool(torch.isfinite(o.float()).all())
+                    bh * d * esize * (2 * sq + 2 * sk) + 4 * bh * sq, dtype_name,
+                    PEAK_3XTF32 if dtype == torch.float32 else None)
+        ok = (err_o <= tol and err_lse <= lse_tol and bool(torch.isfinite(o.float()).all())
+              and ms >= lim["bound_ms"])
         log(f"kernel {name}: (BH={bh}, Sq={sq}, Sk={sk}, D={d}) {dtype_name} causal={causal} "
-            f"max|dO|={err_o:.3e} max|dlse|={err_lse:.3e} tol={tol:g} "
+            f"max|dO|={err_o:.3e} (tol {tol:g}) max|dlse|={err_lse:.3e} (tol {lse_tol:g}) "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA ({backend}) {library_ms:.4f} ms, "
             f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -368,10 +391,10 @@ def check_kernel(torch, ops) -> dict:
     return results
 
 
-def fused_dq_atomics(bh: int, sq: int, sk: int, d: int, causal: bool) -> int:
-    """Kernel 4's float4 dq atomics: one for each 4 columns of each query row
-    that each key block's q loop reaches (64-key blocks at D <= 64, else 32;
-    under the causal mask the loop starts at the block's first key)."""
+def fused_dq_adds(bh: int, sq: int, sk: int, d: int, causal: bool) -> int:
+    """Kernel 4's ordered float4 dq adds: one for each 4 columns of each
+    query row that each key block's q loop reaches (64-key blocks at D <= 64,
+    else 32; under the causal mask the loop starts at the block's first key)."""
     keys = 64 if d <= 64 else 32
     rows = sum(sq - min(sq, k0) if causal else sq for k0 in range(0, sk, keys))
     return bh * rows * d // 4
@@ -381,7 +404,8 @@ def check_backward(torch, ops) -> dict:
     """Phase 2, backward: dq of kernel 2, dk, dv of kernel 3 and all three of
     kernel 4 against the plain backward, from the forward kernel's O and log2
     lse; kernel 4 also against kernels 2 + 3 on the same inputs, and against
-    itself (dq's atomics sum in an order that varies from run to run)."""
+    itself: its dq parts are added in key-block order, so two launches must
+    give the same dq to the bit."""
     from generativemodels_tpu_torch.ops.flash_attention import _backward_rows, _prescaled
 
     results = {}
@@ -452,7 +476,8 @@ def check_backward(torch, ops) -> dict:
                           dtype_name)
         tol = BACKWARD_TOLERANCE[dtype_name]
         ok = all(e <= tol for e in rel_err.values())
-        fused_ok = all(e <= tol for e in fused_rel.values()) and same_dkv and dq_ok
+        fused_ok = (all(e <= tol for e in fused_rel.values()) and same_dkv and dq_ok
+                    and spread_count == 0)
         log(f"backward {name}: (BH={bh}, Sq={sq}, Sk={sk}, D={d}) {dtype_name} causal={causal} "
             + " ".join(f"max|d{x[1:]}|/max={rel_err[x]:.3e}" for x in ("dq", "dk", "dv"))
             + f" tol={tol:g}; dq kernel {ms_dq:.4f} ms (bound {lim_dq['bound_ms']:.4f}), "
@@ -464,8 +489,8 @@ def check_backward(torch, ops) -> dict:
             + f" tol={tol:g}; against kernels 2 + 3: dk, dv equal to the bit {same_dkv}, "
             f"max|ddq|/max|dq| {dq_vs_split:.3e} (within {FUSED_DQ_RTOL:g}"
             + (" + one bf16 ulp" if dtype == torch.bfloat16 else "") + f": {dq_ok}); "
-            f"two launches: max|ddq| {spread:.3e} in {spread_count} elements; "
-            f"{fused_dq_atomics(bh, sq, sk, d, causal):.4e} float4 dq atomics; fused kernel "
+            f"two launches: max|ddq| {spread:.3e} in {spread_count} elements (must be 0); "
+            f"{fused_dq_adds(bh, sq, sk, d, causal):.4e} ordered float4 dq adds; fused kernel "
             f"{ms_fused:.4f} ms (bound {lim_fused['bound_ms']:.4f} ms, {lim_fused['bound_by']}) "
             f"against kernels 2 + 3 {ms_dq + ms_dkv:.4f} ms -> {'ok' if fused_ok else 'FAIL'}")
         if not ok:
@@ -483,6 +508,26 @@ def check_backward(torch, ops) -> dict:
         del q, k, v, dout, out, lse2, qp, do2, delta
         torch.cuda.empty_cache()
     return results
+
+
+def measure_threshold(torch, ops) -> None:
+    """Phase 2: kernel 1 against the plain attention path, both through
+    `dot_product_attention` on packed (B, S, heads * D) inputs, at the
+    sequence lengths around the flash threshold. Measured, not acted on:
+    `_FLASH_MIN_SEQ` keeps the JAX rule's 1024."""
+    g = torch.Generator("cuda").manual_seed(5)
+    for b, heads, d, dtype_name in THRESHOLD_CASES:
+        dtype = getattr(torch, dtype_name)
+        for seq in THRESHOLD_SEQS:
+            q, k, v = (torch.randn((b, seq, heads * d), generator=g, device="cuda").to(dtype)
+                       for _ in range(3))
+            with torch.inference_mode():
+                flash_ms = time_ms(lambda: ops.dot_product_attention(q, k, v, heads,
+                                                                     use_flash=True))
+                plain_ms = time_ms(lambda: ops.dot_product_attention(q, k, v, heads,
+                                                                     use_flash=False))
+            log(f"threshold: seq {seq}, (B={b}, heads={heads}, D={d}) {dtype_name}: flash "
+                f"{flash_ms:.4f} ms, plain path {plain_ms:.4f} ms ({plain_ms / flash_ms:.2f}x)")
 
 
 def check_fused_conv(torch, ops) -> dict:
@@ -1373,6 +1418,7 @@ def main() -> int:
 
     # phase 2: kernels against their plain versions
     forward = check_kernel(torch, ops)
+    measure_threshold(torch, ops)
     backward = check_backward(torch, ops)
     fused = check_fused_conv(torch, ops)
 

@@ -46,20 +46,30 @@
 //   tile's dq part ds^T K over the block's keys, which every thread reads
 //   from shared memory after a block barrier (ds of all warps' keys). The
 //   TPU kernel writes one f32 partial-dq slab per kv tile and sums them in
-//   XLA; at the 3D shape (BH=2, S=32768, D=64) that would be hundreds of
-//   16 MiB slabs. Here each block adds its part into one zeroed f32 (BH, Sq,
-//   D) buffer with vector atomics (atomicAdd on float4, sm_90): a thread
-//   owns 4 columns of D/32 rows, so a warp adds 16-byte pieces of whole rows.
-//   The atomics number BH * Sq * D/4 * ceil(Sk / BK) (5.4e8 at the 3D shape
-//   with BK = 64), so the block takes BK = 64 keys (8 warps of 8 keys) at
-//   D <= 64; at D >= 128 the dK and dV accumulators leave room for 32 keys
-//   only. dK and dV follow kernel 3's per-element order (the same q tiles in
-//   the same order, the same FMA chain; the extra causal q tiles of a
-//   64-key block add exact zeros), so they equal kernel 3's to the bit. dq
-//   sums the blocks' parts in the order the atomics land, which varies from
-//   run to run within f32 rounding; the caller casts it once.
-// Kernels 2 and 3 are deterministic: dq rows belong to one block, dK/dV
-// rows to one block, and no atomics are used. Under the causal mask, tiles
+//   XLA in a fixed order; at the 3D shape (BH=2, S=32768, D=64) that would
+//   be 512 slabs of 16 MiB (8.6 GB). Here the blocks add their parts into
+//   one zeroed f32 (BH, Sq, D) buffer in a fixed order, so dq is the same
+//   to the bit from run to run: one int counter per (bh, 32-row q tile),
+//   zeroed by the caller, counts the kv blocks whose part of that tile is
+//   in. Key block kb of a head waits (thread 0 spins on an ld.acquire.gpu
+//   with __nanosleep) until the counter equals kb, the number of key blocks
+//   before it that touch the tile (under the causal mask a block starts at
+//   its own first key, so every block before it has touched the tile too),
+//   adds its part with a plain load-add-store that bypasses L1, and after
+//   a __threadfence and a block barrier sets the counter to kb + 1 with a
+//   st.release.gpu. So dq = ((part_0 + part_1) + ...) in key-block order.
+//   This relies on the blocks of one head being dispatched in blockIdx
+//   order (blockIdx.x = bh * num_kb + kb): a block waits only for blocks
+//   with a smaller index, which are resident or done, so the wait ends. A
+//   thread owns 4 columns of D/32 rows, so a warp adds 16-byte pieces of
+//   whole rows. Adds number BH * Sq * D/4 * ceil(Sk / BK), so the block
+//   takes BK = 64 keys (8 warps of 8 keys) at D <= 64; at D >= 128 the dK
+//   and dV accumulators leave room for 32 keys only. dK and dV follow
+//   kernel 3's per-element order (the same q tiles in the same order, the
+//   same FMA chain; the extra causal q tiles of a 64-key block add exact
+//   zeros), so they equal kernel 3's to the bit. The caller casts dq once.
+// Kernels 2 and 3 are deterministic too: dq rows belong to one block, dK/dV
+// rows to one block. Under the causal mask, tiles
 // wholly above the diagonal are skipped (the conditions of _dq_kernel and
 // _dkv_kernel); rows past Sq and keys past Sk get p == 0 and are not
 // written. Shared memory is dynamic (about 140 KB at D=256), above the
@@ -77,6 +87,16 @@ constexpr int kDqRowsPerWarp = 8;
 constexpr int kDkvWarps = 8;
 constexpr int kDkvThreads = 32 * kDkvWarps;
 constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
 
 // Keys a warp owns in the dkv-shaped kernels: kernel 3 always 4 (32-key
 // blocks); kernel 4 8 at D <= 64 (64-key blocks), else 4.
@@ -276,13 +296,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // The block of kernels 3 (Fused = false) and 4 (Fused = true). Grid: one
 // block per (bh, kKeys-key block), flattened into blockIdx.x. Kernel 4 also
 // adds each q tile's dq part into `dq_acc`, f32 (bh, sq, D), zeroed by the
-// caller; kernel 3 gets nullptr there.
+// caller, in key-block order kept by `dq_lock`, int (bh, ceil(sq / 32)),
+// zeroed by the caller; kernel 3 gets nullptr for both.
 template <typename T, int D, bool Fused>
 __device__ __forceinline__ void dkv_block(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse2, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int sq, int sk,
-    int num_kb, int causal) {
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int* __restrict__ dq_lock,
+    int sq, int sk, int num_kb, int causal) {
   static_assert(D % 32 == 0, "head width must be a multiple of 32");
   constexpr int kKeysPerWarp = kKeysPerWarpOf<Fused, D>;
   constexpr int kKeys = kDkvWarps * kKeysPerWarp;  // keys of the block
@@ -299,7 +320,8 @@ __device__ __forceinline__ void dkv_block(
   float* sDelta = sLse + kBlock;
 
   const int bh = blockIdx.x / num_kb;
-  const int k0 = (blockIdx.x % num_kb) * kKeys;
+  const int kbi = blockIdx.x % num_kb;
+  const int k0 = kbi * kKeys;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int c0 = warp * kKeysPerWarp;  // first tile key of this warp
@@ -411,13 +433,27 @@ __device__ __forceinline__ void dkv_block(
           part[m].w = fmaf(ds, kk.w, part[m].w);
         }
       }
+      // ordered add: the key blocks before this one have added their parts
+      int* lock = dq_lock + static_cast<size_t>(bh) * ((sq + kBlock - 1) / kBlock) + q0 / kBlock;
+      if (threadIdx.x == 0) {
+        while (ld_acquire(lock) != kbi) __nanosleep(64);
+      }
+      __syncthreads();
 #pragma unroll
       for (int m = 0; m < kDqRows; ++m) {
         if (dq_row + m < qvalid) {
-          atomicAdd(reinterpret_cast<float4*>(dq_acc + (row0 + dq_row + m) * D + dq_col),
-                    part[m]);
+          float4* dst = reinterpret_cast<float4*>(dq_acc + (row0 + dq_row + m) * D + dq_col);
+          float4 cur = __ldcg(dst);
+          cur.x += part[m].x;
+          cur.y += part[m].y;
+          cur.z += part[m].z;
+          cur.w += part[m].w;
+          __stcg(dst, cur);
         }
       }
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0) st_release(lock, kbi + 1);
     }
   }
 
@@ -440,18 +476,20 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kDkvThreads) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse2, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int sq, int sk,
-    int num_kb, int causal) {
-  dkv_block<T, D, false>(q, k, v, dout, lse2, delta, dk, dv, dq_acc, sq, sk, num_kb, causal);
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int* __restrict__ dq_lock,
+    int sq, int sk, int num_kb, int causal) {
+  dkv_block<T, D, false>(q, k, v, dout, lse2, delta, dk, dv, dq_acc, dq_lock, sq, sk, num_kb,
+                         causal);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kDkvThreads) flash_bwd_fused_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse2, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int sq, int sk,
-    int num_kb, int causal) {
-  dkv_block<T, D, true>(q, k, v, dout, lse2, delta, dk, dv, dq_acc, sq, sk, num_kb, causal);
+    T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int* __restrict__ dq_lock,
+    int sq, int sk, int num_kb, int causal) {
+  dkv_block<T, D, true>(q, k, v, dout, lse2, delta, dk, dv, dq_acc, dq_lock, sq, sk, num_kb,
+                        causal);
 }
 
 enum class Entry { kDq, kDkv, kFused };
@@ -459,6 +497,7 @@ enum class Entry { kDq, kDkv, kFused };
 struct Args {
   const void *q, *k, *v, *dout, *lse2, *delta;
   void *out0, *out1, *out2;  // dq; or dk and dv; or the f32 dq buffer, dk and dv
+  void* dq_lock;  // kernel 4's dq counters, else nullptr
   int bh, sq, sk, causal;
   cudaStream_t stream;
 };
@@ -493,7 +532,8 @@ int launch_dkv(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse2),
       static_cast<const float*>(a.delta), static_cast<T*>(dk), static_cast<T*>(dv),
-      Fused ? static_cast<float*>(a.out0) : nullptr, a.sq, a.sk, num_kb, a.causal);
+      Fused ? static_cast<float*>(a.out0) : nullptr,
+      Fused ? static_cast<int*>(a.dq_lock) : nullptr, a.sq, a.sk, num_kb, a.causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -535,7 +575,7 @@ int launch(const Args& a, int d, int dtype, int device) {
 extern "C" int gm_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse2, const void* delta, void* dq, int bh, int sq,
                                int sk, int d, int dtype, int causal, int device, void* stream) {
-  const Args a{q, k, v, dout, lse2, delta, dq, nullptr, nullptr, bh, sq, sk, causal,
+  const Args a{q, k, v, dout, lse2, delta, dq, nullptr, nullptr, nullptr, bh, sq, sk, causal,
                static_cast<cudaStream_t>(stream)};
   return launch<Entry::kDq>(a, d, dtype, device);
 }
@@ -545,18 +585,20 @@ extern "C" int gm_flash_bwd_dkv(const void* q, const void* k, const void* v, con
                                 const void* lse2, const void* delta, void* dk, void* dv, int bh,
                                 int sq, int sk, int d, int dtype, int causal, int device,
                                 void* stream) {
-  const Args a{q, k, v, dout, lse2, delta, dk, dv, nullptr, bh, sq, sk, causal,
+  const Args a{q, k, v, dout, lse2, delta, dk, dv, nullptr, nullptr, bh, sq, sk, causal,
                static_cast<cudaStream_t>(stream)};
   return launch<Entry::kDkv>(a, d, dtype, device);
 }
 
 // The same inputs; one launch adds dq into `dq_acc`, f32 (bh, sq, d) and
-// zeroed by the caller, and writes dk and dv (bh, sk, d) in the input type.
+// zeroed by the caller, in the order kept by `dq_lock`, int32 (bh,
+// ceil(sq / 32)) and zeroed by the caller, and writes dk and dv (bh, sk, d)
+// in the input type.
 extern "C" int gm_flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout,
-                                  const void* lse2, const void* delta, void* dq_acc, void* dk,
-                                  void* dv, int bh, int sq, int sk, int d, int dtype, int causal,
-                                  int device, void* stream) {
-  const Args a{q, k, v, dout, lse2, delta, dq_acc, dk, dv, bh, sq, sk, causal,
+                                  const void* lse2, const void* delta, void* dq_acc,
+                                  void* dq_lock, void* dk, void* dv, int bh, int sq, int sk, int d,
+                                  int dtype, int causal, int device, void* stream) {
+  const Args a{q, k, v, dout, lse2, delta, dq_acc, dk, dv, dq_lock, bh, sq, sk, causal,
                static_cast<cudaStream_t>(stream)};
   return launch<Entry::kFused>(a, d, dtype, device);
 }

@@ -11,18 +11,24 @@ what the kernels are held against.
 
 The contract is the JAX default (exp2 domain, `no_max`): q is prescaled by
 scale*log2(e) in q's type, scores are clamped at 80 with no running max,
-p = exp2(s), O = (p V) / max(sum p, 1e-30), and the lse is the natural-log
+p = exp2(s), O = (p V) / max(l, 1e-30), and the lse is the natural-log
 row logsumexp. Matmul operands stay in the input type (bf16 or f32), with
 f32 accumulation; for bf16, p is rounded to bf16 before the PV product.
-The backward treats the clamp as the identity, as the JAX backward does.
+The row sum l follows the JAX kernel by head width: at D % 128 != 0 it
+rides the PV product on a ones column of V (`fold_l`), so it sums p
+rounded to the input type; at D % 128 == 0 it sums the unrounded p (the
+two agree for f32). The backward treats the clamp as the identity, as the
+JAX backward does. GMTPU_FLASH_NOMAX=0 (read at each call, as JAX reads
+it) selects the running-max contract instead.
 
 `flash_attention` is differentiable through `_FlashAttention`, whose
 backward runs the two split backward kernels or, with
 GMTPU_FLASH_FUSED_BWD=1 (read at each backward, as the JAX backward reads
 it), the fused one (the plain backward on the CPU in both cases).
 A wrapper takes the plain version only for tensors on the CPU. On a CUDA
-tensor it launches the kernel or raises; `upcast=True` and `no_max=False`
-are not ported to the kernels and raise NotImplementedError there.
+tensor it launches the kernel or raises; `upcast=True` and the running-max
+contract (`no_max=False` or GMTPU_FLASH_NOMAX=0) are not ported to the
+kernels and raise NotImplementedError there.
 """
 from __future__ import annotations
 
@@ -36,7 +42,9 @@ from .native import Launcher
 LOG2E = 1.4426950408889634  # log2(e)
 LN2 = 0.6931471805599453  # 1/LOG2E
 HEAD_DIMS = (32, 64, 128, 256)  # head widths the kernels are instantiated for
-_BLOCK = 32  # query rows and keys per block (kBlockQ, kBlockK in csrc/)
+# query rows of a block of the backward kernels (kBlock in csrc/flash_bwd.cu);
+# the forward's blocks are larger, so the grid check below holds for both
+_BLOCK = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -64,7 +72,9 @@ def flash_attention_reference(
         causal: mask keys past the query index (col <= row attends).
         upcast: f32 operands and a natural-log softmax with a running max
             (the JAX `upcast` contract).
-        no_max: the clamped, max-free softmax (the default contract).
+        no_max: the clamped, max-free softmax (the default contract); its
+            row sum l sums p rounded to v's type at D % 128 != 0, the
+            unrounded p at D % 128 == 0, as the JAX kernel's `fold_l` does.
         log2_lse: return the lse in the log2 domain, as the JAX kernel keeps
             it for its backward (exp2 contracts only).
 
@@ -88,6 +98,7 @@ def flash_attention_reference(
     live = None
     if causal:
         live = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
+    pv_dtype = torch.float32 if upcast else v.dtype
     if no_max:
         p = torch.exp2(torch.clamp(s, max=80.0))
         if live is not None:
@@ -98,9 +109,11 @@ def flash_attention_reference(
             s = s.masked_fill(~live, float("-inf"))
         m = s.amax(dim=-1, keepdim=True)
         p = (torch.exp2 if exp2 else torch.exp)(s - m)
-    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    pv_dtype = torch.float32 if upcast else v.dtype
-    acc = torch.matmul(p.to(pv_dtype).float(), v.to(pv_dtype).float())
+    p_pv = p.to(pv_dtype).float()
+    # JAX's fold_l: l rides the PV product (p in v's type) at D % 128 != 0
+    l_terms = p_pv if no_max and q.shape[-1] % 128 else p
+    l_safe = l_terms.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    acc = torch.matmul(p_pv, v.to(pv_dtype).float())
     out = (acc / l_safe).to(q.dtype)
     if exp2:
         lse = torch.log2(l_safe) + m
@@ -246,18 +259,22 @@ class FlashBackwardFusedKernel(_FlashBackwardKernel):
     `_dfused_kernel`)."""
 
     symbol = "gm_flash_bwd_fused"
-    argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) * 3 + _BWD_ARGTYPES[6:]
+    argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) * 4 + _BWD_ARGTYPES[6:]
 
     def __call__(
         self, q, k, v, dout, lse2, delta, *, causal: bool = False
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(dq, dk, dv) from the same inputs as the split launchers, in one
-        launch. The kernel adds dq into one zeroed f32 buffer with atomics,
-        in place of the TPU kernel's f32 partial slab per kv tile; the
-        buffer is cast once to the input type here."""
+        launch. The kernel's key blocks add their dq parts into one zeroed
+        f32 buffer in key-block order, kept by one zeroed int32 counter per
+        (bh, 32-row q tile), in place of the TPU kernel's f32 partial slab
+        per kv tile: dq is the same to the bit from run to run. The buffer
+        is cast once to the input type here."""
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        lock = torch.zeros((q.shape[0], -(-q.shape[1] // _BLOCK)), dtype=torch.int32,
+                           device=q.device)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-        self._run((dq, dk, dv), q, k, v, dout, lse2, delta, causal)
+        self._run((dq, lock, dk, dv), q, k, v, dout, lse2, delta, causal)
         return dq.to(q.dtype), dk, dv
 
 
@@ -360,6 +377,13 @@ class _FlashAttention(torch.autograd.Function):
         return _prescaled(dq, ctx.scale), dk, dv, None, None
 
 
+def _no_max_default() -> bool:
+    """GMTPU_FLASH_NOMAX=0 selects the running-max contract; anything else,
+    or no variable, the max-free one. Read at each call, as
+    `generativemodels_tpu/ops/flash_attention.py` reads it."""
+    return os.environ.get("GMTPU_FLASH_NOMAX", "1") == "1"
+
+
 def _check_device(q: torch.Tensor) -> None:
     if q.device.type != "cpu" and not q.is_cuda:
         raise ValueError(f"flash attention runs on CPU or CUDA tensors, not {q.device}")
@@ -373,10 +397,15 @@ def flash_attention(
     scale: float,
     causal: bool = False,
     upcast: bool = False,
-    no_max: bool = True,
+    no_max: bool | None = None,
 ) -> torch.Tensor:
-    """Differentiable attention over (BH, S, D) tensors; returns (BH, Sq, D) in q's type."""
+    """Differentiable attention over (BH, S, D) tensors; returns (BH, Sq, D) in q's type.
+
+    `no_max=None` reads GMTPU_FLASH_NOMAX at this call (`_no_max_default`).
+    """
     _check_device(q)
+    if no_max is None:
+        no_max = _no_max_default()
     if upcast or not no_max:
         if q.is_cuda:
             raise NotImplementedError(
@@ -400,13 +429,15 @@ def flash_attention_with_lse(
     """Forward-only attention returning (O, lse), lse (BH, Sq) f32 natural log.
 
     Not differentiable, as in the JAX package: inputs that require a
-    gradient raise NotImplementedError.
+    gradient raise NotImplementedError. GMTPU_FLASH_NOMAX is read at each
+    call, as `flash_attention` reads it.
     """
     _check_device(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise NotImplementedError("flash_attention_with_lse is forward-only")
+    no_max = _no_max_default()
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale=scale, upcast=upcast)
-    if upcast:
+        return flash_attention_reference(q, k, v, scale=scale, upcast=upcast, no_max=no_max)
+    if upcast or not no_max:
         raise NotImplementedError("the CUDA kernel implements the default contract only")
     return FLASH_FWD(q, k, v, scale=scale)

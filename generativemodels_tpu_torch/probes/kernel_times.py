@@ -1,0 +1,99 @@
+"""Time the flash forward (kernel 1) and the fused flash backward (kernel 4)
+of one checkout of the port, so that two checkouts can be compared on one
+card in one call.
+
+    python generativemodels_tpu_torch/probes/kernel_times.py [--root DIR] [--out FILE]
+
+`--root` is the root of the checkout whose `generativemodels_tpu_torch` is
+imported (default: the checkout holding this file); its kernels are built
+from its own sources.
+Run it on two checkouts in turns (A, B, B, A) and compare within the call.
+Each case is timed with CUDA events over 20 launches after 3, on standard
+normal inputs from seed 0. Prints one JSON object per case and, with
+`--out`, appends them to FILE.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# (kernel, (BH, Sq, Sk, D), dtype name): kernel 1 at the 3D, serving and 2D
+# bench training shapes; kernel 4 at the 3D shape and the 2D bench and
+# recipe training shapes
+CASES = (
+    ("flash_fwd", (2, 32768, 32768, 64), "bfloat16"),
+    ("flash_fwd", (4, 1024, 1024, 256), "float32"),
+    ("flash_fwd", (128, 1024, 1024, 256), "bfloat16"),
+    ("flash_bwd_fused", (2, 32768, 32768, 64), "bfloat16"),
+    ("flash_bwd_fused", (128, 1024, 1024, 256), "bfloat16"),
+    ("flash_bwd_fused", (64, 1024, 1024, 256), "float32"),
+)
+
+
+def time_ms(torch, fn, iters: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def main(argv=None) -> list[dict]:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--root", default=HERE_ROOT, help="checkout root to import the port from")
+    parser.add_argument("--out", default=None, help="append the JSON lines to this file")
+    args = parser.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    for name in [m for m in sys.modules if m.startswith("generativemodels_tpu_torch")]:
+        del sys.modules[name]
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA device")
+    from generativemodels_tpu_torch import ops
+    from generativemodels_tpu_torch.ops.flash_attention import _backward_rows, _prescaled
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(ops.__file__)))
+    results = []
+    for kernel, (bh, sq, sk, d), dtype_name in CASES:
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator("cuda").manual_seed(0)
+        q, k, v, dout = (torch.randn((bh, n, d), generator=g, device="cuda").to(dtype)
+                         for n in (sq, sk, sk, sq))
+        scale = d**-0.5
+        if kernel == "flash_fwd":
+            ms = time_ms(torch, lambda: ops.FLASH_FWD(q, k, v, scale=scale))
+        else:
+            out, lse2 = ops.FLASH_FWD(q, k, v, scale=scale, log2_lse=True)
+            qp = _prescaled(q, scale)
+            do2, delta = _backward_rows(out, dout)
+            ms = time_ms(torch, lambda: ops.FLASH_BWD_FUSED(qp, k, v, do2, lse2, delta))
+            del out, lse2, qp, do2, delta
+        line = dict(root=root, kernel=kernel, shape=[bh, sq, sk, d], dtype=dtype_name, ms=ms,
+                    card=card)
+        print(json.dumps(line), flush=True)
+        results.append(line)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    if args.out:
+        with open(args.out, "a") as f:
+            for line in results:
+                f.write(json.dumps(line) + "\n")
+    return results
+
+
+if __name__ == "__main__":
+    main()

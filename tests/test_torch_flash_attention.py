@@ -3,8 +3,9 @@
 `flash_attention_reference` is held against the JAX Pallas kernel run in
 interpret mode (`flash_attention(..., interpret=True)` and
 `flash_attention_with_lse`), as tests/test_ops.py runs it on the CPU.
-f32 cases compare at atol = rtol = 1e-5 (summation order only); the bf16
-case at atol 1e-2 (O is rounded to bf16, one ulp at 1 is 2**-8 ~ 4e-3).
+f32 cases compare at atol = rtol = 1e-5 (summation order only); bf16 O at
+atol 1e-2 (O is rounded to bf16, one ulp at 1 is 2**-8 ~ 4e-3), the bf16
+lse at the f32 tolerance (an f32 log of the same sums).
 The CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_kernels_gpu.py and by chip_smoke.py.
 """
@@ -70,16 +71,41 @@ def test_reference_matches_jax_kernel(name):
         np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), **F32_TOL)
 
 
-def test_reference_matches_jax_kernel_bf16():
-    """bf16: q prescaled in bf16, bf16 operands, p rounded to bf16 for PV.
+def _exact_lse_bf16(q, k, scale, d, causal=False):
+    """The bf16 contract's lse in f64 numpy from the bf16-rounded prescaled
+    q and k: l sums p rounded to bf16 at D % 128 != 0 (JAX's `fold_l`
+    ones column of V), the unrounded p at D % 128 == 0."""
+    qs = np.asarray(
+        jnp.asarray(q, jnp.bfloat16) * jnp.asarray(scale * 1.4426950408889634, jnp.bfloat16),
+        np.float64,
+    )
+    kb = np.asarray(jnp.asarray(k, jnp.bfloat16), np.float64)
+    p = np.exp2(np.minimum(qs @ kb.transpose(0, 2, 1), 80.0)).astype(np.float32)
+    if causal:
+        p = p * np.tril(np.ones(p.shape[1:], np.float32))
+    if d % 128:
+        p = np.asarray(jnp.asarray(p, jnp.bfloat16), np.float32)
+    return np.log2(p.astype(np.float64).sum(-1)) * np.log(2.0)
 
-    The JAX kernel in interpret mode on the CPU does not keep the bf16
-    scores exact in f32 (its lse sits ~7e-4 from an exact numpy computation),
-    so it is compared at the bf16 tolerance; the exact numpy computation of
-    the same contract pins the lse at the f32 tolerance.
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_reference_matches_jax_kernel_bf16(d):
+    """bf16: q prescaled in bf16, bf16 operands, p rounded to bf16 for PV,
+    and the row sum l by head width (JAX's `fold_l`): at D % 128 != 0 the
+    sum of the bf16-rounded p, at D % 128 == 0 of the unrounded p.
+
+    The lse is held to JAX's `flash_attention_with_lse` (interpret mode)
+    at the f32 tolerance: on these inputs the two sit at most 9.5e-7 apart
+    at every D (my CPU run). The rule matters: summing the other p moves
+    the lse by ~8e-4 here. Where an exp2 lands within an ulp of a bf16
+    rounding tie the two libraries may round one p to either side (seed 4
+    at D = 64: 2.0e-4 from one p holding 3% of its row), so the inputs are
+    fixed. O is rounded to bf16 and compared at the bf16 tolerance. The
+    exact f64 computation of the same contract pins the lse at the f32
+    tolerance too.
     """
-    q, k, v = _qkv(2, 256, 200, 64, seed=3)
-    scale = 0.125
+    q, k, v = _qkv(2, 256, 200, d, seed=3)
+    scale = d**-0.5
     jq, jk, jv = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v))
     j_out, j_lse = jflash_lse(jq, jk, jv, scale=scale, interpret=True)
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
@@ -88,12 +114,26 @@ def test_reference_matches_jax_kernel_bf16():
     np.testing.assert_allclose(
         out.float().numpy(), np.asarray(j_out, dtype=np.float32), **BF16_TOL
     )
-    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), **BF16_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), **F32_TOL)
+    np.testing.assert_allclose(lse.numpy(), _exact_lse_bf16(q, k, scale, d), **F32_TOL)
 
-    qs = np.asarray(jq * jnp.asarray(scale * 1.4426950408889634, jnp.bfloat16), np.float32)
-    s = qs @ tk.float().numpy().transpose(0, 2, 1)
-    exact_lse = np.log2(np.exp2(np.minimum(s, 80.0)).sum(-1)) * np.log(2.0)
-    np.testing.assert_allclose(lse.numpy(), exact_lse, **F32_TOL)
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_reference_matches_jax_kernel_bf16_causal(d):
+    """The causal bf16 contract: O against JAX's `flash_attention` in
+    interpret mode (it returns no lse), the lse against the exact f64
+    computation with the same mask and row-sum rule."""
+    q, k, v = _qkv(2, 256, 256, d, seed=6)
+    scale = d**-0.5
+    j_out = jflash(*(jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v)), scale=scale,
+                   causal=True, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out, lse = flash_attention_reference(tq, tk, tv, scale=scale, causal=True)
+    np.testing.assert_allclose(
+        out.float().numpy(), np.asarray(j_out, dtype=np.float32), **BF16_TOL
+    )
+    np.testing.assert_allclose(lse.numpy(), _exact_lse_bf16(q, k, scale, d, causal=True),
+                               **F32_TOL)
 
 
 @pytest.mark.parametrize("upcast, no_max", [(True, True), (False, False)])
@@ -108,6 +148,37 @@ def test_reference_other_contracts_match_jax(upcast, no_max):
         upcast=upcast, no_max=no_max,
     )
     np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **F32_TOL)
+
+
+def test_nomax_variable_matches_jax(monkeypatch):
+    """GMTPU_FLASH_NOMAX, read at each call by `flash_attention` and
+    `flash_attention_with_lse` in both packages: =0 gives JAX's running-max
+    result, unset or =1 its clamped one. The logits (q x 30) pass the
+    clamp, so the two settings give different results."""
+    q, k, v = _qkv(2, 160, 160, 32, seed=8)
+    q = q * 30.0
+    scale = 32**-0.5
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    outs = {}
+    for setting in ("0", "1"):
+        monkeypatch.setenv("GMTPU_FLASH_NOMAX", setting)
+        jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+        j_out = jflash(jq, jk, jv, scale=scale, interpret=True)
+        j_out2, j_lse = jflash_lse(jq, jk, jv, scale=scale, interpret=True)
+        out = flash_attention(tq, tk, tv, scale=scale)
+        out2, lse = flash_attention_with_lse(tq, tk, tv, scale=scale)
+        np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **F32_TOL)
+        np.testing.assert_allclose(out2.numpy(), np.asarray(j_out2), **F32_TOL)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), **F32_TOL)
+        outs[setting] = out
+    monkeypatch.delenv("GMTPU_FLASH_NOMAX")
+    torch.testing.assert_close(flash_attention(tq, tk, tv, scale=scale), outs["1"], rtol=0,
+                               atol=0)
+    assert (outs["0"] - outs["1"]).abs().max().item() > 1e-2
+    # an explicit argument wins over the variable
+    monkeypatch.setenv("GMTPU_FLASH_NOMAX", "0")
+    torch.testing.assert_close(flash_attention(tq, tk, tv, scale=scale, no_max=True), outs["1"],
+                               rtol=0, atol=0)
 
 
 def test_cpu_wrappers_take_the_plain_version():

@@ -7,16 +7,18 @@ and no JAX. Tests marked `cuda` skip without a GPU; on the card run
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_gpu.py
 
-(`--noconftest`: tests/conftest.py configures JAX). Forward tolerances:
-1e-5 for f32 (summation order only), 2e-2 for bf16 (O rounded to bf16).
+(`--noconftest`: tests/conftest.py configures JAX). Forward tolerances, as
+chip_smoke.py's phase 2: O 1e-5 for f32 (summation order only; the 3xTF32
+products keep f32 accuracy) and 2e-2 for bf16 (O rounded to bf16); the lse
+1e-5 for f32 and 1e-4 for bf16 (an f32 log of the same row sums).
 Backward (dq, dk, dv of kernels 2 and 3, and of the fused kernel 4),
 relative to the largest gradient: 1e-4 for f32 (summation order over up to
 1024 keys), 2e-2 for bf16. Kernel 4 against kernels 2 + 3 on the same
 inputs: dk and dv equal to the bit (the same FMA order); dq within 1e-5 of
-its largest value in f32 (f32 sums of the key blocks' parts in the order
-the atomics land), and in bf16 within one bf16 ulp of its value (those sums
-may round to the other side of a bf16 tie) plus that 1e-5 (sums that
-cancel).
+its largest value in f32 (f32 sums of the key blocks' parts in key-block
+order), and in bf16 within one bf16 ulp of its value (those sums may round
+to the other side of a bf16 tie) plus that 1e-5 (sums that cancel); two
+launches of kernel 4 give the same dq to the bit.
 Kernel 5, relative to the largest output, against a plain version whose
 f32 convolution runs without TF32: 1e-5 for f32 (summation order of
 27 * Cin products), 1e-2 for bf16 (the output is rounded to bf16, 2**-8 of
@@ -72,19 +74,25 @@ def test_launcher_rejects_cpu_tensors():
     assert FLASH_FWD.launches == before
 
 
+# (O, lse) tolerances of kernel 1, as chip_smoke.py's TOLERANCE and LSE_TOLERANCE
+FWD_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-4)}
+# (BH, Sq, Sk, causal): Sq and Sk of the ragged case are no multiples of 64
+FWD_SHAPES = {
+    "self": (2, 512, 512, False),
+    "causal": (2, 300, 300, True),
+    "ragged": (3, 200, 333, False),
+    "serve": (4, 1024, 1024, False),  # 256-wide heads only
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize(
-    "shape, dtype, causal, tol",
-    [
-        ((4, 1024, 1024, 256), torch.float32, False, 1e-5),
-        ((4, 1024, 1024, 256), torch.bfloat16, False, 2e-2),
-        ((2, 1000, 777, 64), torch.float32, False, 1e-5),
-        ((2, 300, 300, 128), torch.float32, True, 1e-5),
-        ((3, 70, 45, 32), torch.float32, False, 1e-5),
-    ],
+    "case, d",
+    [(c, d) for c in FWD_SHAPES for d in (32, 64, 128, 256) if c != "serve" or d == 256],
 )
-def test_kernel_matches_reference_on_gpu(cuda_device, shape, dtype, causal, tol):
-    bh, sq, sk, d = shape
+def test_kernel_matches_reference_on_gpu(cuda_device, case, d, dtype):
+    bh, sq, sk, causal = FWD_SHAPES[case]
     g = torch.Generator(cuda_device).manual_seed(0)
     q, k, v = (
         torch.randn((bh, s, d), generator=g, device=cuda_device).to(dtype) for s in (sq, sk, sk)
@@ -94,8 +102,10 @@ def test_kernel_matches_reference_on_gpu(cuda_device, shape, dtype, causal, tol)
     ref_o, ref_lse = flash_attention_reference(q, k, v, scale=d**-0.5, causal=causal)
     torch.cuda.synchronize()
     assert FLASH_FWD.launches == before + 1
-    assert (o.float() - ref_o.float()).abs().max().item() <= tol
-    assert (lse - ref_lse).abs().max().item() <= tol
+    assert o.dtype == dtype and bool(torch.isfinite(o.float()).all())
+    o_tol, lse_tol = FWD_TOL[dtype]
+    assert (o.float() - ref_o.float()).abs().max().item() <= o_tol
+    assert (lse - ref_lse).abs().max().item() <= lse_tol
 
 
 @pytest.mark.cuda
@@ -150,9 +160,12 @@ def test_fused_backward_kernel_on_gpu(cuda_device, monkeypatch, d, dtype, bh, sq
     before = [c.launches for c in counters]
     monkeypatch.setenv("GMTPU_FLASH_FUSED_BWD", "1")
     fused = flash_attention_backward(*args, causal=causal)
+    again = flash_attention_backward(*args, causal=causal)
     torch.cuda.synchronize()
     # the switch launched kernel 4 alone
-    assert [c.launches for c in counters] == [before[0], before[1], before[2] + 1]
+    assert [c.launches for c in counters] == [before[0], before[1], before[2] + 2]
+    # dq's parts are added in key-block order: the same to the bit
+    assert torch.equal(again[0], fused[0])
     monkeypatch.setenv("GMTPU_FLASH_FUSED_BWD", "0")
     split = flash_attention_backward(*args, causal=causal)
     want = flash_attention_backward_reference(*args, causal=causal)
@@ -172,12 +185,18 @@ def test_fused_backward_kernel_on_gpu(cuda_device, monkeypatch, d, dtype, bh, sq
 
 
 @pytest.mark.cuda
-def test_unported_contracts_raise_on_gpu(cuda_device):
+def test_unported_contracts_raise_on_gpu(cuda_device, monkeypatch):
     q = torch.randn(2, 64, 32, device=cuda_device)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q, q, scale=0.1, upcast=True)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q, q, scale=0.1, no_max=False)
+    monkeypatch.setenv("GMTPU_FLASH_NOMAX", "0")  # the running-max contract, read at each call
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q, q, scale=0.1)
+    with pytest.raises(NotImplementedError):
+        flash_attention_with_lse(q, q, q, scale=0.1)
+    monkeypatch.delenv("GMTPU_FLASH_NOMAX")
     with pytest.raises(NotImplementedError):
         flash_attention_with_lse(q.clone().requires_grad_(), q, q, scale=0.1)
     # a gradient now runs the backward kernels
