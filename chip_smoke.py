@@ -11,7 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      and CUDA versions, the TF32 settings, and the builds of
      generativemodels_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu,
      fused_conv.cu and flash_probes.cu (one nvcc each, started together)
-     with their times and ptxas reports;
+     with their times and each entry function's registers, stack frame and
+     spill bytes from ptxas (kernels 3 and 4 must have neither);
   2. kernels against their plain versions: O and lse of the flash-attention
      forward kernel against `flash_attention_reference` (then the forward
      against the plain attention path at seq 256-1024, the numbers behind
@@ -74,6 +75,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -102,14 +104,14 @@ KERNELS = {
                         "benchmarks/probe_attn_vpu.py:45"),  # _fwd_kernel_var
 }
 # the card's published peaks (H100 SXM data sheet, dense, 700 W): f32 on the
-# CUDA cores (kernels 2-5 run their f32 products there, with no TF32), bf16
-# on the tensor cores, and the device memory's rate
+# CUDA cores (kernels 2 and 5 run their f32 products there, with no TF32),
+# bf16 on the tensor cores, and the device memory's rate
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
-# kernel 1's f32 path runs each f32 product as three TF32 products on the
-# tensor cores (3xTF32): its useful operations cost three at the TF32 rate,
-# 495 TFLOP/s, so its bound is useful operations x 3 / 495e12 (not / 67e12,
-# which a 3xTF32 kernel may beat)
+# the f32 paths of kernels 1, 3 and 4 run each f32 product as three TF32
+# products on the tensor cores (3xTF32): their useful operations cost three
+# at the TF32 rate, 495 TFLOP/s, so their bound is useful operations x 3 /
+# 495e12 (not / 67e12, which a 3xTF32 kernel may beat)
 PEAK_3XTF32 = 495e12 / 3
 
 # (name, (BH, Sq, Sk, D), dtype name, causal)
@@ -138,6 +140,12 @@ LSE_TOLERANCE = {"float32": 1e-5, "bfloat16": 1e-4}
 # `dot_product_attention` at these sequence lengths, as (B, heads, D, dtype)
 THRESHOLD_SEQS = (256, 512, 1024)
 THRESHOLD_CASES = ((2, 2, 64, "bfloat16"), (4, 1, 256, "float32"))
+# kernels whose every instantiation must show no stack frame and no spills
+# in phase 1 (kernels 3 and 4, whose accumulators live in registers), and
+# how many instantiations the ptxas log must report for them (2 kernels x
+# f32, bf16 x 4 head widths), so that a log that stops matching fails
+NO_STACK_KERNELS = ("flash_bwd_dkv_kernel", "flash_bwd_fused_kernel")
+NO_STACK_INSTANCES = 16
 # (name, (BH, Sq, Sk, D), dtype name, causal) of the backward kernels
 BACKWARD_CASES = (
     ("train_bench_bf16", (128, 1024, 1024, 256), "bfloat16", False),  # bench.py, batch 128
@@ -151,8 +159,8 @@ BACKWARD_CASES = (
 # order; bf16 rounds ds, p and the outputs to bf16
 BACKWARD_TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 # the fused kernel's dq against the split kernel's, relative to max|dq|: the
-# same f32 products summed in another order (the key blocks' parts as the
-# atomics land); a bf16 dq may also round to the other side of a tie, one
+# same f32 products summed in another order (the key blocks' parts in
+# key-block order); a bf16 dq may also round to the other side of a tie, one
 # bf16 ulp (2**-7 of the value's power of two)
 FUSED_DQ_RTOL = 1e-5
 # the plain backward holds several f32 (Sq, Sk) matrices of each head at
@@ -391,13 +399,25 @@ def check_kernel(torch, ops) -> dict:
     return results
 
 
-def fused_dq_adds(bh: int, sq: int, sk: int, d: int, causal: bool) -> int:
-    """Kernel 4's ordered float4 dq adds: one for each 4 columns of each
-    query row that each key block's q loop reaches (64-key blocks at D <= 64,
-    else 32; under the causal mask the loop starts at the block's first key)."""
-    keys = 64 if d <= 64 else 32
+def dkv_tiles(dtype_name: str, d: int) -> tuple[int, int]:
+    """(q rows of a q tile, keys of a block) of kernels 3 and 4 for inputs
+    of `dtype_name` and head width `d`, read from the `constexpr int`s of
+    csrc/flash_bwd.cu."""
+    with open(os.path.join(REPO, CSRC, "flash_bwd.cu")) as f:
+        text = f.read()
+    tiles = {name: int(value)
+             for name, value in re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+    rows = tiles["kBrBf16"] if dtype_name == "bfloat16" else tiles["kBrF32"]
+    return rows, tiles["kBcNarrow"] if d <= tiles["kNarrowD"] else tiles["kBcWide"]
+
+
+def fused_dq_adds(bh: int, sq: int, sk: int, d: int, dtype_name: str, causal: bool) -> int:
+    """Kernel 4's ordered float2 dq adds: one for each 2 columns of each
+    query row that each key block's q loop reaches (under the causal mask
+    the loop starts at the block's first key)."""
+    keys = dkv_tiles(dtype_name, d)[1]
     rows = sum(sq - min(sq, k0) if causal else sq for k0 in range(0, sk, keys))
-    return bh * rows * d // 4
+    return bh * rows * d // 2
 
 
 def check_backward(torch, ops) -> dict:
@@ -470,10 +490,11 @@ def check_backward(torch, ops) -> dict:
         pairs, esize = attention_pairs(sq, sk, causal), q.element_size()
         rows = 8 * bh * sq  # lse2 and delta, f32
         lim_dq = bound(6 * bh * pairs * d, bh * d * esize * (3 * sq + 2 * sk) + rows, dtype_name)
+        tensor_f32 = PEAK_3XTF32 if dtype == torch.float32 else None  # kernels 3 and 4
         lim_dkv = bound(8 * bh * pairs * d, bh * d * esize * (2 * sq + 4 * sk) + rows,
-                        dtype_name)
+                        dtype_name, tensor_f32)
         lim_fused = bound(10 * bh * pairs * d, bh * d * esize * (3 * sq + 4 * sk) + rows,
-                          dtype_name)
+                          dtype_name, tensor_f32)
         tol = BACKWARD_TOLERANCE[dtype_name]
         ok = all(e <= tol for e in rel_err.values())
         fused_ok = (all(e <= tol for e in fused_rel.values()) and same_dkv and dq_ok
@@ -490,7 +511,8 @@ def check_backward(torch, ops) -> dict:
             f"max|ddq|/max|dq| {dq_vs_split:.3e} (within {FUSED_DQ_RTOL:g}"
             + (" + one bf16 ulp" if dtype == torch.bfloat16 else "") + f": {dq_ok}); "
             f"two launches: max|ddq| {spread:.3e} in {spread_count} elements (must be 0); "
-            f"{fused_dq_adds(bh, sq, sk, d, causal):.4e} ordered float4 dq adds; fused kernel "
+            f"{fused_dq_adds(bh, sq, sk, d, dtype_name, causal):.4e} ordered float2 dq adds; "
+            f"fused kernel "
             f"{ms_fused:.4f} ms (bound {lim_fused['bound_ms']:.4f} ms, {lim_fused['bound_by']}) "
             f"against kernels 2 + 3 {ms_dq + ms_dkv:.4f} ms -> {'ok' if fused_ok else 'FAIL'}")
         if not ok:
@@ -1382,9 +1404,41 @@ def build_kernels(build_library) -> None:
             raise results[name]
         lib, build_log, seconds = results[name]
         log(f"build: {lib.name} in {seconds:.2f} s")
-        for line in build_log.splitlines():
-            if "Compiling entry function" in line or "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+        offenders, checked = [], 0
+        for entry in ptxas_entries(build_log):
+            log(f"  ptxas: {entry['name']}: {entry['registers']} registers, "
+                f"{entry['stack']} bytes stack frame, {entry['spill_stores']} bytes spill "
+                f"stores, {entry['spill_loads']} bytes spill loads")
+            if any(kernel in entry["name"] for kernel in NO_STACK_KERNELS):
+                spent = (None if entry["stack"] is None else
+                         entry["stack"] + entry["spill_stores"] + entry["spill_loads"])
+                if spent is None or spent > 0:
+                    offenders.append(entry["name"])
+                else:
+                    checked += 1
+        if offenders:
+            raise AssertionError(f"stack frame or spills in {', '.join(offenders)}")
+        if name == "flash_bwd.cu" and checked != NO_STACK_INSTANCES:
+            raise AssertionError(f"the ptxas log of {name} reports {checked} instantiations of "
+                                 f"{', '.join(NO_STACK_KERNELS)} with no stack frame, not "
+                                 f"{NO_STACK_INSTANCES}")
+
+
+def ptxas_entries(build_log: str) -> list[dict]:
+    """Each entry function of a `-Xptxas=-v` log with its registers, stack
+    frame and spill bytes."""
+    entries, current = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            current = dict(name=line.split("'")[1], registers=None, stack=None,
+                           spill_stores=None, spill_loads=None)
+            entries.append(current)
+        elif current is not None and "bytes stack frame" in line:
+            numbers = [int(word) for word in line.replace(",", " ").split() if word.isdigit()]
+            current["stack"], current["spill_stores"], current["spill_loads"] = numbers[:3]
+        elif current is not None and "Used" in line and "registers" in line:
+            current["registers"] = int(line.split("Used")[1].split()[0])
+    return entries
 
 
 def main() -> int:

@@ -42,8 +42,10 @@ from .native import Launcher
 LOG2E = 1.4426950408889634  # log2(e)
 LN2 = 0.6931471805599453  # 1/LOG2E
 HEAD_DIMS = (32, 64, 128, 256)  # head widths the kernels are instantiated for
-# query rows of a block of the backward kernels (kBlock in csrc/flash_bwd.cu);
-# the forward's blocks are larger, so the grid check below holds for both
+# query rows of a block of kernel 2 (kBlock in csrc/flash_bwd.cu), the
+# smallest block of any flash kernel, so the grid check below holds for all;
+# kernel 4's q tiles are no smaller, so one dq counter per _BLOCK rows covers
+# them
 _BLOCK = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -211,7 +213,8 @@ _BWD_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
 class _FlashBackwardKernel(Launcher):
     source = "flash_bwd.cu"
 
-    def _run(self, outputs, q, k, v, dout, lse2, delta, causal: bool) -> None:
+    def _run(self, outputs, q, k, v, dout, lse2, delta, causal: bool, extra=()) -> None:
+        """Launch with the inputs, the `extra` input pointers, then the outputs."""
         _check_kernel_inputs(q, k, v)
         _check_backward_rows(q, dout, lse2, delta)
         if q.numel() == 0 or k.shape[1] == 0:
@@ -221,7 +224,7 @@ class _FlashBackwardKernel(Launcher):
         bh, sq, d = q.shape
         self._launch(
             q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse2.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outputs),
+            lse2.data_ptr(), delta.data_ptr(), *extra, *(t.data_ptr() for t in outputs),
             bh, sq, k.shape[1], d, _DTYPE_CODES[q.dtype], int(causal),
         )
 
@@ -259,7 +262,7 @@ class FlashBackwardFusedKernel(_FlashBackwardKernel):
     `_dfused_kernel`)."""
 
     symbol = "gm_flash_bwd_fused"
-    argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) * 4 + _BWD_ARGTYPES[6:]
+    argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) * 5 + _BWD_ARGTYPES[6:]
 
     def __call__(
         self, q, k, v, dout, lse2, delta, *, causal: bool = False
@@ -267,14 +270,22 @@ class FlashBackwardFusedKernel(_FlashBackwardKernel):
         """(dq, dk, dv) from the same inputs as the split launchers, in one
         launch. The kernel's key blocks add their dq parts into one zeroed
         f32 buffer in key-block order, kept by one zeroed int32 counter per
-        (bh, 32-row q tile), in place of the TPU kernel's f32 partial slab
-        per kv tile: dq is the same to the bit from run to run. The buffer
-        is cast once to the input type here."""
+        (bh, q tile) (the kernel's q tiles hold at least _BLOCK rows, so
+        ceil(Sq / _BLOCK) counters a head are enough), in place of the TPU
+        kernel's f32 partial slab per kv tile: dq is the same to the bit
+        from run to run. The buffer is cast once to the input type here.
+        For bf16 the kernel also reads the Euclidean norms of dout's rows,
+        computed here: they bound how far kernel 2's dp may lie from its
+        own, so that it rounds each ds as kernel 2 does."""
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         lock = torch.zeros((q.shape[0], -(-q.shape[1] // _BLOCK)), dtype=torch.int32,
                            device=q.device)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-        self._run((dq, lock, dk, dv), q, k, v, dout, lse2, delta, causal)
+        norm = None
+        if q.dtype == torch.bfloat16:
+            norm = torch.linalg.vector_norm(dout, dim=-1, dtype=torch.float32)
+        self._run((dq, lock, dk, dv), q, k, v, dout, lse2, delta, causal,
+                  extra=(None if norm is None else norm.data_ptr(),))
         return dq.to(q.dtype), dk, dv
 
 

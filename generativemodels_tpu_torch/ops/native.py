@@ -2,9 +2,9 @@
 
 Route: `nvcc` by hand into a library with a plain C interface, loaded with
 ctypes (no PyTorch headers, so a build takes seconds). The library goes
-into `generativemodels_tpu_torch/_build/`, named by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. The build happens at first use, never at import; builds
+into `generativemodels_tpu_torch/_build/`, named by a hash of the source,
+the headers of `csrc/` and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is. The build happens at first use, never at import; builds
 of different sources may run at once, in threads. `Launcher` binds one
 entry point of a built library and counts its launches.
 """
@@ -52,7 +52,9 @@ def build_library(source_name: str) -> tuple[Path, str]:
     shared-memory report). Raises RuntimeError with nvcc's stderr on failure.
     """
     source = CSRC_DIR / source_name
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the headers of csrc/ are part of every source: an edited header rebuilds them all
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{source.stem}-{digest}.so"
     log = lib.with_suffix(".log")
     with _locks_lock:

@@ -1,6 +1,6 @@
-"""Time the flash forward (kernel 1) and the fused flash backward (kernel 4)
-of one checkout of the port, so that two checkouts can be compared on one
-card in one call.
+"""Time the flash forward (kernel 1), the dK/dV backward (kernel 3) and the
+fused flash backward (kernel 4) of one checkout of the port, so that two
+checkouts can be compared on one card in one call.
 
     python generativemodels_tpu_torch/probes/kernel_times.py [--root DIR] [--out FILE]
 
@@ -22,16 +22,21 @@ import sys
 
 HERE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # (kernel, (BH, Sq, Sk, D), dtype name): kernel 1 at the 3D, serving and 2D
-# bench training shapes; kernel 4 at the 3D shape and the 2D bench and
-# recipe training shapes
+# bench training shapes; kernels 3 and 4 at the 3D shape and the 2D bench
+# and recipe training shapes
 CASES = (
     ("flash_fwd", (2, 32768, 32768, 64), "bfloat16"),
     ("flash_fwd", (4, 1024, 1024, 256), "float32"),
     ("flash_fwd", (128, 1024, 1024, 256), "bfloat16"),
+    ("flash_bwd_dkv", (2, 32768, 32768, 64), "bfloat16"),
+    ("flash_bwd_dkv", (128, 1024, 1024, 256), "bfloat16"),
+    ("flash_bwd_dkv", (64, 1024, 1024, 256), "float32"),
     ("flash_bwd_fused", (2, 32768, 32768, 64), "bfloat16"),
     ("flash_bwd_fused", (128, 1024, 1024, 256), "bfloat16"),
     ("flash_bwd_fused", (64, 1024, 1024, 256), "float32"),
 )
+# the backward launchers by kernel name
+BACKWARD = {"flash_bwd_dkv": "FLASH_BWD_DKV", "flash_bwd_fused": "FLASH_BWD_FUSED"}
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:
@@ -80,7 +85,8 @@ def main(argv=None) -> list[dict]:
             out, lse2 = ops.FLASH_FWD(q, k, v, scale=scale, log2_lse=True)
             qp = _prescaled(q, scale)
             do2, delta = _backward_rows(out, dout)
-            ms = time_ms(torch, lambda: ops.FLASH_BWD_FUSED(qp, k, v, do2, lse2, delta))
+            launcher = getattr(ops, BACKWARD[kernel])
+            ms = time_ms(torch, lambda: launcher(qp, k, v, do2, lse2, delta))
             del out, lse2, qp, do2, delta
         line = dict(root=root, kernel=kernel, shape=[bh, sq, sk, d], dtype=dtype_name, ms=ms,
                     card=card)

@@ -18,6 +18,10 @@ tests/test_torch_flash_backward.py does (summation order only); bf16 at
 """
 from __future__ import annotations
 
+import importlib.util
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +36,9 @@ from generativemodels_tpu_torch.ops import (
     FLASH_FWD,
     flash_attention,
 )
+from generativemodels_tpu_torch.ops.flash_attention import _BLOCK
+
+REPO = Path(__file__).resolve().parent.parent
 
 F32_TOL = 1e-5
 BF16_REL = 2e-2
@@ -107,3 +114,65 @@ def test_fused_switch_launches_no_kernel_on_cpu(monkeypatch):
     for a, b in zip(split, fused):
         assert np.isfinite(b).all()
         np.testing.assert_array_equal(a, b)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("_chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
+def test_launcher_tiles_follow_the_kernel_source(dtype, d):
+    """chip_smoke's tiles of kernels 3 and 4 are the `constexpr`s that
+    csrc/flash_bwd.cu declares, chosen as the kernel chooses them; the
+    launcher's kernel-4 counters (one per _BLOCK rows a head) cover every
+    q tile the kernel counts (a lock too small means counters out of bounds
+    or a wait that never ends); and chip_smoke's count of ordered dq adds
+    follows the kernel's loops."""
+    text = (REPO / "generativemodels_tpu_torch" / "csrc" / "flash_bwd.cu").read_text()
+    tiles = {name: int(value) for name, value in re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+    assert "kBr = kBf16 ? kBrBf16 : kBrF32;" in text
+    assert "kBc = D <= kNarrowD ? kBcNarrow : kBcWide;" in text
+    rows = tiles["kBrBf16"] if dtype == "bfloat16" else tiles["kBrF32"]
+    keys = tiles["kBcNarrow"] if d <= tiles["kNarrowD"] else tiles["kBcWide"]
+    smoke = _chip_smoke()
+    assert smoke.dkv_tiles(dtype, d) == (rows, keys)
+    bh, sq, sk = 3, 257, 300  # no multiples of either tile
+    assert -(-sq // _BLOCK) >= -(-sq // rows)
+    for causal in (False, True):
+        # each key block walks the q tiles from row 0, or under the causal
+        # mask from its own first key, adding D / 2 float2 to each live row
+        adds = 0
+        for k0 in range(0, sk, keys):
+            for q0 in range(k0 if causal else 0, sq, rows):
+                adds += bh * min(rows, sq - q0) * d // 2
+        assert smoke.fused_dq_adds(bh, sq, sk, d, dtype, causal) == adds
+
+
+_PTXAS_LOG = """ptxas info    : Compiling entry function '_Z20flash_bwd_dkv_kernelIfLi64EEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _Z20flash_bwd_dkv_kernelIfLi64EEvPKT_
+    {stack} bytes stack frame, {stores} bytes spill stores, {loads} bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z19flash_bwd_dq_kernelIfLi64EEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _Z19flash_bwd_dq_kernelIfLi64EEvPKT_
+    24 bytes stack frame, 16 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 424 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("stack, stores, loads", [(0, 0, 0), (8, 4, 12)], ids=["clean", "spills"])
+def test_ptxas_entries_reads_stack_and_spills(stack, stores, loads):
+    """Phase 1's reading of the ptxas log, which fails a build of kernels 3
+    and 4 with a stack frame or spills: every entry function with its
+    registers, stack frame and spill bytes."""
+    log = _PTXAS_LOG.format(stack=stack, stores=stores, loads=loads)
+    entries = _chip_smoke().ptxas_entries(log)
+    assert entries == [
+        dict(name="_Z20flash_bwd_dkv_kernelIfLi64EEvPKT_", registers=168, stack=stack,
+             spill_stores=stores, spill_loads=loads),
+        dict(name="_Z19flash_bwd_dq_kernelIfLi64EEvPKT_", registers=80, stack=24,
+             spill_stores=16, spill_loads=36),
+    ]

@@ -14,10 +14,11 @@ products keep f32 accuracy) and 2e-2 for bf16 (O rounded to bf16); the lse
 Backward (dq, dk, dv of kernels 2 and 3, and of the fused kernel 4),
 relative to the largest gradient: 1e-4 for f32 (summation order over up to
 1024 keys), 2e-2 for bf16. Kernel 4 against kernels 2 + 3 on the same
-inputs: dk and dv equal to the bit (the same FMA order); dq within 1e-5 of
-its largest value in f32 (f32 sums of the key blocks' parts in key-block
-order), and in bf16 within one bf16 ulp of its value (those sums may round
-to the other side of a bf16 tie) plus that 1e-5 (sums that cancel); two
+inputs: dk and dv equal to the bit (one body, the same mma order); dq
+within 1e-5 of its largest value in f32 (f32 sums of the key blocks' parts
+in key-block order), and in bf16 within one bf16 ulp of its value (those
+sums may round to the other side of a bf16 tie) plus that 1e-5 (sums that
+cancel): kernels 3 and 4 round each bf16 ds as kernel 2 does; two
 launches of kernel 4 give the same dq to the bit.
 Kernel 5, relative to the largest output, against a plain version whose
 f32 convolution runs without TF32: 1e-5 for f32 (summation order of
@@ -108,6 +109,9 @@ def test_kernel_matches_reference_on_gpu(cuda_device, case, d, dtype):
     assert (lse - ref_lse).abs().max().item() <= lse_tol
 
 
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "shape, dtype, causal, tol",
@@ -117,7 +121,15 @@ def test_kernel_matches_reference_on_gpu(cuda_device, case, d, dtype):
         ((2, 1000, 777, 64), torch.float32, False, 1e-4),
         ((2, 300, 300, 128), torch.float32, True, 1e-4),
         ((3, 70, 45, 32), torch.bfloat16, True, 2e-2),
-    ],
+    ]
+    # every head width in both types; causal; and ragged, Sq and Sk no
+    # multiples of kernel 3's q tile (32 or 64 rows) or key block (64 or 128)
+    + [((2, 300, 300, d), dt, False, BWD_TOL[dt])
+       for d in (32, 64, 128, 256) for dt in (torch.float32, torch.bfloat16)]
+    + [((3, 257, 257, d), dt, True, BWD_TOL[dt])
+       for d, dt in ((64, torch.bfloat16), (256, torch.float32))]
+    + [((2, 200, 333, d), dt, False, BWD_TOL[dt])
+       for d, dt in ((256, torch.bfloat16), (32, torch.float32))],
 )
 def test_backward_kernels_match_reference_on_gpu(cuda_device, shape, dtype, causal, tol):
     bh, sq, sk, d = shape
