@@ -12,14 +12,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      generativemodels_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu,
      fused_conv.cu and flash_probes.cu (one nvcc each, started together)
      with their times and each entry function's registers, stack frame and
-     spill bytes from ptxas (kernels 3 and 4 must have neither);
+     spill bytes from ptxas (kernels 2, 3 and 4 must have neither);
   2. kernels against their plain versions: O and lse of the flash-attention
      forward kernel against `flash_attention_reference` (then the forward
      against the plain attention path at seq 256-1024, the numbers behind
      the flash threshold), dq, dk, dv of the split backward kernels and of
      the fused backward kernel against `flash_attention_backward_reference`
-     (the fused one also against the split ones, and against itself: its
-     dq must be the same to the bit over two launches), and the
+     (the fused one also against the split ones, and each dq kernel against
+     itself: its dq must be the same to the bit over two launches), and the
      fused GroupNorm-SiLU-conv3d kernel against
      `fused_norm_silu_conv3d_reference`, at the shapes the serving, training
      and 3D sampling paths and their neighbours use, with both times (CUDA
@@ -104,11 +104,11 @@ KERNELS = {
                         "benchmarks/probe_attn_vpu.py:45"),  # _fwd_kernel_var
 }
 # the card's published peaks (H100 SXM data sheet, dense, 700 W): f32 on the
-# CUDA cores (kernels 2 and 5 run their f32 products there, with no TF32),
-# bf16 on the tensor cores, and the device memory's rate
+# CUDA cores (kernel 5 runs its f32 products there, with no TF32), bf16 on
+# the tensor cores, and the device memory's rate
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
-# the f32 paths of kernels 1, 3 and 4 run each f32 product as three TF32
+# the f32 paths of kernels 1-4 run each f32 product as three TF32
 # products on the tensor cores (3xTF32): their useful operations cost three
 # at the TF32 rate, 495 TFLOP/s, so their bound is useful operations x 3 /
 # 495e12 (not / 67e12, which a 3xTF32 kernel may beat)
@@ -141,11 +141,11 @@ LSE_TOLERANCE = {"float32": 1e-5, "bfloat16": 1e-4}
 THRESHOLD_SEQS = (256, 512, 1024)
 THRESHOLD_CASES = ((2, 2, 64, "bfloat16"), (4, 1, 256, "float32"))
 # kernels whose every instantiation must show no stack frame and no spills
-# in phase 1 (kernels 3 and 4, whose accumulators live in registers), and
-# how many instantiations the ptxas log must report for them (2 kernels x
+# in phase 1 (kernels 2, 3 and 4, whose accumulators live in registers), and
+# how many instantiations the ptxas log must report for them (3 kernels x
 # f32, bf16 x 4 head widths), so that a log that stops matching fails
-NO_STACK_KERNELS = ("flash_bwd_dkv_kernel", "flash_bwd_fused_kernel")
-NO_STACK_INSTANCES = 16
+NO_STACK_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel")
+NO_STACK_INSTANCES = 24
 # (name, (BH, Sq, Sk, D), dtype name, causal) of the backward kernels
 BACKWARD_CASES = (
     ("train_bench_bf16", (128, 1024, 1024, 256), "bfloat16", False),  # bench.py, batch 128
@@ -160,7 +160,8 @@ BACKWARD_CASES = (
 BACKWARD_TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 # the fused kernel's dq against the split kernel's, relative to max|dq|: the
 # same f32 products summed in another order (the key blocks' parts in
-# key-block order); a bf16 dq may also round to the other side of a tie, one
+# key-block order; both kernels compute every ds by one function, so a bf16
+# ds rounds alike); a bf16 dq may also round to the other side of a tie, one
 # bf16 ulp (2**-7 of the value's power of two)
 FUSED_DQ_RTOL = 1e-5
 # the plain backward holds several f32 (Sq, Sk) matrices of each head at
@@ -423,9 +424,10 @@ def fused_dq_adds(bh: int, sq: int, sk: int, d: int, dtype_name: str, causal: bo
 def check_backward(torch, ops) -> dict:
     """Phase 2, backward: dq of kernel 2, dk, dv of kernel 3 and all three of
     kernel 4 against the plain backward, from the forward kernel's O and log2
-    lse; kernel 4 also against kernels 2 + 3 on the same inputs, and against
-    itself: its dq parts are added in key-block order, so two launches must
-    give the same dq to the bit."""
+    lse; kernel 4 also against kernels 2 + 3 on the same inputs; kernels 2
+    and 4 against themselves: kernel 2's dq rows belong to one block and
+    kernel 4's dq parts are added in key-block order, so two launches of
+    each must give the same dq to the bit."""
     from generativemodels_tpu_torch.ops.flash_attention import _backward_rows, _prescaled
 
     results = {}
@@ -461,6 +463,7 @@ def check_backward(torch, ops) -> dict:
             return tuple(torch.cat(parts) for parts in zip(*heads))
 
         got = (dq_kernel(), *dkv_kernel())
+        dq_again = dq_kernel()
         fused, fused_again = fused_kernel(), fused_kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -479,9 +482,13 @@ def check_backward(torch, ops) -> dict:
             margin = margin + torch.exp2(torch.floor(torch.log2(dq_s.abs().clamp_min(1e-30))) - 7)
         dq_vs_split = ((dq_f - dq_s).abs().max() / dq_s.abs().max()).item()
         dq_ok = bool(((dq_f - dq_s).abs() <= margin).all())
+        # the dq elements of kernel 4 that differ from kernel 2's, printed:
+        # they differ in the order of their f32 sums over the keys only
+        dq_differ = int((fused[0] != got[0]).sum().item())
         spread = (fused_again[0].float() - dq_f).abs().max().item()
         spread_count = int((fused_again[0] != fused[0]).sum().item())
-        del got, want, fused, fused_again, dq_f, dq_s, margin
+        dq_spread_count = int((dq_again != got[0]).sum().item())
+        del got, want, fused, fused_again, dq_again, dq_f, dq_s, margin
         torch.cuda.empty_cache()
         ms_dq, ms_dkv, plain_ms = time_ms(dq_kernel), time_ms(dkv_kernel), time_ms(plain)
         ms_fused = time_ms(fused_kernel)
@@ -489,19 +496,21 @@ def check_backward(torch, ops) -> dict:
         library_ms, backend = library_attention_ms(torch, q, k, v, scale, causal, dout=dout)
         pairs, esize = attention_pairs(sq, sk, causal), q.element_size()
         rows = 8 * bh * sq  # lse2 and delta, f32
-        lim_dq = bound(6 * bh * pairs * d, bh * d * esize * (3 * sq + 2 * sk) + rows, dtype_name)
-        tensor_f32 = PEAK_3XTF32 if dtype == torch.float32 else None  # kernels 3 and 4
+        tensor_f32 = PEAK_3XTF32 if dtype == torch.float32 else None  # kernels 2, 3 and 4
+        lim_dq = bound(6 * bh * pairs * d, bh * d * esize * (3 * sq + 2 * sk) + rows, dtype_name,
+                       tensor_f32)
         lim_dkv = bound(8 * bh * pairs * d, bh * d * esize * (2 * sq + 4 * sk) + rows,
                         dtype_name, tensor_f32)
         lim_fused = bound(10 * bh * pairs * d, bh * d * esize * (3 * sq + 4 * sk) + rows,
                           dtype_name, tensor_f32)
         tol = BACKWARD_TOLERANCE[dtype_name]
-        ok = all(e <= tol for e in rel_err.values())
+        ok = all(e <= tol for e in rel_err.values()) and dq_spread_count == 0
         fused_ok = (all(e <= tol for e in fused_rel.values()) and same_dkv and dq_ok
                     and spread_count == 0)
         log(f"backward {name}: (BH={bh}, Sq={sq}, Sk={sk}, D={d}) {dtype_name} causal={causal} "
             + " ".join(f"max|d{x[1:]}|/max={rel_err[x]:.3e}" for x in ("dq", "dk", "dv"))
-            + f" tol={tol:g}; dq kernel {ms_dq:.4f} ms (bound {lim_dq['bound_ms']:.4f}), "
+            + f" tol={tol:g}; dq kernel two launches differ in {dq_spread_count} elements "
+            f"(must be 0); dq kernel {ms_dq:.4f} ms (bound {lim_dq['bound_ms']:.4f}), "
             f"dkv kernel {ms_dkv:.4f} ms (bound {lim_dkv['bound_ms']:.4f}) "
             f"(sum {ms_dq + ms_dkv:.4f}), plain backward {plain_ms:.4f} ms, SDPA ({backend}) "
             f"backward {library_ms:.4f} ms -> {'ok' if ok else 'FAIL'}")
@@ -509,7 +518,8 @@ def check_backward(torch, ops) -> dict:
             + " ".join(f"max|d{x[1:]}|/max={fused_rel[x]:.3e}" for x in ("dq", "dk", "dv"))
             + f" tol={tol:g}; against kernels 2 + 3: dk, dv equal to the bit {same_dkv}, "
             f"max|ddq|/max|dq| {dq_vs_split:.3e} (within {FUSED_DQ_RTOL:g}"
-            + (" + one bf16 ulp" if dtype == torch.bfloat16 else "") + f": {dq_ok}); "
+            + (" + one bf16 ulp" if dtype == torch.bfloat16 else "") + f": {dq_ok}; "
+            f"{dq_differ} dq elements differ); "
             f"two launches: max|ddq| {spread:.3e} in {spread_count} elements (must be 0); "
             f"{fused_dq_adds(bh, sq, sk, d, dtype_name, causal):.4e} ordered float2 dq adds; "
             f"fused kernel "
@@ -1404,24 +1414,33 @@ def build_kernels(build_library) -> None:
             raise results[name]
         lib, build_log, seconds = results[name]
         log(f"build: {lib.name} in {seconds:.2f} s")
-        offenders, checked = [], 0
-        for entry in ptxas_entries(build_log):
+        entries = ptxas_entries(build_log)
+        for entry in entries:
             log(f"  ptxas: {entry['name']}: {entry['registers']} registers, "
                 f"{entry['stack']} bytes stack frame, {entry['spill_stores']} bytes spill "
                 f"stores, {entry['spill_loads']} bytes spill loads")
-            if any(kernel in entry["name"] for kernel in NO_STACK_KERNELS):
-                spent = (None if entry["stack"] is None else
-                         entry["stack"] + entry["spill_stores"] + entry["spill_loads"])
-                if spent is None or spent > 0:
-                    offenders.append(entry["name"])
-                else:
-                    checked += 1
+        offenders, checked = stack_offenders(entries)
         if offenders:
             raise AssertionError(f"stack frame or spills in {', '.join(offenders)}")
         if name == "flash_bwd.cu" and checked != NO_STACK_INSTANCES:
             raise AssertionError(f"the ptxas log of {name} reports {checked} instantiations of "
                                  f"{', '.join(NO_STACK_KERNELS)} with no stack frame, not "
                                  f"{NO_STACK_INSTANCES}")
+
+
+def stack_offenders(entries: list[dict]) -> tuple[list[str], int]:
+    """The entries of NO_STACK_KERNELS with a stack frame or spills (or none
+    reported), and how many of them have neither."""
+    offenders, checked = [], 0
+    for entry in entries:
+        if any(kernel in entry["name"] for kernel in NO_STACK_KERNELS):
+            spent = (None if entry["stack"] is None else
+                     entry["stack"] + entry["spill_stores"] + entry["spill_loads"])
+            if spent is None or spent > 0:
+                offenders.append(entry["name"])
+            else:
+                checked += 1
+    return offenders, checked
 
 
 def ptxas_entries(build_log: str) -> list[dict]:

@@ -42,10 +42,10 @@ from .native import Launcher
 LOG2E = 1.4426950408889634  # log2(e)
 LN2 = 0.6931471805599453  # 1/LOG2E
 HEAD_DIMS = (32, 64, 128, 256)  # head widths the kernels are instantiated for
-# query rows of a block of kernel 2 (kBlock in csrc/flash_bwd.cu), the
-# smallest block of any flash kernel, so the grid check below holds for all;
-# kernel 4's q tiles are no smaller, so one dq counter per _BLOCK rows covers
-# them
+# the smallest query or key block of any flash kernel (the f32 q tiles of
+# kernels 1-4, kBrF32 in csrc/flash_bwd.cu), so the grid check below holds
+# for all; kernel 4's q tiles are no smaller, so one dq counter per _BLOCK
+# rows covers them
 _BLOCK = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -213,8 +213,8 @@ _BWD_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
 class _FlashBackwardKernel(Launcher):
     source = "flash_bwd.cu"
 
-    def _run(self, outputs, q, k, v, dout, lse2, delta, causal: bool, extra=()) -> None:
-        """Launch with the inputs, the `extra` input pointers, then the outputs."""
+    def _run(self, outputs, q, k, v, dout, lse2, delta, causal: bool) -> None:
+        """Launch with the inputs, then the outputs."""
         _check_kernel_inputs(q, k, v)
         _check_backward_rows(q, dout, lse2, delta)
         if q.numel() == 0 or k.shape[1] == 0:
@@ -224,7 +224,7 @@ class _FlashBackwardKernel(Launcher):
         bh, sq, d = q.shape
         self._launch(
             q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            lse2.data_ptr(), delta.data_ptr(), *extra, *(t.data_ptr() for t in outputs),
+            lse2.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outputs),
             bh, sq, k.shape[1], d, _DTYPE_CODES[q.dtype], int(causal),
         )
 
@@ -262,7 +262,7 @@ class FlashBackwardFusedKernel(_FlashBackwardKernel):
     `_dfused_kernel`)."""
 
     symbol = "gm_flash_bwd_fused"
-    argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) * 5 + _BWD_ARGTYPES[6:]
+    argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) * 4 + _BWD_ARGTYPES[6:]
 
     def __call__(
         self, q, k, v, dout, lse2, delta, *, causal: bool = False
@@ -273,20 +273,43 @@ class FlashBackwardFusedKernel(_FlashBackwardKernel):
         (bh, q tile) (the kernel's q tiles hold at least _BLOCK rows, so
         ceil(Sq / _BLOCK) counters a head are enough), in place of the TPU
         kernel's f32 partial slab per kv tile: dq is the same to the bit
-        from run to run. The buffer is cast once to the input type here.
-        For bf16 the kernel also reads the Euclidean norms of dout's rows,
-        computed here: they bound how far kernel 2's dp may lie from its
-        own, so that it rounds each ds as kernel 2 does."""
+        from run to run. The buffer is cast once to the input type here."""
         dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
         lock = torch.zeros((q.shape[0], -(-q.shape[1] // _BLOCK)), dtype=torch.int32,
                            device=q.device)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-        norm = None
-        if q.dtype == torch.bfloat16:
-            norm = torch.linalg.vector_norm(dout, dim=-1, dtype=torch.float32)
-        self._run((dq, lock, dk, dv), q, k, v, dout, lse2, delta, causal,
-                  extra=(None if norm is None else norm.data_ptr(),))
+        self._run((dq, lock, dk, dv), q, k, v, dout, lse2, delta, causal)
         return dq.to(q.dtype), dk, dv
+
+
+class FlashBackwardRolesKernel(Launcher):
+    """Launcher of the test entry of `csrc/flash_bwd.cu`'s one s, dp
+    computation (no TPU kernel; not exported by `ops`): for tiles of 16
+    queries and 16 keys, s, dp and ds computed query-major, as kernel 2
+    does, and key-major, as kernels 3 and 4 do. Equal to the bit, they
+    show that the three kernels round every bf16 ds alike."""
+
+    source = "flash_bwd.cu"
+    symbol = "gm_flash_bwd_roles"
+    argtypes = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3
+
+    def __call__(self, q, k, v, dout, lse2, delta) -> torch.Tensor:
+        """q, k, v, dout (tiles, 16, D), lse2 and delta (tiles, 16) f32;
+        returns f32 (2, 3, tiles, 16, 16): s, dp and ds of every (query,
+        key) pair of a tile, query-major ([0]) and key-major ([1])."""
+        _check_kernel_inputs(q, k, v)
+        _check_backward_rows(q, dout, lse2, delta)
+        if q.shape[1] != 16 or k.shape[1] != 16:
+            raise ValueError(f"tiles of 16 queries and 16 keys, got {tuple(q.shape)}")
+        tiles, _, d = q.shape
+        out = torch.empty((2, 3, tiles, 16, 16), dtype=torch.float32, device=q.device)
+        if tiles:
+            self._launch(
+                q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                lse2.data_ptr(), delta.data_ptr(), out.data_ptr(), tiles, d,
+                _DTYPE_CODES[q.dtype],
+            )
+        return out
 
 
 def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -326,6 +349,7 @@ FLASH_FWD = FlashForwardKernel()
 FLASH_BWD_DQ = FlashBackwardDqKernel()
 FLASH_BWD_DKV = FlashBackwardDkvKernel()
 FLASH_BWD_FUSED = FlashBackwardFusedKernel()
+FLASH_BWD_ROLES = FlashBackwardRolesKernel()
 
 
 def _fused_backward_enabled() -> bool:

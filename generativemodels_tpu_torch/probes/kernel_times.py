@@ -1,6 +1,6 @@
-"""Time the flash forward (kernel 1), the dK/dV backward (kernel 3) and the
-fused flash backward (kernel 4) of one checkout of the port, so that two
-checkouts can be compared on one card in one call.
+"""Time the flash forward (kernel 1), the dq and dK/dV backward (kernels 2
+and 3) and the fused flash backward (kernel 4) of one checkout of the port,
+so that two checkouts can be compared on one card in one call.
 
     python generativemodels_tpu_torch/probes/kernel_times.py [--root DIR] [--out FILE]
 
@@ -22,12 +22,15 @@ import sys
 
 HERE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # (kernel, (BH, Sq, Sk, D), dtype name): kernel 1 at the 3D, serving and 2D
-# bench training shapes; kernels 3 and 4 at the 3D shape and the 2D bench
+# bench training shapes; kernels 2, 3 and 4 at the 3D shape and the 2D bench
 # and recipe training shapes
 CASES = (
     ("flash_fwd", (2, 32768, 32768, 64), "bfloat16"),
     ("flash_fwd", (4, 1024, 1024, 256), "float32"),
     ("flash_fwd", (128, 1024, 1024, 256), "bfloat16"),
+    ("flash_bwd_dq", (2, 32768, 32768, 64), "bfloat16"),
+    ("flash_bwd_dq", (128, 1024, 1024, 256), "bfloat16"),
+    ("flash_bwd_dq", (64, 1024, 1024, 256), "float32"),
     ("flash_bwd_dkv", (2, 32768, 32768, 64), "bfloat16"),
     ("flash_bwd_dkv", (128, 1024, 1024, 256), "bfloat16"),
     ("flash_bwd_dkv", (64, 1024, 1024, 256), "float32"),
@@ -36,7 +39,8 @@ CASES = (
     ("flash_bwd_fused", (64, 1024, 1024, 256), "float32"),
 )
 # the backward launchers by kernel name
-BACKWARD = {"flash_bwd_dkv": "FLASH_BWD_DKV", "flash_bwd_fused": "FLASH_BWD_FUSED"}
+BACKWARD = {"flash_bwd_dq": "FLASH_BWD_DQ", "flash_bwd_dkv": "FLASH_BWD_DKV",
+            "flash_bwd_fused": "FLASH_BWD_FUSED"}
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:

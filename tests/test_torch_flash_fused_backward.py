@@ -158,21 +158,37 @@ ptxas info    : Function properties for _Z20flash_bwd_dkv_kernelIfLi64EEvPKT_
 ptxas info    : Used 168 registers, used 1 barriers, 432 bytes cmem[0]
 ptxas info    : Compiling entry function '_Z19flash_bwd_dq_kernelIfLi64EEvPKT_' for 'sm_90a'
 ptxas info    : Function properties for _Z19flash_bwd_dq_kernelIfLi64EEvPKT_
-    24 bytes stack frame, 16 bytes spill stores, 36 bytes spill loads
+    {dq_stack} bytes stack frame, {dq_stores} bytes spill stores, {dq_loads} bytes spill loads
 ptxas info    : Used 80 registers, used 1 barriers, 424 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z22flash_bwd_roles_kernelIfLi64EEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _Z22flash_bwd_roles_kernelIfLi64EEvPKT_
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 400 bytes cmem[0]
 """
 
 
-@pytest.mark.parametrize("stack, stores, loads", [(0, 0, 0), (8, 4, 12)], ids=["clean", "spills"])
-def test_ptxas_entries_reads_stack_and_spills(stack, stores, loads):
-    """Phase 1's reading of the ptxas log, which fails a build of kernels 3
-    and 4 with a stack frame or spills: every entry function with its
-    registers, stack frame and spill bytes."""
-    log = _PTXAS_LOG.format(stack=stack, stores=stores, loads=loads)
-    entries = _chip_smoke().ptxas_entries(log)
+@pytest.mark.parametrize(
+    "stack, stores, loads, dq",
+    [(0, 0, 0, (24, 16, 36)), (8, 4, 12, (24, 16, 36)), (0, 0, 0, (0, 0, 0))],
+    ids=["clean", "spills", "dq_clean"],
+)
+def test_ptxas_entries_reads_stack_and_spills(stack, stores, loads, dq):
+    """Phase 1's reading of the ptxas log, which fails a build of kernels 2,
+    3 and 4 with a stack frame or spills: every entry function with its
+    registers, stack frame and spill bytes, and the offenders among kernels
+    2-4 (the test entry of their s, dp computation is not one of them)."""
+    log = _PTXAS_LOG.format(stack=stack, stores=stores, loads=loads, dq_stack=dq[0],
+                            dq_stores=dq[1], dq_loads=dq[2])
+    smoke = _chip_smoke()
+    entries = smoke.ptxas_entries(log)
     assert entries == [
         dict(name="_Z20flash_bwd_dkv_kernelIfLi64EEvPKT_", registers=168, stack=stack,
              spill_stores=stores, spill_loads=loads),
-        dict(name="_Z19flash_bwd_dq_kernelIfLi64EEvPKT_", registers=80, stack=24,
-             spill_stores=16, spill_loads=36),
+        dict(name="_Z19flash_bwd_dq_kernelIfLi64EEvPKT_", registers=80, stack=dq[0],
+             spill_stores=dq[1], spill_loads=dq[2]),
+        dict(name="_Z22flash_bwd_roles_kernelIfLi64EEvPKT_", registers=64, stack=8,
+             spill_stores=0, spill_loads=0),
     ]
+    offenders, checked = smoke.stack_offenders(entries)
+    want = [e["name"] for e in entries[:2] if e["stack"] + e["spill_stores"] + e["spill_loads"]]
+    assert offenders == want and checked == 2 - len(want)

@@ -18,8 +18,11 @@ inputs: dk and dv equal to the bit (one body, the same mma order); dq
 within 1e-5 of its largest value in f32 (f32 sums of the key blocks' parts
 in key-block order), and in bf16 within one bf16 ulp of its value (those
 sums may round to the other side of a bf16 tie) plus that 1e-5 (sums that
-cancel): kernels 3 and 4 round each bf16 ds as kernel 2 does; two
-launches of kernel 4 give the same dq to the bit.
+cancel). Kernels 2-4 compute s and dp by one function, kernel 2 with the
+queries as the mma's A operand, kernels 3 and 4 with the keys: both roles
+give the same s, dp and ds to the bit, so every bf16 ds rounds alike in
+the three. Two launches of kernel 2, and two of kernel 4, give the same dq
+to the bit.
 Kernel 5, relative to the largest output, against a plain version whose
 f32 convolution runs without TF32: 1e-5 for f32 (summation order of
 27 * Cin products), 1e-2 for bf16 (the output is rounded to bf16, 2**-8 of
@@ -56,7 +59,11 @@ from generativemodels_tpu_torch.ops import (
     fused_norm_silu_conv3d,
     fused_norm_silu_conv3d_reference,
 )
-from generativemodels_tpu_torch.ops.flash_attention import _prescaled
+from generativemodels_tpu_torch.ops.flash_attention import (
+    FLASH_BWD_ROLES,
+    _backward_rows,
+    _prescaled,
+)
 from generativemodels_tpu_torch.ops.flash_probes import relative_error
 
 
@@ -73,6 +80,15 @@ def test_launcher_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         FLASH_FWD(q, q, q, scale=0.125)
     assert FLASH_FWD.launches == before
+
+
+def test_roles_launcher_rejects_cpu_tensors():
+    q = torch.zeros(2, 16, 64)
+    rows = torch.zeros(2, 16)
+    before = FLASH_BWD_ROLES.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        FLASH_BWD_ROLES(q, q, q, q, rows, rows)
+    assert FLASH_BWD_ROLES.launches == before
 
 
 # (O, lse) tolerances of kernel 1, as chip_smoke.py's TOLERANCE and LSE_TOLERANCE
@@ -194,6 +210,55 @@ def test_fused_backward_kernel_on_gpu(cuda_device, monkeypatch, d, dtype, bh, sq
     else:  # one bf16 ulp (2**-7 of the value's power of two) and the f32 margin
         ulp = torch.exp2(torch.floor(torch.log2(dq_s.abs().clamp_min(1e-30))) - 7)
         assert bool(((dq_f - dq_s).abs() <= ulp + 1e-5 * dq_s.abs().max()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_sdp_roles_agree_to_the_bit_on_gpu(cuda_device, d, dtype):
+    """The s, dp computation that kernels 2-4 share, on 64 random tiles of
+    16 queries x 16 keys: query-major (A = Q, dO, as kernel 2) and key-major
+    (A = K, V, as kernels 3 and 4) give the same bits of s, dp and ds; both
+    near the plain products (the check is not empty)."""
+    tiles = 64
+    g = torch.Generator(cuda_device).manual_seed(6)
+    q, k, v, dout = (torch.randn((tiles, 16, d), generator=g, device=cuda_device).to(dtype)
+                     for _ in range(4))
+    q = _prescaled(q, d**-0.5)
+    s_ref = torch.matmul(q.float(), k.float().transpose(1, 2))
+    dp_ref = torch.matmul(dout.float(), v.float().transpose(1, 2))
+    lse2 = torch.logsumexp(s_ref * 0.6931471805599453, dim=-1) / 0.6931471805599453
+    delta = torch.randn((tiles, 16), generator=g, device=cuda_device)
+    before = FLASH_BWD_ROLES.launches
+    out = FLASH_BWD_ROLES(q, k, v, dout, lse2, delta)
+    torch.cuda.synchronize()
+    assert FLASH_BWD_ROLES.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    query_major, key_major = out
+    assert torch.equal(query_major.view(torch.int32), key_major.view(torch.int32))
+    for got, want in zip(query_major[:2], (s_ref, dp_ref)):
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    ds_ref = torch.exp2(s_ref - lse2[..., None]) * (dp_ref - delta[..., None])
+    assert (query_major[2] - ds_ref).abs().max().item() <= 1e-4 * ds_ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["ragged", "causal"])
+def test_dq_kernel_is_deterministic_on_gpu(cuda_device, d, dtype, causal):
+    """Kernel 2's dq rows belong to one block, whose key slices add in a
+    fixed order: two launches agree to the bit."""
+    qp, k, v, out, lse2, dout = _backward_inputs(cuda_device, 2, 300, 333, d, dtype, causal)
+    do2, delta = _backward_rows(out, dout)
+    before = FLASH_BWD_DQ.launches
+    first = FLASH_BWD_DQ(qp, k, v, do2, lse2, delta, causal=causal)
+    again = FLASH_BWD_DQ(qp, k, v, do2, lse2, delta, causal=causal)
+    torch.cuda.synchronize()
+    assert FLASH_BWD_DQ.launches == before + 2
+    assert bool(torch.isfinite(first.float()).all()) and first.float().abs().max().item() > 0
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(first.view(bits), again.view(bits))
 
 
 @pytest.mark.cuda
