@@ -12,7 +12,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      generativemodels_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu,
      fused_conv.cu and flash_probes.cu (one nvcc each, started together)
      with their times and each entry function's registers, stack frame and
-     spill bytes from ptxas (kernels 2, 3 and 4 must have neither);
+     spill bytes from ptxas (kernels 2, 3, 4 and 5 must have neither);
   2. kernels against their plain versions: O and lse of the flash-attention
      forward kernel against `flash_attention_reference` (then the forward
      against the plain attention path at seq 256-1024, the numbers behind
@@ -21,7 +21,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the fused one also against the split ones, and each dq kernel against
      itself: its dq must be the same to the bit over two launches), and the
      fused GroupNorm-SiLU-conv3d kernel against
-     `fused_norm_silu_conv3d_reference`, at the shapes the serving, training
+     `fused_norm_silu_conv3d_reference` (two launches equal to the bit, and
+     the sums over one 3D forward's 22 launches), at the shapes the serving, training
      and 3D sampling paths and their neighbours use, with both times (CUDA
      events), the least time the card could take (bound) and the time of a
      library call as a yardstick;
@@ -141,11 +142,14 @@ LSE_TOLERANCE = {"float32": 1e-5, "bfloat16": 1e-4}
 THRESHOLD_SEQS = (256, 512, 1024)
 THRESHOLD_CASES = ((2, 2, 64, "bfloat16"), (4, 1, 256, "float32"))
 # kernels whose every instantiation must show no stack frame and no spills
-# in phase 1 (kernels 2, 3 and 4, whose accumulators live in registers), and
-# how many instantiations the ptxas log must report for them (3 kernels x
-# f32, bf16 x 4 head widths), so that a log that stops matching fails
-NO_STACK_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel")
-NO_STACK_INSTANCES = 24
+# in phase 1 (kernels 2, 3, 4 and 5, whose accumulators live in registers),
+# and how many instantiations the ptxas log of each source must report for
+# them (kernels 2-4: 3 kernels x f32, bf16 x 4 head widths; kernel 5: the
+# f32 kernel at 3 BN, the bf16 kernel at the 3 depth runs of
+# `ops.fused_conv.CONV_RUNS`), so that a log that stops matching fails
+NO_STACK_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel",
+                    "fused_conv_f32_kernel", "fused_conv_mma_kernel")
+NO_STACK_INSTANCES = {"flash_bwd.cu": 24, "fused_conv.cu": 6}
 # (name, (BH, Sq, Sk, D), dtype name, causal) of the backward kernels
 BACKWARD_CASES = (
     ("train_bench_bf16", (128, 1024, 1024, 256), "bfloat16", False),  # bench.py, batch 128
@@ -202,6 +206,14 @@ FUSED_CASES = (
     ("ragged_f32", (2, 5, 7, 9), 40, 24, True, "float32"),
 )
 FUSED_MAIN_CASE = "128_96to32"  # the kernels line's numbers for kernel 5
+# how many times one forward of the 3D UNet at 128^3 launches kernel 5 at
+# each bf16 case (22 in all; phase 5 counts them on the model): the weights
+# of phase 2's sums over a forward
+FUSED_FORWARD_LAUNCHES = {
+    "128_32to32": 1, "128_32to32r": 3, "128_96to32": 1, "128_64to32": 1,
+    "64_32to64": 1, "64_64to64r": 3, "64_192to64": 1, "64_96to64": 1,
+    "32_64to128": 1, "32_128to128r": 5, "32_128to128": 2, "32_256to128": 1, "32_192to128": 1,
+}
 # max|diff| / max|ref|: f32 differs from the plain version in summation
 # order over 27 * Cin products; bf16 rounds the output to bf16 (2**-8 of
 # its value) after f32 sums in another order
@@ -566,12 +578,15 @@ def check_fused_conv(torch, ops) -> dict:
     """Phase 2, kernel 5: the fused GroupNorm-SiLU-conv3d kernel against
     `fused_norm_silu_conv3d_reference`, with x, the residual and the output
     channels-first seen as NDHWC, as the UNet's fused route hands them over.
-    The yardstick is F.conv3d alone on the same x and kernel: it computes
-    neither the normalisation nor the SiLU nor the epilogue."""
+    Two launches must agree to the bit. The yardstick is F.conv3d alone on
+    the same x and kernel: it computes neither the normalisation nor the
+    SiLU nor the epilogue. Prints the sums over one 3D forward's 22
+    launches (FUSED_FORWARD_LAUNCHES)."""
     import torch.nn.functional as F
 
     results = {}
     g = torch.Generator("cuda").manual_seed(4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, (b, d, h, w), cin, cout, residual, dtype_name in FUSED_CASES:
         dtype = getattr(torch, dtype_name)
 
@@ -593,12 +608,13 @@ def check_fused_conv(torch, ops) -> dict:
         def run_plain():
             return ops.fused_norm_silu_conv3d_reference(x, kernel, scale, shift, bias, res)
 
-        got, want = run_kernel(), run_plain()
+        got, again, want = run_kernel(), run_kernel(), run_plain()
         torch.cuda.synchronize()
         ref_max = want.float().abs().max().item()
         err = (got.float() - want.float()).abs().max().item()
         finite = bool(torch.isfinite(got.float()).all())
-        del got, want
+        differ = int((got != again).sum().item())
+        del got, again, want
         ms, plain_ms = time_ms(run_kernel), time_ms(run_plain)
         w_oidhw = kernel.permute(4, 3, 0, 1, 2).contiguous()
         library_ms = time_ms(lambda: F.conv3d(x_cf, w_oidhw, bias.to(dtype), padding=1))
@@ -608,18 +624,28 @@ def check_fused_conv(torch, ops) -> dict:
                   + kernel.numel() * esize + 4 * (2 * b * cin + cout))
         lim = bound(2 * voxels * 27 * cin * cout, nbytes, dtype_name)
         tol = FUSED_TOLERANCE[dtype_name]
-        ok = finite and err <= tol * ref_max
+        ok = finite and err <= tol * ref_max and differ == 0
+        tile = ""
+        if dtype_name == "bfloat16":
+            bn, rd, grid = ops.fused_conv.conv_tiles(b, d, h, w, cout, sms)
+            tile = f" BN {bn}, R {rd}, grid {grid};"
         log(f"fused_conv {name}: (B={b}, D={d}, H={h}, W={w}) {cin}->{cout}"
-            f"{' +residual' if residual else ''} {dtype_name} max|diff|={err:.3e} "
-            f"(max|ref| {ref_max:.3e}, tol {tol:g} of it) kernel {ms:.4f} ms, plain "
+            f"{' +residual' if residual else ''} {dtype_name}{tile} max|diff|={err:.3e} "
+            f"(max|ref| {ref_max:.3e}, tol {tol:g} of it), {differ} elements differ over two "
+            f"launches; kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, F.conv3d alone {library_ms:.4f} ms, bound "
             f"{lim['bound_ms']:.4f} ms ({lim['bound_by']}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"fused_conv case {name} out of tolerance")
+            raise AssertionError(f"fused_conv case {name} out of tolerance or not deterministic")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                              **lim)
         del x_cf, x, res
         torch.cuda.empty_cache()
+    sums = {key: sum(results[name][key] * n for name, n in FUSED_FORWARD_LAUNCHES.items())
+            for key in ("ms", "library_ms", "bound_ms")}
+    log(f"fused_conv over one 3D forward ({sum(FUSED_FORWARD_LAUNCHES.values())} launches): "
+        f"kernel {sums['ms']:.4f} ms, F.conv3d alone {sums['library_ms']:.4f} ms, bound "
+        f"{sums['bound_ms']:.4f} ms")
     return results
 
 
@@ -996,6 +1022,10 @@ def run_3d(torch, ops, nets, schedulers, inferers):
     model = model_3d(torch, nets, dtype=torch.bfloat16)
     randomize(torch, model)
     per_forward = expected_launches_3d(model)
+    weighted = sum(FUSED_FORWARD_LAUNCHES.values())
+    if per_forward["fused_conv"] != weighted:
+        raise AssertionError(f"a forward launches kernel 5 {per_forward['fused_conv']} times, "
+                             f"FUSED_FORWARD_LAUNCHES counts {weighted}")
     torch.cuda.reset_peak_memory_stats()
     ddim = schedulers.DDIMScheduler(num_train_timesteps=1000, device=DEVICE)
     ddim.set_timesteps(DDIM_STEPS_3D)
@@ -1422,10 +1452,10 @@ def build_kernels(build_library) -> None:
         offenders, checked = stack_offenders(entries)
         if offenders:
             raise AssertionError(f"stack frame or spills in {', '.join(offenders)}")
-        if name == "flash_bwd.cu" and checked != NO_STACK_INSTANCES:
+        if checked != NO_STACK_INSTANCES.get(name, 0):
             raise AssertionError(f"the ptxas log of {name} reports {checked} instantiations of "
                                  f"{', '.join(NO_STACK_KERNELS)} with no stack frame, not "
-                                 f"{NO_STACK_INSTANCES}")
+                                 f"{NO_STACK_INSTANCES.get(name, 0)}")
 
 
 def stack_offenders(entries: list[dict]) -> tuple[list[str], int]:

@@ -6,17 +6,16 @@
 //
 //     out = conv3x3x3(silu(x * scale + shift)) + bias [+ residual]
 //
-// with stride 1 and padding 1, x of shape (B, D, H, W, Cin), the kernel w of
-// shape (3, 3, 3, Cin, Cout) (the bf16 kernel reads it transposed, (3, 3, 3,
-// Cout, Cin)), scale and shift (B, Cin) f32 (the
-// folded GroupNorm affine), bias (Cout) f32, and an optional residual of the
-// output's shape. As in the TPU kernel: the prologue normalises and applies
-// SiLU in f32 and rounds the activation to x's type (bf16 or f32); taps that
-// fall outside the volume are zero in the activation's domain (after SiLU),
-// as the TPU kernel's zero padding and its `valid` mask of out-of-range depth
-// taps are; products take the activation and the kernel in x's type and
-// accumulate in f32; bias and residual are added in f32 before the one cast
-// to x's type. With apply_act = 0 the prologue is the identity.
+// with stride 1 and padding 1, x of shape (B, D, H, W, Cin), scale and shift
+// (B, Cin) f32 (the folded GroupNorm affine), bias (Cout) f32, and an
+// optional residual of the output's shape. As in the TPU kernel: the
+// prologue normalises and applies SiLU in f32 and rounds the activation to
+// x's type (bf16 or f32); taps that fall outside the volume are zero in the
+// activation's domain (after SiLU), as the TPU kernel's zero padding and its
+// `valid` mask of out-of-range depth taps are; products take the activation
+// and the kernel in x's type and accumulate in f32; bias and residual are
+// added in f32 before the one cast to x's type. With apply_act = 0 the
+// prologue is the identity.
 //
 // x, residual and out are addressed through five strides each (b, d, h, w,
 // c, in elements), so one kernel reads and writes both a contiguous
@@ -24,34 +23,65 @@
 // permute(0, 2, 3, 4, 1). The UNet passes its channels-first activations that
 // way and gets a channels-first output: no layout copy on either side.
 //
-// What bounds it on this card: the 3D UNet's 22 launches a forward do 1.83e12
-// FLOP (2 * voxels * 27 * Cin * Cout) on ~3.2 GB of activations: at the
-// tensor-core rate (989 TFLOP/s bf16) 1.85 ms, against ~1 ms to move the
-// bytes, so the work is bound by arithmetic.
-// What the design does about it: an implicit GEMM with M = output voxels,
-// N = Cout, K = 27 * Cin. A block owns a tile of output rows x 32 columns of
-// one output depth plane and BN output channels, so blocks are independent
-// (the TPU kernel's sequential grid over depth becomes a loop over the three
-// depth taps inside the block). For each depth tap and each chunk of input
-// channels, the block stages the halo of its tile in the source plane in
-// shared memory with the prologue applied as it is loaded - the normalised
-// activation never reaches device memory, as on the TPU - and the slice of
-// the kernel. Depth taps outside the volume are skipped whole; ragged H, W,
-// Cin and Cout are masked. Two kernels share that plan:
-// - bf16 (the sampling path): fused_conv_mma_kernel, the products on the
-//   tensor cores with mma.sync m16n8k16 (f32 accumulation), 16 channels a
-//   chunk. Its prologue (each halo element normalised once for each of the
-//   three depth taps, about 1.6x over for the halo) costs about as much as
-//   the products at Cout = 32; a ring of depth planes, wgmma and TMA are
-//   later work.
-// - f32: fused_conv_f32_kernel, f32 FMAs on the CUDA cores (67 TFLOP/s
-//   peak), 8 channels a chunk; each thread owns one output column, kTH rows
-//   of it and BN / 8 channels, and reuses each halo value it reads for the
-//   three kh taps.
+// What bounds it on this card. The 3D UNet's 22 launches a forward do
+// 1.83e12 FLOP (2 * voxels * 27 * Cin * Cout) on ~3.2 GB of activations: at
+// the tensor-core rate (989 TFLOP/s bf16) 1.85 ms, against ~1 ms to move the
+// bytes, so by the card's peaks the work is bound by arithmetic at every
+// level. What holds the kernel back is what feeds the products: at Cout = 32
+// (the 128^3 level, two thirds of the time) a 128-voxel x 32-channel x
+// 16-channel product is small beside the prologue of its input (a load, an
+// affine, an exp and a reciprocal per input element and channel), the
+// fragment reads and the block's barriers. In the 128^3 96 -> 32 call on an
+// H100 at 700 W, taking out the products saves 42% of the time, the
+// normalise pass 26%, the loads 6% (probes/conv_variants.py split).
+//
+// What the design does about it (bf16, the sampling path,
+// fused_conv_mma_kernel): an implicit GEMM with M = output voxels, N = Cout,
+// K = 27 * Cin. A block owns a 4 x 32 tile of output voxels, BN = 32 output
+// channels and a run of R consecutive output depth planes d0 .. d0 + R - 1
+// (R from ops/fused_conv.py::conv_tiles: the longest run of 4, 2, 1 whose
+// grid still fills two waves of the card). For each chunk of 16 input
+// channels it walks the input planes d0 - 1 .. d0 + R once each, an item a
+// plane:
+// - the raw halo of the item, 16 channels x 6 rows x 48 columns of the
+//   channels-first tensor, comes in one TMA load (a 5-D tiled map over the
+//   strided tensor, zero past its edges), three items ahead, into a ring of
+//   three stages with an mbarrier each; where the strides do not allow a
+//   map (channels-last, rows not 16-byte aligned) the threads load it
+//   element by element;
+// - one pass normalises it (shared to shared memory: affine, SiLU with the
+//   fast exp and reciprocal, rounded to bf16, zero outside the volume) into
+//   the [position][channel] layout the fragments want, the two 16-byte
+//   halves of a position swapped every 4 positions against bank conflicts
+//   and halo rows 40 positions apart, so that each lane's fragment address is
+//   one base plus constants: each input element is normalised (R + 2) / R
+//   times over the 204 / 128 halo, not 3 times;
+// - between two barriers the block normalises item i + 1 and runs the
+//   products of item i: each normalised plane feeds the (up to) three output
+//   planes that read it, through depth taps 2, 1 and 0, so the R
+//   accumulator tiles stay in registers for the whole run and every A
+//   fragment (ldmatrix, one row address per voxel: a tap's shifted window
+//   costs no copy) serves the three depth taps; the products are mma.sync
+//   m16n8k16 with f32 accumulation, B fragments by ldmatrix (wgmma
+//   m64n16k16 with A from the same registers was slower at 128^3: its N
+//   is 16);
+// - the kernel slice of a chunk, all 27 taps ([tap][n][k], swapped as the
+//   planes are) and its 16 scales and shifts come by cp.async one chunk
+//   ahead, double-buffered: the weights are read once per block;
+// - the epilogue stages the R output planes in shared memory while one TMA
+//   load brings the residual's box, then writes with consecutive threads on
+//   consecutive addresses.
+// Every output element belongs to one block and sums in a fixed order, so
+// two launches agree to the bit.
+//
+// f32 (off the sampling path): fused_conv_f32_kernel, f32 FMAs on the CUDA
+// cores (67 TFLOP/s peak), 8 channels a chunk, one output plane a block;
+// each thread owns one output column, kTH rows of it and BN / 8 channels,
+// and reuses each halo value it reads for the three kh taps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cudaTypedefs.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -66,8 +96,8 @@ struct Strides {
 
 // ---- f32 on the CUDA cores ----------------------------------------------
 
-// BN output channels a block, kTH output rows a block (32 accumulators a
-// thread for BN 32 and 64, 64 for BN 128).
+// BN output channels a block, kTH output rows a block (32, 32 and 64
+// accumulators a thread for BN 32, 64 and 128)
 template <int BN>
 struct Tile {
   static constexpr int kTH = BN == 32 ? 8 : 4;
@@ -147,7 +177,9 @@ fused_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       }
       __syncthreads();
 
-#pragma unroll 2
+      // (at BN = 128 one channel at a time: two would need more than the 128
+      // registers ptxas gives it, and spill)
+#pragma unroll (BN == 128 ? 1 : 2)
       for (int c = 0; c < kCK; ++c) {
 #pragma unroll
         for (int kw = 0; kw < 3; ++kw) {
@@ -184,8 +216,8 @@ fused_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const long long roff = bi * rs.b + od * rs.d + ow * rs.w;
   const float* rf = residual != nullptr && !res_bf16
                         ? static_cast<const float*>(residual) + roff : nullptr;
-  const __nv_bfloat16* rh = residual != nullptr && res_bf16
-                                ? static_cast<const __nv_bfloat16*>(residual) + roff : nullptr;
+  const bf16* rh = residual != nullptr && res_bf16
+                       ? static_cast<const bf16*>(residual) + roff : nullptr;
   float* ob = out + bi * os.b + od * os.d + ow * os.w;
 #pragma unroll
   for (int r = 0; r < kTH; ++r) {
@@ -206,228 +238,525 @@ fused_conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 // ---- bf16 on the tensor cores (mma.sync m16n8k16, f32 accumulation) ----
 
-constexpr int kMmaTH = 4;       // output rows a block: M = 4 x 32 = 128 voxels
-constexpr int kMmaCK = 16;      // input channels a chunk: one mma's K
-constexpr int kLd = kMmaCK + 8;  // bf16 row stride in shared memory: conflict-free fragment reads
-constexpr int kMmaHalo = (kMmaTH + 2) * (kTW + 2);
+constexpr int kRows = 4;                         // output rows a block: one per warp row
+constexpr int kBN = 32;                          // output channels a block
+constexpr int kM = kRows * kTW;                  // 128 output voxels a plane
+constexpr int kHaloRows = kRows + 2;             // 6
+constexpr int kHaloCols = kTW + 2;               // 34
+constexpr int kHalo = kHaloRows * kHaloCols;     // 204 halo positions
+constexpr int kHaloPitch = 40;                   // positions a halo row takes in shared memory
+constexpr int kChunk = 16;                       // input channels a chunk: one mma's K
+constexpr int kRawCols = kTW + 16;               // columns w0 - 8 .. w0 + 39: 16-byte aligned
+constexpr int kRawPlane = kHaloRows * kRawCols;  // one channel of the raw halo
+constexpr int kRawElems = kChunk * kRawPlane;    // raw [channel][halo row][column]
+constexpr int kRawStages = 3;                    // the staging ring of raw halos
+constexpr int kAElems = kHaloRows * kHaloPitch * kChunk;  // normalised [position][channel]
+constexpr int kTaps = 27;
+constexpr int kStageLd = kM + 4;                 // f32 row of the epilogue's staging
 
-// 8 warps over the 128-voxel x BN tile: each warp owns kMT 16-voxel and kNT
-// 8-channel fragments (16, 32 and 64 accumulators a thread for BN 32, 64, 128)
-template <int BN>
-struct MmaTile {
-  static constexpr int kWarpsM = BN == 32 ? 8 : 4;
-  static constexpr int kWarpsN = kWarps / kWarpsM;
-  static constexpr int kMT = kMmaTH * kTW / 16 / kWarpsM;
-  static constexpr int kNT = BN / 8 / kWarpsN;
-};
-
-template <int BN>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (kMmaHalo * kLd + 9 * BN * kLd);
+// Offset of (row, k) in a [row][16] bf16 array whose two 16-byte halves swap
+// every 4 rows: the 8 rows of an ldmatrix (any 8 consecutive rows) or of a
+// 16-byte store by 8 threads then fall in 32 distinct banks. Adding a multiple
+// of 8 rows keeps the swap, so a fragment's address is a per-lane base plus
+// a constant: halo rows are kHaloPitch = 40 positions apart for that.
+__device__ __forceinline__ int swz(int row, int k) {
+  return row * kChunk + ((((k >> 3) ^ (row >> 2)) & 1) << 3) + (k & 7);
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// mbarriers and the tensor-memory accelerator's tiled load (TMA)
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
 }
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// one arrival that also expects `bytes` from the copies tied to the barrier
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// the box of `map` at coordinates (c0 .. c4), zero outside the tensor
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+      "r"(smem_addr(bar))
+      : "memory");
 }
 
-// The same function as fused_conv_f32_kernel for bf16, with the products on the
-// tensor cores. It reads the kernel transposed, wt (3, 3, 3, Cout, Cin)
-// contiguous. Per depth tap and chunk of 16 input channels the block
-// stages the (kMmaTH + 2) x 34 halo [position][channel] with the prologue
-// applied, and the kernel slice as [tap][n][channel]; each of the
-// 9 in-plane taps is then one 128 x BN x 16 product of fragments read
-// straight from shared memory (rows padded to 24 bf16, so the 8 rows x 4
-// words of a fragment fall in 32 distinct banks).
-// Grid as fused_conv_f32_kernel's, with kMmaTH rows a block.
-template <int BN>
-__global__ void __launch_bounds__(kThreads)
-fused_conv_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+// f(Plane<p>{}) for the runtime p < N: code specialised to each input plane of a run
+template <int P>
+struct Plane {
+  static constexpr int value = P;
+};
+template <int N, typename F>
+__device__ __forceinline__ void with_plane(int p, F&& f) {
+  if constexpr (N > 0) {
+    if (p == N - 1) {
+      f(Plane<N - 1>{});
+      return;
+    }
+    with_plane<N - 1>(p, f);
+  }
+}
+
+__host__ __device__ constexpr int w_elems() {
+  return kTaps * kBN * kChunk;  // one chunk's kernel slice [tap][n][k]
+}
+
+// Shared memory: in the loop two kernel slices, the raw ring, two normalised
+// planes and two chunks' scale and shift; in the epilogue the R accumulator
+// planes (f32 [r][n][voxel]) and the residual's box (bf16 [n][r][row][col]);
+// then the mbarriers of the ring stages and of the residual
+__host__ __device__ constexpr size_t loop_bytes() {
+  return sizeof(bf16) * (2 * w_elems() + kRawStages * kRawElems + 2 * kAElems)
+         + sizeof(float) * 2 * 2 * kChunk;
+}
+template <int R>
+__host__ __device__ constexpr size_t staging_bytes() {
+  return sizeof(float) * R * kBN * kStageLd;
+}
+template <int R>
+__host__ __device__ constexpr size_t barrier_offset() {
+  constexpr size_t epilogue = staging_bytes<R>() + sizeof(bf16) * R * kBN * kM;
+  return ((loop_bytes() > epilogue ? loop_bytes() : epilogue) + 7) / 8 * 8;
+}
+template <int R>
+__host__ __device__ constexpr size_t mma_smem_bytes() {
+  return barrier_offset<R>() + sizeof(uint64_t) * (kRawStages + 1);
+}
+
+// The same function as fused_conv_f32_kernel for bf16, with the products on
+// the tensor cores. wt is the kernel transposed and padded, (3, 3, 3,
+// cout_p, cin_p) contiguous with zeros past Cout and Cin (cout_p a multiple
+// of kBN, cin_p of 16). 8 warps: warp (wm, wn) owns output row wm of the
+// tile (two 16-voxel fragments) and kBN / 2 channels, in R accumulator tiles,
+// one per output plane of the run; two blocks share an SM. `fast`: x is
+// 16-byte aligned, its w stride is 1 and its other strides and W are
+// multiples of 8 (the UNet's channels-first tensors), so the raw halo comes
+// by TMA through x_map; `res_box`: the same holds for a bf16 residual, whose
+// box comes by TMA through res_map.
+// Grid: x = h tiles * w tiles, y = B * depth runs, z = Cout tiles.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 2)
+fused_conv_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
                       const float* __restrict__ scale, const float* __restrict__ shift,
                       const float* __restrict__ bias, const void* __restrict__ residual,
-                      __nv_bfloat16* __restrict__ out, int depth, int height, int width, int cin,
-                      int cout, Strides xs, Strides rs, Strides os, int res_bf16,
-                      int apply_act) {
-  using Cfg = MmaTile<BN>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [halo position][kLd]
-  __nv_bfloat16* sB = sA + kMmaHalo * kLd;                          // [tap][n][kLd]
+                      bf16* __restrict__ out, int depth, int height, int width, int cin,
+                      int cin_p, int cout, Strides xs, Strides rs, Strides os, int res_bf16,
+                      int apply_act, const __grid_constant__ CUtensorMap x_map, int fast,
+                      const __grid_constant__ CUtensorMap res_map, int res_box) {
+  constexpr int kNT = kBN / 16;  // 8-channel n-tiles a warp
+  constexpr int kPlanes = R + 2;
+  extern __shared__ __align__(128) unsigned char smem_raw[];  // TMA boxes land 128-byte aligned
+  bf16* sW = reinterpret_cast<bf16*>(smem_raw);  // 2 x [tap][n][k]
+  bf16* sRaw = sW + 2 * w_elems();               // kRawStages x [c][halo row][column]
+  bf16* sA = sRaw + kRawStages * kRawElems;      // 2 x [halo position][k]
+  float* sScale = reinterpret_cast<float*>(sA + 2 * kAElems);  // 2 x [k]
+  float* sShift = sScale + 2 * kChunk;                         // 2 x [k]
+  // a ring stage's TMA load has landed; the residual's box has
+  uint64_t* raw_full = reinterpret_cast<uint64_t*>(smem_raw + barrier_offset<R>());
+  uint64_t* res_full = raw_full + kRawStages;
 
   const int w_tiles = (width + kTW - 1) / kTW;
-  const int h0 = (blockIdx.x / w_tiles) * kMmaTH;
+  const int h0 = (blockIdx.x / w_tiles) * kRows;
   const int w0 = (blockIdx.x % w_tiles) * kTW;
-  const int bi = blockIdx.y / depth;
-  const int od = blockIdx.y % depth;
-  const int n0 = blockIdx.z * BN;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // thread in the group
-  const int wm = warp % Cfg::kWarpsM;
-  const int wn = warp / Cfg::kWarpsM;
+  const int runs = (depth + R - 1) / R;
+  const int bi = blockIdx.y / runs;
+  const int d0 = (blockIdx.y % runs) * R;
+  const int n0 = blockIdx.z * kBN;
+  const int cout_p = gridDim.z * kBN;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wm = warp % kRows;
+  const int wn = warp / kRows;
+  const int chunks = cin_p / kChunk;
+  const int items = chunks * kPlanes;
+  const bf16* xb = x + bi * xs.b;
 
-  float acc[Cfg::kMT][Cfg::kNT][4];
+  // item = chunk * kPlanes + p: input plane d0 - 1 + p, channels chunk * 16 ..
+  auto issue_raw = [&](int item, int stage) {
+    const int sd = d0 - 1 + item % kPlanes;
+    if (sd < 0 || sd >= depth) {  // a plane outside the volume: nothing to read
+      if (fast && tid == 0) mbar_expect(&raw_full[stage], 0);  // the stage's phase moves on
+      return;
+    }
+    const int c0 = item / kPlanes * kChunk;
+    bf16* raw = sRaw + stage * kRawElems;
+    if (fast) {
+      // one TMA load of the [c][row][column] box, zero past the tensor's edges
+      if (tid == 0) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_expect(&raw_full[stage], kRawElems * sizeof(bf16));
+        tma_load_5d(raw, &x_map, &raw_full[stage], w0 - 8, h0 - 1, sd, c0, bi);
+      }
+    } else {
+      // element by element, consecutive threads on consecutive addresses of x
+      const bf16* xp = xb + sd * xs.d;
+      const bool last = xs.c == 1;
+#pragma unroll 1
+      for (int e = tid; e < kChunk * kHalo; e += kThreads) {
+        const int c = last ? e % kChunk : e / kHalo;
+        const int pos = last ? e / kChunk : e % kHalo;
+        const int hh = h0 - 1 + pos / kHaloCols;
+        const int ww = w0 - 1 + pos % kHaloCols;
+        bf16 v = __float2bfloat16(0.f);
+        if (c0 + c < cin && hh >= 0 && hh < height && ww >= 0 && ww < width) {
+          v = xp[(c0 + c) * xs.c + hh * xs.h + ww * xs.w];
+        }
+        raw[c * kRawPlane + (pos / kHaloCols) * kRawCols + pos % kHaloCols + 7] = v;
+      }
+    }
+  };
+  // the kernel slice and the affine of chunk `chunk` into buffer chunk % 2
+  auto issue_chunk = [&](int chunk) {
+    const int c0 = chunk * kChunk;
+    bf16* dst = sW + (chunk & 1) * w_elems();
+#pragma unroll 1
+    for (int u = tid; u < kTaps * kBN * 2; u += kThreads) {
+      const int row = u / 2;  // tap * kBN + n
+      const int half = u % 2;
+      const bf16* src = wt + (static_cast<size_t>(row / kBN) * cout_p + n0 + row % kBN) * cin_p
+                        + c0 + 8 * half;
+      cp_async16(dst + swz(row, 8 * half), src);
+    }
+    if (apply_act && tid < 2 * kChunk) {
+      const int c = tid % kChunk;
+      const bool valid = c0 + c < cin;
+      const float* src = (tid < kChunk ? scale : shift) + (valid ? bi * cin + c0 + c : 0);
+      cp_async4((tid < kChunk ? sScale : sShift) + (chunk & 1) * kChunk + c, src, valid);
+    }
+  };
+
+  // per-lane shared addresses of the fragments: the swap of an A row depends
+  // only on the lane and kw, of a B row only on the lane
+  const uint32_t a_lane = smem_addr(sA);
+  uint32_t a_kw[3];
 #pragma unroll
-  for (int i = 0; i < Cfg::kMT; ++i) {
+  for (int kw = 0; kw < 3; ++kw) {
+    a_kw[kw] = 2 * swz(wm * kHaloPitch + kw + (lane & 15), (lane >> 4) * 8);
+  }
+  const uint32_t b_lane =
+      smem_addr(sW) + 2 * swz(wn * (kBN / 2) + (lane & 7) + ((lane >> 4) << 3),
+                              ((lane >> 3) & 1) * 8);
+
+  float acc[R][2][kNT][4];
 #pragma unroll
-    for (int j = 0; j < Cfg::kNT; ++j) {
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][i][j][e] = 0.f;
+      }
     }
   }
 
-  const __nv_bfloat16* xb = x + bi * xs.b;
-  for (int kd = 0; kd < 3; ++kd) {
-    const int sd = od + kd - 1;
-    if (sd < 0 || sd >= depth) continue;  // the tap reads zeros: no contribution
-    const __nv_bfloat16* xp = xb + sd * xs.d;
-    const __nv_bfloat16* wk = w + static_cast<size_t>(kd) * 9 * cin * cout;
-    for (int c0 = 0; c0 < cin; c0 += kMmaCK) {
-      __syncthreads();  // the previous chunk is fully consumed
-      // the halo of this chunk, two channels a thread, prologue applied
-      for (int i = threadIdx.x; i < (kMmaCK / 2) * kMmaHalo; i += kThreads) {
-        const int cp = i / kMmaHalo;
-        const int pos = i % kMmaHalo;
-        const int hh = h0 + pos / (kTW + 2) - 1;
-        const int ww = w0 + pos % (kTW + 2) - 1;
-        float v[2] = {0.f, 0.f};
-        if (hh >= 0 && hh < height && ww >= 0 && ww < width) {
+  // the normalise pass of item `at` (input plane d0 - 1 + p of chunk `chunk`):
+  // raw [c][row][column] in ring stage at % kRawStages -> [position][c] in
+  // normalised plane at % 2, 8 channels a thread
+  auto normalise = [&](int at, int chunk, int p) {
+    const int sd = d0 - 1 + p;
+    if (sd < 0 || sd >= depth) return;
+    const bf16* raw = sRaw + at % kRawStages * kRawElems;
+    if (fast) mbar_wait(&raw_full[at % kRawStages], at / kRawStages & 1);
+    bf16* abuf = sA + (at & 1) * kAElems;
+    const float* cs = sScale + (chunk & 1) * kChunk;
+    const float* ch = sShift + (chunk & 1) * kChunk;
+    const int c0 = chunk * kChunk;
+#pragma unroll 1
+    for (int it = tid; it < 2 * kHalo; it += kThreads) {
+      const int half = it / kHalo;
+      const int hr = it % kHalo / kHaloCols;
+      const int hc = it % kHaloCols;
+      const int hh = h0 - 1 + hr;
+      const int ww = w0 - 1 + hc;
+      const bool inside = hh >= 0 && hh < height && ww >= 0 && ww < width;
+      const bf16* src = raw + half * 8 * kRawPlane + hr * kRawCols + hc + 7;
+      float v[8];
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int cc = c0 + 2 * cp + e;
-            if (cc >= cin) continue;
-            float a = __bfloat162float(xp[hh * xs.h + ww * xs.w + cc * xs.c]);
-            if (apply_act) {
-              // x * scale + shift rounded twice, as the plain version computes it
-              a = __fadd_rn(__fmul_rn(a, scale[bi * cin + cc]), shift[bi * cin + cc]);
-              a = a / (1.f + expf(-a));
+      for (int e = 0; e < 8; ++e) {
+        const int k = half * 8 + e;
+        float a = __bfloat162float(src[e * kRawPlane]);
+        if (apply_act) {
+          // x * scale + shift rounded twice, as the plain version computes it
+          a = __fadd_rn(__fmul_rn(a, cs[k]), ch[k]);
+          a = __fdividef(a, 1.f + __expf(-a));  // fast exp and reciprocal: rounded to bf16 next
+        }
+        v[e] = inside && c0 + k < cin ? a : 0.f;
+      }
+      uint4 packed;
+      packed.x = pack_bf16(v[0], v[1]);
+      packed.y = pack_bf16(v[2], v[3]);
+      packed.z = pack_bf16(v[4], v[5]);
+      packed.w = pack_bf16(v[6], v[7]);
+      *reinterpret_cast<uint4*>(abuf + swz(hr * kHaloPitch + hc, 8 * half)) = packed;
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kRawStages; ++i) mbar_init(&raw_full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Items are issued kRawStages ahead, one cp.async group committed for each
+  // (item i's as group i, most of them empty): the slice and affine of chunk
+  // c + 1 ride in the group issued at chunk c's first item, chunk 0's in
+  // group 0, so the wait for item i + 1's group covers its chunk's slice.
+  // The raw halos come by TMA, a stage's landing told by its mbarrier (or,
+  // without a map, by plain stores that the barrier makes visible). Between
+  // two barriers the block normalises item i + 1 and runs the products of
+  // item i, so one warp's prologue overlaps another's products.
+  issue_raw(0, 0);
+  issue_chunk(0);
+  cp_async_commit();
+#pragma unroll
+  for (int i = 1; i < kRawStages; ++i) {
+    issue_raw(i, i);
+    cp_async_commit();
+  }
+  cp_async_wait<kRawStages - 1>();
+  __syncthreads();
+  normalise(0, 0, 0);
+
+  // products of input plane d0 - 1 + P into output planes d0 + r through
+  // depth tap kd = P - r (an output plane past the volume's end is computed
+  // and not stored)
+  auto products = [&](auto plane, uint32_t a_item, uint32_t b_chunk) {
+    constexpr int P = decltype(plane)::value;
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        const int tap = kh * 3 + kw;
+        uint32_t a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          ldsm_x4(a[i], a_item + a_kw[kw] + (kh * kHaloPitch + i * 16) * kChunk * 2);
+        }
+        uint32_t b[3][kNT / 2][4];
+#pragma unroll
+        for (int kd = 0; kd < 3; ++kd) {
+          if (P - kd < 0 || P - kd >= R) continue;
+#pragma unroll
+          for (int q = 0; q < kNT / 2; ++q) {
+            ldsm_x4(b[kd][q], b_chunk + ((kd * 9 + tap) * kBN + q * 16) * kChunk * 2);
+          }
+        }
+#pragma unroll
+        for (int kd = 0; kd < 3; ++kd) {
+          const int r = P - kd;
+          if (r < 0 || r >= R) continue;
+#pragma unroll
+          for (int q = 0; q < kNT / 2; ++q) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              mma_bf16(acc[r][i][2 * q], a[i], b[kd][q][0], b[kd][q][1]);
+              mma_bf16(acc[r][i][2 * q + 1], a[i], b[kd][q][2], b[kd][q][3]);
             }
-            v[e] = a;
-          }
-        }
-        *reinterpret_cast<__nv_bfloat162*>(sA + pos * kLd + 2 * cp) =
-            __floats2bfloat162_rn(v[0], v[1]);
-      }
-      // the kernel slice sB[tap][n][k] = wt[kd, tap, n0 + n, c0 + k], 8 channels an item
-      for (int i = threadIdx.x; i < 9 * BN * 2; i += kThreads) {
-        const int half = i % 2;
-        const int n = (i / 2) % BN;
-        const int tap = i / (2 * BN);
-        const int cc = c0 + 8 * half;
-        const int nn = n0 + n;
-        const __nv_bfloat16* src = wk + (static_cast<size_t>(tap) * cout + nn) * cin + cc;
-        __nv_bfloat16* dst = sB + (tap * BN + n) * kLd + 8 * half;
-        if (nn < cout && cc + 8 <= cin && cin % 8 == 0) {
-          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            dst[e] = (nn < cout && cc + e < cin) ? src[e] : __float2bfloat16(0.f);
           }
         }
       }
-      __syncthreads();
+    }
+  };
 
 #pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const int kh = tap / 3;
-        const int kw = tap % 3;
-        uint32_t a[Cfg::kMT][4];
+  for (int item = 0; item < items; ++item) {
+    const int chunk = item / kPlanes;
+    const int p = item % kPlanes;
+    cp_async_wait<kRawStages - 2>();  // the slice and affine of item + 1's chunk landed
+    __syncthreads();  // ... for every thread; item's plane is normalised; the ring stage and
+                      // the normalised plane written below are free
+    {
+      const int next = item + kRawStages;
+      if (next < items) issue_raw(next, next % kRawStages);
+      if (p == 0 && chunk + 1 < chunks) issue_chunk(chunk + 1);
+      cp_async_commit();
+    }
+    if (item + 1 < items) normalise(item + 1, (item + 1) / kPlanes, (item + 1) % kPlanes);
+    const int sd = d0 - 1 + p;
+    if (sd < 0 || sd >= depth) continue;
+    const uint32_t a_item = a_lane + (item & 1) * kAElems * 2;
+    const uint32_t b_chunk = b_lane + (chunk & 1) * w_elems() * 2;
+    with_plane<kPlanes>(p, [&](auto plane) { products(plane, a_item, b_chunk); });
+  }
+
+  // epilogue: the R accumulator planes through shared memory (all of it is
+  // free now), then + bias, + residual, in f32; one cast; kBatch outputs a
+  // thread at a time, their residual loads in flight together
+  cp_async_wait<0>();
+  __syncthreads();
+  float* st = reinterpret_cast<float*>(smem_raw);  // [r][n][voxel]
+  const bf16* sRes = reinterpret_cast<const bf16*>(smem_raw + staging_bytes<R>());
+  if (res_box && tid == 0) {
+    // the residual of the block's outputs by one TMA load, while the
+    // accumulators are staged
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect(res_full, sizeof(bf16) * R * kBN * kM);
+    tma_load_5d(smem_raw + staging_bytes<R>(), &res_map, res_full, w0, h0, d0, n0, bi);
+  }
+  {
+    const int g = lane / 4;
+    const int t = lane % 4;
 #pragma unroll
-        for (int i = 0; i < Cfg::kMT; ++i) {
-          const int m0 = (wm * Cfg::kMT + i) * 16;  // 16 voxels of one output row
-          const int pos0 = (m0 / kTW + kh) * (kTW + 2) + m0 % kTW + kw;
-          const __nv_bfloat16* p = sA + (pos0 + g) * kLd + 2 * t;
-          a[i][0] = lds32(p);
-          a[i][1] = lds32(p + 8 * kLd);
-          a[i][2] = lds32(p + 8);
-          a[i][3] = lds32(p + 8 * kLd + 8);
-        }
+    for (int r = 0; r < R; ++r) {
 #pragma unroll
-        for (int j = 0; j < Cfg::kNT; ++j) {
-          const __nv_bfloat16* q = sB + (tap * BN + (wn * Cfg::kNT + j) * 8 + g) * kLd + 2 * t;
-          const uint32_t b0 = lds32(q);
-          const uint32_t b1 = lds32(q + 8);
+      for (int i = 0; i < 2; ++i) {
 #pragma unroll
-          for (int i = 0; i < Cfg::kMT; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
+        for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int m = wm * kTW + i * 16 + g + 8 * (e / 2);
+            const int n = wn * (kBN / 2) + j * 8 + 2 * t + e % 2;
+            st[(r * kBN + n) * kStageLd + m] = acc[r][i][j][e];
+          }
         }
       }
     }
   }
-
-  // epilogue: + bias, + residual, in f32; one cast
+  __syncthreads();
+  if (res_box) mbar_wait(res_full, 0);
+  const bool last = os.c == 1;  // channels-last output: consecutive threads on channels
+  // output element idx of the block: plane r, channel n, voxel (oh, ow); false past the edges
+  auto place = [&](int idx, int& r, int& n, int& oh, int& ow) {
+    r = idx / (kBN * kM);
+    const int rem = idx % (kBN * kM);
+    n = last ? rem % kBN : rem / kM;
+    const int m = last ? rem / kBN : rem % kM;
+    oh = h0 + m / kTW;
+    ow = w0 + m % kTW;
+    return d0 + r < depth && oh < height && ow < width && n0 + n < cout;
+  };
+  constexpr int kBatch = 8;
+  static_assert(R * kBN * kM % (kThreads * kBatch) == 0, "whole batches");
+#pragma unroll 1
+  for (int base = tid; base < R * kBN * kM; base += kThreads * kBatch) {
+    float v[kBatch];
 #pragma unroll
-  for (int i = 0; i < Cfg::kMT; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = (wm * Cfg::kMT + i) * 16 + g + 8 * half;
-      const int oh = h0 + m / kTW;
-      const int ow = w0 + m % kTW;
-      if (oh >= height || ow >= width) continue;
-      const long long roff = bi * rs.b + od * rs.d + oh * rs.h + ow * rs.w;
-      __nv_bfloat16* ob = out + bi * os.b + od * os.d + oh * os.h + ow * os.w;
-#pragma unroll
-      for (int j = 0; j < Cfg::kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + (wn * Cfg::kNT + j) * 8 + 2 * t + e;
-          if (n >= cout) continue;
-          float v = acc[i][j][2 * half + e] + bias[n];
-          if (residual != nullptr) {
-            const long long ro = roff + n * rs.c;
-            v += res_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(residual)[ro])
-                          : static_cast<const float*>(residual)[ro];
-          }
-          ob[n * os.c] = __float2bfloat16(v);
-        }
+    for (int e = 0; e < kBatch; ++e) {
+      int r, n, oh, ow;
+      v[e] = 0.f;
+      if (!place(base + e * kThreads, r, n, oh, ow)) continue;
+      v[e] = st[(r * kBN + n) * kStageLd + (oh - h0) * kTW + ow - w0] + bias[n0 + n];
+      if (res_box) {
+        v[e] += __bfloat162float(sRes[((n * R + r) * kRows + oh - h0) * kTW + ow - w0]);
+      } else if (residual != nullptr) {
+        const long long ro =
+            bi * rs.b + (d0 + r) * rs.d + oh * rs.h + ow * rs.w + (n0 + n) * rs.c;
+        v[e] += res_bf16 ? __bfloat162float(static_cast<const bf16*>(residual)[ro])
+                         : static_cast<const float*>(residual)[ro];
       }
+    }
+#pragma unroll
+    for (int e = 0; e < kBatch; ++e) {
+      int r, n, oh, ow;
+      if (!place(base + e * kThreads, r, n, oh, ow)) continue;
+      out[bi * os.b + (d0 + r) * os.d + oh * os.h + ow * os.w + (n0 + n) * os.c] =
+          __float2bfloat16(v[e]);
     }
   }
 }
 
-template <int BN>
+// The TMA map of a bf16 tensor seen as (W, H, D, C, B), W contiguous (the
+// channels-first layout), with the box `box` in that order.
+// cuTensorMapEncodeTiled is reached through the runtime, so the library needs
+// no link to the driver.
+cudaError_t encode_map(CUtensorMap* map, const void* x, int b, int d, int h, int wd, int c,
+                       const Strides& xs, const cuuint32_t (&box)[5]) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                              &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t dims[5] = {static_cast<cuuint64_t>(wd), static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(c),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(xs.h) * 2,
+                                 static_cast<cuuint64_t>(xs.d) * 2,
+                                 static_cast<cuuint64_t>(xs.c) * 2,
+                                 static_cast<cuuint64_t>(xs.b) * 2};
+  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x),
+                              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int R>
 int launch_mma(const void* x, const void* w, const float* scale, const float* shift,
                const float* bias, const void* residual, void* out, int b, int d, int h, int wd,
                int cin, int cout, const Strides& xs, const Strides& rs, const Strides& os,
                int res_bf16, int apply_act, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<BN>();
-  auto kernel = fused_conv_mma_kernel<BN>;
+  constexpr size_t smem = mma_smem_bytes<R>();
+  auto kernel = fused_conv_mma_kernel<R>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int w_tiles = (wd + kTW - 1) / kTW;
-  const int h_tiles = (h + kMmaTH - 1) / kMmaTH;
-  const dim3 grid(w_tiles * h_tiles, b * d, (cout + BN - 1) / BN);
+  const int h_tiles = (h + kRows - 1) / kRows;
+  const dim3 grid(w_tiles * h_tiles, b * ((d + R - 1) / R), (cout + kBN - 1) / kBN);
+  const int cin_p = (cin + kChunk - 1) / kChunk * kChunk;
+  const int fast = reinterpret_cast<uintptr_t>(x) % 16 == 0 && xs.w == 1 && xs.h % 8 == 0
+                   && xs.d % 8 == 0 && xs.c % 8 == 0 && xs.b % 8 == 0 && wd % 8 == 0;
+  // x and a bf16 residual by TMA where their strides allow it (16-byte rows)
+  CUtensorMap x_map{}, res_map{};
+  if (fast) {
+    err = encode_map(&x_map, x, b, d, h, wd, cin, xs, {kRawCols, kHaloRows, 1, kChunk, 1});
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int res_box = residual != nullptr && res_bf16
+                      && reinterpret_cast<uintptr_t>(residual) % 16 == 0 && rs.w == 1
+                      && rs.h % 8 == 0 && rs.d % 8 == 0 && rs.c % 8 == 0 && rs.b % 8 == 0
+                      && wd % 8 == 0;
+  if (res_box) {
+    err = encode_map(&res_map, residual, b, d, h, wd, cout, rs, {kTW, kRows, R, kBN, 1});
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), scale, shift,
-      bias, residual, static_cast<__nv_bfloat16*>(out), d, h, wd, cin, cout, xs, rs, os,
-      res_bf16, apply_act);
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), scale, shift, bias, residual,
+      static_cast<bf16*>(out), d, h, wd, cin, cin_p, cout, xs, rs, os, res_bf16, apply_act,
+      x_map, fast, res_map, res_box);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_mma_bn(const void* x, const void* w, const float* scale, const float* shift,
-                  const float* bias, const void* residual, void* out, int b, int d, int h,
-                  int wd, int cin, int cout, const Strides& xs, const Strides& rs,
-                  const Strides& os, int res_bf16, int apply_act, cudaStream_t stream) {
-  if (cout <= 32) {
-    return launch_mma<32>(x, w, scale, shift, bias, residual, out, b, d, h, wd, cin, cout, xs,
-                          rs, os, res_bf16, apply_act, stream);
+// the depth runs built, as ops/fused_conv.py::CONV_RUNS lists them
+int launch_mma_run(int rd, const void* x, const void* w, const float* scale, const float* shift,
+                   const float* bias, const void* residual, void* out, int b, int d, int h,
+                   int wd, int cin, int cout, const Strides& xs, const Strides& rs,
+                   const Strides& os, int res_bf16, int apply_act, cudaStream_t stream) {
+  switch (rd) {
+    case 1:
+      return launch_mma<1>(x, w, scale, shift, bias, residual, out, b, d, h, wd, cin, cout, xs,
+                           rs, os, res_bf16, apply_act, stream);
+    case 2:
+      return launch_mma<2>(x, w, scale, shift, bias, residual, out, b, d, h, wd, cin, cout, xs,
+                           rs, os, res_bf16, apply_act, stream);
+    case 4:
+      return launch_mma<4>(x, w, scale, shift, bias, residual, out, b, d, h, wd, cin, cout, xs,
+                           rs, os, res_bf16, apply_act, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (cout <= 64) {
-    return launch_mma<64>(x, w, scale, shift, bias, residual, out, b, d, h, wd, cin, cout, xs,
-                          rs, os, res_bf16, apply_act, stream);
-  }
-  return launch_mma<128>(x, w, scale, shift, bias, residual, out, b, d, h, wd, cin, cout, xs,
-                         rs, os, res_bf16, apply_act, stream);
 }
+
 
 template <int BN>
 int launch_f32(const void* x, const void* w, const float* scale, const float* shift,
@@ -464,17 +793,22 @@ Strides strides_at(const long long* s) { return Strides{s[0], s[1], s[2], s[3], 
 }  // namespace
 
 // x (b, d, h, wd, cin) and out (b, d, h, wd, cout) in one type (dtype 0 =
-// f32, 1 = bf16), each addressed by five element strides; w in that type,
-// contiguous, (3, 3, 3, cin, cout) for f32 and (3, 3, 3, cout, cin) for bf16; scale, shift (b, cin) and bias (cout) f32
-// contiguous (scale and shift unread when apply_act is 0); residual null or
-// of out's shape, f32 (res_dtype 0) or bf16 (1). `strides` holds 15 values:
-// x's, residual's and out's (b, d, h, w, c) strides. Launches on `stream` of
-// `device` and returns cudaGetLastError() of the launch (0 on success).
+// f32, 1 = bf16), each addressed by five element strides. w in that type,
+// contiguous: (3, 3, 3, cin, cout) for f32; for bf16 transposed and padded
+// with zeros, (3, 3, 3, cout_p, cin_p), cout_p the multiple of bn and cin_p
+// the multiple of 16 at or above cout and cin. scale, shift (b, cin) and bias
+// (cout) f32 contiguous (scale and shift unread when apply_act is 0);
+// residual null or of out's shape, f32 (res_dtype 0) or bf16 (1). `strides`
+// holds 15 values: x's, residual's and out's (b, d, h, w, c) strides. bn and
+// rd are the bf16 kernel's output channels a block (which must be its 32) and
+// output planes a block (1, 2 or 4), as ops/fused_conv.py::conv_tiles chose
+// them (unread for f32). Launches on `stream` of `device` and returns
+// cudaGetLastError() of the launch (0 on success).
 extern "C" int gm_fused_conv3d(const void* x, const void* w, const float* scale,
                                const float* shift, const float* bias, const void* residual,
                                void* out, int b, int d, int h, int wd, int cin, int cout,
                                const long long* strides, int dtype, int res_dtype, int apply_act,
-                               int device, void* stream) {
+                               int bn, int rd, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b * d > 65535 || cin < 1 || cout < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -486,8 +820,9 @@ extern "C" int gm_fused_conv3d(const void* x, const void* w, const float* scale,
                          os, res_dtype, apply_act, s);
   }
   if (dtype == 1) {
-    return launch_mma_bn(x, w, scale, shift, bias, residual, out, b, d, h, wd, cin, cout, xs, rs,
-                         os, res_dtype, apply_act, s);
+    if (bn != kBN) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_mma_run(rd, x, w, scale, shift, bias, residual, out, b, d, h, wd, cin, cout,
+                          xs, rs, os, res_dtype, apply_act, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

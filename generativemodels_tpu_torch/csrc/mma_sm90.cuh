@@ -1,5 +1,6 @@
 // PTX helpers shared by the tensor-core kernels of this directory
-// (flash_fwd.cu, flash_bwd.cu, flash_probes.cu) for Hopper (sm_90a):
+// (flash_fwd.cu, flash_bwd.cu, flash_probes.cu, fused_conv.cu) for Hopper
+// (sm_90a):
 // cp.async copies, ldmatrix fragment loads, mma.sync products on bf16 and
 // TF32 operands, and the packing and splitting of their operands.
 // ops/native.py hashes every .cuh of this directory into each library's
@@ -46,6 +47,14 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p))
+               : "memory");
+}
+// the same from a shared-memory address as smem_addr gives it (constant
+// offsets added to it fold into the instruction)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
                : "memory");
 }
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {

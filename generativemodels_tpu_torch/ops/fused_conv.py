@@ -31,6 +31,36 @@ from .native import Launcher
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The bf16 kernel's tile, as csrc/fused_conv.cu builds it: output channels a
+# block (BN), and the output depth planes a block (R) it is built for, longest
+# first. A block keeps R accumulator tiles of 128 voxels x BN channels in
+# registers (16 * R registers a thread); two blocks share an SM.
+CONV_BN = 32
+CONV_RUNS = (4, 2, 1)
+CONV_ROWS, CONV_COLS = 4, 32  # output voxels of a block in one plane: rows x columns
+CONV_CHUNK = 16  # input channels a chunk (the kernel reads Cin padded to a multiple)
+H100_SMS = 132
+
+
+def conv_tiles(b: int, d: int, h: int, w: int, cout: int,
+               sms: int = H100_SMS) -> tuple[int, int, tuple[int, int, int]]:
+    """(BN, R, grid) of the bf16 kernel for output (b, d, h, w, cout): the
+    one place the tile is chosen, handed to the kernel as it is.
+
+    BN is `CONV_BN` (a wider tile keeps one block on an SM and was no
+    faster on the H100). R is the longest run of `CONV_RUNS` whose grid (h
+    tiles * w tiles, B * depth runs, Cout tiles) still fills two waves of
+    `sms` blocks, else 1: a block normalises each input plane once for its
+    R output planes ((R + 2) / R prologues an output plane), but a long run
+    leaves SMs idle on a small volume.
+    """
+    spatial = -(-h // CONV_ROWS) * -(-w // CONV_COLS)
+    for r in CONV_RUNS:
+        grid = (spatial, b * -(-d // r), -(-cout // CONV_BN))
+        if r == 1 or grid[0] * grid[1] * grid[2] >= 2 * sms:
+            return CONV_BN, r, grid
+    raise AssertionError("CONV_RUNS ends with R = 1")
+
 
 def fold_groupnorm_affine(
     x: torch.Tensor,
@@ -108,14 +138,16 @@ class FusedConvKernel(Launcher):
 
     Takes w (3, 3, 3, Cin, Cout) f32 or bf16 with any strides, scale, shift
     (B, Cin) and bias (Cout) f32 contiguous. It makes the one copy of w that
-    the kernel reads, contiguous and in x's type.
+    the kernel reads, contiguous and in x's type (for bf16 transposed and
+    padded to whole tiles), and hands the bf16 kernel its tile, depth run
+    and grid from `conv_tiles`.
     """
 
     source = "fused_conv.cu"
     symbol = "gm_fused_conv3d"
     argtypes = (
         (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (ctypes.POINTER(ctypes.c_longlong),)
-        + (ctypes.c_int,) * 3
+        + (ctypes.c_int,) * 5
     )
 
     def __call__(
@@ -134,12 +166,19 @@ class FusedConvKernel(Launcher):
         b, d, h, wd, cin = x.shape
         cout = w.shape[-1]
         # the f32 kernel reads w (3, 3, 3, Cin, Cout), the bf16 tensor-core
-        # kernel w transposed, (3, 3, 3, Cout, Cin); both contiguous in x's
-        # type. `to` copies into the contiguous layout when the type changes
-        # (then `contiguous` has nothing to do), else `contiguous` copies if
-        # the layout needs it: at most one copy.
+        # kernel w transposed and padded with zeros to whole tiles, (3, 3, 3,
+        # Cout_p, Cin_p); both contiguous in x's type. `to` copies into the
+        # contiguous layout when the type changes (then `contiguous` has
+        # nothing to do), else `contiguous` copies if the layout needs it:
+        # one copy, or the pad's.
+        bn = rd = 0
         if x.dtype == torch.bfloat16:
+            sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+            bn, rd, _ = conv_tiles(b, d, h, wd, cout, sms)
             w = w.transpose(3, 4)
+            pad_cin, pad_cout = -cin % CONV_CHUNK, -cout % bn
+            if pad_cin or pad_cout:
+                w = F.pad(w.to(x.dtype), (0, pad_cin, 0, pad_cout))
         w = w.to(x.dtype, memory_format=torch.contiguous_format).contiguous()
         if _channels_first(x):
             out = torch.empty((b, cout, d, h, wd), dtype=x.dtype, device=x.device)
@@ -155,6 +194,7 @@ class FusedConvKernel(Launcher):
             bias.data_ptr(), residual.data_ptr() if residual is not None else None,
             out.data_ptr(), b, d, h, wd, cin, cout, strides, _DTYPE_CODES[x.dtype],
             _DTYPE_CODES[residual.dtype] if residual is not None else 0, int(apply_act),
+            bn, rd,
         )
         return out
 

@@ -37,6 +37,7 @@ from generativemodels_tpu_torch.ops import (
     flash_attention,
 )
 from generativemodels_tpu_torch.ops.flash_attention import _BLOCK
+from generativemodels_tpu_torch.ops.fused_conv import CONV_RUNS
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -192,3 +193,30 @@ def test_ptxas_entries_reads_stack_and_spills(stack, stores, loads, dq):
     offenders, checked = smoke.stack_offenders(entries)
     want = [e["name"] for e in entries[:2] if e["stack"] + e["spill_stores"] + e["spill_loads"]]
     assert offenders == want and checked == 2 - len(want)
+
+
+_CONV_PTXAS_LOG = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121fused_conv_f32_kernelILi128EEEvPKfS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121fused_conv_f32_kernelILi128EEEvPKfS2_
+    {stack} bytes stack frame, {stores} bytes spill stores, {loads} bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 43392 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121fused_conv_mma_kernelILi4EEEvPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121fused_conv_mma_kernelILi4EEEvPK13__nv_bfloat16
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+@pytest.mark.parametrize("stack, stores, loads", [(0, 0, 0), (24, 24, 24)],
+                         ids=["clean", "spills"])
+def test_ptxas_entries_hold_kernel5_to_no_stack(stack, stores, loads):
+    """Kernel 5's f32 and bf16 instantiations are held to the same rule as
+    kernels 2-4, and chip_smoke counts how many of fused_conv.cu's it read."""
+    smoke = _chip_smoke()
+    entries = smoke.ptxas_entries(_CONV_PTXAS_LOG.format(stack=stack, stores=stores,
+                                                         loads=loads))
+    assert [e["registers"] for e in entries] == [128, 168]
+    assert entries[0]["stack"] == stack and entries[0]["spill_loads"] == loads
+    offenders, checked = smoke.stack_offenders(entries)
+    assert offenders == ([entries[0]["name"]] if stack else [])
+    assert checked == (1 if stack else 2)
+    assert smoke.NO_STACK_INSTANCES["fused_conv.cu"] == 3 + len(CONV_RUNS)

@@ -18,6 +18,10 @@ hold against it on the card). Tolerances:
 """
 from __future__ import annotations
 
+import importlib.util
+import math
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +37,7 @@ from generativemodels_tpu_torch.ops import (
     fused_norm_silu_conv3d,
     fused_norm_silu_conv3d_reference,
 )
+from generativemodels_tpu_torch.ops.fused_conv import CONV_BN, CONV_RUNS, conv_tiles
 
 from .test_torch_unet import BATCH, build_pair, inputs, random_params
 
@@ -206,3 +211,53 @@ def test_fused_unet_3d_matches_jax(monkeypatch):
     with torch.no_grad():
         unfused = port(torch.from_numpy(x), torch.from_numpy(t))
     np.testing.assert_allclose(unfused.numpy(), got.numpy(), **NET_TOL)
+
+
+REPO = Path(__file__).resolve().parent.parent
+# chip_smoke.py's bf16 cases of kernel 5: every call shape of the 3D UNet's
+# forward at 128^3
+BF16_CASES = ("128_32to32", "128_32to32r", "128_96to32", "128_64to32", "64_32to64",
+              "64_64to64r", "64_192to64", "64_96to64", "32_64to128", "32_128to128r",
+              "32_128to128", "32_256to128", "32_192to128")
+# (BN, R) at each level (the volume's edge) on the H100's 132 SMs
+LEVEL_TILES = {128: (32, 4), 64: (32, 4), 32: (32, 2)}
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("_chip_smoke", REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", BF16_CASES)
+def test_conv_tiles_fill_the_card(name):
+    """The tile, depth run and grid handed to the bf16 kernel at each case:
+    the grid fills at least two waves of 132 SMs, or R is 1; no longer run
+    of the kernel's list would still fill them."""
+    cases = {case[0]: case for case in _chip_smoke().FUSED_CASES}
+    _, (b, d, h, w), _, cout, _, dtype = cases[name]
+    assert dtype == "bfloat16"
+    bn, rd, grid = conv_tiles(b, d, h, w, cout)
+    assert bn == CONV_BN and rd in CONV_RUNS and cout <= bn * grid[2] < cout + bn
+    spatial = math.ceil(h / 4) * math.ceil(w / 32)
+    assert grid == (spatial, b * math.ceil(d / rd), math.ceil(cout / bn))
+    assert math.prod(grid) >= 2 * 132 or rd == 1
+    for longer in (r for r in CONV_RUNS if r > rd):
+        assert spatial * b * math.ceil(d / longer) * grid[2] < 2 * 132
+    assert (bn, rd) == LEVEL_TILES[d]
+
+
+def test_conv_tiles_follow_the_card_and_the_volume():
+    """With fewer SMs a longer run fills the card; ragged volumes round up."""
+    assert conv_tiles(1, 32, 32, 32, 128, sms=4) == (32, 4, (8, 8, 4))
+    assert conv_tiles(1, 32, 32, 32, 128) == (32, 2, (8, 16, 4))
+    assert conv_tiles(2, 5, 7, 9, 24) == (32, 1, (2, 10, 1))
+    assert conv_tiles(3, 37, 130, 70, 130, sms=8) == (32, 4, (99, 30, 5))
+
+
+def test_forward_launch_weights_cover_the_bf16_cases():
+    """chip_smoke's per-case launches of one 3D forward: the 13 bf16 cases,
+    22 launches, as phase 5 counts them on the model."""
+    weights = _chip_smoke().FUSED_FORWARD_LAUNCHES
+    assert tuple(weights) == BF16_CASES and sum(weights.values()) == 22

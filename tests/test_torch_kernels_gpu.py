@@ -26,7 +26,8 @@ to the bit.
 Kernel 5, relative to the largest output, against a plain version whose
 f32 convolution runs without TF32: 1e-5 for f32 (summation order of
 27 * Cin products), 1e-2 for bf16 (the output is rounded to bf16, 2**-8 of
-its value, and a rare activation rounds the other way at a tie).
+its value, and a rare activation rounds the other way at a tie); two
+launches of the bf16 kernel give the same bits.
 Kernels 6 and 7, relative to the largest output: 2e-2 (bf16 output, p
 rounded to bf16 after f32 sums in another order; the packed bf16 exp rounds
 its argument to bf16); `mxu_only` on the rows whose plain row sum has
@@ -64,7 +65,9 @@ from generativemodels_tpu_torch.ops.flash_attention import (
     _backward_rows,
     _prescaled,
 )
+from generativemodels_tpu_torch.ops import fused_conv as fused_conv_module
 from generativemodels_tpu_torch.ops.flash_probes import relative_error
+from generativemodels_tpu_torch.ops.fused_conv import CONV_BN, CONV_RUNS
 
 
 @pytest.fixture
@@ -326,6 +329,14 @@ def _conv_inputs(device, b, d, h, w, cin, cout, dtype, channels_first, res_dtype
         ((1, 4, 6, 33, 96, 64), torch.bfloat16, True, None, True),
         ((1, 4, 8, 8, 64, 128), torch.float32, True, torch.float32, True),
         ((1, 3, 4, 70, 8, 130), torch.bfloat16, False, torch.bfloat16, True),  # 2 Cout tiles
+        ((1, 3, 4, 72, 8, 130), torch.bfloat16, True, None, True),  # 3 Cout tiles, 16-byte copies
+        ((1, 1, 8, 32, 32, 32), torch.bfloat16, True, torch.bfloat16, True),  # D = 1
+        ((2, 2, 8, 32, 32, 32), torch.bfloat16, True, None, True),  # D = 2
+        ((1, 6, 13, 45, 32, 32), torch.bfloat16, True, torch.bfloat16, True),  # ragged H, W
+        ((1, 6, 13, 48, 32, 64), torch.bfloat16, True, torch.float32, True),  # ragged, aligned W
+        ((1, 5, 8, 64, 40, 32), torch.bfloat16, True, torch.bfloat16, True),  # Cin = 40
+        ((1, 5, 8, 64, 40, 32), torch.bfloat16, False, None, True),
+        ((1, 4, 8, 64, 64, 64), torch.bfloat16, True, torch.bfloat16, False),  # identity prologue
     ],
 )
 def test_fused_conv_matches_reference_on_gpu(cuda_device, monkeypatch, shape, dtype,
@@ -345,6 +356,42 @@ def test_fused_conv_matches_reference_on_gpu(cuda_device, monkeypatch, shape, dt
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     err = (got.float() - want.float()).abs().max().item()
     assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 5, 9, 13])
+@pytest.mark.parametrize("rd", CONV_RUNS)
+def test_fused_conv_depth_runs_on_gpu(cuda_device, monkeypatch, rd, d):
+    """Every depth run R the bf16 kernel is built for, forced past the tile
+    chooser, at depths below, at and past a run's length: runs that start
+    and end outside the volume, and a last run cut short; Cout 40 is a full
+    and a partial tile of 32 channels."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(fused_conv_module, "conv_tiles", lambda *args: (CONV_BN, rd, None))
+    x, w, scale, shift, bias, res = _conv_inputs(cuda_device, 2, d, 6, 40, 24, 40,
+                                                 torch.bfloat16, True, torch.bfloat16)
+    got = fused_norm_silu_conv3d(x, w, scale, shift, bias, res)
+    want = fused_norm_silu_conv3d_reference(x, w, scale, shift, bias, res)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape, channels_first",
+    [((1, 16, 32, 64, 96, 32), True), ((1, 16, 16, 32, 64, 64), True),
+     ((1, 8, 8, 32, 128, 128), True), ((2, 5, 7, 9, 40, 24), False)],
+)
+def test_fused_conv_is_deterministic_on_gpu(cuda_device, shape, channels_first):
+    """Each output element belongs to one block and sums in a fixed order:
+    two launches give the same bits."""
+    x, w, scale, shift, bias, res = _conv_inputs(cuda_device, *shape, torch.bfloat16,
+                                                 channels_first, torch.bfloat16)
+    first = FUSED_CONV(x, w, scale, shift, bias, res)
+    second = FUSED_CONV(x, w, scale, shift, bias, res)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
