@@ -64,7 +64,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      `probes.probe_attn_vpu.main` at their defaults, which time every
      variant at (2, 32768, 32768, 64) bf16, with the launches of kernels 1,
      6 and 7 counted, each time printed beside its TFLOP/s, the bound, the
-     plain version's time, kernel 1's (phase 2) and flash SDPA's.
+     plain version's time, kernel 1's (phase 2) and flash SDPA's;
+  8. the latent 128^3 route: bench.py's fifth config (AEKL (32, 64, 64) bf16
+     around the UNet (64, 128, 256) bf16 at a 32^3 latent, scale factor 0.3,
+     random weights) through `LatentDiffusionInferer` and
+     `probes/bench_3d_ldm.py`: (a) one training forward (the encode at
+     128^3, one UNet forward); (b) the kernel path against the plain path,
+     one UNet forward in f32 and bf16 and every step of an f32 DDIM-50 chain;
+     (c) seconds per DDIM-50 and DPM-Solver++(2M)-10 sample from noise to
+     the decoded volume (one warm-up, three timed, host clock) and the
+     chain/decode split by CUDA events, kernel 1 counted at 5 launches a
+     forward; (d) the same with GMTPU_FUSED_RESBLOCK=1, its forward held
+     against the plain bf16 path; (e) `get_likelihood` (DDPM-50, KL maps
+     resampled trilinearly to 128^3), `sample(save_intermediates=True)` and
+     a PNDM-50 sample; (f) profiles of one UNet forward, one decode and one
+     encode.
 The second-to-last line is one JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -120,7 +134,7 @@ KERNEL_CASES = (
     ("serve_f32", (4, 1024, 1024, 256), "float32", False),
     ("serve_bf16", (4, 1024, 1024, 256), "bfloat16", False),
     ("level2_f32", (4, 256, 256, 256), "float32", False),
-    ("head64_bf16", (2, 4096, 4096, 64), "bfloat16", False),
+    ("head64_bf16", (2, 4096, 4096, 64), "bfloat16", False),  # the latent UNet's (phase 8)
     ("causal_f32", (4, 1024, 1024, 128), "float32", True),
     ("ragged_cross_f32", (2, 1000, 777, 64), "float32", False),
     ("3d_level2_bf16", (2, 32768, 32768, 64), "bfloat16", False),  # the 3D UNet's attention
@@ -296,6 +310,27 @@ PROBE_TOLERANCE = 2e-2
 # the variant of each probe kernel whose numbers stand in the kernels line
 PROBE_MAIN_VARIANT = {"flash_probe_overlap": "full", "flash_probe_vpu": "both"}
 PLAIN_PROBE_ITERS = 3  # the plain versions take 40-275 ms a call at the probes' shape
+# phase 8: bench.py's latent 128^3 config (probes/bench_3d_ldm.py): AEKL (32,
+# 64, 64) bf16 around the UNet (64, 128, 256) bf16 at a 32^3 latent. Kernel 1
+# runs at 16^3 = 4096 tokens, 2 heads of 64: 2 launches in down level 1, 3 in
+# up level 1 (the 8^3 level and the mid block, 512 tokens, stay plain)
+LDM_FLASH_PER_FORWARD = 5
+LDM_RUNS = 3  # timed samples after one warm-up, each solver
+LDM_LIKELIHOOD_STEPS = 50  # DDPM plan of the likelihood
+LDM_PNDM_STEPS = 50  # PNDM's plan (59 steps with the Runge-Kutta warm-up)
+LDM_INTERMEDIATE_STEPS = 100  # DDIM-50 keeps t = 900, 800, ..., 0
+# kernel groups of the latent forward's and the decode's profiles
+LDM_PROFILE_GROUPS = (
+    ("fused_conv (kernel 5)", ("fused_conv",)),
+    ("flash_fwd (kernel 1)", ("flash_fwd",)),
+    ("nearest upsampling", ("upsample_nearest", "UpSample")),
+    ("layout copies and casts", ("copy", "nchwToNhwc", "nhwcToNchw", "Memcpy")),
+    ("cuDNN convolutions and cuBLAS products", ("xmma", "cudnn", "conv", "gemm", "Conv",
+                                                "cutlass")),
+    ("GroupNorm and statistics", ("Moments", "reduce_kernel", "group_norm", "GroupNorm",
+                                  "pow_tensor")),
+    ("other", ("",)),
+)
 
 
 def log(msg: str) -> None:
@@ -1422,6 +1457,265 @@ def run_probes(torch, ops, probes, kernel1_ms: float, errors: dict) -> tuple[dic
     return numbers, {name: counts[name] for name in PROBE_MAIN_VARIANT}
 
 
+def ldm_unet(torch, nets, bench_ldm, dtype=None, use_flash_attention=None):
+    """The latent UNet of bench.py's config on the card (weights set by the caller)."""
+    return nets.DiffusionModelUNet(
+        **bench_ldm.UNET_CONFIG, use_flash_attention=use_flash_attention, dtype=dtype,
+    ).to(DEVICE).eval()
+
+
+def ldm_fused_per_forward(model) -> int:
+    """Kernel 5's launches in one forward under GMTPU_FUSED_RESBLOCK=1: two
+    for each ResnetBlock that neither up- nor downsamples."""
+    from generativemodels_tpu_torch.networks.nets.diffusion_model_unet import ResnetBlock
+
+    return 2 * sum(not (m.up or m.down) for m in model.modules() if isinstance(m, ResnetBlock))
+
+
+def check_ldm_counts(counts: dict, expected: dict, what: str) -> None:
+    log(f"ldm: {what}: launches {counts} (expected {expected})")
+    if counts != expected:
+        raise AssertionError(f"{what}: launches {counts}, expected {expected}")
+
+
+def ldm_training_forward(torch, ops, schedulers, inferers, bench_ldm, aekl, unet) -> None:
+    """Phase 8 (a): LatentDiffusionInferer.__call__ on a 1x1x128^3 volume:
+    the encode at full size, add_noise and one UNet forward."""
+    g = torch.Generator(DEVICE).manual_seed(11)
+    x = torch.randn((1, 1) + (bench_ldm.SIZE,) * 3, generator=g, device=DEVICE)
+    noise = torch.randn(bench_ldm.latent_shape(), generator=g, device=DEVICE)
+    ddpm = schedulers.DDPMScheduler(num_train_timesteps=1000, device=DEVICE)
+    inferer = inferers.LatentDiffusionInferer(ddpm, scale_factor=bench_ldm.SCALE_FACTOR)
+    reset_launches(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        pred = inferer(x, aekl, unet, noise, torch.tensor([500], device=DEVICE), generator=g)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_ldm_counts(counts_3d(ops), dict(fused_conv=0, flash_fwd=LDM_FLASH_PER_FORWARD),
+                     "training forward (encode at 128^3, one UNet forward)")
+    log(f"ldm: training forward -> {tuple(pred.shape)} {pred.dtype} in {seconds:.3f} s "
+        f"(first call, cuDNN set-up among it)")
+    if tuple(pred.shape) != bench_ldm.latent_shape() or not bool(torch.isfinite(pred).all()):
+        raise AssertionError(f"bad latent prediction: shape {tuple(pred.shape)}")
+
+
+def ldm_compare(torch, ops, nets, schedulers, bench_ldm, unet_bf16) -> None:
+    """Phase 8 (b) and (d): the kernel path against the plain path with the
+    same weights, one UNet forward at 32^3 in f32 and bf16, every step of
+    an f32 DDIM-50 chain from the same x_t, and the fused route's bf16
+    forward (GMTPU_FUSED_RESBLOCK=1) against the plain bf16 path."""
+    state = unet_bf16.state_dict()
+    g = torch.Generator(DEVICE).manual_seed(12)
+    x = torch.randn(bench_ldm.latent_shape(), generator=g, device=DEVICE)
+    t = torch.tensor([500], device=DEVICE)
+    models = {}
+    for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        for path, flash in (("kernel", None), ("plain", False)):
+            model = ldm_unet(torch, nets, bench_ldm, dtype=dtype, use_flash_attention=flash)
+            model.load_state_dict(state, strict=True)
+            models[label, path] = model
+    outs = {}
+    with torch.inference_mode():
+        for key, model in models.items():
+            reset_launches(ops)
+            outs[key] = model(x, t)
+            expected = LDM_FLASH_PER_FORWARD if key[1] == "kernel" else 0
+            check_ldm_counts(counts_3d(ops), dict(fused_conv=0, flash_fwd=expected),
+                             f"{key[0]} forward, {key[1]} path")
+        os.environ["GMTPU_FUSED_RESBLOCK"] = "1"
+        try:
+            reset_launches(ops)
+            fused = models["bf16", "kernel"](x, t)
+            check_ldm_counts(
+                counts_3d(ops), dict(fused_conv=ldm_fused_per_forward(unet_bf16),
+                                      flash_fwd=LDM_FLASH_PER_FORWARD),
+                "bf16 forward, fused route")
+        finally:
+            os.environ["GMTPU_FUSED_RESBLOCK"] = "0"
+        ref = outs["f32", "plain"]
+        scale = ref.abs().max().item()
+
+        def rel(a, b):
+            return (a - b).abs().max().item() / scale
+
+        fwd_f32 = rel(outs["f32", "kernel"], ref)
+        own_bf16 = rel(outs["bf16", "plain"], ref)
+        fwd_bf16 = rel(outs["bf16", "kernel"], outs["bf16", "plain"])
+        fused_bf16 = rel(fused, outs["bf16", "plain"])
+        ddim = schedulers.DDIMScheduler(num_train_timesteps=1000, device=DEVICE)
+        ddim.set_timesteps(50)
+        noise = torch.randn(bench_ldm.latent_shape(), generator=g, device=DEVICE)
+        step_abs = chain_step_diff(ddim, models["f32", "kernel"], models["f32", "plain"], noise)
+    del models, outs
+    torch.cuda.empty_cache()
+    log(f"ldm: one latent UNet forward at t=500, max|diff|/max|out of the plain f32 path| "
+        f"({scale:.3e}): kernel vs plain path in f32 {fwd_f32:.3e} (tol {FORWARD_RTOL:g}); in "
+        f"bf16 {fwd_bf16:.3e}, fused route (GMTPU_FUSED_RESBLOCK=1) vs plain bf16 path "
+        f"{fused_bf16:.3e} (tol {BF16_RATIO_3D:g} x the plain bf16 path's own rounding, "
+        f"{own_bf16:.3e})")
+    log(f"ldm: every step of an f32 DDIM-50 latent chain from the same x_t: kernel vs plain "
+        f"path max|diff| = {step_abs:.3e} (tol {CHAIN_ATOL:g})")
+    if not fwd_f32 <= FORWARD_RTOL:
+        raise AssertionError("latent forward (f32): kernel path disagrees with the plain path")
+    if not fwd_bf16 <= BF16_RATIO_3D * own_bf16:
+        raise AssertionError("latent forward (bf16): kernel path disagrees with the plain path")
+    if not fused_bf16 <= BF16_RATIO_3D * own_bf16:
+        raise AssertionError("latent forward (bf16): the fused route disagrees with the plain path")
+    if not step_abs <= CHAIN_ATOL:
+        raise AssertionError("latent DDIM chain: kernel path disagrees with the plain path")
+
+
+def ldm_timings(torch, ops, inferers, bench_ldm, aekl, unet, label: str) -> dict:
+    """Phase 8 (c): seconds per DDIM-50 and DPM-Solver++-10 sample, noise to
+    decoded volume, through `probes/bench_3d_ldm.run` (one warm-up, then
+    LDM_RUNS), the launches counted over each run, and the chain/decode
+    split of one more sample by CUDA events."""
+    fused = os.environ.get("GMTPU_FUSED_RESBLOCK", "0") == "1"
+    results = {}
+    for solver in ("ddim", "dpm"):
+        reset_launches(ops)
+        result = bench_ldm.run(solver, DEVICE, runs=LDM_RUNS, models=(aekl, unet))
+        forwards = bench_ldm.SOLVER_STEPS[solver] * (LDM_RUNS + 1)
+        check_ldm_counts(
+            counts_3d(ops),
+            dict(fused_conv=ldm_fused_per_forward(unet) * forwards if fused else 0,
+                 flash_fwd=LDM_FLASH_PER_FORWARD * forwards),
+            f"{label}: {LDM_RUNS + 1} {result['config']} samples")
+        inferer = inferers.LatentDiffusionInferer(bench_ldm.make_scheduler(solver, DEVICE),
+                                                  scale_factor=bench_ldm.SCALE_FACTOR)
+        chain_ms, decode_ms = bench_ldm.split_ms(inferer, aekl, unet, seed=20)
+        log(f"ldm: {label}: {result['config']}: "
+            + ", ".join(f"{s:.4f}" for s in result["seconds"])
+            + f" s a sample (warm-up {result['first_s']:.3f} s); one more sample by CUDA "
+            f"events: chain {chain_ms:.2f} ms, decode {decode_ms:.2f} ms; "
+            f"{json.dumps(result)}")
+        if result["out_shape"] != [1, 1] + [bench_ldm.SIZE] * 3:
+            raise AssertionError(f"bad decoded shape {result['out_shape']}")
+        results[solver] = dict(result, chain_ms=chain_ms, decode_ms=decode_ms)
+    return results
+
+
+def ldm_likelihood_and_pndm(torch, ops, schedulers, inferers, bench_ldm, aekl, unet) -> None:
+    """Phase 8 (e): get_likelihood (DDPM-50, the KL maps resampled to 128^3
+    trilinearly), sample(save_intermediates=True) with DDIM-50, and a
+    PNDM-50 latent sample."""
+    size = bench_ldm.SIZE
+    g = torch.Generator(DEVICE).manual_seed(13)
+    x = torch.tanh(torch.randn((1, 1) + (size,) * 3, generator=g, device=DEVICE))
+    ddpm = schedulers.DDPMScheduler(num_train_timesteps=1000, device=DEVICE)
+    ddpm.set_timesteps(LDM_LIKELIHOOD_STEPS)
+    inferer = inferers.LatentDiffusionInferer(ddpm, scale_factor=bench_ldm.SCALE_FACTOR)
+    reset_launches(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        total, maps = inferer.get_likelihood(
+            x, aekl, unet, save_intermediates=True, resample_latent_likelihoods=True,
+            resample_interpolation_mode="trilinear", generator=g)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_ldm_counts(counts_3d(ops), dict(fused_conv=0,
+                                           flash_fwd=LDM_FLASH_PER_FORWARD * LDM_LIKELIHOOD_STEPS),
+                     f"get_likelihood, DDPM-{LDM_LIKELIHOOD_STEPS}")
+    finite = bool(torch.isfinite(total).all()) and all(bool(torch.isfinite(m).all())
+                                                       for m in maps)
+    log(f"ldm: get_likelihood DDPM-{LDM_LIKELIHOOD_STEPS} in {seconds:.3f} s: total "
+        f"{total.tolist()}, {len(maps)} KL maps of {tuple(maps[0].shape)}, finite {finite}")
+    if (total.shape != (1,) or len(maps) != LDM_LIKELIHOOD_STEPS or not finite
+            or tuple(maps[0].shape) != (1, 3) + (size,) * 3):
+        raise AssertionError("bad latent likelihood")
+    del maps
+
+    ddim = inferers.LatentDiffusionInferer(bench_ldm.make_scheduler("ddim", DEVICE),
+                                           scale_factor=bench_ldm.SCALE_FACTOR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    image, mids = bench_ldm.sample(ddim, aekl, unet, seed=14, save_intermediates=True,
+                                   intermediate_steps=LDM_INTERMEDIATE_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    finite = bool(torch.isfinite(image).all()) and all(bool(torch.isfinite(m).all())
+                                                       for m in mids)
+    log(f"ldm: DDIM-50 sample with save_intermediates (every {LDM_INTERMEDIATE_STEPS} "
+        f"timesteps): {len(mids)} decoded intermediates of {tuple(mids[0].shape)} in "
+        f"{seconds:.3f} s, finite {finite}")
+    if len(mids) != 10 or not finite or tuple(image.shape) != (1, 1) + (size,) * 3:
+        raise AssertionError("bad latent sample with intermediates")
+    del mids
+
+    pndm = schedulers.PNDMScheduler(num_train_timesteps=1000, device=DEVICE)
+    pndm.set_timesteps(LDM_PNDM_STEPS)
+    pndm_inferer = inferers.LatentDiffusionInferer(pndm, scale_factor=bench_ldm.SCALE_FACTOR)
+    reset_launches(ops)
+    image, seconds = bench_ldm.timed_sample(pndm_inferer, aekl, unet, seed=15)
+    steps = len(pndm.timesteps)
+    check_ldm_counts(counts_3d(ops), dict(fused_conv=0, flash_fwd=LDM_FLASH_PER_FORWARD * steps),
+                     f"PNDM-{LDM_PNDM_STEPS} sample ({steps} steps)")
+    log(f"ldm: PNDM-{LDM_PNDM_STEPS} latent sample ({steps} steps with the Runge-Kutta "
+        f"warm-up) in {seconds:.3f} s (first PNDM call)")
+    if tuple(image.shape) != (1, 1) + (size,) * 3 or not bool(torch.isfinite(image).all()):
+        raise AssertionError("bad PNDM latent sample")
+
+
+def ldm_profile(torch, bench_ldm, aekl, unet) -> None:
+    """Phase 8 (f): device time by group and busy share of one warm latent
+    UNet forward, one decode and one encode, as `profile_3d`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    z = torch.randn(bench_ldm.latent_shape(), device=DEVICE)
+    x = torch.randn((1, 1) + (bench_ldm.SIZE,) * 3, device=DEVICE)
+    t = torch.tensor([500], device=DEVICE)
+    calls = (("one bf16 latent UNet forward at 32^3", lambda: unet(z, t)),
+             ("one bf16 decode to 128^3", lambda: aekl.decode_stage_2_outputs(z)),
+             ("one bf16 encode from 128^3", lambda: aekl.encode(x)))
+    with torch.inference_mode():
+        for what, call in calls:
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            report_profile(prof, wall, LDM_PROFILE_GROUPS, f"ldm: profile of {what}")
+        # the encoder's (0, 1) pad before each stride-2 conv is a fill and a
+        # copy, not told apart by name in the profile: timed alone here
+        for c, n in ((32, bench_ldm.SIZE), (64, bench_ldm.SIZE // 2)):
+            h = torch.randn((1, c) + (n,) * 3, device=DEVICE).to(torch.bfloat16)
+            log(f"ldm: the (0, 1) pad copy of a (1, {c}, {n}, {n}, {n}) bf16 volume: "
+                f"{time_ms(lambda: torch.nn.functional.pad(h, (0, 1) * 3)):.4f} ms")
+
+
+def run_ldm(torch, ops, nets, schedulers, inferers, bench_ldm) -> dict:
+    """Phase 8: the latent 128^3 route at bench.py's config through
+    LatentDiffusionInferer and probes/bench_3d_ldm.py, random weights."""
+    os.environ["GMTPU_FUSED_RESBLOCK"] = "0"
+    aekl, unet = bench_ldm.build_models(DEVICE)
+    randomize(torch, aekl)
+    randomize(torch, unet)
+    ldm_training_forward(torch, ops, schedulers, inferers, bench_ldm, aekl, unet)
+    ldm_compare(torch, ops, nets, schedulers, bench_ldm, unet)
+    torch.cuda.reset_peak_memory_stats()
+    timings = ldm_timings(torch, ops, inferers, bench_ldm, aekl, unet, "unfused")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    os.environ["GMTPU_FUSED_RESBLOCK"] = "1"
+    try:
+        fused = ldm_timings(torch, ops, inferers, bench_ldm, aekl, unet,
+                            "GMTPU_FUSED_RESBLOCK=1")
+    finally:
+        os.environ["GMTPU_FUSED_RESBLOCK"] = "0"
+    log("ldm: seconds per sample, noise to decoded 128^3 volume (host clock): "
+        + "; ".join(f"{solver} {sum(r['seconds']) / len(r['seconds']):.4f} unfused, "
+                    f"{sum(f['seconds']) / len(f['seconds']):.4f} fused"
+                    for (solver, r), f in zip(timings.items(), fused.values()))
+        + f"; peak memory {peak:.2f} GiB")
+    ldm_likelihood_and_pndm(torch, ops, schedulers, inferers, bench_ldm, aekl, unet)
+    ldm_profile(torch, bench_ldm, aekl, unet)
+    return timings
+
+
 def build_kernels(build_library) -> None:
     """Phase 1: one nvcc for each source, all started together."""
     results = {}
@@ -1504,6 +1798,7 @@ def main() -> int:
     from generativemodels_tpu_torch import inferers, ops, parallel, probes
     from generativemodels_tpu_torch.networks import nets, schedulers
     from generativemodels_tpu_torch.ops.native import build_library
+    from generativemodels_tpu_torch.probes import bench_3d_ldm as bench_ldm
     from generativemodels_tpu_torch.recipes import serve
     from generativemodels_tpu_torch.recipes import train_2d_ddpm as recipe
     from generativemodels_tpu_torch.recipes import train_3d_ddpm as recipe3d
@@ -1555,6 +1850,11 @@ def main() -> int:
     probe_errors = check_probes(torch, ops)
     probe_numbers, probe_launches = run_probes(torch, ops, probes,
                                                forward["3d_level2_bf16"]["ms"], probe_errors)
+
+    # phase 8: the latent 128^3 route through LatentDiffusionInferer and
+    # probes/bench_3d_ldm.py, kernel 1 at the latent shape (phase 2's
+    # head64_bf16)
+    run_ldm(torch, ops, nets, schedulers, inferers, bench_ldm)
 
     # the numbers of each kernel at its main path's shape: serving for the
     # forward, the recipe's batch 64 for the split backward, the 3D training

@@ -10,12 +10,13 @@ with nvcc at first use). It imports no JAX.
 
 __version__ = "0.1.0"
 
-from .inferers import DiffusionInferer  # noqa: E402,F401
-from .networks.nets import DiffusionModelUNet  # noqa: E402,F401
+from .inferers import DiffusionInferer, LatentDiffusionInferer  # noqa: E402,F401
+from .networks.nets import AutoencoderKL, DiffusionModelUNet  # noqa: E402,F401
 from .networks.schedulers import (  # noqa: E402,F401
     DDIMScheduler,
     DDPMScheduler,
     DPMSolverMultistepScheduler,
     NoiseSchedules,
+    PNDMScheduler,
     Scheduler,
 )

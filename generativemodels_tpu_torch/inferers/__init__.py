@@ -1,3 +1,4 @@
 from .inferer import DiffusionInferer
+from .latent import LatentDiffusionInferer
 
-__all__ = ["DiffusionInferer"]
+__all__ = ["DiffusionInferer", "LatentDiffusionInferer"]

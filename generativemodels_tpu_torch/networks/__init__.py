@@ -1,3 +1,3 @@
-from .convert import unet_state_dict_from_jax
+from .convert import autoencoderkl_state_dict_from_jax, unet_state_dict_from_jax
 
-__all__ = ["unet_state_dict_from_jax"]
+__all__ = ["autoencoderkl_state_dict_from_jax", "unet_state_dict_from_jax"]

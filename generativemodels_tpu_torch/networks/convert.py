@@ -1,19 +1,23 @@
 """JAX parameter trees -> state dicts of the port's modules.
 
-Counterpart of the UNet part of generativemodels_tpu/networks/zoo_convert.py,
-in the other direction: a flax params tree of DiffusionModelUNet (nested
-dict of numpy arrays) becomes a state dict for the port's
-DiffusionModelUNet, whose keys are the reference torch keys.
+Counterpart of the DiffusionModelUNet and AutoencoderKL parts of
+generativemodels_tpu/networks/zoo_convert.py, in the other direction: a
+flax params tree (nested dict of numpy arrays) becomes a state dict for the
+port's module, whose keys are the reference torch keys.
 
 Leaf transforms:
-    flax ConvND kernel (*k, I, O)  -> Conv{1,2,3}d weight (O, I, *k)
-    flax Dense kernel (in, out)    -> Linear weight (out, in)
-    flax GroupNorm scale           -> weight
-    flax Embed embedding           -> Embedding weight (as is)
+    flax ConvND kernel (*k, I, O)           -> Conv{1,2,3}d weight (O, I, *k)
+    flax ConvTransposeND kernel (*k, I, O)  -> ConvTranspose{1,2,3}d weight
+                                               (I, O, *k), flipped on every
+                                               spatial axis (lax.conv_transpose
+                                               runs the kernel unflipped)
+    flax Dense kernel (in, out)             -> Linear weight (out, in)
+    flax GroupNorm scale                    -> weight
+    flax Embed embedding                    -> Embedding weight (as is)
 """
 from __future__ import annotations
 
-from collections.abc import Mapping
+from collections.abc import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -53,17 +57,54 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, object]:
     return out
 
 
-def _torch_leaf(leaf: str, w: np.ndarray) -> tuple[str, np.ndarray]:
-    """(torch parameter name, array in torch layout) for one flax leaf."""
+def _torch_leaf(leaf: str, w: np.ndarray, transposed: bool) -> tuple[str, np.ndarray]:
+    """(torch parameter name, array in torch layout) for one flax leaf;
+    `transposed`: the leaf is a ConvTransposeND kernel."""
     if leaf == "kernel":
+        n = w.ndim - 2
+        if transposed:  # (*k, I, O) -> (I, O, *k), flipped spatially
+            w = np.transpose(w, (n, n + 1, *range(n)))
+            return "weight", np.flip(w, tuple(range(2, w.ndim)))
         if w.ndim >= 3:  # conv (*k, I, O) -> (O, I, *k)
-            return "weight", np.transpose(w, (w.ndim - 1, w.ndim - 2, *range(w.ndim - 2)))
+            return "weight", np.transpose(w, (n + 1, n, *range(n)))
         return "weight", w.T
     if leaf in ("scale", "embedding"):
         return "weight", w
     if leaf == "bias":
         return "bias", w
     raise ValueError(f"unknown flax leaf {leaf!r}")
+
+
+def _state_dict_from_jax(
+    params: Mapping,
+    expected: Mapping[str, torch.Tensor],
+    translate: Callable[[tuple[str, ...]], str],
+    transposed: frozenset[tuple[str, ...]] = frozenset(),
+) -> dict[str, torch.Tensor]:
+    """Every leaf of `params` under the torch key `translate` gives its
+    module path (`<prefix>.<name>` or, for a conv, `<prefix>.conv.<name>`),
+    checked as the public functions below say."""
+    out: dict[str, torch.Tensor] = {}
+    for (*dirs, leaf), value in _flatten(params).items():
+        prefix = translate(tuple(dirs))
+        name, w = _torch_leaf(leaf, np.asarray(value, dtype=np.float32), tuple(dirs) in transposed)
+        for key in (f"{prefix}.{name}", f"{prefix}.conv.{name}"):
+            if key in expected:
+                break
+        else:
+            raise KeyError(f"JAX parameter {'/'.join((*dirs, leaf))} has no torch key ({prefix}.{name})")
+        if key in out:
+            raise KeyError(f"two JAX parameters map to {key}")
+        if tuple(w.shape) != tuple(expected[key].shape):
+            raise ValueError(
+                f"shape mismatch at {key}: JAX gives {tuple(w.shape)}, "
+                f"torch expects {tuple(expected[key].shape)}"
+            )
+        out[key] = torch.tensor(np.ascontiguousarray(w))  # copies: never aliases `params`
+    missing = sorted(set(expected) - set(out))
+    if missing:
+        raise KeyError(f"torch keys with no JAX parameter: {missing[:8]} ({len(missing)} total)")
+    return out
 
 
 def unet_state_dict_from_jax(
@@ -86,24 +127,85 @@ def unet_state_dict_from_jax(
         KeyError on a JAX leaf with no torch key, or a torch key that no JAX
         leaf fills; ValueError on a shape mismatch.
     """
-    out: dict[str, torch.Tensor] = {}
-    for (*dirs, leaf), value in _flatten(params).items():
-        prefix = _translate_unet(tuple(dirs))
-        name, w = _torch_leaf(leaf, np.asarray(value, dtype=np.float32))
-        for key in (f"{prefix}.{name}", f"{prefix}.conv.{name}"):
-            if key in expected:
-                break
-        else:
-            raise KeyError(f"JAX parameter {'/'.join((*dirs, leaf))} has no torch key ({prefix}.{name})")
-        if key in out:
-            raise KeyError(f"two JAX parameters map to {key}")
-        if tuple(w.shape) != tuple(expected[key].shape):
-            raise ValueError(
-                f"shape mismatch at {key}: JAX gives {tuple(w.shape)}, "
-                f"torch expects {tuple(expected[key].shape)}"
-            )
-        out[key] = torch.tensor(np.ascontiguousarray(w))  # copies: never aliases `params`
-    missing = sorted(set(expected) - set(out))
-    if missing:
-        raise KeyError(f"torch keys with no JAX parameter: {missing[:8]} ({len(missing)} total)")
-    return out
+    return _state_dict_from_jax(params, expected, _translate_unet)
+
+
+def _aekl_block_map(
+    num_channels: Sequence[int],
+    num_res_blocks: Sequence[int],
+    attention_levels: Sequence[bool],
+    with_encoder_nonlocal_attn: bool,
+    with_decoder_nonlocal_attn: bool,
+) -> dict[tuple[str, str], str]:
+    """(side, flax module name) -> torch prefix ``{side}.blocks.{i}``, in the
+    append order of the reference Encoder and Decoder (the order of
+    `AEKLEncoder.blocks` and `AEKLDecoder.blocks`)."""
+    n_levels = len(num_channels)
+    encoder = ["conv_in"]
+    for i in range(n_levels):
+        for j in range(num_res_blocks[i]):
+            encoder.append(f"res_{i}_{j}")
+            if attention_levels[i]:
+                encoder.append(f"attn_{i}_{j}")
+        if i != n_levels - 1:
+            encoder.append(f"down_{i}")
+    if with_encoder_nonlocal_attn:
+        encoder += ["mid_res_1", "mid_attn", "mid_res_2"]
+    encoder += ["norm_out", "conv_out"]
+
+    decoder = ["conv_in"]
+    if with_decoder_nonlocal_attn:
+        decoder += ["mid_res_1", "mid_attn", "mid_res_2"]
+    rev_res = list(reversed(list(num_res_blocks)))
+    rev_att = list(reversed(list(attention_levels)))
+    for i in range(n_levels):
+        for j in range(rev_res[i]):
+            decoder.append(f"res_{i}_{j}")
+            if rev_att[i]:
+                decoder.append(f"attn_{i}_{j}")
+        if i != n_levels - 1:
+            decoder.append(f"up_{i}")
+    decoder += ["norm_out", "conv_out"]
+    return {
+        (side, name): f"{side}.blocks.{i}"
+        for side, names in (("encoder", encoder), ("decoder", decoder))
+        for i, name in enumerate(names)
+    }
+
+
+def autoencoderkl_state_dict_from_jax(
+    params: Mapping,
+    expected: Mapping[str, torch.Tensor],
+    num_channels: Sequence[int],
+    num_res_blocks: Sequence[int] | int,
+    attention_levels: Sequence[bool],
+    with_encoder_nonlocal_attn: bool = True,
+    with_decoder_nonlocal_attn: bool = True,
+    use_convtranspose: bool = False,
+) -> dict[str, torch.Tensor]:
+    """Map a JAX AutoencoderKL params tree onto the port's state-dict keys.
+
+    The configuration arguments are the model's: they fix the flat
+    ``encoder.blocks.{i}`` / ``decoder.blocks.{i}`` numbering. A bare
+    GroupNorm (``norm_out``) maps to ``...blocks.{n}.weight``, a conv to
+    ``...blocks.{k}.conv.weight``, the down and up convs to
+    ``...blocks.{k}.conv.conv.weight``; under `use_convtranspose` the up
+    convs' kernels are transposed and flipped. Arguments, result and errors
+    otherwise as `unet_state_dict_from_jax`.
+    """
+    if isinstance(num_res_blocks, int):
+        num_res_blocks = (num_res_blocks,) * len(num_channels)
+    block_map = _aekl_block_map(
+        num_channels, num_res_blocks, attention_levels, with_encoder_nonlocal_attn,
+        with_decoder_nonlocal_attn,
+    )
+
+    def translate(dirs: tuple[str, ...]) -> str:
+        if dirs[0] in ("encoder", "decoder") and len(dirs) >= 2:
+            return ".".join([block_map[dirs[0], dirs[1]], *dirs[2:]])
+        return ".".join(dirs)  # quant_conv_mu, quant_conv_log_sigma, post_quant_conv
+
+    transposed = frozenset(
+        ("decoder", f"up_{i}", "conv") for i in range(len(num_channels) - 1) if use_convtranspose
+    )
+    return _state_dict_from_jax(params, expected, translate, transposed)

@@ -6,6 +6,7 @@ from .dpmsolver import (
     DPMSolverPredictionType,
     DPMSolverState,
 )
+from .pndm import PNDMPredictionType, PNDMScheduler, PNDMState
 from .scheduler import NoiseSchedules, Scheduler
 
 __all__ = [
@@ -19,5 +20,8 @@ __all__ = [
     "DPMSolverPredictionType",
     "DPMSolverState",
     "NoiseSchedules",
+    "PNDMPredictionType",
+    "PNDMScheduler",
+    "PNDMState",
     "Scheduler",
 ]

@@ -79,6 +79,18 @@ class DDPMScheduler(Scheduler):
             (num_inference_steps - 1) * step_ratio, -1, -step_ratio, device=self.device
         )
 
+    def _get_mean(self, timestep, x_0: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
+        """Posterior mean of q(x_{t-1} | x_t, x_0) (DDPM eq. 7)."""
+        t = self._t(timestep)
+        alpha_t = torch.take(self.alphas, t)
+        alpha_prod_t = torch.take(self.alphas_cumprod, t)
+        alpha_prod_t_prev = self._alpha_cumprod_prev(t)
+        beta_t = torch.take(self.betas, t)
+
+        x0_coef = torch.sqrt(alpha_prod_t_prev) * beta_t / (1.0 - alpha_prod_t)
+        xt_coef = torch.sqrt(alpha_t) * (1.0 - alpha_prod_t_prev) / (1.0 - alpha_prod_t)
+        return x0_coef * x_0 + xt_coef * x_t
+
     def _get_variance(self, timestep, predicted_variance: torch.Tensor | None = None):
         """Posterior variance at t, per configured variance_type."""
         t = self._t(timestep)

@@ -28,6 +28,12 @@ f32 convolution runs without TF32: 1e-5 for f32 (summation order of
 27 * Cin products), 1e-2 for bf16 (the output is rounded to bf16, 2**-8 of
 its value, and a rare activation rounds the other way at a tie); two
 launches of the bf16 kernel give the same bits.
+The latent route's modules on the card against the same modules on the CPU
+(AutoencoderKL with attention at 4096 tokens, so kernel 1 runs in it; the
+latent UNet with and without the fused ResnetBlock route), relative to the
+largest output: 1e-4 in f32 (chip_smoke.py's kernel-path forward check),
+and in bf16 twice the CPU bf16 run's own distance from the CPU f32 run. A
+PNDM chain on the card within 1e-5 of its largest value of the CPU's.
 Kernels 6 and 7, relative to the largest output: 2e-2 (bf16 output, p
 rounded to bf16 after f32 sums in another order; the packed bf16 exp rounds
 its argument to bf16); `mxu_only` on the rows whose plain row sum has
@@ -68,6 +74,8 @@ from generativemodels_tpu_torch.ops.flash_attention import (
 from generativemodels_tpu_torch.ops import fused_conv as fused_conv_module
 from generativemodels_tpu_torch.ops.flash_probes import relative_error
 from generativemodels_tpu_torch.ops.fused_conv import CONV_BN, CONV_RUNS
+from generativemodels_tpu_torch.networks.nets import AutoencoderKL, DiffusionModelUNet
+from generativemodels_tpu_torch.networks.schedulers import PNDMScheduler
 
 
 @pytest.fixture
@@ -337,6 +345,10 @@ def _conv_inputs(device, b, d, h, w, cin, cout, dtype, channels_first, res_dtype
         ((1, 5, 8, 64, 40, 32), torch.bfloat16, True, torch.bfloat16, True),  # Cin = 40
         ((1, 5, 8, 64, 40, 32), torch.bfloat16, False, None, True),
         ((1, 4, 8, 64, 64, 64), torch.bfloat16, True, torch.bfloat16, False),  # identity prologue
+        # the latent UNet's up path (concatenated skips) under the fused route
+        ((1, 8, 8, 8, 512, 256), torch.bfloat16, True, torch.bfloat16, True),
+        ((1, 16, 16, 16, 384, 128), torch.bfloat16, True, torch.bfloat16, True),
+        ((1, 32, 32, 32, 192, 64), torch.bfloat16, True, torch.bfloat16, True),
     ],
 )
 def test_fused_conv_matches_reference_on_gpu(cuda_device, monkeypatch, shape, dtype,
@@ -476,3 +488,105 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="head width"):
         flash_overlap(q[..., :32].contiguous(), q[..., :32].contiguous(),
                       q[..., :32].contiguous(), scale=0.125)
+
+
+def _randomize(model, seed: int = 0) -> None:
+    """Every parameter from a seed: weights at 1/sqrt(fan_in) (to_q, to_k at
+    half that, as chip_smoke.py's `randomize`), norm scales near 1, biases
+    small; a fresh UNet's zero output conv would make the checks empty."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            r = torch.randn(p.shape, generator=g)
+            if p.ndim >= 2:
+                r = r / p[0].numel() ** 0.5
+                if name.endswith(("to_q.weight", "to_k.weight")):
+                    r = 0.5 * r
+            elif name.endswith("weight"):
+                r = 1.0 + 0.1 * r
+            else:
+                r = 0.1 * r
+            p.copy_(r)
+
+
+def _card_against_cpu(cuda_device, monkeypatch, build, call) -> None:
+    """f32 on the card within 1e-4 of the CPU's largest output; bf16 on the
+    card within twice the CPU bf16 run's distance from the CPU f32 run."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    outs = {}
+    for dtype in (None, torch.bfloat16):
+        model = build(dtype)
+        _randomize(model)
+        with torch.no_grad():
+            outs[dtype, "cpu"] = call(model.eval(), torch.device("cpu"))
+            before = FLASH_FWD.launches
+            outs[dtype, "cuda"] = call(model.to(cuda_device), cuda_device).cpu()
+        assert FLASH_FWD.launches > before  # the card's run went through kernel 1
+    ref = outs[None, "cpu"]
+    scale = ref.abs().max().item()
+    assert scale > 1e-2
+    assert (outs[None, "cuda"] - ref).abs().max().item() <= 1e-4 * scale
+    own = (outs[torch.bfloat16, "cpu"] - ref).abs().max().item()
+    assert (outs[torch.bfloat16, "cuda"] - outs[torch.bfloat16, "cpu"]).abs().max().item() <= (
+        2 * own)
+
+
+@pytest.mark.cuda
+def test_autoencoderkl_on_gpu_matches_cpu(cuda_device, monkeypatch):
+    """AEKL (16, 32, 32) at 32^3 with attention on level 1 (16^3 = 4096
+    tokens, one 32-wide head: kernel 1 on the card) and nonlocal attention."""
+
+    def build(dtype):
+        return AutoencoderKL(
+            spatial_dims=3, num_res_blocks=1, num_channels=(16, 32, 32),
+            attention_levels=(False, True, False), norm_num_groups=8, dtype=dtype)
+
+    x = torch.randn((1, 1, 32, 32, 32), generator=torch.Generator().manual_seed(1))
+    _card_against_cpu(cuda_device, monkeypatch, build,
+                      lambda model, device: model.reconstruct(x.to(device)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", ["0", "1"], ids=["unfused", "fused"])
+def test_latent_unet_on_gpu_matches_cpu(cuda_device, monkeypatch, fused):
+    """The latent UNet's layout, narrowed to (32, 64, 64) with 32-wide
+    heads, at 32^3 (kernel 1 at 16^3 = 4096 tokens); GMTPU_FUSED_RESBLOCK=1
+    sends its ResnetBlocks through kernel 5 on the card and its plain
+    version on the CPU, concatenated skips and the 8^3 level included."""
+    monkeypatch.setenv("GMTPU_FUSED_RESBLOCK", fused)
+
+    def build(dtype):
+        return DiffusionModelUNet(
+            spatial_dims=3, in_channels=3, out_channels=3, num_res_blocks=2,
+            num_channels=(32, 64, 64), attention_levels=(False, True, True),
+            num_head_channels=32, norm_num_groups=32, dtype=dtype)
+
+    x = torch.randn((1, 3, 32, 32, 32), generator=torch.Generator().manual_seed(2))
+    before = FUSED_CONV.launches
+    _card_against_cpu(cuda_device, monkeypatch, build,
+                      lambda model, device: model(x.to(device), torch.tensor([500], device=device)))
+    assert (FUSED_CONV.launches > before) == (fused == "1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip_prk", [False, True], ids=["prk", "plms_only"])
+def test_pndm_steps_on_gpu_match_cpu(cuda_device, skip_prk):
+    """A PNDM-10 chain with seeded model outputs, stepped on the card and on
+    the CPU from the same samples."""
+    g = torch.Generator().manual_seed(3)
+    chains = {}
+    for device in (torch.device("cpu"), cuda_device):
+        scheduler = PNDMScheduler(skip_prk_steps=skip_prk, device=device)
+        scheduler.set_timesteps(10)
+        state = scheduler.init_state((2, 3, 8, 8, 8))
+        chains[device.type] = (scheduler, state)
+    sample = torch.randn((2, 3, 8, 8, 8), generator=g)
+    (cpu, cpu_state), (gpu, gpu_state) = chains["cpu"], chains["cuda"]
+    for i in range(len(cpu.timesteps)):
+        out = torch.randn(sample.shape, generator=g)
+        want, cpu_state = cpu.step(cpu_state, out, cpu.timesteps[i], sample)
+        got, gpu_state = gpu.step(gpu_state, out.to(cuda_device), gpu.timesteps[i],
+                                  sample.to(cuda_device))
+        assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+        sample = want

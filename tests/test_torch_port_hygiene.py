@@ -33,7 +33,8 @@ def _port_modules() -> list[str]:
 def test_port_modules_import_without_jax():
     modules = _port_modules()
     for name in ("recipes.serve", "recipes.train_2d_ddpm", "parallel.train", "utils.profiling",
-                 "probes.probe_overlap"):
+                 "probes.probe_overlap", "networks.nets.autoencoderkl", "inferers.latent",
+                 "networks.schedulers.pndm", "probes.bench_3d_ldm"):
         assert f"generativemodels_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -130,3 +130,56 @@ def test_step_takes_a_device_timestep_tensor():
         a, _ = t.step(out, ts, sample)
         b, _ = t.step(out, int(ts), sample)
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [10, 50])
+@pytest.mark.parametrize("skip_prk", [False, True], ids=["prk", "plms_only"])
+def test_pndm_plan(n, skip_prk):
+    kw = dict(skip_prk_steps=skip_prk, steps_offset=1)
+    j, t = jsched.PNDMScheduler(**kw), tsched.PNDMScheduler(**kw)
+    j.set_timesteps(n)
+    t.set_timesteps(n)
+    np.testing.assert_array_equal(t.timesteps.numpy(), j.timesteps)
+    np.testing.assert_array_equal(t.prk_timesteps, j.prk_timesteps)
+    assert t.num_inference_steps == j.num_inference_steps
+
+
+@pytest.mark.parametrize("prediction_type", ["epsilon", "v_prediction"])
+@pytest.mark.parametrize("skip_prk", [False, True], ids=["prk", "plms_only"])
+@pytest.mark.parametrize("set_alpha_to_one", [False, True])
+def test_pndm_chain_matches_jax(prediction_type, skip_prk, set_alpha_to_one):
+    """Every step of a 10-step plan (19 with the RK warm-up), each from the
+    JAX chain's own sample, with a model output drawn from a seed per step:
+    the RK stages, the PLMS warm-up's redo and every multistep order. Held
+    to 1e-5 of the step's largest value: formula (9) subtracts terms of
+    order |sample| / sqrt(alpha_bar_t) (the random outputs drive samples to
+    ~100), so the tables' ulps show in absolute terms on small elements."""
+    kw = dict(skip_prk_steps=skip_prk, set_alpha_to_one=set_alpha_to_one,
+              prediction_type=prediction_type)
+    j, t = jsched.PNDMScheduler(**kw), tsched.PNDMScheduler(**kw)
+    j.set_timesteps(10)
+    t.set_timesteps(10)
+    j_state = j.init_state(SHAPE)
+    t_state = t.init_state(SHAPE)
+    sample = _rand(10)
+    for i, step in enumerate(j.timesteps):
+        out = _rand(20 + i)
+        j_prev, j_state = j.step(j_state, jnp.asarray(out), int(step), jnp.asarray(sample))
+        t_prev, t_state = t.step(t_state, torch.from_numpy(out), t.timesteps[i],
+                                 torch.from_numpy(sample.copy()))
+        j_prev = np.asarray(j_prev)
+        assert np.abs(t_prev.numpy() - j_prev).max() <= 1e-5 * np.abs(j_prev).max()
+        assert t_state.counter == int(j_state.counter) == i + 1
+        assert len(t_state.ets) == int(j_state.ets_count)
+        sample = j_prev
+
+
+def test_pndm_state_is_not_changed_by_a_step():
+    t = tsched.PNDMScheduler()
+    t.set_timesteps(10)
+    state = t.init_state(SHAPE)
+    out, sample = torch.from_numpy(_rand(1)), torch.from_numpy(_rand(2))
+    a, _ = t.step(state, out, t.timesteps[0], sample)
+    b, _ = t.step(state, out, t.timesteps[0], sample)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert state.counter == 0 and state.ets == ()
