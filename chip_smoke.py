@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU: build and check its kernels, serve,
-train, sample the 3D 128^3 model and train it, and run the attention probes.
+train, sample the 3D 128^3 model and train it, run the attention probes, the
+latent route and the conditioned models.
 
 Run from the root of a checkout, with no arguments:
 
@@ -12,7 +13,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      generativemodels_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu,
      fused_conv.cu and flash_probes.cu (one nvcc each, started together)
      with their times and each entry function's registers, stack frame and
-     spill bytes from ptxas (kernels 2, 3, 4 and 5 must have neither);
+     spill bytes from ptxas (kernels 1-5 must have neither);
   2. kernels against their plain versions: O and lse of the flash-attention
      forward kernel against `flash_attention_reference` (then the forward
      against the plain attention path at seq 256-1024, the numbers behind
@@ -78,7 +79,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      against the plain bf16 path; (e) `get_likelihood` (DDPM-50, KL maps
      resampled trilinearly to 128^3), `sample(save_intermediates=True)` and
      a PNDM-50 sample; (f) profiles of one UNet forward, one decode and one
-     encode.
+     encode;
+  9. conditioning: (a) the brain 3D LDM bundle at full width (the UNet
+     (256, 512, 768) with cross-attention over the (1, 1, 4) covariates and
+     upcast_attention, the AEKL (64, 128, 128, 128), bf16, random weights)
+     through `recipes.brain_ldm_sampler.sample_brain_ldm`, DDIM-50 from the
+     20x28x20 latent to the 160x224x160 volume, with and without
+     GMTPU_FUSED_RESBLOCK=1: seconds per sample, chain and decode by CUDA
+     events, busy share, peak memory, and the fused route held against the
+     unfused one (an f32 and a bf16 forward, every step of an f32 DDIM-50
+     chain); (b) the JAX ControlNet recipe's UNet and ControlNet through
+     `ControlNetDiffusionInferer.sample` at batch 4, DDIM-50, 4 kernel-1
+     launches a step, held against the plain path; (c) classifier-free
+     guidance (`recipes.guidance.sample_with_guidance`) on the CXR LDM's
+     UNet at full width with a (1, 77, 1024) context, DDIM-50 and
+     DPM-Solver++-10, and one guided prediction against its two forwards.
+Phase 2 also holds kernels 1-4 under the JAX kernel's other two contracts
+(`upcast=True`, the running max of GMTPU_FLASH_NOMAX=0) against their plain
+versions, Sk = 1 and 77 among the shapes, times them at the 2D and 3D
+shapes, runs one forward of (b)'s UNet under each contract against the
+plain path, and holds kernel 5 at the brain UNet's shapes.
 The second-to-last line is one JSON object describing the kernels; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
@@ -156,14 +176,16 @@ LSE_TOLERANCE = {"float32": 1e-5, "bfloat16": 1e-4}
 THRESHOLD_SEQS = (256, 512, 1024)
 THRESHOLD_CASES = ((2, 2, 64, "bfloat16"), (4, 1, 256, "float32"))
 # kernels whose every instantiation must show no stack frame and no spills
-# in phase 1 (kernels 2, 3, 4 and 5, whose accumulators live in registers),
-# and how many instantiations the ptxas log of each source must report for
-# them (kernels 2-4: 3 kernels x f32, bf16 x 4 head widths; kernel 5: the
+# in phase 1 (kernels 1-5, whose accumulators live in registers), and how
+# many instantiations the ptxas log of each source must report for them
+# (kernel 1: 4 head widths x the contracts, 2 in bf16 and 3 in f32
+# (csrc/flash_contract.cuh); kernels 2-4: 3 kernels x the same 20; kernel 5: the
 # f32 kernel at 3 BN, the bf16 kernel at the 3 depth runs of
 # `ops.fused_conv.CONV_RUNS`), so that a log that stops matching fails
-NO_STACK_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel",
-                    "fused_conv_f32_kernel", "fused_conv_mma_kernel")
-NO_STACK_INSTANCES = {"flash_bwd.cu": 24, "fused_conv.cu": 6}
+NO_STACK_KERNELS = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "flash_bwd_dq_kernel",
+                    "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel", "fused_conv_f32_kernel",
+                    "fused_conv_mma_kernel")
+NO_STACK_INSTANCES = {"flash_fwd.cu": 20, "flash_bwd.cu": 60, "fused_conv.cu": 6}
 # (name, (BH, Sq, Sk, D), dtype name, causal) of the backward kernels
 BACKWARD_CASES = (
     ("train_bench_bf16", (128, 1024, 1024, 256), "bfloat16", False),  # bench.py, batch 128
@@ -220,6 +242,37 @@ FUSED_CASES = (
     ("ragged_f32", (2, 5, 7, 9), 40, 24, True, "float32"),
 )
 FUSED_MAIN_CASE = "128_96to32"  # the kernels line's numbers for kernel 5
+# kernel 5 at each distinct (Cin, Cout, residual, level) of the brain LDM
+# UNet's forward (phase 9) at its 20x28x20 latent under the fused route: odd
+# extents, H != W, W < 32, Cin up to 1536 on the up path; and how many times
+# one forward launches each (34 in all)
+BRAIN_FUSED_CASES = tuple(
+    (f"brain_{name}", shape, cin, cout, residual, "bfloat16")
+    for name, shape, cin, cout, residual in (
+        ("l0_256to256", (1, 20, 28, 20), 256, 256, False),
+        ("l0_256to256r", (1, 20, 28, 20), 256, 256, True),
+        ("l0_768to256", (1, 20, 28, 20), 768, 256, False),
+        ("l0_512to256", (1, 20, 28, 20), 512, 256, False),
+        ("l1_256to512", (1, 10, 14, 10), 256, 512, False),
+        ("l1_512to512r", (1, 10, 14, 10), 512, 512, True),
+        ("l1_512to512", (1, 10, 14, 10), 512, 512, False),
+        ("l1_1280to512", (1, 10, 14, 10), 1280, 512, False),
+        ("l1_1024to512", (1, 10, 14, 10), 1024, 512, False),
+        ("l1_768to512", (1, 10, 14, 10), 768, 512, False),
+        ("l2_512to768", (1, 5, 7, 5), 512, 768, False),
+        ("l2_768to768r", (1, 5, 7, 5), 768, 768, True),
+        ("l2_768to768", (1, 5, 7, 5), 768, 768, False),
+        ("l2_1536to768", (1, 5, 7, 5), 1536, 768, False),
+        ("l2_1280to768", (1, 5, 7, 5), 1280, 768, False),
+    )
+)
+BRAIN_FUSED_LAUNCHES = {
+    "brain_l0_256to256": 2, "brain_l0_256to256r": 5, "brain_l0_768to256": 1,
+    "brain_l0_512to256": 2, "brain_l1_256to512": 1, "brain_l1_512to512r": 5,
+    "brain_l1_512to512": 1, "brain_l1_1280to512": 1, "brain_l1_1024to512": 1,
+    "brain_l1_768to512": 1, "brain_l2_512to768": 1, "brain_l2_768to768r": 7,
+    "brain_l2_768to768": 3, "brain_l2_1536to768": 2, "brain_l2_1280to768": 1,
+}
 # how many times one forward of the 3D UNet at 128^3 launches kernel 5 at
 # each bf16 case (22 in all; phase 5 counts them on the model): the weights
 # of phase 2's sums over a forward
@@ -294,6 +347,72 @@ TRAIN_PROFILE_GROUPS = (
     ("Adam", ("multi_tensor", "adam", "Adam")),
     ("other (SiLU, adds, upsampling, loss)", ("",)),
 )
+
+# phase 2 (d): the JAX kernel's other two contracts on kernels 1-4, as
+# (upcast, no_max): `upcast=True` (the reference's upcast_attention: f32
+# operands, the scale after the product, natural exp, running max) and
+# `no_max=False` (GMTPU_FLASH_NOMAX=0: the running max in the log2 domain)
+CONTRACTS = {"upcast": (True, True), "running_max": (False, False)}
+# (name, (BH, Sq, Sk, D), dtype name, causal, timed): the model shapes, D
+# 32-256, causal, ragged, and the cross-attention contexts Sk = 1 (the brain
+# covariates) and 77 (CXR text) at Sq 1024 and 4096; the timed cases are
+# the 2D serving shape and the 3D training shape
+CONTRACT_CASES = (
+    ("serve", (4, 1024, 1024, 256), "float32", False, True),
+    ("serve", (4, 1024, 1024, 256), "bfloat16", False, True),
+    ("3d_level2", (2, 32768, 32768, 64), "bfloat16", False, True),
+    ("head64", (2, 4096, 4096, 64), "bfloat16", False, False),
+    ("causal", (4, 1024, 1024, 128), "float32", True, False),
+    ("causal", (4, 1024, 1024, 128), "bfloat16", True, False),
+    ("head32", (4, 1024, 1024, 32), "float32", False, False),
+    ("ragged", (2, 1000, 777, 64), "bfloat16", False, False),
+    ("ctx1_1024", (8, 1024, 1, 32), "float32", False, False),
+    ("ctx1_4096", (8, 4096, 1, 64), "bfloat16", False, False),
+    ("ctx1_4096", (4, 4096, 1, 256), "float32", False, False),
+    ("ctx77_1024", (8, 1024, 77, 128), "bfloat16", False, False),
+    ("ctx77_1024", (8, 1024, 77, 64), "float32", False, False),
+    ("ctx77_4096", (4, 4096, 77, 256), "bfloat16", False, False),
+)
+# the kernels line's contract numbers: kernel 1 and kernels 2 + 3 at the 2D
+# serving shape in f32 (kernel 1's main case), kernel 4 at the 3D shape
+CONTRACT_MAIN = {"flash_fwd": ("serve", "float32"), "flash_bwd_dq": ("serve", "float32"),
+                 "flash_bwd_dkv": ("serve", "float32"),
+                 "flash_bwd_fused": ("3d_level2", "bfloat16")}
+
+# phase 9 (a): the brain 3D LDM bundle (the published
+# brain_image_synthesis_latent_diffusion_model config, as the JAX recipe
+# recipes/eval_brain_ldm.py:113-118 builds it without --tiny: the networks of
+# recipes/brain_ldm_sampler.py), bf16, seeded random weights; the preset's
+# DDIM (brain_3d_ldm.yaml:33-39) for 50 steps; the latent of
+# eval_brain_ldm.py's BUNDLE_LATENT, decoded 8x to 160x224x160
+BRAIN_LATENT = (1, 3, 20, 28, 20)
+BRAIN_COVARIATES = dict(gender=1.0, age=0.6, ventricular_vol=0.3, brain_vol=0.7)
+BRAIN_STEPS = 50
+BRAIN_RUNS = 2  # timed samples after one warm-up, each setting of the fused route
+# phase 9 (b): the JAX ControlNet recipe's config (recipes/train_controlnet.py:
+# 118-125 and its defaults: channels (64, 128, 128), one res block, attention
+# on levels 1-2 with 128-wide heads, 32 groups, 64x64; the ControlNet with
+# conditioning_embedding_num_channels (16,), :152-154), sampled at batch 4
+# (:183-196) by DDIM-50. Kernel 1 runs at level 1's 32x32 = 1024 tokens,
+# (4, 1024, 1024, 128): once in the ControlNet's down path, three times in
+# the UNet's (one down, two up); level 2 and the mid block stay plain
+CONTROLNET = dict(channels=(64, 128, 128), size=64, batch=4, norm_groups=32, steps=50)
+CN_FLASH_PER_FORWARD = 4
+# phase 2 (d)'s model forwards on (b)'s UNet: under GMTPU_FLASH_NOMAX=0, and
+# with the brain bundle's conditioning (cross_attention_dim 4, a (4, 1, 4)
+# context, upcast_attention; upcast_attention acts in the SpatialTransformer
+# only): each of its three level-1 transformers launches kernel 1 twice, the
+# self-attention at (4, 1024, 1024, 128) and the cross-attention at (4,
+# 1024, 1, 128)
+CONTRACT_UNET_LAUNCHES = {"running_max": 3, "upcast": 6}
+# phase 9 (c): classifier-free guidance on the CXR LDM's UNet at full width
+# (config/presets/cxr_ldm.yaml:20-30: (256, 512, 768), two res blocks,
+# attention on levels 1-2, heads (0, 512, 768), cross_attention_dim 1024, 3
+# latent channels), bf16, a 64x64 latent, a (1, 77, 1024) text context,
+# guidance 7.0, the preset's DDIM (:32-38) for 50 steps and DPM-Solver++ for
+# 10. Every attention is at D = 512 or 768: the plain path in both packages
+CXR = dict(channels=(256, 512, 768), heads=(0, 512, 768), latent=(1, 3, 64, 64),
+           context=(1, 77, 1024), guidance=7.0, ddim_steps=50, dpm_steps=10)
 
 # phase 7 (a): (name, (BH, Sq, Sk, D), query rows held against the plain
 # version, None for all); the plain version over all keys is exact for the
@@ -589,6 +708,190 @@ def check_backward(torch, ops) -> dict:
     return results
 
 
+def plain_by_heads(torch, fn, q, k, *args, **kwargs):
+    """`fn` over all heads at once, or head by head where one head's (Sq, Sk)
+    f32 matrix passes PLAIN_BACKWARD_MAX elements (the 3D shape); every
+    tensor argument is split along its first axis."""
+    bh, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+    if sq * sk <= PLAIN_BACKWARD_MAX:
+        return fn(q, k, *args, **kwargs)
+    heads = [fn(q[i:i + 1], k[i:i + 1], *(a[i:i + 1] for a in args), **kwargs)
+             for i in range(bh)]
+    return tuple(torch.cat(parts) for parts in zip(*heads))
+
+
+def library_contract_ms(torch, upcast: bool, q, k, v, scale, causal, dout=None):
+    """SDPA's time for a contract, one backend pinned as `library_attention_ms`
+    pins it: under upcast on f32 copies of the inputs (memory-efficient)."""
+    if upcast:
+        q, k, v = q.float(), k.float(), v.float()
+        dout = None if dout is None else dout.float()
+    return library_attention_ms(torch, q, k, v, scale, causal, dout=dout)
+
+
+def grad_scales(torch, q_in, k, v, dout, upcast: bool, scale: float) -> tuple:
+    """The sizes the contract checks hold dq, dk, dv to: each gradient's
+    largest plain value, except that at Sk = 1 a row's softmax over its one
+    key is 1, so ds = p (dp - delta) cancels to rounding and dq, dk are 0 in
+    exact arithmetic; both are then held at the size of the cancelling
+    terms, max|dO| max|v| max|k| (max|q| for dk) in row norms, times the
+    scale under upcast, and only dv keeps its own size."""
+    if k.shape[1] != 1:
+        return None, None, None
+
+    def rows(t):
+        return t.float().norm(dim=-1).max().item()
+
+    terms = rows(dout) * rows(v) * (scale if upcast else 1.0)
+    return terms * rows(k), terms * rows(q_in), None
+
+
+def grad_error(a, b, floor) -> float:
+    """max|a - b| / max(max|b|, floor)."""
+    ref = b.float().abs().max().item()
+    return (a.to(b.dtype).float() - b.float()).abs().max().item() / max(ref, floor or 0.0)
+
+
+def check_contracts(torch, ops) -> dict:
+    """Phase 2 (d): kernels 1-4 under the JAX kernel's other two contracts
+    (CONTRACTS) against their plain versions at CONTRACT_CASES: O and the
+    lse of kernel 1 against `flash_attention_reference`, dq, dk, dv of
+    kernels 2 + 3 and of kernel 4 against `flash_attention_backward_reference`
+    (from the kernel's O and lse, fed as `_FlashAttention` feeds them), with
+    kernel 4's dk, dv equal to kernel 3's to the bit. The timed cases print
+    each kernel's time beside the plain version's, the bound and SDPA's."""
+    from generativemodels_tpu_torch.ops.flash_attention import _backward_rows, _prescaled
+
+    results = {}
+    g = torch.Generator("cuda").manual_seed(21)
+    for contract, (upcast, no_max) in CONTRACTS.items():
+        kw = dict(upcast=upcast, no_max=no_max)
+        for name, (bh, sq, sk, d), dtype_name, causal, timed in CONTRACT_CASES:
+            dtype = getattr(torch, dtype_name)
+
+            def rand(n):
+                return torch.randn((bh, n, d), generator=g, device="cuda").to(dtype)
+
+            q, k, v, dout = rand(sq), rand(sk), rand(sk), rand(sq)
+            scale = d**-0.5
+
+            def fwd():
+                return ops.FLASH_FWD(q, k, v, scale=scale, causal=causal, **kw)
+
+            def plain_fwd():
+                return plain_by_heads(torch, lambda *a: ops.flash_attention_reference(
+                    *a, scale=scale, causal=causal, **kw), q, k, v)
+
+            o, lse = fwd()
+            o_ref, lse_ref = plain_fwd()
+            torch.cuda.synchronize()
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            err_lse = (lse - lse_ref).abs().max().item()
+            lse_scale = max(1.0, lse_ref.abs().max().item())
+            del o_ref, lse_ref
+            # the backward's inputs as _FlashAttention hands them on
+            out, lse_b = ops.FLASH_FWD(q, k, v, scale=scale, causal=causal, log2_lse=not upcast,
+                                       **kw)
+            q_in = q if upcast else _prescaled(q, scale)
+            bkw = dict(causal=causal, scale=scale, **kw)
+            do_k, delta = _backward_rows(out, dout, upcast)
+            if upcast:
+                kq, kk, kv, do_k = q_in.float(), k.float(), v.float(), do_k.float()
+            else:
+                kq, kk, kv = q_in, k, v
+
+            def split():
+                return (ops.FLASH_BWD_DQ(kq, kk, kv, do_k, lse_b, delta, **bkw),
+                        *ops.FLASH_BWD_DKV(kq, kk, kv, do_k, lse_b, delta, **bkw))
+
+            def fused():
+                return ops.FLASH_BWD_FUSED(kq, kk, kv, do_k, lse_b, delta, **bkw)
+
+            def plain_bwd():
+                return plain_by_heads(torch, lambda *a: ops.flash_attention_backward_reference(
+                    *a, **bkw), q_in, k, v, out, lse_b, dout)
+
+            got_s, got_f, want = split(), fused(), plain_bwd()
+            torch.cuda.synchronize()
+            floors = grad_scales(torch, q_in, k, v, dout, upcast, scale)
+            rel_s = max(grad_error(a, b, f) for a, b, f in zip(got_s, want, floors))
+            rel_f = max(grad_error(a, b, f) for a, b, f in zip(got_f, want, floors))
+            abs_s = max((a.to(b.dtype).float() - b.float()).abs().max().item()
+                        for a, b in zip(got_s, want))
+            abs_f = max((a.to(b.dtype).float() - b.float()).abs().max().item()
+                        for a, b in zip(got_f, want))
+            same_dkv = torch.equal(got_f[1], got_s[1]) and torch.equal(got_f[2], got_s[2])
+            finite = all(bool(torch.isfinite(t.float()).all()) for t in (o, *got_s, *got_f))
+            del got_s, got_f, want
+            tol, lse_tol = TOLERANCE[dtype_name], LSE_TOLERANCE[dtype_name]
+            btol = BACKWARD_TOLERANCE[dtype_name]
+            ok = (finite and err_o <= tol and err_lse <= lse_tol * lse_scale and rel_s <= btol
+                  and rel_f <= btol and same_dkv)
+            label = (f"contract {contract} {name}: (BH={bh}, Sq={sq}, Sk={sk}, D={d}) "
+                     f"{dtype_name} causal={causal}")
+            log(f"{label}: kernel 1 max|dO|={err_o:.3e} (tol {tol:g}) max|dlse|={err_lse:.3e} "
+                f"(tol {lse_tol:g} x {lse_scale:.2f}); kernels 2 + 3 max|dgrad|/max "
+                f"{rel_s:.3e}, kernel 4 {rel_f:.3e} (tol {btol:g}); kernel 4's dk, dv equal "
+                f"kernel 3's to the bit: {same_dkv} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{label}: out of tolerance")
+            if timed:
+                pairs, esize = attention_pairs(sq, sk, causal), q.element_size()
+                # f32 products run as 3xTF32: the f32 route, also under upcast
+                f32_route = upcast or dtype == torch.float32
+                peak = PEAK_3XTF32 if f32_route else None
+                peak_type = "float32" if f32_route else dtype_name
+                rows = 8 * bh * sq
+                lims = dict(
+                    fwd=bound(4 * bh * pairs * d, bh * d * esize * (2 * sq + 2 * sk) + 4 * bh * sq,
+                              peak_type, peak),
+                    dq=bound(6 * bh * pairs * d, bh * d * esize * (3 * sq + 2 * sk) + rows,
+                             peak_type, peak),
+                    dkv=bound(8 * bh * pairs * d, bh * d * esize * (2 * sq + 4 * sk) + rows,
+                              peak_type, peak),
+                    fused=bound(10 * bh * pairs * d, bh * d * esize * (3 * sq + 4 * sk) + rows,
+                                peak_type, peak),
+                )
+                ms = dict(fwd=time_ms(fwd),
+                          dq=time_ms(lambda: ops.FLASH_BWD_DQ(kq, kk, kv, do_k, lse_b, delta,
+                                                              **bkw)),
+                          dkv=time_ms(lambda: ops.FLASH_BWD_DKV(kq, kk, kv, do_k, lse_b, delta,
+                                                                **bkw)),
+                          fused=time_ms(fused))
+                plain_ms = dict(fwd=time_ms(plain_fwd, iters=5), bwd=time_ms(plain_bwd, iters=5))
+                lib_fwd, backend = library_contract_ms(torch, upcast, q, k, v, scale, causal)
+                lib_bwd, _ = library_contract_ms(torch, upcast, q, k, v, scale, causal,
+                                                 dout=dout)
+                log(f"{label}: kernel 1 {ms['fwd']:.4f} ms (bound {lims['fwd']['bound_ms']:.4f}, "
+                    f"{lims['fwd']['bound_by']}; plain {plain_ms['fwd']:.4f}; SDPA ({backend}) "
+                    f"{lib_fwd:.4f}); kernel 2 {ms['dq']:.4f} ms (bound "
+                    f"{lims['dq']['bound_ms']:.4f}), kernel 3 {ms['dkv']:.4f} ms (bound "
+                    f"{lims['dkv']['bound_ms']:.4f}), kernel 4 {ms['fused']:.4f} ms (bound "
+                    f"{lims['fused']['bound_ms']:.4f}); plain backward {plain_ms['bwd']:.4f} ms, "
+                    f"SDPA ({backend}) backward {lib_bwd:.4f} ms")
+                errs = dict(fwd=max(err_o, err_lse), dq=abs_s, dkv=abs_s, fused=abs_f)
+                results[contract, name, dtype_name] = {
+                    part: dict(max_abs_err=errs[part], ms=ms[part],
+                               plain_ms=plain_ms["fwd" if part == "fwd" else "bwd"],
+                               library_ms=lib_fwd if part == "fwd" else lib_bwd, **lims[part])
+                    for part in ("fwd", "dq", "dkv", "fused")
+                }
+            del q, k, v, dout, o, lse, out, lse_b, q_in, kq, kk, kv, do_k, delta
+            torch.cuda.empty_cache()
+    return results
+
+
+def contract_numbers(contracts: dict) -> dict:
+    """The kernels line's `contracts` entry of kernels 1-4 (CONTRACT_MAIN)."""
+    parts = dict(flash_fwd="fwd", flash_bwd_dq="dq", flash_bwd_dkv="dkv", flash_bwd_fused="fused")
+    return {
+        kernel: {contract: dict(shape=f"{name} {dtype_name}",
+                                **contracts[contract, name, dtype_name][parts[kernel]])
+                 for contract in CONTRACTS}
+        for kernel, (name, dtype_name) in CONTRACT_MAIN.items()
+    }
+
+
 def measure_threshold(torch, ops) -> None:
     """Phase 2: kernel 1 against the plain attention path, both through
     `dot_product_attention` on packed (B, S, heads * D) inputs, at the
@@ -622,7 +925,7 @@ def check_fused_conv(torch, ops) -> dict:
     results = {}
     g = torch.Generator("cuda").manual_seed(4)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name, (b, d, h, w), cin, cout, residual, dtype_name in FUSED_CASES:
+    for name, (b, d, h, w), cin, cout, residual, dtype_name in FUSED_CASES + BRAIN_FUSED_CASES:
         dtype = getattr(torch, dtype_name)
 
         def rand(*shape, mul=1.0):
@@ -676,11 +979,12 @@ def check_fused_conv(torch, ops) -> dict:
                              **lim)
         del x_cf, x, res
         torch.cuda.empty_cache()
-    sums = {key: sum(results[name][key] * n for name, n in FUSED_FORWARD_LAUNCHES.items())
-            for key in ("ms", "library_ms", "bound_ms")}
-    log(f"fused_conv over one 3D forward ({sum(FUSED_FORWARD_LAUNCHES.values())} launches): "
-        f"kernel {sums['ms']:.4f} ms, F.conv3d alone {sums['library_ms']:.4f} ms, bound "
-        f"{sums['bound_ms']:.4f} ms")
+    for what, weights in (("3D", FUSED_FORWARD_LAUNCHES), ("brain LDM", BRAIN_FUSED_LAUNCHES)):
+        sums = {key: sum(results[name][key] * n for name, n in weights.items())
+                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"fused_conv over one {what} forward ({sum(weights.values())} launches): kernel "
+            f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, F.conv3d alone "
+            f"{sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms")
     return results
 
 
@@ -1716,6 +2020,363 @@ def run_ldm(torch, ops, nets, schedulers, inferers, bench_ldm) -> dict:
     return timings
 
 
+def contract_unet_forwards(torch, ops, nets) -> dict:
+    """Phase 2 (d), on a model: one forward of (b)'s UNet under
+    GMTPU_FLASH_NOMAX=0, and one of it with the brain bundle's conditioning
+    and upcast_attention, each kernel path against the plain path with the
+    same weights, in f32 (FORWARD_RTOL) and bf16 (BF16_RATIO_3D x the plain
+    bf16 path's own distance from f32). Returns kernel 1's launches a
+    forward for each contract."""
+    cfg = CONTROLNET
+    base = dict(spatial_dims=2, in_channels=1, out_channels=1, num_res_blocks=1,
+                num_channels=cfg["channels"], attention_levels=(False, True, True),
+                num_head_channels=cfg["channels"][-1], norm_num_groups=cfg["norm_groups"])
+    variants = {"running_max": {},
+                "upcast": dict(with_conditioning=True, cross_attention_dim=4,
+                               upcast_attention=True)}
+    g = torch.Generator(DEVICE).manual_seed(22)
+    x = torch.randn((cfg["batch"], 1, cfg["size"], cfg["size"]), generator=g, device=DEVICE)
+    t = torch.tensor([999, 500, 250, 10], device=DEVICE)
+    context = torch.rand((cfg["batch"], 1, 4), generator=g, device=DEVICE)
+    launches = {}
+    for contract, extra in variants.items():
+        models = {}
+        for dtype_label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            for path, flash in (("kernel", None), ("plain", False)):
+                models[dtype_label, path] = nets.DiffusionModelUNet(
+                    **base, **extra, use_flash_attention=flash, dtype=dtype).to(DEVICE).eval()
+        randomize(torch, models["f32", "kernel"])
+        state = models["f32", "kernel"].state_dict()
+        for model in models.values():
+            model.load_state_dict(state, strict=True)
+        kwargs = dict(context=context) if extra else {}
+        outs = {}
+        if contract == "running_max":
+            os.environ["GMTPU_FLASH_NOMAX"] = "0"
+        try:
+            with torch.inference_mode():
+                for key, model in models.items():
+                    reset_launches(ops)
+                    outs[key] = model(x, t, **kwargs)
+                    torch.cuda.synchronize()
+                    count = ops.FLASH_FWD.launches
+                    want = CONTRACT_UNET_LAUNCHES[contract] if key[1] == "kernel" else 0
+                    if count != want:
+                        raise AssertionError(f"{contract} {key}: kernel 1 launched {count} times, "
+                                             f"expected {want}")
+        finally:
+            os.environ.pop("GMTPU_FLASH_NOMAX", None)
+        ref = outs["f32", "plain"]
+        scale = ref.abs().max().item()
+        fwd_f32 = (outs["f32", "kernel"] - ref).abs().max().item() / scale
+        own_bf16 = (outs["bf16", "plain"] - ref).abs().max().item() / scale
+        fwd_bf16 = (outs["bf16", "kernel"] - outs["bf16", "plain"]).abs().max().item() / scale
+        log(f"contract {contract}: (b)'s UNet{' with conditioning' if extra else ''}, one forward "
+            f"({CONTRACT_UNET_LAUNCHES[contract]} kernel-1 launches): kernel vs plain path "
+            f"max|diff|/max|out| in f32 {fwd_f32:.3e} (tol {FORWARD_RTOL:g}), in bf16 "
+            f"{fwd_bf16:.3e} (tol {BF16_RATIO_3D:g} x the plain bf16 path's own {own_bf16:.3e})")
+        if not (fwd_f32 <= FORWARD_RTOL and fwd_bf16 <= BF16_RATIO_3D * own_bf16):
+            raise AssertionError(f"{contract}: the UNet's kernel path disagrees with the plain "
+                                 "path")
+        launches[contract] = CONTRACT_UNET_LAUNCHES[contract]
+        del models, outs
+        torch.cuda.empty_cache()
+    return launches
+
+
+def run_brain(torch, ops, nets, schedulers, inferers, brain) -> dict:
+    """Phase 9 (a): the brain 3D LDM bundle through `sample_brain_ldm`, DDIM-50
+    from the 20x28x20 latent to the 160x224x160 volume, with and without
+    GMTPU_FUSED_RESBLOCK=1 (kernel 5, 34 launches a forward; no attention
+    of this path reaches kernel 1: D = 512 and 768); per setting, seconds
+    per sample by the host clock, the chain and the decode by CUDA events,
+    the busy share of a profiled forward and the peak memory; then the
+    fused route against the unfused one: an f32 forward, a bf16 forward and
+    every step of an f32 DDIM-50 chain."""
+    unet = brain.brain_unet(dtype=torch.bfloat16).to(DEVICE).eval()
+    aekl = brain.brain_autoencoder(dtype=torch.bfloat16).to(DEVICE).eval()
+    randomize(torch, unet)
+    randomize(torch, aekl)
+    per_forward = ldm_fused_per_forward(unet)
+    g = torch.Generator(DEVICE)
+
+    def scheduler():
+        return schedulers.DDIMScheduler(num_train_timesteps=1000, schedule="scaled_linear_beta",
+                                        beta_start=0.0015, beta_end=0.0205, clip_sample=False)
+
+    def sample(seed):
+        g.manual_seed(seed)
+        return brain.sample_brain_ldm(unet, aekl, scheduler(), BRAIN_LATENT,
+                                      num_inference_steps=BRAIN_STEPS, generator=g,
+                                      device=DEVICE, **BRAIN_COVARIATES)
+
+    results = {}
+    out_shape = (1, 1) + tuple(8 * s for s in BRAIN_LATENT[2:])
+    for flag in ("0", "1"):
+        os.environ["GMTPU_FUSED_RESBLOCK"] = flag
+        label = "fused route" if flag == "1" else "unfused"
+        torch.cuda.reset_peak_memory_stats()
+        seconds = []
+        with torch.inference_mode():
+            for run in range(BRAIN_RUNS + 1):
+                reset_launches(ops)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                image = sample(30 + run)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                counts = read_launches(ops)
+                want = expected_launches(BRAIN_STEPS, fused_conv=per_forward if flag == "1" else 0)
+                if counts != want:
+                    raise AssertionError(f"brain {label}: launches {counts}, expected {want}")
+                if tuple(image.shape) != out_shape or not bool(torch.isfinite(image).all()):
+                    raise AssertionError(f"bad brain volume {tuple(image.shape)}")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            # the chain and the decode by CUDA events
+            sched = scheduler()
+            sched.set_timesteps(BRAIN_STEPS, device=DEVICE)
+            ctx = brain.make_conditioning(**BRAIN_COVARIATES, device=DEVICE)
+            noise = torch.randn(BRAIN_LATENT, generator=g.manual_seed(40), device=DEVICE)
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            events[0].record()
+            latent = inferers.DiffusionInferer(sched).sample(noise, unet, conditioning=ctx)
+            events[1].record()
+            decoded = aekl.decode_stage_2_outputs(latent)
+            events[2].record()
+            torch.cuda.synchronize()
+            chain_ms, decode_ms = (events[0].elapsed_time(events[1]),
+                                   events[1].elapsed_time(events[2]))
+            del decoded, latent
+        log(f"brain: {label}: DDIM-{BRAIN_STEPS} samples {BRAIN_LATENT} -> {out_shape}: "
+            + ", ".join(f"{x:.4f}" for x in seconds[1:]) + f" s a sample (warm-up "
+            f"{seconds[0]:.3f} s); kernel-5 launches {per_forward if flag == '1' else 0} a "
+            f"forward; one more sample by CUDA events: chain {chain_ms:.2f} ms, decode "
+            f"{decode_ms:.2f} ms; peak memory {peak:.2f} GiB")
+        profile_call(torch, lambda: unet(noise, torch.tensor([500], device=DEVICE), context=ctx),
+                     f"brain: profile of one bf16 UNet forward, {label}")
+        results[label] = dict(seconds=seconds[1:], chain_ms=chain_ms, decode_ms=decode_ms,
+                              peak_gib=peak)
+    os.environ["GMTPU_FUSED_RESBLOCK"] = "0"
+    brain_compare(torch, ops, schedulers, brain, unet)
+    del unet, aekl
+    torch.cuda.empty_cache()
+    return results
+
+
+def profile_call(torch, call, what: str) -> None:
+    """Device time by group and busy share of one warm call, as `profile_3d`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    report_profile(prof, wall, LDM_PROFILE_GROUPS, what)
+
+
+def brain_compare(torch, ops, schedulers, brain, unet_bf16) -> None:
+    """Phase 9 (a): the fused route (kernel 5) against the unfused one with
+    the same weights: one f32 forward (FORWARD_RTOL), one bf16 forward
+    (BF16_RATIO_3D x the unfused bf16 path's own distance from f32) and
+    every step of an f32 DDIM-50 chain from the same x_t (CHAIN_ATOL)."""
+    state = unet_bf16.state_dict()
+    unet_f32 = brain.brain_unet().to(DEVICE).eval()
+    unet_f32.load_state_dict(state, strict=True)
+    g = torch.Generator(DEVICE).manual_seed(41)
+    x = torch.randn(BRAIN_LATENT, generator=g, device=DEVICE)
+    t = torch.tensor([500], device=DEVICE)
+    ctx = brain.make_conditioning(**BRAIN_COVARIATES, device=DEVICE)
+
+    def route(model, flag):
+        def call(xx, tt, context=ctx):
+            os.environ["GMTPU_FUSED_RESBLOCK"] = flag
+            try:
+                return model(xx, tt, context=context)
+            finally:
+                os.environ["GMTPU_FUSED_RESBLOCK"] = "0"
+        return call
+
+    with torch.inference_mode():
+        outs = {(label, flag): route(model, flag)(x, t)
+                for label, model in (("f32", unet_f32), ("bf16", unet_bf16))
+                for flag in ("0", "1")}
+        ref = outs["f32", "0"]
+        scale = ref.abs().max().item()
+        fwd_f32 = (outs["f32", "1"] - ref).abs().max().item() / scale
+        own_bf16 = (outs["bf16", "0"] - ref).abs().max().item() / scale
+        fwd_bf16 = (outs["bf16", "1"] - outs["bf16", "0"]).abs().max().item() / scale
+        ddim = schedulers.DDIMScheduler(num_train_timesteps=1000, schedule="scaled_linear_beta",
+                                        beta_start=0.0015, beta_end=0.0205, clip_sample=False)
+        ddim.set_timesteps(BRAIN_STEPS, device=DEVICE)
+        noise = torch.randn(BRAIN_LATENT, generator=g, device=DEVICE)
+        reset_launches(ops)
+        step_abs = chain_step_diff(ddim, route(unet_f32, "1"), route(unet_f32, "0"), noise)
+        fused_launches = ops.FUSED_CONV.launches
+    per_forward = ldm_fused_per_forward(unet_f32)
+    del unet_f32, outs
+    torch.cuda.empty_cache()
+    log(f"brain: fused route vs unfused, one UNet forward at t=500, max|diff|/max|out| "
+        f"({scale:.3e}): f32 {fwd_f32:.3e} (tol {FORWARD_RTOL:g}); bf16 {fwd_bf16:.3e} (tol "
+        f"{BF16_RATIO_3D:g} x the unfused bf16 path's own {own_bf16:.3e}); every step of an "
+        f"f32 DDIM-{BRAIN_STEPS} chain from the same x_t: max|diff| {step_abs:.3e} (tol "
+        f"{CHAIN_ATOL:g}), {fused_launches} kernel-5 launches ({per_forward} a forward)")
+    if fused_launches != per_forward * BRAIN_STEPS:
+        raise AssertionError("brain chain: the fused route did not run kernel 5 at every step")
+    if not (fwd_f32 <= FORWARD_RTOL and fwd_bf16 <= BF16_RATIO_3D * own_bf16
+            and step_abs <= CHAIN_ATOL):
+        raise AssertionError("brain: the fused route disagrees with the unfused one")
+
+
+def run_controlnet(torch, ops, nets, schedulers, inferers) -> dict:
+    """Phase 9 (b): the JAX ControlNet recipe's UNet and ControlNet (seeded by
+    `copy_weights_to_controlnet` from the UNet; its own keys, the zero convs
+    among them, random), `ControlNetDiffusionInferer.sample` at batch 4 with
+    DDIM-50 (4 kernel-1 launches a step), one warm-up and two timed
+    requests; then the kernel path against the plain path: one forward of
+    the ControlNet and the UNet together and every step of a DDIM-50 chain."""
+    from generativemodels_tpu_torch.inferers.controlnet import _wrap_with_controlnet
+
+    cfg = CONTROLNET
+    kwargs = dict(spatial_dims=2, in_channels=1, num_res_blocks=1, num_channels=cfg["channels"],
+                  attention_levels=(False, True, True), num_head_channels=cfg["channels"][-1],
+                  norm_num_groups=cfg["norm_groups"])
+
+    def build(flash):
+        unet = nets.DiffusionModelUNet(out_channels=1, use_flash_attention=flash, **kwargs)
+        cn = nets.ControlNet(conditioning_embedding_num_channels=(16,),
+                             use_flash_attention=flash, **kwargs)
+        return unet.to(DEVICE).eval(), cn.to(DEVICE).eval()
+
+    unet, cn = build(None)
+    randomize(torch, unet)
+    randomize(torch, cn, seed=4321)
+    nets.copy_weights_to_controlnet(cn, unet)
+    g = torch.Generator(DEVICE).manual_seed(50)
+    shape = (cfg["batch"], 1, cfg["size"], cfg["size"])
+    masks = (torch.rand(shape, generator=g, device=DEVICE) > 0.5).float()
+    scheduler = schedulers.DDIMScheduler(num_train_timesteps=1000)
+    scheduler.set_timesteps(cfg["steps"], device=DEVICE)
+    inferer = inferers.ControlNetDiffusionInferer(scheduler)
+    seconds = []
+    with torch.inference_mode():
+        for run in range(3):
+            noise = torch.randn(shape, generator=g, device=DEVICE)
+            reset_launches(ops)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            image = inferer.sample(noise, unet, cn, masks)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            counts = read_launches(ops)
+            want = expected_launches(cfg["steps"], flash_fwd=CN_FLASH_PER_FORWARD)
+            if counts != want:
+                raise AssertionError(f"controlnet sample: launches {counts}, expected {want}")
+            if tuple(image.shape) != shape or not bool(torch.isfinite(image).all()):
+                raise AssertionError(f"bad ControlNet sample {tuple(image.shape)}")
+    log(f"controlnet: ControlNetDiffusionInferer.sample, batch {cfg['batch']}, DDIM-"
+        f"{cfg['steps']}: " + ", ".join(f"{x:.4f}" for x in seconds[1:])
+        + f" s a request (warm-up {seconds[0]:.3f} s); kernel-1 launches "
+        f"{CN_FLASH_PER_FORWARD} a step at (4, 1024, 1024, 128) f32")
+    plain_unet, plain_cn = build(False)
+    plain_unet.load_state_dict(unet.state_dict(), strict=True)
+    plain_cn.load_state_dict(cn.state_dict(), strict=True)
+    kernel_fn = _wrap_with_controlnet(unet, cn, masks)
+    plain_fn = _wrap_with_controlnet(plain_unet, plain_cn, masks)
+    x = torch.randn(shape, generator=g, device=DEVICE)
+    t = torch.tensor([999, 500, 250, 10], device=DEVICE)
+    with torch.inference_mode():
+        a, b = kernel_fn(x, t), plain_fn(x, t)
+        fwd_rel = ((a - b).abs().max() / b.abs().max()).item()
+        step_abs = chain_step_diff(scheduler, kernel_fn, plain_fn, x)
+    log(f"controlnet: kernel vs plain path, one ControlNet + UNet forward: max|diff|/max|out| "
+        f"{fwd_rel:.3e} (tol {FORWARD_RTOL:g}); every step of a DDIM-{cfg['steps']} chain from "
+        f"the same x_t: max|diff| {step_abs:.3e} (tol {CHAIN_ATOL:g})")
+    if not (fwd_rel <= FORWARD_RTOL and step_abs <= CHAIN_ATOL):
+        raise AssertionError("controlnet: kernel path disagrees with the plain path")
+    del unet, cn, plain_unet, plain_cn
+    torch.cuda.empty_cache()
+    return dict(seconds=seconds[1:])
+
+
+def run_cfg(torch, ops, nets, schedulers) -> dict:
+    """Phase 9 (c): `sample_with_guidance` on the CXR LDM's UNet at full width
+    (bf16), DDIM-50 and DPM-Solver++-10, each one warm-up and one timed
+    chain, no kernel launched (every attention is at D = 512 or 768); then
+    one guided prediction of an f32 copy held against uncond + g (cond -
+    uncond) from two separate forwards (FORWARD_RTOL)."""
+    from generativemodels_tpu_torch.recipes import guidance
+
+    cfg = CXR
+
+    def build(dtype):
+        return nets.DiffusionModelUNet(
+            spatial_dims=2, in_channels=3, out_channels=3, num_res_blocks=2,
+            num_channels=cfg["channels"], attention_levels=(False, True, True),
+            num_head_channels=cfg["heads"], with_conditioning=True, cross_attention_dim=1024,
+            dtype=dtype,
+        ).to(DEVICE).eval()
+
+    model = build(torch.bfloat16)
+    randomize(torch, model)
+    g = torch.Generator(DEVICE).manual_seed(60)
+    cond = torch.randn(cfg["context"], generator=g, device=DEVICE)
+    uncond = torch.zeros(cfg["context"], device=DEVICE)
+    schedule = dict(num_train_timesteps=1000, schedule="scaled_linear_beta", beta_start=0.0015,
+                    beta_end=0.0205)
+
+    def model_fn(x, t, context):
+        return model(x, t, context=context)
+
+    results = {}
+    for name, sched, steps in (
+            ("DDIM", schedulers.DDIMScheduler(clip_sample=False, **schedule), cfg["ddim_steps"]),
+            ("DPM-Solver++", schedulers.DPMSolverMultistepScheduler(**schedule),
+             cfg["dpm_steps"])):
+        sched.set_timesteps(steps, device=DEVICE)
+        seconds = []
+        with torch.inference_mode():
+            for _ in range(2):
+                noise = torch.randn(cfg["latent"], generator=g, device=DEVICE)
+                reset_launches(ops)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                image = guidance.sample_with_guidance(model_fn, sched, noise, cond, uncond,
+                                                      guidance_scale=cfg["guidance"])
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                counts = read_launches(ops)
+                if any(counts.values()):
+                    raise AssertionError(f"CFG launched kernels: {counts}")
+                if tuple(image.shape) != cfg["latent"] or not bool(torch.isfinite(image).all()):
+                    raise AssertionError(f"bad guided sample {tuple(image.shape)}")
+        log(f"cfg: sample_with_guidance, CXR UNet bf16 at {cfg['latent']}, context "
+            f"{cfg['context']}, g={cfg['guidance']}, {name}-{steps}: {seconds[1]:.4f} s a chain "
+            f"(warm-up {seconds[0]:.3f} s), 0 kernel launches")
+        results[f"{name}-{steps}"] = seconds[1]
+    model_f32 = build(None)
+    model_f32.load_state_dict(model.state_dict(), strict=True)
+    x = torch.randn(cfg["latent"], generator=g, device=DEVICE)
+    t = torch.tensor(500, device=DEVICE)
+    with torch.inference_mode():
+        guided = guidance.guided_prediction(lambda a, b, c: model_f32(a, b, context=c), x, t,
+                                            cond, uncond, cfg["guidance"])
+        c = model_f32(x, t.expand(1), context=cond)
+        u = model_f32(x, t.expand(1), context=uncond)
+        want = u + cfg["guidance"] * (c - u)
+        rel = ((guided - want).abs().max() / want.abs().max()).item()
+    log(f"cfg: one guided prediction (doubled batch) vs uncond + g (cond - uncond) from two "
+        f"forwards, f32: max|diff|/max {rel:.3e} (tol {FORWARD_RTOL:g})")
+    if not rel <= FORWARD_RTOL:
+        raise AssertionError("cfg: the guided prediction disagrees with its two forwards")
+    del model, model_f32
+    torch.cuda.empty_cache()
+    return results
+
+
 def build_kernels(build_library) -> None:
     """Phase 1: one nvcc for each source, all started together."""
     results = {}
@@ -1799,6 +2460,7 @@ def main() -> int:
     from generativemodels_tpu_torch.networks import nets, schedulers
     from generativemodels_tpu_torch.ops.native import build_library
     from generativemodels_tpu_torch.probes import bench_3d_ldm as bench_ldm
+    from generativemodels_tpu_torch.recipes import brain_ldm_sampler as brain
     from generativemodels_tpu_torch.recipes import serve
     from generativemodels_tpu_torch.recipes import train_2d_ddpm as recipe
     from generativemodels_tpu_torch.recipes import train_3d_ddpm as recipe3d
@@ -1818,6 +2480,8 @@ def main() -> int:
     forward = check_kernel(torch, ops)
     measure_threshold(torch, ops)
     backward = check_backward(torch, ops)
+    contracts = check_contracts(torch, ops)
+    contract_launches = contract_unet_forwards(torch, ops, nets)
     fused = check_fused_conv(torch, ops)
 
     # phase 3: serving through its entry points
@@ -1856,6 +2520,19 @@ def main() -> int:
     # head64_bf16)
     run_ldm(torch, ops, nets, schedulers, inferers, bench_ldm)
 
+    # phase 9: conditioning: (a) the brain 3D LDM bundle, kernel 5 under the
+    # fused route; (b) ControlNet sampling, kernel 1; (c) classifier-free
+    # guidance on the CXR UNet (no kernel on its path)
+    brain_results = run_brain(torch, ops, nets, schedulers, inferers, brain)
+    cn_results = run_controlnet(torch, ops, nets, schedulers, inferers)
+    cfg_results = run_cfg(torch, ops, nets, schedulers)
+    log("conditioning: seconds per brain LDM sample (DDIM-50, host clock): "
+        + "; ".join(f"{label} {sum(r['seconds']) / len(r['seconds']):.4f} (chain "
+                    f"{r['chain_ms']:.1f} ms, decode {r['decode_ms']:.1f} ms, peak "
+                    f"{r['peak_gib']:.2f} GiB)" for label, r in brain_results.items())
+        + f"; ControlNet request {sum(cn_results['seconds']) / len(cn_results['seconds']):.4f} s; "
+        + "; ".join(f"CFG {name} {sec:.4f} s" for name, sec in cfg_results.items()))
+
     # the numbers of each kernel at its main path's shape: serving for the
     # forward, the recipe's batch 64 for the split backward, the 3D training
     # step's attention for the fused backward, the 128^3 96->32 call for
@@ -1873,10 +2550,16 @@ def main() -> int:
     launches = dict(trained["launches"], fused_conv=fused_launches,
                     flash_bwd_fused=trained_3d["fused"]["launches"]["flash_bwd_fused"],
                     **probe_launches)
+    # kernels 1-4's numbers under the other two contracts (phase 2 (d)), with
+    # kernel 1's launches in phase 2 (d)'s UNet forward of each; kernels
+    # 2-4 run them on no main path yet
+    extra = {name: dict(contracts=entry) for name, entry in contract_numbers(contracts).items()}
+    for contract, count in contract_launches.items():
+        extra["flash_fwd"]["contracts"][contract]["launches"] = count
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=CSRC + source, replaces=replaces,
-             launches=launches[name], **numbers[name])
+             launches=launches[name], **numbers[name], **extra.get(name, {}))
         for name, (_, source, replaces) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,14 @@
 // and then dq = ds K; dk = ds^T Q; dv = round(p)^T dO * log2(e). For bf16
 // inputs ds and p are rounded to bf16 before their products and every
 // product takes bf16 operands (exact in f32) with f32 accumulation.
+// The other two contracts of flash_contract.cuh, each kernel instantiated
+// for each: kRunningMax (the same inputs, the lse2 of the forward's running
+// max) drops the clamp, p = exp2(q.k - lse2) (the JAX tiles' branch that is
+// not no_max: _dq_tile :309, _dkv_tile :439, _dfused_tile :532); kUpcast
+// (f32 only) takes q unscaled, dO without the ln2 and the natural-log lse,
+// and computes p = exp(q.k * scale - lse) and ds = scale * p (do.v - delta),
+// which carries the scale that JAX multiplies into each dq and dk part, and
+// dv = p^T dO with no log2(e).
 //
 // What bounds them on this card: at the 3D training shape (BH=2, S=32768,
 // D=64, bf16) kernel 2 does 3 products of BH*S*S*D multiply-adds (s, dp,
@@ -142,6 +150,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_contract.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -387,12 +396,19 @@ __device__ __forceinline__ void sdp_products(float (&s)[NTiles][4], float (&dp)[
   }
 }
 
-// p = exp2(min(s, 80) - lse2), 0 for a masked (query, key) pair, and
-// ds = p (dp - delta)
+// p and ds of one (query, key) pair, p = 0 for a masked pair: kNoMax p =
+// exp2(min(s, 80) - lse2), ds = p (dp - delta); kRunningMax the same without
+// the clamp; kUpcast p = exp(s * sscale - lse), ds = sscale * p (dp - delta)
+template <int K>
 __device__ __forceinline__ void prob_ds(float s, float dp, float lse2, float delta, bool live,
-                                        float& p, float& ds) {
-  p = live ? exp2f(fminf(s, 80.f) - lse2) : 0.f;
-  ds = p * (dp - delta);
+                                        float sscale, float& p, float& ds) {
+  if constexpr (K == kUpcast) {
+    p = live ? expf(s * sscale - lse2) : 0.f;
+    ds = sscale * (p * (dp - delta));
+  } else {
+    p = live ? exp2f((K == kNoMax ? fminf(s, 80.f) : s) - lse2) : 0.f;
+    ds = p * (dp - delta);
+  }
 }
 
 // Stage `Rows` rows of width D (contiguous in global memory, from `src`)
@@ -488,12 +504,12 @@ __device__ __forceinline__ void dq_product(float (&acc)[D / 8][4], const float (
 }
 
 // Kernel 2. Grid: one block per (bh, kBr query rows), flattened into blockIdx.x.
-template <typename T, int D>
+template <typename T, int D, int K>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse2,
                     const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk,
-                    int num_qb, int causal) {
+                    int num_qb, int causal, float sscale) {
   using C = DqCfg<T, D>;
   using FA = typename Frag<T>::A;
   constexpr int BR = C::kBr;
@@ -617,8 +633,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
             const int key = key0 + 8 * n + 2 * t + e;
             const bool live = row < sq && key < sk && (!causal || key <= row);
             float p;
-            prob_ds(s[n][2 * h + e], dp[n][2 * h + e], r_lse[h], r_delta[h], live, p,
-                    ds[n][2 * h + e]);
+            prob_ds<K>(s[n][2 * h + e], dp[n][2 * h + e], r_lse[h], r_delta[h], live, sscale, p,
+                       ds[n][2 * h + e]);
           }
         }
       }
@@ -669,12 +685,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // adds each q tile's dq part into `dq_acc`, f32 (bh, sq, D), zeroed by the
 // caller, in key-block order kept by `dq_lock`, int (bh, ceil(sq / kBr)),
 // zeroed by the caller; kernel 3 gets nullptr for both.
-template <typename T, int D, bool Fused>
+template <typename T, int D, bool Fused, int K>
 __device__ __forceinline__ void dkv_block(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse2, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int* __restrict__ dq_lock,
-    int sq, int sk, int num_kb, int causal) {
+    int sq, int sk, int num_kb, int causal, float sscale) {
   using C = DkvCfg<T, D>;
   using FA = typename Frag<T>::A;
   using FB = typename Frag<T>::B;
@@ -808,8 +824,8 @@ __device__ __forceinline__ void dkv_block(
         for (int e = 0; e < 2; ++e) {
           const int row = q0 + ql + e;
           const bool live = !dead && row < sq && key < sk && (!causal || key <= row);
-          prob_ds(s[n][2 * h + e], dp[n][2 * h + e], tLse[ql + e], tDelta[ql + e], live, p[e],
-                  ds[e]);
+          prob_ds<K>(s[n][2 * h + e], dp[n][2 * h + e], tLse[ql + e], tDelta[ql + e], live,
+                     sscale, p[e], ds[e]);
         }
         if constexpr (kRegA) {
           pa[n][h] = pack_bf16(p[0], p[1]);
@@ -932,31 +948,32 @@ __device__ __forceinline__ void dkv_block(
 #pragma unroll
     for (int n = 0; n < kDTiles; ++n) {
       store2(dk + off + 8 * n, acc_k[n][2 * h], acc_k[n][2 * h + 1]);
-      // dO arrived multiplied by ln2 for ds; dv must not carry it
-      store2(dv + off + 8 * n, acc_v[n][2 * h] * kLog2e, acc_v[n][2 * h + 1] * kLog2e);
+      // dO arrived multiplied by ln2 for ds (not under kUpcast); dv must not carry it
+      constexpr float kDvMul = K == kUpcast ? 1.f : kLog2e;
+      store2(dv + off + 8 * n, acc_v[n][2 * h] * kDvMul, acc_v[n][2 * h + 1] * kDvMul);
     }
   }
 }
 
 // Kernel 3 and kernel 4: one signature, so that one launcher serves both.
-template <typename T, int D>
+template <typename T, int D, int K>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse2, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int* __restrict__ dq_lock,
-    int sq, int sk, int num_kb, int causal) {
-  dkv_block<T, D, false>(q, k, v, dout, lse2, delta, dk, dv, dq_acc, dq_lock, sq, sk, num_kb,
-                         causal);
+    int sq, int sk, int num_kb, int causal, float sscale) {
+  dkv_block<T, D, false, K>(q, k, v, dout, lse2, delta, dk, dv, dq_acc, dq_lock, sq, sk, num_kb,
+                            causal, sscale);
 }
 
-template <typename T, int D>
+template <typename T, int D, int K>
 __global__ void __launch_bounds__(kThreads) flash_bwd_fused_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse2, const float* __restrict__ delta,
     T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dq_acc, int* __restrict__ dq_lock,
-    int sq, int sk, int num_kb, int causal) {
-  dkv_block<T, D, true>(q, k, v, dout, lse2, delta, dk, dv, dq_acc, dq_lock, sq, sk, num_kb,
-                        causal);
+    int sq, int sk, int num_kb, int causal, float sscale) {
+  dkv_block<T, D, true, K>(q, k, v, dout, lse2, delta, dk, dv, dq_acc, dq_lock, sq, sk, num_kb,
+                           causal, sscale);
 }
 
 // ---- the test entry of the one s, dp computation ----
@@ -964,14 +981,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_fused_kernel(
 // Block i takes tile i: 16 queries (q, dout, lse2, delta) and 16 keys (k,
 // v). Warp 0 computes s, dp and ds query-major, as kernel 2 does (A = Q,
 // dO), warp 1 key-major, as kernels 3 and 4 do (A = K, V); both through
-// sdp_products and prob_ds, every pair live. out (2 roles, 3 quantities s,
-// dp, ds, tiles, 16 queries, 16 keys), f32.
-template <typename T, int D>
+// sdp_products and prob_ds of contract K, every pair live. out (2 roles, 3
+// quantities s, dp, ds, tiles, 16 queries, 16 keys), f32.
+template <typename T, int D, int K>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_roles_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ lse2, const float* __restrict__ delta,
-                       float* __restrict__ out, int tiles) {
+                       float* __restrict__ out, int tiles, float sscale) {
   using FA = typename Frag<T>::A;
   constexpr int LD = D + 16 / static_cast<int>(sizeof(T));
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1034,7 +1051,7 @@ flash_bwd_roles_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qi = key_major ? b_col : a_row;
         const int ki = key_major ? a_row : b_col;
         float p, ds;
-        prob_ds(s[n][2 * h + e], dp[n][2 * h + e], sLse[qi], sDelta[qi], true, p, ds);
+        prob_ds<K>(s[n][2 * h + e], dp[n][2 * h + e], sLse[qi], sDelta[qi], true, sscale, p, ds);
         o[qi * 16 + ki] = s[n][2 * h + e];
         o[plane + qi * 16 + ki] = dp[n][2 * h + e];
         o[2 * plane + qi * 16 + ki] = ds;
@@ -1050,14 +1067,16 @@ struct Args {
   void *out0, *out1, *out2;  // dq; or dk and dv; or the f32 dq buffer, dk and dv
   void* dq_lock;  // kernel 4's dq counters, else nullptr
   int bh, sq, sk, causal;  // the roles entry: bh = tiles
+  int contract;  // a Contract of flash_contract.cuh
+  float sscale;  // the softmax scale under kUpcast, else unread
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, int K>
 int launch_dq(const Args& a) {
   using C = DqCfg<T, D>;
   static_assert(C::kSmem <= 232448, "shared memory of one block");
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = flash_bwd_dq_kernel<T, D, K>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1065,15 +1084,16 @@ int launch_dq(const Args& a) {
   kernel<<<num_qb * a.bh, kThreads, C::kSmem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse2),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.out0), a.sq, a.sk, num_qb, a.causal);
+      static_cast<const float*>(a.delta), static_cast<T*>(a.out0), a.sq, a.sk, num_qb, a.causal,
+      a.sscale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, bool Fused>
+template <typename T, int D, bool Fused, int K>
 int launch_dkv(const Args& a) {
   using C = DkvCfg<T, D>;
   static_assert(C::kSmem <= 232448, "shared memory of one block");
-  auto kernel = Fused ? flash_bwd_fused_kernel<T, D> : flash_bwd_dkv_kernel<T, D>;
+  auto kernel = Fused ? flash_bwd_fused_kernel<T, D, K> : flash_bwd_dkv_kernel<T, D, K>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1085,42 +1105,54 @@ int launch_dkv(const Args& a) {
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse2),
       static_cast<const float*>(a.delta), static_cast<T*>(dk), static_cast<T*>(dv),
       Fused ? static_cast<float*>(a.out0) : nullptr,
-      Fused ? static_cast<int*>(a.dq_lock) : nullptr, a.sq, a.sk, num_kb, a.causal);
+      Fused ? static_cast<int*>(a.dq_lock) : nullptr, a.sq, a.sk, num_kb, a.causal, a.sscale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, int K>
 int launch_roles(const Args& a) {
   constexpr size_t smem = (sizeof(T) * 4 * 16 * (D + 16 / sizeof(T))) + sizeof(float) * 32;
-  auto kernel = flash_bwd_roles_kernel<T, D>;
+  auto kernel = flash_bwd_roles_kernel<T, D, K>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<a.bh, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse2),
-      static_cast<const float*>(a.delta), static_cast<float*>(a.out0), a.bh);
+      static_cast<const float*>(a.delta), static_cast<float*>(a.out0), a.bh, a.sscale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <Entry E, typename T, int D>
+template <Entry E, typename T, int D, int K>
 int launch_entry(const Args& a) {
   if constexpr (E == Entry::kDq) {
-    return launch_dq<T, D>(a);
+    return launch_dq<T, D, K>(a);
   } else if constexpr (E == Entry::kRoles) {
-    return launch_roles<T, D>(a);
+    return launch_roles<T, D, K>(a);
   } else {
-    return launch_dkv<T, D, E == Entry::kFused>(a);
+    return launch_dkv<T, D, E == Entry::kFused, K>(a);
+  }
+}
+
+template <Entry E, typename T, int D>
+int launch_contract(const Args& a) {
+  switch (a.contract) {
+    case kNoMax: return launch_entry<E, T, D, kNoMax>(a);
+    case kRunningMax: return launch_entry<E, T, D, kRunningMax>(a);
+    case kUpcast:  // f32 operands only
+      if constexpr (sizeof(T) == 4) return launch_entry<E, T, D, kUpcast>(a);
+      return static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <Entry E, typename T>
 int launch_d(const Args& a, int d) {
   switch (d) {
-    case 32: return launch_entry<E, T, 32>(a);
-    case 64: return launch_entry<E, T, 64>(a);
-    case 128: return launch_entry<E, T, 128>(a);
-    case 256: return launch_entry<E, T, 256>(a);
+    case 32: return launch_contract<E, T, 32>(a);
+    case 64: return launch_contract<E, T, 64>(a);
+    case 128: return launch_contract<E, T, 128>(a);
+    case 256: return launch_contract<E, T, 256>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1138,23 +1170,27 @@ int launch(const Args& a, int d, int dtype, int device) {
 
 // q (bh, sq, d) prescaled, k and v (bh, sk, d), dout (bh, sq, d) times ln2,
 // all in one type (dtype 0 = f32, 1 = bf16); lse2 and delta (bh, sq) f32;
-// dq (bh, sq, d) in the input type. All contiguous. Launches on `stream` of
-// `device` and returns cudaGetLastError() of the launch (0 on success).
+// dq (bh, sq, d) in the input type. All contiguous. contract is a Contract
+// of flash_contract.cuh: under kUpcast (f32 only) q is unscaled, dout has no
+// ln2, lse2 is the natural-log lse and sscale the softmax scale (sscale is
+// not read otherwise). Launches on `stream` of `device` and returns
+// cudaGetLastError() of the launch (0 on success).
 extern "C" int gm_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse2, const void* delta, void* dq, int bh, int sq,
-                               int sk, int d, int dtype, int causal, int device, void* stream) {
-  const Args a{q,  k,  v,  dout,   lse2, delta, dq, nullptr, nullptr, nullptr,
-               bh, sq, sk, causal, static_cast<cudaStream_t>(stream)};
+                               int sk, int d, int dtype, int causal, int contract, float sscale,
+                               int device, void* stream) {
+  const Args a{q,  k,  v,  dout,   lse2,     delta,  dq, nullptr, nullptr, nullptr,
+               bh, sq, sk, causal, contract, sscale, static_cast<cudaStream_t>(stream)};
   return launch<Entry::kDq>(a, d, dtype, device);
 }
 
 // The same inputs; dk and dv (bh, sk, d) in the input type.
 extern "C" int gm_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse2, const void* delta, void* dk, void* dv, int bh,
-                                int sq, int sk, int d, int dtype, int causal, int device,
-                                void* stream) {
-  const Args a{q,  k,  v,  dout,   lse2, delta, dk, dv, nullptr, nullptr,
-               bh, sq, sk, causal, static_cast<cudaStream_t>(stream)};
+                                int sq, int sk, int d, int dtype, int causal, int contract,
+                                float sscale, int device, void* stream) {
+  const Args a{q,  k,  v,  dout,   lse2,     delta,  dk, dv, nullptr, nullptr,
+               bh, sq, sk, causal, contract, sscale, static_cast<cudaStream_t>(stream)};
   return launch<Entry::kDkv>(a, d, dtype, device);
 }
 
@@ -1165,20 +1201,23 @@ extern "C" int gm_flash_bwd_dkv(const void* q, const void* k, const void* v, con
 extern "C" int gm_flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse2, const void* delta, void* dq_acc,
                                   void* dq_lock, void* dk, void* dv, int bh, int sq, int sk, int d,
-                                  int dtype, int causal, int device, void* stream) {
-  const Args a{q,  k,  v,  dout,   lse2, delta, dq_acc, dk, dv, dq_lock,
-               bh, sq, sk, causal, static_cast<cudaStream_t>(stream)};
+                                  int dtype, int causal, int contract, float sscale, int device,
+                                  void* stream) {
+  const Args a{q,  k,  v,  dout,   lse2,     delta,  dq_acc, dk, dv, dq_lock,
+               bh, sq, sk, causal, contract, sscale, static_cast<cudaStream_t>(stream)};
   return launch<Entry::kFused>(a, d, dtype, device);
 }
 
 // Test entry of the s, dp computation that kernels 2-4 share: q, k, v and
 // dout (tiles, 16, d) in one type, lse2 and delta (tiles, 16) f32; writes
 // out, f32 (2, 3, tiles, 16, 16): s, dp and ds of each tile's (query, key)
-// pairs computed query-major (out[0]) and key-major (out[1]).
+// pairs computed query-major (out[0]) and key-major (out[1]), with the p
+// and ds of `contract` (sscale as in gm_flash_bwd_dq).
 extern "C" int gm_flash_bwd_roles(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse2, const void* delta, void* out, int tiles,
-                                  int d, int dtype, int device, void* stream) {
-  const Args a{q,     k, v, dout, lse2, delta, out, nullptr, nullptr, nullptr,
-               tiles, 16, 16, 0, static_cast<cudaStream_t>(stream)};
+                                  int d, int dtype, int contract, float sscale, int device,
+                                  void* stream) {
+  const Args a{q,     k,  v,  dout, lse2,     delta,  out, nullptr, nullptr, nullptr,
+               tiles, 16, 16, 0,    contract, sscale, static_cast<cudaStream_t>(stream)};
   return launch<Entry::kRoles>(a, d, dtype, device);
 }

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel generativemodels_tpu/ops/flash_attention.py
 // ::_flash_fwd_impl (its `_fwd_kernel`, with _fwd_tile, _build_mask and
-// _pv_update) in its default contract: q arrives unscaled and is multiplied
+// _pv_update) in its three contracts (flash_contract.cuh), each kernel
+// instantiated for each. The default one, kNoMax: q arrives unscaled and is multiplied
 // here by qscale = scale*log2(e) (already rounded to q's type) and rounded
 // back to q's type, as the JAX wrapper prescales q; scores live in the log2
 // domain and are clamped above at 80, there is no running max, p = exp2(s)
@@ -15,6 +16,17 @@
 // follows the JAX kernel by head width: at D % 128 != 0 JAX pads a ones
 // column onto V (`fold_l`), so l is the f32 sum of the bf16-rounded p; at
 // D % 128 == 0 it is the f32 sum of the unrounded p (for f32 the two agree).
+// kRunningMax keeps that prescale and domain but no clamp: each warp keeps
+// the running max m of its rows (a tile's row max, then a quad shuffle), p =
+// exp2(s - m), its l and O accumulators are rescaled by exp2(m_prev - m) as
+// m grows, l sums the unrounded p, and lse = lse_mul * (m + log2(l)).
+// kUpcast (f32 only) takes q as it is (qscale 1), multiplies each score by
+// sscale (the softmax scale) after the product, and runs the same running
+// max with exp in the natural domain; lse = m + log(l). Under both, a row
+// all of whose keys so far are masked keeps m = -inf and offsets its scores
+// by 0, so no exp meets -inf - -inf (a key tile past a ragged Sk of 1, or a
+// causal tile above a row), and the f32 kernel's key slices, each with its
+// own m, are merged by rescaling to their common max.
 //
 // What bounds it on this card:
 // - 3D shape (BH=2, S=32768, D=64, bf16): 4 BH S^2 D = 5.5e11 operations on
@@ -77,6 +89,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_contract.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -88,8 +101,65 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// p of a score: exp2 of the score clamped at 80 (a masked score is -inf, so 0)
-__device__ __forceinline__ float prob(float s) { return exp2f(fminf(s, 80.f)); }
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// p of a score (a masked score is -inf, so 0): kNoMax, exp2 of the score
+// clamped at 80; the running-max contracts, exp of the score already offset
+// by the row's max
+template <int K>
+__device__ __forceinline__ float prob(float s) {
+  if constexpr (K == kNoMax) {
+    return exp2f(fminf(s, 80.f));
+  } else {
+    return softmax_exp<K>(s);
+  }
+}
+
+// The lse of a row from its row sum (already at least 1e-30) and, under the
+// running-max contracts, its max m: lse_mul * log2(l) (kNoMax), lse_mul *
+// (m + log2(l)) (kRunningMax), m + log(l) (kUpcast)
+template <int K>
+__device__ __forceinline__ float row_lse(float l, float m, float lse_mul) {
+  const float mo = m == -INFINITY ? 0.f : m;
+  if constexpr (K == kNoMax) {
+    return log2f(l) * lse_mul;
+  } else if constexpr (K == kRunningMax) {
+    return (mo + log2f(l)) * lse_mul;
+  } else {
+    return mo + logf(l);
+  }
+}
+
+// Under the running-max contracts, advance the running max m[h] of rows g
+// (h = 0) and g + 8 (h = 1) by a tile's scores (C fragments of `KeyTiles` n8
+// tiles), rescale the rows' O accumulators (`DTiles` n8 tiles) and l parts,
+// and offset the scores by the max
+template <int K, int KeyTiles, int DTiles>
+__device__ __forceinline__ void online_max(float (&s)[KeyTiles][4], float (&acc)[DTiles][4],
+                                           float (&l)[2], float (&m)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < KeyTiles; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+    float alpha;
+    const float offset = advance_max<K>(m[h], quad_max(mx), alpha);
+    l[h] *= alpha;
+#pragma unroll
+    for (int nt = 0; nt < DTiles; ++nt) {
+      acc[nt][2 * h] *= alpha;
+      acc[nt][2 * h + 1] *= alpha;
+    }
+#pragma unroll
+    for (int nt = 0; nt < KeyTiles; ++nt) {
+      s[nt][2 * h] -= offset;
+      s[nt][2 * h + 1] -= offset;
+    }
+  }
+}
 
 // Tile shapes of one instantiation.
 template <typename T, int D>
@@ -109,7 +179,8 @@ struct Cfg<bf16, D> {
 
 // f32: 8 warps, 2 groups of 16 query rows x 4 slices of each key tile, so
 // that the few query rows of the serving shape still give each SM
-// sub-partition two warps; no running max, so the slices' partial sums add.
+// sub-partition two warps; the slices' partial sums add (under a running
+// max, after each is rescaled to the slices' common max).
 template <int D>
 struct Cfg<float, D> {
   static constexpr int kRowGroups = 2;
@@ -202,11 +273,12 @@ __device__ __forceinline__ void mask_scores(float (&s)[KeyTiles][4], int row, in
 }
 
 // Grid: one block per (bh, Cfg::kBlockQ query rows), flattened into blockIdx.x.
-template <int D>
+template <int D, int K>
 __global__ void __launch_bounds__(Cfg<bf16, D>::kThreads)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                      int sq, int sk, int num_qb, int causal, float qscale, float lse_mul) {
+                      int sq, int sk, int num_qb, int causal, float qscale, float lse_mul,
+                      float sscale) {
   using C = Cfg<bf16, D>;
   constexpr int M = C::kM;
   constexpr int BK = C::kBlockK;
@@ -217,9 +289,10 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int kDTiles = D / 8;       // n8 tiles of O
   // Q fragments kept in registers for the whole key loop
   constexpr bool kQInRegs = D <= 128;
-  // l from a product against ones: the sum of the bf16-rounded p
-  constexpr bool kFoldL = D % 128 != 0;
+  // l from a product against ones: the sum of the bf16-rounded p (kNoMax)
+  constexpr bool kFoldL = K == kNoMax && D % 128 != 0;
   static_assert(kDSteps % 2 == 0, "K fragments are read two k-steps at a time");
+  static_assert(K != kUpcast, "upcast runs the f32 kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // kBlockQ x LD
   bf16* sK = sQ + C::kBlockQ * LD;                // 2 stages x BK x LD
@@ -264,11 +337,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float acc[M][kDTiles][4];
   float lmma[M][4];  // kFoldL: every column holds the row sums of rows g, g + 8
   float lpart[M][2];  // else: this thread's part of rows g, g + 8
+  float mrow[M][2];  // the running max of rows g, g + 8 (kRunningMax)
 #pragma unroll
   for (int m = 0; m < M; ++m) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) lmma[m][e] = 0.f;
     lpart[m][0] = lpart[m][1] = 0.f;
+    mrow[m][0] = mrow[m][1] = -INFINITY;
 #pragma unroll
     for (int nt = 0; nt < kDTiles; ++nt) {
 #pragma unroll
@@ -332,6 +407,10 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int m = 0; m < M; ++m) mask_scores(s[m], wrow0 + 16 * m + g, k0, sk, causal, t);
       }
+      if constexpr (K != kNoMax) {
+#pragma unroll
+        for (int m = 0; m < M; ++m) online_max<K>(s[m], acc[m], lpart[m], mrow[m]);
+      }
 
       // acc += bf16(p) V, k-step js over keys 16 js .. 16 js + 15; V
       // fragments by ldmatrix.trans of keys 16 js + (mi & 1) * 8 + (lane &
@@ -346,7 +425,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) p[h][e] = prob(s[m][2 * js + h][e]);
+            for (int e = 0; e < 4; ++e) p[h][e] = prob<K>(s[m][2 * js + h][e]);
           }
           // the C layout of the two S tiles is the A layout of the PV product
           pa[m][0] = pack_bf16(p[0][0], p[0][1]);
@@ -399,7 +478,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         *reinterpret_cast<uint32_t*>(orow + nt * 8) =
             pack_bf16(acc[m][nt][2 * h] / ls, acc[m][nt][2 * h + 1] / ls);
       }
-      if (t == 0) lse[off] = log2f(ls) * lse_mul;
+      if (t == 0) lse[off] = row_lse<K>(ls, mrow[m][h], lse_mul);
     }
   }
 }
@@ -407,12 +486,14 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Grid as the bf16 kernel's. Warp w owns the 16 query rows of row group
 // w / kKeySlices and, of each key tile, the kBlockK / kKeySlices keys of
 // slice w % kKeySlices; at the end the slices' partial O and l are summed
-// in slice order through shared memory.
-template <int D>
+// in slice order through shared memory (under the running-max contracts,
+// each rescaled to the slices' common max first).
+template <int D, int K>
 __global__ void __launch_bounds__(Cfg<float, D>::kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                     int sq, int sk, int num_qb, int causal, float qscale, float lse_mul) {
+                     int sq, int sk, int num_qb, int causal, float qscale, float lse_mul,
+                     float sscale) {
   using C = Cfg<float, D>;
   constexpr int BK = C::kBlockK;
   constexpr int LD = C::kLd;
@@ -421,8 +502,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int kDSteps = D / 8;     // k8 steps of the QK product
   constexpr int kKeyTiles = KS / 8;  // n8 tiles of S, each one k8 step of PV
   constexpr int kDTiles = D / 8;     // n8 tiles of O
-  // a warp's partial O and l for the final sum: 4 kDTiles + 2 floats a lane
-  constexpr int kPart = 32 * (4 * kDTiles + 2);
+  // a warp's partial O, l and m for the final sum: 4 kDTiles + 4 floats a lane
+  constexpr int kPart = 32 * (4 * kDTiles + 4);
   static_assert(KS % 8 == 0, "a key slice is whole n8 tiles");
   static_assert((kSlices - 1) * C::kRowGroups * kPart <= 4 * BK * LD,
                 "the partial sums fit where the K and V tiles were");
@@ -459,6 +540,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qoff = (rg * 16 + g) * LD + t;
   float acc[kDTiles][4];
   float lpart[2] = {0.f, 0.f};  // this thread's part of rows g, g + 8
+  float mrow[2] = {-INFINITY, -INFINITY};  // their running max (K != kNoMax)
 #pragma unroll
   for (int nt = 0; nt < kDTiles; ++nt) {
 #pragma unroll
@@ -506,9 +588,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           mma_tf32(s[nt], ahi, bhi0, bhi1);
         }
       }
+      if constexpr (K == kUpcast) {  // the scale multiplies s after the product
+#pragma unroll
+        for (int nt = 0; nt < kKeyTiles; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] *= sscale;
+        }
+      }
       if (s0 + KS > sk || (causal && s0 + KS - 1 > wrow0)) {
         mask_scores(s, wrow0 + g, s0, sk, causal, t);
       }
+      if constexpr (K != kNoMax) online_max<K>(s, acc, lpart, mrow);
 
       // acc += p V in 3xTF32, one k8 step per S tile nt: its A operand
       // takes keys 2t, 2t + 1 as columns t, t + 4, so the B operand reads V
@@ -518,7 +608,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int nt = 0; nt < kKeyTiles; ++nt) {
         float p[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) p[e] = prob(s[nt][e]);
+        for (int e = 0; e < 4; ++e) p[e] = prob<K>(s[nt][e]);
         lpart[0] += p[0] + p[1];
         lpart[1] += p[2] + p[3];
         uint32_t phi[4], plo[4];
@@ -553,19 +643,34 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     part[4 * kDTiles * 32] = lpart[0];
     part[(4 * kDTiles + 1) * 32] = lpart[1];
+    part[(4 * kDTiles + 2) * 32] = mrow[0];
+    part[(4 * kDTiles + 3) * 32] = mrow[1];
   }
   __syncthreads();
   if (ks > 0) return;
 #pragma unroll 1
   for (int sl = 1; sl < kSlices; ++sl) {
     const float* src = sK + ((sl - 1) * C::kRowGroups + rg) * kPart + lane;
+    // the two sides' factors: 1 and 1 without a running max, else each
+    // side rescaled to the larger max of the two
+    float a_own[2] = {1.f, 1.f}, a_src[2] = {1.f, 1.f};
+    if constexpr (K != kNoMax) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_src = src[(4 * kDTiles + 2 + h) * 32];
+        const float offset = advance_max<K>(mrow[h], m_src, a_own[h]);
+        a_src[h] = softmax_exp<K>(m_src - offset);
+      }
+    }
 #pragma unroll
     for (int nt = 0; nt < kDTiles; ++nt) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] += src[(4 * nt + e) * 32];
+      for (int e = 0; e < 4; ++e) {
+        acc[nt][e] = acc[nt][e] * a_own[e >> 1] + src[(4 * nt + e) * 32] * a_src[e >> 1];
+      }
     }
-    lpart[0] += src[4 * kDTiles * 32];
-    lpart[1] += src[(4 * kDTiles + 1) * 32];
+    lpart[0] = lpart[0] * a_own[0] + src[4 * kDTiles * 32] * a_src[0];
+    lpart[1] = lpart[1] * a_own[1] + src[(4 * kDTiles + 1) * 32] * a_src[1];
   }
 
   const float l[2] = {quad_sum(lpart[0]), quad_sum(lpart[1])};
@@ -581,45 +686,64 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float2*>(orow + nt * 8) =
           make_float2(acc[nt][2 * h] / ls, acc[nt][2 * h + 1] / ls);
     }
-    if (t == 0) lse[off] = log2f(ls) * lse_mul;
+    if (t == 0) lse[off] = row_lse<K>(ls, mrow[h], lse_mul);
   }
 }
 
-// The kernel of an input type, chosen at compile time.
-template <typename T, int D>
+// The kernel of an input type and contract, chosen at compile time.
+template <typename T, int D, int K>
 struct KernelOf;
-template <int D>
-struct KernelOf<bf16, D> {
-  static constexpr auto fn = flash_fwd_bf16_kernel<D>;
+template <int D, int K>
+struct KernelOf<bf16, D, K> {
+  static constexpr auto fn = flash_fwd_bf16_kernel<D, K>;
 };
-template <int D>
-struct KernelOf<float, D> {
-  static constexpr auto fn = flash_fwd_f32_kernel<D>;
+template <int D, int K>
+struct KernelOf<float, D, K> {
+  static constexpr auto fn = flash_fwd_f32_kernel<D, K>;
 };
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
-           int sk, int causal, float qscale, float lse_mul, cudaStream_t stream) {
+struct Args {
+  const void *q, *k, *v;
+  void *o, *lse;
+  int bh, sq, sk, causal;
+  float qscale, lse_mul, sscale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int K>
+int launch(const Args& a) {
   using C = Cfg<T, D>;
-  auto kernel = KernelOf<T, D>::fn;
+  auto kernel = KernelOf<T, D, K>::fn;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int num_qb = (sq + C::kBlockQ - 1) / C::kBlockQ;
-  kernel<<<num_qb * bh, C::kThreads, C::kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), sq, sk, num_qb, causal, qscale, lse_mul);
+  const int num_qb = (a.sq + C::kBlockQ - 1) / C::kBlockQ;
+  kernel<<<num_qb * a.bh, C::kThreads, C::kSmem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<T*>(a.o), static_cast<float*>(a.lse), a.sq, a.sk, num_qb, a.causal, a.qscale,
+      a.lse_mul, a.sscale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int D>
+int launch_contract(const Args& a, int contract) {
+  switch (contract) {
+    case kNoMax: return launch<T, D, kNoMax>(a);
+    case kRunningMax: return launch<T, D, kRunningMax>(a);
+    case kUpcast:
+      if constexpr (sizeof(T) == 4) return launch<T, D, kUpcast>(a);
+      return static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
-             int sk, int d, int causal, float qscale, float lse_mul, cudaStream_t stream) {
+int launch_d(const Args& a, int d, int contract) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, sq, sk, causal, qscale, lse_mul, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, causal, qscale, lse_mul, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, causal, qscale, lse_mul, stream);
-    case 256: return launch<T, 256>(q, k, v, o, lse, bh, sq, sk, causal, qscale, lse_mul, stream);
+    case 32: return launch_contract<T, 32>(a, contract);
+    case 64: return launch_contract<T, 64>(a, contract);
+    case 128: return launch_contract<T, 128>(a, contract);
+    case 256: return launch_contract<T, 256>(a, contract);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -628,18 +752,20 @@ int launch_d(const void* q, const void* k, const void* v, void* o, void* lse, in
 
 // q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d) in one type (dtype 0 =
 // f32, 1 = bf16), lse (bh, sq) f32; all contiguous and 16-byte aligned.
-// qscale is scale*log2(e) already rounded to the input type; lse_mul is ln2
-// for a natural-log lse, 1 for a log2 one. Launches on `stream` of `device`
-// and returns cudaGetLastError() of the launch (0 on success).
+// contract is a Contract of flash_contract.cuh (kUpcast needs f32). qscale
+// multiplies q (scale*log2(e) already rounded to the input type; 1 under
+// kUpcast), sscale the scores after the product (kUpcast only: the softmax
+// scale); lse_mul is ln2 for a natural-log lse, 1 for a log2 one (not read
+// under kUpcast, whose lse is natural). Launches on `stream` of `device` and
+// returns cudaGetLastError() of the launch (0 on success).
 extern "C" int gm_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int bh, int sq, int sk, int d, int dtype, int causal, float qscale,
-                            float lse_mul, int device, void* stream) {
+                            int bh, int sq, int sk, int d, int dtype, int causal, int contract,
+                            float qscale, float lse_mul, float sscale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(q, k, v, o, lse, bh, sq, sk, d, causal, qscale, lse_mul, s);
-  if (dtype == 1) {
-    return launch_d<bf16>(q, k, v, o, lse, bh, sq, sk, d, causal, qscale, lse_mul, s);
-  }
+  const Args a{q,      k,       v,      o, lse, bh, sq, sk, causal,
+               qscale, lse_mul, sscale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return launch_d<float>(a, d, contract);
+  if (dtype == 1) return launch_d<bf16>(a, d, contract);
   return static_cast<int>(cudaErrorInvalidValue);
 }

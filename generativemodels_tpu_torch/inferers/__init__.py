@@ -1,4 +1,8 @@
+from .controlnet import ControlNetDiffusionInferer, ControlNetLatentDiffusionInferer
 from .inferer import DiffusionInferer
 from .latent import LatentDiffusionInferer
 
-__all__ = ["DiffusionInferer", "LatentDiffusionInferer"]
+__all__ = [
+    "ControlNetDiffusionInferer", "ControlNetLatentDiffusionInferer", "DiffusionInferer",
+    "LatentDiffusionInferer",
+]

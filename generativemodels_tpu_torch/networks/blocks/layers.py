@@ -1,15 +1,18 @@
-"""Linear and GroupNorm with a compute dtype, as flax's nn.Dense and nn.GroupNorm.
+"""Linear, GroupNorm and LayerNorm with a compute dtype, as flax's nn.Dense,
+nn.GroupNorm and nn.LayerNorm.
 
 The JAX package builds its blocks from flax layers whose `dtype` sets the
 computation type over float32 parameters. These subclasses keep torch's
 modules and state-dict keys and add the same `dtype`:
 
 - `Linear`: input, weight and bias cast to `dtype`; the bias is added after
-  the product, in `dtype`, as flax adds it.
-- `GroupNorm`: statistics and normalisation in float32 (flax reduces in
-  float32 whatever the input type), the result cast to `dtype`.
+  the product, in `dtype`, as flax adds it. `bias=False` is flax's
+  `use_bias=False`.
+- `GroupNorm`, `LayerNorm`: statistics and normalisation in float32 (flax
+  reduces in float32 whatever the input type), the result cast to `dtype`.
+  Both default to flax's epsilon, 1e-6 (torch's is 1e-5).
 
-With `dtype=None` both compute in float32, as flax promotes to the float32
+With `dtype=None` they compute in float32, as flax promotes to the float32
 parameters.
 """
 from __future__ import annotations
@@ -26,16 +29,21 @@ def compute_dtype(dtype: torch.dtype | None, x: torch.Tensor, param: torch.Tenso
 
 class Linear(nn.Linear):
     def __init__(
-        self, in_features: int, out_features: int, dtype: torch.dtype | None = None
+        self,
+        in_features: int,
+        out_features: int,
+        dtype: torch.dtype | None = None,
+        bias: bool = True,
     ) -> None:
-        super().__init__(in_features, out_features)
+        super().__init__(in_features, out_features, bias=bias)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = compute_dtype(self.dtype, x, self.weight)
         if dtype == self.weight.dtype:
             return F.linear(x.to(dtype), self.weight, self.bias)
-        return F.linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
+        y = F.linear(x.to(dtype), self.weight.to(dtype))
+        return y if self.bias is None else y + self.bias.to(dtype)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -51,4 +59,16 @@ class GroupNorm(nn.GroupNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        return y.to(compute_dtype(self.dtype, x, self.weight))
+
+
+class LayerNorm(nn.LayerNorm):
+    def __init__(
+        self, num_features: int, eps: float = 1e-6, dtype: torch.dtype | None = None
+    ) -> None:
+        super().__init__(num_features, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
         return y.to(compute_dtype(self.dtype, x, self.weight))

@@ -1,9 +1,9 @@
 """JAX parameter trees -> state dicts of the port's modules.
 
-Counterpart of the DiffusionModelUNet and AutoencoderKL parts of
-generativemodels_tpu/networks/zoo_convert.py, in the other direction: a
-flax params tree (nested dict of numpy arrays) becomes a state dict for the
-port's module, whose keys are the reference torch keys.
+Counterpart of the DiffusionModelUNet, DiffusionModelEncoder, ControlNet and
+AutoencoderKL parts of generativemodels_tpu/networks/zoo_convert.py, in the
+other direction: a flax params tree (nested dict of numpy arrays) becomes a
+state dict for the port's module, whose keys are the reference torch keys.
 
 Leaf transforms:
     flax ConvND kernel (*k, I, O)           -> Conv{1,2,3}d weight (O, I, *k)
@@ -12,8 +12,9 @@ Leaf transforms:
                                                spatial axis (lax.conv_transpose
                                                runs the kernel unflipped)
     flax Dense kernel (in, out)             -> Linear weight (out, in)
-    flax GroupNorm scale                    -> weight
+    flax GroupNorm / LayerNorm scale        -> weight
     flax Embed embedding                    -> Embedding weight (as is)
+Every tensor of a result is a fresh copy: none aliases the JAX arrays.
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ _UNET_SEGMENT_REWRITES = {
     "time_embed_2": "time_embed.2",
     "out_norm": "out.0",
     "out_conv": "out.2",
+    "out_0": "out.0",  # DiffusionModelEncoder head
+    "out_3": "out.3",
+    "to_out": "to_out.0",  # CrossAttention's output Linear, in a Sequential with its Dropout
 }
 
 
@@ -40,6 +44,8 @@ def _unet_segment(parent: str, p: str) -> str:
         return f"resnets.{p[7:]}"
     if p.startswith("attn_") and p[5:].isdigit():
         return f"attentions.{p[5:]}"
+    if p.startswith("block_") and p[6:].isdigit():  # a SpatialTransformer's blocks
+        return f"transformer_blocks.{p[6:]}"
     return _UNET_SEGMENT_REWRITES.get(p, p)
 
 
@@ -128,6 +134,60 @@ def unet_state_dict_from_jax(
         leaf fills; ValueError on a shape mismatch.
     """
     return _state_dict_from_jax(params, expected, _translate_unet)
+
+
+def diffusion_model_encoder_state_dict_from_jax(
+    params: Mapping, expected: Mapping[str, torch.Tensor]
+) -> dict[str, torch.Tensor]:
+    """Map a JAX DiffusionModelEncoder params tree onto the port's keys.
+
+    The down path maps as the UNet's. The head's first Linear (`out.0`)
+    reads a channels-first flatten of the last (B, C, *spatial) features in
+    the port (as in the reference) and a channels-last one in the JAX
+    module, so its input columns are permuted from (S, C) to (C, S) order,
+    C being the last level's width. Run one forward of the port's module
+    first: `out.0` takes its width there. Arguments, result and errors as
+    `unet_state_dict_from_jax`.
+    """
+    out = _state_dict_from_jax(params, expected, _translate_unet)
+    last = max(int(k.split(".")[1]) for k in out if k.startswith("down_blocks."))
+    channels = next(
+        v.shape[0] for k, v in out.items()
+        if k.startswith(f"down_blocks.{last}.resnets.") and k.endswith("conv2.conv.weight")
+    )
+    weight = out["out.0.weight"]  # (512, S * C), columns in JAX's (S, C) order
+    width, cols = weight.shape
+    if cols % channels:
+        raise ValueError(f"out.0 takes {cols} features, not a multiple of the width {channels}")
+    out["out.0.weight"] = (
+        weight.reshape(width, cols // channels, channels).transpose(1, 2).reshape(width, cols)
+        .contiguous()
+    )
+    return out
+
+
+def _translate_controlnet(dirs: tuple[str, ...]) -> str:
+    """The UNet's down and mid naming, plus controlnet_cond_embedding.{conv_in,
+    blocks.{i}, conv_out} and the zero convs controlnet_down_blocks.{i} and
+    controlnet_mid_block (the reference's ControlNet keys)."""
+    parts = []
+    for i, p in enumerate(dirs):
+        parent = dirs[i - 1] if i else ""
+        if p.startswith("controlnet_down_") and p[16:].isdigit():
+            parts.append(f"controlnet_down_blocks.{p[16:]}")
+        elif parent == "controlnet_cond_embedding" and p.startswith("block_"):
+            parts.append(f"blocks.{p[6:]}")
+        else:
+            parts.append(_unet_segment(parent, p))
+    return ".".join(parts)
+
+
+def controlnet_state_dict_from_jax(
+    params: Mapping, expected: Mapping[str, torch.Tensor]
+) -> dict[str, torch.Tensor]:
+    """Map a JAX ControlNet params tree onto the port's state-dict keys.
+    Arguments, result and errors as `unet_state_dict_from_jax`."""
+    return _state_dict_from_jax(params, expected, _translate_controlnet)
 
 
 def _aekl_block_map(

@@ -1,12 +1,15 @@
 """Timestep-conditioned 2D/3D diffusion UNet, channels-first.
 
-Counterpart of generativemodels_tpu/networks/nets/diffusion_model_unet.py
-for the self-attention UNet: ResnetBlock (unfused path), Downsample,
-Upsample, DownBlock/MidBlock/UpBlock and DiffusionModelUNet with class
-embedding and the ControlNet residual arguments. Modules carry the
-reference's torch state-dict keys (`down_blocks.{i}.resnets.{j}`,
-`.attentions.{j}`, `time_embed.0/.2`, `out.0/.2`, `<conv>.conv.weight`), so
-networks/convert.py maps JAX parameters onto them one to one.
+Counterpart of generativemodels_tpu/networks/nets/diffusion_model_unet.py:
+ResnetBlock, Downsample, Upsample, DownBlock/MidBlock/UpBlock (self- or
+cross-attention by level), DiffusionModelUNet with cross-attention
+conditioning, class embedding, the ControlNet residual arguments and the
+down-path cache (`cached_down`/`return_down`), and DiffusionModelEncoder.
+Modules carry the reference's torch state-dict keys
+(`down_blocks.{i}.resnets.{j}`, `.attentions.{j}` with
+`.transformer_blocks.{k}` inside a SpatialTransformer, `time_embed.0/.2`,
+`out.0/.2`, `<conv>.conv.weight`), so networks/convert.py maps JAX
+parameters onto them one to one.
 
 `dtype` mirrors the JAX module's mixed precision: parameters stay float32,
 every conv, linear layer and GroupNorm computes in `dtype` (GroupNorm's
@@ -19,9 +22,6 @@ module reads it at trace time, a 3D ResnetBlock that neither up- nor
 downsamples runs `ResnetBlock._fused_call`: both of its GroupNorm-SiLU-conv
 chains go through `ops.fused_norm_silu_conv3d` (kernel 5 on CUDA), with the
 block's own parameters, so the state-dict keys do not change.
-
-Not ported yet: cross-attention conditioning (`with_conditioning`),
-`cached_down`/`return_down` and DiffusionModelEncoder.
 """
 from __future__ import annotations
 
@@ -34,12 +34,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops import fold_groupnorm_affine, fused_norm_silu_conv3d, get_timestep_embedding
-from ..blocks.attention_blocks import AttentionBlock
+from ..blocks.attention_blocks import AttentionBlock, SpatialTransformer
 from ..blocks.convolutions import ConvND, avg_pool, upsample_nearest
 from ..blocks.layers import GroupNorm, Linear
 
 __all__ = [
     "DiffusionModelUNet",
+    "DiffusionModelEncoder",
     "ResnetBlock",
     "Downsample",
     "Upsample",
@@ -239,8 +240,44 @@ class ResnetBlock(nn.Module):
         return out.permute(0, 4, 1, 2, 3)
 
 
+def _attention(
+    spatial_dims: int,
+    channels: int,
+    cross: bool,
+    num_head_channels: int,
+    norm_num_groups: int,
+    norm_eps: float,
+    transformer_num_layers: int,
+    cross_attention_dim: int | None,
+    upcast_attention: bool,
+    use_flash_attention: bool | None,
+    dropout_cattn: float,
+    dtype: torch.dtype | None,
+) -> nn.Module:
+    """A level's attention: a SpatialTransformer (`cross`, with_conditioning)
+    or a self-attention AttentionBlock, as the JAX blocks choose."""
+    if cross:
+        return SpatialTransformer(
+            spatial_dims, channels, channels // num_head_channels, num_head_channels,
+            num_layers=transformer_num_layers, dropout=dropout_cattn,
+            norm_num_groups=norm_num_groups, norm_eps=norm_eps,
+            cross_attention_dim=cross_attention_dim, upcast_attention=upcast_attention,
+            use_flash_attention=use_flash_attention, dtype=dtype,
+        )
+    return AttentionBlock(
+        spatial_dims, channels, num_head_channels, norm_num_groups, norm_eps,
+        use_flash_attention=use_flash_attention, dtype=dtype,
+    )
+
+
+def _apply_attention(block: nn.Module, h: torch.Tensor, context) -> torch.Tensor:
+    if isinstance(block, SpatialTransformer):
+        return block(h, context=context)
+    return block(h)
+
+
 class DownBlock(nn.Module):
-    """Down path stage: [resnet (+ attn)] x N, then downsampler."""
+    """Down path stage: [resnet (+ attn | xattn)] x N, then downsampler."""
 
     def __init__(
         self,
@@ -255,8 +292,13 @@ class DownBlock(nn.Module):
         resblock_updown: bool = False,
         downsample_padding: int = 1,
         with_attn: bool = False,
+        with_cross_attn: bool = False,
         num_head_channels: int = 1,
+        transformer_num_layers: int = 1,
+        cross_attention_dim: int | None = None,
+        upcast_attention: bool = False,
         use_flash_attention: bool | None = None,
+        dropout_cattn: float = 0.0,
         dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
@@ -269,13 +311,14 @@ class DownBlock(nn.Module):
         )
         self.attentions = (
             nn.ModuleList(
-                AttentionBlock(
-                    spatial_dims, out_channels, num_head_channels, norm_num_groups, norm_eps,
-                    use_flash_attention=use_flash_attention, dtype=dtype,
+                _attention(
+                    spatial_dims, out_channels, not with_attn, num_head_channels,
+                    norm_num_groups, norm_eps, transformer_num_layers, cross_attention_dim,
+                    upcast_attention, use_flash_attention, dropout_cattn, dtype,
                 )
                 for _ in range(num_res_blocks)
             )
-            if with_attn
+            if with_attn or with_cross_attn
             else None
         )
         if not add_downsample:
@@ -292,13 +335,16 @@ class DownBlock(nn.Module):
             )
 
     def forward(
-        self, hidden_states: torch.Tensor, temb: torch.Tensor
+        self,
+        hidden_states: torch.Tensor,
+        temb: torch.Tensor,
+        context: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, list[torch.Tensor]]:
         output_states = []
         for i, resnet in enumerate(self.resnets):
             hidden_states = resnet(hidden_states, temb)
             if self.attentions is not None:
-                hidden_states = self.attentions[i](hidden_states)
+                hidden_states = _apply_attention(self.attentions[i], hidden_states, context)
             output_states.append(hidden_states)
         if self.downsampler is not None:
             if isinstance(self.downsampler, ResnetBlock):
@@ -310,7 +356,7 @@ class DownBlock(nn.Module):
 
 
 class MidBlock(nn.Module):
-    """resnet -> self-attention -> resnet."""
+    """resnet -> (self- or cross-)attention -> resnet."""
 
     def __init__(
         self,
@@ -319,8 +365,13 @@ class MidBlock(nn.Module):
         temb_channels: int,
         norm_num_groups: int = 32,
         norm_eps: float = 1e-6,
+        with_conditioning: bool = False,
         num_head_channels: int = 1,
+        transformer_num_layers: int = 1,
+        cross_attention_dim: int | None = None,
+        upcast_attention: bool = False,
         use_flash_attention: bool | None = None,
+        dropout_cattn: float = 0.0,
         dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
@@ -332,20 +383,26 @@ class MidBlock(nn.Module):
             )
 
         self.resnet_1 = resnet()
-        self.attention = AttentionBlock(
-            spatial_dims, in_channels, num_head_channels, norm_num_groups, norm_eps,
-            use_flash_attention=use_flash_attention, dtype=dtype,
+        self.attention = _attention(
+            spatial_dims, in_channels, with_conditioning, num_head_channels, norm_num_groups,
+            norm_eps, transformer_num_layers, cross_attention_dim, upcast_attention,
+            use_flash_attention, dropout_cattn, dtype,
         )
         self.resnet_2 = resnet()
 
-    def forward(self, hidden_states: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        hidden_states: torch.Tensor,
+        temb: torch.Tensor,
+        context: torch.Tensor | None = None,
+    ) -> torch.Tensor:
         hidden_states = self.resnet_1(hidden_states, temb)
-        hidden_states = self.attention(hidden_states)
+        hidden_states = _apply_attention(self.attention, hidden_states, context)
         return self.resnet_2(hidden_states, temb)
 
 
 class UpBlock(nn.Module):
-    """Up path stage: [cat skip, resnet (+ attn)] x N, then upsampler."""
+    """Up path stage: [cat skip, resnet (+ attn | xattn)] x N, then upsampler."""
 
     def __init__(
         self,
@@ -360,8 +417,13 @@ class UpBlock(nn.Module):
         add_upsample: bool = True,
         resblock_updown: bool = False,
         with_attn: bool = False,
+        with_cross_attn: bool = False,
         num_head_channels: int = 1,
+        transformer_num_layers: int = 1,
+        cross_attention_dim: int | None = None,
+        upcast_attention: bool = False,
         use_flash_attention: bool | None = None,
+        dropout_cattn: float = 0.0,
         dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
@@ -378,13 +440,14 @@ class UpBlock(nn.Module):
         self.resnets = nn.ModuleList(resnets)
         self.attentions = (
             nn.ModuleList(
-                AttentionBlock(
-                    spatial_dims, out_channels, num_head_channels, norm_num_groups, norm_eps,
-                    use_flash_attention=use_flash_attention, dtype=dtype,
+                _attention(
+                    spatial_dims, out_channels, not with_attn, num_head_channels,
+                    norm_num_groups, norm_eps, transformer_num_layers, cross_attention_dim,
+                    upcast_attention, use_flash_attention, dropout_cattn, dtype,
                 )
                 for _ in range(num_res_blocks)
             )
-            if with_attn
+            if with_attn or with_cross_attn
             else None
         )
         if not add_upsample:
@@ -404,13 +467,14 @@ class UpBlock(nn.Module):
         hidden_states: torch.Tensor,
         res_hidden_states_list: list[torch.Tensor],
         temb: torch.Tensor,
+        context: torch.Tensor | None = None,
     ) -> torch.Tensor:
         res_list = list(res_hidden_states_list)
         for i, resnet in enumerate(self.resnets):
             hidden_states = torch.cat([hidden_states, res_list.pop()], dim=1)
             hidden_states = resnet(hidden_states, temb)
             if self.attentions is not None:
-                hidden_states = self.attentions[i](hidden_states)
+                hidden_states = _apply_attention(self.attentions[i], hidden_states, context)
         if self.upsampler is not None:
             if isinstance(self.upsampler, ResnetBlock):
                 hidden_states = self.upsampler(hidden_states, temb)
@@ -420,8 +484,24 @@ class UpBlock(nn.Module):
 
 
 def _validate_unet_args(
-    num_channels, attention_levels, norm_num_groups, num_head_channels, num_res_blocks
+    num_channels,
+    attention_levels,
+    norm_num_groups,
+    num_head_channels,
+    num_res_blocks,
+    with_conditioning,
+    cross_attention_dim,
 ):
+    if with_conditioning and cross_attention_dim is None:
+        raise ValueError(
+            "DiffusionModelUNet expects dimension of the cross-attention conditioning "
+            "(cross_attention_dim) when using with_conditioning."
+        )
+    if cross_attention_dim is not None and not with_conditioning:
+        raise ValueError(
+            "DiffusionModelUNet expects with_conditioning=True when specifying the "
+            "cross_attention_dim."
+        )
     if any((c % norm_num_groups) != 0 for c in num_channels):
         raise ValueError("all num_channels must be multiples of norm_num_groups")
     if len(num_channels) != len(attention_levels):
@@ -432,17 +512,69 @@ def _validate_unet_args(
         raise ValueError("num_res_blocks must have the same length as num_channels")
 
 
+def _unet_config(
+    num_channels, attention_levels, num_head_channels, num_res_blocks, norm_num_groups,
+    with_conditioning, cross_attention_dim,
+):
+    """The checked per-level tuples (channels, attention, head widths, res
+    blocks) of a UNet, encoder or ControlNet, as the JAX modules check them."""
+    num_channels = tuple(num_channels)
+    attention_levels = tuple(attention_levels)
+    head_channels = ensure_tuple_rep(num_head_channels, len(attention_levels))
+    res_blocks = ensure_tuple_rep(num_res_blocks, len(num_channels))
+    _validate_unet_args(
+        num_channels, attention_levels, norm_num_groups, head_channels, res_blocks,
+        with_conditioning, cross_attention_dim,
+    )
+    return num_channels, attention_levels, head_channels, res_blocks
+
+
+def _check_context(context, with_conditioning: bool) -> None:
+    if context is not None and not with_conditioning:
+        raise ValueError("model should have with_conditioning = True if context is provided")
+
+
+def _time_embedding(num_channels0: int, num_class_embeds: int | None, dtype) -> tuple:
+    """The time embedding MLP (`time_embed.0/.2`) and, with class embeds,
+    the class embedding table."""
+    time_embed_dim = num_channels0 * 4
+    time_embed = nn.Sequential(
+        Linear(num_channels0, time_embed_dim, dtype=dtype),
+        nn.SiLU(),
+        Linear(time_embed_dim, time_embed_dim, dtype=dtype),
+    )
+    class_embedding = (
+        nn.Embedding(num_class_embeds, time_embed_dim) if num_class_embeds is not None else None
+    )
+    return time_embed, class_embedding
+
+
+def _embed(module: nn.Module, x: torch.Tensor, timesteps, class_labels) -> torch.Tensor:
+    """The timestep (+ class) embedding of a UNet, encoder or ControlNet."""
+    t_emb = get_timestep_embedding(timesteps, module.num_channels[0]).to(x.dtype)
+    emb = module.time_embed(t_emb)
+    if module.num_class_embeds is not None:
+        if class_labels is None:
+            raise ValueError("class_labels should be provided when num_class_embeds > 0")
+        emb = emb + module.class_embedding(class_labels).to(emb.dtype)
+    return emb
+
+
 class DiffusionModelUNet(nn.Module):
-    """UNet with timestep embedding and self-attention levels.
+    """UNet with timestep embedding and attention or cross-attention levels.
 
     Forward contract: ``model(x, timesteps, context=None, class_labels=None,
-    down_block_additional_residuals=None, mid_block_additional_residual=None)``
-    with x in (B, C, *spatial); returns float32 (B, out_channels, *spatial).
+    down_block_additional_residuals=None, mid_block_additional_residual=None,
+    cached_down=None, return_down=False)`` with x in (B, C, *spatial);
+    returns float32 (B, out_channels, *spatial).
 
-    Args mirror the JAX module's. `with_conditioning=True` (cross-attention)
-    is not ported yet and raises NotImplementedError. `use_checkpointing` is
-    a bool (every block) or one entry per level; the mid block follows the
-    last entry. `dtype` is the computation type (e.g. torch.bfloat16).
+    Args mirror the JAX module's. With `with_conditioning` every attention
+    level (and the mid block) is a SpatialTransformer over `context` (B, S,
+    cross_attention_dim), `transformer_num_layers` blocks deep, with the
+    reference's `upcast_attention` and `dropout_cattn`.
+    `use_checkpointing` is a bool (every block) or one entry per level; the
+    mid block follows the last entry. `dtype` is the computation type (e.g.
+    torch.bfloat16).
     """
 
     def __init__(
@@ -458,20 +590,21 @@ class DiffusionModelUNet(nn.Module):
         resblock_updown: bool = False,
         num_head_channels: int | Sequence[int] = 8,
         with_conditioning: bool = False,
+        transformer_num_layers: int = 1,
+        cross_attention_dim: int | None = None,
         num_class_embeds: int | None = None,
+        upcast_attention: bool = False,
         use_flash_attention: bool | None = None,
+        dropout_cattn: float = 0.0,
         use_checkpointing: bool | Sequence[bool] = False,
         dtype: torch.dtype | None = None,
     ) -> None:
         super().__init__()
-        if with_conditioning:
-            raise NotImplementedError("cross-attention conditioning is not ported yet")
-        num_channels = tuple(num_channels)
-        attention_levels = tuple(attention_levels)
-        head_channels = ensure_tuple_rep(num_head_channels, len(attention_levels))
-        res_blocks = ensure_tuple_rep(num_res_blocks, len(num_channels))
-        _validate_unet_args(
-            num_channels, attention_levels, norm_num_groups, head_channels, res_blocks
+        if not 0.0 <= dropout_cattn <= 1.0:
+            raise ValueError("Dropout cannot be negative or >1.0!")
+        num_channels, attention_levels, head_channels, res_blocks = _unet_config(
+            num_channels, attention_levels, num_head_channels, num_res_blocks, norm_num_groups,
+            with_conditioning, cross_attention_dim,
         )
         if isinstance(use_checkpointing, bool):
             use_checkpointing = (use_checkpointing,) * len(num_channels)
@@ -485,17 +618,15 @@ class DiffusionModelUNet(nn.Module):
         self.spatial_dims = spatial_dims
         self.num_channels = num_channels
         self.num_class_embeds = num_class_embeds
+        self.with_conditioning = with_conditioning
         self.use_checkpointing = use_checkpointing
         self.dtype = dtype
 
         time_embed_dim = num_channels[0] * 4
-        self.time_embed = nn.Sequential(
-            Linear(num_channels[0], time_embed_dim, dtype=dtype),
-            nn.SiLU(),
-            Linear(time_embed_dim, time_embed_dim, dtype=dtype),
-        )
-        if num_class_embeds is not None:
-            self.class_embedding = nn.Embedding(num_class_embeds, time_embed_dim)
+        self.time_embed, class_embedding = _time_embedding(num_channels[0], num_class_embeds,
+                                                           dtype)
+        if class_embedding is not None:
+            self.class_embedding = class_embedding
         self.conv_in = ConvND(
             spatial_dims, in_channels, num_channels[0], kernel_size=3, padding=1, dtype=dtype
         )
@@ -503,7 +634,9 @@ class DiffusionModelUNet(nn.Module):
         common = dict(
             spatial_dims=spatial_dims, temb_channels=time_embed_dim,
             norm_num_groups=norm_num_groups, norm_eps=norm_eps,
-            use_flash_attention=use_flash_attention, dtype=dtype,
+            transformer_num_layers=transformer_num_layers,
+            cross_attention_dim=cross_attention_dim, upcast_attention=upcast_attention,
+            use_flash_attention=use_flash_attention, dropout_cattn=dropout_cattn, dtype=dtype,
         )
         down_blocks = []
         output_channel = num_channels[0]
@@ -514,14 +647,17 @@ class DiffusionModelUNet(nn.Module):
                 DownBlock(
                     in_channels=input_channel, out_channels=output_channel,
                     num_res_blocks=res_blocks[i], add_downsample=i < len(num_channels) - 1,
-                    resblock_updown=resblock_updown, with_attn=attention_levels[i],
+                    resblock_updown=resblock_updown,
+                    with_attn=attention_levels[i] and not with_conditioning,
+                    with_cross_attn=attention_levels[i] and with_conditioning,
                     num_head_channels=head_channels[i], **common,
                 )
             )
         self.down_blocks = nn.ModuleList(down_blocks)
 
         self.middle_block = MidBlock(
-            in_channels=num_channels[-1], num_head_channels=head_channels[-1], **common
+            in_channels=num_channels[-1], with_conditioning=with_conditioning,
+            num_head_channels=head_channels[-1], **common,
         )
 
         up_blocks = []
@@ -539,8 +675,9 @@ class DiffusionModelUNet(nn.Module):
                     in_channels=input_channel, prev_output_channel=prev_output_channel,
                     out_channels=output_channel, num_res_blocks=reversed_res_blocks[i] + 1,
                     add_upsample=i < len(num_channels) - 1, resblock_updown=resblock_updown,
-                    with_attn=reversed_attention[i], num_head_channels=reversed_heads[i],
-                    **common,
+                    with_attn=reversed_attention[i] and not with_conditioning,
+                    with_cross_attn=reversed_attention[i] and with_conditioning,
+                    num_head_channels=reversed_heads[i], **common,
                 )
             )
         self.up_blocks = nn.ModuleList(up_blocks)
@@ -560,33 +697,42 @@ class DiffusionModelUNet(nn.Module):
         class_labels: torch.Tensor | None = None,
         down_block_additional_residuals: Sequence[torch.Tensor] | None = None,
         mid_block_additional_residual: torch.Tensor | None = None,
-    ) -> torch.Tensor:
-        if context is not None:
-            raise ValueError("model should have with_conditioning = True if context is provided")
+        cached_down: tuple | None = None,
+        return_down: bool = False,
+    ):
+        """The prediction for x at `timesteps`.
+
+        `cached_down` / `return_down` reuse the down path's features across
+        adjacent sampling timesteps, as the JAX module does: with
+        `return_down` the call also returns `(h, down_block_res_samples)`
+        (the port's channels-first features); passing that back as
+        `cached_down` skips the down path (an approximation: the features
+        hold the timestep they were computed at).
+        """
+        _check_context(context, self.with_conditioning)
 
         if self.dtype is not None:
             x = x.to(self.dtype)
 
-        # 1. time embedding
-        t_emb = get_timestep_embedding(timesteps, self.num_channels[0]).to(x.dtype)
-        emb = self.time_embed(t_emb)
-
-        # 2. class embedding
-        if self.num_class_embeds is not None:
-            if class_labels is None:
-                raise ValueError("class_labels should be provided when num_class_embeds > 0")
-            emb = emb + self.class_embedding(class_labels).to(emb.dtype)
+        # 1.-2. time (and class) embedding
+        emb = _embed(self, x, timesteps, class_labels)
 
         # 3. initial convolution
         h = self.conv_in(x)
 
-        # 4. down path; level i's blocks recompute in the backward when
-        # use_checkpointing[i] (the mid block follows the last level)
+        # 4. down path, skipped when cached features come in; level i's
+        # blocks recompute in the backward when use_checkpointing[i] (the
+        # mid block follows the last level)
         remat = self.use_checkpointing
-        down_block_res_samples = [h]
-        for level, block in enumerate(self.down_blocks):
-            h, res_samples = _run_block(remat[level], block, h, emb)
-            down_block_res_samples.extend(res_samples)
+        if cached_down is not None:
+            h, cached_res = cached_down
+            down_block_res_samples = list(cached_res)
+        else:
+            down_block_res_samples = [h]
+            for level, block in enumerate(self.down_blocks):
+                h, res_samples = _run_block(remat[level], block, h, emb, context)
+                down_block_res_samples.extend(res_samples)
+        down_cache = (h, tuple(down_block_res_samples))
 
         # ControlNet residual injection
         if down_block_additional_residuals is not None:
@@ -596,7 +742,7 @@ class DiffusionModelUNet(nn.Module):
             ]
 
         # 5. mid
-        h = _run_block(remat[-1], self.middle_block, h, emb)
+        h = _run_block(remat[-1], self.middle_block, h, emb, context)
         if mid_block_additional_residual is not None:
             h = h + mid_block_additional_residual.to(h.dtype)
 
@@ -605,7 +751,97 @@ class DiffusionModelUNet(nn.Module):
             n_res = len(block.resnets)
             res_samples = down_block_res_samples[-n_res:]
             down_block_res_samples = down_block_res_samples[:-n_res]
-            h = _run_block(remat[len(remat) - 1 - i], block, h, res_samples, emb)
+            h = _run_block(remat[len(remat) - 1 - i], block, h, res_samples, emb, context)
 
         # 7. output head (zero-init conv)
-        return self.out(h).float()
+        out = self.out(h).float()
+        return (out, down_cache) if return_down else out
+
+
+class DiffusionModelEncoder(nn.Module):
+    """Down path and a linear head, for classification at a diffusion time.
+
+    Counterpart of the JAX module, itself the reference's (which hard-codes
+    the head's input width at 4096). Every level downsamples (the
+    reference's final-block test never fires). The head flattens the last
+    features channels-first, as the reference does; the JAX module flattens
+    channels-last, and networks/convert.py permutes the head's rows between
+    the two. Its first Linear (`out.0`) takes its input width from the
+    first forward, as flax's Dense does at init: run one forward before
+    reading or loading its parameters.
+    """
+
+    def __init__(
+        self,
+        spatial_dims: int,
+        in_channels: int,
+        out_channels: int,
+        num_res_blocks: Sequence[int] | int = (2, 2, 2, 2),
+        num_channels: Sequence[int] = (32, 64, 64, 64),
+        attention_levels: Sequence[bool] = (False, False, True, True),
+        norm_num_groups: int = 32,
+        norm_eps: float = 1e-6,
+        resblock_updown: bool = False,
+        num_head_channels: int | Sequence[int] = 8,
+        with_conditioning: bool = False,
+        transformer_num_layers: int = 1,
+        cross_attention_dim: int | None = None,
+        num_class_embeds: int | None = None,
+        upcast_attention: bool = False,
+        dtype: torch.dtype | None = None,
+    ) -> None:
+        super().__init__()
+        num_channels, attention_levels, head_channels, res_blocks = _unet_config(
+            num_channels, attention_levels, num_head_channels, num_res_blocks, norm_num_groups,
+            with_conditioning, cross_attention_dim,
+        )
+        self.num_channels = num_channels
+        self.num_class_embeds = num_class_embeds
+        self.with_conditioning = with_conditioning
+        self.dtype = dtype
+        self.time_embed, class_embedding = _time_embedding(num_channels[0], num_class_embeds,
+                                                           dtype)
+        if class_embedding is not None:
+            self.class_embedding = class_embedding
+        self.conv_in = ConvND(
+            spatial_dims, in_channels, num_channels[0], kernel_size=3, padding=1, dtype=dtype
+        )
+        down_blocks = []
+        output_channel = num_channels[0]
+        for i in range(len(num_channels)):
+            input_channel = output_channel
+            output_channel = num_channels[i]
+            down_blocks.append(
+                DownBlock(
+                    spatial_dims, input_channel, output_channel, num_channels[0] * 4,
+                    num_res_blocks=res_blocks[i], norm_num_groups=norm_num_groups,
+                    norm_eps=norm_eps, add_downsample=True, resblock_updown=resblock_updown,
+                    with_attn=attention_levels[i] and not with_conditioning,
+                    with_cross_attn=attention_levels[i] and with_conditioning,
+                    num_head_channels=head_channels[i],
+                    transformer_num_layers=transformer_num_layers,
+                    cross_attention_dim=cross_attention_dim, upcast_attention=upcast_attention,
+                    dtype=dtype,
+                )
+            )
+        self.down_blocks = nn.ModuleList(down_blocks)
+        self.out = nn.Sequential(
+            nn.LazyLinear(512), nn.ReLU(), nn.Dropout(0.1), nn.Linear(512, out_channels)
+        )
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        timesteps: torch.Tensor,
+        context: torch.Tensor | None = None,
+        class_labels: torch.Tensor | None = None,
+    ) -> torch.Tensor:
+        _check_context(context, self.with_conditioning)
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        emb = _embed(self, x, timesteps, class_labels)
+        h = self.conv_in(x)
+        for block in self.down_blocks:
+            h, _ = block(h, emb, context)
+        # channels-first flatten, the head in float32
+        return self.out(h.reshape(h.shape[0], -1).float())

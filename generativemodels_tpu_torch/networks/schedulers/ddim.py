@@ -66,12 +66,20 @@ class DDIMScheduler(Scheduler):
 
         self.set_timesteps(num_train_timesteps)
 
-    def set_timesteps(self, num_inference_steps: int) -> None:
+    def set_timesteps(
+        self, num_inference_steps: int, device: torch.device | str | None = None
+    ) -> None:
+        """Choose the (strided) subset of train timesteps used at inference.
+
+        `device`, when given, becomes the scheduler's device: the plan and
+        every coefficient table move there (the JAX signature's argument).
+        """
         if num_inference_steps > self.num_train_timesteps:
             raise ValueError(
                 f"`num_inference_steps`: {num_inference_steps} cannot be larger than "
                 f"`num_train_timesteps`: {self.num_train_timesteps}"
             )
+        self._move_to(device)
         self.num_inference_steps = num_inference_steps
         step_ratio = self.num_train_timesteps // num_inference_steps
         self.timesteps = (

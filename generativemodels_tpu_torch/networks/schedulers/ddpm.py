@@ -66,13 +66,20 @@ class DDPMScheduler(Scheduler):
         self.prediction_type = prediction_type
         self.clip_sample_values = (clip_sample_min, clip_sample_max)
 
-    def set_timesteps(self, num_inference_steps: int) -> None:
-        """Choose the (strided) subset of train timesteps used at inference."""
+    def set_timesteps(
+        self, num_inference_steps: int, device: torch.device | str | None = None
+    ) -> None:
+        """Choose the (strided) subset of train timesteps used at inference.
+
+        `device`, when given, becomes the scheduler's device: the plan and
+        every coefficient table move there (the JAX signature's argument).
+        """
         if num_inference_steps > self.num_train_timesteps:
             raise ValueError(
                 f"`num_inference_steps`: {num_inference_steps} cannot be larger than "
                 f"`num_train_timesteps`: {self.num_train_timesteps}"
             )
+        self._move_to(device)
         self.num_inference_steps = num_inference_steps
         step_ratio = self.num_train_timesteps // num_inference_steps
         self.timesteps = torch.arange(

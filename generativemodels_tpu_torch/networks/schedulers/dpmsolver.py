@@ -127,17 +127,22 @@ class DPMSolverMultistepScheduler(Scheduler):
 
     # -- plan ----------------------------------------------------------------
 
-    def set_timesteps(self, num_inference_steps: int) -> None:
+    def set_timesteps(
+        self, num_inference_steps: int, device: torch.device | str | None = None
+    ) -> None:
         """Build the inference plan and its per-step coefficient tables.
 
         `num_inference_steps` afterwards holds the realised plan length
-        ("uniform_lambda" collapses duplicate timesteps).
+        ("uniform_lambda" collapses duplicate timesteps). `device`, when
+        given, becomes the scheduler's device: the plan and every table move
+        there (the JAX signature's argument).
         """
         if num_inference_steps > self.num_train_timesteps:
             raise ValueError(
                 f"`num_inference_steps`: {num_inference_steps} cannot be larger than "
                 f"`num_train_timesteps`: {self.num_train_timesteps}"
             )
+        self._move_to(device)
         abar = self.alphas_cumprod.cpu().numpy().astype(np.float64)
         if self.timestep_spacing == "leading":
             step_ratio = self.num_train_timesteps // num_inference_steps

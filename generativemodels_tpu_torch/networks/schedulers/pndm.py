@@ -80,18 +80,23 @@ class PNDMScheduler(Scheduler):
 
         self.set_timesteps(num_train_timesteps)
 
-    def set_timesteps(self, num_inference_steps: int) -> None:
+    def set_timesteps(
+        self, num_inference_steps: int, device: torch.device | str | None = None
+    ) -> None:
         """The plan: the RK warm-up's timesteps (unless skipped), then PLMS's.
 
         As in the reference, `num_inference_steps` becomes the plan's length,
         the warm-up's steps included, and the step stride of both methods
         is `num_train_timesteps // num_inference_steps` of that length.
+        `device`, when given, becomes the scheduler's device: the plan and
+        every table move there (the JAX signature's argument).
         """
         if num_inference_steps > self.num_train_timesteps:
             raise ValueError(
                 f"`num_inference_steps`: {num_inference_steps} cannot be larger than "
                 f"`num_train_timesteps`: {self.num_train_timesteps}"
             )
+        self._move_to(device)
         step_ratio = self.num_train_timesteps // num_inference_steps
         base = (np.arange(0, num_inference_steps) * step_ratio).round().astype(np.int64)
         base += self.steps_offset

@@ -101,6 +101,18 @@ class Scheduler:
         # sampling plan (descending timesteps), iterated by the inferer
         self.timesteps = torch.arange(num_train_timesteps - 1, -1, -1, device=self.device)
 
+    def _move_to(self, device: torch.device | str | None) -> None:
+        """Make `device` the scheduler's and move every table there; None
+        leaves both as they are. `set_timesteps(..., device=)` calls it
+        first, so the plan and the tables that each step gathers from with
+        `torch.take` stay on one device."""
+        if device is None:
+            return
+        self.device = torch.device(device)
+        for name, value in list(vars(self).items()):
+            if isinstance(value, torch.Tensor):
+                setattr(self, name, value.to(self.device))
+
     # -- gather helpers (timestep tensors, no host sync) --------------------
 
     def _t(self, timesteps) -> torch.Tensor:

@@ -18,17 +18,22 @@ The row sum l follows the JAX kernel by head width: at D % 128 != 0 it
 rides the PV product on a ones column of V (`fold_l`), so it sums p
 rounded to the input type; at D % 128 == 0 it sums the unrounded p (the
 two agree for f32). The backward treats the clamp as the identity, as the
-JAX backward does. GMTPU_FLASH_NOMAX=0 (read at each call, as JAX reads
-it) selects the running-max contract instead.
+JAX backward does. The JAX kernel's two other contracts run on the same
+kernels (`csrc/flash_contract.cuh`): GMTPU_FLASH_NOMAX=0 (read at each
+call, as JAX reads it) or `no_max=False` selects the running-max online
+softmax in the log2 domain, with no clamp; `upcast=True` (the reference's
+`upcast_attention`) runs f32 operands, the scale applied after the
+product, natural exp and a running max: the kernels' f32 route, with bf16
+inputs cast to f32 once on entry and the results cast back.
 
 `flash_attention` is differentiable through `_FlashAttention`, whose
 backward runs the two split backward kernels or, with
 GMTPU_FLASH_FUSED_BWD=1 (read at each backward, as the JAX backward reads
-it), the fused one (the plain backward on the CPU in both cases).
+it), the fused one (the plain backward on the CPU in both cases), in every
+contract. On the CPU the two other contracts take the plain version with
+torch's autograd through it, which is exact for them (they have no clamp).
 A wrapper takes the plain version only for tensors on the CPU. On a CUDA
-tensor it launches the kernel or raises; `upcast=True` and the running-max
-contract (`no_max=False` or GMTPU_FLASH_NOMAX=0) are not ported to the
-kernels and raise NotImplementedError there.
+tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -48,6 +53,12 @@ HEAD_DIMS = (32, 64, 128, 256)  # head widths the kernels are instantiated for
 # rows covers them
 _BLOCK = 32
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the contracts of csrc/flash_contract.cuh
+_NO_MAX, _RUNNING_MAX, _UPCAST = 0, 1, 2
+
+
+def _contract(upcast: bool, no_max: bool) -> int:
+    return _UPCAST if upcast else _NO_MAX if no_max else _RUNNING_MAX
 
 
 def _prescaled(q: torch.Tensor, scale: float) -> torch.Tensor:
@@ -126,58 +137,79 @@ def flash_attention_reference(
     return out, lse[..., 0]
 
 
-def _backward_rows(out: torch.Tensor, dout: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _backward_rows(
+    out: torch.Tensor, dout: torch.Tensor, upcast: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
     """The inputs of the backward that JAX computes in XLA outside its
     kernels: dO * ln2 in dO's type (ds then carries the d(softmax)/d(log2
-    score) factor) and delta = rowsum(dO ln2 * O) in f32."""
-    dout = dout * torch.tensor(LN2, dtype=dout.dtype)
+    score) factor; dO as it is under `upcast`, whose softmax is natural) and
+    delta = rowsum(dO * O) in f32 of that dO."""
+    if not upcast:
+        dout = dout * torch.tensor(LN2, dtype=dout.dtype)
     return dout, (dout.float() * out.float()).sum(dim=-1)
 
 
 def flash_attention_backward_reference(
-    q_prescaled: torch.Tensor,
+    q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     out: torch.Tensor,
-    lse2: torch.Tensor,
+    lse: torch.Tensor,
     dout: torch.Tensor,
     *,
     causal: bool = False,
+    scale: float = 1.0,
+    upcast: bool = False,
+    no_max: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch backward of the default contract, formula by formula
-    the JAX split backward (`_flash_bwd` with `_dq_kernel` and `_dkv_kernel`).
+    """Plain PyTorch backward of each contract, formula by formula the JAX
+    split backward (`_flash_bwd` with `_dq_kernel` and `_dkv_kernel`).
     It is the plain version of the fused backward too: `_dfused_kernel`
     computes the same function (s and dp once, dq summed over the key tiles
     in f32 before the one cast), so the CPU path serves both settings of
     GMTPU_FLASH_FUSED_BWD.
 
     Args:
-        q_prescaled: (BH, Sq, D), q already multiplied by the rounded
-            scale*log2(e); k, v: (BH, Sk, D); all f32 or all bf16.
-        out: the forward's O (BH, Sq, D); lse2: its (BH, Sq) f32 lse in the
-            log2 domain (`log2_lse=True`); dout: the cotangent of O, in O's
-            type.
+        q: (BH, Sq, D), under the exp2 contracts (`upcast=False`) already
+            multiplied by the rounded scale*log2(e), under `upcast` as the
+            forward took it; k, v: (BH, Sk, D); all f32 or all bf16.
+        out: the forward's O (BH, Sq, D); lse: its (BH, Sq) f32 lse, in the
+            log2 domain (`log2_lse=True`) under the exp2 contracts, natural
+            under `upcast`; dout: the cotangent of O, in O's type.
         causal: the forward's causal mask.
+        scale: the softmax scale (read under `upcast` only).
+        upcast: the upcast contract: f32 products, p = exp(s * scale - lse),
+            and the scale in dq and dk.
+        no_max: the exp2 contract's clamp of s at 80 in p (False: the
+            running-max contract, no clamp).
 
     Returns:
-        (dq_prescaled, dk, dv) in the input type; dq is the gradient with
-        respect to the prescaled q (the caller applies the prescale's chain
-        rule).
+        (dq, dk, dv) in the input type. Under the exp2 contracts dq is the
+        gradient with respect to the prescaled q (the caller applies the
+        prescale's chain rule).
     """
-    dtype = q_prescaled.dtype
-    dout, delta = _backward_rows(out, dout)
-    s = torch.matmul(q_prescaled.float(), k.float().transpose(1, 2))
-    # the clamp's gradient is the identity: ds below has no clamp mask
-    p = torch.exp2(torch.clamp(s, max=80.0) - lse2[..., None])
+    dtype = q.dtype
+    dout, delta = _backward_rows(out, dout, upcast)
+    s = torch.matmul(q.float(), k.float().transpose(1, 2))
+    if upcast:
+        p = torch.exp(s * scale - lse[..., None])
+    else:
+        # the clamp's gradient is the identity: ds below has no clamp mask
+        p = torch.exp2((torch.clamp(s, max=80.0) if no_max else s) - lse[..., None])
     if causal:
         live = torch.ones(s.shape[1], s.shape[2], dtype=torch.bool, device=s.device).tril()
         p = torch.where(live, p, 0.0)
     dp = torch.matmul(dout.float(), v.float().transpose(1, 2))
-    ds = (p * (dp - delta[..., None])).to(dtype).float()
+    ds = p * (dp - delta[..., None])
+    if upcast:  # f32 operands: nothing rounds before the products
+        ds = ds * scale
+        dv = torch.matmul(p.transpose(1, 2), dout.float())
+    else:
+        ds = ds.to(dtype).float()
+        dv = torch.matmul(p.to(dtype).float().transpose(1, 2), dout.float()) * LOG2E
     dq = torch.matmul(ds, k.float()).to(dtype)
-    dk = torch.matmul(ds.transpose(1, 2), q_prescaled.float()).to(dtype)
-    dv = torch.matmul(p.to(dtype).float().transpose(1, 2), dout.float())
-    return dq, dk, (dv * LOG2E).to(dtype)
+    dk = torch.matmul(ds.transpose(1, 2), q.float()).to(dtype)
+    return dq, dk, dv.to(dtype)
 
 
 class FlashForwardKernel(Launcher):
@@ -185,38 +217,58 @@ class FlashForwardKernel(Launcher):
 
     source = "flash_fwd.cu"
     symbol = "gm_flash_fwd"
-    argtypes = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_float,) * 2
+    argtypes = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (ctypes.c_float,) * 3
 
     def __call__(
         self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
-        causal: bool = False, log2_lse: bool = False,
+        causal: bool = False, upcast: bool = False, no_max: bool = True,
+        log2_lse: bool = False,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Launch on the current stream; returns (O, lse) as the reference does."""
+        """Launch on the current stream; returns (O, lse) as the reference
+        does, in each contract. Under `upcast` bf16 inputs are cast to f32
+        here, the f32 kernel runs, and O is cast back to q's type."""
+        if upcast and log2_lse:
+            raise ValueError("log2_lse needs the exp2 contract (upcast=False)")
+        dtype = q.dtype
+        if upcast:
+            q, k, v = q.float(), k.float(), v.float()
         _check_kernel_inputs(q, k, v)
         bh, sq, d = q.shape
         o = torch.empty_like(q)
         lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
         if o.numel() == 0:
-            return o, lse
-        qscale = float(torch.tensor(scale * LOG2E, dtype=q.dtype))
+            return o.to(dtype), lse
+        # the exp2 contracts prescale q by the constant rounded to q's type,
+        # as the JAX wrapper does; upcast scales s after the product
+        qscale = 1.0 if upcast else float(torch.tensor(scale * LOG2E, dtype=q.dtype))
         self._launch(
             q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            bh, sq, k.shape[1], d, _DTYPE_CODES[q.dtype], int(causal), qscale,
-            1.0 if log2_lse else LN2,
+            bh, sq, k.shape[1], d, _DTYPE_CODES[q.dtype], int(causal),
+            _contract(upcast, no_max), qscale, 1.0 if log2_lse else LN2, scale if upcast else 1.0,
         )
-        return o, lse
+        return o.to(dtype), lse
 
 
-_BWD_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 6
+_BWD_ARGTYPES = (
+    (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7 + (ctypes.c_float,)
+)
+# the backward launchers' contract keywords: `upcast` (f32 inputs, q
+# unscaled, dO without ln2, the natural lse, and `scale`) or the exp2
+# contracts with (`no_max`) or without the clamp
 
 
 class _FlashBackwardKernel(Launcher):
     source = "flash_bwd.cu"
 
-    def _run(self, outputs, q, k, v, dout, lse2, delta, causal: bool) -> None:
+    def _run(
+        self, outputs, q, k, v, dout, lse2, delta, causal: bool, upcast: bool, no_max: bool,
+        scale: float,
+    ) -> None:
         """Launch with the inputs, then the outputs."""
         _check_kernel_inputs(q, k, v)
         _check_backward_rows(q, dout, lse2, delta)
+        if upcast and q.dtype != torch.float32:
+            raise ValueError("the upcast contract runs f32 inputs")
         if q.numel() == 0 or k.shape[1] == 0:
             for t in outputs:
                 t.zero_()
@@ -226,6 +278,7 @@ class _FlashBackwardKernel(Launcher):
             q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse2.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outputs),
             bh, sq, k.shape[1], d, _DTYPE_CODES[q.dtype], int(causal),
+            _contract(upcast, no_max), scale if upcast else 1.0,
         )
 
 
@@ -235,10 +288,14 @@ class FlashBackwardDqKernel(_FlashBackwardKernel):
     symbol = "gm_flash_bwd_dq"
     argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) + _BWD_ARGTYPES[6:]
 
-    def __call__(self, q, k, v, dout, lse2, delta, *, causal: bool = False) -> torch.Tensor:
-        """dq of the prescaled q from dO * ln2 and delta (`_backward_rows`) and the log2 lse."""
+    def __call__(
+        self, q, k, v, dout, lse2, delta, *, causal: bool = False, upcast: bool = False,
+        no_max: bool = True, scale: float = 1.0,
+    ) -> torch.Tensor:
+        """dq from dO and delta (`_backward_rows`) and the lse, each in the
+        contract's form (`flash_attention_backward_reference`'s arguments)."""
         dq = torch.empty_like(q)
-        self._run((dq,), q, k, v, dout, lse2, delta, causal)
+        self._run((dq,), q, k, v, dout, lse2, delta, causal, upcast, no_max, scale)
         return dq
 
 
@@ -249,11 +306,12 @@ class FlashBackwardDkvKernel(_FlashBackwardKernel):
     argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) * 2 + _BWD_ARGTYPES[6:]
 
     def __call__(
-        self, q, k, v, dout, lse2, delta, *, causal: bool = False
+        self, q, k, v, dout, lse2, delta, *, causal: bool = False, upcast: bool = False,
+        no_max: bool = True, scale: float = 1.0,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """(dk, dv) from the same inputs as the dq launcher."""
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-        self._run((dk, dv), q, k, v, dout, lse2, delta, causal)
+        self._run((dk, dv), q, k, v, dout, lse2, delta, causal, upcast, no_max, scale)
         return dk, dv
 
 
@@ -265,7 +323,8 @@ class FlashBackwardFusedKernel(_FlashBackwardKernel):
     argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) * 4 + _BWD_ARGTYPES[6:]
 
     def __call__(
-        self, q, k, v, dout, lse2, delta, *, causal: bool = False
+        self, q, k, v, dout, lse2, delta, *, causal: bool = False, upcast: bool = False,
+        no_max: bool = True, scale: float = 1.0,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(dq, dk, dv) from the same inputs as the split launchers, in one
         launch. The kernel's key blocks add their dq parts into one zeroed
@@ -278,7 +337,7 @@ class FlashBackwardFusedKernel(_FlashBackwardKernel):
         lock = torch.zeros((q.shape[0], -(-q.shape[1] // _BLOCK)), dtype=torch.int32,
                            device=q.device)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-        self._run((dq, lock, dk, dv), q, k, v, dout, lse2, delta, causal)
+        self._run((dq, lock, dk, dv), q, k, v, dout, lse2, delta, causal, upcast, no_max, scale)
         return dq.to(q.dtype), dk, dv
 
 
@@ -291,12 +350,16 @@ class FlashBackwardRolesKernel(Launcher):
 
     source = "flash_bwd.cu"
     symbol = "gm_flash_bwd_roles"
-    argtypes = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 3
+    argtypes = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4 + (ctypes.c_float,)
 
-    def __call__(self, q, k, v, dout, lse2, delta) -> torch.Tensor:
+    def __call__(
+        self, q, k, v, dout, lse2, delta, *, upcast: bool = False, no_max: bool = True,
+        scale: float = 1.0,
+    ) -> torch.Tensor:
         """q, k, v, dout (tiles, 16, D), lse2 and delta (tiles, 16) f32;
-        returns f32 (2, 3, tiles, 16, 16): s, dp and ds of every (query,
-        key) pair of a tile, query-major ([0]) and key-major ([1])."""
+        returns f32 (2, 3, tiles, 16, 16): s, dp and ds (of the contract the
+        keywords name, as the backward launchers take them) of every
+        (query, key) pair of a tile, query-major ([0]) and key-major ([1])."""
         _check_kernel_inputs(q, k, v)
         _check_backward_rows(q, dout, lse2, delta)
         if q.shape[1] != 16 or k.shape[1] != 16:
@@ -307,7 +370,7 @@ class FlashBackwardRolesKernel(Launcher):
             self._launch(
                 q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 lse2.data_ptr(), delta.data_ptr(), out.data_ptr(), tiles, d,
-                _DTYPE_CODES[q.dtype],
+                _DTYPE_CODES[q.dtype], _contract(upcast, no_max), scale if upcast else 1.0,
             )
         return out
 
@@ -359,57 +422,75 @@ def _fused_backward_enabled() -> bool:
 
 
 def flash_attention_backward(
-    q_prescaled: torch.Tensor,
+    q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     out: torch.Tensor,
-    lse2: torch.Tensor,
+    lse: torch.Tensor,
     dout: torch.Tensor,
     *,
     causal: bool = False,
+    scale: float = 1.0,
+    upcast: bool = False,
+    no_max: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward of the default contract: on CUDA tensors kernels 2 and 3,
-    or kernel 4 alone when `_fused_backward_enabled()`;
+    """The backward of each contract: on CUDA tensors kernels 2 and 3, or
+    kernel 4 alone when `_fused_backward_enabled()`;
     `flash_attention_backward_reference` (same arguments, same results) on
-    CPU tensors, whatever the setting."""
-    if q_prescaled.device.type == "cpu":
+    CPU tensors, whatever the setting. Under `upcast` bf16 inputs are cast
+    to f32 once here and the gradients cast back to the input types."""
+    if q.device.type == "cpu":
         return flash_attention_backward_reference(
-            q_prescaled, k, v, out, lse2, dout, causal=causal
+            q, k, v, out, lse, dout, causal=causal, scale=scale, upcast=upcast, no_max=no_max
         )
-    dout, delta = _backward_rows(out, dout)
+    dout, delta = _backward_rows(out, dout, upcast)
+    types = q.dtype, k.dtype, v.dtype
+    if upcast:
+        q, k, v, dout = q.float(), k.float(), v.float(), dout.float()
+    contract = dict(causal=causal, upcast=upcast, no_max=no_max, scale=scale)
     if _fused_backward_enabled():
-        return FLASH_BWD_FUSED(q_prescaled, k, v, dout, lse2, delta, causal=causal)
-    dq = FLASH_BWD_DQ(q_prescaled, k, v, dout, lse2, delta, causal=causal)
-    dk, dv = FLASH_BWD_DKV(q_prescaled, k, v, dout, lse2, delta, causal=causal)
-    return dq, dk, dv
+        grads = FLASH_BWD_FUSED(q, k, v, dout, lse, delta, **contract)
+    else:
+        grads = (FLASH_BWD_DQ(q, k, v, dout, lse, delta, **contract),
+                 *FLASH_BWD_DKV(q, k, v, dout, lse, delta, **contract))
+    return tuple(g.to(t) for g, t in zip(grads, types))
 
 
 class _FlashAttention(torch.autograd.Function):
     """Kernel 1 forward (plain version on the CPU); backward by kernels 2 and
     3 or kernel 4 (plain backward on the CPU), never by autograd through the
-    clamp."""
+    clamp. On the CPU only the default contract comes here."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale: float, causal: bool):
-        # the backward reads the lse in the log2 domain, as the JAX kernel
-        # keeps it: a round trip through the natural log costs ~1e-5 of p
-        # where the clamp holds the log2 scores near 80
+    def forward(ctx, q, k, v, scale: float, causal: bool, upcast: bool, no_max: bool):
+        # the exp2 contracts' backward reads the lse in the log2 domain, as
+        # the JAX kernel keeps it: a round trip through the natural log costs
+        # ~1e-5 of p where the clamp holds the log2 scores near 80
         fwd = FLASH_FWD if q.is_cuda else flash_attention_reference
-        out, lse2 = fwd(q, k, v, scale=scale, causal=causal, log2_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse2)
-        ctx.scale, ctx.causal = scale, causal
-        ctx.mark_non_differentiable(lse2)
-        return out, lse2
+        out, lse = fwd(
+            q, k, v, scale=scale, causal=causal, upcast=upcast, no_max=no_max,
+            log2_lse=not upcast,
+        )
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal, ctx.upcast, ctx.no_max = scale, causal, upcast, no_max
+        ctx.mark_non_differentiable(lse)
+        return out, lse
 
     @staticmethod
-    def backward(ctx, dout, _dlse2):
-        q, k, v, out, lse2 = ctx.saved_tensors
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        contract = dict(causal=ctx.causal, upcast=ctx.upcast, no_max=ctx.no_max)
+        if ctx.upcast:
+            grads = flash_attention_backward(
+                q, k, v, out, lse, dout.contiguous(), scale=ctx.scale, **contract
+            )
+            return (*grads, None, None, None, None)
         dq, dk, dv = flash_attention_backward(
-            _prescaled(q, ctx.scale), k, v, out, lse2, dout.contiguous(), causal=ctx.causal
+            _prescaled(q, ctx.scale), k, v, out, lse, dout.contiguous(), **contract
         )
         # JAX prescales q outside its custom VJP: the chain rule of that
         # product multiplies dq by the same rounded constant, in q's type
-        return _prescaled(dq, ctx.scale), dk, dv, None, None
+        return _prescaled(dq, ctx.scale), dk, dv, None, None, None, None
 
 
 def _no_max_default() -> bool:
@@ -441,16 +522,12 @@ def flash_attention(
     _check_device(q)
     if no_max is None:
         no_max = _no_max_default()
-    if upcast or not no_max:
-        if q.is_cuda:
-            raise NotImplementedError(
-                "the CUDA kernels implement the default contract only (upcast=False, no_max=True)"
-            )
+    if not q.is_cuda and (upcast or not no_max):
         # no clamp in these contracts: autograd through the plain version is exact
         return flash_attention_reference(
             q, k, v, scale=scale, causal=causal, upcast=upcast, no_max=no_max
         )[0]
-    return _FlashAttention.apply(q, k, v, scale, causal)[0]
+    return _FlashAttention.apply(q, k, v, scale, causal, upcast, no_max)[0]
 
 
 def flash_attention_with_lse(
@@ -471,8 +548,5 @@ def flash_attention_with_lse(
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise NotImplementedError("flash_attention_with_lse is forward-only")
     no_max = _no_max_default()
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale=scale, upcast=upcast, no_max=no_max)
-    if upcast or not no_max:
-        raise NotImplementedError("the CUDA kernel implements the default contract only")
-    return FLASH_FWD(q, k, v, scale=scale)
+    fwd = flash_attention_reference if q.device.type == "cpu" else FLASH_FWD
+    return fwd(q, k, v, scale=scale, upcast=upcast, no_max=no_max)

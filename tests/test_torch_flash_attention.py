@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import itertools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from generativemodels_tpu_torch.ops import (
     FLASH_FWD,
     dot_product_attention,
     flash_attention,
+    flash_attention_backward_reference,
     flash_attention_reference,
     flash_attention_with_lse,
     resolve_use_flash,
@@ -148,6 +150,88 @@ def test_reference_other_contracts_match_jax(upcast, no_max):
         upcast=upcast, no_max=no_max,
     )
     np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **F32_TOL)
+
+
+# the JAX kernel's two other contracts (B4): (upcast, no_max)
+CONTRACTS = {"upcast": (True, True), "running_max": (False, False)}
+# name: (BH, Sq, Sk, D, causal); Sk = 1 and 77 are the cross-attention
+# contexts of the conditioned UNets (brain covariates, CXR text)
+CONTRACT_CASES = {
+    "causal": (2, 128, 128, 64, True),
+    "ctx1": (2, 128, 1, 32, False),
+    "ctx77": (2, 128, 77, 64, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CONTRACT_CASES))
+@pytest.mark.parametrize("contract", sorted(CONTRACTS))
+def test_contract_forward_matches_jax_kernel(contract, case):
+    """Both contracts of the JAX kernel (interpret mode), f32 and bf16, at
+    the tolerances of the module docstring: O, and the natural lse of
+    `flash_attention_with_lse` where there is no mask. The bf16 upcast O
+    is the f32 result rounded once to bf16 in both."""
+    upcast, no_max = CONTRACTS[contract]
+    bh, sq, sk, d, causal = CONTRACT_CASES[case]
+    q, k, v = _qkv(bh, sq, sk, d, seed=9)
+    scale = d**-0.5
+    for dtype, jdtype, tol in ((torch.float32, jnp.float32, F32_TOL),
+                               (torch.bfloat16, jnp.bfloat16, BF16_TOL)):
+        jq, jk, jv = (jnp.asarray(a, dtype=jdtype) for a in (q, k, v))
+        tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+        j_out = jflash(jq, jk, jv, scale=scale, causal=causal, interpret=True, upcast=upcast,
+                       no_max=no_max)
+        out, _ = flash_attention_reference(tq, tk, tv, scale=scale, causal=causal,
+                                           upcast=upcast, no_max=no_max)
+        assert out.dtype == dtype
+        np.testing.assert_allclose(out.float().numpy(), np.asarray(j_out, np.float32), **tol)
+        if dtype == torch.float32 and not causal and no_max == (not upcast):
+            _, j_lse = jflash_lse(jq, jk, jv, scale=scale, interpret=True, upcast=upcast)
+            _, lse = flash_attention_with_lse(tq, tk, tv, scale=scale, upcast=upcast)
+            np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), **F32_TOL)
+
+
+@pytest.mark.parametrize("case", ["causal", "ctx77"])
+@pytest.mark.parametrize("contract", sorted(CONTRACTS))
+def test_contract_gradient_matches_jax(contract, case):
+    """dq, dk, dv of both contracts in f32 against `jax.vjp` of the JAX
+    kernel (its backward kernels in interpret mode), at atol = rtol = 1e-5
+    of f32 sums in another order: through the port's `flash_attention` (on
+    the CPU, torch's autograd through the plain version) and through
+    `flash_attention_backward_reference`, the plain version that kernels
+    2-4 are held against on the card, fed the contract's inputs as
+    `_FlashAttention` feeds the kernels."""
+    upcast, no_max = CONTRACTS[contract]
+    bh, sq, sk, d, causal = CONTRACT_CASES[case]
+    q, k, v = _qkv(bh, sq, sk, d, seed=10)
+    dout = np.random.RandomState(11).standard_normal((bh, sq, d)).astype(np.float32)
+    scale = d**-0.5
+    _, vjp = jax.vjp(
+        lambda a, b, c: jflash(a, b, c, scale=scale, causal=causal, interpret=True,
+                               upcast=upcast, no_max=no_max),
+        *(jnp.asarray(a) for a in (q, k, v)),
+    )
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, scale=scale, causal=causal, upcast=upcast, no_max=no_max)
+    out.backward(torch.from_numpy(dout))
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), ref, **F32_TOL)
+
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out, lse = flash_attention_reference(tq, tk, tv, scale=scale, causal=causal, upcast=upcast,
+                                         no_max=no_max, log2_lse=not upcast)
+    if upcast:
+        grads = flash_attention_backward_reference(
+            tq, tk, tv, out, lse, torch.from_numpy(dout), causal=causal, scale=scale,
+            upcast=True)
+    else:
+        qs = tq * (scale * 1.4426950408889634)
+        dq, dk, dv = flash_attention_backward_reference(
+            qs, tk, tv, out, lse, torch.from_numpy(dout), causal=causal, no_max=no_max)
+        grads = dq * (scale * 1.4426950408889634), dk, dv
+    for got, ref in zip(grads, want):
+        np.testing.assert_allclose(got.numpy(), ref, **F32_TOL)
 
 
 def test_nomax_variable_matches_jax(monkeypatch):

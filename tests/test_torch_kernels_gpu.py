@@ -22,9 +22,17 @@ cancel). Kernels 2-4 compute s and dp by one function, kernel 2 with the
 queries as the mma's A operand, kernels 3 and 4 with the keys: both roles
 give the same s, dp and ds to the bit, so every bf16 ds rounds alike in
 the three. Two launches of kernel 2, and two of kernel 4, give the same dq
-to the bit.
-Kernel 5, relative to the largest output, against a plain version whose
-f32 convolution runs without TF32: 1e-5 for f32 (summation order of
+to the bit. Kernels 1-4 under the JAX kernel's other two contracts
+(`upcast=True`, and the running max of `no_max=False` or
+GMTPU_FLASH_NOMAX=0), at the same tolerances, with Sk = 1 and 77 (the
+conditioned UNets' cross-attention) among the shapes: the lse relative to
+max(1, max|lse|), and at Sk = 1 dq and dk, which are 0 in exact
+arithmetic, relative to the size of the terms that cancel in them. A
+scheduler moved to the card by `set_timesteps(n, device="cuda")` takes a
+step there.
+Kernel 5 (the brain LDM UNet's shapes among its cases), relative to the
+largest output, against a plain version whose f32 convolution runs
+without TF32: 1e-5 for f32 (summation order of
 27 * Cin products), 1e-2 for bf16 (the output is rounded to bf16, 2**-8 of
 its value, and a rare activation rounds the other way at a tie); two
 launches of the bf16 kernel give the same bits.
@@ -274,20 +282,31 @@ def test_dq_kernel_is_deterministic_on_gpu(cuda_device, d, dtype, causal):
 
 @pytest.mark.cuda
 def test_unported_contracts_raise_on_gpu(cuda_device, monkeypatch):
+    """The JAX kernel's other two contracts (`upcast=True`, and the running
+    max of `no_max=False` or GMTPU_FLASH_NOMAX=0) are ported: on the card
+    they launch kernels 1-4 and raise nothing; what still raises is a
+    gradient through the forward-only `flash_attention_with_lse` and a head
+    width the kernels are not built for."""
     q = torch.randn(2, 64, 32, device=cuda_device)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, scale=0.1, upcast=True)
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, scale=0.1, no_max=False)
+    counters = (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV)
+    for kwargs in (dict(upcast=True), dict(no_max=False)):
+        before = [c.launches for c in counters]
+        qg = q.clone().requires_grad_()
+        flash_attention(qg, q, q, scale=0.1, **kwargs).sum().backward()
+        torch.cuda.synchronize()
+        assert [c.launches for c in counters] == [n + 1 for n in before], kwargs
+        assert bool(torch.isfinite(qg.grad).all())
     monkeypatch.setenv("GMTPU_FLASH_NOMAX", "0")  # the running-max contract, read at each call
-    with pytest.raises(NotImplementedError):
-        flash_attention(q, q, q, scale=0.1)
-    with pytest.raises(NotImplementedError):
-        flash_attention_with_lse(q, q, q, scale=0.1)
+    before = FLASH_FWD.launches
+    flash_attention(q, q, q, scale=0.1)
+    flash_attention_with_lse(q, q, q, scale=0.1)
+    flash_attention_with_lse(q, q, q, scale=0.1, upcast=True)
+    torch.cuda.synchronize()
+    assert FLASH_FWD.launches == before + 3
     monkeypatch.delenv("GMTPU_FLASH_NOMAX")
     with pytest.raises(NotImplementedError):
         flash_attention_with_lse(q.clone().requires_grad_(), q, q, scale=0.1)
-    # a gradient now runs the backward kernels
+    # a gradient of the default contract runs the backward kernels
     qg = q.clone().requires_grad_()
     before = FLASH_FWD.launches, FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches
     flash_attention(qg, q, q, scale=0.1).sum().backward()
@@ -298,6 +317,190 @@ def test_unported_contracts_raise_on_gpu(cuda_device, monkeypatch):
     with pytest.raises(ValueError, match="head width"):
         FLASH_FWD(q[..., :16].contiguous(), q[..., :16].contiguous(), q[..., :16].contiguous(),
                   scale=0.1)
+
+
+# the JAX kernel's other two contracts: (upcast, no_max)
+CONTRACTS = {"upcast": (True, True), "running_max": (False, False)}
+# (BH, Sq, Sk, causal): Sk 1 and 77 are the cross-attention contexts of the
+# conditioned UNets (brain covariates, CXR text) at Sq 1024
+CONTRACT_SHAPES = {
+    "self": (2, 512, 512, False),
+    "causal": (2, 300, 300, True),
+    "ragged": (3, 200, 333, False),
+    "ctx1": (2, 1024, 1, False),
+    "ctx77": (2, 1024, 77, False),
+}
+
+
+def _contract_inputs(device, bh, sq, sk, d, dtype, seed=7, mult=1.0):
+    g = torch.Generator(device).manual_seed(seed)
+    q, k, v = (torch.randn((bh, s, d), generator=g, device=device).to(dtype) for s in (sq, sk, sk))
+    return (q.float() * mult).to(dtype), k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("case", sorted(CONTRACT_SHAPES))
+@pytest.mark.parametrize("contract", sorted(CONTRACTS))
+def test_contract_forward_kernel_matches_reference_on_gpu(cuda_device, contract, case, d, dtype):
+    """Kernel 1 under each contract against the plain version: O at the
+    forward tolerance, the lse at it relative to max(1, max|lse|) (the lse
+    holds the row's largest score, and the kernel sums and rescales l tile
+    by tile, the plain version once). Unit inputs, as phase 2 of
+    chip_smoke.py: the f32 O tolerance of 1e-5 holds for scores of order
+    one, since the exp turns each score's f32 rounding, ~1e-7 of |s|, into
+    that share of p (at q x 4, natural logits up to ~25, f32 O differs by
+    up to 2.4e-5 at D = 128 and 256)."""
+    upcast, no_max = CONTRACTS[contract]
+    bh, sq, sk, causal = CONTRACT_SHAPES[case]
+    q, k, v = _contract_inputs(cuda_device, bh, sq, sk, d, dtype)
+    kw = dict(scale=d**-0.5, causal=causal, upcast=upcast, no_max=no_max)
+    before = FLASH_FWD.launches
+    o, lse = FLASH_FWD(q, k, v, **kw)
+    ref_o, ref_lse = flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FLASH_FWD.launches == before + 1
+    assert o.dtype == dtype and bool(torch.isfinite(o.float()).all())
+    o_tol, lse_tol = FWD_TOL[dtype]
+    assert (o.float() - ref_o.float()).abs().max().item() <= o_tol
+    lse_scale = max(1.0, ref_lse.abs().max().item())
+    assert (lse - ref_lse).abs().max().item() <= lse_tol * lse_scale
+
+
+def _contract_backward_inputs(device, bh, sq, sk, d, dtype, causal, upcast, no_max, seed=8):
+    """The backward's inputs as `_FlashAttention` hands them on: q
+    prescaled and the log2 lse under the exp2 contracts; q as it is and the
+    natural lse under upcast."""
+    q, k, v = _contract_inputs(device, bh, sq, sk, d, dtype, seed=seed, mult=4.0)
+    dout = torch.randn((bh, sq, d), generator=torch.Generator(device).manual_seed(seed + 1),
+                       device=device).to(dtype)
+    kw = dict(causal=causal, upcast=upcast, no_max=no_max)
+    out, lse = FLASH_FWD(q, k, v, scale=d**-0.5, log2_lse=not upcast, **kw)
+    q_in = q if upcast else _prescaled(q, d**-0.5)
+    return (q_in, k, v, out, lse, dout), dict(scale=d**-0.5, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("case", ["causal", "ragged", "ctx1", "ctx77"])
+@pytest.mark.parametrize("contract", sorted(CONTRACTS))
+def test_contract_backward_kernels_match_reference_on_gpu(cuda_device, monkeypatch, contract,
+                                                          case, d, dtype):
+    """Kernels 2 + 3 and kernel 4 under each contract against the plain
+    backward, relative to the largest gradient at BWD_TOL; kernel 4's dk
+    and dv equal kernels 3's to the bit, as in the default contract. At
+    Sk = 1 each row's softmax is 1 and ds = p (dp - delta) cancels to
+    rounding, so dq and dk are 0 in exact arithmetic: they are held to the
+    size of the cancelling terms (max|dO| max|v| max|k|, or max|q| for dk,
+    in row norms, times the scale under upcast) instead of their own."""
+    upcast, no_max = CONTRACTS[contract]
+    bh, sq, sk, causal = CONTRACT_SHAPES[case]
+    args, kw = _contract_backward_inputs(cuda_device, bh, sq, sk, d, dtype, causal, upcast,
+                                         no_max)
+    counters = (FLASH_BWD_DQ, FLASH_BWD_DKV, FLASH_BWD_FUSED)
+    before = [c.launches for c in counters]
+    monkeypatch.setenv("GMTPU_FLASH_FUSED_BWD", "0")
+    split = flash_attention_backward(*args, **kw)
+    monkeypatch.setenv("GMTPU_FLASH_FUSED_BWD", "1")
+    fused = flash_attention_backward(*args, **kw)
+    want = flash_attention_backward_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    sizes = [b.float().abs().max().item() for b in want]
+    if sk == 1:
+        q_in, k, v, _, _, dout = args
+
+        def rows(t):
+            return t.float().norm(dim=-1).max().item()
+
+        terms = rows(dout) * rows(v) * (kw["scale"] if upcast else 1.0)
+        sizes[0] = max(sizes[0], terms * rows(k))
+        sizes[1] = max(sizes[1], terms * rows(q_in))
+    for got in (split, fused):
+        for a, b, size in zip(got, want, sizes):
+            assert a.dtype == dtype and a.shape == b.shape
+            assert bool(torch.isfinite(a.float()).all())
+            assert (a.float() - b.float()).abs().max().item() <= BWD_TOL[dtype] * size
+    torch.testing.assert_close(fused[1], split[1], rtol=0, atol=0)
+    torch.testing.assert_close(fused[2], split[2], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("contract", sorted(CONTRACTS))
+def test_contracts_through_flash_attention_on_gpu(cuda_device, contract, dtype):
+    """`flash_attention` under each contract, forward and backward on the
+    kernels, against torch's autograd through the plain version on the same
+    card (exact for these contracts: no clamp), at the forward and backward
+    tolerances."""
+    upcast, no_max = CONTRACTS[contract]
+    q, k, v = _contract_inputs(cuda_device, 2, 1024, 77, 64, dtype, seed=9, mult=4.0)
+    dout = torch.randn(q.shape, generator=torch.Generator(cuda_device).manual_seed(10),
+                       device=cuda_device).to(dtype)
+    kw = dict(scale=0.125, upcast=upcast, no_max=no_max)
+    grads = {}
+    for name, fn in (("kernel", flash_attention),
+                     ("plain", lambda *a, **k_: flash_attention_reference(*a, **k_)[0])):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, **kw)
+        out.backward(dout)
+        grads[name] = (out.detach(), *(t.grad for t in leaves))
+    torch.cuda.synchronize()
+    assert (grads["kernel"][0].float() - grads["plain"][0].float()).abs().max().item() <= (
+        FWD_TOL[dtype][0])
+    for a, b in zip(grads["kernel"][1:], grads["plain"][1:]):
+        assert a.dtype == dtype
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= BWD_TOL[dtype] * b.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype, contract", [(torch.float32, "upcast"),
+                                             (torch.float32, "running_max"),
+                                             (torch.bfloat16, "running_max")])
+def test_sdp_roles_agree_to_the_bit_under_contracts_on_gpu(cuda_device, d, dtype, contract):
+    """The shared s, dp computation with each contract's p and ds: both
+    operand roles give the same bits."""
+    upcast, no_max = CONTRACTS[contract]
+    tiles = 64
+    g = torch.Generator(cuda_device).manual_seed(12)
+    q, k, v, dout = (torch.randn((tiles, 16, d), generator=g, device=cuda_device).to(dtype)
+                     for _ in range(4))
+    scale = d**-0.5
+    s_ref = torch.matmul(q.float(), k.float().transpose(1, 2))
+    lse = (torch.logsumexp(s_ref * scale, dim=-1) if upcast
+           else torch.logsumexp(s_ref * scale, dim=-1) * 1.4426950408889634)
+    if not upcast:
+        q = _prescaled(q, scale)
+    delta = torch.randn((tiles, 16), generator=g, device=cuda_device)
+    out = FLASH_BWD_ROLES(q, k, v, dout, lse, delta, upcast=upcast, no_max=no_max, scale=scale)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and out[0, 2].abs().max().item() > 0
+    assert torch.equal(out[0].view(torch.int32), out[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["DDPMScheduler", "DDIMScheduler",
+                                  "DPMSolverMultistepScheduler", "PNDMScheduler"])
+def test_scheduler_moves_to_the_card(cuda_device, name):
+    """`set_timesteps(n, device="cuda")` moves the plan and every table to
+    the card, and a step there gathers from them."""
+    from generativemodels_tpu_torch.networks import schedulers
+
+    sched = getattr(schedulers, name)(num_train_timesteps=100)
+    sched.set_timesteps(10, device="cuda")
+    tables = [t for t in vars(sched).values() if isinstance(t, torch.Tensor)]
+    assert all(t.is_cuda for t in tables) and sched.timesteps.is_cuda
+    x = torch.randn(2, 1, 8, 8, device=cuda_device)
+    if hasattr(sched, "init_state"):
+        out, _ = sched.step(sched.init_state(x.shape), 0.1 * x, sched.timesteps[0], x)
+    else:
+        out, _ = sched.step(0.1 * x, sched.timesteps[0], x)
+    torch.cuda.synchronize()
+    assert out.is_cuda and bool(torch.isfinite(out).all())
 
 
 def test_fused_conv_launcher_rejects_cpu_tensors():
@@ -349,6 +552,13 @@ def _conv_inputs(device, b, d, h, w, cin, cout, dtype, channels_first, res_dtype
         ((1, 8, 8, 8, 512, 256), torch.bfloat16, True, torch.bfloat16, True),
         ((1, 16, 16, 16, 384, 128), torch.bfloat16, True, torch.bfloat16, True),
         ((1, 32, 32, 32, 192, 64), torch.bfloat16, True, torch.bfloat16, True),
+        # the brain LDM UNet (256, 512, 768) at its 20x28x20 latent: odd
+        # extents, H != W, W < 32, Cin up to 1536 on the up path
+        ((1, 20, 28, 20, 256, 256), torch.bfloat16, True, torch.bfloat16, True),
+        ((1, 20, 28, 20, 768, 256), torch.bfloat16, True, torch.bfloat16, True),
+        ((1, 10, 14, 10, 1280, 512), torch.bfloat16, True, torch.bfloat16, True),
+        ((1, 5, 7, 5, 1536, 768), torch.bfloat16, True, torch.bfloat16, True),
+        ((1, 5, 7, 5, 512, 768), torch.bfloat16, True, None, True),
     ],
 )
 def test_fused_conv_matches_reference_on_gpu(cuda_device, monkeypatch, shape, dtype,

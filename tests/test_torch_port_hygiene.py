@@ -34,7 +34,10 @@ def test_port_modules_import_without_jax():
     modules = _port_modules()
     for name in ("recipes.serve", "recipes.train_2d_ddpm", "parallel.train", "utils.profiling",
                  "probes.probe_overlap", "networks.nets.autoencoderkl", "inferers.latent",
-                 "networks.schedulers.pndm", "probes.bench_3d_ldm"):
+                 "networks.schedulers.pndm", "probes.bench_3d_ldm",
+                 "networks.blocks.mlp", "networks.blocks.attention_blocks",
+                 "networks.nets.controlnet", "inferers.controlnet", "recipes.guidance",
+                 "recipes.brain_ldm_sampler"):
         assert f"generativemodels_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

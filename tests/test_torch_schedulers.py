@@ -183,3 +183,39 @@ def test_pndm_state_is_not_changed_by_a_step():
     b, _ = t.step(state, out, t.timesteps[0], sample)
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert state.counter == 0 and state.ets == ()
+
+
+_DEVICE_SCHEDULERS = {
+    "ddpm": (jsched.DDPMScheduler, tsched.DDPMScheduler),
+    "ddim": (jsched.DDIMScheduler, tsched.DDIMScheduler),
+    "dpmsolver": (jsched.DPMSolverMultistepScheduler, tsched.DPMSolverMultistepScheduler),
+    "pndm": (jsched.PNDMScheduler, tsched.PNDMScheduler),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_DEVICE_SCHEDULERS))
+def test_set_timesteps_takes_a_device(name):
+    """`set_timesteps(n, device=)`, the signature the JAX schedulers share:
+    the plan equals JAX's (exactly), the plan and every table end on the
+    named device, and a step gathers from them there."""
+    jcls, tcls = _DEVICE_SCHEDULERS[name]
+    j, t = jcls(num_train_timesteps=100), tcls(num_train_timesteps=100)
+    j.set_timesteps(10, device="cpu")
+    t.set_timesteps(10, device="cpu")
+    np.testing.assert_array_equal(t.timesteps.numpy(), np.asarray(j.timesteps))
+    assert t.device == torch.device("cpu")
+    tensors = [v for v in vars(t).values() if isinstance(v, torch.Tensor)]
+    assert tensors and all(v.device == t.device for v in tensors)
+    x, eps = torch.from_numpy(_rand(3)), torch.from_numpy(_rand(4))
+    if name in ("dpmsolver", "pndm"):
+        state = t.init_state(x.shape)
+        out, _ = t.step(state, eps, t.timesteps[0], x)
+    else:
+        out, _ = t.step(eps, t.timesteps[0], x)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+
+
+def test_set_timesteps_without_a_device_keeps_the_device():
+    t = tsched.DDIMScheduler(num_train_timesteps=100, device="cpu")
+    t.set_timesteps(10)
+    assert t.device == torch.device("cpu") and t.timesteps.device == t.device
