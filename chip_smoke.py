@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU: build and check its kernels, serve,
 train, sample the 3D 128^3 model and train it, run the attention probes, the
-latent route and the conditioned models.
+latent route, the conditioned models and stage-1 adversarial training.
 
 Run from the root of a checkout, with no arguments:
 
@@ -94,7 +94,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      guidance (`recipes.guidance.sample_with_guidance`) on the CXR LDM's
      UNet at full width with a (1, 77, 1024) context, DDIM-50 and
      DPM-Solver++-10, and one guided prediction against its two forwards.
-Phase 2 also holds kernels 1-4 under the JAX kernel's other two contracts
+ 10. stage-1 and adversarial training: (a) `recipes.train_3d_ldm.main` at the
+     JAX recipe's widths (AEKL (32, 64, 64) with attention at 32^3 = 32768
+     tokens, PatchGAN 32 channels, latent UNet (32, 64, 64)) on a 128^3
+     volume at batch 2 in f32 with the split and the fused backward, then in
+     bf16: 2 warm-up + 6 adversarial stage-1 steps, 5 stage-2 steps and a
+     DDPM-2 latent sample, seconds a step, peak memory, and kernels 1-4
+     counted against what the attention blocks imply; (b) one stage-1
+     generator step's gradients at 64^3, the kernel paths against the plain
+     attention path; (c) `recipes.train_vqgan.main` and (d)
+     `recipes.train_2d_ldm.main` at their defaults (no kernel on their
+     paths); (e) a profiled stage-1 step at 128^3.
+Phase 2 also holds kernels 1-4 at phase 10's two f32 shapes, (2, 32768,
+32768, 64) and (2, 4096, 4096, 64), and under the JAX kernel's other two contracts
 (`upcast=True`, the running max of GMTPU_FLASH_NOMAX=0) against their plain
 versions, Sk = 1 and 77 among the shapes, times them at the 2D and 3D
 shapes, runs one forward of (b)'s UNet under each contract against the
@@ -162,6 +174,10 @@ KERNEL_CASES = (
     ("head32_bf16", (4, 1024, 1024, 32), "bfloat16", False),
     ("causal_bf16", (4, 1024, 1024, 128), "bfloat16", True),
     ("ragged_cross_bf16", (2, 1000, 777, 64), "bfloat16", False),
+    # phase 10's f32 3D LDM recipe: the stage-1 AEKL's attention at 32^3 and
+    # the latent UNet's level 1 at 16^3, both one head of 64 at batch 2
+    ("aekl_3d_f32", (2, 32768, 32768, 64), "float32", False),
+    ("latent_unet_f32", (2, 4096, 4096, 64), "float32", False),
 )
 # O, max|diff|: f32 differs from the plain version only in summation order
 # (the 3xTF32 products keep f32 accuracy); bf16 O is rounded to bf16 (one
@@ -194,6 +210,8 @@ BACKWARD_CASES = (
     ("ragged_cross_f32", (2, 1000, 777, 64), "float32", False),
     ("head64_bf16", (2, 4096, 4096, 64), "bfloat16", False),
     ("3d_level2_bf16", (2, 32768, 32768, 64), "bfloat16", False),  # the 3D training step's
+    ("aekl_3d_f32", (2, 32768, 32768, 64), "float32", False),  # phase 10, stage 1
+    ("latent_unet_f32", (2, 4096, 4096, 64), "float32", False),  # phase 10, stage 2
 )
 # max|diff| / max|ref| of dq, dk, dv: f32 sums over 1024+ keys in another
 # order; bf16 rounds ds, p and the outputs to bf16
@@ -449,6 +467,55 @@ LDM_PROFILE_GROUPS = (
     ("GroupNorm and statistics", ("Moments", "reduce_kernel", "group_norm", "GroupNorm",
                                   "pow_tensor")),
     ("other", ("",)),
+)
+
+# phase 10: the JAX recipe recipes/train_3d_ldm.py at its model widths (AEKL
+# (32, 64, 64), attention on its last level, 3 latent channels; PatchGAN 32
+# channels, 3 layers, instance norm; latent UNet (32, 64, 64), heads of 64)
+# and its f32 default, on a 128^3 volume at batch 2, with seeded random
+# weights; two reconstruction-only steps among eight stage-1 steps, then five
+# stage-2 steps and a DDPM-2 latent sample
+LDM3D_STEPS = dict(warmup=2, stage1=8, stage2=5, sample=2)
+LDM3D_ARGS = ("--size", "128", "--batch", "2", "--warmup-steps", str(LDM3D_STEPS["warmup"]),
+              "--stage1-steps", str(LDM3D_STEPS["stage1"]),
+              "--stage2-steps", str(LDM3D_STEPS["stage2"]),
+              "--sample", "--sample-steps", str(LDM3D_STEPS["sample"]))
+# kernel launches: a stage-1 step's G forward runs the AEKL's two attention
+# blocks at 32^3 = 32768 tokens (encoder level 2, decoder level 0), forward
+# and backward (D has no attention); a stage-2 step's encode runs the
+# encoder's block forward only (no autograd), its UNet forward three blocks
+# at 16^3 = 4096 tokens (one down, two up; the 8^3 level and the mid block,
+# 512 tokens, stay plain), each forward and backward; the scale factor's
+# encode and the sample's decode one forward each, a sample step three
+LDM3D_LAUNCHES = {
+    "split": (dict(flash_fwd=2, flash_bwd_dq=2, flash_bwd_dkv=2),
+              dict(flash_fwd=4, flash_bwd_dq=3, flash_bwd_dkv=3)),
+    "fused": (dict(flash_fwd=2, flash_bwd_fused=2), dict(flash_fwd=4, flash_bwd_fused=3)),
+}
+LDM3D_RUNS = (("split", "0", "f32"), ("fused", "1", "f32"), ("split", "0", "bf16"))
+LDM3D_GRAD_SIZE = 64  # the gradient check: the AEKL's attention at 16^3 = 4096 tokens
+# phase 10 (c), (d): the 2D recipes at their defaults (train_vqgan: VQ-VAE
+# (128, 256), 256 codes of 32, PatchGAN 64 channels, batch 16, 64x64;
+# train_2d_ldm: AEKL (64, 128, 128), UNet (64, 128, 128), batch 16, 64x64);
+# neither launches a kernel (no attention in the VQ-VAE or the 2D AEKL; the
+# 2D latent UNet attends at 8x8 and 4x4, under the flash threshold)
+VQGAN_ARGS = ("--steps", "12", "--warmup-steps", "2")
+LDM2D_ARGS = ("--stage1-steps", "6", "--warmup-steps", "2", "--stage2-steps", "6")
+# kernel groups of a stage-1 step's profile, matched in this order by name
+LDM3D_PROFILE_GROUPS = (
+    ("flash_bwd_fused (kernel 4)", ("flash_bwd_fused",)),
+    ("flash_bwd_dq (kernel 2)", ("flash_bwd_dq",)),
+    ("flash_bwd_dkv (kernel 3)", ("flash_bwd_dkv",)),
+    ("flash_fwd (kernel 1)", ("flash_fwd",)),
+    ("cuDNN convolutions and cuBLAS products", ("xmma", "cudnn", "conv", "gemm", "Conv",
+                                                "cutlass", "sm90", "wgrad", "dgrad")),
+    ("GroupNorm forward and backward", ("Moments", "GroupNorm", "group_norm", "FusedParams",
+                                        "InternalGradients")),
+    ("InstanceNorm (var_mean) and other reductions", ("Welford", "reduce_kernel")),
+    ("copies, casts and fills", ("copy", "nchwToNhwc", "nhwcToNchw", "Memcpy", "Memset",
+                                 "fill")),
+    ("Adam", ("multi_tensor", "adam", "Adam")),
+    ("other (SiLU, LeakyReLU, adds, upsampling, losses)", ("",)),
 )
 
 
@@ -2377,6 +2444,160 @@ def run_cfg(torch, ops, nets, schedulers) -> dict:
     return results
 
 
+def ldm3d_expected(label: str) -> dict:
+    """Every kernel's launches over one run of LDM3D_ARGS with `label`'s backward."""
+    stage1, stage2 = LDM3D_LAUNCHES[label]
+    n = LDM3D_STEPS
+    total = {k: n["stage1"] * v for k, v in stage1.items()}
+    for k, v in stage2.items():
+        total[k] = total.get(k, 0) + n["stage2"] * v
+    total["flash_fwd"] += 1 + 3 * n["sample"] + 1  # scale factor, sample steps, decode
+    return expected_launches(**total)
+
+
+def mean(xs) -> float:
+    return sum(xs) / len(xs)
+
+
+def run_ldm3d(torch, ops, ldm3d) -> dict:
+    """Phase 10 (a): `recipes.train_3d_ldm.main` at 128^3 with each backward
+    in f32, then in bf16 with the split backward: seconds per stage-1 step
+    (the adversarial steps after the warm-up ones) and per stage-2 step (all
+    but the first), host clock ending in a synchronize; peak memory; the
+    launches of kernels 1-4 against what the attention blocks imply."""
+    results = {}
+    for label, flag, dtype in LDM3D_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        with fused_backward(flag):
+            out = ldm3d.main([*LDM3D_ARGS, "--dtype", dtype, "--device", DEVICE])
+        seconds = time.perf_counter() - t0
+        counts = read_launches(ops)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        s1 = out["stage1_seconds"][LDM3D_STEPS["warmup"]:]
+        s2 = out["stage2_seconds"][1:]
+        losses = [v for step in out["stage1_losses"] for v in step.values()]
+        losses += out["stage2_losses"]
+        log(f"ldm3d: recipe main at 128^3, batch 2, {dtype}, {label} backward: "
+            f"{seconds:.2f} s in all; stage 1 {mean(s1):.4f} s a step (adversarial steps "
+            + ", ".join(f"{x:.4f}" for x in s1) + f"; first step "
+            f"{out['stage1_seconds'][0]:.4f}); stage 2 {mean(s2):.4f} s a step ("
+            + ", ".join(f"{x:.4f}" for x in s2) + f"); scale factor {out['scale_factor']:.4f}; "
+            f"peak memory {peak:.2f} GiB; stage-1 losses "
+            + "; ".join(", ".join(f"{v:.4f}" for v in step.values())
+                        for step in out["stage1_losses"])
+            + "; stage-2 losses " + ", ".join(f"{x:.4f}" for x in out["stage2_losses"]))
+        sample = out["sample"]
+        if (not all(np.isfinite(losses)) or sample is None
+                or tuple(sample.shape) != (1, 1, 128, 128, 128)
+                or not bool(torch.isfinite(sample).all())):
+            raise AssertionError(f"3D LDM recipe ({dtype}, {label}): losses or sample not finite")
+        check_launches(counts, ldm3d_expected(label), f"3D LDM recipe, {dtype}, {label} backward")
+        results[f"{dtype}_{label}"] = dict(launches=counts, stage1_s=mean(s1), stage2_s=mean(s2),
+                                           peak_gib=peak)
+        del out, sample
+    return results
+
+
+def ldm3d_gradients(torch, ops, ldm3d, ldm2d, engines) -> None:
+    """Phase 10 (b): one stage-1 generator step's parameter gradients at
+    LDM3D_GRAD_SIZE^3 in f32, the recipe's models with the same weights,
+    volume and latent draw: the split- and the fused-kernel paths against the
+    plain attention path. The step runs whole (its D phase too) under SGD at
+    lr 0; G's gradients stay in .grad after it."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        aekl, disc, _ = ldm3d.build_models()
+        plain = ldm3d.build_models(use_flash_attention=False)[0]
+    plain.load_state_dict(aekl.state_dict(), strict=True)
+    aekl, plain, disc = (m.to(DEVICE).train() for m in (aekl, plain, disc))
+    g = torch.Generator(DEVICE).manual_seed(9)
+    x = ldm3d.synthetic_volume(g, 2, LDM3D_GRAD_SIZE, DEVICE)
+    _, step = ldm2d.make_stage1_steps(1e-6, 0.01)
+
+    def grads(model, flag: str, expected: dict, what: str) -> dict:
+        state = engines.init_adversarial_state(
+            model, torch.optim.SGD(model.parameters(), lr=0.0),
+            disc, torch.optim.SGD(disc.parameters(), lr=0.0))
+        reset_launches(ops)
+        with fused_backward(flag):
+            step(state, x, x, torch.Generator(DEVICE).manual_seed(10))
+        torch.cuda.synchronize()
+        check_launches(read_launches(ops), expected_launches(**expected), what)
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    what = f"3D LDM stage-1 step at {LDM3D_GRAD_SIZE}^3, f32"
+    want = grads(plain, "0", {}, f"{what}, plain path")
+    for label, flag in BACKWARDS:
+        got = grads(aekl, flag, LDM3D_LAUNCHES[label][0], f"{what}, {label} backward")
+        worst, worst_name = max_grad_diff(got, want)
+        log(f"ldm3d: G gradients in f32 at {LDM3D_GRAD_SIZE}^3, {label}-kernel path vs plain "
+            f"path: worst max|diff|/max|grad| = {worst:.3e} at {worst_name} (tol {GRAD_RTOL:g})")
+        if not worst <= GRAD_RTOL:
+            raise AssertionError(f"3D LDM G gradients, {label} backward, disagree with the plain "
+                                 "path")
+    del aekl, plain, disc, want, got
+    torch.cuda.empty_cache()
+
+
+def run_2d_stage1(torch, ops, vqgan, ldm2d) -> dict:
+    """Phase 10 (c), (d): the VQ-GAN and 2D LDM recipes at their defaults;
+    seconds a step after the first two, codebook usage; no kernel launch."""
+    reset_launches(ops)
+    out = vqgan.main([*VQGAN_ARGS, "--device", DEVICE])
+    check_launches(read_launches(ops), expected_launches(), "VQ-GAN recipe")
+    hist = out["outputs"]
+    vq_s = mean(out["seconds"][2:])
+    log(f"vqgan: recipe main at its defaults (VQ-VAE (128, 256), 256 codes of 32, batch 16, "
+        f"64x64), {len(hist)} steps: {vq_s:.4f} s a step over steps 3-{len(hist)} (first "
+        f"{out['seconds'][0]:.4f}); codebook usage {out['codebook_usage']} of 256 codes in the "
+        f"last batch; last losses " + ", ".join(f"{k} {v:.4f}" for k, v in hist[-1].items()))
+    if not all(np.isfinite(v) for h in hist for v in h.values()) or not out["codebook_usage"]:
+        raise AssertionError("VQ-GAN recipe: losses not finite or no code used")
+    reset_launches(ops)
+    out = ldm2d.main([*LDM2D_ARGS, "--device", DEVICE])
+    check_launches(read_launches(ops), expected_launches(), "2D LDM recipe")
+    s1, s2 = mean(out["stage1_seconds"][2:]), mean(out["stage2_seconds"][1:])
+    log(f"ldm2d: recipe main at its defaults (batch 16, 64x64): stage 1 {s1:.4f} s a step, "
+        f"stage 2 {s2:.4f} s a step; scale factor {out['scale_factor']:.4f}; stage-2 losses "
+        + ", ".join(f"{x:.4f}" for x in out["stage2_losses"]))
+    losses = [v for step in out["stage1_losses"] for v in step.values()] + out["stage2_losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError("2D LDM recipe: losses not finite")
+    return dict(vqgan_s=vq_s, ldm2d_stage1_s=s1, ldm2d_stage2_s=s2)
+
+
+def profile_ldm3d(torch, ldm3d, ldm2d, engines) -> None:
+    """Phase 10 (e): device time of one stage-1 G+D step at 128^3 in f32
+    (split backward, Adam), by group and by kernel, the busy share of its
+    wall time and its kernel count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        aekl, disc, _ = ldm3d.build_models()
+    aekl, disc = aekl.to(DEVICE).train(), disc.to(DEVICE).train()
+    state = engines.init_adversarial_state(aekl, torch.optim.Adam(aekl.parameters(), lr=1e-4),
+                                           disc, torch.optim.Adam(disc.parameters(), lr=1e-4))
+    _, step = ldm2d.make_stage1_steps(1e-6, 0.01)
+    g = torch.Generator(DEVICE).manual_seed(11)
+    x = ldm3d.synthetic_volume(g, 2, 128, DEVICE)
+    for _ in range(2):
+        state, _ = step(state, x, x, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, x, x, g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, wall, LDM3D_PROFILE_GROUPS,
+                   "ldm3d: profile of one stage-1 G+D step at 128^3, f32, split backward")
+    del state, aekl, disc
+    torch.cuda.empty_cache()
+
+
 def build_kernels(build_library) -> None:
     """Phase 1: one nvcc for each source, all started together."""
     results = {}
@@ -2462,8 +2683,12 @@ def main() -> int:
     from generativemodels_tpu_torch.probes import bench_3d_ldm as bench_ldm
     from generativemodels_tpu_torch.recipes import brain_ldm_sampler as brain
     from generativemodels_tpu_torch.recipes import serve
+    from generativemodels_tpu_torch import engines
     from generativemodels_tpu_torch.recipes import train_2d_ddpm as recipe
+    from generativemodels_tpu_torch.recipes import train_2d_ldm as ldm2d
     from generativemodels_tpu_torch.recipes import train_3d_ddpm as recipe3d
+    from generativemodels_tpu_torch.recipes import train_3d_ldm as ldm3d
+    from generativemodels_tpu_torch.recipes import train_vqgan as vqgan
 
     t_start = time.perf_counter()
     # phase 1: card and build
@@ -2533,6 +2758,20 @@ def main() -> int:
         + f"; ControlNet request {sum(cn_results['seconds']) / len(cn_results['seconds']):.4f} s; "
         + "; ".join(f"CFG {name} {sec:.4f} s" for name, sec in cfg_results.items()))
 
+    # phase 10: stage-1 and adversarial training: (a) the 3D LDM recipe at
+    # 128^3 (kernels 1-3, or 1 and 4, in both stages), (b) its G gradients on
+    # the kernel paths against the plain path, (c) the VQ-GAN and (d) the 2D
+    # LDM recipes, (e) a profiled stage-1 step
+    ldm3d_results = run_ldm3d(torch, ops, ldm3d)
+    ldm3d_gradients(torch, ops, ldm3d, ldm2d, engines)
+    two_d = run_2d_stage1(torch, ops, vqgan, ldm2d)
+    profile_ldm3d(torch, ldm3d, ldm2d, engines)
+    log("stage 1: seconds a step (host clock): 3D LDM at 128^3 "
+        + "; ".join(f"{key} stage 1 {r['stage1_s']:.4f}, stage 2 {r['stage2_s']:.4f} (peak "
+                    f"{r['peak_gib']:.2f} GiB)" for key, r in ldm3d_results.items())
+        + f"; VQ-GAN {two_d['vqgan_s']:.4f}; 2D LDM stage 1 {two_d['ldm2d_stage1_s']:.4f}, "
+        f"stage 2 {two_d['ldm2d_stage2_s']:.4f}")
+
     # the numbers of each kernel at its main path's shape: serving for the
     # forward, the recipe's batch 64 for the split backward, the 3D training
     # step's attention for the fused backward, the 128^3 96->32 call for
@@ -2556,6 +2795,16 @@ def main() -> int:
     extra = {name: dict(contracts=entry) for name, entry in contract_numbers(contracts).items()}
     for contract, count in contract_launches.items():
         extra["flash_fwd"]["contracts"][contract]["launches"] = count
+    # kernels 1-4 on phase 10's f32 3D LDM path: phase 2's numbers at the
+    # stage-1 AEKL's shape, with the launches of the f32 recipe run (kernel 4
+    # from the fused run)
+    stage1 = dict(flash_fwd=forward["aekl_3d_f32"],
+                  flash_bwd_dq=backward["aekl_3d_f32"]["dq"],
+                  flash_bwd_dkv=backward["aekl_3d_f32"]["dkv"],
+                  flash_bwd_fused=backward["aekl_3d_f32"]["fused"])
+    for name, entry in stage1.items():
+        run = ldm3d_results["f32_fused" if name == "flash_bwd_fused" else "f32_split"]
+        extra.setdefault(name, {})["ldm3d_f32"] = dict(entry, launches=run["launches"][name])
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=CSRC + source, replaces=replaces,

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..networks.nets.vqvae import VQVAE
 from .inferer import DiffusionInferer
 from .latent import LatentDiffusionInferer, _no_seg
 
@@ -192,7 +193,7 @@ class ControlNetLatentDiffusionInferer(LatentDiffusionInferer):
         """cn_cond is fitted to the shape of the first input's latent as the
         autoencoder encodes it (before any ldm_latent_shape padding), as in
         the JAX module."""
-        kwargs = {"quantized": quantized} if getattr(autoencoder_model, "is_vqvae", False) else {}
+        kwargs = {"quantized": quantized} if isinstance(autoencoder_model, VQVAE) else {}
         probe = autoencoder_model.encode_stage_2_inputs(inputs[:1], **kwargs)
         cn_cond = self._fit_cn_cond(cn_cond, probe)
         return super().get_likelihood(

@@ -6,9 +6,11 @@ diffusion model's, the `quantized` flag of VQ-VAE latents, and the
 latent-space likelihood with its KL maps resampled to the image's shape.
 
 `autoencoder_model` is any object with `encode_stage_2_inputs` and
-`decode_stage_2_outputs` (as `AutoencoderKL`); one whose `is_vqvae` is
-true gets `quantized=` in place of a generator. SPADE's `seg` is not
-ported yet: passing one raises NotImplementedError.
+`decode_stage_2_outputs` (as `AutoencoderKL`); a `VQVAE` gets `quantized=`
+in place of a generator. The encode runs without autograd: its latent is a
+constant of the diffusion model's loss, as the JAX module's stop_gradient
+makes it. SPADE's `seg` is not ported yet: passing one raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from collections.abc import Sequence
 import torch
 import torch.nn.functional as F
 
+from ..networks.nets.vqvae import VQVAE
 from .inferer import DiffusionInferer, ModelFn
 
 _LINEAR_MODES = {1: "linear", 2: "bilinear", 3: "trilinear"}
@@ -95,12 +98,12 @@ class LatentDiffusionInferer(DiffusionInferer):
 
     def _encode(self, autoencoder_model, inputs, quantized: bool, generator) -> torch.Tensor:
         kwargs = {}
-        if getattr(autoencoder_model, "is_vqvae", False):
+        if isinstance(autoencoder_model, VQVAE):
             kwargs["quantized"] = quantized
         elif generator is not None:
             kwargs["generator"] = generator
-        # detached, as the JAX module's stop_gradient
-        latent = autoencoder_model.encode_stage_2_inputs(inputs, **kwargs).detach()
+        with torch.no_grad():  # a constant, as the JAX module's stop_gradient
+            latent = autoencoder_model.encode_stage_2_inputs(inputs, **kwargs)
         latent = latent * self.scale_factor
         if self.ldm_latent_shape is not None:
             latent = _center_pad_or_crop(latent, self.ldm_latent_shape)

@@ -38,8 +38,9 @@ class ConvND(nn.Module):
         spatial_dims: 1, 2 or 3.
         in_channels: input channels.
         features: output channels.
-        kernel_size, strides, padding: int or per-axis tuple; padding is
-            symmetric, torch-style.
+        kernel_size, strides, padding, dilation: int or per-axis tuple;
+            padding is symmetric, torch-style.
+        bias: add a bias term (the JAX module's `use_bias`).
         zero_init: zero the weight and bias (the reference `zero_module`).
         nearest_upsample: upsample the input x2 (nearest-neighbour) first.
         dtype: computation type (e.g. torch.bfloat16); None computes in the
@@ -57,14 +58,18 @@ class ConvND(nn.Module):
         zero_init: bool = False,
         nearest_upsample: bool = False,
         dtype: torch.dtype | None = None,
+        dilation: int | Sequence[int] = 1,
+        bias: bool = True,
     ) -> None:
         super().__init__()
         self.conv = _CONV[spatial_dims](
-            in_channels, features, kernel_size, stride=strides, padding=padding
+            in_channels, features, kernel_size, stride=strides, padding=padding,
+            dilation=dilation, bias=bias,
         )
         if zero_init:
             nn.init.zeros_(self.conv.weight)
-            nn.init.zeros_(self.conv.bias)
+            if bias:
+                nn.init.zeros_(self.conv.bias)
         self.nearest_upsample = nearest_upsample
         self.dtype = dtype
 
@@ -76,9 +81,8 @@ class ConvND(nn.Module):
             x = upsample_nearest(x, 2)
         if dtype == weight.dtype:
             return self.conv(x)
-        return self.conv._conv_forward(x, weight.to(dtype), None) + bias.to(dtype).reshape(
-            -1, *([1] * (x.ndim - 2))
-        )
+        y = self.conv._conv_forward(x, weight.to(dtype), None)
+        return y if bias is None else y + bias.to(dtype).reshape(-1, *([1] * (x.ndim - 2)))
 
 
 class ConvTransposeND(nn.Module):

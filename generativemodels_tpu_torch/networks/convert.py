@@ -1,9 +1,10 @@
 """JAX parameter trees -> state dicts of the port's modules.
 
-Counterpart of the DiffusionModelUNet, DiffusionModelEncoder, ControlNet and
-AutoencoderKL parts of generativemodels_tpu/networks/zoo_convert.py, in the
-other direction: a flax params tree (nested dict of numpy arrays) becomes a
-state dict for the port's module, whose keys are the reference torch keys.
+Counterpart of the DiffusionModelUNet, DiffusionModelEncoder, ControlNet,
+AutoencoderKL, VQVAE, PatchGAN and perceptual-backbone parts of
+generativemodels_tpu/networks/zoo_convert.py, in the other direction: a flax
+params tree (nested dict of numpy arrays) becomes a state dict for the port's
+module, whose keys are the reference torch keys.
 
 Leaf transforms:
     flax ConvND kernel (*k, I, O)           -> Conv{1,2,3}d weight (O, I, *k)
@@ -14,6 +15,7 @@ Leaf transforms:
     flax Dense kernel (in, out)             -> Linear weight (out, in)
     flax GroupNorm / LayerNorm scale        -> weight
     flax Embed embedding                    -> Embedding weight (as is)
+    flax BatchNorm batch_stats mean / var   -> running_mean / running_var
 Every tensor of a result is a fresh copy: none aliases the JAX arrays.
 """
 from __future__ import annotations
@@ -78,6 +80,8 @@ def _torch_leaf(leaf: str, w: np.ndarray, transposed: bool) -> tuple[str, np.nda
         return "weight", w
     if leaf == "bias":
         return "bias", w
+    if leaf in ("mean", "var"):
+        return f"running_{leaf}", w
     raise ValueError(f"unknown flax leaf {leaf!r}")
 
 
@@ -269,3 +273,126 @@ def autoencoderkl_state_dict_from_jax(
         ("decoder", f"up_{i}", "conv") for i in range(len(num_channels) - 1) if use_convtranspose
     )
     return _state_dict_from_jax(params, expected, translate, transposed)
+
+
+def vqvae_state_dict_from_jax(
+    params: Mapping,
+    codebook: Mapping,
+    expected: Mapping[str, torch.Tensor],
+    num_channels: Sequence[int],
+    num_res_layers: int,
+) -> dict[str, torch.Tensor]:
+    """Map a JAX VQVAE's params tree and its "codebook" collection onto the
+    port's state-dict keys.
+
+    The flat ``encoder.blocks.{i}`` numbering: per level the strided conv
+    (``down_{i}``) and its residual units (``res_{i}_{j}``), then
+    ``conv_out``; ``decoder.blocks.{i}``: ``conv_in``, then per level the
+    residual units and the transposed conv (``up_{i}``, its kernel
+    transposed and flipped). The codebook's ``embedding``,
+    ``ema_cluster_size`` and ``ema_w`` become the buffers
+    ``quantizer.quantizer.embedding.weight``, ``.ema_cluster_size`` and
+    ``.ema_w``. Errors as `unet_state_dict_from_jax`.
+    """
+    block_map: dict[tuple[str, str], str] = {}
+    encoder = []
+    for i in range(len(num_channels)):
+        encoder += [f"down_{i}"] + [f"res_{i}_{j}" for j in range(num_res_layers)]
+    decoder = ["conv_in"]
+    for i in range(len(num_channels)):
+        decoder += [f"res_{i}_{j}" for j in range(num_res_layers)] + [f"up_{i}"]
+    for side, names in (("encoder", encoder + ["conv_out"]), ("decoder", decoder)):
+        block_map.update({(side, name): f"{side}.blocks.{i}" for i, name in enumerate(names)})
+
+    def translate(dirs: tuple[str, ...]) -> str:
+        return ".".join([block_map[dirs[0], dirs[1]], *dirs[2:]])
+
+    prefix = "quantizer.quantizer."
+    out = _state_dict_from_jax(
+        params, {k: v for k, v in expected.items() if not k.startswith(prefix)}, translate,
+        frozenset(("decoder", f"up_{i}") for i in range(len(num_channels))),
+    )
+    leaves = codebook["quantizer"]["quantizer"]
+    for leaf, key in (("embedding", "embedding.weight"), ("ema_cluster_size", "ema_cluster_size"),
+                      ("ema_w", "ema_w")):
+        w = np.asarray(leaves[leaf], dtype=np.float32)
+        if tuple(w.shape) != tuple(expected[prefix + key].shape):
+            raise ValueError(f"shape mismatch at {prefix + key}: JAX gives {tuple(w.shape)}, "
+                             f"torch expects {tuple(expected[prefix + key].shape)}")
+        out[prefix + key] = torch.tensor(np.ascontiguousarray(w))
+    return out
+
+
+def _translate_patchgan(dirs: tuple[str, ...]) -> str:
+    """``layer_{l}`` -> ``{l}``, ``norm_{l}`` -> ``{l}.adn.N`` (the flax norm
+    child folded in); ``initial_conv``, ``final_conv`` and
+    ``discriminator_{i}`` keep their names."""
+    parts = []
+    for p in dirs:
+        if p.startswith("layer_") and p[6:].isdigit():
+            parts.append(p[6:])
+        elif p.startswith("norm_") and p[5:].isdigit():
+            parts.append(f"{p[5:]}.adn.N")
+        elif p not in ("BatchNorm_0", "GroupNorm_0"):
+            parts.append(p)
+    return ".".join(parts)
+
+
+def patchgan_state_dict_from_jax(
+    params: Mapping,
+    expected: Mapping[str, torch.Tensor],
+    batch_stats: Mapping | None = None,
+) -> dict[str, torch.Tensor]:
+    """Map a JAX PatchDiscriminator's or MultiScalePatchDiscriminator's params
+    tree, and its BatchNorm ``batch_stats`` collection (required when the norm
+    is "BATCH"), onto the port's state-dict keys. JAX keeps no count of
+    batches: each ``num_batches_tracked`` is 0. Errors as
+    `unet_state_dict_from_jax`."""
+    tree = _flatten(params)
+    if batch_stats:
+        tree.update(_flatten(batch_stats))
+    counters = {k: torch.zeros((), dtype=torch.long) for k in expected
+                if k.endswith(".num_batches_tracked")}
+    out = _state_dict_from_jax(
+        _unflatten(tree), {k: v for k, v in expected.items() if k not in counters},
+        _translate_patchgan,
+    )
+    out.update(counters)
+    return out
+
+
+def _unflatten(flat: Mapping[tuple, object]) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = v
+    return out
+
+
+def backbone_state_dict_from_jax(
+    params: Mapping,
+    expected: Mapping[str, torch.Tensor],
+    network_type: str,
+    batch_stats: Mapping | None = None,
+) -> dict[str, torch.Tensor]:
+    """Map a JAX perceptual backbone's params tree (and its BatchNorm
+    ``batch_stats``, for the ResNets) onto the port's state-dict keys, the
+    checkpoint names of `networks.pretrained.NAME_MAPS[network_type]` read
+    backwards; each ``num_batches_tracked`` is 0. Errors as
+    `unet_state_dict_from_jax`."""
+    from .pretrained import NAME_MAPS
+
+    to_torch = {path: name for name, path in NAME_MAPS[network_type].items()}
+    tree = _flatten(params)
+    if batch_stats:
+        tree.update(_flatten(batch_stats))
+    counters = {k: torch.zeros((), dtype=torch.long) for k in expected
+                if k.endswith(".num_batches_tracked")}
+    out = _state_dict_from_jax(
+        _unflatten(tree), {k: v for k, v in expected.items() if k not in counters},
+        lambda dirs: to_torch["/".join(dirs)],
+    )
+    out.update(counters)
+    return out

@@ -156,13 +156,21 @@ def _ema_update(state: TrainState, ema_decay: float | None) -> dict[str, torch.T
             "ema_decay is set but state.ema_params is None — "
             "initialise with init_train_state(model, optimizer, ema=True)"
         )
-    step = torch.tensor(state.step, dtype=torch.float32)
-    d = torch.minimum(torch.tensor(ema_decay, dtype=torch.float32), (1.0 + step) / (10.0 + step))
-    with torch.no_grad():
-        for name, p in state.model.named_parameters():
-            e = state.ema_params[name]
-            e.mul_(d).add_(p.to(e.dtype) * (1.0 - d))
+    ema_update_(state.model, state.ema_params, state.step, ema_decay)
     return state.ema_params
+
+
+@torch.no_grad()
+def ema_update_(
+    model: nn.Module, ema_params: dict[str, torch.Tensor], step: int, ema_decay: float
+) -> None:
+    """`ema_params` (by parameter name) moved towards `model`'s parameters in
+    place, with decay `min(ema_decay, (1+step)/(10+step))` in float32."""
+    t = torch.tensor(step, dtype=torch.float32)
+    d = torch.minimum(torch.tensor(ema_decay, dtype=torch.float32), (1.0 + t) / (10.0 + t))
+    for name, p in model.named_parameters():
+        e = ema_params[name]
+        e.mul_(d).add_(p.to(e.dtype) * (1.0 - d))
 
 
 def make_multi_step_train(

@@ -22,9 +22,10 @@ from ..networks.nets import AutoencoderKL, DiffusionModelUNet
 
 def make_conditioning(
     gender: float, age: float, ventricular_vol: float, brain_vol: float, batch: int = 1,
-    device: torch.device | str | None = None,
+    device: torch.device | str = "cuda",
 ) -> torch.Tensor:
-    """Pack normalised covariates into a (B, 1, 4) float32 context."""
+    """Pack normalised covariates into a (B, 1, 4) float32 context on
+    `device` (the card unless the caller asks for the CPU)."""
     vec = torch.tensor([gender, age, ventricular_vol, brain_vol], dtype=torch.float32,
                        device=device)
     return vec.reshape(1, 1, 4).expand(batch, 1, 4)
@@ -75,18 +76,20 @@ def sample_brain_ldm(
     scale_factor: float = 1.0,
     num_inference_steps: int = 50,
     generator: torch.Generator | None = None,
-    device: torch.device | str | None = None,
+    device: torch.device | str = "cuda",
     noise: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Sample a batch of brain volumes conditioned on the covariates.
 
-    The latent noise is `noise` if given, else drawn from `generator` (one
-    seeded with 0 by default) on `device`; the same generator then drives
-    any stochastic step. Returns the decoded (B, 1, *spatial) volume.
+    The latent noise is `noise` if given (the sample then runs on its
+    device), else drawn from `generator` (one seeded with 0 by default) on
+    `device`, the card unless the caller asks for the CPU; the same
+    generator then drives any stochastic step. Returns the decoded
+    (B, 1, *spatial) volume.
     """
     if noise is None:
         if generator is None:
-            generator = torch.Generator(device or "cpu").manual_seed(0)
+            generator = torch.Generator(device).manual_seed(0)
         noise = torch.randn(latent_shape, generator=generator, device=device)
     scheduler.set_timesteps(num_inference_steps, device=noise.device)
     inferer = LatentDiffusionInferer(scheduler, scale_factor=scale_factor)

@@ -166,9 +166,31 @@ def test_sample_brain_ldm_matches_jax():
                                       noise=torch.from_numpy(noise), **covariates)
     assert got.shape == (1, 1, 8, 8, 8)
     _assert_close(got, want, rtol=1e-4)
-    ctx = tbrain.make_conditioning(**covariates, batch=2)
+    ctx = tbrain.make_conditioning(**covariates, batch=2, device="cpu")
     np.testing.assert_array_equal(ctx.numpy(),
                                   np.asarray(jbrain.make_conditioning(**covariates, batch=2)))
+
+
+def test_sample_brain_ldm_runs_on_the_cpu_only_when_asked():
+    """With no noise, `device="cpu"` draws the latent from a CPU generator
+    seeded 0 and samples there; with no device the sampler asks for the card
+    (and raises on a machine without one)."""
+    unet = tbrain.brain_unet(**TINY_UNET).eval()
+    aekl = tbrain.brain_autoencoder(**TINY_AEKL).eval()
+    scheduler = tsched.DDIMScheduler(num_train_timesteps=1000, clip_sample=False)
+    latent = (1, 3, 4, 4, 4)
+    with torch.no_grad():
+        got = tbrain.sample_brain_ldm(unet, aekl, scheduler, latent, num_inference_steps=2,
+                                      device="cpu")
+        noise = torch.randn(latent, generator=torch.Generator("cpu").manual_seed(0))
+        want = tbrain.sample_brain_ldm(unet, aekl, scheduler, latent, num_inference_steps=2,
+                                       noise=noise)
+    assert got.device.type == "cpu" and got.shape == (1, 1, 8, 8, 8)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert tbrain.make_conditioning(0.0, 0.5, 0.5, 0.5, device="cpu").device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            tbrain.sample_brain_ldm(unet, aekl, scheduler, latent, num_inference_steps=2)
 
 
 def _torch_shape(leaf: str, shape: tuple) -> tuple:

@@ -42,12 +42,24 @@ latent UNet with and without the fused ResnetBlock route), relative to the
 largest output: 1e-4 in f32 (chip_smoke.py's kernel-path forward check),
 and in bf16 twice the CPU bf16 run's own distance from the CPU f32 run. A
 PNDM chain on the card within 1e-5 of its largest value of the CPU's.
+The 3D LDM recipe's AEKL attention block (64 channels, one head of 64) at
+its two f32 shapes, 32^3 and 16^3 tokens a volume at batch 2, forward and
+backward through kernels 1-3 (and 1 and 4) against the plain attention path
+on the card: the output within 1e-4 of its largest value, each parameter's
+and the input's gradient within 1e-3 of its largest (chip_smoke.py's
+kernel-path checks). One adversarial stage-1 step (a narrowed 3D AEKL with
+attention at 4096 tokens and a BatchNorm PatchGAN, the latent draw given)
+on the card against the same step on the CPU: the losses at rtol 1e-4, the
+parameters and D's statistics after Adam (eps 1e-3) at atol 1e-6 + rtol
+1e-4. The brain sampler with no device samples on the card.
 Kernels 6 and 7, relative to the largest output: 2e-2 (bf16 output, p
 rounded to bf16 after f32 sums in another order; the packed bf16 exp rounds
 its argument to bf16); `mxu_only` on the rows whose plain row sum has
 |l| >= 1, each against its own largest value (`relative_error`).
 """
 from __future__ import annotations
+
+import copy
 
 import pytest
 import torch
@@ -82,8 +94,15 @@ from generativemodels_tpu_torch.ops.flash_attention import (
 from generativemodels_tpu_torch.ops import fused_conv as fused_conv_module
 from generativemodels_tpu_torch.ops.flash_probes import relative_error
 from generativemodels_tpu_torch.ops.fused_conv import CONV_BN, CONV_RUNS
-from generativemodels_tpu_torch.networks.nets import AutoencoderKL, DiffusionModelUNet
-from generativemodels_tpu_torch.networks.schedulers import PNDMScheduler
+from generativemodels_tpu_torch import engines
+from generativemodels_tpu_torch.networks.blocks import AttentionBlock
+from generativemodels_tpu_torch.networks.nets import (
+    AutoencoderKL,
+    DiffusionModelUNet,
+    PatchDiscriminator,
+)
+from generativemodels_tpu_torch.networks.schedulers import DDIMScheduler, PNDMScheduler
+from generativemodels_tpu_torch.recipes import brain_ldm_sampler, train_2d_ldm
 
 
 @pytest.fixture
@@ -800,3 +819,96 @@ def test_pndm_steps_on_gpu_match_cpu(cuda_device, skip_prk):
                                   sample.to(cuda_device))
         assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
         sample = want
+
+
+def _fused_bwd(monkeypatch, flag: str) -> dict:
+    """GMTPU_FLASH_FUSED_BWD set to `flag`; the backward kernels each flag runs."""
+    monkeypatch.setenv("GMTPU_FLASH_FUSED_BWD", flag)
+    return {"0": (FLASH_BWD_DQ, FLASH_BWD_DKV), "1": (FLASH_BWD_FUSED,)}[flag]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", ["0", "1"], ids=["split", "fused"])
+@pytest.mark.parametrize("edge", [32, 16], ids=["aekl_32768", "latent_4096"])
+def test_aekl_attention_block_gradients_on_gpu(cuda_device, monkeypatch, edge, flag):
+    """The recipe's attention block, f32, on the kernels against the plain path."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    kernels = _fused_bwd(monkeypatch, flag)
+    blocks = {}
+    for use_flash in (True, False):
+        torch.manual_seed(0)
+        blocks[use_flash] = AttentionBlock(3, 64, norm_num_groups=16,
+                                           use_flash_attention=use_flash).to(cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(1)
+    x = torch.randn((2, 64, edge, edge, edge), generator=g, device=cuda_device)
+    dout = torch.randn(x.shape, generator=g, device=cuda_device)
+    results = {}
+    for use_flash, block in blocks.items():
+        before = [FLASH_FWD.launches] + [k.launches for k in kernels]
+        xi = x.clone().requires_grad_()
+        out = block(xi)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        after = [FLASH_FWD.launches] + [k.launches for k in kernels]
+        assert [a - b for a, b in zip(after, before)] == [int(use_flash)] * len(after)
+        results[use_flash] = (out.detach(), xi.grad,
+                              {n: p.grad for n, p in block.named_parameters()})
+        del out, xi
+    (out, dx, grads), (out_ref, dx_ref, grads_ref) = results[True], results[False]
+    assert (out - out_ref).abs().max().item() <= 1e-4 * out_ref.abs().max().item()
+    for name, got, want in [("x", dx, dx_ref)] + [(n, grads[n], grads_ref[n]) for n in grads]:
+        if name == "to_k.bias":  # zero in exact arithmetic: softmax ignores a shared shift
+            continue
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-3 * scale, name
+
+
+@pytest.mark.cuda
+def test_adversarial_step_on_gpu_matches_cpu(cuda_device, monkeypatch):
+    """One adversarial stage-1 step (the recipe's) on the card and on the CPU."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    torch.manual_seed(0)
+    aekl = AutoencoderKL(spatial_dims=3, num_res_blocks=1, num_channels=(16, 32),
+                         attention_levels=(False, True), norm_num_groups=8,
+                         with_encoder_nonlocal_attn=False, with_decoder_nonlocal_attn=False)
+    _randomize(aekl)
+    disc = PatchDiscriminator(spatial_dims=3, num_channels=8, in_channels=1, num_layers_d=2)
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand((2, 1, 32, 32, 32), generator=g)
+    eps = torch.randn((2, 3, 16, 16, 16), generator=g)
+    _, step = train_2d_ldm.make_stage1_steps(1e-2, 0.5)
+    runs = {}
+    for device in (torch.device("cpu"), cuda_device):
+        a, d = (copy.deepcopy(m).to(device).train() for m in (aekl, disc))
+        a.sampling = lambda mu, sigma, generator=None: mu + eps.to(mu.device) * sigma
+        state = engines.init_adversarial_state(
+            a, torch.optim.Adam(a.parameters(), lr=1e-4, eps=1e-3),
+            d, torch.optim.Adam(d.parameters(), lr=1e-4, eps=1e-3))
+        before = FLASH_FWD.launches
+        _, out = step(state, x.to(device), x.to(device))
+        assert (FLASH_FWD.launches > before) == (device.type == "cuda")
+        runs[device.type] = ({k: float(v) for k, v in out.items()
+                              if isinstance(v, torch.Tensor) and v.ndim == 0},
+                             {**{f"g.{k}": v.cpu() for k, v in a.state_dict().items()},
+                              **{f"d.{k}": v.cpu() for k, v in d.state_dict().items()}})
+    (cpu_losses, cpu_state), (gpu_losses, gpu_state) = runs["cpu"], runs["cuda"]
+    for key, want in cpu_losses.items():
+        assert gpu_losses[key] == pytest.approx(want, rel=1e-4), key
+    for key, want in cpu_state.items():
+        torch.testing.assert_close(gpu_state[key], want, rtol=1e-4, atol=1e-6, msg=key)
+
+
+@pytest.mark.cuda
+def test_brain_sampler_defaults_to_the_card(cuda_device):
+    unet = brain_ldm_sampler.brain_unet(num_channels=(8, 8), attention_levels=(False, True),
+                                        num_head_channels=8, norm_num_groups=8).to(cuda_device)
+    aekl = brain_ldm_sampler.brain_autoencoder(num_channels=(8, 8),
+                                               attention_levels=(False, False),
+                                               norm_num_groups=8).to(cuda_device)
+    with torch.no_grad():
+        volume = brain_ldm_sampler.sample_brain_ldm(
+            unet.eval(), aekl.eval(), DDIMScheduler(num_train_timesteps=1000, clip_sample=False),
+            (1, 3, 4, 4, 4), num_inference_steps=2)
+    assert volume.device.type == "cuda" and volume.shape == (1, 1, 8, 8, 8)
+    assert bool(torch.isfinite(volume).all())

@@ -37,7 +37,12 @@ def test_port_modules_import_without_jax():
                  "networks.schedulers.pndm", "probes.bench_3d_ldm",
                  "networks.blocks.mlp", "networks.blocks.attention_blocks",
                  "networks.nets.controlnet", "inferers.controlnet", "recipes.guidance",
-                 "recipes.brain_ldm_sampler"):
+                 "recipes.brain_ldm_sampler", "networks.layers.vector_quantizer",
+                 "networks.nets.vqvae", "networks.nets.patchgan_discriminator",
+                 "losses.adversarial_loss", "losses.spectral_loss", "engines.trainer",
+                 "engines.prepare_batch", "recipes.train_vqgan", "recipes.train_2d_ldm",
+                 "recipes.train_3d_ldm", "networks.backbones", "networks.pretrained",
+                 "losses.perceptual"):
         assert f"generativemodels_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
