@@ -12,8 +12,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      and CUDA versions, the TF32 settings, and the builds of
      generativemodels_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu,
      fused_conv.cu and flash_probes.cu (one nvcc each, started together)
-     with their times and each entry function's registers, stack frame and
-     spill bytes from ptxas (kernels 1-5 must have neither);
+     with their times, the compiler's warnings and each entry function's
+     registers, stack frame and spill bytes from ptxas (kernels 1-7 must
+     have neither, and no wgmma may be serialized: kernels 6 and 7 overlap
+     their products with the softmax);
   2. kernels against their plain versions: O and lse of the flash-attention
      forward kernel against `flash_attention_reference` (then the forward
      against the plain attention path at seq 256-1024, the numbers behind
@@ -57,15 +59,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      split- and fused-kernel paths against the plain attention path, in
      bf16 at 128^3 the fused path against the split path; (c) one profiled
      training step at 128^3 with each backward;
-  7. the attention-forward probes (kernels 6 and 7): (a) each of the ten
-     kernel variants (seven of `ops.flash_overlap`, three of
-     `ops.flash_vpu`) against its plain version at three shapes, the
-     probes' own (2, 32768, 32768, 64) bf16 on its first 2048 query rows;
-     (b) the entry points `probes.probe_overlap.main` and
-     `probes.probe_attn_vpu.main` at their defaults, which time every
-     variant at (2, 32768, 32768, 64) bf16, with the launches of kernels 1,
-     6 and 7 counted, each time printed beside its TFLOP/s, the bound, the
-     plain version's time, kernel 1's (phase 2) and flash SDPA's;
+  7. the attention-forward probes (kernels 6 and 7, wgmma fed by a TMA
+     ring): (a) each of the ten kernel variants (seven of
+     `ops.flash_overlap`, three of `ops.flash_vpu`) against its plain
+     version at four shapes, the probes' own (2, 32768, 32768, 64) bf16 on
+     its first 2048 query rows; (b) the entry points
+     `probes.probe_overlap.main` and `probes.probe_attn_vpu.main` at their
+     defaults, which time every variant at (2, 32768, 32768, 64) bf16,
+     with the launches of kernels 1, 6 and 7 counted, each time printed
+     beside its TFLOP/s, its share of the bound, the plain version's time
+     and its ratio to kernel 1 (the VPU probe's `base` in the same call)
+     and to flash SDPA;
   8. the latent 128^3 route: bench.py's fifth config (AEKL (32, 64, 64) bf16
      around the UNet (64, 128, 256) bf16 at a 32^3 latent, scale factor 0.3,
      random weights) through `LatentDiffusionInferer` and
@@ -192,16 +196,19 @@ LSE_TOLERANCE = {"float32": 1e-5, "bfloat16": 1e-4}
 THRESHOLD_SEQS = (256, 512, 1024)
 THRESHOLD_CASES = ((2, 2, 64, "bfloat16"), (4, 1, 256, "float32"))
 # kernels whose every instantiation must show no stack frame and no spills
-# in phase 1 (kernels 1-5, whose accumulators live in registers), and how
+# in phase 1 (kernels 1-7, whose accumulators live in registers), and how
 # many instantiations the ptxas log of each source must report for them
 # (kernel 1: 4 head widths x the contracts, 2 in bf16 and 3 in f32
 # (csrc/flash_contract.cuh); kernels 2-4: 3 kernels x the same 20; kernel 5: the
 # f32 kernel at 3 BN, the bf16 kernel at the 3 depth runs of
-# `ops.fused_conv.CONV_RUNS`), so that a log that stops matching fails
+# `ops.fused_conv.CONV_RUNS`; kernels 6 and 7: 7 overlap variants and the 4
+# (scale in kernel, bf16 p) pairs), so that a log that stops matching fails
 NO_STACK_KERNELS = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "flash_bwd_dq_kernel",
                     "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel", "fused_conv_f32_kernel",
-                    "fused_conv_mma_kernel")
-NO_STACK_INSTANCES = {"flash_fwd.cu": 20, "flash_bwd.cu": 60, "fused_conv.cu": 6}
+                    "fused_conv_mma_kernel", "flash_probe_overlap_kernel",
+                    "flash_probe_vpu_kernel")
+NO_STACK_INSTANCES = {"flash_fwd.cu": 20, "flash_bwd.cu": 60, "fused_conv.cu": 6,
+                      "flash_probes.cu": 11}
 # (name, (BH, Sq, Sk, D), dtype name, causal) of the backward kernels
 BACKWARD_CASES = (
     ("train_bench_bf16", (128, 1024, 1024, 256), "bfloat16", False),  # bench.py, batch 128
@@ -434,11 +441,17 @@ CXR = dict(channels=(256, 512, 768), heads=(0, 512, 768), latent=(1, 3, 64, 64),
 
 # phase 7 (a): (name, (BH, Sq, Sk, D), query rows held against the plain
 # version, None for all); the plain version over all keys is exact for the
-# rows it computes, so the probes' shape is checked on its first 2048 rows
+# rows it computes, so the probes' shape is checked on its first 2048 rows.
+# A variant whose kernel does not take a shape runs at the nearest one it
+# does (`ops.flash_probes.nearest_shape`): kernel 7 at Sk = 256 for "small" (its 128-key step),
+# q2 at Sq = 256 for "ring" (whole 128-row blocks). "small" ends on a half
+# key tile for kernel 6; "ring" has nine key tiles (the four-stage K/V ring
+# wraps twice, an odd count) under a last block of 64 query rows, BH odd
 PROBE_CASES = (
     ("head64", (2, 4096, 4096, 64), None),
     ("3d_level2", (2, 32768, 32768, 64), 2048),
     ("small", (1, 128, 192, 64), None),
+    ("ring", (3, 192, 1152, 64), None),
 )
 # `ops.flash_probes.relative_error`: bf16 output, p rounded to bf16 after f32
 # sums in another order, and the packed bf16 exp rounds its argument to bf16;
@@ -1749,15 +1762,20 @@ def probe_calls(ops, scale: float) -> list:
 def check_probes(torch, ops) -> dict:
     """Phase 7 (a): each kernel variant against its plain version at
     PROBE_CASES; returns {(case, variant): max|diff|} (None for mxu_only)."""
-    from generativemodels_tpu_torch.ops.flash_probes import relative_error
+    from generativemodels_tpu_torch.ops.flash_probes import nearest_shape, relative_error
 
     errors = {}
     g = torch.Generator("cuda").manual_seed(7)
     for case, (bh, sq, sk, d), rows in PROBE_CASES:
-        q, k, v = (torch.randn((bh, n, d), generator=g, device="cuda").to(torch.bfloat16)
-                   for n in (sq, sk, sk))
-        held_q = q if rows is None else q[:, :rows].contiguous()
+        inputs = {}
         for kernel, variant, fn, plain in probe_calls(ops, d**-0.5):
+            shape = nearest_shape(variant, sq, sk)
+            if shape not in inputs:
+                inputs[shape] = tuple(
+                    torch.randn((bh, n, d), generator=g, device="cuda").to(torch.bfloat16)
+                    for n in (shape[0], shape[1], shape[1]))
+            q, k, v = inputs[shape]
+            held_q = q if rows is None else q[:, :rows].contiguous()
             got = fn(q, k, v)[:, :held_q.shape[1]]
             want, l = plain(held_q, k, v)
             torch.cuda.synchronize()
@@ -1766,14 +1784,14 @@ def check_probes(torch, ops) -> dict:
             # divides by the 1e-30 floor: no absolute error is read there
             abs_err = (got.float() - want.float()).abs().max().item() if l is None else None
             ok = rel <= PROBE_TOLERANCE and bool(torch.isfinite(got.float()).all())
-            log(f"probe {case} (BH={bh}, Sq={sq}, Sk={sk}, D={d}) {kernel} {variant}: "
-                f"relative error {rel:.3e} (tol {PROBE_TOLERANCE:g}) over {held} of "
+            log(f"probe {case} (BH={bh}, Sq={shape[0]}, Sk={shape[1]}, D={d}) {kernel} "
+                f"{variant}: relative error {rel:.3e} (tol {PROBE_TOLERANCE:g}) over {held} of "
                 f"{bh * held_q.shape[1]} rows, max|diff| {abs_err} -> {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"probe case {case} {variant} out of tolerance")
             errors[(case, variant)] = abs_err
-            del got, want, l
-        del q, k, v, held_q
+            del got, want, l, held_q
+        del inputs
         torch.cuda.empty_cache()
     return errors
 
@@ -1781,9 +1799,10 @@ def check_probes(torch, ops) -> dict:
 def run_probes(torch, ops, probes, kernel1_ms: float, errors: dict) -> tuple[dict, dict]:
     """Phase 7 (b): both entry points at their defaults, the launches of
     kernels 1, 6 and 7 counted over the two runs; each variant's time beside
-    its TFLOP/s, the bound, its plain version's time, kernel 1's time at the
-    same shape (phase 2) and flash SDPA's. Returns the kernels line's numbers
-    and launches of the two probe kernels."""
+    its TFLOP/s, its share of the bound, its plain version's time, and its
+    ratio to kernel 1 (the VPU probe's `base`, the same inputs in this call;
+    phase 2's time is `kernel1_ms`) and to flash SDPA. Returns the kernels
+    line's numbers and launches of the two probe kernels."""
     from generativemodels_tpu_torch.probes import probe_attn_vpu, probe_overlap
 
     reset_launches(ops)
@@ -1805,6 +1824,10 @@ def run_probes(torch, ops, probes, kernel1_ms: float, errors: dict) -> tuple[dic
     flop = 4 * bh * seq * seq * d
     lim = bound(flop, 2 * bh * seq * d * 4, "bfloat16")  # q, k, v read, o written
     library_ms, backend = library_attention_ms(torch, q, k, v, scale, False)
+    base_ms = next(e["ms"] for e in results["flash_probe_vpu"] if e["variant"] == "base")
+    log(f"probes: kernel 1 {base_ms:.4f} ms in this phase ({kernel1_ms:.4f} ms in phase 2), "
+        f"SDPA ({backend}) {library_ms:.4f} ms, bound {lim['bound_ms']:.4f} ms "
+        f"({lim['bound_by']})")
     plains = {variant: plain for _, variant, _, plain in probe_calls(ops, scale)}
     plains["base"] = lambda q, k, v: (ops.flash_attention_reference(q, k, v, scale=scale)[0],
                                       None)
@@ -1814,10 +1837,10 @@ def run_probes(torch, ops, probes, kernel1_ms: float, errors: dict) -> tuple[dic
             variant, ms = entry["variant"], entry["ms"]
             plain_ms = time_ms(lambda: plains[variant](q, k, v), iters=PLAIN_PROBE_ITERS)
             log(f"probe {kernel} {variant}: {ms:.4f} ms, {flop / ms / 1e9:.1f} TFLOP/s, "
-                f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}), plain {plain_ms:.4f} ms, "
-                f"kernel 1 {kernel1_ms:.4f} ms, SDPA ({backend}) {library_ms:.4f} ms; "
-                f"vs exact softmax {entry['maxdiff_vs_einsum']}, vs plain "
-                f"{entry['maxdiff_vs_plain']:.3e} ({entry['rows_vs_plain']} rows)")
+                f"{lim['bound_ms'] / ms:.1%} of the bound, {ms / base_ms:.3f}x kernel 1, "
+                f"{ms / library_ms:.3f}x SDPA, plain {plain_ms:.4f} ms; vs exact softmax "
+                f"{entry['maxdiff_vs_einsum']}, vs plain {entry['maxdiff_vs_plain']:.3e} "
+                f"({entry['rows_vs_plain']} rows)")
             if not ms >= lim["bound_ms"]:
                 raise AssertionError(f"probe {variant}: {ms} ms is below the bound")
             if variant == PROBE_MAIN_VARIANT.get(kernel):
@@ -2620,6 +2643,14 @@ def build_kernels(build_library) -> None:
             raise results[name]
         lib, build_log, seconds = results[name]
         log(f"build: {lib.name} in {seconds:.2f} s")
+        serialized = []  # ptxas's notes (info lines) of wgmmas it made synchronous
+        for line in build_log.splitlines():
+            if "warning" in line or "Performance Loss" in line:
+                log(f"  {line.strip()}")
+            if "wgmma.mma_async instructions are serialized" in line:
+                serialized.append(line.strip())
+        if serialized:
+            raise AssertionError(f"ptxas serialized the wgmmas of {name}: {serialized[0]}")
         entries = ptxas_entries(build_log)
         for entry in entries:
             log(f"  ptxas: {entry['name']}: {entry['registers']} registers, "

@@ -1,7 +1,8 @@
 // The two attention-forward probe kernels for Hopper (sm_90a), plain C
-// interface for ctypes. Both run their products on the tensor cores with
-// mma.sync m16n8k16 (bf16 operands, f32 accumulation), as the TPU kernels'
-// dot_general(..., preferred_element_type=f32) run theirs on the MXU.
+// interface for ctypes. Both run their two products as warpgroup products
+// (wgmma.mma_async, bf16 operands, f32 accumulation), as the TPU kernels'
+// dot_general(..., preferred_element_type=f32) run theirs on the MXU, fed
+// by TMA from a producer warpgroup.
 //
 // flash_probe_overlap_kernel replaces the Pallas TPU kernel
 // benchmarks/probe_overlap.py::_kernel (and _kernel_q2, _score_probs, called
@@ -17,19 +18,24 @@
 //                           the packed exp below);
 //   mxu_only:               p = bf16(s), no clamp and no exp2;
 //   l = f32 sum of the bf16 p, o = bf16(acc / max(l, 1e-30)).
-// The variants differ in program order and sharing only:
-//   ilv2 / ilv4 (and ilv2_bf16): the 64-key step is split into 2 or 4
-//     sub-tiles; every QK product of the step is issued first, then each
-//     sub-tile's exp2 followed by its PV products (the TPU probe's order
-//     s1, s2, p1, pv1, p2, pv2), so one sub-tile's exp2 can run while the
-//     previous sub-tile's products are in the tensor pipe;
-//   q2: each warp owns two 16-row q fragments that share every K and V
-//     fragment it reads from shared memory (the TPU probe's two q tiles over
-//     one K/V tile): two independent chains and half the shared-memory reads
-//     per query row.
+// The TPU variants are program orders for Mosaic's scheduler; here each asks
+// the same question of wgmma, per 128-key tile of a consumer warpgroup:
+//   full (and bf16dom, mxu_only): the serial chain QK, wait, clamp + exp2,
+//     PV, wait; only the loads (TMA, four tiles ahead) overlap the chain
+//     within a warpgroup. mxu_only drops the clamp and exp2: the floor of
+//     this design's products;
+//   ilv2, ilv4 (and ilv2_bf16): the tile in 2 or 4 key sub-tiles; every QK
+//     product of the tile is issued first, then sub-tile by sub-tile: wait,
+//     exp2, and its PV products issued without waiting (the TPU probe's s1,
+//     s2, p1, pv1, p2, pv2), so one sub-tile's exp2 runs while the previous
+//     sub-tile's products are in the tensor cores;
+//   q2: the block's two consumer warpgroups (which share every K/V stage in
+//     all variants) take turns at the tensor cores, ordered by two named
+//     barriers: each issues its QK (then its PV) only after the other has
+//     issued its own, so one's exp2 runs under the other's products.
 //
 // flash_probe_vpu_kernel replaces benchmarks/probe_attn_vpu.py
-// ::_fwd_kernel_var: the online-max natural-exp forward, per 64-key tile
+// ::_fwd_kernel_var: the online-max natural-exp forward, per 128-key tile
 //   s = q k^T (f32), times scale unless q was prescaled outside;
 //   m_new = max(m, rowmax(s)) (m starts at -1e30), alpha = exp(m - m_new);
 //   bf16_p:  p = exp(bf16(s - m_new)) in packed bf16, l = l alpha + f32
@@ -37,7 +43,17 @@
 //   else:    p = exp(s - m_new) in f32, l = l alpha + sum(p) (unrounded);
 //   acc = acc alpha + bf16(p) V;  o = bf16(acc / max(l, 1e-30)).
 // Because p is rounded against the running max, the result depends on the
-// key step (64); the plain version takes it as block_k.
+// key step (128, kBlockK); the plain version takes it as block_k. Its
+// pipeline overlaps within a warpgroup, in FlashAttention-3's order: the QK
+// product of tile j and the PV product of tile j - 1 are issued together, and
+// the softmax of tile j runs while that PV product is in the tensor cores; O
+// is rescaled once it is done. ptxas keeps the products asynchronous only if
+// the loop body has no branch, the softmax writes no accumulator register
+// and no register a product in flight reads: the two sets of PV A fragments
+// keep fixed roles over a loop step of two tiles, as a copy between them
+// would write the in-flight product's input. Else it serializes every
+// product of the kernel (its C7513 and C7514 notes, which chip_smoke.py's
+// phase 1 prints and fails on).
 // The packed exp of a bf16 pair x is ex2.approx.ftz.bf16x2(bf16(x log2(e))),
 // with log2(e) split into two bf16 constants so that the product is rounded
 // once: it departs from the plain version's bf16(exp(x)) by the rounding of
@@ -51,52 +67,153 @@
 // about what the SFU issues exp2 at (16 a clock per SM): the softmax is not
 // free beside the products unless it overlaps them or runs packed, which is
 // what the variants measure.
-// What the design does about it: both products on the tensor cores, with the
-// FlashAttention-2 register reuse: a warp owns 16 query rows (an m16
-// fragment; two for q2), keeps its Q fragments in registers for the whole
-// key loop, and its S accumulator, converted to bf16 pairs, is the A
-// operand of the PV product without a trip through shared memory. A block
-// of 4 warps (64 rows; 128 for q2) stages 64-key K and V tiles in shared
-// memory with cp.async, two stages deep, so the next tile's copy overlaps
-// this tile's products. K fragments are read with 32-bit loads (rows padded
-// to 72 bf16, so a fragment's 8 rows x 4 words fall in 32 distinct banks),
-// V fragments with ldmatrix.trans. The row sum l of the overlap kernel (and
-// of bf16_p) comes from one more n8 product against a tile of ones, the
-// TPU's ones column appended to V, so even mxu_only does no CUDA-core
-// reduction. wgmma, TMA and warp specialisation are not used: these are
-// probes of the mma.sync path.
+// What the design does about it: a block is two consumer warpgroups of 64
+// query rows each and a producer warpgroup, one thread of which issues every
+// load (warp specialisation; the producer lowers its register limit to 24 and
+// the consumers raise theirs to 240, which the 384 threads' 168 at launch
+// leave room for).
+// The producer loads each warpgroup's Q tile once and keeps K and V tiles of
+// 128 keys x 64 (16 KB each, one 128-byte swizzled row a key) in flight by
+// TMA into a ring of four stages, each with a full mbarrier for K, one for V
+// and an empty one that the eight consumer warps release (144 KB of dynamic
+// shared memory: one block an SM, which the raised register limit needs).
+// s = q k^T is wgmma m64n128k16 (m64n64 / m64n32 for the sub-tiles of
+// ilv2 / ilv4) with Q and K from shared memory by descriptor, K-major; o +=
+// p v is wgmma m64n64k16 with p from registers (the S accumulator of two n8
+// blocks, rounded to bf16 pairs, is the A fragment) and V from shared memory,
+// MN-major through the descriptor's transpose bit. Kernel 6 takes the row
+// sum l of its bf16 p by one more product a PV k-step, m64n8k16 of the same A
+// fragment against a 256-byte block of ones in shared memory: the TPU's ones
+// column, 1/8 more PV work on the tensor cores in place of four CUDA-core
+// instructions a pair of p (unpack and add) beside the SFU. Kernel 7 sums in
+// registers, a quad shuffle at the end (its f32 p is unrounded; for its bf16
+// p the extra products cost more than the adds: each way was timed on the
+// H100, and each kernel keeps the faster), and its exponent is one FFMA,
+// s log2(e) - m log2(e), before the ex2.
+// The tiles of a row of blocks are the same across the card, so the K and V
+// tiles come from L2 after their first read.
+// Sk: kernel 6 takes multiples of 64: a last half tile is zero-filled by TMA
+// and its keys get p = 0; kernel 7 takes multiples of kBlockK (its key step).
+// Sq: multiples of 64; a block past Sq computes on its last rows again and
+// stores nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_sm90.cuh"
+#include "async_sm90.cuh"
 
 namespace {
 
-constexpr int kD = 64;                 // head width
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockK = 64;            // keys a step
-constexpr int kLd = kD + 8;            // shared-memory row stride in bf16 (144 bytes)
-constexpr int kDSteps = kD / 16;       // k-steps of the QK product
-constexpr int kKeyTiles = kBlockK / 8;   // n8 tiles of S in a step
-constexpr int kKeySteps = kBlockK / 16;  // k-steps of the PV product in a step
-constexpr int kDTiles = kD / 8;        // n8 tiles of O
-constexpr uint32_t kOnes = 0x3F803F80u;  // bf16x2 (1, 1)
-constexpr uint32_t kClamp = 0x42A042A0u;  // bf16x2 (80, 80)
+constexpr int kD = 64;                                 // head width
+constexpr int kRowsWg = 64;                            // query rows a consumer warpgroup
+constexpr int kConsumers = 2;                          // consumer warpgroups a block
+constexpr int kBlockQ = kConsumers * kRowsWg;          // query rows a block
+constexpr int kBlockK = 128;                           // keys a tile (a ring stage)
+constexpr int kStages = 4;                             // the K/V ring
+constexpr int kConsumerThreads = kConsumers * 128;
+constexpr int kThreads = kConsumerThreads + 128;       // + the producer warpgroup
+constexpr int kConsumerWarps = kConsumerThreads / 32;  // arrivals that empty a stage
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+constexpr int kQBytes = kRowsWg * kD * 2;     // 8 KB
+constexpr int kTileBytes = kBlockK * kD * 2;  // 16 KB
+constexpr int kDSteps = kD / 16;              // k-steps of the QK product
+constexpr int kPvSteps = kBlockK / 16;        // k-steps of the PV product in a tile
+constexpr int kORegs = kD / 2;                // accumulator registers of O (m64n64)
+constexpr int kSRegs = kBlockK / 2;           // accumulator registers of S (m64n128)
+constexpr uint32_t kOnes = 0x3F803F80u;       // bf16x2 (1, 1)
+constexpr uint32_t kClamp = 0x42A042A0u;      // bf16x2 (80, 80)
 constexpr uint32_t kLn2 = 0x3F313F31u;  // bf16x2 (ln 2) = 0.69140625, jnp.exp2's constant
 constexpr uint32_t kLog2eHi = 0x3FB83FB8u;  // bf16x2 1.4375
 constexpr uint32_t kLog2eLo = 0x3BAA3BAAu;  // bf16x2 0.00518798828125: hi + lo = log2(e) - 7e-6
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1e30f;  // NEG_INF of the JAX kernels
 
+// dynamic shared memory, from a 1024-byte-aligned base: the Q tiles, the K
+// and V stages, the mbarriers (q_full[kConsumers], k_full[kStages],
+// v_full[kStages], empty[kStages]), then the ones of kernel 6's row-sum
+// product
+constexpr int kSmemQ = 0;
+constexpr int kSmemK = kSmemQ + kConsumers * kQBytes;
+constexpr int kSmemV = kSmemK + kStages * kTileBytes;
+constexpr int kSmemBars = kSmemV + kStages * kTileBytes;
+constexpr int kSmemOnes = kSmemBars + 128;
+constexpr int kOnesBytes = 256;  // two 8 x 16-byte core matrices: a k16 x n8 B operand
+static_assert(8 * (kConsumers + 3 * kStages) <= kSmemOnes - kSmemBars, "barriers overlap");
+constexpr int kSmemBytes = kSmemOnes + kOnesBytes + 1024;  // + alignment
+
 // the variants of the overlap probe, in the order of OVERLAP_VARIANTS in
 // ops/flash_probes.py
 enum Variant { kFull = 0, kMxuOnly, kIlv2, kIlv4, kQ2, kBf16Dom, kIlv2Bf16 };
 
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+struct Ring {
+  unsigned char* base;  // 1024-byte aligned
+  uint64_t* bars;
+
+  __device__ unsigned char* q(int w) const { return base + kSmemQ + w * kQBytes; }
+  __device__ unsigned char* k(int st) const { return base + kSmemK + st * kTileBytes; }
+  __device__ unsigned char* v(int st) const { return base + kSmemV + st * kTileBytes; }
+  __device__ uint64_t* q_full(int w) const { return bars + w; }
+  __device__ uint64_t* k_full(int st) const { return bars + kConsumers + st; }
+  __device__ uint64_t* v_full(int st) const { return bars + kConsumers + kStages + st; }
+  __device__ uint64_t* empty(int st) const { return bars + kConsumers + 2 * kStages + st; }
+  // B of the row-sum product: all ones, so its layout is moot
+  __device__ uint64_t ones_desc() const {
+    return wgmma_desc_plain(smem_addr(base + kSmemOnes), 128, 128);
+  }
+};
+
+// The ring in this block's dynamic shared memory, its barriers initialised
+// and its ones written (the one __syncthreads of the kernel: the roles split
+// after it)
+__device__ __forceinline__ Ring make_ring(unsigned char* raw) {
+  Ring r;
+  r.base = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+  r.bars = reinterpret_cast<uint64_t*>(r.base + kSmemBars);
+  if (threadIdx.x < kOnesBytes / 4) {
+    reinterpret_cast<uint32_t*>(r.base + kSmemOnes)[threadIdx.x] = kOnes;
+    fence_proxy_async();
+  }
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kConsumers; ++w) mbar_init(r.q_full(w));
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(r.k_full(st));
+      mbar_init(r.v_full(st));
+      mbar_init(r.empty(st), kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return r;
+}
+
+// The producer warpgroup: its first thread loads each consumer warpgroup's Q
+// tile once, then the K and V tiles into the ring, a stage as soon as the
+// consumers have emptied it.
+// A Q tile past Sq loads the last 64 rows again (its warpgroup stores nothing).
+__device__ __forceinline__ void produce(const Ring& r, const CUtensorMap* q_map,
+                                        const CUtensorMap* k_map, const CUtensorMap* v_map,
+                                        int bh, int row0, int sq, int tiles) {
+  if (threadIdx.x != kConsumerThreads) return;
+  for (int w = 0; w < kConsumers; ++w) {
+    mbar_expect(r.q_full(w), kQBytes);
+    tma_load_3d(r.q(w), q_map, r.q_full(w), 0, min(row0 + w * kRowsWg, sq - kRowsWg), bh);
+  }
+  for (int j = 0; j < tiles; ++j) {
+    const int st = j % kStages;
+    if (j >= kStages) mbar_wait(r.empty(st), (j / kStages - 1) & 1);
+    mbar_expect(r.k_full(st), kTileBytes);
+    tma_load_3d(r.k(st), k_map, r.k_full(st), 0, j * kBlockK, bh);
+    mbar_expect(r.v_full(st), kTileBytes);
+    tma_load_3d(r.v(st), v_map, r.v_full(st), 0, j * kBlockK, bh);
+  }
+}
+
+// a consumer warp's release of stage st (its wgmmas on the stage are done)
+__device__ __forceinline__ void release(const Ring& r, int st) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(r.empty(st));
 }
 
 __device__ __forceinline__ float ex2_f32(float x) {
@@ -134,219 +251,9 @@ __device__ __forceinline__ uint32_t exp_bf16x2(uint32_t x) {
   return ex2_bf16x2(fma_bf16x2(x, kLog2eHi, mul_bf16x2(x, kLog2eLo)));
 }
 
-// Stage one 64-key tile (kBlockK rows of kD bf16, contiguous) into shared
-// memory with row stride kLd: 8 16-byte copies a row, 4 a thread.
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* __restrict__ src) {
-#pragma unroll
-  for (int i = threadIdx.x; i < kBlockK * kD / 8; i += kThreads) {
-    const int r = i / (kD / 8);
-    const int c = (i % (kD / 8)) * 8;
-    cp_async16(dst + r * kLd + c, src + r * kD + c);
-  }
-}
-
-// The A fragments of M 16-row q fragments starting at `q` (rows of kD bf16):
-// for k-step kk, rows g and g + 8, columns 16 kk + 2t (+1) and + 8.
-template <int M>
-__device__ __forceinline__ void load_q(uint32_t (&qf)[M][kDSteps][4], const bf16* __restrict__ q,
-                                       int g, int t) {
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    const bf16* r0 = q + (16 * m + g) * kD;
-    const bf16* r1 = r0 + 8 * kD;
-#pragma unroll
-    for (int kk = 0; kk < kDSteps; ++kk) {
-      const int c = 16 * kk + 2 * t;
-      qf[m][kk][0] = *reinterpret_cast<const uint32_t*>(r0 + c);
-      qf[m][kk][1] = *reinterpret_cast<const uint32_t*>(r1 + c);
-      qf[m][kk][2] = *reinterpret_cast<const uint32_t*>(r0 + c + 8);
-      qf[m][kk][3] = *reinterpret_cast<const uint32_t*>(r1 + c + 8);
-    }
-  }
-}
-
-// s[m] = q[m] k^T for the staged 64-key tile; each K fragment is read once
-// for all M q fragments. B fragment of key tile nt, k-step kk: key nt*8 + g,
-// columns 16 kk + 2t (+1) and + 8.
-template <int M>
-__device__ __forceinline__ void qk_product(float (&s)[M][kKeyTiles][4],
-                                           const uint32_t (&qf)[M][kDSteps][4], const bf16* sK,
-                                           int g, int t) {
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-#pragma unroll
-    for (int nt = 0; nt < kKeyTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[m][nt][e] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int kk = 0; kk < kDSteps; ++kk) {
-#pragma unroll
-    for (int nt = 0; nt < kKeyTiles; ++nt) {
-      const bf16* kp = sK + (nt * 8 + g) * kLd + 16 * kk + 2 * t;
-      const uint32_t b0 = lds32(kp);
-      const uint32_t b1 = lds32(kp + 8);
-#pragma unroll
-      for (int m = 0; m < M; ++m) mma_bf16(s[m][nt], qf[m][kk], b0, b1);
-    }
-  }
-}
-
-// acc[m] += p[m] V for PV k-step j (keys 16 j .. 16 j + 15 of the staged
-// tile), each V fragment read once for all M; with kRowSum also
-// l[m] += p[m] 1 (every column of l holds the row sum).
-template <int M, bool kRowSum>
-__device__ __forceinline__ void pv_product(float (&acc)[M][kDTiles][4], float (&l)[M][4],
-                                           const uint32_t (&p)[M][4], const bf16* sV, int j,
-                                           int lane) {
-  const int mi = lane >> 3;
-  const bf16* base = sV + (16 * j + (mi & 1) * 8 + (lane & 7)) * kLd + (mi >> 1) * 8;
-#pragma unroll
-  for (int dp = 0; dp < kD / 16; ++dp) {
-    uint32_t b[4];
-    ldsm_x4_trans(b, base + 16 * dp);
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      mma_bf16(acc[m][2 * dp], p[m], b[0], b[1]);
-      mma_bf16(acc[m][2 * dp + 1], p[m], b[2], b[3]);
-    }
-  }
-  if (kRowSum) {
-#pragma unroll
-    for (int m = 0; m < M; ++m) mma_bf16(l[m], p[m], kOnes, kOnes);
-  }
-}
-
-// p of two neighbouring scores as a bf16 pair, by the variant's rule
-template <int V>
-__device__ __forceinline__ uint32_t probs(float lo, float hi) {
-  if (V == kMxuOnly) return pack_bf16(lo, hi);
-  if (V == kBf16Dom || V == kIlv2Bf16) {
-    return exp_bf16x2(mul_bf16x2(min_bf16x2(pack_bf16(lo, hi), kClamp), kLn2));
-  }
-  return pack_bf16(ex2_f32(fminf(lo, 80.f)), ex2_f32(fminf(hi, 80.f)));
-}
-
-// The A fragment of PV k-step j from the S accumulators of key tiles 2j and
-// 2j + 1 (the C layout of one mma is the A layout of the next).
-template <int V>
-__device__ __forceinline__ void probs_fragment(uint32_t (&a)[4], const float (&s)[kKeyTiles][4],
-                                               int j) {
-  a[0] = probs<V>(s[2 * j][0], s[2 * j][1]);
-  a[1] = probs<V>(s[2 * j][2], s[2 * j][3]);
-  a[2] = probs<V>(s[2 * j + 1][0], s[2 * j + 1][1]);
-  a[3] = probs<V>(s[2 * j + 1][2], s[2 * j + 1][3]);
-}
-
-// o = bf16(acc / max(l, 1e-30)) for M 16-row fragments starting at `o`;
-// l0, l1 are the row sums of rows g and g + 8.
-template <int M>
-__device__ __forceinline__ void store_out(bf16* __restrict__ o, const float (&acc)[M][kDTiles][4],
-                                          const float (&l0)[M], const float (&l1)[M], int g,
-                                          int t) {
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    const float d0 = fmaxf(l0[m], 1e-30f);
-    const float d1 = fmaxf(l1[m], 1e-30f);
-    bf16* r0 = o + (16 * m + g) * kD + 2 * t;
-    bf16* r1 = r0 + 8 * kD;
-#pragma unroll
-    for (int nt = 0; nt < kDTiles; ++nt) {
-      *reinterpret_cast<uint32_t*>(r0 + nt * 8) =
-          pack_bf16(acc[m][nt][0] / d0, acc[m][nt][1] / d0);
-      *reinterpret_cast<uint32_t*>(r1 + nt * 8) =
-          pack_bf16(acc[m][nt][2] / d1, acc[m][nt][3] / d1);
-    }
-  }
-}
-
-template <int V>
-struct OverlapCfg {
-  static constexpr int kM = V == kQ2 ? 2 : 1;  // 16-row q fragments a warp
-  static constexpr int kSub = V == kIlv4 ? 4 : (V == kIlv2 || V == kIlv2Bf16) ? 2 : 1;
-  static constexpr int kBlockQ = kWarps * 16 * kM;
-  static constexpr int kStepsPerSub = kKeySteps / kSub;  // PV k-steps a sub-tile
-};
-
-// Grid: x = query blocks of kBlockQ rows, y = BH. Sq and Sk are multiples of
-// kBlockQ and kBlockK (the launcher checks).
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-flash_probe_overlap_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int sk) {
-  using Cfg = OverlapCfg<V>;
-  constexpr int M = Cfg::kM;
-  __shared__ __align__(16) bf16 sK[2][kBlockK * kLd];
-  __shared__ __align__(16) bf16 sV[2][kBlockK * kLd];
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const size_t bh = blockIdx.y;
-  const int row0 = blockIdx.x * Cfg::kBlockQ + warp * 16 * M;
-  const bf16* kb = k + bh * sk * kD;
-  const bf16* vb = v + bh * sk * kD;
-
-  uint32_t qf[M][kDSteps][4];
-  load_q<M>(qf, q + (bh * sq + row0) * kD, g, t);
-  float acc[M][kDTiles][4];
-  float l[M][4];
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) l[m][e] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kDTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][nt][e] = 0.f;
-    }
-  }
-
-  const int num_k = sk / kBlockK;
-  stage_tile(sK[0], kb);
-  stage_tile(sV[0], vb);
-  cp_async_commit();
-  for (int j = 0; j < num_k; ++j) {
-    const int st = j & 1;
-    if (j + 1 < num_k) {  // the next tile's copy runs under this tile's products
-      stage_tile(sK[st ^ 1], kb + static_cast<size_t>(j + 1) * kBlockK * kD);
-      stage_tile(sV[st ^ 1], vb + static_cast<size_t>(j + 1) * kBlockK * kD);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    float s[M][kKeyTiles][4];
-    qk_product<M>(s, qf, sK[st], g, t);
-#pragma unroll
-    for (int h = 0; h < Cfg::kSub; ++h) {
-      uint32_t p[Cfg::kStepsPerSub][M][4];
-#pragma unroll
-      for (int js = 0; js < Cfg::kStepsPerSub; ++js) {
-#pragma unroll
-        for (int m = 0; m < M; ++m) {
-          probs_fragment<V>(p[js][m], s[m], h * Cfg::kStepsPerSub + js);
-        }
-      }
-#pragma unroll
-      for (int js = 0; js < Cfg::kStepsPerSub; ++js) {
-        pv_product<M, true>(acc, l, p[js], sV[st], h * Cfg::kStepsPerSub + js, lane);
-      }
-    }
-    __syncthreads();  // stage st is refilled by the copy issued at step j + 1
-  }
-
-  float l0[M], l1[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    l0[m] = l[m][0];
-    l1[m] = l[m][2];
-  }
-  store_out<M>(o + (bh * sq + row0) * kD, acc, l0, l1, g, t);
+// the f32 sum of the two halves of a bf16 pair
+__device__ __forceinline__ float pair_sum(uint32_t x) {
+  return __uint_as_float(x << 16) + __uint_as_float(x & 0xFFFF0000u);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -362,204 +269,450 @@ __device__ __forceinline__ float quad_sum(float x) {
 // exp(x) in f32 on the SFU
 __device__ __forceinline__ float exp_f32(float x) { return ex2_f32(x * kLog2e); }
 
-// exp(bf16(x - m)) of two neighbouring scores, in bf16
-__device__ __forceinline__ uint32_t exp_shifted(float x0, float x1, float m) {
-  return exp_bf16x2(pack_bf16(x0 - m, x1 - m));
+// p of two neighbouring scores as a bf16 pair, by the overlap variant's rule
+template <int V>
+__device__ __forceinline__ uint32_t probs(float lo, float hi) {
+  if (V == kMxuOnly) return pack_bf16(lo, hi);
+  if (V == kBf16Dom || V == kIlv2Bf16) {
+    return exp_bf16x2(mul_bf16x2(min_bf16x2(pack_bf16(lo, hi), kClamp), kLn2));
+  }
+  return pack_bf16(ex2_f32(fminf(lo, 80.f)), ex2_f32(fminf(hi, 80.f)));
 }
 
-// Grid as the overlap kernel's, 64-row query blocks. kScaleIn: s times
-// `scale` (q not prescaled).
-template <bool kScaleIn, bool kBf16P>
-__global__ void __launch_bounds__(kThreads)
-flash_probe_vpu_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int sk,
-                       float scale) {
-  constexpr int kBlockQ = kWarps * 16;
-  __shared__ __align__(16) bf16 sK[2][kBlockK * kLd];
-  __shared__ __align__(16) bf16 sV[2][kBlockK * kLd];
+// s = q k^T for the Keys keys of a K tile at k_desc: kDSteps wgmmas
+// m64n<Keys>k16 (s overwritten)
+template <int Keys>
+__device__ __forceinline__ void qk_products(float (&s)[Keys / 2], uint64_t q_desc, uint64_t k_desc) {
+#pragma unroll
+  for (int kk = 0; kk < kDSteps; ++kk) {
+    wgmma_ss<Keys>(s, wgmma_desc_add(q_desc, 32 * kk), wgmma_desc_add(k_desc, 32 * kk), kk > 0);
+  }
+}
 
-  const int warp = threadIdx.x / 32;
+// acc += p V for PV k-steps first .. first + N - 1 of a V stage
+template <int N>
+__device__ __forceinline__ void pv_products(float (&acc)[kORegs],
+                                            const uint32_t (&p)[kPvSteps][4], int first,
+                                            uint64_t v_desc) {
+#pragma unroll
+  for (int js = 0; js < N; ++js) {
+    wgmma_rs_tb<kD>(acc, p[first + js], wgmma_desc_add(v_desc, 2048 * (first + js)));
+  }
+}
+
+// pv_products, each k-step followed by l += p 1 against the ones (every
+// column of l holds the row sum: l[0] of row g, l[2] of row g + 8)
+template <int N>
+__device__ __forceinline__ void pv_products_rowsum(float (&acc)[kORegs], float (&l)[4],
+                                                   const uint32_t (&p)[kPvSteps][4], int first,
+                                                   uint64_t v_desc, uint64_t ones_desc) {
+#pragma unroll
+  for (int js = 0; js < N; ++js) {
+    wgmma_rs_tb<kD>(acc, p[first + js], wgmma_desc_add(v_desc, 2048 * (first + js)));
+    wgmma_rs<8>(l, p[first + js], ones_desc);
+  }
+}
+
+// o = bf16(acc / max(l, 1e-30)) for this thread's rows of a warpgroup tile
+// starting at row `row` (rows g and g + 8 of the warp's 16); l0, l1 their
+// row sums; rows past Sq are not stored
+__device__ __forceinline__ void store_out(bf16* __restrict__ o, const float (&acc)[kORegs],
+                                          float l0, float l1, int row, int sq) {
   const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const size_t bh = blockIdx.y;
-  const int row0 = blockIdx.x * kBlockQ + warp * 16;
-  const bf16* kb = k + bh * sk * kD;
-  const bf16* vb = v + bh * sk * kD;
-
-  uint32_t qf[1][kDSteps][4];
-  load_q<1>(qf, q + (bh * sq + row0) * kD, g, t);
-  float acc[1][kDTiles][4];
-  float lmma[1][4];  // bf16_p: the row sums from the ones product
-  float lsum[2] = {0.f, 0.f};  // f32 p: this thread's part of rows g, g + 8
-  float mrow[2] = {kNegInf, kNegInf};
+  const int r0 = row + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  const float d[2] = {fmaxf(l0, 1e-30f), fmaxf(l1, 1e-30f)};
 #pragma unroll
-  for (int e = 0; e < 4; ++e) lmma[0][e] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    if (r0 + 8 * h >= sq) continue;
+    bf16* out = o + static_cast<size_t>(r0 + 8 * h) * kD + 2 * (lane % 4);
 #pragma unroll
-  for (int nt = 0; nt < kDTiles; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[0][nt][e] = 0.f;
+    for (int nb = 0; nb < kD / 8; ++nb) {
+      *reinterpret_cast<uint32_t*>(out + 8 * nb) =
+          pack_bf16(acc[4 * nb + 2 * h] / d[h], acc[4 * nb + 2 * h + 1] / d[h]);
+    }
   }
+}
 
-  const int num_k = sk / kBlockK;
-  stage_tile(sK[0], kb);
-  stage_tile(sV[0], vb);
-  cp_async_commit();
-  for (int j = 0; j < num_k; ++j) {
-    const int st = j & 1;
-    if (j + 1 < num_k) {
-      stage_tile(sK[st ^ 1], kb + static_cast<size_t>(j + 1) * kBlockK * kD);
-      stage_tile(sV[st ^ 1], vb + static_cast<size_t>(j + 1) * kBlockK * kD);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+template <int V>
+struct OverlapCfg {
+  static constexpr int kSub = V == kIlv4 ? 4 : (V == kIlv2 || V == kIlv2Bf16) ? 2 : 1;
+  static constexpr int kSubKeys = kBlockK / kSub;
+  static constexpr int kStepsPerSub = kPvSteps / kSub;  // PV k-steps a sub-tile
+  static constexpr bool kPingPong = V == kQ2;
+};
 
-    float s[1][kKeyTiles][4];
-    qk_product<1>(s, qf, sK[st], g, t);
-    float mx0 = kNegInf, mx1 = kNegInf;
+// A consumer warpgroup of the overlap kernel: its 64 rows over every tile.
+// The named barriers of q2: 1 + w lets warpgroup w issue its products.
+template <int V>
+__device__ __forceinline__ void overlap_consume(const Ring& r, bf16* __restrict__ o, int row,
+                                                int sq, int sk, int tiles) {
+  using Cfg = OverlapCfg<V>;
+  constexpr int kSub = Cfg::kSub;
+  constexpr int kSteps = Cfg::kStepsPerSub;
+  const int wg = threadIdx.x / 128;
+  const int other = 1 + (wg ^ 1);
+  const uint64_t q_desc = wgmma_desc_sw128(smem_addr(r.q(wg)));
+  const bool half = sk % kBlockK != 0;  // the last tile holds 64 keys
+  const uint64_t ones_desc = r.ones_desc();
+  float acc[kORegs];
+  float l[4];  // the row sums, from the ones product
 #pragma unroll
-    for (int nt = 0; nt < kKeyTiles; ++nt) {
-      if (kScaleIn) {
+  for (int i = 0; i < kORegs; ++i) acc[i] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[0][nt][e] *= scale;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[0][nt][0], s[0][nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[0][nt][2], s[0][nt][3]));
-    }
-    const float m0 = fmaxf(mrow[0], quad_max(mx0));
-    const float m1 = fmaxf(mrow[1], quad_max(mx1));
-    const float alpha0 = exp_f32(mrow[0] - m0);
-    const float alpha1 = exp_f32(mrow[1] - m1);
-    mrow[0] = m0;
-    mrow[1] = m1;
-#pragma unroll
-    for (int nt = 0; nt < kDTiles; ++nt) {
-      acc[0][nt][0] *= alpha0;
-      acc[0][nt][1] *= alpha0;
-      acc[0][nt][2] *= alpha1;
-      acc[0][nt][3] *= alpha1;
-    }
+  for (int i = 0; i < 4; ++i) l[i] = 0.f;
 
-    uint32_t p[kKeySteps][1][4];
-    if (kBf16P) {
-      lmma[0][0] *= alpha0;
-      lmma[0][1] *= alpha0;
-      lmma[0][2] *= alpha1;
-      lmma[0][3] *= alpha1;
+  mbar_wait(r.q_full(wg), 0);
+  if (Cfg::kPingPong && wg == 1) named_arrive(other, kConsumerThreads);  // warpgroup 0 first
+#pragma unroll 1
+  for (int j = 0; j < tiles; ++j) {
+    const int st = j % kStages;
+    const int ph = (j / kStages) & 1;
+    const bool masked = half && j == tiles - 1;
+    const uint64_t k_desc = wgmma_desc_sw128(smem_addr(r.k(st)));
+    const uint64_t v_desc = wgmma_desc_sw128(smem_addr(r.v(st)));
+    float s[kSub][Cfg::kSubKeys / 2];
+    uint32_t p[kPvSteps][4];
+
+    mbar_wait(r.k_full(st), ph);
+    if (Cfg::kPingPong) named_sync(1 + wg, kConsumerThreads);
+    wgmma_fence();
 #pragma unroll
-      for (int jj = 0; jj < kKeySteps; ++jj) {
-        const float(&s0)[4] = s[0][2 * jj];
-        const float(&s1)[4] = s[0][2 * jj + 1];
-        p[jj][0][0] = exp_shifted(s0[0], s0[1], m0);
-        p[jj][0][1] = exp_shifted(s0[2], s0[3], m1);
-        p[jj][0][2] = exp_shifted(s1[0], s1[1], m0);
-        p[jj][0][3] = exp_shifted(s1[2], s1[3], m1);
-      }
-    } else {
-      float part0 = 0.f, part1 = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kKeyTiles; ++nt) {
-        s[0][nt][0] = exp_f32(s[0][nt][0] - m0);
-        s[0][nt][1] = exp_f32(s[0][nt][1] - m0);
-        s[0][nt][2] = exp_f32(s[0][nt][2] - m1);
-        s[0][nt][3] = exp_f32(s[0][nt][3] - m1);
-        part0 += s[0][nt][0] + s[0][nt][1];
-        part1 += s[0][nt][2] + s[0][nt][3];
-      }
-      lsum[0] = lsum[0] * alpha0 + part0;
-      lsum[1] = lsum[1] * alpha1 + part1;
-#pragma unroll
-      for (int jj = 0; jj < kKeySteps; ++jj) probs_fragment<kMxuOnly>(p[jj][0], s[0], jj);
+    for (int h = 0; h < kSub; ++h) {
+      qk_products<Cfg::kSubKeys>(s[h], q_desc, wgmma_desc_add(k_desc, h * Cfg::kSubKeys * 128));
+      wgmma_commit();
     }
+    if (Cfg::kPingPong) named_arrive(other, kConsumerThreads);
+    mbar_wait(r.v_full(st), ph);
 #pragma unroll
-    for (int jj = 0; jj < kKeySteps; ++jj) {
-      pv_product<1, kBf16P>(acc, lmma, p[jj], sV[st], jj, lane);
+    for (int h = 0; h < kSub; ++h) {
+      // pending: QK of sub-tiles h .. kSub - 1 and PV of 0 .. h - 1, in that
+      // order of issue, so at most kSub - 1 groups still running means QK h is done
+      wgmma_wait<kSub - 1>();
+      reg_fence(s[h]);
+#pragma unroll
+      for (int js = 0; js < kSteps; ++js) {
+        const int step = h * kSteps + js;
+        const float* x = &s[h][8 * js];
+        p[step][0] = probs<V>(x[0], x[1]);  // row g, keys 16 step + 2t, + 1
+        p[step][1] = probs<V>(x[2], x[3]);  // row g + 8
+        p[step][2] = probs<V>(x[4], x[5]);  // row g, keys + 8
+        p[step][3] = probs<V>(x[6], x[7]);  // row g + 8, keys + 8
+        if (masked && step >= kPvSteps / 2) {  // keys past Sk
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[step][e] = 0u;
+        }
+      }
+      if (Cfg::kPingPong) named_sync(1 + wg, kConsumerThreads);
+      wgmma_fence();
+      pv_products_rowsum<kSteps>(acc, l, p, h * kSteps, v_desc, ones_desc);
+      wgmma_commit();
+      if (Cfg::kPingPong && !(wg == 1 && j == tiles - 1)) named_arrive(other, kConsumerThreads);
     }
-    __syncthreads();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(l);
+    reg_fence(p);
+    release(r, st);
   }
+  store_out(o, acc, l[0], l[2], row, sq);
+}
 
-  float l0[1], l1[1];
+// The online softmax of one tile's raw scores s (this thread's 64: rows g
+// and g + 8 of its warp, 32 keys each; kScaleIn: s times scale). The
+// running max m0, m1 moves on, alpha0, alpha1 are the tile's rescale
+// factors, p the PV A fragments (bf16 pairs); l0 and l1 (this thread's part
+// of the two rows' sums) move on too. The max of the scaled scores is the
+// scaled max (scale > 0); each s - m is one FFMA.
+template <bool kScaleIn, bool kBf16P>
+__device__ __forceinline__ void online_softmax(const float (&s)[kSRegs], float scale, float& m0,
+                                               float& m1, float& l0, float& l1, float& alpha0,
+                                               float& alpha1, uint32_t (&p)[kPvSteps][4]) {
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int nb = 0; nb < kBlockK / 8; ++nb) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * nb], s[4 * nb + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * nb + 2], s[4 * nb + 3]));
+  }
+  const float mul = kScaleIn ? scale : 1.f;
+  const float n0 = fmaxf(m0, quad_max(mx0) * mul);
+  const float n1 = fmaxf(m1, quad_max(mx1) * mul);
+  alpha0 = exp_f32(m0 - n0);
+  alpha1 = exp_f32(m1 - n1);
+  m0 = n0;
+  m1 = n1;
   if (kBf16P) {
-    l0[0] = lmma[0][0];
-    l1[0] = lmma[0][2];
-  } else {
-    l0[0] = quad_sum(lsum[0]);
-    l1[0] = quad_sum(lsum[1]);
+#pragma unroll
+    for (int js = 0; js < kPvSteps; ++js) {
+      const float* x = &s[8 * js];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // exp(bf16(s - m)) of keys 2t, 2t + 1 (+ 8) of a row
+        const float n = (e & 1) ? n1 : n0;
+        p[js][e] = exp_bf16x2(pack_bf16(fmaf(x[2 * e], mul, -n), fmaf(x[2 * e + 1], mul, -n)));
+      }
+    }
+    float part0 = 0.f, part1 = 0.f;
+#pragma unroll
+    for (int js = 0; js < kPvSteps; ++js) {
+      part0 += pair_sum(p[js][0]) + pair_sum(p[js][2]);
+      part1 += pair_sum(p[js][1]) + pair_sum(p[js][3]);
+    }
+    l0 = l0 * alpha0 + part0;
+    l1 = l1 * alpha1 + part1;
+    return;
   }
-  store_out<1>(o + (bh * sq + row0) * kD, acc, l0, l1, g, t);
+  const float e0 = mul * kLog2e, c0 = -n0 * kLog2e, c1 = -n1 * kLog2e;
+  float part0 = 0.f, part1 = 0.f;
+#pragma unroll
+  for (int js = 0; js < kPvSteps; ++js) {
+    // fresh registers: writing s, the accumulator of a product of the same
+    // wgmma stage, would make ptxas serialize the kernel's products
+    float x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = ex2_f32(fmaf(s[8 * js + e], e0, (e & 2) ? c1 : c0));
+    part0 += x[0] + x[1] + x[4] + x[5];
+    part1 += x[2] + x[3] + x[6] + x[7];
+    p[js][0] = pack_bf16(x[0], x[1]);
+    p[js][1] = pack_bf16(x[2], x[3]);
+    p[js][2] = pack_bf16(x[4], x[5]);
+    p[js][3] = pack_bf16(x[6], x[7]);
+  }
+  l0 = l0 * alpha0 + part0;
+  l1 = l1 * alpha1 + part1;
+}
+
+// One tile j >= 1 of the VPU kernel's pipeline: the QK product of tile j is
+// issued with the PV product of tile j - 1 (A fragments `p`), tile j's
+// softmax runs while the latter is in flight and writes `pn`, then acc =
+// that times alpha_j.
+template <bool kScaleIn, bool kBf16P>
+__device__ __forceinline__ void vpu_tile(const Ring& r, int j, uint64_t q_desc, float scale,
+                                         float (&s)[kSRegs], float (&acc)[kORegs],
+                                         uint32_t (&p)[kPvSteps][4],
+                                         uint32_t (&pn)[kPvSteps][4], float& m0, float& m1,
+                                         float& l0, float& l1) {
+  const int st = j % kStages;
+  const int prev = (j - 1) % kStages;
+  float alpha0, alpha1;
+  wgmma_fence();
+  mbar_wait(r.k_full(st), (j / kStages) & 1);
+  qk_products<kBlockK>(s, q_desc, wgmma_desc_sw128(smem_addr(r.k(st))));
+  wgmma_commit();
+  mbar_wait(r.v_full(prev), ((j - 1) / kStages) & 1);
+  pv_products<kPvSteps>(acc, p, 0, wgmma_desc_sw128(smem_addr(r.v(prev))));
+  wgmma_commit();
+  wgmma_wait<1>();  // QK of tile j
+  reg_fence(s);
+  online_softmax<kScaleIn, kBf16P>(s, scale, m0, m1, l0, l1, alpha0, alpha1, pn);
+  wgmma_wait<0>();  // PV of tile j - 1
+  reg_fence(acc);
+  reg_fence(p);
+  release(r, prev);
+#pragma unroll
+  for (int nb = 0; nb < kD / 8; ++nb) {
+    acc[4 * nb] *= alpha0;
+    acc[4 * nb + 1] *= alpha0;
+    acc[4 * nb + 2] *= alpha1;
+    acc[4 * nb + 3] *= alpha1;
+  }
+}
+
+// The last tile's PV product (A fragments `p`)
+__device__ __forceinline__ void vpu_last(const Ring& r, int tiles, float (&acc)[kORegs],
+                                         uint32_t (&p)[kPvSteps][4]) {
+  const int last = (tiles - 1) % kStages;
+  wgmma_fence();
+  mbar_wait(r.v_full(last), ((tiles - 1) / kStages) & 1);
+  pv_products<kPvSteps>(acc, p, 0, wgmma_desc_sw128(smem_addr(r.v(last))));
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(p);
+  release(r, last);
+}
+
+// A consumer warpgroup of the VPU kernel: tile 0's QK product and softmax,
+// then vpu_tile for tiles 1 .. tiles - 1, two a loop step with the two sets
+// of A fragments in fixed roles (a copy between them would write an input of
+// the product in flight, and ptxas would serialize the pipeline), then the
+// last PV product.
+template <bool kScaleIn, bool kBf16P>
+__device__ __forceinline__ void vpu_consume(const Ring& r, bf16* __restrict__ o, int row, int sq,
+                                            int tiles, float scale) {
+  const int wg = threadIdx.x / 128;
+  const uint64_t q_desc = wgmma_desc_sw128(smem_addr(r.q(wg)));
+  float acc[kORegs];
+#pragma unroll
+  for (int i = 0; i < kORegs; ++i) acc[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f, alpha0, alpha1;
+  float s[kSRegs];
+  uint32_t pa[kPvSteps][4], pb[kPvSteps][4];  // A fragments of even and odd tiles
+
+  mbar_wait(r.q_full(wg), 0);
+  mbar_wait(r.k_full(0), 0);
+  wgmma_fence();
+  qk_products<kBlockK>(s, q_desc, wgmma_desc_sw128(smem_addr(r.k(0))));
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(s);
+  online_softmax<kScaleIn, kBf16P>(s, scale, m0, m1, l0, l1, alpha0, alpha1, pa);
+  int j = 1;
+#pragma unroll 1
+  for (; j + 1 < tiles; j += 2) {
+    vpu_tile<kScaleIn, kBf16P>(r, j, q_desc, scale, s, acc, pa, pb, m0, m1, l0, l1);
+    vpu_tile<kScaleIn, kBf16P>(r, j + 1, q_desc, scale, s, acc, pb, pa, m0, m1, l0, l1);
+  }
+  if (j < tiles) {  // an even tile count: one more tile, then the last (odd) tile's PV
+    vpu_tile<kScaleIn, kBf16P>(r, j, q_desc, scale, s, acc, pa, pb, m0, m1, l0, l1);
+    vpu_last(r, tiles, acc, pb);
+  } else {
+    vpu_last(r, tiles, acc, pa);
+  }
+  store_out(o, acc, quad_sum(l0), quad_sum(l1), row, sq);
+}
+
+// Grid: x = query blocks of kBlockQ rows, y = BH; kThreads threads and
+// kSmemBytes of dynamic shared memory. Warpgroups 0 and 1 consume, 2
+// produces: one if-else, the roles never rejoin.
+template <int V>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_probe_overlap_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+                           int sq, int sk) {
+  extern __shared__ unsigned char smem_raw[];
+  const Ring r = make_ring(smem_raw);
+  const int bh = blockIdx.y;
+  const int row0 = blockIdx.x * kBlockQ;
+  const int tiles = (sk + kBlockK - 1) / kBlockK;
+  if (threadIdx.x >= kConsumerThreads) {
+    regs_lower<kProducerRegs>();
+    produce(r, &q_map, &k_map, &v_map, bh, row0, sq, tiles);
+  } else {
+    regs_raise<kConsumerRegs>();
+    overlap_consume<V>(r, o + static_cast<size_t>(bh) * sq * kD,
+                       row0 + threadIdx.x / 128 * kRowsWg, sq, sk, tiles);
+  }
+}
+
+// Grid and roles as the overlap kernel's. kScaleIn: s times `scale` (q not
+// prescaled).
+template <bool kScaleIn, bool kBf16P>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_probe_vpu_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o, int sq,
+                       int sk, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const Ring r = make_ring(smem_raw);
+  const int bh = blockIdx.y;
+  const int row0 = blockIdx.x * kBlockQ;
+  const int tiles = sk / kBlockK;
+  if (threadIdx.x >= kConsumerThreads) {
+    regs_lower<kProducerRegs>();
+    produce(r, &q_map, &k_map, &v_map, bh, row0, sq, tiles);
+  } else {
+    regs_raise<kConsumerRegs>();
+    vpu_consume<kScaleIn, kBf16P>(r, o + static_cast<size_t>(bh) * sq * kD,
+                                  row0 + threadIdx.x / 128 * kRowsWg, sq, tiles, scale);
+  }
+}
+
+// The maps of q (box: a warpgroup's 64 rows), k and v (box: a 128-key tile),
+// each (bh, s, 64) bf16 contiguous seen as (64, s, bh), rows of 128 bytes in
+// the 128-byte swizzle
+cudaError_t encode_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, int bh,
+                        int sq, int sk) {
+  const void* base[3] = {q, k, v};
+  const int rows[3] = {sq, sk, sk};
+  const cuuint32_t box_rows[3] = {kRowsWg, kBlockK, kBlockK};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t dims[3] = {kD, static_cast<cuuint64_t>(rows[i]),
+                                static_cast<cuuint64_t>(bh)};
+    const cuuint64_t strides[2] = {kD * 2, static_cast<cuuint64_t>(rows[i]) * kD * 2};
+    const cuuint32_t box[3] = {kD, box_rows[i], 1};
+    const cudaError_t err = encode_tiled_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                                             base[i], dims, strides, box,
+                                             CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int block_q, int bh, int sq, cudaStream_t stream, Args... args) {
-  kernel<<<dim3(sq / block_q, bh), kThreads, 0, stream>>>(args...);
+int launch(Kernel kernel, const void* q, const void* k, const void* v, int bh, int sq, int sk,
+           cudaStream_t stream, Args... args) {
+  CUtensorMap maps[3];
+  cudaError_t err = encode_maps(maps, q, k, v, bh, sq, sk);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3((sq + kBlockQ - 1) / kBlockQ, bh), kThreads, kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], args...);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int V>
-int launch_overlap(const bf16* q, const bf16* k, const bf16* v, bf16* o, int bh, int sq, int sk,
+int launch_overlap(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk,
                    cudaStream_t stream) {
-  return launch(flash_probe_overlap_kernel<V>, OverlapCfg<V>::kBlockQ, bh, sq, stream, q, k, v,
-                o, sq, sk);
+  return launch(flash_probe_overlap_kernel<V>, q, k, v, bh, sq, sk, stream,
+                static_cast<bf16*>(o), sq, sk);
+}
+
+template <bool kScaleIn, bool kBf16P>
+int launch_vpu(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk,
+               float scale, cudaStream_t stream) {
+  return launch(flash_probe_vpu_kernel<kScaleIn, kBf16P>, q, k, v, bh, sq, sk, stream,
+                static_cast<bf16*>(o), sq, sk, scale);
 }
 
 }  // namespace
 
 // q (prescaled by bf16(scale * log2(e))), o (bh, sq, 64), k and v (bh, sk,
-// 64), all bf16 and contiguous; sq a multiple of 64 (128 for q2), sk of 64.
-// variant: the index in OVERLAP_VARIANTS (ops/flash_probes.py). Launches on
-// `stream` of `device`; returns cudaGetLastError() of the launch (0 on
-// success).
+// 64), all bf16, contiguous and 16-byte aligned; sq a multiple of 64 (128
+// for q2), sk of 64. variant: the index in OVERLAP_VARIANTS
+// (ops/flash_probes.py). Launches on `stream` of `device`; returns the first
+// CUDA error of the maps' encoding, the shared-memory attribute or the
+// launch (0 on success).
 extern "C" int gm_flash_probe_overlap(const void* q, const void* k, const void* v, void* o,
                                       int bh, int sq, int sk, int variant, int device,
                                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kk = static_cast<const bf16*>(k);
-  const bf16* vv = static_cast<const bf16*>(v);
-  bf16* oo = static_cast<bf16*>(o);
+  if (sq % kRowsWg || sk % (kBlockK / 2) || sq <= 0 || sk <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {
-    case kFull: return launch_overlap<kFull>(qq, kk, vv, oo, bh, sq, sk, s);
-    case kMxuOnly: return launch_overlap<kMxuOnly>(qq, kk, vv, oo, bh, sq, sk, s);
-    case kIlv2: return launch_overlap<kIlv2>(qq, kk, vv, oo, bh, sq, sk, s);
-    case kIlv4: return launch_overlap<kIlv4>(qq, kk, vv, oo, bh, sq, sk, s);
-    case kQ2: return launch_overlap<kQ2>(qq, kk, vv, oo, bh, sq, sk, s);
-    case kBf16Dom: return launch_overlap<kBf16Dom>(qq, kk, vv, oo, bh, sq, sk, s);
-    case kIlv2Bf16: return launch_overlap<kIlv2Bf16>(qq, kk, vv, oo, bh, sq, sk, s);
+    case kFull: return launch_overlap<kFull>(q, k, v, o, bh, sq, sk, s);
+    case kMxuOnly: return launch_overlap<kMxuOnly>(q, k, v, o, bh, sq, sk, s);
+    case kIlv2: return launch_overlap<kIlv2>(q, k, v, o, bh, sq, sk, s);
+    case kIlv4: return launch_overlap<kIlv4>(q, k, v, o, bh, sq, sk, s);
+    case kQ2:
+      if (sq % kBlockQ) return static_cast<int>(cudaErrorInvalidValue);
+      return launch_overlap<kQ2>(q, k, v, o, bh, sq, sk, s);
+    case kBf16Dom: return launch_overlap<kBf16Dom>(q, k, v, o, bh, sq, sk, s);
+    case kIlv2Bf16: return launch_overlap<kIlv2Bf16>(q, k, v, o, bh, sq, sk, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // q (prescaled by scale outside when scale_in_kernel is 0), o (bh, sq, 64),
-// k and v (bh, sk, 64), all bf16 and contiguous; sq and sk multiples of 64.
-// Same return and stream as gm_flash_probe_overlap.
+// k and v (bh, sk, 64), all bf16, contiguous and 16-byte aligned; sq a
+// multiple of 64, sk of 128 (the key step). Same return and stream as
+// gm_flash_probe_overlap.
 extern "C" int gm_flash_probe_vpu(const void* q, const void* k, const void* v, void* o, int bh,
                                   int sq, int sk, int scale_in_kernel, int bf16_p, float scale,
                                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bf16* qq = static_cast<const bf16*>(q);
-  const bf16* kk = static_cast<const bf16*>(k);
-  const bf16* vv = static_cast<const bf16*>(v);
-  bf16* oo = static_cast<bf16*>(o);
+  if (sq % kRowsWg || sk % kBlockK || sq <= 0 || sk <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int kBlockQ = kWarps * 16;
   if (scale_in_kernel) {
-    if (bf16_p) {
-      return launch(flash_probe_vpu_kernel<true, true>, kBlockQ, bh, sq, s, qq, kk, vv, oo, sq, sk,
-                    scale);
-    }
-    return launch(flash_probe_vpu_kernel<true, false>, kBlockQ, bh, sq, s, qq, kk, vv, oo, sq, sk,
-                  scale);
+    return bf16_p ? launch_vpu<true, true>(q, k, v, o, bh, sq, sk, scale, s)
+                  : launch_vpu<true, false>(q, k, v, o, bh, sq, sk, scale, s);
   }
-  if (bf16_p) {
-    return launch(flash_probe_vpu_kernel<false, true>, kBlockQ, bh, sq, s, qq, kk, vv, oo, sq, sk,
-                  scale);
-  }
-  return launch(flash_probe_vpu_kernel<false, false>, kBlockQ, bh, sq, s, qq, kk, vv, oo, sq, sk,
-                scale);
+  return bf16_p ? launch_vpu<false, true>(q, k, v, o, bh, sq, sk, scale, s)
+                : launch_vpu<false, false>(q, k, v, o, bh, sq, sk, scale, s);
 }

@@ -79,9 +79,7 @@
 // each thread owns one output column, kTH rows of it and BN / 8 channels,
 // and reuses each halo value it reads for the three kh taps.
 
-#include <cudaTypedefs.h>
-
-#include "mma_sm90.cuh"
+#include "async_sm90.cuh"
 
 namespace {
 
@@ -261,35 +259,6 @@ constexpr int kStageLd = kM + 4;                 // f32 row of the epilogue's st
 // a constant: halo rows are kHaloPitch = 40 positions apart for that.
 __device__ __forceinline__ int swz(int row, int k) {
   return row * kChunk + ((((k >> 3) ^ (row >> 2)) & 1) << 3) + (k & 7);
-}
-
-// mbarriers and the tensor-memory accelerator's tiled load (TMA)
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-// one arrival that also expects `bytes` from the copies tied to the barrier
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-// the box of `map` at coordinates (c0 .. c4), zero outside the tensor
-__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
-      "r"(smem_addr(bar))
-      : "memory");
 }
 
 // f(Plane<p>{}) for the runtime p < N: code specialised to each input plane of a run
@@ -671,20 +640,8 @@ fused_conv_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
 
 // The TMA map of a bf16 tensor seen as (W, H, D, C, B), W contiguous (the
 // channels-first layout), with the box `box` in that order.
-// cuTensorMapEncodeTiled is reached through the runtime, so the library needs
-// no link to the driver.
 cudaError_t encode_map(CUtensorMap* map, const void* x, int b, int d, int h, int wd, int c,
                        const Strides& xs, const cuuint32_t (&box)[5]) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
-                                              &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
   const cuuint64_t dims[5] = {static_cast<cuuint64_t>(wd), static_cast<cuuint64_t>(h),
                               static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(c),
                               static_cast<cuuint64_t>(b)};
@@ -692,12 +649,8 @@ cudaError_t encode_map(CUtensorMap* map, const void* x, int b, int d, int h, int
                                  static_cast<cuuint64_t>(xs.d) * 2,
                                  static_cast<cuuint64_t>(xs.c) * 2,
                                  static_cast<cuuint64_t>(xs.b) * 2};
-  const cuuint32_t step[5] = {1, 1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x),
-                              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, x, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <int R>

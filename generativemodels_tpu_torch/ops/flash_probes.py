@@ -25,9 +25,11 @@ max(l, 1e-30)). p is rounded against the running max, so the result depends
 on `block_k`: the kernel's key step is `BLOCK_K`.
 
 Both functions take bf16 (BH, S, 64) tensors whose sequence lengths are
-positive multiples of the kernels' tiles, on the CPU as on the card: where
-the JAX scripts size their grid as `sq // BQ` and silently drop the rest,
-these raise. A public function takes the plain version only for tensors on
+positive multiples of the kernels' tiles, on the CPU as on the card: Sq of
+BLOCK_Q (2 * BLOCK_Q for q2), Sk of BLOCK_K for the VPU probe and of
+OVERLAP_KEY_MULTIPLE for the overlap probe, whose kernel zero-fills a last
+half tile and gives its keys p = 0. Where the JAX scripts size their grid as
+`sq // BQ` and silently drop the rest, these raise. A public function takes the plain version only for tensors on
 the CPU; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
@@ -47,8 +49,9 @@ VPU_VARIANTS = {  # name: (prescaled, bf16_p), as benchmarks/probe_attn_vpu.py n
     "both": (True, True),
 }
 HEAD_DIM = 64  # the probes' D, the only width the kernels are built for
-BLOCK_Q = 64  # query rows a block (4 warps of 16); q2: 128
-BLOCK_K = 64  # keys a step of both kernels (kernel 7's online-max step)
+BLOCK_Q = 64  # query rows a consumer warpgroup (a block has two); q2 takes Sq in 128s
+BLOCK_K = 128  # keys a tile of both kernels (kernel 7's online-max step)
+OVERLAP_KEY_MULTIPLE = BLOCK_K // 2  # kernel 6 masks a last half tile
 NEG_INF = -1e30  # the JAX kernels' initial running max
 # the plain versions hold one (BH, rows, width) f32 matrix at a time, with
 # rows chosen to keep it under this many elements (512 MB)
@@ -56,9 +59,25 @@ PLAIN_ELEMENTS = 2**27
 
 
 def _overlap_block_q(variant: str) -> int:
-    """Query rows a block of the overlap kernel: q2 has two fragments a warp."""
+    """The multiple of Sq the overlap kernel takes: q2's two warpgroups take
+    turns over the same keys, so it takes whole 128-row blocks."""
     _check_variant(variant)
     return 2 * BLOCK_Q if variant == "q2" else BLOCK_Q
+
+
+def tile_multiples(variant: str) -> tuple[int, int]:
+    """(Sq, Sk) multiples the kernel of `variant` (a name of OVERLAP_VARIANTS
+    or VPU_VARIANTS) takes."""
+    if variant in VPU_VARIANTS:
+        return BLOCK_Q, BLOCK_K
+    return _overlap_block_q(variant), OVERLAP_KEY_MULTIPLE
+
+
+def nearest_shape(variant: str, sq: int, sk: int) -> tuple[int, int]:
+    """The nearest (Sq, Sk) the kernel of `variant` takes: each rounded up to
+    its multiple of tile_multiples(variant)."""
+    bq, bk = tile_multiples(variant)
+    return -(-sq // bq) * bq, -(-sk // bk) * bk
 
 
 def _check_variant(variant: str) -> None:
@@ -218,8 +237,8 @@ class FlashProbeOverlapKernel(Launcher):
     def __call__(self, q, k, v, *, scale: float, variant: str = "full") -> torch.Tensor:
         """Prescale q (outside the kernel, as the JAX wrapper does) and launch
         on the current stream; returns what the reference returns."""
-        _check_probe_inputs(q, k, v, _overlap_block_q(variant), BLOCK_K)
         _check_cuda_inputs(q, k, v)
+        _check_probe_inputs(q, k, v, _overlap_block_q(variant), OVERLAP_KEY_MULTIPLE)
         qp = _prescaled(q, scale)
         o = torch.empty_like(q)
         self._launch(
@@ -240,8 +259,8 @@ class FlashProbeVpuKernel(Launcher):
     def __call__(self, q, k, v, *, scale: float, prescaled: bool, bf16_p: bool) -> torch.Tensor:
         """Launch on the current stream (q prescaled first with `prescaled`);
         returns what the reference returns with block_k = BLOCK_K."""
-        _check_probe_inputs(q, k, v, BLOCK_Q, BLOCK_K)
         _check_cuda_inputs(q, k, v)
+        _check_probe_inputs(q, k, v, BLOCK_Q, BLOCK_K)
         if prescaled:
             q = (q.float() * scale).to(q.dtype)
         o = torch.empty_like(q)
@@ -261,7 +280,7 @@ def flash_overlap(
 ) -> torch.Tensor:
     """The overlap probe's forward: kernel 6 on CUDA tensors, the plain version
     on CPU tensors. Returns (BH, Sq, D) bf16."""
-    _check_probe_inputs(q, k, v, _overlap_block_q(variant), BLOCK_K)
+    _check_probe_inputs(q, k, v, _overlap_block_q(variant), OVERLAP_KEY_MULTIPLE)
     if q.device.type == "cpu":
         return flash_overlap_reference(q, k, v, scale=scale, variant=variant)
     return FLASH_PROBE_OVERLAP(q, k, v, scale=scale, variant=variant)

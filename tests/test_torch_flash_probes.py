@@ -182,6 +182,46 @@ def test_probes_reject_what_the_kernels_do_not_take():
         flash_overlap(q, k, v, scale=0.125, variant="ilv3")
 
 
+def test_tile_multiples_are_what_each_probe_takes():
+    """Kernel 6 zero-fills a last half key tile, so it takes Sk in 64s; kernel
+    7's key step is its 128-key tile; q2 takes whole 128-row blocks."""
+    from generativemodels_tpu_torch.ops.flash_probes import BLOCK_K, tile_multiples
+
+    assert BLOCK_K == 128
+    assert tile_multiples("full") == (64, 64)
+    assert tile_multiples("q2") == (128, 64)
+    assert tile_multiples("both") == (64, 128)
+    (q, k, v), _ = _inputs()
+    half = flash_overlap(q[:, :128], k[:, :192], v[:, :192], scale=0.125)
+    assert half.shape == (2, 128, 64)
+    with pytest.raises(ValueError, match="multiples"):
+        flash_vpu(q[:, :128], k[:, :192], v[:, :192], scale=0.125, prescaled=True,
+                  bf16_p=True)
+
+
+@pytest.mark.parametrize(
+    "variant, shape, want",
+    [("full", (128, 192), (128, 192)), ("q2", (192, 320), (256, 320)),
+     ("both", (128, 192), (128, 256)), ("prescale", (256, 64), (256, 128))],
+)
+def test_nearest_shape_rounds_up_to_each_kernels_tiles(variant, shape, want):
+    """The shape a variant runs at where its kernel does not take a case's:
+    a shape it takes is kept, and the plain version takes the rounded one."""
+    from generativemodels_tpu_torch.ops.flash_probes import VPU_VARIANTS, nearest_shape
+
+    assert nearest_shape(variant, *shape) == want
+    assert nearest_shape(variant, *want) == want
+    (q, k, v), _ = _inputs()
+    sq, sk = want
+    if variant in VPU_VARIANTS:
+        prescaled, bf16_p = VPU_VARIANTS[variant]
+        out = flash_vpu(q[:1, :sq], k[:1, :sk], v[:1, :sk], scale=0.125,
+                        prescaled=prescaled, bf16_p=bf16_p)
+    else:
+        out = flash_overlap(q[:1, :sq], k[:1, :sk], v[:1, :sk], scale=0.125, variant=variant)
+    assert out.shape == (1, sq, 64)
+
+
 @pytest.mark.parametrize("probe", [probe_overlap, probe_attn_vpu], ids=["overlap", "vpu"])
 def test_probe_main_on_cpu(probe, monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(probe, "SEQ", 256)

@@ -92,7 +92,7 @@ from generativemodels_tpu_torch.ops.flash_attention import (
     _prescaled,
 )
 from generativemodels_tpu_torch.ops import fused_conv as fused_conv_module
-from generativemodels_tpu_torch.ops.flash_probes import relative_error
+from generativemodels_tpu_torch.ops.flash_probes import nearest_shape, relative_error
 from generativemodels_tpu_torch.ops.fused_conv import CONV_BN, CONV_RUNS
 from generativemodels_tpu_torch import engines
 from generativemodels_tpu_torch.networks.blocks import AttentionBlock
@@ -664,22 +664,63 @@ def _probe_inputs(device, bh, sq, sk, seed=4):
                  for s in (sq, sk, sk))
 
 
-PROBE_SHAPES = [(1, 128, 192), (2, 1024, 2048), (3, 256, 64)]
+# (BH, Sq, Sk): Sq != Sk with a last half key tile; two heads of several
+# blocks; BH odd with one (half) key tile; nine key tiles (the four-stage ring
+# wraps twice, an odd count) under a last block of 64 query rows
+PROBE_SHAPES = [(1, 128, 192), (2, 1024, 2048), (3, 256, 64), (3, 192, 1152)]
+
+
+def _one_hot_inputs(device, bh, sq, sk, value, seed=6):
+    """q row i of head h is value * e_d with d = (7 i + h) % 64; k is zero
+    but for key (37 d + h) % Sk, which is e_d, for each d < 64 (distinct keys:
+    37 is prime to every Sk here); v standard normal. Each query row meets
+    one key, so its output is that key's v row, which is returned as well. A
+    wrong descriptor, swizzle or stage reads another column or key and
+    averages v rows instead."""
+    rows = torch.arange(sq)
+    heads = torch.arange(bh)[:, None]
+    d = (7 * rows[None, :] + heads) % 64
+    q = torch.zeros(bh, sq, 64)
+    q.scatter_(2, d[..., None], value)
+    dims = torch.arange(64)
+    keys = (37 * dims[None, :] + heads) % sk
+    k = torch.zeros(bh, sk, 64)
+    k[heads, keys, dims[None, :]] = 1.0
+    g = torch.Generator().manual_seed(seed)
+    v = torch.randn((bh, sk, 64), generator=g)
+    want = v[heads, keys.gather(1, d)]
+    return (*(t.to(torch.bfloat16).to(device) for t in (q, k, v)),
+            want.to(torch.bfloat16).to(device))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", OVERLAP_VARIANTS)
 @pytest.mark.parametrize("bh, sq, sk", PROBE_SHAPES)
 def test_overlap_probe_kernel_on_gpu(cuda_device, variant, bh, sq, sk):
-    q, k, v = _probe_inputs(cuda_device, bh, sq, sk)
+    q, k, v = _probe_inputs(cuda_device, bh, *nearest_shape(variant, sq, sk))
     before = FLASH_PROBE_OVERLAP.launches
     got = flash_overlap(q, k, v, scale=0.125, variant=variant)
+    again = flash_overlap(q, k, v, scale=0.125, variant=variant)
     want, l = flash_overlap_reference(q, k, v, scale=0.125, variant=variant, with_l=True)
     torch.cuda.synchronize()
-    assert FLASH_PROBE_OVERLAP.launches == before + 1
+    assert FLASH_PROBE_OVERLAP.launches == before + 2
     assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
     err, rows = relative_error(got, want, l if variant == "mxu_only" else None)
     assert rows > 0 and err <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", OVERLAP_VARIANTS)
+@pytest.mark.parametrize("bh, sq, sk", PROBE_SHAPES)
+def test_overlap_probe_kernel_one_hot(cuda_device, variant, bh, sq, sk):
+    # prescaled, s is bf16(240 * bf16(0.125 log2 e)) = 43.25 at the one key
+    # and 0 at the others: p = 2**43.25 against Sk - 1 ones (mxu_only: 43.25
+    # against zeros), so o is that key's v row
+    q, k, v, want = _one_hot_inputs(cuda_device, bh, *nearest_shape(variant, sq, sk), 240.0)
+    got = flash_overlap(q, k, v, scale=0.125, variant=variant)
+    torch.cuda.synchronize()
+    assert relative_error(got, want)[0] <= 2e-2
 
 
 @pytest.mark.cuda
@@ -687,13 +728,30 @@ def test_overlap_probe_kernel_on_gpu(cuda_device, variant, bh, sq, sk):
 @pytest.mark.parametrize("bh, sq, sk", PROBE_SHAPES)
 def test_vpu_probe_kernel_on_gpu(cuda_device, variant, bh, sq, sk):
     prescaled, bf16_p = VPU_VARIANTS[variant]
-    q, k, v = _probe_inputs(cuda_device, bh, sq, sk, seed=5)
+    q, k, v = _probe_inputs(cuda_device, bh, *nearest_shape(variant, sq, sk), seed=5)
+    opts = dict(scale=0.125, prescaled=prescaled, bf16_p=bf16_p)
     before = FLASH_PROBE_VPU.launches
-    got = flash_vpu(q, k, v, scale=0.125, prescaled=prescaled, bf16_p=bf16_p)
-    want = flash_vpu_reference(q, k, v, scale=0.125, prescaled=prescaled, bf16_p=bf16_p)
+    got = flash_vpu(q, k, v, **opts)
+    again = flash_vpu(q, k, v, **opts)
+    want = flash_vpu_reference(q, k, v, **opts)
     torch.cuda.synchronize()
-    assert FLASH_PROBE_VPU.launches == before + 1
+    assert FLASH_PROBE_VPU.launches == before + 2
     assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    assert relative_error(got, want)[0] <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(VPU_VARIANTS))
+@pytest.mark.parametrize("bh, sq, sk", PROBE_SHAPES)
+def test_vpu_probe_kernel_one_hot(cuda_device, variant, bh, sq, sk):
+    # s = 240 * 0.125 = 30 at the one key, 0 at the others: after the max,
+    # p = 1 against exp(-30), so o is that key's v row
+    prescaled, bf16_p = VPU_VARIANTS[variant]
+    q, k, v, want = _one_hot_inputs(cuda_device, bh, *nearest_shape(variant, sq, sk),
+                                    240.0)
+    got = flash_vpu(q, k, v, scale=0.125, prescaled=prescaled, bf16_p=bf16_p)
+    torch.cuda.synchronize()
     assert relative_error(got, want)[0] <= 2e-2
 
 
@@ -711,7 +769,9 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda_device):
         wide = torch.zeros(2, 128, 128, device=cuda_device, dtype=torch.bfloat16)
         flash_vpu(wide[..., :64], q, q, **opts)
     with pytest.raises(ValueError, match="block_k"):
-        flash_vpu(q, q, q, block_k=128, **opts)
+        flash_vpu(q, q, q, block_k=64, **opts)
+    with pytest.raises(ValueError, match="multiples"):  # kernel 7's Sk: its 128-key step
+        flash_vpu(q, q[:, :64].contiguous(), q[:, :64].contiguous(), **opts)
     with pytest.raises(ValueError, match="device"):
         flash_vpu(q, q.cpu(), q.cpu(), **opts)
     with pytest.raises(ValueError, match="head width"):
