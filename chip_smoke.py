@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU: build and check its kernels, serve,
 train, sample the 3D 128^3 model and train it, run the attention probes, the
-latent route, the conditioned models and stage-1 adversarial training.
+latent route, the conditioned models, stage-1 adversarial training, the
+autoregressive VQ-VAE + transformer stack and SPADE.
 
 Run from the root of a checkout, with no arguments:
 
@@ -109,8 +110,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      attention path; (c) `recipes.train_vqgan.main` and (d)
      `recipes.train_2d_ldm.main` at their defaults (no kernel on their
      paths); (e) a profiled stage-1 step at 128^3.
+ 11. the autoregressive stack: (a) the 2D VQ-VAE + transformer tutorial
+     config (VQ-VAE (256, 256), 256 codes; transformer dim 96, depth 12, 8
+     heads, random weights) through `VQVAETransformerInferer.sample` on the
+     windowed and the KV-cache paths at 256 tokens (batch 1 and 16) and 1024
+     tokens (batch 1), and 1024 tokens through max_seq_len 256 (the windowed
+     path), seconds a sample by host clock and CUDA events, profiles of a
+     256-token sample on each path (busy share), the numbers behind
+     `resolve_use_cache`'s CUDA threshold, and a greedy (top_k=1) windowed
+     chain against a cached one (equal tokens); (b)
+     `recipes.train_vqvae_transformer.main` at --size 128 (1024 causal
+     tokens of head width 32, kernels 1-3, then 1 and 4) for a few steps of
+     each stage, seconds a step, peak memory and the kernels' launches; (c)
+     one stage-2 step's gradients and (d) `get_likelihood` at 1024 tokens,
+     the kernel paths against the plain attention path;
+ 12. SPADE: `recipes.train_spade_vae.main` and `recipes.train_spade_ldm.main`
+     (with --sample) at their defaults for a few steps (no kernel: their
+     attention stays under 1024 tokens), seconds a step and peak memory, and
+     one SPADE UNet forward on the card against the CPU.
 Phase 2 also holds kernels 1-4 at phase 10's two f32 shapes, (2, 32768,
-32768, 64) and (2, 4096, 4096, 64), and under the JAX kernel's other two contracts
+32768, 64) and (2, 4096, 4096, 64), at phase 11's causal (64, 1024, 1024,
+32) f32, and under the JAX kernel's other two contracts
 (`upcast=True`, the running max of GMTPU_FLASH_NOMAX=0) against their plain
 versions, Sk = 1 and 77 among the shapes, times them at the 2D and 3D
 shapes, runs one forward of (b)'s UNet under each contract against the
@@ -182,6 +202,9 @@ KERNEL_CASES = (
     # the latent UNet's level 1 at 16^3, both one head of 64 at batch 2
     ("aekl_3d_f32", (2, 32768, 32768, 64), "float32", False),
     ("latent_unet_f32", (2, 4096, 4096, 64), "float32", False),
+    # phase 11's autoregressive training path: the recipe's stage 2 at --size
+    # 128, batch 16 x 4 heads of 32 over 1024 causal tokens
+    ("ar_causal_f32", (64, 1024, 1024, 32), "float32", True),
 )
 # O, max|diff|: f32 differs from the plain version only in summation order
 # (the 3xTF32 products keep f32 accuracy); bf16 O is rounded to bf16 (one
@@ -219,6 +242,7 @@ BACKWARD_CASES = (
     ("3d_level2_bf16", (2, 32768, 32768, 64), "bfloat16", False),  # the 3D training step's
     ("aekl_3d_f32", (2, 32768, 32768, 64), "float32", False),  # phase 10, stage 1
     ("latent_unet_f32", (2, 4096, 4096, 64), "float32", False),  # phase 10, stage 2
+    ("ar_causal_f32", (64, 1024, 1024, 32), "float32", True),  # phase 11, stage 2
 )
 # max|diff| / max|ref| of dq, dk, dv: f32 sums over 1024+ keys in another
 # order; bf16 rounds ds, p and the outputs to bf16
@@ -530,6 +554,57 @@ LDM3D_PROFILE_GROUPS = (
     ("Adam", ("multi_tensor", "adam", "Adam")),
     ("other (SiLU, LeakyReLU, adds, upsampling, losses)", ("",)),
 )
+
+# phase 11 (a): the 2D VQ-VAE + transformer MedNIST tutorial config
+# (benchmarks/bench_ar_sampling.py:42-56): VQ-VAE (256, 256), 256 codes of 32,
+# two stride-2 levels; DecoderOnlyTransformer dim 96, depth 12, 8 heads (head
+# width 12: under every kernel width, so its attention stays plain)
+AR_TUTORIAL = dict(vq_channels=(256, 256), num_embeddings=256, dim=96, depth=12, heads=8)
+# (grid edge, batch, warm-up first) of the cache-rule timings on the
+# windowed path (max_seq_len = the grid, as the tutorial) and the cached one
+# (max_seq_len = the grid + BOS)
+AR_TIMINGS = ((16, 1, True), (16, 16, False), (32, 1, False))
+# timed samples a path at each of AR_TIMINGS, the two paths alternating,
+# the best of each reported; a sample is host-bound (busy share ~0.1), so
+# its host-clock time moves by a quarter with the load on a shared host,
+# and the best-of-3 ratio of the two paths at 256 tokens ranged 0.81-1.29x
+# over three runs on one card: a tie within that noise, which no host-clock
+# margin can gate. The cache rule (resolve_use_cache: the cache whenever
+# the sequence fits) is held on the profiles instead: a cached sample must
+# take less device time and fewer kernels than a windowed one.
+AR_REPEATS = 3
+AR_OVERLENGTH = (32, 1, 256)  # grid edge, batch, max_seq_len: JAX forces the windowed path
+# phase 11 (b): the recipe at --size 128 (a 32x32 grid, 1024 tokens of head
+# width 32, batch 16): kernel 1 four times a stage-2 forward and four times
+# in the closing likelihood; kernels 2 and 3 (or 4) four times a backward
+AR_RECIPE_STEPS = dict(stage1=3, stage2=5)
+AR_RECIPE_ARGS = ("--size", "128", "--stage1-steps", str(AR_RECIPE_STEPS["stage1"]),
+                  "--stage2-steps", str(AR_RECIPE_STEPS["stage2"]))
+AR_LAUNCHES = {
+    "split": dict(flash_fwd=4 * AR_RECIPE_STEPS["stage2"] + 4,
+                  flash_bwd_dq=4 * AR_RECIPE_STEPS["stage2"],
+                  flash_bwd_dkv=4 * AR_RECIPE_STEPS["stage2"]),
+    "fused": dict(flash_fwd=4 * AR_RECIPE_STEPS["stage2"] + 4,
+                  flash_bwd_fused=4 * AR_RECIPE_STEPS["stage2"]),
+}
+AR_GRAD_BATCH = 4
+LIKELIHOOD_RTOL = 1e-4  # the kernel path's log-likelihood map, relative to its largest value
+# kernel groups of a sample's profile, matched in this order by name
+AR_PROFILE_GROUPS = (
+    ("flash_fwd (kernel 1)", ("flash_fwd",)),
+    ("cuBLAS products", ("gemm", "gemv", "cutlass", "sm90", "xmma", "dot")),
+    ("softmax", ("softmax", "Softmax")),
+    ("LayerNorm", ("layer_norm", "LayerNorm")),
+    ("sampling (top-k, Gumbel, argmax)", ("topk", "sort", "exponential", "argmax", "distribution",
+                                          "bitonic", "radix")),
+    ("copies, casts, fills, masks", ("copy", "Memcpy", "Memset", "fill", "masked", "index")),
+    ("other (GELU, adds, embeddings, decode)", ("",)),
+)
+# phase 12: the SPADE recipes at their defaults for a few steps (their
+# attention, 8x8 latent tokens in the UNet, stays plain: no kernel launches)
+SPADE_VAE_ARGS = ("--steps", "6", "--sample")
+SPADE_LDM_ARGS = ("--stage1-steps", "6", "--warmup-steps", "3", "--stage2-steps", "5", "--sample")
+SPADE_RTOL = 1e-4  # one SPADE UNet forward on the card against the CPU, f32
 
 
 def log(msg: str) -> None:
@@ -1556,9 +1631,10 @@ def profile_3d(torch, model) -> None:
     report_profile(prof, wall, PROFILE_GROUPS, "3d: profile of one bf16 forward")
 
 
-def report_profile(prof, wall: float, profile_groups, what: str) -> None:
+def report_profile(prof, wall: float, profile_groups, what: str) -> tuple[float, int]:
     """Log the device time of a profiled window by group and by kernel, and
-    the device's busy share of its wall time (host clock)."""
+    the device's busy share of its wall time (host clock); return its device
+    milliseconds and kernel count."""
     events = [e for e in prof.key_averages() if e.device_time_total > 0]
     total = sum(e.device_time_total for e in events)
     if total == 0:
@@ -1574,6 +1650,7 @@ def report_profile(prof, wall: float, profile_groups, what: str) -> None:
     for e in sorted(events, key=lambda e: -e.device_time_total)[:14]:
         log(f"  {e.device_time_total / 1e3:9.3f} ms {100 * e.device_time_total / total:5.1f}% "
             f"x{e.count:<4d} {e.key[:110]}")
+    return total / 1e3, sum(e.count for e in events)
 
 
 def serve_dpmsolver(torch, ops, serve) -> float:
@@ -2621,6 +2698,339 @@ def profile_ldm3d(torch, ldm3d, ldm2d, engines) -> None:
     torch.cuda.empty_cache()
 
 
+class TokenGrid:
+    """A VQ-VAE stand-in for the greedy-chain check: its decode returns the
+    sampled tokens themselves."""
+
+    def __init__(self, num_embeddings: int) -> None:
+        self.num_embeddings = num_embeddings
+
+    def decode_samples(self, latent):
+        return latent
+
+
+def ar_tutorial_models(torch, nets, max_seq_len: int, seed: int = 0):
+    """The tutorial's VQ-VAE and transformer on the card: weights from a
+    seed, the transformer's drawn by `randomize`, BOS's logit bias -1e4 (a
+    trained model never predicts BOS; with top_k=1 a leading BOS would leave
+    nothing to draw)."""
+    c = AR_TUTORIAL
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        vq = nets.VQVAE(
+            spatial_dims=2, in_channels=1, out_channels=1, num_channels=c["vq_channels"],
+            num_res_layers=2, num_res_channels=c["vq_channels"],
+            downsample_parameters=((2, 4, 1, 1), (2, 4, 1, 1)),
+            upsample_parameters=((2, 4, 1, 1, 0), (2, 4, 1, 1, 0)),
+            num_embeddings=c["num_embeddings"], embedding_dim=32,
+        )
+        tr = nets.DecoderOnlyTransformer(
+            num_tokens=c["num_embeddings"] + 1, max_seq_len=max_seq_len,
+            attn_layers_dim=c["dim"], attn_layers_depth=c["depth"], attn_layers_heads=c["heads"],
+        )
+    randomize(torch, tr, seed + 1)
+    with torch.no_grad():
+        tr.to_logits.bias[c["num_embeddings"]] = -1e4
+    return vq.to(DEVICE).eval(), tr.to(DEVICE).eval()
+
+
+def ar_sample(torch, inferers, utils, vq, tr, grid: int, batch: int, seed: int, use_cache,
+              top_k=None):
+    """`VQVAETransformerInferer.sample` of a grid x grid token map from BOS."""
+    ordering = utils.Ordering("raster_scan", 2, (1, grid, grid))
+    start = torch.full((batch, 1), AR_TUTORIAL["num_embeddings"], device=DEVICE)
+    return inferers.VQVAETransformerInferer().sample(
+        (grid, grid), start, vq, tr, ordering, top_k=top_k,
+        generator=torch.Generator(DEVICE).manual_seed(seed), use_cache=use_cache)
+
+
+def timed_call(torch, call) -> tuple:
+    """(output, host seconds, CUDA-event seconds) of one call, from and to an
+    idle device."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = call()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(stop) / 1e3
+
+
+def greedy_chains_agree(torch, tr, a, b) -> tuple[bool, str]:
+    """Two greedy token maps (raster order, so sampling order): equal, or
+    first apart at a near-tie (top-2 logit gap of the windowed forward on
+    the common prefix under 1e-4), which f32 rounding may break either way."""
+    a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    if torch.equal(a, b):
+        return True, "equal tokens"
+    j = int((a != b).any(0).nonzero()[0])
+    bos = torch.full((a.shape[0], 1), AR_TUTORIAL["num_embeddings"], device=a.device)
+    with torch.no_grad():
+        logits = tr(torch.cat([bos, a[:, :j]], 1))[:, -1, :AR_TUTORIAL["num_embeddings"]]
+    top2 = logits.topk(2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1])[(a[:, j] != b[:, j])].min().item()
+    return gap <= 1e-4, f"first apart at token {j}, top-2 gap {gap:.3e} there"
+
+
+def run_ar_serving(torch, ops, nets, inferers, utils) -> dict:
+    """Phase 11 (a): the tutorial config through `VQVAETransformerInferer.sample`:
+    seconds a sample (host clock and CUDA events) on the windowed and the
+    KV-cache paths at 256 tokens (batch 1 and 16) and 1024 tokens (batch 1),
+    the over-length case (1024 tokens through max_seq_len 256, the windowed
+    path by force), what `resolve_use_cache` picks at each, profiles of a
+    256-token sample on each path (busy share), and a greedy windowed chain
+    against a greedy cached chain. No kernel launches: head width 12."""
+    from generativemodels_tpu_torch.inferers.vqvae_transformer import resolve_use_cache
+    from torch.profiler import ProfilerActivity, profile
+
+    results = {}
+    reset_launches(ops)
+    for grid, batch, warm in AR_TIMINGS:
+        seq = grid * grid
+        models = {"windowed": ar_tutorial_models(torch, nets, seq),
+                  "cached": ar_tutorial_models(torch, nets, seq + 1)}
+        runs = {path: [] for path in models}
+        for rep in range(AR_REPEATS):
+            order = ("windowed", "cached") if rep % 2 == 0 else ("cached", "windowed")
+            for path in order:
+                vq, tr = models[path]
+                use_cache = path == "cached"
+                with torch.inference_mode():
+                    if warm and rep == 0:
+                        ar_sample(torch, inferers, utils, vq, tr, grid, batch, 0, use_cache)
+                    images, host, event = timed_call(torch, lambda: ar_sample(
+                        torch, inferers, utils, vq, tr, grid, batch, 1 + rep, use_cache))
+                if (tuple(images.shape) != (batch, 1, 4 * grid, 4 * grid)
+                        or not bool(torch.isfinite(images).all())):
+                    raise AssertionError(f"AR sample ({path}, {seq} tokens): bad output")
+                runs[path].append((host, event))
+                del images
+        auto = resolve_use_cache(seq + 1, seq + 1, 1, models["cached"][1])
+        for path, timed in runs.items():
+            host, event = min(timed)
+            results[(seq, batch, path)] = dict(host_s=host, event_s=event)
+            log(f"ar: {path} path, {seq} tokens, batch {batch}, max_seq_len "
+                f"{seq + (path == 'cached')}: best of {AR_REPEATS} {host:.4f} s a sample (host "
+                f"clock; runs " + ", ".join(f"{h:.4f}" for h, _ in timed) + f"), {event:.4f} s "
+                f"by CUDA events, {host / seq * 1e3:.3f} ms a token, {batch * 60 / host:.2f} "
+                f"samples a minute; resolve_use_cache with the sequence fitting -> "
+                f"{'cached' if auto else 'windowed'}")
+        del models
+    grid, batch, max_len = AR_OVERLENGTH
+    vq, tr = ar_tutorial_models(torch, nets, max_len)
+    seq = grid * grid
+    if resolve_use_cache(seq + 1, max_len, 1, tr):
+        raise AssertionError("resolve_use_cache takes the cache for an over-length sequence")
+    with torch.inference_mode():
+        images, host, event = timed_call(torch, lambda: ar_sample(
+            torch, inferers, utils, vq, tr, grid, batch, 1, None))
+    if not bool(torch.isfinite(images).all()):
+        raise AssertionError("AR over-length sample not finite")
+    results[(seq, batch, "overlength")] = dict(host_s=host, event_s=event)
+    log(f"ar: over-length, {seq} tokens through max_seq_len {max_len} (auto: windowed, a "
+        f"{max_len}-token window): {host:.4f} s a sample (host clock), {event:.4f} s by CUDA "
+        f"events, {host / seq * 1e3:.3f} ms a token")
+    check_launches(read_launches(ops), expected_launches(), "AR sampling, tutorial config")
+
+    # the greedy chains, on one model (max_seq_len 257: the windowed path
+    # re-forwards the growing prefix, the cached path decodes it)
+    vq, tr = ar_tutorial_models(torch, nets, 257)
+    stub = TokenGrid(AR_TUTORIAL["num_embeddings"])
+    with torch.inference_mode():
+        chains = [ar_sample(torch, inferers, utils, stub, tr, 16, 16, 0, c, top_k=1)
+                  for c in (False, True)]
+    ok, how = greedy_chains_agree(torch, tr, *chains)
+    log(f"ar: greedy (top_k=1) chains, 256 tokens, batch 16, windowed against cached: {how}; "
+        f"{int(torch.unique(chains[0]).numel())} distinct tokens -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("greedy windowed and cached chains disagree off a near-tie")
+
+    device = {}
+    for path, use_cache in (("windowed", False), ("cached", True)):
+        with torch.inference_mode():  # warm: the greedy chains ran these shapes
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                ar_sample(torch, inferers, utils, vq, tr, 16, 1, 1, use_cache)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        device[path] = report_profile(prof, wall, AR_PROFILE_GROUPS,
+                                      f"ar: profile of one 256-token sample, batch 1, {path} path")
+    pairs = [(results[(g * g, b, "windowed")]["host_s"], results[(g * g, b, "cached")]["host_s"],
+              g * g, b) for g, b, _ in AR_TIMINGS]
+    log("ar: resolve_use_cache on CUDA takes the cache whenever the sequence fits; windowed / "
+        f"cached best seconds a sample of {AR_REPEATS}: " + ", ".join(
+            f"{seq} tokens b{b} {w:.4f} / {c:.4f} ({w / c:.3f}x)" for w, c, seq, b in pairs)
+        + "; a 256-token sample's device ms / kernels, windowed / cached: "
+        f"{device['windowed'][0]:.3f} / {device['cached'][0]:.3f}, "
+        f"{device['windowed'][1]} / {device['cached'][1]}")
+    if any(c >= w for w, c in zip(device["windowed"], device["cached"])):
+        raise AssertionError("a cached sample took no less device time or kernels than a "
+                             "windowed one: resolve_use_cache's rule no longer holds on this card")
+    del vq, tr, chains
+    torch.cuda.empty_cache()
+    return results
+
+
+def run_ar_training(torch, ops, ar_recipe) -> dict:
+    """Phase 11 (b): `recipes.train_vqvae_transformer.main` at its widths
+    with --size 128 (1024 tokens of head width 32), with the split and the
+    fused backward: seconds a step, peak memory, kernels 1-4 counted."""
+    results = {}
+    for label, flag in BACKWARDS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        with fused_backward(flag):
+            out = ar_recipe.main([*AR_RECIPE_ARGS, "--device", DEVICE])
+        seconds = time.perf_counter() - t0
+        counts = read_launches(ops)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        s1, s2 = mean(out["stage1_seconds"][1:]), mean(out["stage2_seconds"][1:])
+        ll = out["likelihood"]
+        log(f"ar: recipe main at --size 128 (1024 tokens), batch 16, f32, {label} backward: "
+            f"{seconds:.2f} s in all; stage 1 {s1:.4f} s a step, stage 2 {s2:.4f} s a step ("
+            + ", ".join(f"{x:.4f}" for x in out["stage2_seconds"]) + f"); peak memory "
+            f"{peak:.2f} GiB; perplexity {out['perplexities'][-1]:.1f}; stage-2 NLL "
+            + ", ".join(f"{x:.4f}" for x in out["stage2_losses"])
+            + f"; likelihood map {tuple(ll.shape)} mean {float(ll.mean()):.4f}")
+        losses = out["stage1_losses"] + out["stage2_losses"]
+        grid = int(AR_RECIPE_ARGS[AR_RECIPE_ARGS.index("--size") + 1]) // 4
+        if (not all(np.isfinite(losses)) or tuple(ll.shape) != (2, grid, grid)
+                or not bool(torch.isfinite(ll).all()) or float(ll.max()) > 0):
+            raise AssertionError(f"AR recipe ({label}): losses or likelihood map wrong")
+        check_launches(counts, expected_launches(**AR_LAUNCHES[label]),
+                       f"AR recipe, {label} backward")
+        if not (counts["flash_fwd"] > 0 and counts["flash_bwd_dq" if label == "split"
+                                                    else "flash_bwd_fused"] > 0):
+            raise AssertionError("the AR recipe ran no causal flash kernel")
+        results[label] = dict(launches=counts, stage1_s=s1, stage2_s=s2, peak_gib=peak)
+        del out, ll
+    return results
+
+
+def ar_gradients_and_likelihood(torch, ops, ar_recipe, inferers, utils, ddpm) -> None:
+    """Phase 11 (c), (d): one stage-2 step's parameter gradients at 1024
+    tokens (seeded weights, batch AR_GRAD_BATCH) on the split- and the
+    fused-kernel paths against the plain attention path; `get_likelihood` at
+    1024 tokens, the kernel path against the plain path."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        vq, tr = ar_recipe.build_models(128)
+        plain = ar_recipe.build_models(128, use_flash_attention=False)[1]
+    randomize(torch, tr, 5)
+    plain.load_state_dict(tr.state_dict(), strict=True)
+    vq, tr, plain = vq.to(DEVICE).eval(), tr.to(DEVICE).train(), plain.to(DEVICE).train()
+    x = ddpm.synthetic_batch(torch.Generator(DEVICE).manual_seed(3), AR_GRAD_BATCH, 128, DEVICE)
+    ordering = utils.Ordering("raster_scan", 2, (1, 32, 32))
+    inferer = inferers.VQVAETransformerInferer()
+
+    def grads(model, flag: str, expected: dict, what: str) -> dict:
+        model.zero_grad(set_to_none=True)
+        reset_launches(ops)
+        with fused_backward(flag):
+            ar_recipe.stage2_loss(inferer, vq, model, ordering, x, None).backward()
+        torch.cuda.synchronize()
+        check_launches(read_launches(ops), expected_launches(**expected), what)
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    what = f"AR stage-2 step at 1024 tokens, batch {AR_GRAD_BATCH}, f32"
+    want = grads(plain, "0", {}, f"{what}, plain path")
+    per_step = {"split": dict(flash_fwd=4, flash_bwd_dq=4, flash_bwd_dkv=4),
+                "fused": dict(flash_fwd=4, flash_bwd_fused=4)}
+    for label, flag in BACKWARDS:
+        got = grads(tr, flag, per_step[label], f"{what}, {label} backward")
+        worst, worst_name = max_grad_diff(got, want)
+        log(f"ar: stage-2 gradients at 1024 tokens, {label}-kernel path vs plain path: worst "
+            f"max|diff|/max|grad| = {worst:.3e} at {worst_name} (tol {GRAD_RTOL:g}); "
+            f"relative norm {grad_norm_diff(got, want):.3e}")
+        if not worst <= GRAD_RTOL:
+            raise AssertionError(f"AR stage-2 gradients, {label} backward, disagree with the "
+                                 "plain path")
+    tr.eval(), plain.eval()
+    reset_launches(ops)
+    got = inferer.get_likelihood(x, vq, tr, ordering)
+    torch.cuda.synchronize()
+    check_launches(read_launches(ops), expected_launches(flash_fwd=4), "AR likelihood")
+    want = inferer.get_likelihood(x, vq, plain, ordering)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"ar: get_likelihood at 1024 tokens, batch {AR_GRAD_BATCH}, kernel path vs plain path: "
+        f"max|diff|/max|ll| = {rel:.3e} (tol {LIKELIHOOD_RTOL:g}); mean log-prob "
+        f"{float(want.mean()):.4f}")
+    if not rel <= LIKELIHOOD_RTOL:
+        raise AssertionError("AR likelihood on the kernels disagrees with the plain path")
+    del vq, tr, plain, want, got
+    torch.cuda.empty_cache()
+
+
+def run_spade(torch, ops, spade_vae, spade_ldm) -> dict:
+    """Phase 12: `recipes.train_spade_vae.main` and `train_spade_ldm.main`
+    (with --sample) at their defaults for a few steps: seconds a step, peak
+    memory, no kernel launch; then one forward of the LDM recipe's SPADE UNet
+    (seeded weights) on the card against the same forward on the CPU."""
+    results = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ops)
+    out = spade_vae.main([*SPADE_VAE_ARGS, "--device", DEVICE])
+    check_launches(read_launches(ops), expected_launches(), "SPADE VAE-GAN recipe")
+    hist, sample = out["outputs"], out["sample"]
+    results["vae_s"] = mean(out["seconds"][2:])
+    results["vae_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"spade: VAE-GAN recipe main at its defaults (SPADENet (16, 32, 64), z 32, two-scale "
+        f"PatchGAN, batch 8, 64x64), {len(hist)} steps: {results['vae_s']:.4f} s a step over "
+        f"steps 3-{len(hist)} (first {out['seconds'][0]:.4f}); peak memory "
+        f"{results['vae_peak_gib']:.2f} GiB; last losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in hist[-1].items()))
+    if (not all(np.isfinite(v) for h in hist for v in h.values()) or sample is None
+            or tuple(sample.shape) != (2, 1, 64, 64) or not bool(torch.isfinite(sample).all())):
+        raise AssertionError("SPADE VAE-GAN recipe: losses or synthesis not finite")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    out = spade_ldm.main([*SPADE_LDM_ARGS, "--device", DEVICE])
+    seconds = time.perf_counter() - t0
+    check_launches(read_launches(ops), expected_launches(), "SPADE LDM recipe")
+    warm = int(SPADE_LDM_ARGS[SPADE_LDM_ARGS.index("--warmup-steps") + 1])
+    results["ldm_stage1_s"] = mean(out["stage1_seconds"][warm:])
+    results["ldm_stage2_s"] = mean(out["stage2_seconds"][1:])
+    results["ldm_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    sample = out["sample"]
+    log(f"spade: LDM recipe main at its defaults (SPADE AEKL (32, 64, 64), PatchGAN 32, SPADE "
+        f"UNet (64, 128), batch 8, 64x64) with --sample (DDPM, 1000 steps, batch 2): "
+        f"{seconds:.2f} s in all; stage 1 {results['ldm_stage1_s']:.4f} s an adversarial step, "
+        f"stage 2 {results['ldm_stage2_s']:.4f} s a step; scale factor "
+        f"{out['scale_factor']:.4f}; peak memory {results['ldm_peak_gib']:.2f} GiB; stage-2 "
+        f"losses " + ", ".join(f"{x:.4f}" for x in out["stage2_losses"]))
+    losses = [v for step in out["stage1_losses"] for v in step.values()] + out["stage2_losses"]
+    if (not all(np.isfinite(losses)) or sample is None or tuple(sample.shape) != (2, 1, 64, 64)
+            or not bool(torch.isfinite(sample).all())):
+        raise AssertionError("SPADE LDM recipe: losses or sample not finite")
+    del out, sample
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        unet = spade_ldm.build_models()[2]
+    randomize(torch, unet, 7)
+    g = torch.Generator("cpu").manual_seed(8)
+    z = torch.randn((8, 3, 16, 16), generator=g)
+    _, seg = spade_ldm.synthetic_seg_batch(g, 8, 64)
+    t = torch.randint(0, 1000, (8,), generator=g)
+    with torch.no_grad():
+        want = unet.eval()(z, t, seg)
+        got = unet.to(DEVICE)(z.to(DEVICE), t.to(DEVICE), seg.to(DEVICE)).cpu()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"spade: SPADE UNet forward (the LDM recipe's, seeded weights, batch 8, 16x16 latent, "
+        f"64x64 seg), card vs CPU, f32: max|diff|/max|out| = {rel:.3e} (tol {SPADE_RTOL:g})")
+    if not rel <= SPADE_RTOL:
+        raise AssertionError("SPADE UNet forward on the card disagrees with the CPU")
+    return results
+
+
 def build_kernels(build_library) -> None:
     """Phase 1: one nvcc for each source, all started together."""
     results = {}
@@ -2720,6 +3130,10 @@ def main() -> int:
     from generativemodels_tpu_torch.recipes import train_3d_ddpm as recipe3d
     from generativemodels_tpu_torch.recipes import train_3d_ldm as ldm3d
     from generativemodels_tpu_torch.recipes import train_vqgan as vqgan
+    from generativemodels_tpu_torch.recipes import train_spade_ldm as spade_ldm
+    from generativemodels_tpu_torch.recipes import train_spade_vae as spade_vae
+    from generativemodels_tpu_torch.recipes import train_vqvae_transformer as ar_recipe
+    from generativemodels_tpu_torch import utils
 
     t_start = time.perf_counter()
     # phase 1: card and build
@@ -2803,6 +3217,27 @@ def main() -> int:
         + f"; VQ-GAN {two_d['vqgan_s']:.4f}; 2D LDM stage 1 {two_d['ldm2d_stage1_s']:.4f}, "
         f"stage 2 {two_d['ldm2d_stage2_s']:.4f}")
 
+    # phase 11: the autoregressive stack: (a) the tutorial config's sampling
+    # on both paths, (b) the recipe at 1024 tokens on the causal kernels 1-3
+    # (and 1 and 4), (c) its stage-2 gradients and (d) its likelihood on the
+    # kernel path against the plain path
+    t_ar = time.perf_counter()
+    ar_serving = run_ar_serving(torch, ops, nets, inferers, utils)
+    ar_trained = run_ar_training(torch, ops, ar_recipe)
+    ar_gradients_and_likelihood(torch, ops, ar_recipe, inferers, utils, recipe)
+    log(f"ar: phase 11 in {time.perf_counter() - t_ar:.1f} s; seconds a 256-token sample, batch "
+        f"1: windowed {ar_serving[(256, 1, 'windowed')]['host_s']:.4f}, cached "
+        f"{ar_serving[(256, 1, 'cached')]['host_s']:.4f}; recipe stage 2 at 1024 tokens "
+        + "; ".join(f"{k} {r['stage2_s']:.4f} s a step (peak {r['peak_gib']:.2f} GiB)"
+                    for k, r in ar_trained.items()))
+
+    # phase 12: the SPADE recipes, and a SPADE UNet forward against the CPU
+    t_spade = time.perf_counter()
+    spade = run_spade(torch, ops, spade_vae, spade_ldm)
+    log(f"spade: phase 12 in {time.perf_counter() - t_spade:.1f} s; VAE-GAN "
+        f"{spade['vae_s']:.4f} s a step, LDM stage 1 {spade['ldm_stage1_s']:.4f}, stage 2 "
+        f"{spade['ldm_stage2_s']:.4f} s a step")
+
     # the numbers of each kernel at its main path's shape: serving for the
     # forward, the recipe's batch 64 for the split backward, the 3D training
     # step's attention for the fused backward, the 128^3 96->32 call for
@@ -2836,6 +3271,16 @@ def main() -> int:
     for name, entry in stage1.items():
         run = ldm3d_results["f32_fused" if name == "flash_bwd_fused" else "f32_split"]
         extra.setdefault(name, {})["ldm3d_f32"] = dict(entry, launches=run["launches"][name])
+    # kernels 1-4 in the causal contract at head width 32 on phase 11's AR
+    # training path: phase 2's numbers at the recipe's stage-2 shape, with the
+    # launches of the recipe's run (kernel 4 from the fused run)
+    ar = dict(flash_fwd=forward["ar_causal_f32"],
+              flash_bwd_dq=backward["ar_causal_f32"]["dq"],
+              flash_bwd_dkv=backward["ar_causal_f32"]["dkv"],
+              flash_bwd_fused=backward["ar_causal_f32"]["fused"])
+    for name, entry in ar.items():
+        run = ar_trained["fused" if name == "flash_bwd_fused" else "split"]
+        extra.setdefault(name, {})["ar_causal_f32"] = dict(entry, launches=run["launches"][name])
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=CSRC + source, replaces=replaces,

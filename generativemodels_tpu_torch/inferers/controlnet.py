@@ -8,8 +8,8 @@ they are. The latent variant resizes the control image to the latent's
 spatial shape by torch's `nearest` rule (source index floor(i * in /
 out)), as the reference does, and not by the `nearest-exact` rule of
 `latent.py`'s resampling. A VQ-VAE's `quantized` flag reaches the
-autoencoder as in `LatentDiffusionInferer`. SPADE's `seg` is not ported
-yet.
+autoencoder as in `LatentDiffusionInferer`, and so does a SPADE
+segmentation `seg`.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 
 from ..networks.nets.vqvae import VQVAE
 from .inferer import DiffusionInferer
-from .latent import LatentDiffusionInferer, _no_seg
+from .latent import LatentDiffusionInferer
 
 
 def _wrap_with_controlnet(diffusion_model, controlnet, cn_cond):
@@ -46,10 +46,9 @@ class ControlNetDiffusionInferer(DiffusionInferer):
         mode: str = "crossattn",
         seg: torch.Tensor | None = None,
     ) -> torch.Tensor:
-        _no_seg(seg)
         return super().__call__(
             inputs, _wrap_with_controlnet(diffusion_model, controlnet, cn_cond), noise,
-            timesteps, condition=condition, mode=mode,
+            timesteps, condition=condition, mode=mode, seg=seg,
         )
 
     def sample(
@@ -68,12 +67,11 @@ class ControlNetDiffusionInferer(DiffusionInferer):
         generator: torch.Generator | None = None,
         eta: float = 0.0,
     ):
-        _no_seg(seg)
         return super().sample(
             input_noise, _wrap_with_controlnet(diffusion_model, controlnet, cn_cond),
             scheduler=scheduler, save_intermediates=save_intermediates,
             intermediate_steps=intermediate_steps, conditioning=conditioning, mode=mode,
-            verbose=verbose, generator=generator, eta=eta,
+            verbose=verbose, seg=seg, generator=generator, eta=eta,
         )
 
     def get_likelihood(
@@ -93,13 +91,12 @@ class ControlNetDiffusionInferer(DiffusionInferer):
         generator: torch.Generator | None = None,
         noise: torch.Tensor | None = None,
     ):
-        _no_seg(seg)
         return super().get_likelihood(
             inputs, _wrap_with_controlnet(diffusion_model, controlnet, cn_cond),
             scheduler=scheduler, save_intermediates=save_intermediates,
             conditioning=conditioning, mode=mode, original_input_range=original_input_range,
-            scaled_input_range=scaled_input_range, verbose=verbose, generator=generator,
-            noise=noise,
+            scaled_input_range=scaled_input_range, verbose=verbose, seg=seg,
+            generator=generator, noise=noise,
         )
 
 

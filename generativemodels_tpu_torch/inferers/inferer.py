@@ -7,23 +7,29 @@ timestep tensor, in place of the JAX `lax.scan`; each timestep stays a
 decides per step (which steps `save_intermediates` keeps, the decoder term
 at t = 0) it reads from one host copy of the plan, taken before the loop.
 `diffusion_model` is any callable `(x, timesteps, context=None)` returning
-the prediction. Stochastic steps draw from an explicit `torch.Generator`. A
-stateful scheduler (one with `init_state`: PNDM, DPM-Solver++) threads its
-state through `step(state, model_output, t, sample)`, as the JAX scan
-carries it.
-
-Not ported yet: SPADE `seg`.
+the prediction; given a SPADE segmentation `seg`, it is also called with
+`seg=seg` (the SPADE UNet's argument), as in JAX. Stochastic steps draw
+from an explicit `torch.Generator`. A stateful scheduler (one with
+`init_state`: PNDM, DPM-Solver++) threads its state through `step(state,
+model_output, t, sample)`, as the JAX scan carries it.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
 from ..networks.schedulers import DDPMScheduler
 
 ModelFn = Callable[..., torch.Tensor]
+
+
+def _call_model(model: ModelFn, x, timesteps, context, seg):
+    kwargs: dict[str, Any] = {}
+    if seg is not None:
+        kwargs["seg"] = seg
+    return model(x, timesteps, context=context, **kwargs)
 
 
 def _host_timesteps(scheduler) -> list[int]:
@@ -45,6 +51,7 @@ class DiffusionInferer:
         timesteps: torch.Tensor,
         condition: torch.Tensor | None = None,
         mode: str = "crossattn",
+        seg: torch.Tensor | None = None,
     ) -> torch.Tensor:
         """One supervised training forward: add_noise then predict."""
         if mode not in ("crossattn", "concat"):
@@ -53,7 +60,7 @@ class DiffusionInferer:
         if mode == "concat":
             noisy_image = torch.cat([noisy_image, condition], dim=1)
             condition = None
-        return diffusion_model(noisy_image, timesteps, context=condition)
+        return _call_model(diffusion_model, noisy_image, timesteps, condition, seg)
 
     @staticmethod
     def _model_input(image, conditioning, mode):
@@ -71,6 +78,7 @@ class DiffusionInferer:
         conditioning: torch.Tensor | None = None,
         mode: str = "crossattn",
         verbose: bool = False,
+        seg: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
         eta: float = 0.0,
     ):
@@ -102,7 +110,7 @@ class DiffusionInferer:
             if verbose:
                 print(f"sampling step {i + 1}/{len(host_timesteps)} (t={host_timesteps[i]})")
             x, ctx = self._model_input(image, conditioning, mode)
-            model_output = diffusion_model(x, t.expand(image.shape[0]), context=ctx)
+            model_output = _call_model(diffusion_model, x, t.expand(image.shape[0]), ctx, seg)
             if is_stateful:
                 image, state = scheduler.step(state, model_output, t, image)
             elif is_ddpm:
@@ -126,6 +134,7 @@ class DiffusionInferer:
         original_input_range: tuple = (0, 255),
         scaled_input_range: tuple = (0, 1),
         verbose: bool = False,
+        seg: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
         noise: torch.Tensor | None = None,
     ):
@@ -162,7 +171,7 @@ class DiffusionInferer:
             tt = t.expand(inputs.shape[0])
             noisy_image = scheduler.add_noise(inputs, noise, tt)
             x, ctx = self._model_input(noisy_image, conditioning, mode)
-            model_output = diffusion_model(x, tt, context=ctx)
+            model_output = _call_model(diffusion_model, x, tt, ctx, seg)
             if model_output.shape[1] == inputs.shape[1] * 2 and learned:
                 model_output, predicted_variance = torch.chunk(model_output, 2, dim=1)
             else:

@@ -9,8 +9,8 @@ latent-space likelihood with its KL maps resampled to the image's shape.
 `decode_stage_2_outputs` (as `AutoencoderKL`); a `VQVAE` gets `quantized=`
 in place of a generator. The encode runs without autograd: its latent is a
 constant of the diffusion model's loss, as the JAX module's stop_gradient
-makes it. SPADE's `seg` is not ported yet: passing one raises
-NotImplementedError.
+makes it. A SPADE segmentation `seg` goes to the diffusion model and, where
+the autoencoder has `label_nc` (a SPADE autoencoder), to its decoder.
 """
 from __future__ import annotations
 
@@ -63,11 +63,6 @@ def _resize_spatial(x: torch.Tensor, spatial_shape: Sequence[int], method: str) 
     )
 
 
-def _no_seg(seg) -> None:
-    if seg is not None:
-        raise NotImplementedError("SPADE conditioning (seg) is not ported yet")
-
-
 class LatentDiffusionInferer(DiffusionInferer):
     """Wraps a stage-1 autoencoder around DiffusionInferer.
 
@@ -109,10 +104,11 @@ class LatentDiffusionInferer(DiffusionInferer):
             latent = _center_pad_or_crop(latent, self.ldm_latent_shape)
         return latent
 
-    def _decode(self, autoencoder_model, latent: torch.Tensor) -> torch.Tensor:
+    def _decode(self, autoencoder_model, latent: torch.Tensor, seg=None) -> torch.Tensor:
         if self.autoencoder_latent_shape is not None:
             latent = _center_pad_or_crop(latent, self.autoencoder_latent_shape)
-        return autoencoder_model.decode_stage_2_outputs(latent / self.scale_factor)
+        kwargs = {"seg": seg} if seg is not None and _takes_seg(autoencoder_model) else {}
+        return autoencoder_model.decode_stage_2_outputs(latent / self.scale_factor, **kwargs)
 
     def __call__(
         self,
@@ -129,9 +125,8 @@ class LatentDiffusionInferer(DiffusionInferer):
     ) -> torch.Tensor:
         """Encode (sampling the latent from `generator`), then one training
         forward of the diffusion model on the latent."""
-        _no_seg(seg)
         latent = self._encode(autoencoder_model, inputs, quantized, generator)
-        return super().__call__(latent, diffusion_model, noise, timesteps, condition, mode)
+        return super().__call__(latent, diffusion_model, noise, timesteps, condition, mode, seg)
 
     def sample(
         self,
@@ -150,18 +145,24 @@ class LatentDiffusionInferer(DiffusionInferer):
     ):
         """The latent chain from `input_noise`, then the decode; with
         `save_intermediates`, (image, the decoded intermediates)."""
-        _no_seg(seg)
+        if (seg is not None and _takes_seg(autoencoder_model) and _takes_seg(diffusion_model)
+                and autoencoder_model.label_nc != diffusion_model.label_nc):
+            raise ValueError(
+                "If both autoencoder_model and diffusion_model implement SPADE, the number "
+                "of semantic labels for each must be compatible."
+            )
         outputs = super().sample(
             input_noise, diffusion_model, scheduler=scheduler,
             save_intermediates=save_intermediates, intermediate_steps=intermediate_steps,
-            conditioning=conditioning, mode=mode, verbose=verbose, generator=generator, eta=eta,
+            conditioning=conditioning, mode=mode, verbose=verbose, seg=seg, generator=generator,
+            eta=eta,
         )
         if save_intermediates:
             latent, latent_intermediates = outputs
-            return self._decode(autoencoder_model, latent), [
-                self._decode(autoencoder_model, li) for li in latent_intermediates
+            return self._decode(autoencoder_model, latent, seg), [
+                self._decode(autoencoder_model, li, seg) for li in latent_intermediates
             ]
-        return self._decode(autoencoder_model, outputs)
+        return self._decode(autoencoder_model, outputs, seg)
 
     def get_likelihood(
         self,
@@ -187,7 +188,6 @@ class LatentDiffusionInferer(DiffusionInferer):
         the bound module's stream); `generator` or `noise` as there. With
         `save_intermediates` and `resample_latent_likelihoods`, each KL map
         is resampled to the input's spatial shape."""
-        _no_seg(seg)
         if resample_latent_likelihoods and resample_interpolation_mode not in (
             "nearest",
             "bilinear",
@@ -202,7 +202,7 @@ class LatentDiffusionInferer(DiffusionInferer):
             latents, diffusion_model, scheduler=scheduler,
             save_intermediates=save_intermediates, conditioning=conditioning, mode=mode,
             original_input_range=original_input_range, scaled_input_range=scaled_input_range,
-            verbose=verbose, generator=generator, noise=noise,
+            verbose=verbose, seg=seg, generator=generator, noise=noise,
         )
         if save_intermediates and resample_latent_likelihoods:
             total, intermediates = outputs
@@ -211,3 +211,8 @@ class LatentDiffusionInferer(DiffusionInferer):
                 for x in intermediates
             ]
         return outputs
+
+
+def _takes_seg(model) -> bool:
+    """A SPADE model: one that names its label channels."""
+    return hasattr(model, "label_nc")

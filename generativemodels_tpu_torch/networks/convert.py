@@ -1,7 +1,8 @@
 """JAX parameter trees -> state dicts of the port's modules.
 
 Counterpart of the DiffusionModelUNet, DiffusionModelEncoder, ControlNet,
-AutoencoderKL, VQVAE, PatchGAN and perceptual-backbone parts of
+AutoencoderKL, VQVAE, PatchGAN, perceptual-backbone, DecoderOnlyTransformer
+and SPADE parts of
 generativemodels_tpu/networks/zoo_convert.py, in the other direction: a flax
 params tree (nested dict of numpy arrays) becomes a state dict for the port's
 module, whose keys are the reference torch keys.
@@ -33,6 +34,9 @@ _UNET_SEGMENT_REWRITES = {
     "out_0": "out.0",  # DiffusionModelEncoder head
     "out_3": "out.3",
     "to_out": "to_out.0",  # CrossAttention's output Linear, in a Sequential with its Dropout
+    # an affine SPADE base GroupNorm: the reference wraps it in an ADN whose
+    # one child is named by its ordering letter
+    "param_free_norm": "param_free_norm.N",
 }
 
 
@@ -395,4 +399,95 @@ def backbone_state_dict_from_jax(
         lambda dirs: to_torch["/".join(dirs)],
     )
     out.update(counters)
+    return out
+
+
+def _translate_transformer(dirs: tuple[str, ...]) -> str:
+    """``block_{i}`` -> ``blocks.{i}``; ``position_embeddings`` is the holder
+    of the reference's ``position_embeddings.embedding``."""
+    parts = []
+    for p in dirs:
+        if p.startswith("block_") and p[6:].isdigit():
+            parts.append(f"blocks.{p[6:]}")
+        elif p == "position_embeddings":
+            parts.append("position_embeddings.embedding")
+        else:
+            parts.append(p)
+    return ".".join(parts)
+
+
+def transformer_state_dict_from_jax(
+    params: Mapping, expected: Mapping[str, torch.Tensor]
+) -> dict[str, torch.Tensor]:
+    """Map a JAX DecoderOnlyTransformer params tree onto the port's keys
+    (``token_embeddings.weight``, ``position_embeddings.embedding.weight``,
+    ``blocks.{i}.{norm1,attn,norm2,cross_attn,norm3,mlp}...``,
+    ``to_logits``): Dense kernels transposed, Embed tables as they are.
+    Errors as `unet_state_dict_from_jax`."""
+    return _state_dict_from_jax(params, expected, _translate_transformer)
+
+
+# A JAX SPADEDiffusionModelUNet maps as the UNet: its up path's SPADE norms
+# (the `mlp_shared`, `mlp_gamma`, `mlp_beta` convs and the affine base
+# GroupNorm `param_free_norm.N`) are covered by _UNET_SEGMENT_REWRITES.
+spade_diffusion_model_unet_state_dict_from_jax = unet_state_dict_from_jax
+
+
+def spade_autoencoderkl_state_dict_from_jax(
+    params: Mapping,
+    expected: Mapping[str, torch.Tensor],
+    num_channels: Sequence[int],
+    num_res_blocks: Sequence[int] | int,
+    attention_levels: Sequence[bool],
+    with_encoder_nonlocal_attn: bool = True,
+    with_decoder_nonlocal_attn: bool = True,
+) -> dict[str, torch.Tensor]:
+    """Map a JAX SPADEAutoencoderKL params tree onto the port's keys: the
+    AutoencoderKL's flat block numbering (the decoder's SPADE res blocks sit
+    where the plain ones do; their base GroupNorm has no parameters).
+    Arguments as `autoencoderkl_state_dict_from_jax`, with no transposed
+    convs."""
+    return autoencoderkl_state_dict_from_jax(
+        params, expected, num_channels, num_res_blocks, attention_levels,
+        with_encoder_nonlocal_attn, with_decoder_nonlocal_attn, use_convtranspose=False,
+    )
+
+
+def spade_network_state_dict_from_jax(
+    params: Mapping,
+    expected: Mapping[str, torch.Tensor],
+    num_channels: Sequence[int],
+    input_shape: Sequence[int],
+) -> dict[str, torch.Tensor]:
+    """Map a JAX SPADENet params tree onto the port's keys
+    (``encoder.blocks.{i}``, ``encoder.fc_mu``/``fc_var``, ``decoder.fc``,
+    ``decoder.blocks.{i}`` SPADE res blocks, ``decoder.last_conv``).
+
+    In VAE mode the flat latent is (C, *spatial) in the port, as in the
+    reference, and (*spatial, C) in the channels-last JAX module: the
+    columns of ``fc_mu``/``fc_var`` and the rows and bias of ``decoder.fc``
+    are permuted accordingly, C being the deepest width. In GAN mode
+    ``decoder.fc`` maps the label channels and is only transposed. Errors as
+    `unet_state_dict_from_jax`."""
+
+    def translate(dirs: tuple[str, ...]) -> str:
+        return ".".join(f"blocks.{p[6:]}" if p.startswith("block_") and p[6:].isdigit() else p
+                        for p in dirs)
+
+    out = _state_dict_from_jax(params, expected, translate)
+    channels = int(tuple(num_channels)[-1])
+    spatial = 1
+    for s in input_shape:
+        spatial *= int(s) // 2 ** len(tuple(num_channels))
+    if "encoder.fc_mu.weight" not in out:
+        return out  # GAN mode: decoder.fc maps channels, with no flat latent
+    for key in ("encoder.fc_mu.weight", "encoder.fc_var.weight"):
+        w = out[key]  # (z, S * C), columns in (S, C) order -> (C, S)
+        out[key] = w.reshape(w.shape[0], spatial, channels).transpose(1, 2).reshape(
+            w.shape[0], -1).contiguous()
+    w = out["decoder.fc.weight"]  # (S * C, z), rows in (S, C) order -> (C, S)
+    out["decoder.fc.weight"] = w.reshape(spatial, channels, -1).transpose(0, 1).reshape(
+        spatial * channels, -1).contiguous()
+    b = out["decoder.fc.bias"]
+    out["decoder.fc.bias"] = b.reshape(spatial, channels).T.reshape(-1).contiguous()
     return out

@@ -244,6 +244,7 @@ class VQVAE(nn.Module):
             )
         self.dtype = dtype
         self.use_checkpointing = use_checkpointing
+        self.num_embeddings = num_embeddings
         common = dict(
             spatial_dims=spatial_dims, num_channels=num_channels, num_res_layers=num_res_layers,
             num_res_channels=num_res_channels, dropout=dropout, act=act, dtype=dtype,

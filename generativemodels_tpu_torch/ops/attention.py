@@ -19,15 +19,19 @@ def resolve_use_flash(
     head_dim: int,
     use_flash: bool | None = None,
     on_cuda: bool = False,
+    has_mask: bool = False,
 ) -> bool:
     """The flash/plain dispatch decision, exposed for tests and docs.
 
-    An explicit `use_flash` wins; auto-dispatch requires a CUDA tensor,
+    Masked calls (KV-cache decoding) always take the plain path, as in JAX;
+    an explicit `use_flash` wins otherwise; auto-dispatch requires a CUDA tensor,
     seq >= _FLASH_MIN_SEQ and a head width the kernel is built for. The
     JAX rule admits every width up to 256; the kernel is instantiated for
     32, 64, 128 and 256 only, so a width such as 48 stays on the plain
     path here.
     """
+    if has_mask:
+        return False
     if use_flash is not None:
         return use_flash
     return on_cuda and seq >= _FLASH_MIN_SEQ and head_dim in HEAD_DIMS
@@ -43,6 +47,7 @@ def dot_product_attention(
     causal: bool = False,
     upcast: bool = False,
     use_flash: bool | None = None,
+    mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Multi-head attention over packed (B, S, H*D) tensors.
 
@@ -55,6 +60,10 @@ def dot_product_attention(
             `upcast_attention`).
         use_flash: True forces the flash kernel (its plain version on the
             CPU), False forces the plain path, None auto-selects.
+        mask: optional boolean key mask that broadcasts to (B, Sq, Sk), True
+            where a query attends. Forces the plain path (KV-cache
+            decoding); masked scores are filled with the type's lowest value
+            after the causal mask, as in JAX.
 
     Returns:
         (B, Sq, inner_dim) in q's type.
@@ -65,7 +74,8 @@ def dot_product_attention(
     if scale is None:
         scale = 1.0 / (head_dim**0.5)
 
-    use_flash = resolve_use_flash(sq, head_dim, use_flash, on_cuda=q.is_cuda)
+    use_flash = resolve_use_flash(sq, head_dim, use_flash, on_cuda=q.is_cuda,
+                                  has_mask=mask is not None)
 
     # (B, S, H*D) -> (B, H, S, D)
     qh = q.reshape(b, sq, num_heads, head_dim).transpose(1, 2)
@@ -89,6 +99,9 @@ def dot_product_attention(
     if causal:
         causal_mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
         scores = scores.masked_fill(~causal_mask, torch.finfo(scores.dtype).min)
+    if mask is not None:
+        keep = torch.broadcast_to(mask.to(device=q.device, dtype=torch.bool), (b, sq, sk))
+        scores = scores.masked_fill(~keep[:, None], torch.finfo(scores.dtype).min)
     probs = torch.softmax(scores.float(), dim=-1).to(dtype)
     out = torch.matmul(probs, vh.to(dtype))
     return out.transpose(1, 2).reshape(b, sq, inner)

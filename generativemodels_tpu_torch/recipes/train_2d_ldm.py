@@ -54,11 +54,13 @@ def disc_forward(disc: PatchDiscriminator, images_or_g_out) -> torch.Tensor:
 
 
 def make_stage1_steps(
-    kl_weight: float, adv_weight: float
+    kl_weight: float, adv_weight: float, g_forward=aekl_forward
 ) -> tuple[AdversarialTrainStep, AdversarialTrainStep]:
     """(reconstruction-only warm-up step, adversarial step): L1 + kl_weight *
     KL for G, plus adv_weight * the least-squares generator loss in the
-    adversarial step; D's loss 0.5 * (real + fake) in both."""
+    adversarial step; D's loss 0.5 * (real + fake) in both. `g_forward`
+    gives G's (reconstruction, z_mu, z_sigma) (the SPADE recipe's takes
+    (images, seg) inputs)."""
     adv = PatchAdversarialLoss(criterion="least_squares")
 
     def recon_loss_fn(g_out, targets):
@@ -75,7 +77,7 @@ def make_stage1_steps(
 
     def build(weight):
         return make_adversarial_train_step(
-            aekl_forward, disc_forward, recon_loss_fn, g_adv_loss, d_loss_fn, adv_weight=weight
+            g_forward, disc_forward, recon_loss_fn, g_adv_loss, d_loss_fn, adv_weight=weight
         )
 
     return build(0.0), build(adv_weight)
@@ -89,10 +91,12 @@ def stage2_loss(
     noise: torch.Tensor,
     timesteps: torch.Tensor,
     generator: torch.Generator | None,
+    seg: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Mean squared error of the UNet's noise prediction on the encoded latent."""
-    pred = inferer(images, aekl, lambda x, t, context=None: unet(x, t), noise, timesteps,
-                   generator=generator)
+    """Mean squared error of the UNet's noise prediction on the encoded
+    latent; a SPADE UNet gets `seg`."""
+    model = unet if seg is not None else (lambda x, t, context=None: unet(x, t))
+    pred = inferer(images, aekl, model, noise, timesteps, seg=seg, generator=generator)
     return torch.mean((pred - noise) ** 2)
 
 
@@ -105,15 +109,17 @@ def stage2_step(
     latent_shape: tuple,
     generator: torch.Generator,
     num_train_timesteps: int = 1000,
+    seg: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One stage-2 update: the noise, then the timesteps, then (in the
-    encode) the latent sample from `generator`; returns the loss."""
+    encode) the latent sample from `generator`; returns the loss. `seg`
+    conditions a SPADE UNet."""
     device = images.device
     noise = torch.randn(latent_shape, generator=generator, device=device)
     timesteps = torch.randint(0, num_train_timesteps, (latent_shape[0],), generator=generator,
                               device=device)
     optimizer.zero_grad(set_to_none=True)
-    loss = stage2_loss(unet, aekl, inferer, images, noise, timesteps, generator)
+    loss = stage2_loss(unet, aekl, inferer, images, noise, timesteps, generator, seg)
     loss.backward()
     optimizer.step()
     return loss.detach()

@@ -1,8 +1,8 @@
 """Enumerations shared across the port.
 
 Counterpart of generativemodels_tpu/utils/enums.py: `StrEnum`, the
-adversarial output keys and the adversarial step's hook points. The
-ordering enums wait for the autoregressive slice.
+adversarial output keys, the adversarial step's hook points and the token
+orderings of the autoregressive stack (`utils.ordering.Ordering`).
 """
 from __future__ import annotations
 
@@ -44,3 +44,15 @@ class AdversarialIterationEvents(StrEnum):
     DISCRIMINATOR_LOSS_COMPLETED = "discriminator_loss_completed"
     DISCRIMINATOR_BACKWARD_COMPLETED = "discriminator_backward_completed"
     DISCRIMINATOR_MODEL_COMPLETED = "discriminator_model_completed"
+
+
+class OrderingType(StrEnum):
+    RASTER_SCAN = "raster_scan"
+    S_CURVE = "s_curve"
+    RANDOM = "random"
+
+
+class OrderingTransformations(StrEnum):
+    ROTATE_90 = "rotate_90"
+    TRANSPOSE = "transpose"
+    REFLECT = "reflect"

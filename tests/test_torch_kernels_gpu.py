@@ -56,6 +56,13 @@ Kernels 6 and 7, relative to the largest output: 2e-2 (bf16 output, p
 rounded to bf16 after f32 sums in another order; the packed bf16 exp rounds
 its argument to bf16); `mxu_only` on the rows whose plain row sum has
 |l| >= 1, each against its own largest value (`relative_error`).
+The autoregressive stack's causal contract at head width 32: kernels 1-3
+(and 4) at (8, 1024, 1024, 32) f32 causal against the plain versions at the
+tolerances above; the recipe's transformer (dim 128, 4 heads) at 1024
+tokens, one training forward and backward on the kernels against the plain
+attention path (logits within 1e-4, gradients within 1e-3 of their largest
+value); greedy sampling on the card equal on the windowed and the cached
+paths; the AR and SPADE recipes on the card by default.
 """
 from __future__ import annotations
 
@@ -103,6 +110,11 @@ from generativemodels_tpu_torch.networks.nets import (
 )
 from generativemodels_tpu_torch.networks.schedulers import DDIMScheduler, PNDMScheduler
 from generativemodels_tpu_torch.recipes import brain_ldm_sampler, train_2d_ldm
+from generativemodels_tpu_torch.recipes import train_spade_ldm, train_spade_vae
+from generativemodels_tpu_torch.recipes import train_vqvae_transformer
+from generativemodels_tpu_torch.inferers import VQVAETransformerInferer
+from generativemodels_tpu_torch.networks.nets import DecoderOnlyTransformer
+from generativemodels_tpu_torch.utils import Ordering
 
 
 @pytest.fixture
@@ -972,3 +984,94 @@ def test_brain_sampler_defaults_to_the_card(cuda_device):
             (1, 3, 4, 4, 4), num_inference_steps=2)
     assert volume.device.type == "cuda" and volume.shape == (1, 1, 8, 8, 8)
     assert bool(torch.isfinite(volume).all())
+
+
+AR_SHAPE = (8, 1024, 1024, 32)  # the recipe's stage 2 at --size 128: 4 heads of 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", ["0", "1"], ids=["split", "fused"])
+def test_causal_head32_kernels_on_gpu(cuda_device, monkeypatch, flag):
+    """Kernels 1-3 (or 1 and 4) in the causal contract at D = 32, f32."""
+    kernels = _fused_bwd(monkeypatch, flag)
+    bh, sq, sk, d = AR_SHAPE
+    g = torch.Generator(cuda_device).manual_seed(7)
+    q, k, v, dout = (torch.randn((bh, s, d), generator=g, device=cuda_device)
+                     for s in (sq, sk, sk, sq))
+    o, lse = FLASH_FWD(q, k, v, scale=d**-0.5, causal=True)
+    ref_o, ref_lse = flash_attention_reference(q, k, v, scale=d**-0.5, causal=True)
+    assert (o - ref_o).abs().max().item() <= FWD_TOL[torch.float32][0]
+    assert (lse - ref_lse).abs().max().item() <= FWD_TOL[torch.float32][1]
+    out, lse2 = FLASH_FWD(q, k, v, scale=d**-0.5, causal=True, log2_lse=True)
+    qp = _prescaled(q, d**-0.5)
+    before = [kern.launches for kern in kernels]
+    got = flash_attention_backward(qp, k, v, out, lse2, dout, causal=True)
+    want = flash_attention_backward_reference(qp, k, v, out, lse2, dout, causal=True)
+    torch.cuda.synchronize()
+    assert [kern.launches - b for kern, b in zip(kernels, before)] == [1] * len(kernels)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_ar_transformer_training_on_the_kernels_on_gpu(cuda_device, monkeypatch):
+    """The recipe's transformer at 1024 tokens: logits and every parameter's
+    gradient on kernels 1-3 against the plain attention path."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setenv("GMTPU_FLASH_FUSED_BWD", "0")
+    models = {}
+    for use_flash in (None, False):
+        torch.manual_seed(0)
+        models[use_flash] = train_vqvae_transformer.build_models(
+            128, use_flash_attention=use_flash)[1].to(cuda_device)
+    tokens = torch.randint(0, 65, (2, 1024), generator=torch.Generator(cuda_device).manual_seed(1),
+                           device=cuda_device)
+    results = {}
+    for use_flash, model in models.items():
+        before = (FLASH_FWD.launches, FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches)
+        logits = model(tokens)
+        logits.float().logsumexp(-1).mean().backward()
+        torch.cuda.synchronize()
+        after = (FLASH_FWD.launches, FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches)
+        assert [a - b for a, b in zip(after, before)] == [4 if use_flash is None else 0] * 3
+        results[use_flash] = (logits.detach(), {n: p.grad for n, p in model.named_parameters()})
+    (logits, grads), (logits_ref, grads_ref) = results[None], results[False]
+    assert (logits - logits_ref).abs().max().item() <= 1e-4 * logits_ref.abs().max().item()
+    for name, want in grads_ref.items():
+        assert (grads[name] - want).abs().max().item() <= 1e-3 * want.abs().max().item(), name
+
+
+class _TokenGrid:
+    num_embeddings = 16
+
+    def decode_samples(self, latent):
+        return latent
+
+
+@pytest.mark.cuda
+def test_ar_greedy_sampling_paths_agree_on_gpu(cuda_device):
+    torch.manual_seed(0)
+    model = DecoderOnlyTransformer(num_tokens=17, max_seq_len=65, attn_layers_dim=32,
+                                   attn_layers_depth=2, attn_layers_heads=2).to(cuda_device)
+    with torch.no_grad():
+        model.to_logits.bias[16] = -1e4  # BOS never leads
+    ordering = Ordering("raster_scan", 2, (1, 8, 8))
+    start = torch.tensor([[16], [3]], device=cuda_device)
+    chains = [VQVAETransformerInferer().sample((8, 8), start, _TokenGrid(), model.eval(),
+                                               ordering, top_k=1, use_cache=c)
+              for c in (False, True)]
+    assert chains[0].device.type == "cuda"
+    torch.testing.assert_close(chains[0], chains[1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_ar_and_spade_recipes_default_to_the_card(cuda_device):
+    before = FLASH_FWD.launches
+    out = train_vqvae_transformer.main(["--stage1-steps", "1", "--stage2-steps", "1",
+                                        "--batch", "2", "--size", "128"])
+    assert out["likelihood"].device.type == "cuda" and FLASH_FWD.launches > before
+    out = train_spade_vae.main(["--steps", "1", "--batch", "2", "--size", "32"])
+    assert next(out["state"].net.parameters()).device.type == "cuda"
+    out = train_spade_ldm.main(["--stage1-steps", "1", "--stage2-steps", "1", "--batch", "2",
+                                "--size", "32"])
+    assert next(out["unet"].parameters()).device.type == "cuda"

@@ -175,9 +175,16 @@ def test_call_matches_jax(aekl, unet):
         got = LatentDiffusionInferer(tsch, scale_factor=0.5)(
             torch.from_numpy(x), t1, tfn, torch.from_numpy(noise), torch.from_numpy(steps))
     assert_close(got, want)
-    with pytest.raises(NotImplementedError, match="seg"):
-        LatentDiffusionInferer(tsch)(torch.from_numpy(x), t1, tfn, torch.from_numpy(noise),
-                                     torch.from_numpy(steps), seg=torch.zeros(1))
+    # a SPADE segmentation reaches the diffusion model as `seg=`
+    seg = rand(LATENT, 4)
+    want = JaxLatentInferer(jsch, scale_factor=0.5)(
+        jnp.asarray(x), j1, lambda z, t, context=None, seg=None: jfn(z, t) + seg,
+        jnp.asarray(noise), jnp.asarray(steps, jnp.int32), seg=jnp.asarray(seg))
+    with torch.no_grad():
+        got = LatentDiffusionInferer(tsch, scale_factor=0.5)(
+            torch.from_numpy(x), t1, lambda z, t, context=None, seg=None: tfn(z, t) + seg,
+            torch.from_numpy(noise), torch.from_numpy(steps), seg=torch.from_numpy(seg))
+    assert_close(got, want)
 
 
 def _smooth_model(tanh, cat=None):

@@ -42,7 +42,12 @@ def test_port_modules_import_without_jax():
                  "losses.adversarial_loss", "losses.spectral_loss", "engines.trainer",
                  "engines.prepare_batch", "recipes.train_vqgan", "recipes.train_2d_ldm",
                  "recipes.train_3d_ldm", "networks.backbones", "networks.pretrained",
-                 "losses.perceptual"):
+                 "losses.perceptual", "utils.ordering", "networks.blocks.selfattention",
+                 "networks.nets.transformer", "inferers.vqvae_transformer",
+                 "recipes.train_vqvae_transformer", "networks.blocks.spade_norm",
+                 "networks.blocks.encoder_modules", "networks.nets.spade_autoencoderkl",
+                 "networks.nets.spade_diffusion_model_unet", "networks.nets.spade_network",
+                 "recipes.train_spade_vae", "recipes.train_spade_ldm"):
         assert f"generativemodels_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
