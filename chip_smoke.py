@@ -2,7 +2,8 @@
 """Drive the PyTorch port on one NVIDIA GPU: build and check its kernels, serve,
 train, sample the 3D 128^3 model and train it, run the attention probes, the
 latent route, the conditioned models, stage-1 adversarial training, the
-autoregressive VQ-VAE + transformer stack and SPADE.
+autoregressive VQ-VAE + transformer stack, SPADE, and the host data path
+(the loader, training from disk, serving a checkpoint, the eval recipes).
 
 Run from the root of a checkout, with no arguments:
 
@@ -10,7 +11,9 @@ Run from the root of a checkout, with no arguments:
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. card and build: the card's name and power limit (nvidia-smi), the torch
-     and CUDA versions, the TF32 settings, and the builds of
+     and CUDA versions, what the host offers the data path (the C++
+     compiler, zlib.h, png.h, jpeglib.h, PyYAML, PIL, tensorboard), the TF32
+     settings, and the builds of
      generativemodels_tpu_torch/csrc/flash_fwd.cu, flash_bwd.cu,
      fused_conv.cu and flash_probes.cu (one nvcc each, started together)
      with their times, the compiler's warnings and each entry function's
@@ -128,6 +131,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      (with --sample) at their defaults for a few steps (no kernel: their
      attention stays under 1024 tokens), seconds a step and peak memory, and
      one SPADE UNet forward on the card against the CPU.
+ 13. the host data path: (a) the port's loader (csrc/dataloader.cpp, built
+     with g++; its PNG and JPEG decoders only where their headers are):
+     64 NIfTI files read 20 times with 4 workers in file order every time
+     and in the seeded shuffle order, .npy files, 8- and 16-bit grey PNGs
+     (decoded, or refused with an error naming png.h where the build has no
+     PNG decoder), and volumes a second at 160x224x160, .nii and .nii.gz;
+     (b) `recipes.train_2d_ddpm.main` at its defaults from gzipped NIfTI
+     slices (--fit crop_pad --augment --cache --checkpoint-dir), kernels 1-3
+     counted, steps/s and busy share beside the same run on synthetic blobs,
+     the checkpoint's save and restore timed; (c) `recipes.serve` with
+     --checkpoint-dir: three DDIM-50 requests of batch 4, 150 kernel-1
+     launches each, each equal to an in-process sample of the trained
+     weights; (d) `recipes.eval_quality.main` at its defaults with a few
+     train steps from disk (kernels 1-3), its FID and MS-SSIM on the card
+     against the CPU on the same features and images; (e)
+     `recipes.eval_brain_ldm.main` at full width (4 samples and 2
+     same-covariate pairs, DDIM-50, FID on (a)'s volumes): seconds a sample,
+     the metrics' seconds, peak memory.
 Phase 2 also holds kernels 1-4 at phase 10's two f32 shapes, (2, 32768,
 32768, 64) and (2, 4096, 4096, 64), at phase 11's causal (64, 1024, 1024,
 32) f32, and under the JAX kernel's other two contracts
@@ -605,6 +626,48 @@ AR_PROFILE_GROUPS = (
 SPADE_VAE_ARGS = ("--steps", "6", "--sample")
 SPADE_LDM_ARGS = ("--stage1-steps", "6", "--warmup-steps", "3", "--stage2-steps", "5", "--sample")
 SPADE_RTOL = 1e-4  # one SPADE UNet forward on the card against the CPU, f32
+# phase 13: the host data path, checkpoints and the two eval recipes. (a) the
+# loader: LOADER_FILES small NIfTI volumes read LOADER_EPOCHS times with
+# LOADER_WORKERS workers, in file order every time (and in the seeded shuffle
+# order), then BRAIN_VOLUMES volumes at the brain bundle's 160x224x160,
+# uncompressed and gzipped, for volumes a second
+LOADER_FILES = 64
+LOADER_EPOCHS = 20
+LOADER_WORKERS = 4
+LOADER_SHAPE = (16, 16, 16)
+BRAIN_VOLUME = (160, 224, 160)
+BRAIN_VOLUMES = 8
+THROUGHPUT_EPOCHS = 2
+# (b) the 2D recipe at its defaults (f32, UNet (128, 256, 256), 64x64, batch
+# 64) from DISK_FILES gzipped NIfTI slices of DISK_EDGE^2, centre-cropped to
+# 64, cached and augmented, then serving its checkpoint (c): 150 kernel-1
+# launches a DDIM-50 request of SERVE's batch 4
+DISK_FILES = 256
+DISK_EDGE = 72
+DISK_STEPS = 12
+DISK_ARGS = ("--steps", str(DISK_STEPS), "--fit", "crop_pad", "--augment", "--cache")
+CKPT_SEEDS = (0, 1, 2)
+# (d) eval_quality at its defaults (UNet (64, 128, 128) in bf16, 64x64, batch
+# 64, 64 samples at batch 32, DDIM-50) with a few train steps: kernels 1-3 at
+# (64, 1024, 1024, 128) bf16 in training, kernel 1 at (32, 1024, 1024, 128)
+# in sampling, 3 of each a step or forward
+EVAL_TRAIN_STEPS = 4
+EVAL_QUALITY_ARGS = ("--train-steps", str(EVAL_TRAIN_STEPS))
+EVAL_SAMPLE = dict(count=64, batch=32, steps=50)
+# the card's metrics against the CPU's on the same features and images. FID
+# in f32 from 64 samples of 2048 features: the covariances have rank 63, and
+# the eigenvalues of their null spaces are f32 rounding noise that each
+# eigh resolves its own way (the CPU's f32 FID sits 6e-4 from its f64 one on
+# such features; the card's sits 8.5e-5 from the CPU's on the H100). The
+# limit lies a few times above that noise. (d) prints beside it the same FID
+# with TF32 matmuls (3.0e-5 from the CPU's on the H100, inside the noise: no
+# FID limit tells a TF32 leak, so the phases pin TF32 off themselves);
+# MS-SSIM: f32 sums of the same convolutions in another order
+FID_RTOL = 2e-3
+MSSSIM_ATOL = 1e-5
+# (e) eval_brain_ldm at full width: 4 samples with distinct covariates plus
+# its default 2 same-covariate pairs, DDIM-50, FID on (a)'s volumes
+EVAL_BRAIN_ARGS = ("--sample-count", "4", "--ddim-steps", "50")
 
 
 def log(msg: str) -> None:
@@ -617,6 +680,24 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def host_line(native) -> str:
+    """What the host offers the data path: the C++ compiler, the headers the
+    loader's decoders need, and the optional Python packages (found, not
+    imported)."""
+    import importlib.util
+
+    import scipy
+
+    cxx = subprocess.run([native._compiler(), "--version"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()[0]
+    headers = ", ".join(f"{h} {'yes' if native.has_header(h) else 'no'}"
+                        for h in ("zlib.h", "png.h", "jpeglib.h"))
+    packages = ", ".join(f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
+                         for m in ("yaml", "PIL", "tensorboard"))
+    return (f"host: {cxx}; headers: {headers}; packages: {packages}; numpy {np.__version__}, "
+            f"scipy {scipy.__version__}; {os.cpu_count()} cores")
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -3031,8 +3112,390 @@ def run_spade(torch, ops, spade_vae, spade_ldm) -> dict:
     return results
 
 
-def build_kernels(build_library) -> None:
-    """Phase 1: one nvcc for each source, all started together."""
+def write_png(path: str, image: np.ndarray) -> None:
+    """A grey PNG, 16-bit for a uint16 array and 8-bit otherwise, written with
+    the standard library's zlib (the card has no image library to rely on)."""
+    import struct
+    import zlib
+
+    height, width = image.shape
+    depth = 16 if image.dtype == np.uint16 else 8
+    rows = image.astype(">u2" if depth == 16 else np.uint8)
+    raw = b"".join(b"\x00" + rows[y].tobytes() for y in range(height))
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, depth, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def write_nifti_gz(native, path: str, array: np.ndarray) -> None:
+    """`native.write_nifti`'s file at `path` (ending in .gz), gzipped."""
+    import gzip
+    import shutil
+
+    plain = path[: -len(".gz")]
+    native.write_nifti(plain, array)
+    with open(plain, "rb") as f, gzip.open(path, "wb", compresslevel=1) as g:
+        shutil.copyfileobj(f, g)
+    os.remove(plain)
+
+
+def first_values(data, directory: str, **kwargs) -> list[int]:
+    """The first voxel of each sample of one pass of `file_dataset`, in the order it yields them."""
+    return [int(round(float(a.flat[0]))) for a in
+            data.file_dataset(directory, loop=False, num_workers=LOADER_WORKERS, **kwargs)]
+
+
+def run_loader(torch, data, native, root: str) -> dict:
+    """Phase 13 (a): build the port's loader, then read LOADER_FILES files with
+    LOADER_WORKERS workers LOADER_EPOCHS times in file order, the seeded
+    shuffle order, .npy and PNG files, and the brain bundle's volumes for
+    volumes a second. Returns the volumes' directory."""
+    t0 = time.perf_counter()
+    lib_path = native.build_library()
+    decoders = native.load_library().gmtpu_decoders()
+    log(f"loader: built {lib_path.name} with g++ in {time.perf_counter() - t0:.2f} s; decoders: "
+        f"PNG {'yes' if decoders & 1 else 'no (png.h missing)'}, "
+        f"JPEG {'yes' if decoders & 2 else 'no (jpeglib.h missing)'}")
+
+    order_dir = os.path.join(root, "order")
+    os.makedirs(order_dir)
+    for i in range(LOADER_FILES):
+        native.write_nifti(os.path.join(order_dir, f"v{i:03d}.nii"),
+                           np.full(LOADER_SHAPE, i, np.float32))
+    want = list(range(LOADER_FILES))
+    t0 = time.perf_counter()
+    for epoch in range(LOADER_EPOCHS):
+        got = first_values(data, order_dir)
+        if got != want:
+            raise AssertionError(f"loader epoch {epoch}: files out of order: {got}")
+    seconds = time.perf_counter() - t0
+    stream = data.file_dataset(order_dir, shuffle=True, seed=5, num_workers=LOADER_WORKERS)
+    for epoch in range(3):
+        order = list(range(LOADER_FILES))
+        np.random.RandomState(5 + epoch).shuffle(order)
+        got = [int(round(float(next(stream).flat[0]))) for _ in range(LOADER_FILES)]
+        if got != order:
+            raise AssertionError(f"loader, shuffled epoch {epoch}: not the seeded order: {got}")
+    stream.close()
+    log(f"loader: {LOADER_FILES} NIfTI files {LOADER_SHAPE} x {LOADER_EPOCHS} epochs with "
+        f"{LOADER_WORKERS} workers in file order every time ({seconds:.3f} s), and 3 shuffled "
+        f"epochs in RandomState(5 + epoch)'s order")
+
+    npy_dir = os.path.join(root, "npy")
+    os.makedirs(npy_dir)
+    for i in range(LOADER_FILES):
+        np.save(os.path.join(npy_dir, f"x{i:03d}.npy"), np.full((8, 8), i, np.float32))
+    if first_values(data, npy_dir) != want:
+        raise AssertionError(".npy files out of order")
+
+    png_dir = os.path.join(root, "png")
+    os.makedirs(png_dir)
+    for i in range(LOADER_FILES):
+        write_png(os.path.join(png_dir, f"a{i:03d}.png"), np.full((8, 8), i, np.uint8))
+        write_png(os.path.join(png_dir, f"b{i:03d}.png"), np.full((8, 8), 1000 * i, np.uint16))
+    if decoders & 1:
+        got = [float(a.flat[0]) for a in data.file_dataset(png_dir, loop=False,
+                                                          num_workers=LOADER_WORKERS)]
+        expect = [np.float32(i) * np.float32(1 / 255) for i in want] + [
+            np.float32(1000 * i) * np.float32(1 / 65535) for i in want]
+        if got != expect:
+            raise AssertionError("8- and 16-bit PNGs decoded out of order or wrong")
+        log(f"loader: {2 * LOADER_FILES} 8- and 16-bit grey PNGs decoded in file order")
+    else:
+        try:
+            first_values(data, png_dir)
+        except RuntimeError as exc:
+            if "png.h" not in str(exc):
+                raise
+            log(f"loader: PNGs raise, as this build has no PNG decoder: {exc}")
+        else:
+            raise AssertionError("PNGs read by a loader built without a PNG decoder")
+
+    # smooth volumes (a product of cosines, a phase per volume) with the
+    # volume's index in the first voxel: cheap to make, and they compress
+    # as MR volumes do, unlike noise
+    axes = np.meshgrid(*(np.linspace(0, 6, n, dtype=np.float32) for n in BRAIN_VOLUME),
+                       indexing="ij", sparse=True)
+    dirs = {kind: os.path.join(root, f"brain_{kind}") for kind in ("nii", "nii.gz")}
+    t0 = time.perf_counter()
+    for kind, directory in dirs.items():
+        os.makedirs(directory)
+        for i in range(BRAIN_VOLUMES):
+            volume = np.round(
+                512 * (1 + np.cos(axes[0] + i) * np.cos(axes[1]) * np.cos(axes[2] - i)))
+            volume.flat[0] = i
+            path = os.path.join(directory, f"brain{i:02d}.{kind}")
+            if kind == "nii":
+                native.write_nifti(path, volume)
+            else:
+                write_nifti_gz(native, path, volume)
+    log(f"loader: wrote {BRAIN_VOLUMES} volumes {BRAIN_VOLUME} float32 as .nii and .nii.gz "
+        f"in {time.perf_counter() - t0:.2f} s")
+    rates = {}
+    for kind, directory in dirs.items():
+        t0 = time.perf_counter()
+        for _ in range(THROUGHPUT_EPOCHS):
+            if first_values(data, directory) != list(range(BRAIN_VOLUMES)):
+                raise AssertionError(f"brain volumes ({kind}) out of order")
+        seconds = time.perf_counter() - t0
+        rates[kind] = THROUGHPUT_EPOCHS * BRAIN_VOLUMES / seconds
+        log(f"loader: {THROUGHPUT_EPOCHS} epochs of {BRAIN_VOLUMES} {kind} volumes {BRAIN_VOLUME} "
+            f"with {LOADER_WORKERS} workers in {seconds:.3f} s: {rates[kind]:.2f} volumes a "
+            f"second ({rates[kind] * np.prod(BRAIN_VOLUME) * 4 / 1e9:.3f} GB/s of float32 out)")
+    return dict(volumes=dirs["nii"], rates=rates)
+
+
+def profiled_run(torch, fn) -> tuple:
+    """(fn(), wall seconds, the device's busy share of them): fn under
+    torch.profiler (CUDA activity), host clock ending in a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_s = sum(e.device_time_total for e in prof.key_averages()) / 1e6
+    if device_s == 0:
+        raise AssertionError("the profiler saw no device time")
+    return out, wall, device_s / wall
+
+
+def write_slices(native, root: str) -> str:
+    """DISK_FILES gzipped NIfTI slices of DISK_EDGE^2 in `root`/slices, whose path
+    it returns."""
+    image_dir = os.path.join(root, "slices")
+    os.makedirs(image_dir)
+    rng = np.random.default_rng(14)
+    t0 = time.perf_counter()
+    for i in range(DISK_FILES):
+        write_nifti_gz(native, os.path.join(image_dir, f"slice{i:03d}.nii.gz"),
+                       rng.integers(0, 4096, (DISK_EDGE, DISK_EDGE)).astype(np.float32))
+    log(f"disk: wrote {DISK_FILES} gzipped NIfTI slices {DISK_EDGE}x{DISK_EDGE} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return image_dir
+
+
+def run_disk_training(torch, ops, native, recipe, utils, root: str, synthetic_sps: float) -> dict:
+    """Phase 13 (b): `recipes.train_2d_ddpm.main` at its defaults from gzipped
+    NIfTI slices on disk (--fit crop_pad --augment --cache --checkpoint-dir),
+    kernels 1-3 counted; the same run on synthetic blobs; steps/s and the
+    busy share of each; the checkpoint's save and restore timed."""
+    image_dir = write_slices(native, root)
+    ckpt = os.path.join(root, "ckpt")
+    runs = {}
+    for label, argv in (("disk", [*DISK_ARGS, "--data-dir", image_dir, "--checkpoint-dir", ckpt]),
+                        ("synthetic", ["--steps", str(DISK_STEPS)])):
+        torch.cuda.empty_cache()
+        reset_launches(ops)
+        out, wall, busy = profiled_run(torch, lambda: recipe.main([*argv, "--device", DEVICE]))
+        check_launches(read_launches(ops), expected_launches(
+            DISK_STEPS, flash_fwd=3, flash_bwd_dq=3, flash_bwd_dkv=3), f"2D recipe, {label} data")
+        if not all(np.isfinite(out["losses"])):
+            raise AssertionError(f"2D recipe on {label} data: losses not finite")
+        runs[label] = dict(out=out, sps=out["steps_per_sec"], busy=busy, wall=wall)
+    log(f"disk: 2D recipe at its defaults (f32, UNet (128, 256, 256), 64x64, batch 64), "
+        f"{DISK_STEPS} steps each, profiled: from disk ({' '.join(DISK_ARGS[2:])}) "
+        f"{runs['disk']['sps']:.3f} steps/s over steps 3-{DISK_STEPS}, busy share "
+        f"{runs['disk']['busy']:.3f} of the run's {runs['disk']['wall']:.2f} s (the cache's "
+        f"decode included); synthetic blobs {runs['synthetic']['sps']:.3f} steps/s, busy "
+        f"{runs['synthetic']['busy']:.3f} of {runs['synthetic']['wall']:.2f} s; phase 4's "
+        f"unprofiled synthetic run {synthetic_sps:.3f} steps/s")
+    del runs["synthetic"]
+
+    mgr = utils.CheckpointManager(ckpt)
+    if mgr.all_steps() != [DISK_STEPS]:
+        raise AssertionError(f"checkpoint steps {mgr.all_steps()}, expected [{DISK_STEPS}]")
+    model = runs["disk"]["out"]["state"].model
+    timing = utils.CheckpointManager(os.path.join(root, "ckpt_timing"))
+    params = model.state_dict()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timing.save(1, {"params": params, "step": 1})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = timing.restore(template={"params": params, "step": 0})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(os.path.join(timing.directory, "step_1.pt"))
+    if restored["step"] != 1 or any(not torch.equal(restored["params"][k], v)
+                                    for k, v in params.items()):
+        raise AssertionError("checkpoint restore differs from what was saved")
+    log(f"disk: checkpoint of the UNet ({nbytes / 2**20:.1f} MiB): save {save_s:.3f} s (card to "
+        f"file), restore {restore_s:.3f} s (file to card), equal to the bit")
+    return dict(ckpt=ckpt, image_dir=image_dir, model=model, sps=runs["disk"]["sps"],
+                busy=runs["disk"]["busy"], save_s=save_s, restore_s=restore_s)
+
+
+def run_checkpoint_serving(torch, ops, serve, inferers, schedulers, ckpt: str, model) -> dict:
+    """Phase 13 (c): `serve.build_sampler(checkpoint_dir=...)` behind the HTTP
+    server, one DDIM-50 request of SERVE's batch for each of CKPT_SEEDS,
+    kernel 1 counted; each request's images equal to an in-process sample
+    of the trained model from the same noise."""
+    sampler, shape = serve.build_sampler(device=DEVICE, checkpoint_dir=ckpt, **SERVE)
+    state = serve._SamplerState(sampler, shape)
+    httpd = serve.start_server(state, port=0)
+    try:
+        reset_launches(ops)
+        served, seconds = [], []
+        for seed in CKPT_SEEDS:
+            t0 = time.perf_counter()
+            served.append(post_sample(httpd.server_port, seed, shape[0]))
+            seconds.append(time.perf_counter() - t0)
+        counts = read_launches(ops)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    check_launches(counts, expected_launches(
+        len(CKPT_SEEDS), flash_fwd=LAUNCHES_PER_FORWARD * SERVE["ddim_steps"]),
+        "serving the checkpoint")
+    ddim = schedulers.DDIMScheduler(num_train_timesteps=1000, device=DEVICE)
+    ddim.set_timesteps(SERVE["ddim_steps"])
+    inferer = inferers.DiffusionInferer(ddim)
+    model.eval()
+    for seed, img in zip(CKPT_SEEDS, served):
+        g = torch.Generator(DEVICE).manual_seed(seed)
+        noise = torch.randn(shape, generator=g, device=DEVICE)
+        with torch.inference_mode():
+            want = inferer.sample(noise, model, generator=g).cpu().numpy()
+        if img.shape != shape or not np.isfinite(img).all() or not np.array_equal(img, want):
+            raise AssertionError(f"served images (seed {seed}) differ from the in-process "
+                                 f"sample: max|diff| {np.abs(img - want).max():.3e}")
+    log(f"serve: checkpoint served over HTTP, {len(CKPT_SEEDS)} DDIM-{SERVE['ddim_steps']} "
+        f"requests of batch {shape[0]} in " + ", ".join(f"{s:.3f}" for s in seconds)
+        + " s; each equal to the bit to an in-process sample of the trained weights")
+    return dict(seconds=seconds, launches=counts)
+
+
+def run_eval_quality(torch, ops, eval_quality, metrics, image_dir: str, root: str) -> dict:
+    """Phase 13 (d): `recipes.eval_quality.main` at its defaults with
+    EVAL_TRAIN_STEPS train steps on (b)'s slices, kernels 1-3 counted; its FID
+    and MS-SSIM computed on the card and on the CPU from the same features
+    and images."""
+    import warnings
+
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the trunk's random weights, known
+        out = eval_quality.main([*EVAL_QUALITY_ARGS, "--data-dir", image_dir, "--out",
+                                 os.path.join(root, "quality.json"), "--device", DEVICE])
+        seconds = time.perf_counter() - t0
+        counts = read_launches(ops)
+        sample_forwards = -(-EVAL_SAMPLE["count"] // EVAL_SAMPLE["batch"]) * EVAL_SAMPLE["steps"]
+        per = LAUNCHES_PER_FORWARD
+        check_launches(counts, expected_launches(
+            flash_fwd=per * (EVAL_TRAIN_STEPS + sample_forwards),
+            flash_bwd_dq=per * EVAL_TRAIN_STEPS, flash_bwd_dkv=per * EVAL_TRAIN_STEPS),
+            "eval_quality")
+        real, samples = out["real"], out["samples"]
+        if (tuple(samples.shape) != (EVAL_SAMPLE["count"], 1, 64, 64)
+                or not bool(torch.isfinite(samples).all()) or not np.isfinite(out["fid"])):
+            raise AssertionError("eval_quality: samples or FID not finite, or wrong shape")
+        features = eval_quality.make_feature_extractor(device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f_samples, f_real = features(samples), features(real)
+    torch.cuda.synchronize()
+    features_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fid_card = float(metrics.FIDMetric()(f_samples, f_real))
+    fid_s = time.perf_counter() - t0
+    fid_cpu = float(metrics.FIDMetric()(f_samples.cpu(), f_real.cpu()))
+    torch.backends.cuda.matmul.allow_tf32 = True  # the limit's yardstick, printed only
+    try:
+        fid_tf32 = float(metrics.FIDMetric()(f_samples, f_real))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    ms_card = float(eval_quality.diversity_ms_ssim(samples))
+    ms_s = time.perf_counter() - t0
+    ms_cpu = float(eval_quality.diversity_ms_ssim(samples.cpu()))
+    fid_rel = abs(fid_card - fid_cpu) / abs(fid_cpu)
+    tf32_rel = abs(fid_tf32 - fid_cpu) / abs(fid_cpu)
+    log(f"eval_quality: defaults (UNet (64, 128, 128) bf16, 64x64, batch 64), "
+        f"{EVAL_TRAIN_STEPS} train steps from disk, {EVAL_SAMPLE['count']} DDIM-"
+        f"{EVAL_SAMPLE['steps']} samples: {seconds:.2f} s in all (train {out['train_seconds']} s, "
+        f"sample {out['sample_seconds']} s); result fid {out['fid']:.6f}, ms_ssim_diversity "
+        f"{out['ms_ssim_diversity']:.6f}; ResNet50 features of both sets {features_s:.3f} s, FID "
+        f"{fid_s:.3f} s, MS-SSIM {ms_s:.3f} s on the card; card vs CPU on the same "
+        f"(64, 2048) features: FID {fid_card:.6f} vs {fid_cpu:.6f} (rel {fid_rel:.2e}, tol "
+        f"{FID_RTOL:g}; with TF32 matmuls on the card {fid_tf32:.6f}, rel {tf32_rel:.2e}); "
+        f"on the same images: MS-SSIM {ms_card:.7f} vs {ms_cpu:.7f} (|diff| "
+        f"{abs(ms_card - ms_cpu):.2e}, tol {MSSSIM_ATOL:g})")
+    if not fid_rel <= FID_RTOL:
+        raise AssertionError("FID on the card disagrees with the CPU's")
+    if not abs(ms_card - ms_cpu) <= MSSSIM_ATOL:
+        raise AssertionError("MS-SSIM on the card disagrees with the CPU's")
+    return dict(seconds=seconds, fid_s=fid_s, ms_s=ms_s, fid_rel=fid_rel, tf32_rel=tf32_rel,
+                ms_diff=abs(ms_card - ms_cpu))
+
+
+def run_eval_brain(torch, ops, eval_brain, volume_dir: str, root: str) -> dict:
+    """Phase 13 (e): `recipes.eval_brain_ldm.main` at full width (the preset's
+    UNet (256, 512, 768) and AEKL, bf16), DDIM-50 to 160x224x160, FID on
+    (a)'s volumes: seconds a sample, the metrics' seconds, peak memory; no
+    kernel on its path (head widths 512 and 768, kernel 5 off)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    out = eval_brain.main([*EVAL_BRAIN_ARGS, "--data-dir", volume_dir, "--out",
+                           os.path.join(root, "brain.json"), "--device", DEVICE])
+    seconds = time.perf_counter() - t0
+    check_launches(read_launches(ops), expected_launches(), "eval_brain_ldm")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timing = out["seconds"]
+    log(f"eval_brain_ldm: full width, bf16, {out['sample_count']} + 2 x "
+        f"{out['same_cond_pairs']} samples DDIM-{out['ddim_steps']} to {out['out_shape'][2:]}: "
+        f"{seconds:.2f} s in all, {timing['sample']:.3f} s a sample, 3D MS-SSIM "
+        f"{timing['msssim']:.3f} s, FID (ResNet10 features of 4 + 4 volumes) {timing['fid']:.3f} "
+        f"s; peak memory {peak:.2f} GiB; msssim {out['msssim']:.6f}, msssim_4g "
+        f"{out['msssim_4g']:.6f}, fid {out['fid']:.6f}")
+    values = (out["msssim"], out["msssim_4g"], out["fid"])
+    if (out["out_shape"] != [4, 1, *BRAIN_VOLUME] or not all(np.isfinite(values))
+            or not -1 <= out["msssim"] <= 1 or not -1 <= out["msssim_4g"] <= 1
+            or not bool(torch.isfinite(out["diverse"]).all())):
+        raise AssertionError("eval_brain_ldm: wrong shape or metrics out of range")
+    return dict(seconds=seconds, sample_s=timing["sample"], peak_gib=peak)
+
+
+def run_data_path(torch, ops, recipe, serve, inferers, schedulers, synthetic_sps: float) -> dict:
+    """Phase 13: the loader (a), training from disk with a checkpoint (b),
+    serving that checkpoint (c), and the two eval recipes (d, e), in a
+    temporary directory removed afterwards."""
+    import shutil
+    import tempfile
+
+    from generativemodels_tpu_torch import data, metrics, utils
+    from generativemodels_tpu_torch.data import native
+    from generativemodels_tpu_torch.recipes import eval_brain_ldm as eval_brain
+    from generativemodels_tpu_torch.recipes import eval_quality
+
+    os.environ["GMTPU_FUSED_RESBLOCK"] = "0"  # kernel 5 off, as the recipes' default
+    os.environ.pop("GMTPU_FLASH_FUSED_BWD", None)
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        loaded = run_loader(torch, data, native, root)
+        disk = run_disk_training(torch, ops, native, recipe, utils, root, synthetic_sps)
+        served = run_checkpoint_serving(torch, ops, serve, inferers, schedulers, disk["ckpt"],
+                                        disk["model"])
+        del disk["model"]
+        quality = run_eval_quality(torch, ops, eval_quality, metrics, disk["image_dir"], root)
+        brain = run_eval_brain(torch, ops, eval_brain, loaded["volumes"], root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(loader=loaded["rates"], disk=disk, served=served, quality=quality, brain=brain)
+
+
+def build_kernels(build_library, sources: tuple = SOURCES) -> None:
+    """Phase 1: one nvcc for each of `sources`, all started together."""
     results = {}
 
     def build(name):
@@ -3043,12 +3506,12 @@ def build_kernels(build_library) -> None:
         except Exception as exc:  # reported and re-raised below, in this thread
             results[name] = exc
 
-    threads = [threading.Thread(target=build, args=(name,)) for name in SOURCES]
+    threads = [threading.Thread(target=build, args=(name,)) for name in sources]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
-    for name in SOURCES:
+    for name in sources:
         if isinstance(results[name], Exception):
             raise results[name]
         lib, build_log, seconds = results[name]
@@ -3140,6 +3603,9 @@ def main() -> int:
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    from generativemodels_tpu_torch.data import native as data_native
+
+    log(host_line(data_native))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"TF32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
@@ -3237,6 +3703,18 @@ def main() -> int:
     log(f"spade: phase 12 in {time.perf_counter() - t_spade:.1f} s; VAE-GAN "
         f"{spade['vae_s']:.4f} s a step, LDM stage 1 {spade['ldm_stage1_s']:.4f}, stage 2 "
         f"{spade['ldm_stage2_s']:.4f} s a step")
+
+    # phase 13: the host data path: the loader, the 2D recipe trained from
+    # disk with a checkpoint, that checkpoint served, the two eval recipes
+    t_data = time.perf_counter()
+    data_path = run_data_path(torch, ops, recipe, serve, inferers, schedulers,
+                              trained["steps_per_sec"])
+    log(f"data: phase 13 in {time.perf_counter() - t_data:.1f} s; loader "
+        + ", ".join(f"{k} {v:.2f}" for k, v in data_path["loader"].items())
+        + f" volumes/s at {BRAIN_VOLUME}; 2D recipe from disk {data_path['disk']['sps']:.3f} "
+        f"steps/s (busy {data_path['disk']['busy']:.3f}); checkpoint save "
+        f"{data_path['disk']['save_s']:.3f} s, restore {data_path['disk']['restore_s']:.3f} s; "
+        f"eval_brain_ldm {data_path['brain']['sample_s']:.3f} s a sample")
 
     # the numbers of each kernel at its main path's shape: serving for the
     # forward, the recipe's batch 64 for the split backward, the 3D training

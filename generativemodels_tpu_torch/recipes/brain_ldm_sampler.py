@@ -3,10 +3,9 @@
 Counterpart of generativemodels_tpu/recipes/brain_ldm_sampler.py: a 3D
 latent diffusion model sampled with its scalar covariates (gender, age,
 ventricular and brain volume) as a (B, 1, 4) cross-attention context, the
-latent decoded by the 3D AutoencoderKL. The networks are built from the
-`brain_3d_ldm` preset's numbers by the caller (the port has no YAML
-parser yet); `brain_unet` and `brain_autoencoder` build them as the JAX
-recipe `eval_brain_ldm.py` does.
+latent decoded by the 3D AutoencoderKL. The caller builds the networks
+with `brain_unet` and `brain_autoencoder`, which resolve them from the
+`brain_3d_ldm` preset (`config.load_preset`).
 
 As the JAX recipe, the UNet takes `in_channels` 3 and sees the covariates
 only through cross-attention; the preset's `in_channels: 7` (the bundle
@@ -16,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..config import load_preset
 from ..inferers import LatentDiffusionInferer
 from ..networks.nets import AutoencoderKL, DiffusionModelUNet
 
@@ -31,37 +31,26 @@ def make_conditioning(
     return vec.reshape(1, 1, 4).expand(batch, 1, 4)
 
 
-def brain_unet(
-    num_channels=(256, 512, 768), num_head_channels=(0, 512, 768),
-    dtype: torch.dtype | None = None, **overrides,
-) -> DiffusionModelUNet:
-    """The bundle's UNet (`config/presets/brain_3d_ldm.yaml:21-31`, with the
-    JAX recipe's 3 input channels, `recipes/eval_brain_ldm.py:113-118`);
-    `overrides` narrow it for tests."""
-    kwargs = dict(
-        spatial_dims=3, in_channels=3, out_channels=3, num_res_blocks=2,
-        num_channels=num_channels, attention_levels=(False, True, True),
-        num_head_channels=num_head_channels, with_conditioning=True, cross_attention_dim=4,
-        upcast_attention=True, dtype=dtype,
-    )
-    kwargs.update(overrides)
-    return DiffusionModelUNet(**kwargs)
+def brain_unet(dtype: torch.dtype | None = None, **overrides) -> DiffusionModelUNet:
+    """The bundle's UNet: the preset's network with the JAX recipe's 3 input
+    channels (`recipes/eval_brain_ldm.py:113-118`); `overrides` narrow it
+    for tests."""
+    return _from_preset("network", dict(in_channels=3, dtype=dtype, **overrides))
 
 
-def brain_autoencoder(
-    num_channels=(64, 128, 128, 128), dtype: torch.dtype | None = None, **overrides
-) -> AutoencoderKL:
-    """The bundle's stage 1 (`brain_3d_ldm.yaml:7-18`): AEKL (64, 128, 128,
-    128), two res blocks a level, no attention, 3 latent channels,
-    checkpointed blocks (which only a backward reads)."""
-    kwargs = dict(
-        spatial_dims=3, in_channels=1, out_channels=1, latent_channels=3,
-        num_channels=num_channels, num_res_blocks=2,
-        attention_levels=(False,) * len(num_channels), with_encoder_nonlocal_attn=False,
-        with_decoder_nonlocal_attn=False, use_checkpointing=True, dtype=dtype,
-    )
-    kwargs.update(overrides)
-    return AutoencoderKL(**kwargs)
+def brain_autoencoder(dtype: torch.dtype | None = None, **overrides) -> AutoencoderKL:
+    """The bundle's stage 1: the preset's AEKL (64, 128, 128, 128), two res
+    blocks a level, no attention, 3 latent channels, checkpointed blocks
+    (which only a backward reads)."""
+    return _from_preset("autoencoder", dict(dtype=dtype, **overrides))
+
+
+def _from_preset(name: str, fields: dict):
+    """The `brain_3d_ldm` preset's node `name`, built with `fields` merged in
+    (the JAX recipe clones the flax module with them)."""
+    preset = load_preset("brain_3d_ldm")
+    preset.update({name: dict(preset.config[name], **fields)})
+    return preset.resolve(name)
 
 
 def sample_brain_ldm(

@@ -6,6 +6,9 @@ reverse chain eagerly, and the UNet's long-sequence self-attention goes
 through the hand-written flash-attention kernel on CUDA. `--solver`
 picks DDIM (default), DPM-Solver++ (2M) (`dpmsolver`) or its SDE variant
 (`sde-dpmsolver`); `--ddim-steps` is the step count for any solver.
+`--checkpoint-dir` serves the weights a training recipe saved there (the
+latest step's "params", loaded into the UNet the flags describe);
+without it the weights are PyTorch's initialisation from seed 0.
 
 API:
     GET  /healthz            -> {"status": "ok", "batch": B, "shape": [...]}
@@ -17,8 +20,9 @@ Usage:
     python -m generativemodels_tpu_torch.recipes.serve --device cuda --port 8765
     python -m generativemodels_tpu_torch.recipes.serve --oneshot --out sample.npy
     python -m generativemodels_tpu_torch.recipes.serve --solver dpmsolver --ddim-steps 10
+    python -m generativemodels_tpu_torch.recipes.serve --checkpoint-dir CKPT
 
-Not ported yet: `--checkpoint-dir` and `--export-path`.
+Not ported yet: `--export-path`.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import torch
 from ..inferers import DiffusionInferer
 from ..networks.nets import DiffusionModelUNet
 from ..networks.schedulers import DDIMScheduler, DPMSolverMultistepScheduler
+from ..utils import CheckpointManager
 
 SOLVERS = ("ddim", "dpmsolver", "sde-dpmsolver")
 
@@ -74,11 +79,14 @@ def build_sampler(
     ddim_steps: int = 50,
     device: torch.device | str = "cuda",
     solver: str = "ddim",
+    checkpoint_dir: str | None = None,
 ) -> tuple[Sampler, tuple[int, ...]]:
     """Build the sampler and its output shape (B, 1, *spatial).
 
     `solver` is one of SOLVERS; `ddim_steps` is its step count. The
-    model's weights are PyTorch's default initialisation from seed 0.
+    model's weights are the "params" of the latest checkpoint under
+    `checkpoint_dir` (every key of the UNet the arguments describe, no
+    other), else PyTorch's default initialisation from seed 0.
     """
     if solver not in SOLVERS:
         raise ValueError(f"solver must be one of {SOLVERS}, got {solver!r}")
@@ -91,6 +99,10 @@ def build_sampler(
             attention_levels=(False,) + (True,) * (len(channels) - 1),
             num_head_channels=channels[-1], norm_num_groups=norm_groups,
         )
+    if checkpoint_dir:
+        mgr = CheckpointManager(checkpoint_dir)
+        model.load_state_dict(mgr.restore()["params"])
+        mgr.close()
     model = model.to(device).eval()
     shape = (batch, 1) + (size,) * spatial_dims
     if solver == "ddim":
@@ -196,6 +208,8 @@ def main(argv: list[str] | None = None) -> None:
                         help="sampling step count (any --solver)")
     parser.add_argument("--solver", type=str, default="ddim", choices=SOLVERS,
                         help="dpmsolver = DPM-Solver++ (2M), sde-dpmsolver its SDE variant")
+    parser.add_argument("--checkpoint-dir", type=str, default=None,
+                        help="serve the latest checkpoint a training recipe saved there")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--port", type=int, default=8765)
     parser.add_argument("--oneshot", action="store_true",
@@ -211,7 +225,7 @@ def main(argv: list[str] | None = None) -> None:
     fn, shape = build_sampler(
         spatial_dims=args.spatial_dims, size=args.size, channels=tuple(args.channels),
         norm_groups=args.norm_groups, batch=args.batch, ddim_steps=args.ddim_steps,
-        device=device, solver=args.solver,
+        device=device, solver=args.solver, checkpoint_dir=args.checkpoint_dir,
     )
 
     t0 = time.time()

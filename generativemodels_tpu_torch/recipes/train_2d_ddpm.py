@@ -3,16 +3,22 @@
 Counterpart of generativemodels_tpu/recipes/train_2d_ddpm.py: the same
 model (2D `DiffusionModelUNet`, one res block a level, attention on every
 level but the first, one head as wide as the last level), DDPM scheduler,
-Adam and synthetic blob images, on `--device` (default cuda). Random draws
-come from `torch.Generator`s in place of JAX keys: the model is initialised
-from seed 0, the data and the step's noise from one generator seeded 42 on
-the device. The long self-attention levels go through the hand-written flash
-attention kernels, forward and backward, on CUDA.
+Adam, and synthetic blob images or `--data-dir` files (`data.device_batches`:
+fitted by `--fit`, optionally `--cache`d in RAM and `--augment`ed), on
+`--device` (default cuda). Random draws come from `torch.Generator`s in
+place of JAX keys: the model is initialised from seed 0, the synthetic data
+and the step's noise from one generator seeded 42 on the device. The long
+self-attention levels go through the hand-written flash attention kernels,
+forward and backward, on CUDA. `--checkpoint-dir` saves {"params" (the
+state dict; the EMA weights when tracked), "step"} at the end, which
+`recipes.serve --checkpoint-dir` serves.
 
-Usage: python -m generativemodels_tpu_torch.recipes.train_2d_ddpm --steps 100
+Usage:
+    python -m generativemodels_tpu_torch.recipes.train_2d_ddpm --steps 100
+    python -m generativemodels_tpu_torch.recipes.train_2d_ddpm --data-dir DIR \\
+        --fit crop_pad --augment --cache --checkpoint-dir CKPT
 
-Not ported yet: `--data-dir/--fit/--augment/--cache` (real data),
-`--data-parallel/--multihost` and `--checkpoint-dir`.
+Not ported yet: `--data-parallel/--multihost`.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ from ..inferers import DiffusionInferer
 from ..networks.nets import DiffusionModelUNet
 from ..networks.schedulers import DDPMScheduler
 from ..parallel import init_train_state, make_diffusion_train_step
-from ..utils import StepTimer
+from ..utils import CheckpointManager, StepTimer
+from .data_flags import add_data_arguments, data_batches
 from .serve import require_device
 
 
@@ -40,6 +47,14 @@ def synthetic_batch(
     radii = 0.2 + 0.4 * torch.rand((batch, 1, 1), generator=generator, device=device)
     d = torch.linalg.vector_norm(xy[None] - centers, dim=-1)
     return torch.clamp(1.0 - d / radii, 0, 1)[:, None, :, :]
+
+
+def save_final(directory: str, params: dict[str, torch.Tensor], step: int) -> None:
+    """Save {"params", "step"} at `step`, as the JAX recipes save their final
+    params (a directory that already holds a later step keeps it)."""
+    mgr = CheckpointManager(directory)
+    mgr.save(step, {"params": params, "step": step})
+    mgr.close()
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -60,7 +75,10 @@ def main(argv: list[str] | None = None) -> dict:
                         "update (batch must divide evenly)")
     parser.add_argument("--ema-decay", type=float, default=None,
                         help="maintain an EMA of the params (e.g. 0.9999); "
-                        "sampling then uses the EMA weights")
+                        "sampling and the saved checkpoint then use the EMA weights")
+    add_data_arguments(parser)
+    parser.add_argument("--checkpoint-dir", type=str, default=None,
+                        help="save {params, step} there after training")
     parser.add_argument("--sample", action="store_true", help="sample after training")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
@@ -93,9 +111,13 @@ def main(argv: list[str] | None = None) -> dict:
 
     timer = StepTimer(warmup=2)
     generator = torch.Generator(device).manual_seed(42)
+    data_iter = data_batches(args, 2, device)
     losses = []
     for i in range(args.steps):
-        images = synthetic_batch(generator, args.batch, args.size, device) * 2 - 1
+        if data_iter is not None:
+            images = next(data_iter) * 2 - 1
+        else:
+            images = synthetic_batch(generator, args.batch, args.size, device) * 2 - 1
         state, loss = step(state, images, generator)
         losses.append(loss)
         if device.type == "cuda":
@@ -106,8 +128,14 @@ def main(argv: list[str] | None = None) -> dict:
             print(f"step {i + 1}/{args.steps} loss={float(loss):.4f}"
                   + (f" {sps:.2f} steps/s" if sps else ""))
 
+    # EMA weights (when tracked) are what checkpoints and sampling consume
+    final_params = state.ema_params if args.ema_decay is not None else state.model.state_dict()
+    if args.checkpoint_dir:
+        save_final(args.checkpoint_dir, final_params, state.step)
+        print(f"checkpoint saved at step {state.step}"
+              + (" (EMA weights)" if args.ema_decay is not None else ""))
+
     if args.sample:
-        # EMA weights (when tracked) are what sampling consumes
         sampler = state.model
         if args.ema_decay is not None:
             sampler = copy.deepcopy(state.model)

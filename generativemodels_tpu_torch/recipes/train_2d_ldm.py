@@ -12,8 +12,9 @@ timesteps, then the latent sample) from one generator seeded 42 on the
 device. The stage-1 and stage-2 steps here are also those of
 `train_3d_ldm`.
 
-Not ported yet: `--data-dir/--fit/--augment/--cache` (real images through
-`data/`).
+`--data-dir` streams .nii/.nii.gz/.npy/PNG/JPEG images through
+`data.device_batches` (with `--fit`, `--cache` and `--augment`) in place
+of the synthetic ones, in [0, 1] either way.
 
 Usage:
     python -m generativemodels_tpu_torch.recipes.train_2d_ldm --stage1-steps 50 --stage2-steps 50
@@ -30,6 +31,7 @@ from ..inferers import LatentDiffusionInferer
 from ..losses import PatchAdversarialLoss
 from ..networks.nets import AutoencoderKL, DiffusionModelUNet, PatchDiscriminator
 from ..networks.schedulers import DDPMScheduler
+from .data_flags import add_data_arguments, data_batches
 from .serve import require_device
 from .train_2d_ddpm import synthetic_batch
 
@@ -192,6 +194,7 @@ def build_argparser() -> argparse.ArgumentParser:
     parser.add_argument("--size", type=int, default=64)
     parser.add_argument("--kl-weight", type=float, default=1e-6)
     parser.add_argument("--adv-weight", type=float, default=0.01)
+    add_data_arguments(parser)
     parser.add_argument("--device", type=str, default="cuda")
     return parser
 
@@ -227,7 +230,12 @@ def main(argv: list[str] | None = None) -> dict:
         torch.manual_seed(0)
         aekl, disc, unet = (m.to(device).train() for m in build_models())
 
+    data_iter = data_batches(args, 2, device)
+
     def next_batch(generator):
+        # both paths yield [0, 1] images (the reference 2d_ldm stage-1 range)
+        if data_iter is not None:
+            return next(data_iter)
         return synthetic_batch(generator, args.batch, args.size, device)
 
     result = train_ldm(args, device, aekl, disc, unet, (1e-4, 5e-4), next_batch)

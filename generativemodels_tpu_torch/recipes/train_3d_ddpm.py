@@ -2,8 +2,9 @@
 
 Counterpart of generativemodels_tpu/recipes/train_3d_ddpm.py: the same
 model (3D `DiffusionModelUNet`, attention on the last level only,
-`--head-channels` wide heads), DDPM scheduler, Adam and synthetic blob
-volumes, on `--device` (default cuda). `--dtype bf16` computes in bf16 with
+`--head-channels` wide heads), DDPM scheduler, Adam, and synthetic blob
+volumes or `--data-dir` volumes (`data.device_batches`, with `--fit`,
+`--cache` and `--augment`), on `--device` (default cuda). `--dtype bf16` computes in bf16 with
 float32 parameters; block recomputation in the backward is on unless
 `--no-remat`, or set per level with `--remat-levels` (the UNet's
 `use_checkpointing` tuple). Random draws come from `torch.Generator`s in
@@ -18,8 +19,10 @@ Usage:
     python -m generativemodels_tpu_torch.recipes.train_3d_ddpm \\
         --size 128 --batch 1 --channels 32 64 128 --no-remat --lr 2.5e-5
 
-Not ported yet: `--data-dir/--fit/--augment/--cache` (real volumes through
-`data/`), `--data-parallel/--multihost` and `--checkpoint-dir`.
+`--checkpoint-dir` saves {"params" (the EMA weights when tracked), "step"}
+at the end.
+
+Not ported yet: `--data-parallel/--multihost`.
 """
 from __future__ import annotations
 
@@ -34,7 +37,9 @@ from ..networks.nets import DiffusionModelUNet
 from ..networks.schedulers import DDIMScheduler, DDPMScheduler
 from ..parallel import init_train_state, make_diffusion_train_step
 from ..utils import StepTimer
+from .data_flags import add_data_arguments, data_batches
 from .serve import require_device
+from .train_2d_ddpm import save_final
 
 
 def synthetic_volume(
@@ -74,7 +79,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         "update (batch must divide evenly)")
     parser.add_argument("--ema-decay", type=float, default=None,
                         help="maintain an EMA of the params (e.g. 0.9999); "
-                        "sampling then uses the EMA weights")
+                        "sampling and the saved checkpoint then use the EMA weights")
+    add_data_arguments(parser)
+    parser.add_argument("--checkpoint-dir", type=str, default=None,
+                        help="save {params, step} there after training")
     parser.add_argument("--sample", action="store_true", help="sample after training")
     parser.add_argument("--sample-steps", type=int, default=50,
                         help="DDIM steps for the post-training sample")
@@ -121,9 +129,13 @@ def main(argv: list[str] | None = None) -> dict:
 
     timer = StepTimer(warmup=2)
     generator = torch.Generator(device).manual_seed(42)
+    data_iter = data_batches(args, 3, device)
     losses = []
     for i in range(args.steps):
-        images = synthetic_volume(generator, args.batch, args.size, device) * 2 - 1
+        if data_iter is not None:
+            images = next(data_iter) * 2 - 1
+        else:
+            images = synthetic_volume(generator, args.batch, args.size, device) * 2 - 1
         state, loss = step(state, images, generator)
         losses.append(loss)
         if device.type == "cuda":
@@ -134,9 +146,16 @@ def main(argv: list[str] | None = None) -> dict:
             print(f"step {i + 1}/{args.steps} loss={float(loss):.4f}"
                   + (f" {sps:.2f} steps/s" if sps else ""))
 
+    # EMA weights (when tracked) are what checkpoints and sampling consume
+    if args.checkpoint_dir:
+        final_params = (state.ema_params if args.ema_decay is not None
+                        else state.model.state_dict())
+        save_final(args.checkpoint_dir, final_params, state.step)
+        print(f"checkpoint saved at step {state.step}"
+              + (" (EMA weights)" if args.ema_decay is not None else ""))
+
     img = None
     if args.sample:
-        # EMA weights (when tracked) are what sampling consumes
         sampler = state.model
         if args.ema_decay is not None:
             sampler = copy.deepcopy(state.model)

@@ -18,8 +18,9 @@ head of 64, and the UNet's level 1 is 16^3 = 4096 tokens: on CUDA both run
 the hand-written flash attention kernels, forward and backward (the fused
 backward under GMTPU_FLASH_FUSED_BWD=1).
 
-Not ported yet: `--data-dir/--fit/--augment/--cache` (real volumes through
-`data/`).
+`--data-dir` streams .nii/.nii.gz/.npy volumes through
+`data.device_batches` (with `--fit`, `--cache` and `--augment`) in place
+of the synthetic ones.
 
 Usage:
     python -m generativemodels_tpu_torch.recipes.train_3d_ldm --stage1-steps 50 --stage2-steps 50
@@ -35,6 +36,7 @@ import torch
 from ..inferers import LatentDiffusionInferer
 from ..networks.nets import AutoencoderKL, DiffusionModelUNet, PatchDiscriminator
 from ..networks.schedulers import DDPMScheduler
+from .data_flags import add_data_arguments, data_batches
 from .serve import require_device
 from .train_2d_ldm import train_ldm
 from .train_3d_ddpm import synthetic_volume
@@ -56,6 +58,7 @@ def build_argparser() -> argparse.ArgumentParser:
     parser.add_argument("--sample", action="store_true",
                         help="sample one volume through the latent route at the end")
     parser.add_argument("--sample-steps", type=int, default=50)
+    add_data_arguments(parser)
     parser.add_argument("--device", type=str, default="cuda")
     return parser
 
@@ -97,7 +100,11 @@ def main(argv: list[str] | None = None) -> dict:
         torch.manual_seed(0)
         aekl, disc, unet = (m.to(device).train() for m in build_models(dtype))
 
+    data_iter = data_batches(args, 3, device)
+
     def next_batch(generator):
+        if data_iter is not None:
+            return next(data_iter)
         return synthetic_volume(generator, args.batch, args.size, device)
 
     # reference 3d_ldm_tutorial.py:178-179: both optimizers at 1e-4

@@ -17,10 +17,9 @@ models are initialised from seed 0, the images, segmentations and every
 step's draws come from one generator seeded 42 on the device.
 
 `one_hot_labels` and `synthetic_seg_batch` are the recipe's data: blob
-images whose intensity, cut into `label_nc` bands, is the label map.
-
-Not ported yet: `--data-dir/--label-dir/--fit` (paired real images and
-label maps through `data/`).
+images whose intensity, cut into `label_nc` bands, is the label map; with
+`--data-dir/--label-dir` (`make_seg_batch_fn`) the training batches are
+paired files through `data.paired_stream` instead, fitted by `--fit`.
 
 Usage:
     python -m generativemodels_tpu_torch.recipes.train_spade_ldm --stage1-steps 30 --stage2-steps 30
@@ -36,6 +35,7 @@ from ..engines import init_adversarial_state
 from ..inferers import LatentDiffusionInferer
 from ..networks.nets import PatchDiscriminator, SPADEAutoencoderKL, SPADEDiffusionModelUNet
 from ..networks.schedulers import DDPMScheduler
+from .data_flags import add_data_arguments
 from .serve import require_device
 from .train_2d_ddpm import synthetic_batch
 from .train_2d_ldm import compute_scale_factor, make_stage1_steps, stage2_step, timed
@@ -53,6 +53,31 @@ def synthetic_seg_batch(generator: torch.Generator, batch: int, size: int, label
     images = synthetic_batch(generator, batch, size, device)
     labels = torch.clamp((images * label_nc).long(), 0, label_nc - 1)
     return images, one_hot_labels(labels, label_nc)
+
+
+def make_seg_batch_fn(args, label_nc: int, generator: torch.Generator, device: torch.device):
+    """`next_seg_batch()` -> (images, one-hot labels) of `args.batch` on
+    `device`: paired `--data-dir/--label-dir` files (sorted-filename
+    alignment, labels fitted nearest-neighbour, values clipped to
+    `label_nc`) when given, else the synthetic ring-quantised blobs."""
+    if not args.data_dir:
+        return lambda: synthetic_seg_batch(generator, args.batch, args.size, label_nc, device)
+    from ..data import batched_pairs, paired_stream, prefetch_to_device
+
+    shape = (args.batch, 1, args.size, args.size)
+    batches = prefetch_to_device(
+        ((images.reshape(shape), labels.reshape(shape)) for images, labels in batched_pairs(
+            paired_stream(args.data_dir, args.label_dir, (args.size,) * 2, args.fit),
+            args.batch)),
+        device=device,
+    )
+
+    def next_seg_batch():
+        images, labels = next(batches)
+        labels = torch.clamp(labels, 0, label_nc - 1)
+        return images.float(), one_hot_labels(labels, label_nc)
+
+    return next_seg_batch
 
 
 def spade_aekl_forward(aekl: SPADEAutoencoderKL, inputs: tuple, generator) -> tuple:
@@ -89,6 +114,7 @@ def build_argparser() -> argparse.ArgumentParser:
     parser.add_argument("--kl-weight", type=float, default=1e-6)
     parser.add_argument("--adv-weight", type=float, default=0.01)
     parser.add_argument("--sample", action="store_true")
+    add_data_arguments(parser, labels=True)
     parser.add_argument("--device", type=str, default="cuda")
     return parser
 
@@ -97,7 +123,10 @@ def main(argv: list[str] | None = None) -> dict:
     """Train both stages (and sample with `--sample`); returns {"aekl",
     "unet", "scale_factor", "stage1_losses", "stage1_seconds",
     "stage2_losses", "stage2_seconds", "sample" (or None)}."""
-    args = build_argparser().parse_args(argv)
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    if bool(args.data_dir) != bool(args.label_dir):
+        parser.error("--data-dir and --label-dir must be given together")
     device = require_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -108,8 +137,7 @@ def main(argv: list[str] | None = None) -> dict:
         aekl, disc, unet = (m.to(device).train() for m in build_models(label_nc))
     generator = torch.Generator(device).manual_seed(42)
 
-    def next_seg_batch(batch=args.batch):
-        return synthetic_seg_batch(generator, batch, args.size, label_nc, device)
+    next_seg_batch = make_seg_batch_fn(args, label_nc, generator, device)
 
     # stage 1: the adversarial SPADE AutoencoderKL
     state = init_adversarial_state(aekl, torch.optim.Adam(aekl.parameters(), lr=2e-4),
@@ -151,7 +179,7 @@ def main(argv: list[str] | None = None) -> dict:
 
     if args.sample:
         unet.eval()
-        _, seg = next_seg_batch(2)
+        _, seg = synthetic_seg_batch(generator, 2, args.size, label_nc, device)
         noise = torch.randn((2,) + tuple(z.shape[1:]), generator=generator, device=device)
         with torch.no_grad():
             samples = inferer.sample(noise, aekl, unet, seg=seg, generator=generator)

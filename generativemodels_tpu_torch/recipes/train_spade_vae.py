@@ -11,11 +11,10 @@ G's forward and loss through D as it was, G's update, then D's loss on the
 real and the detached fake pairs and D's update.
 
 On `--device` (default cuda): the models are initialised from seed 0, the
-images, segmentations and latent draws come from one generator seeded 42
-on the device.
-
-Not ported yet: `--data-dir/--label-dir/--fit` (paired real images and
-label maps through `data/`).
+synthetic images and segmentations and the latent draws come from one
+generator seeded 42 on the device; `--data-dir/--label-dir` train on
+paired files instead (`train_spade_ldm.make_seg_batch_fn`, fitted by
+`--fit`).
 
 Usage:
     python -m generativemodels_tpu_torch.recipes.train_spade_vae --steps 30
@@ -30,9 +29,10 @@ import torch
 from ..engines.trainer import frozen
 from ..losses import PatchAdversarialLoss, feature_matching_loss
 from ..networks.nets import MultiScalePatchDiscriminator, SPADENet
+from .data_flags import add_data_arguments
 from .serve import require_device
 from .train_2d_ldm import timed
-from .train_spade_ldm import synthetic_seg_batch
+from .train_spade_ldm import make_seg_batch_fn, synthetic_seg_batch
 
 
 class SPADEVAEState(NamedTuple):
@@ -112,8 +112,11 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--label-nc", type=int, default=3)
     parser.add_argument("--z-dim", type=int, default=32)
     parser.add_argument("--sample", action="store_true")
+    add_data_arguments(parser, labels=True)
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
+    if bool(args.data_dir) != bool(args.label_dir):
+        parser.error("--data-dir and --label-dir must be given together")
     device = require_device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -126,9 +129,10 @@ def main(argv: list[str] | None = None) -> dict:
                           disc, torch.optim.Adam(disc.parameters(), lr=4e-4), 0)
     step = SPADEVAEStep()
     generator = torch.Generator(device).manual_seed(42)
+    next_seg_batch = make_seg_batch_fn(args, args.label_nc, generator, device)
     history, seconds = [], []
     for i in range(args.steps):
-        images, seg = synthetic_seg_batch(generator, args.batch, args.size, args.label_nc, device)
+        images, seg = next_seg_batch()
         (state, out), sec = timed(device, step, state, images, seg, generator)
         history.append({k: float(v) for k, v in out.items()})
         seconds.append(sec)

@@ -11,11 +11,10 @@ and the reals and D's update. `--spatial-dims 3` trains on volumes; with
 `--adv-weight 0` that is the reconstruction-only 3D VQ-VAE tutorial.
 
 On `--device` (default cuda): the models are initialised from seed 0, the
-images drawn from one generator seeded 42 on the device (the VQ-VAE step
-draws nothing).
-
-Not ported yet: `--data-dir/--fit/--augment/--cache` (real images through
-`data/`).
+synthetic images drawn from one generator seeded 42 on the device (the
+VQ-VAE step draws nothing); `--data-dir` streams .nii/.nii.gz/.npy/PNG/JPEG
+images through `data.device_batches` (with `--fit`, `--cache` and
+`--augment`) in their place.
 
 Usage:
     python -m generativemodels_tpu_torch.recipes.train_vqgan --steps 50
@@ -30,6 +29,7 @@ import torch
 from ..engines.trainer import frozen
 from ..losses import PatchAdversarialLoss, feature_matching_loss
 from ..networks.nets import VQVAE, PatchDiscriminator
+from .data_flags import add_data_arguments, data_batches
 from .serve import require_device
 from .train_2d_ddpm import synthetic_batch
 from .train_2d_ldm import timed
@@ -127,6 +127,7 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--adv-weight", type=float, default=0.01,
                         help="0 disables the GAN term (3d_vqvae tutorial)")
     parser.add_argument("--fm-weight", type=float, default=1.0)
+    add_data_arguments(parser)
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
     device = require_device(args.device)
@@ -146,10 +147,14 @@ def main(argv: list[str] | None = None) -> dict:
     synth = synthetic_volume if args.spatial_dims == 3 else synthetic_batch
 
     generator = torch.Generator(device).manual_seed(42)
+    data_iter = data_batches(args, args.spatial_dims, device)
     history, seconds = [], []
     images = None
     for i in range(args.steps):
-        images = synth(generator, args.batch, args.size, device)
+        if data_iter is not None:
+            images = next(data_iter)
+        else:
+            images = synth(generator, args.batch, args.size, device)
         step_fn = warm if i < args.warmup_steps else full
         (state, out), dt = timed(device, step_fn, state, images)
         history.append({k: float(v) for k, v in out.items()})

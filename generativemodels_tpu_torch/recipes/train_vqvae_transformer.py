@@ -9,14 +9,13 @@ raster-ordered codebook indices with BOS teacher forcing (the NLL of each
 next token); the likelihood map of a fresh batch closes the run.
 
 On `--device` (default cuda): the models are initialised from seed 0, the
-images and the training crops drawn from one generator seeded 42 on the
-device. The token grid is (size / 4)^2: at `--size 128` that is 1024
+synthetic images and the training crops drawn from one generator seeded 42
+on the device; `--data-dir` streams .nii/.nii.gz/.npy/PNG/JPEG images
+through `data.device_batches` (with `--fit`, `--cache` and `--augment`) in
+place of the synthetic ones. The token grid is (size / 4)^2: at `--size 128` that is 1024
 tokens of head width 32, so on CUDA stage 2's causal self-attention runs
 the flash kernels 1-3, forward and backward (kernel 4 in place of 2 and 3
 under GMTPU_FLASH_FUSED_BWD=1).
-
-Not ported yet: `--data-dir/--fit/--augment/--cache` (real images through
-`data/`).
 
 Usage:
     python -m generativemodels_tpu_torch.recipes.train_vqvae_transformer --stage1-steps 50
@@ -31,6 +30,7 @@ import torch.nn.functional as F
 from ..inferers import VQVAETransformerInferer
 from ..networks.nets import VQVAE, DecoderOnlyTransformer
 from ..utils import Ordering
+from .data_flags import add_data_arguments, data_batches
 from .serve import require_device
 from .train_2d_ddpm import synthetic_batch
 from .train_2d_ldm import timed
@@ -70,6 +70,7 @@ def build_argparser() -> argparse.ArgumentParser:
     parser.add_argument("--batch", type=int, default=16)
     parser.add_argument("--size", type=int, default=64)
     parser.add_argument("--num-embeddings", type=int, default=64)
+    add_data_arguments(parser)
     parser.add_argument("--device", type=str, default="cuda")
     return parser
 
@@ -89,7 +90,11 @@ def main(argv: list[str] | None = None) -> dict:
         vqvae, transformer = (m.to(device) for m in build_models(args.size, args.num_embeddings))
     generator = torch.Generator(device).manual_seed(42)
 
+    data_iter = data_batches(args, 2, device)
+
     def next_batch():
+        if data_iter is not None:
+            return next(data_iter)
         return synthetic_batch(generator, args.batch, args.size, device)
 
     # stage 1: L1 + quantisation loss, the EMA codebook moving in the forward

@@ -63,11 +63,17 @@ tokens, one training forward and backward on the kernels against the plain
 attention path (logits within 1e-4, gradients within 1e-3 of their largest
 value); greedy sampling on the card equal on the windowed and the cached
 paths; the AR and SPADE recipes on the card by default.
+The host data path on the card's machine: the port's loader (built there
+without the decoders whose headers are missing) in file order and in the
+seeded shuffle order, batches landing on the card equal to the host
+stream, and the metrics on the card against the CPU (tolerances beside
+those tests).
 """
 from __future__ import annotations
 
 import copy
 
+import numpy as np
 import pytest
 import torch
 
@@ -1075,3 +1081,80 @@ def test_ar_and_spade_recipes_default_to_the_card(cuda_device):
     out = train_spade_ldm.main(["--stage1-steps", "1", "--stage2-steps", "1", "--batch", "2",
                                 "--size", "32"])
     assert next(out["unet"].parameters()).device.type == "cuda"
+
+
+# The host data path and the metrics on the card's machine. The loader's
+# order: 64 NIfTI files, 4 workers, repeated epochs, in file order and in the
+# seeded shuffle order. The metrics on the card against the CPU on the same
+# inputs: FID at rtol 2e-3 on (64, 2048) features (chip_smoke.py's FID_RTOL:
+# rank-63 covariances, whose null-space eigenvalues are f32 rounding noise
+# that each eigh resolves its own way, 6e-4 between the CPU's f32 and f64
+# FIDs), MS-SSIM and SSIM at atol 1e-5, MMD at rtol 1e-5.
+@pytest.mark.cuda
+def test_loader_keeps_file_order_on_the_card_machine(cuda_device, tmp_path):
+    from generativemodels_tpu_torch.data import file_dataset, native
+
+    for i in range(64):
+        native.write_nifti(str(tmp_path / f"v{i:03d}.nii"), np.full((4, 4, 4), i, np.float32))
+    for _ in range(10):
+        got = [int(a.flat[0]) for a in file_dataset(str(tmp_path), loop=False, num_workers=4)]
+        assert got == list(range(64))
+    stream = file_dataset(str(tmp_path), shuffle=True, seed=2, num_workers=4)
+    for epoch in range(3):
+        want = list(range(64))
+        np.random.RandomState(2 + epoch).shuffle(want)
+        assert [int(next(stream).flat[0]) for _ in range(64)] == want
+
+
+@pytest.mark.cuda
+def test_device_batches_land_on_the_card(cuda_device, tmp_path):
+    from generativemodels_tpu_torch.data import device_batches, training_stream
+
+    rng = np.random.default_rng(0)
+    for i in range(8):
+        np.save(tmp_path / f"x{i}.npy", rng.random((20, 20)).astype(np.float32))
+    stream = training_stream(str(tmp_path), (16, 16), cache=True, seed=1)
+    want = [next(stream) for _ in range(8)]
+    batches = device_batches(str(tmp_path), (16, 16), 4, cache=True, seed=1, device=cuda_device)
+    for i in range(2):
+        got = next(batches)
+        assert got.device.type == "cuda" and got.shape == (4, 1, 16, 16)
+        torch.testing.assert_close(got.cpu(), torch.from_numpy(np.stack(want[4 * i: 4 * i + 4]))
+                                   [:, None], rtol=0, atol=0)
+    batches.close()
+
+
+@pytest.mark.cuda
+def test_metrics_on_gpu_match_cpu(cuda_device):
+    from generativemodels_tpu_torch import metrics
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(3)
+    mix = torch.randn(2048, 2048, generator=g) / 45
+    a = torch.relu(torch.randn(64, 2048, generator=g) @ mix)
+    b = torch.relu(torch.randn(64, 2048, generator=g) @ mix + 0.1)
+    fid_cpu = float(metrics.FIDMetric()(a, b))
+    fid_gpu = float(metrics.FIDMetric()(a.to(cuda_device), b.to(cuda_device)))
+    assert abs(fid_gpu - fid_cpu) <= 2e-3 * abs(fid_cpu)
+    for shape, weights in (((4, 1, 64, 64), (0.3, 0.3, 0.4)), ((2, 1, 48, 48, 48), (0.5, 0.5))):
+        x = torch.rand(shape, generator=g)
+        y = (x + 0.1 * torch.randn(shape, generator=g)).clamp(0, 1)
+        nd = len(shape) - 2
+        for metric in (metrics.SSIMMetric(nd, reduction="none"),
+                       metrics.MultiScaleSSIMMetric(nd, weights=weights, reduction="none")):
+            want = metric(x, y)
+            got = metric(x.to(cuda_device), y.to(cuda_device))
+            assert got.device.type == "cuda"
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+        want = metrics.MMDMetric()(x, y)
+        got = metrics.MMDMetric()(x.to(cuda_device), y.to(cuda_device))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_eval_recipes_default_to_the_card(cuda_device):
+    from generativemodels_tpu_torch.recipes import eval_brain_ldm, eval_quality
+
+    assert eval_quality.build_argparser().parse_args([]).device == "cuda"
+    assert eval_brain_ldm.build_argparser().parse_args([]).device == "cuda"

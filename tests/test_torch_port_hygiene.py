@@ -1,6 +1,9 @@
-"""The port stands alone: it imports no JAX and calls no finished attention kernel.
+"""The port stands alone: it imports no JAX, calls no finished attention kernel
+and never loads the JAX package's data library (native/libgmtpu_data.so; the
+port builds its own loader, tests/test_torch_data.py checks the process maps).
 
-chip_smoke.py may name `scaled_dot_product_attention` only inside
+Nor do chip_smoke.py and smoke_data_path.py, but chip_smoke.py may name
+`scaled_dot_product_attention` only inside
 `library_attention_ms`, which times it as a yardstick beside kernels 1-3
 and is never called by the port.
 """
@@ -18,7 +21,9 @@ import generativemodels_tpu_torch
 
 PORT_DIR = Path(generativemodels_tpu_torch.__file__).parent
 REPO = PORT_DIR.parent
-FORBIDDEN = ("scaled_dot_product_attention", "torch.compile", "import jax", "from jax")
+# libgmtpu_data: the JAX package's loader library (native/); the port builds its own
+FORBIDDEN = ("scaled_dot_product_attention", "torch.compile", "import jax", "from jax",
+             "libgmtpu_data")
 SDPA = "scaled_dot_product_attention"
 YARDSTICK = "library_attention_ms"
 
@@ -47,7 +52,11 @@ def test_port_modules_import_without_jax():
                  "recipes.train_vqvae_transformer", "networks.blocks.spade_norm",
                  "networks.blocks.encoder_modules", "networks.nets.spade_autoencoderkl",
                  "networks.nets.spade_diffusion_model_unet", "networks.nets.spade_network",
-                 "recipes.train_spade_vae", "recipes.train_spade_ldm"):
+                 "recipes.train_spade_vae", "recipes.train_spade_ldm", "metrics.fid",
+                 "metrics.mmd", "metrics.ssim", "config.parser", "config.bundle_compat",
+                 "data.native", "data.pipeline", "data.transforms", "utils.checkpoint",
+                 "utils.guards", "utils.logging", "recipes.data_flags", "recipes.eval_quality",
+                 "recipes.eval_brain_ldm"):
         assert f"generativemodels_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
@@ -76,9 +85,10 @@ def _outside_yardstick(source: str) -> str:
 @pytest.mark.parametrize("pattern", FORBIDDEN)
 def test_port_sources_avoid(pattern):
     sources = {p: p.read_text() for p in PORT_DIR.rglob("*")
-               if p.suffix in (".py", ".cu", ".cuh", ".h")}
+               if p.suffix in (".py", ".cu", ".cuh", ".h", ".cpp", ".json")}
+    for script in ("chip_smoke.py", "smoke_data_path.py"):
+        sources[REPO / script] = (REPO / script).read_text()
     smoke = REPO / "chip_smoke.py"
-    sources[smoke] = smoke.read_text()
     if pattern == SDPA:
         sources[smoke] = _outside_yardstick(sources[smoke])
     offenders = [str(p) for p, text in sources.items() if pattern in text]
