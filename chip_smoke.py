@@ -2,8 +2,9 @@
 """Drive the PyTorch port on one NVIDIA GPU: build and check its kernels, serve,
 train, sample the 3D 128^3 model and train it, run the attention probes, the
 latent route, the conditioned models, stage-1 adversarial training, the
-autoregressive VQ-VAE + transformer stack, SPADE, and the host data path
-(the loader, training from disk, serving a checkpoint, the eval recipes).
+autoregressive VQ-VAE + transformer stack, SPADE, the host data path
+(the loader, training from disk, serving a checkpoint, the eval recipes),
+and export, tracing and the remaining recipes.
 
 Run from the root of a checkout, with no arguments:
 
@@ -135,8 +136,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      with g++; its PNG and JPEG decoders only where their headers are):
      64 NIfTI files read 20 times with 4 workers in file order every time
      and in the seeded shuffle order, .npy files, 8- and 16-bit grey PNGs
-     (decoded, or refused with an error naming png.h where the build has no
-     PNG decoder), and volumes a second at 160x224x160, .nii and .nii.gz;
+     (decoded natively, or through PIL with the native decoder's scaling
+     where the build has no PNG decoder, in file order either way), and
+     volumes a second at 160x224x160, .nii and .nii.gz;
      (b) `recipes.train_2d_ddpm.main` at its defaults from gzipped NIfTI
      slices (--fit crop_pad --augment --cache --checkpoint-dir), kernels 1-3
      counted, steps/s and busy share beside the same run on synthetic blobs,
@@ -149,6 +151,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      `recipes.eval_brain_ldm.main` at full width (4 samples and 2
      same-covariate pairs, DDIM-50, FID on (a)'s volumes): seconds a sample,
      the metrics' seconds, peak memory.
+ 14. export, tracing and the A10 recipes, on kernels 1-5 bound as
+     `torch.library` ops of the `gmtpu_torch` namespace (phase 2 passes each
+     op through `torch.library.opcheck` on CUDA tensors): (b) the 2D serving
+     sampler (phase 3's config, DDIM-50) exported by `utils/export.py` to a
+     .pt2 file, served in process and by `recipes.serve --export-path
+     --oneshot` in a separate process that builds no network, its images
+     equal to the in-process sampler's to the bit with 150 kernel-1 launches
+     both ways, the export's seconds, the file's size and a request's
+     seconds; (c) phase 5's 3D sampler (bf16, 128^3, GMTPU_FUSED_RESBLOCK=1)
+     exported with DDIM-10, equal bits, 22 kernel-5 and 4 kernel-1 launches
+     a forward both ways; (d) one 2D request inside `utils.trace` and an
+     `annotate` span, the Chrome trace naming the span, the op and its
+     kernel; (e) the five library recipes (anomaly, inpaint,
+     super_resolution, classifier_guidance, diffusion_autoencoder) at the
+     serving widths and 64x64 on the kernel path against the plain path,
+     `recipes.train_controlnet.main` at its defaults for a few steps
+     (kernels 1-3 counted) and one ControlNet step's gradients against the
+     plain path, `recipes.compare_schedulers.main` with a few training steps
+     and step counts 10 and 25, and `recipes.segmentation_ddpm.main` at its
+     defaults (no kernel).
 Phase 2 also holds kernels 1-4 at phase 10's two f32 shapes, (2, 32768,
 32768, 64) and (2, 4096, 4096, 64), at phase 11's causal (64, 1024, 1024,
 32) f32, and under the JAX kernel's other two contracts
@@ -669,6 +691,16 @@ MSSSIM_ATOL = 1e-5
 # its default 2 same-covariate pairs, DDIM-50, FID on (a)'s volumes
 EVAL_BRAIN_ARGS = ("--sample-count", "4", "--ddim-steps", "50")
 
+# phase 14: export, tracing and the A10 recipes
+EXPORT_SEED = 3
+EXPORT_DDIM_3D = 10  # the 3D export's DDIM steps: the graph unrolls the chain
+CN_TRAIN_STEPS = (2, 4)  # train_controlnet: UNet pre-training steps, ControlNet steps
+CN_TRAIN_ARGS = ("--pretrain-steps", str(CN_TRAIN_STEPS[0]), "--steps", str(CN_TRAIN_STEPS[1]))
+CMP_TRAIN_STEPS = 3
+CMP_STEP_COUNTS = (10, 25)
+CMP_ARGS = ("--train-steps", str(CMP_TRAIN_STEPS), "--step-counts",
+            *(str(n) for n in CMP_STEP_COUNTS))
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -684,8 +716,9 @@ def card_line() -> str:
 
 def host_line(native) -> str:
     """What the host offers the data path: the C++ compiler, the headers the
-    loader's decoders need, and the optional Python packages (found, not
-    imported)."""
+    loader's decoders need, the route each image family takes (the native
+    decoder, or PIL where its header is missing; this builds the loader),
+    and the optional Python packages (found, not imported)."""
     import importlib.util
 
     import scipy
@@ -696,8 +729,9 @@ def host_line(native) -> str:
                         for h in ("zlib.h", "png.h", "jpeglib.h"))
     packages = ", ".join(f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
                          for m in ("yaml", "PIL", "tensorboard"))
-    return (f"host: {cxx}; headers: {headers}; packages: {packages}; numpy {np.__version__}, "
-            f"scipy {scipy.__version__}; {os.cpu_count()} cores")
+    routes = ", ".join(f"{family} {route}" for family, route in native.decoder_routes().items())
+    return (f"host: {cxx}; headers: {headers}; image decoders: {routes}; packages: {packages}; "
+            f"numpy {np.__version__}, scipy {scipy.__version__}; {os.cpu_count()} cores")
 
 
 def time_ms(fn, iters: int = 20) -> float:
@@ -993,7 +1027,7 @@ def check_contracts(torch, ops) -> dict:
     (CONTRACTS) against their plain versions at CONTRACT_CASES: O and the
     lse of kernel 1 against `flash_attention_reference`, dq, dk, dv of
     kernels 2 + 3 and of kernel 4 against `flash_attention_backward_reference`
-    (from the kernel's O and lse, fed as `_FlashAttention` feeds them), with
+    (from the kernel's O and lse, fed as the `flash_fwd` op's gradient feeds them), with
     kernel 4's dk, dv equal to kernel 3's to the bit. The timed cases print
     each kernel's time beside the plain version's, the bound and SDPA's."""
     from generativemodels_tpu_torch.ops.flash_attention import _backward_rows, _prescaled
@@ -1025,7 +1059,7 @@ def check_contracts(torch, ops) -> dict:
             err_lse = (lse - lse_ref).abs().max().item()
             lse_scale = max(1.0, lse_ref.abs().max().item())
             del o_ref, lse_ref
-            # the backward's inputs as _FlashAttention hands them on
+            # the backward's inputs as the flash_fwd op's gradient hands them on
             out, lse_b = ops.FLASH_FWD(q, k, v, scale=scale, causal=causal, log2_lse=not upcast,
                                        **kw)
             q_in = q if upcast else _prescaled(q, scale)
@@ -3199,23 +3233,17 @@ def run_loader(torch, data, native, root: str) -> dict:
     for i in range(LOADER_FILES):
         write_png(os.path.join(png_dir, f"a{i:03d}.png"), np.full((8, 8), i, np.uint8))
         write_png(os.path.join(png_dir, f"b{i:03d}.png"), np.full((8, 8), 1000 * i, np.uint16))
-    if decoders & 1:
-        got = [float(a.flat[0]) for a in data.file_dataset(png_dir, loop=False,
-                                                          num_workers=LOADER_WORKERS)]
-        expect = [np.float32(i) * np.float32(1 / 255) for i in want] + [
-            np.float32(1000 * i) * np.float32(1 / 65535) for i in want]
-        if got != expect:
-            raise AssertionError("8- and 16-bit PNGs decoded out of order or wrong")
-        log(f"loader: {2 * LOADER_FILES} 8- and 16-bit grey PNGs decoded in file order")
-    else:
-        try:
-            first_values(data, png_dir)
-        except RuntimeError as exc:
-            if "png.h" not in str(exc):
-                raise
-            log(f"loader: PNGs raise, as this build has no PNG decoder: {exc}")
-        else:
-            raise AssertionError("PNGs read by a loader built without a PNG decoder")
+    # a family whose decoder was not built reads through PIL with the native
+    # decoder's scaling: the same values either way
+    route = native.decoder_routes()["png"]
+    got = [float(a.flat[0]) for a in data.file_dataset(png_dir, loop=False,
+                                                      num_workers=LOADER_WORKERS)]
+    expect = [np.float32(i) * np.float32(1 / 255) for i in want] + [
+        np.float32(1000 * i) * np.float32(1 / 65535) for i in want]
+    if got != expect:
+        raise AssertionError(f"8- and 16-bit PNGs decoded out of order or wrong ({route})")
+    log(f"loader: {2 * LOADER_FILES} 8- and 16-bit grey PNGs decoded in file order through the "
+        f"{route} route")
 
     # smooth volumes (a product of cosines, a phase per volume) with the
     # volume's index in the first voxel: cheap to make, and they compress
@@ -3494,6 +3522,451 @@ def run_data_path(torch, ops, recipe, serve, inferers, schedulers, synthetic_sps
     return dict(loader=loaded["rates"], disk=disk, served=served, quality=quality, brain=brain)
 
 
+def opcheck_ops(torch, ops) -> None:
+    """Phase 2 (h): kernels 1-5 as `gmtpu_torch` custom ops, each through
+    `torch.library.opcheck` on CUDA tensors (schema, fake implementation,
+    autograd registration, a traced run against the kernel's own output)."""
+    g = torch.Generator().manual_seed(60)
+
+    def qkv(dtype, sq=256, sk=192, d=64):
+        return tuple(torch.randn(2, s, d, generator=g).to(DEVICE, dtype).requires_grad_()
+                     for s in (sq, sk, sk))
+
+    checked = 0
+    for dtype, causal, upcast, no_max in ((torch.float32, False, False, True),
+                                          (torch.bfloat16, True, False, True),
+                                          (torch.float32, False, False, False),
+                                          (torch.bfloat16, False, True, False)):
+        q, k, v = qkv(dtype)
+        torch.library.opcheck(ops.flash_fwd, (q, k, v, 0.125, causal, upcast, no_max,
+                                              not upcast))
+        checked += 1
+    from generativemodels_tpu_torch.ops.flash_attention import _backward_rows, _prescaled
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.detach() for t in qkv(dtype))
+        out, lse = ops.flash_fwd(q, k, v, 0.125, False, False, True, True)
+        dout, delta = _backward_rows(out, torch.randn(out.shape, generator=g).to(DEVICE, dtype))
+        args = (_prescaled(q, 0.125), k, v, dout, lse, delta, False, False, True, 1.0)
+        for op in (ops.flash_bwd_dq, ops.flash_bwd_dkv, ops.flash_bwd_fused):
+            torch.library.opcheck(op, args)
+            checked += 1
+    for channels_first in (False, True):
+        x = torch.randn((1, 32, 8, 8, 16) if channels_first else (1, 8, 8, 16, 32), generator=g)
+        x = x.to(DEVICE, torch.bfloat16)
+        x = x.permute(0, 2, 3, 4, 1) if channels_first else x
+        w = (0.05 * torch.randn(3, 3, 3, 32, 48, generator=g)).to(DEVICE)
+        affine = [torch.randn(1, 32, generator=g).to(DEVICE) for _ in range(2)]
+        bias = torch.randn(48, generator=g).to(DEVICE)
+        res = torch.randn(1, 8, 8, 16, 48, generator=g).to(DEVICE, torch.bfloat16)
+        args = [t.requires_grad_() for t in (x, w, *affine, bias, res)]
+        # the traced run is held to the bf16 output's rounding
+        torch.library.opcheck(ops.fused_conv3d, (*args, True), atol=2e-2, rtol=2e-2)
+        checked += 1
+    log(f"kernels: {checked} opcheck cases passed on CUDA for the gmtpu_torch ops "
+        f"(flash_fwd in four contracts, flash_bwd_dq/dkv/fused in f32 and bf16, fused_conv3d "
+        f"channels-last and channels-first)")
+
+
+def export_2d(torch, ops, serve, root: str) -> dict:
+    """Phase 14 (b): the 2D serving sampler at full width exported to a .pt2
+    file and served in process, with the in-process sampler's images to the
+    bit and its kernel-1 launches; then `recipes.serve --export-path
+    --oneshot` started on the file in a separate process (checked by
+    `check_served_export`)."""
+    sampler, shape = serve.build_sampler(device=DEVICE, **SERVE)
+    randomize(torch, sampler.model)
+    reset_launches(ops)
+    want = sampler(EXPORT_SEED)
+    torch.cuda.synchronize()
+    in_process = read_launches(ops)["flash_fwd"]
+    path = os.path.join(root, "sampler_2d.pt2")
+    t0 = time.perf_counter()
+    exported = serve.export_sampler(sampler, path)
+    export_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    reset_launches(ops)
+    got = exported(EXPORT_SEED)
+    torch.cuda.synchronize()
+    served = read_launches(ops)["flash_fwd"]
+    seconds = {"in-process": [], "exported": []}
+    for _ in range(2):
+        for label, fn in (("in-process", sampler), ("exported", exported)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(EXPORT_SEED)
+            torch.cuda.synchronize()
+            seconds[label].append(time.perf_counter() - t0)
+    expected = LAUNCHES_PER_FORWARD * SERVE["ddim_steps"]
+    log(f"export: 2D sampler {shape} DDIM-{SERVE['ddim_steps']} exported in {export_s:.1f} s "
+        f"to {size} bytes ({len(exported.fn.program.graph.nodes)} graph nodes); kernel-1 "
+        f"launches a request: in process {in_process}, exported {served} (expected {expected}); "
+        f"seconds a request, best of 2: in process {min(seconds['in-process']):.4f}, exported "
+        f"{min(seconds['exported']):.4f}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"exported 2D sampler: images differ from the in-process sampler's "
+                             f"by {(got - want).abs().max().item():.3e}")
+    if in_process != expected or served != expected:
+        raise AssertionError(f"export 2D: kernel-1 launches {in_process} / {served}, "
+                             f"expected {expected}")
+    # a separate process serves the file (it must build no network); it
+    # loads the file while the phase goes on, and `check_served_export` waits
+    out = os.path.join(root, "served.npy")
+    code = (
+        "import sys\n"
+        "from generativemodels_tpu_torch.networks.nets import diffusion_model_unet as d\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a network was built')\n"
+        "d.DiffusionModelUNet.__init__ = refuse\n"
+        "from generativemodels_tpu_torch import ops\n"
+        "from generativemodels_tpu_torch.recipes import serve\n"
+        "serve.main(sys.argv[1:])\n"
+        "print('flash_fwd launches', ops.FLASH_FWD.launches)\n"
+    )
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, "--export-path", path, "--oneshot", "--out", out,
+         "--seed", str(EXPORT_SEED)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    return dict(sampler=sampler, export_s=export_s, size=size, launches=served,
+                seconds={k: min(v) for k, v in seconds.items()},
+                served=dict(proc=proc, out=out, want=want.cpu().numpy(), expected=expected,
+                            t0=time.perf_counter()))
+
+
+def check_served_export(served: dict) -> float:
+    """Phase 14 (b), end: the serving process's images equal the in-process
+    sampler's to the bit, with its kernel-1 launches; returns its seconds."""
+    proc = served["proc"]
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    finally:
+        proc.kill()
+    process_s = time.perf_counter() - served["t0"]
+    if proc.returncode != 0:
+        raise AssertionError(f"serve --export-path failed:\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    lines = stdout.strip().splitlines()
+    for line in lines:
+        log(f"export: serve --export-path: {line}")
+    launches = int(lines[-1].split()[-1])
+    if "no model build" not in stdout or launches != served["expected"]:
+        raise AssertionError(f"serve --export-path: launches {launches}, expected "
+                             f"{served['expected']}")
+    if not np.array_equal(np.load(served["out"]), served["want"]):
+        raise AssertionError("serve --export-path: images differ from the in-process sampler's")
+    log(f"export: the served export equals the in-process images to the bit; the serving "
+        f"process took {process_s:.1f} s (start, load, one request, beside the rest of the "
+        f"phase)")
+    return process_s
+
+
+def export_3d(torch, ops, nets, serve, inferers, schedulers, root: str) -> dict:
+    """Phase 14 (c): phase 5's 3D sampler (UNet (32, 64, 128) bf16 at 128^3,
+    GMTPU_FUSED_RESBLOCK=1) with DDIM-EXPORT_DDIM_3D exported and served from
+    its program: equal bits, and 22 kernel-5 and 4 kernel-1 launches a
+    forward both ways."""
+    os.environ["GMTPU_FUSED_RESBLOCK"] = "1"
+    model = model_3d(torch, nets, dtype=torch.bfloat16)
+    randomize(torch, model)
+    per_forward = expected_launches_3d(model)
+    ddim = schedulers.DDIMScheduler(num_train_timesteps=1000, device=DEVICE)
+    ddim.set_timesteps(EXPORT_DDIM_3D)
+    shape = (THREE_D["batch"], 1) + (THREE_D["size"],) * 3
+    sampler = serve.Sampler(model, inferers.DiffusionInferer(ddim), shape, torch.device(DEVICE))
+    reset_launches(ops)
+    want = sampler(EXPORT_SEED)
+    torch.cuda.synchronize()
+    check_3d_counts(counts_3d(ops), per_forward, EXPORT_DDIM_3D, "in-process sample")
+    path = os.path.join(root, "sampler_3d.pt2")
+    t0 = time.perf_counter()
+    exported = serve.export_sampler(sampler, path)
+    export_s = time.perf_counter() - t0
+    reset_launches(ops)
+    got = exported(EXPORT_SEED)
+    torch.cuda.synchronize()
+    check_3d_counts(counts_3d(ops), per_forward, EXPORT_DDIM_3D, "exported sample")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exported(EXPORT_SEED)
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t0
+    log(f"export: 3D sampler {shape} bf16 fused DDIM-{EXPORT_DDIM_3D} exported in "
+        f"{export_s:.1f} s to {os.path.getsize(path)} bytes; an exported request "
+        f"{request_s:.4f} s")
+    if not torch.equal(got, want):
+        raise AssertionError(f"exported 3D sampler: images differ by "
+                             f"{(got.float() - want.float()).abs().max().item():.3e}")
+    os.environ["GMTPU_FUSED_RESBLOCK"] = "0"
+    del model, sampler, exported
+    torch.cuda.empty_cache()
+    return dict(export_s=export_s, request_s=request_s)
+
+
+def trace_request(torch, utils, sampler, root: str) -> None:
+    """Phase 14 (d): one 2D request inside `utils.trace` and an `annotate`
+    span; the Chrome trace names the span, the op and its CUDA kernel."""
+    log_dir = os.path.join(root, "trace")
+    with utils.trace(log_dir) as prof:
+        with utils.annotate("serve_request"):
+            sampler(EXPORT_SEED)
+    path = os.path.join(log_dir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    ops_named = sum(name == "gmtpu_torch::flash_fwd" for name in names)
+    kernels = sum("flash_fwd" in name and e.get("cat") == "kernel"
+                  for name, e in zip(names, events))
+    device_ms = sum(e.device_time_total for e in prof.key_averages()
+                    if "flash_fwd" in e.key and "gmtpu" not in e.key) / 1e3
+    log(f"trace: {len(events)} events, {os.path.getsize(path)} bytes; 'serve_request' span "
+        f"{'present' if 'serve_request' in names else 'MISSING'}; gmtpu_torch::flash_fwd "
+        f"op events {ops_named}; flash_fwd CUDA kernel events {kernels} ({device_ms:.3f} ms "
+        f"of device time)")
+    expected = LAUNCHES_PER_FORWARD * SERVE["ddim_steps"]
+    if "serve_request" not in names or ops_named < expected or kernels != expected:
+        raise AssertionError(f"the trace lacks the span, the op's events or the kernel's "
+                             f"({ops_named} op and {kernels} kernel events for {expected} "
+                             f"launches)")
+
+
+def serving_unet_pair(torch, nets, cls=None, **overrides):
+    """A network of the 2D serving UNet's widths with seeded random weights on
+    the kernel path, and its copy on the plain attention path."""
+    import copy
+
+    cls = cls or nets.DiffusionModelUNet
+    cfg = dict(spatial_dims=2, in_channels=1, out_channels=1, num_res_blocks=1,
+               num_channels=SERVE["channels"], attention_levels=(False, True, True),
+               num_head_channels=SERVE["channels"][-1], norm_num_groups=SERVE["norm_groups"])
+    cfg.update(overrides)
+    kernel = cls(**cfg).to(DEVICE).eval()
+    if cls is nets.DiffusionModelEncoder:  # materialise the LazyLinear head
+        with torch.no_grad():
+            kernel(torch.zeros((1, cfg["in_channels"], SERVE["size"], SERVE["size"]),
+                               device=DEVICE), torch.zeros((1,), dtype=torch.long, device=DEVICE))
+    randomize(torch, kernel)
+    plain = copy.deepcopy(kernel)
+    for m in plain.modules():
+        if hasattr(m, "use_flash_attention"):
+            m.use_flash_attention = False
+    return kernel, plain
+
+
+def run_library_recipes(torch, ops, nets, schedulers) -> dict:
+    """Phase 14 (e), the five library recipes at the 2D serving widths and
+    64x64 (kernel 1 at (4, 1024, 1024, 256)), each on the kernel path
+    against the plain path with the same draws, held at phase 3's chain
+    gate."""
+    from generativemodels_tpu_torch.recipes import (
+        anomaly,
+        classifier_guidance,
+        diffusion_autoencoder,
+        inpaint,
+        super_resolution,
+    )
+    from generativemodels_tpu_torch.recipes.train_2d_ddpm import synthetic_batch
+
+    b, size = SERVE["batch"], SERVE["size"]
+    g = torch.Generator(DEVICE).manual_seed(70)
+    images = synthetic_batch(g, b, size, DEVICE) * 2 - 1
+
+    def draws(*shapes):
+        return [torch.randn(s, generator=g, device=DEVICE) for s in shapes]
+
+    def sched(cls, steps):
+        s = cls(num_train_timesteps=1000, device=DEVICE)
+        s.set_timesteps(steps)
+        return s
+
+    shape = images.shape
+    unet, plain = serving_unet_pair(torch, nets)
+    cases = {
+        "anomaly": lambda m: anomaly.anomaly_map(m, sched(schedulers.DDIMScheduler, 50), images,
+                                                 encode_steps=2)[0],
+        "inpaint": (lambda m, noise=draws(*[shape] * 4): inpaint.inpaint(
+            m, sched(schedulers.DDPMScheduler, 1), images, (images > 0).float(),
+            num_resample_steps=1, noise=noise)),
+    }
+    sr_unet, sr_plain = serving_unet_pair(torch, nets, in_channels=2, num_class_embeds=1000)
+    low = images[:, :, ::2, ::2].contiguous()
+    sr_noise = draws(shape, low.shape, shape, shape)
+    encoder, encoder_plain = serving_unet_pair(torch, nets, nets.DiffusionModelEncoder,
+                                               out_channels=3)
+    target = torch.arange(b, device=DEVICE) % 3
+    cg_noise = draws(shape, shape, shape)
+    dae_unet, dae_plain = serving_unet_pair(torch, nets, with_conditioning=True,
+                                            cross_attention_dim=64)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(71)
+        semantic = diffusion_autoencoder.SemanticEncoder(2, 1, emb_dim=64).to(DEVICE).eval()
+    dae_noise = draws(shape, shape, shape)
+    pairs = dict(
+        anomaly=(unet, plain), inpaint=(unet, plain),
+        super_resolution=(sr_unet, sr_plain),
+        classifier_guidance=((unet, encoder), (plain, encoder_plain)),
+        diffusion_autoencoder=(dae_unet, dae_plain),
+    )
+    cases["super_resolution"] = lambda m: super_resolution.sample_super_resolution(
+        lambda x, t, c: m(x, t, class_labels=c), sched(schedulers.DDPMScheduler, 2), low, 2,
+        noise=sr_noise)
+    cases["classifier_guidance"] = lambda m: classifier_guidance.sample_with_classifier_guidance(
+        m[0], m[1], sched(schedulers.DDIMScheduler, 2), cg_noise[0], target, eta=0.5,
+        noise=cg_noise[1:])
+    cases["diffusion_autoencoder"] = lambda m: diffusion_autoencoder.reconstruct(
+        lambda x, t, c: m(x, t, context=c), semantic, sched(schedulers.DDPMScheduler, 2), images,
+        noise=dae_noise)
+    results = {}
+    for name, run in cases.items():
+        kernel_model, plain_model = pairs[name]
+        with torch.no_grad():
+            reset_launches(ops)
+            got = run(kernel_model)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in read_launches(ops).items() if v}
+            want = run(plain_model)
+        diff = (got - want).abs().max().item()
+        log(f"recipes: {name} at the serving widths, 64x64, batch {b}: kernel vs plain path "
+            f"max|diff| {diff:.3e} (tol {CHAIN_ATOL:g}); launches {counts}")
+        if not (bool(torch.isfinite(got).all()) and diff <= CHAIN_ATOL):
+            raise AssertionError(f"{name}: kernel path disagrees with the plain path")
+        if not counts.get("flash_fwd"):
+            raise AssertionError(f"{name}: no kernel-1 launch")
+        if name == "classifier_guidance" and not (counts.get("flash_bwd_dq")
+                                                  and counts.get("flash_bwd_dkv")):
+            raise AssertionError("classifier guidance: no backward kernels for the x gradient")
+        results[name] = dict(diff=diff, launches=counts)
+    del unet, plain, sr_unet, sr_plain, encoder, encoder_plain, dae_unet, dae_plain
+    torch.cuda.empty_cache()
+    return results
+
+
+def run_controlnet_training(torch, ops, schedulers) -> dict:
+    """Phase 14 (e): `recipes.train_controlnet.main` at its defaults for a few
+    steps (UNet and ControlNet (64, 128, 128), 64x64, batch 16, f32: kernels
+    1-3 at 1024 tokens, head width 128), then one ControlNet step's gradients
+    on the kernel path against the plain path with seeded random weights."""
+    import copy
+
+    from generativemodels_tpu_torch.recipes import train_controlnet as tc
+
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    out = tc.main([*CN_TRAIN_ARGS, "--device", DEVICE])
+    seconds = time.perf_counter() - t0
+    counts = read_launches(ops)
+    pre, steps = CN_TRAIN_STEPS
+    expected = expected_launches(flash_fwd=3 * pre + CN_FLASH_PER_FORWARD * steps,
+                                 flash_bwd_dq=3 * pre + 3 * steps,
+                                 flash_bwd_dkv=3 * pre + 3 * steps)
+    check_launches(counts, expected, f"train_controlnet main, {pre} UNet + {steps} ControlNet "
+                                     f"steps in {seconds:.1f} s")
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"train_controlnet losses {out['losses']}")
+    del out
+    unet, cn = tc.build_models()
+    unet, cn = unet.to(DEVICE), cn.to(DEVICE)
+    randomize(torch, unet)
+    randomize(torch, cn, seed=4321)
+    plain_unet, plain_cn = copy.deepcopy(unet), copy.deepcopy(cn)
+    for m in (*plain_unet.modules(), *plain_cn.modules()):
+        if hasattr(m, "use_flash_attention"):
+            m.use_flash_attention = False
+    g = torch.Generator(DEVICE).manual_seed(72)
+    images, masks = tc.synthetic_masked_batch(g, GRAD_BATCH, 64, DEVICE)
+    noise = torch.randn(images.shape, generator=g, device=DEVICE)
+    timesteps = torch.randint(0, 1000, (GRAD_BATCH,), generator=g, device=DEVICE)
+    ddpm = schedulers.DDPMScheduler(num_train_timesteps=1000, device=DEVICE)
+
+    def grads(frozen, model):
+        step = tc.make_controlnet_train_step(frozen, ddpm)
+        model.zero_grad(set_to_none=True)
+        step.loss_fn(model, images, masks, noise, timesteps).backward()
+        torch.cuda.synchronize()
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    want = grads(plain_unet, plain_cn)
+    reset_launches(ops)
+    got = grads(unet, cn)
+    step_counts = read_launches(ops)
+    worst, worst_name = max_grad_diff(got, want)
+    log(f"recipes: ControlNet step gradients at batch {GRAD_BATCH}, kernel vs plain path: worst "
+        f"max|diff|/max|grad| = {worst:.3e} at {worst_name} (tol {GRAD_RTOL:g})")
+    check_launches(step_counts, expected_launches(flash_fwd=CN_FLASH_PER_FORWARD,
+                                                  flash_bwd_dq=3, flash_bwd_dkv=3),
+                   "one ControlNet step")
+    if not worst <= GRAD_RTOL:
+        raise AssertionError("ControlNet step: gradients disagree with the plain path")
+    return dict(launches=counts, seconds=seconds)
+
+
+def run_training_recipes(torch, ops, root: str) -> dict:
+    """Phase 14 (e): `recipes.compare_schedulers.main` (a few training steps,
+    step counts 10 and 25, the DDPM-1000 reference) and
+    `recipes.segmentation_ddpm.main` at its defaults (256 tokens: no kernel)."""
+    from generativemodels_tpu_torch.networks import schedulers
+    from generativemodels_tpu_torch.recipes import compare_schedulers, segmentation_ddpm
+
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    records = compare_schedulers.main([*CMP_ARGS, "--device", DEVICE,
+                                       "--out", os.path.join(root, "cmp.json")])
+    seconds = time.perf_counter() - t0
+    forwards = 1000
+    for steps in CMP_STEP_COUNTS:
+        for _, cls, kwargs in compare_schedulers.SCHEDULERS:
+            s = cls(num_train_timesteps=1000, **kwargs)
+            s.set_timesteps(steps)
+            forwards += len(s.timesteps)
+    train = CMP_TRAIN_STEPS
+    check_launches(read_launches(ops), expected_launches(
+        flash_fwd=3 * (train + forwards), flash_bwd_dq=3 * train, flash_bwd_dkv=3 * train),
+        f"compare_schedulers main ({train} steps, {forwards} sampling forwards, {seconds:.1f} s)")
+    log("recipes: compare_schedulers: " + "; ".join(
+        f"{r['scheduler']}-{r['steps']} {r['seconds']:.3f} s (MS-SSIM {r['ms_ssim_vs_ref']})"
+        for r in records))
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    seg = segmentation_ddpm.main(["--device", DEVICE])
+    seg_s = time.perf_counter() - t0
+    counts = read_launches(ops)
+    log(f"recipes: segmentation_ddpm main at its defaults: {len(seg['losses'])} steps in "
+        f"{seg_s:.1f} s, last loss {seg['losses'][-1]:.4f}; launches {counts} (its attention "
+        f"is at 16x16 = 256 tokens, under the flash threshold)")
+    if any(counts.values()) or not all(np.isfinite(seg["losses"])):
+        raise AssertionError("segmentation_ddpm: a kernel launched or a loss is not finite")
+    return dict(compare_s=seconds, segmentation_s=seg_s)
+
+
+def run_export_and_recipes(torch, ops, nets, serve, inferers, schedulers, utils) -> dict:
+    """Phase 14: (b) the 2D export, (c) the 3D export, (d) a traced request,
+    (e) the A10 recipes; in a temporary directory removed afterwards ((a),
+    the ops' opcheck, runs in phase 2)."""
+    import shutil
+    import tempfile
+
+    os.environ["GMTPU_FUSED_RESBLOCK"] = "0"
+    os.environ.pop("GMTPU_FLASH_FUSED_BWD", None)
+    root = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    served = None
+    try:
+        two_d = export_2d(torch, ops, serve, root)
+        served = two_d.pop("served")
+        trace_request(torch, utils, two_d.pop("sampler"), root)
+        torch.cuda.empty_cache()
+        three_d = export_3d(torch, ops, nets, serve, inferers, schedulers, root)
+        library = run_library_recipes(torch, ops, nets, schedulers)
+        controlnet = run_controlnet_training(torch, ops, schedulers)
+        training = run_training_recipes(torch, ops, root)
+        two_d["process_s"] = check_served_export(served)
+    finally:
+        if served is not None:
+            served["proc"].kill()
+            served["proc"].wait()
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(export_2d=two_d, export_3d=three_d, library=library, controlnet=controlnet,
+                training=training)
+
+
 def build_kernels(build_library, sources: tuple = SOURCES) -> None:
     """Phase 1: one nvcc for each of `sources`, all started together."""
     results = {}
@@ -3614,6 +4087,7 @@ def main() -> int:
 
     # phase 2: kernels against their plain versions
     forward = check_kernel(torch, ops)
+    opcheck_ops(torch, ops)
     measure_threshold(torch, ops)
     backward = check_backward(torch, ops)
     contracts = check_contracts(torch, ops)
@@ -3716,6 +4190,18 @@ def main() -> int:
         f"{data_path['disk']['save_s']:.3f} s, restore {data_path['disk']['restore_s']:.3f} s; "
         f"eval_brain_ldm {data_path['brain']['sample_s']:.3f} s a sample")
 
+    # phase 14: export and tracing on the gmtpu_torch ops, and the A10 recipes
+    t_export = time.perf_counter()
+    exports = run_export_and_recipes(torch, ops, nets, serve, inferers, schedulers, utils)
+    log(f"export: phase 14 in {time.perf_counter() - t_export:.1f} s; 2D export "
+        f"{exports['export_2d']['export_s']:.1f} s, {exports['export_2d']['size']} bytes, a "
+        f"request {exports['export_2d']['seconds']['exported']:.4f} s exported vs "
+        f"{exports['export_2d']['seconds']['in-process']:.4f} s in process; 3D export "
+        f"{exports['export_3d']['export_s']:.1f} s; train_controlnet "
+        f"{exports['controlnet']['seconds']:.1f} s, compare_schedulers "
+        f"{exports['training']['compare_s']:.1f} s, segmentation_ddpm "
+        f"{exports['training']['segmentation_s']:.1f} s")
+
     # the numbers of each kernel at its main path's shape: serving for the
     # forward, the recipe's batch 64 for the split backward, the 3D training
     # step's attention for the fused backward, the 128^3 96->32 call for
@@ -3759,6 +4245,11 @@ def main() -> int:
     for name, entry in ar.items():
         run = ar_trained["fused" if name == "flash_bwd_fused" else "split"]
         extra.setdefault(name, {})["ar_causal_f32"] = dict(entry, launches=run["launches"][name])
+    # the phase-14 paths' launches: the 2D export served, train_controlnet's run
+    extra["flash_fwd"]["export_2d_launches"] = exports["export_2d"]["launches"]
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        extra.setdefault(name, {})["train_controlnet_launches"] = (
+            exports["controlnet"]["launches"][name])
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=CSRC + source, replaces=replaces,

@@ -7,15 +7,18 @@ the path list. The library is built with the C++ compiler (`$CXX`, else
 g++) at first use, never at import, into the package's gitignored
 `_build/`, named by a hash of the source and the flags. A decoder whose
 header the compiler cannot find (libpng's png.h, libjpeg's jpeglib.h) is
-left out of the build, and a file of its family then raises an error that
-names that header. A failed build raises: nothing falls back to another
-reader. The pure-Python NIfTI reader and writer (numpy and gzip) stay
+left out of the build; a file of its family is then decoded by PIL on the
+route `_pil_decode_like_native` (the native decoder's scaling, so a PNG
+gives the same bits), and the first such file logs one line that names the
+missing header and the route (`decoder_routes` reports it for each
+family). A failed build raises: nothing falls back to another reader. The pure-Python NIfTI reader and writer (numpy and gzip) stay
 for `read_nifti(native=False)` and for writing test data.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import subprocess
 import tempfile
@@ -35,6 +38,10 @@ DECODERS = (
 )
 NATIVE_EXTS = (".nii", ".nii.gz") + tuple(e for d in DECODERS for e in d[3])
 _ERR_LEN = 1024
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+log = logging.getLogger(__name__)
+_announced: set[str] = set()  # headers whose PIL route has been logged
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -139,6 +146,25 @@ def missing_decoder(paths: list[str]) -> str | None:
     return None
 
 
+def decoder_routes() -> dict[str, str]:
+    """How each image family is decoded in this process: "native", or
+    "PIL (<header> not found)" where that decoder was left out of the build."""
+    built = load_library().gmtpu_decoders()
+    return {
+        exts[0].lstrip("."): "native" if built & (1 << bit) else f"PIL ({header} not found)"
+        for bit, (header, _, _, exts) in enumerate(DECODERS)
+    }
+
+
+def _announce_pil_route(header: str) -> None:
+    with _lock:
+        if header in _announced:
+            return
+        _announced.add(header)
+    log.warning("the data loader was built without %s: its files are decoded by PIL "
+                "with the native decoder's scaling", header)
+
+
 def _check_decoders(paths: list[str]) -> None:
     header = missing_decoder(paths)
     if header is not None:
@@ -163,7 +189,10 @@ def _volume_to_array(lib, handle) -> np.ndarray:
 
 def _read_native(path: str, raw: bool = False) -> np.ndarray:
     lib = load_library()
-    _check_decoders([path])
+    header = missing_decoder([path])
+    if header is not None:
+        _announce_pil_route(header)
+        return _pil_decode_like_native(path, raw)
     err = ctypes.create_string_buffer(_ERR_LEN)
     handle = lib.gmtpu_read(path.encode(), int(raw), err, _ERR_LEN)
     if not handle:
@@ -200,6 +229,37 @@ def _pil_decode(path: str, raw: bool = False) -> np.ndarray:
     arr = data.astype(np.float32)
     if not raw and np.issubdtype(data.dtype, np.integer):
         arr = arr / float(np.iinfo(data.dtype).max)
+    return arr
+
+
+def _pil_decode_like_native(path: str, raw: bool = False) -> np.ndarray:
+    """PIL decode with `csrc/dataloader.cpp`'s conventions, for a family
+    whose native decoder was not built: a palette expands to RGB (RGBA with
+    transparency), grey with transparency to grey + alpha, and samples are
+    multiplied by the float 1/255 (1/65535 for a 16-bit PNG) unless `raw`,
+    so a PNG gives the native decoder's bits. A JPEG goes through PIL's
+    libjpeg, whose inverse DCT may round a sample one level away from
+    another libjpeg's."""
+    from PIL import Image
+
+    with open(path, "rb") as f:
+        head = f.read(26)
+    sixteen = head[:8] == _PNG_SIGNATURE and head[24] == 16
+    with Image.open(path) as im:
+        if im.mode == "P":
+            im = im.convert("RGBA" if "transparency" in im.info else "RGB")
+        elif im.mode in ("1", "L") and "transparency" in im.info:
+            im = im.convert("LA")
+        elif im.mode == "1":
+            im = im.convert("L")
+        elif sixteen and im.mode not in ("I", "I;16", "I;16B", "I;16L"):
+            raise NotImplementedError(
+                f"{path}: a 16-bit colour PNG needs the native decoder (png.h)"
+            )
+        data = np.asarray(im)
+    arr = data.astype(np.float32)
+    if not raw:
+        arr = arr * (np.float32(1.0) / np.float32(65535.0 if sixteen else 255.0))
     return arr
 
 

@@ -53,7 +53,8 @@ def _epoch_iter(paths: list[str], num_workers: int) -> Iterator[np.ndarray]:
         for p in paths:
             yield np.load(p).astype(np.float32)
         return
-    if all(p.lower().endswith(native.NATIVE_EXTS) for p in paths):
+    missing = native.missing_decoder(paths) if first.endswith(native.NATIVE_EXTS) else None
+    if missing is None and all(p.lower().endswith(native.NATIVE_EXTS) for p in paths):
         # C++ worker pool: NIfTI decompression and PNG/JPEG decoding run
         # without the interpreter lock, at most max_queue files ahead
         with native.PrefetchLoader(paths, num_workers=num_workers) as loader:
@@ -62,14 +63,19 @@ def _epoch_iter(paths: list[str], num_workers: int) -> Iterator[np.ndarray]:
 
     from concurrent.futures import ThreadPoolExecutor
 
-    # other image files: PIL in threads, a window of ~2*num_workers decodes
+    # other image files, or PNG/JPEG whose native decoder was not built (then
+    # with its scaling): PIL in threads, a window of ~2*num_workers decodes
     # in flight ahead of the consumer, taken in submission order
+    decode = native._pil_decode
+    if missing is not None:
+        native._announce_pil_route(missing)
+        decode = native._pil_decode_like_native
     window = max(2, 2 * num_workers)
     with ThreadPoolExecutor(max_workers=max(1, num_workers)) as pool:
         futures: collections.deque = collections.deque()
         try:
             for p in paths:
-                futures.append(pool.submit(native._pil_decode, p))
+                futures.append(pool.submit(decode, p))
                 if len(futures) >= window:
                     yield futures.popleft().result()
             while futures:
@@ -329,8 +335,10 @@ def batched_pairs(source: Iterable[tuple], batch_size: int) -> Iterator[tuple]:
 
 
 def _to_device(batch, device: torch.device):
-    """A batch (array, tensor, or tuple/list/dict of them) on `device`: from
+    """A batch (array, tensor, or tuple/NamedTuple/list/dict of them) on `device`: from
     pinned memory with a non-blocking copy when the device is a GPU."""
+    if isinstance(batch, tuple) and hasattr(batch, "_fields"):  # a NamedTuple
+        return type(batch)(*(_to_device(b, device) for b in batch))
     if isinstance(batch, (tuple, list)):
         return type(batch)(_to_device(b, device) for b in batch)
     if isinstance(batch, dict):

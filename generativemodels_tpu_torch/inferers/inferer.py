@@ -81,6 +81,7 @@ class DiffusionInferer:
         seg: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
         eta: float = 0.0,
+        step_noise: torch.Tensor | None = None,
     ):
         """Full reverse-diffusion loop from `input_noise`.
 
@@ -88,7 +89,10 @@ class DiffusionInferer:
         after every step whose timestep is a multiple of
         `intermediate_steps`). `generator` draws the DDPM ancestral noise,
         the DDIM eta > 0 noise and the SDE DPM-Solver++ noise; it defaults
-        to one seeded with 0 on the noise's device.
+        to one seeded with 0 on the noise's device. `step_noise` (steps,
+        *input_noise.shape), when given, is that noise, step by step, in
+        place of the generator's draws: a graph that `torch.export` records
+        holds no generator, so an exported sampler takes its noise as input.
         """
         if mode not in ("crossattn", "concat"):
             raise NotImplementedError(f"{mode} condition is not supported")
@@ -111,13 +115,16 @@ class DiffusionInferer:
                 print(f"sampling step {i + 1}/{len(host_timesteps)} (t={host_timesteps[i]})")
             x, ctx = self._model_input(image, conditioning, mode)
             model_output = _call_model(diffusion_model, x, t.expand(image.shape[0]), ctx, seg)
+            noise = step_noise[i] if step_noise is not None else None
             if is_stateful:
-                image, state = scheduler.step(state, model_output, t, image)
+                step_kwargs = {"noise": noise} if noise is not None else {}
+                image, state = scheduler.step(state, model_output, t, image, **step_kwargs)
             elif is_ddpm:
-                image, _ = scheduler.step(model_output, t, image, generator=generator)
+                image, _ = scheduler.step(model_output, t, image, generator=generator, noise=noise)
             else:  # DDIM
                 image, _ = scheduler.step(
-                    model_output, t, image, eta=eta, generator=generator if eta > 0 else None
+                    model_output, t, image, eta=eta, generator=generator if eta > 0 else None,
+                    noise=noise,
                 )
             if save_intermediates and host_timesteps[i] % intermediate_steps == 0:
                 intermediates.append(image)

@@ -491,3 +491,13 @@ def spade_network_state_dict_from_jax(
     b = out["decoder.fc.bias"]
     out["decoder.fc.bias"] = b.reshape(spatial, channels).T.reshape(-1).contiguous()
     return out
+
+
+def semantic_encoder_state_dict_from_jax(
+    params: Mapping, expected: Mapping[str, torch.Tensor]
+) -> dict[str, torch.Tensor]:
+    """Map a JAX `recipes/diffusion_autoencoder.py::SemanticEncoder` params
+    tree (``conv{i}``, ``norm{i}``, ``head``) onto the port's keys
+    (``conv{i}.conv``, ``norm{i}``, ``head``). Errors as
+    `unet_state_dict_from_jax`."""
+    return _state_dict_from_jax(params, expected, ".".join)

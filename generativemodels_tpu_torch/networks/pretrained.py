@@ -10,10 +10,14 @@ checkpoint's modules the backbone holds, and `networks/convert.py` reads it
 backwards to carry JAX parameters over. No weight file is in the
 repository: obtain a checkpoint elsewhere, save it with `torch.save`, and
 pass its path to `PerceptualLoss(pretrained_path=...)`.
+`load_reference_checkpoint` loads a reference bundle's checkpoint into any
+port network.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch import nn
 
 _BUFFERS = ("weight", "bias", "running_mean", "running_var", "num_batches_tracked")
 
@@ -140,3 +144,41 @@ def load_pretrained_perceptual(
     if lin_path is not None:
         lin_weights = load_lpips_lin_weights(_load_state_dict(lin_path))
     return {"state_dict": state_dict, "lin_weights": lin_weights}
+
+
+def load_reference_checkpoint(checkpoint: str | dict, model: nn.Module) -> nn.Module:
+    """Load a reference bundle's torch checkpoint into a port module.
+
+    Counterpart of generativemodels_tpu/networks/zoo_convert.py's
+    `load_reference_checkpoint`, which converts the same state dict to flax
+    variables; the port's modules carry the reference's own keys, so this
+    is a strict `load_state_dict` after the unwrapping the JAX function
+    does: a `{"state_dict": ...}` container and DataParallel's `module.`
+    prefix (`strip_prefixes`)::
+
+        unet = parser.get_parsed_content("network_def")
+        load_reference_checkpoint("models/model.pt", unet)
+
+    Args:
+        checkpoint: a .pt/.pth file (read with `weights_only=True`), a .npz
+            of arrays, or an in-memory state dict.
+        model: the port module the weights target.
+
+    Returns:
+        `model`, holding the checkpoint's weights. A missing or unexpected
+        key raises RuntimeError.
+    """
+    if isinstance(checkpoint, dict):
+        state_dict = checkpoint
+        if isinstance(state_dict.get("state_dict"), dict):
+            state_dict = state_dict["state_dict"]
+    elif str(checkpoint).endswith(".npz"):
+        with np.load(checkpoint) as f:
+            state_dict = {k: f[k] for k in f.files}
+    else:
+        state_dict = _load_state_dict(str(checkpoint))
+    model.load_state_dict(
+        {k: torch.as_tensor(v) for k, v in strip_prefixes(state_dict).items()}, strict=True
+    )
+    return model
+

@@ -245,13 +245,15 @@ class DPMSolverMultistepScheduler(Scheduler):
         return x0
 
     def step(
-        self, state: DPMSolverState, model_output: torch.Tensor, timestep, sample: torch.Tensor
+        self, state: DPMSolverState, model_output: torch.Tensor, timestep, sample: torch.Tensor,
+        noise: torch.Tensor | None = None,
     ) -> tuple[torch.Tensor, DPMSolverState]:
         """One DPM-Solver++ multistep update x_{t_i} -> x_{t_{i+1}}.
 
         `timestep` must be `self.timesteps[state.counter]`, as the inferer
         passes it. Returns (prev_sample, new_state); `state` itself is not
-        changed (the SDE variant advances its generator).
+        changed (the SDE variant advances its generator, unless `noise`, the
+        f32 step noise, is given: then it draws nothing).
         """
         i = state.counter
         x0 = self._predict_x0(model_output, sample, timestep).float()
@@ -260,10 +262,11 @@ class DPMSolverMultistepScheduler(Scheduler):
         d_bar = (1.0 + c2) * x0 - c2 * state.prev_x0.float()
         prev_sample = self._c_x[i] * sample.float() + self._c_d[i] * d_bar
         if self.algorithm_type == DPMSolverAlgorithmType.SDE_DPMSOLVER_PP:
-            noise = torch.randn(
-                prev_sample.shape, generator=state.generator, device=prev_sample.device,
-                dtype=torch.float32,
-            )
+            if noise is None:
+                noise = torch.randn(
+                    prev_sample.shape, generator=state.generator, device=prev_sample.device,
+                    dtype=torch.float32,
+                )
             prev_sample = prev_sample + self._c_n[i] * noise
         new_state = DPMSolverState(
             counter=i + 1, prev_x0=x0.to(state.prev_x0.dtype), generator=state.generator

@@ -26,13 +26,20 @@ softmax in the log2 domain, with no clamp; `upcast=True` (the reference's
 product, natural exp and a running max: the kernels' f32 route, with bf16
 inputs cast to f32 once on entry and the results cast back.
 
-`flash_attention` is differentiable through `_FlashAttention`, whose
-backward runs the two split backward kernels or, with
+Each kernel is a `torch.library` custom op in the `gmtpu_torch` namespace,
+so `torch.export` records it in a graph and `torch.profiler` names it:
+`flash_fwd` (O and the lse), `flash_bwd_dq`, `flash_bwd_dkv` and
+`flash_bwd_fused`. Each op has a fake (shape-only) implementation, its CUDA
+implementation (the launcher, which counts its launches) and a CPU
+implementation (the plain version). The ops take contiguous (BH, S, D)
+tensors; the callers' layout work stays outside them.
+`flash_attention` is differentiable through `flash_fwd`'s registered
+gradient, which runs the two split backward ops or, with
 GMTPU_FLASH_FUSED_BWD=1 (read at each backward, as the JAX backward reads
 it), the fused one (the plain backward on the CPU in both cases), in every
 contract. On the CPU the two other contracts take the plain version with
 torch's autograd through it, which is exact for them (they have no clamp).
-A wrapper takes the plain version only for tensors on the CPU. On a CUDA
+An op takes the plain version only for tensors on the CPU. On a CUDA
 tensor it launches the kernel or raises.
 """
 from __future__ import annotations
@@ -188,8 +195,17 @@ def flash_attention_backward_reference(
         gradient with respect to the prescaled q (the caller applies the
         prescale's chain rule).
     """
-    dtype = q.dtype
     dout, delta = _backward_rows(out, dout, upcast)
+    return _backward_from_rows(q, k, v, dout, lse, delta, causal, upcast, no_max, scale)
+
+
+def _backward_from_rows(
+    q, k, v, dout, lse, delta, causal: bool, upcast: bool, no_max: bool, scale: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`flash_attention_backward_reference` from dO and delta as
+    `_backward_rows` gives them: the plain version of the backward kernels,
+    with their arguments."""
+    dtype = q.dtype
     s = torch.matmul(q.float(), k.float().transpose(1, 2))
     if upcast:
         p = torch.exp(s * scale - lse[..., None])
@@ -414,6 +430,96 @@ FLASH_BWD_DKV = FlashBackwardDkvKernel()
 FLASH_BWD_FUSED = FlashBackwardFusedKernel()
 FLASH_BWD_ROLES = FlashBackwardRolesKernel()
 
+# ---------------------------------------------------------------------------
+# The kernels as torch.library custom ops
+# ---------------------------------------------------------------------------
+
+NAMESPACE = "gmtpu_torch"
+_BWD_SCHEMA = (
+    "(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, Tensor delta, bool causal, "
+    "bool upcast, bool no_max, float scale)"
+)
+
+
+@torch.library.custom_op(
+    f"{NAMESPACE}::flash_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, float scale, bool causal, bool upcast, bool no_max, "
+           "bool log2_lse) -> (Tensor, Tensor)",
+)
+def flash_fwd(q, k, v, scale, causal, upcast, no_max, log2_lse):
+    """Kernel 1: (O, lse) of each contract, as `flash_attention_reference`
+    returns them (the CPU implementation)."""
+    return flash_attention_reference(q, k, v, scale=scale, causal=causal, upcast=upcast,
+                                     no_max=no_max, log2_lse=log2_lse)
+
+
+@flash_fwd.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, scale, causal, upcast, no_max, log2_lse):
+    return FLASH_FWD(q, k, v, scale=scale, causal=causal, upcast=upcast, no_max=no_max,
+                     log2_lse=log2_lse)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, scale, causal, upcast, no_max, log2_lse):
+    # O in q's type (cast back under upcast), the lse f32 whatever the inputs
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::flash_bwd_dq", mutates_args=(), device_types="cpu",
+                         schema=_BWD_SCHEMA + " -> Tensor")
+def flash_bwd_dq(q, k, v, dout, lse, delta, causal, upcast, no_max, scale):
+    """Kernel 2: dq from dO and delta (`_backward_rows`) and the lse, each in
+    the contract's form."""
+    return _backward_from_rows(q, k, v, dout, lse, delta, causal, upcast, no_max, scale)[0]
+
+
+@flash_bwd_dq.register_kernel("cuda")
+def _flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal, upcast, no_max, scale):
+    return FLASH_BWD_DQ(q, k, v, dout, lse, delta, causal=causal, upcast=upcast,
+                        no_max=no_max, scale=scale)
+
+
+@flash_bwd_dq.register_fake
+def _flash_bwd_dq_fake(q, k, v, dout, lse, delta, causal, upcast, no_max, scale):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::flash_bwd_dkv", mutates_args=(), device_types="cpu",
+                         schema=_BWD_SCHEMA + " -> (Tensor, Tensor)")
+def flash_bwd_dkv(q, k, v, dout, lse, delta, causal, upcast, no_max, scale):
+    """Kernel 3: (dk, dv) from the same inputs as `flash_bwd_dq`."""
+    return _backward_from_rows(q, k, v, dout, lse, delta, causal, upcast, no_max, scale)[1:]
+
+
+@flash_bwd_dkv.register_kernel("cuda")
+def _flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal, upcast, no_max, scale):
+    return FLASH_BWD_DKV(q, k, v, dout, lse, delta, causal=causal, upcast=upcast,
+                         no_max=no_max, scale=scale)
+
+
+@flash_bwd_dkv.register_fake
+def _flash_bwd_dkv_fake(q, k, v, dout, lse, delta, causal, upcast, no_max, scale):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::flash_bwd_fused", mutates_args=(), device_types="cpu",
+                         schema=_BWD_SCHEMA + " -> (Tensor, Tensor, Tensor)")
+def flash_bwd_fused(q, k, v, dout, lse, delta, causal, upcast, no_max, scale):
+    """Kernel 4: (dq, dk, dv) in one pass, the same function as kernels 2
+    and 3 (one plain version serves both)."""
+    return _backward_from_rows(q, k, v, dout, lse, delta, causal, upcast, no_max, scale)
+
+
+@flash_bwd_fused.register_kernel("cuda")
+def _flash_bwd_fused_cuda(q, k, v, dout, lse, delta, causal, upcast, no_max, scale):
+    return FLASH_BWD_FUSED(q, k, v, dout, lse, delta, causal=causal, upcast=upcast,
+                           no_max=no_max, scale=scale)
+
+
+@flash_bwd_fused.register_fake
+def _flash_bwd_fused_fake(q, k, v, dout, lse, delta, causal, upcast, no_max, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
 
 def _fused_backward_enabled() -> bool:
     """GMTPU_FLASH_FUSED_BWD=1 selects the fused backward (kernel 4), read at
@@ -434,63 +540,59 @@ def flash_attention_backward(
     upcast: bool = False,
     no_max: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward of each contract: on CUDA tensors kernels 2 and 3, or
-    kernel 4 alone when `_fused_backward_enabled()`;
-    `flash_attention_backward_reference` (same arguments, same results) on
-    CPU tensors, whatever the setting. Under `upcast` bf16 inputs are cast
-    to f32 once here and the gradients cast back to the input types."""
-    if q.device.type == "cpu":
-        return flash_attention_backward_reference(
-            q, k, v, out, lse, dout, causal=causal, scale=scale, upcast=upcast, no_max=no_max
-        )
+    """The backward of each contract: the ops `flash_bwd_dq` and
+    `flash_bwd_dkv`, or `flash_bwd_fused` alone when
+    `_fused_backward_enabled()`; on CPU tensors each is the plain backward
+    (`flash_attention_backward_reference`: same arguments, same results),
+    whatever the setting. Under `upcast` bf16 inputs are cast to f32 once
+    here and the gradients cast back to the input types."""
     dout, delta = _backward_rows(out, dout, upcast)
     types = q.dtype, k.dtype, v.dtype
     if upcast:
         q, k, v, dout = q.float(), k.float(), v.float(), dout.float()
-    contract = dict(causal=causal, upcast=upcast, no_max=no_max, scale=scale)
+    args = (q, k, v, dout, lse, delta, causal, upcast, no_max, scale)
     if _fused_backward_enabled():
-        grads = FLASH_BWD_FUSED(q, k, v, dout, lse, delta, **contract)
+        grads = flash_bwd_fused(*args)
     else:
-        grads = (FLASH_BWD_DQ(q, k, v, dout, lse, delta, **contract),
-                 *FLASH_BWD_DKV(q, k, v, dout, lse, delta, **contract))
+        grads = (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
     return tuple(g.to(t) for g, t in zip(grads, types))
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Kernel 1 forward (plain version on the CPU); backward by kernels 2 and
-    3 or kernel 4 (plain backward on the CPU), never by autograd through the
-    clamp. On the CPU only the default contract comes here."""
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, scale, causal, upcast, no_max, log2_lse = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.scale, ctx.causal, ctx.upcast, ctx.no_max = scale, causal, upcast, no_max
+    ctx.log2_lse = log2_lse
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale: float, causal: bool, upcast: bool, no_max: bool):
-        # the exp2 contracts' backward reads the lse in the log2 domain, as
-        # the JAX kernel keeps it: a round trip through the natural log costs
-        # ~1e-5 of p where the clamp holds the log2 scores near 80
-        fwd = FLASH_FWD if q.is_cuda else flash_attention_reference
-        out, lse = fwd(
-            q, k, v, scale=scale, causal=causal, upcast=upcast, no_max=no_max,
-            log2_lse=not upcast,
-        )
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale, ctx.causal, ctx.upcast, ctx.no_max = scale, causal, upcast, no_max
-        ctx.mark_non_differentiable(lse)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, dout, _dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        contract = dict(causal=ctx.causal, upcast=ctx.upcast, no_max=ctx.no_max)
-        if ctx.upcast:
-            grads = flash_attention_backward(
-                q, k, v, out, lse, dout.contiguous(), scale=ctx.scale, **contract
-            )
-            return (*grads, None, None, None, None)
-        dq, dk, dv = flash_attention_backward(
-            _prescaled(q, ctx.scale), k, v, out, lse, dout.contiguous(), **contract
+def _flash_fwd_backward(ctx, dout, _dlse):
+    """By kernels 2 and 3 or kernel 4 (the plain backward on the CPU), never
+    by autograd through the clamp. The lse is not differentiable; the exp2
+    contracts' backward reads it in the log2 domain, as the JAX kernel
+    keeps it (a round trip through the natural log costs ~1e-5 of p where
+    the clamp holds the log2 scores near 80)."""
+    q, k, v, out, lse = ctx.saved_tensors
+    if ctx.log2_lse == ctx.upcast:
+        raise NotImplementedError(
+            "the gradient of flash_fwd reads the lse in its contract's domain: "
+            "log2_lse=True under the exp2 contracts, False under upcast"
         )
-        # JAX prescales q outside its custom VJP: the chain rule of that
-        # product multiplies dq by the same rounded constant, in q's type
-        return _prescaled(dq, ctx.scale), dk, dv, None, None, None, None
+    contract = dict(causal=ctx.causal, upcast=ctx.upcast, no_max=ctx.no_max)
+    if ctx.upcast:
+        grads = flash_attention_backward(
+            q, k, v, out, lse, dout.contiguous(), scale=ctx.scale, **contract
+        )
+        return (*grads, None, None, None, None, None)
+    dq, dk, dv = flash_attention_backward(
+        _prescaled(q, ctx.scale), k, v, out, lse, dout.contiguous(), **contract
+    )
+    # JAX prescales q outside its custom VJP: the chain rule of that product
+    # multiplies dq by the same rounded constant, in q's type
+    return _prescaled(dq, ctx.scale), dk, dv, None, None, None, None, None
+
+
+flash_fwd.register_autograd(_flash_fwd_backward, setup_context=_flash_fwd_setup)
 
 
 def _no_max_default() -> bool:
@@ -527,7 +629,7 @@ def flash_attention(
         return flash_attention_reference(
             q, k, v, scale=scale, causal=causal, upcast=upcast, no_max=no_max
         )[0]
-    return _FlashAttention.apply(q, k, v, scale, causal, upcast, no_max)[0]
+    return flash_fwd(q, k, v, scale, causal, upcast, no_max, not upcast)[0]
 
 
 def flash_attention_with_lse(
@@ -547,6 +649,4 @@ def flash_attention_with_lse(
     _check_device(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise NotImplementedError("flash_attention_with_lse is forward-only")
-    no_max = _no_max_default()
-    fwd = flash_attention_reference if q.device.type == "cpu" else FLASH_FWD
-    return fwd(q, k, v, scale=scale, upcast=upcast, no_max=no_max)
+    return flash_fwd(q, k, v, scale, False, upcast, _no_max_default(), False)

@@ -15,10 +15,14 @@ residual and the output through strides, so x may also be a channels-first
 then has that layout too. That is how the UNet's ResnetBlock calls it
 without a layout copy.
 
-It is differentiable through `_FusedNormSiluConv3d`, whose backward
-recomputes through autograd of the plain version, as JAX's `_fused_bwd`
-recomputes through XLA. A wrapper takes the plain version only for tensors
-on the CPU; on a CUDA tensor it launches the kernel or raises.
+The kernel is the `torch.library` custom op `gmtpu_torch::fused_conv3d`,
+so `torch.export` records it in a graph and `torch.profiler` names it: a
+fake (shape and layout only) implementation, its CUDA implementation (the
+launcher, which counts its launches) and a CPU implementation (the plain
+version, its result laid out as the kernel lays it out). Its registered
+gradient recomputes through autograd of the plain version, as JAX's
+`_fused_bwd` recomputes through XLA. The op takes the plain version only
+for tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -249,36 +253,60 @@ def _check_kernel_inputs(x, w, scale, shift, bias, residual) -> None:
 FUSED_CONV = FusedConvKernel()
 
 
-class _FusedNormSiluConv3d(torch.autograd.Function):
-    """Kernel 5 forward (plain version on the CPU); backward by autograd of
-    the plain version, as JAX's `_fused_bwd`."""
+def _empty_output(x: torch.Tensor, cout: int) -> torch.Tensor:
+    """The kernel's output for x: channels-last, or channels-first seen as
+    NDHWC when x is."""
+    b, d, h, wd, _ = x.shape
+    if _channels_first(x):
+        out = torch.empty((b, cout, d, h, wd), dtype=x.dtype, device=x.device)
+        return out.permute(0, 2, 3, 4, 1)
+    return torch.empty((b, d, h, wd, cout), dtype=x.dtype, device=x.device)
 
-    @staticmethod
-    def forward(ctx, x, w, scale, shift, bias, residual, apply_act: bool):
-        if x.is_cuda:
-            # the launcher casts and lays out the kernel itself; it takes the
-            # affine and the bias f32 contiguous
-            out = FUSED_CONV(
-                x, w, scale.float().contiguous(), shift.float().contiguous(),
-                bias.float().contiguous(), residual, apply_act,
-            )
-        else:
-            out = fused_norm_silu_conv3d_reference(x, w, scale, shift, bias, residual, apply_act)
-        ctx.save_for_backward(x, w, scale, shift, bias, residual)
-        ctx.apply_act = apply_act
-        return out
 
-    @staticmethod
-    def backward(ctx, dout):
-        x, w, scale, shift, bias, residual = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(need) if t is not None else None
-                  for t, need in zip((x, w, scale, shift, bias, residual), ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = fused_norm_silu_conv3d_reference(*inputs, ctx.apply_act)
-            wanted = [t for t in inputs if t is not None and t.requires_grad]
-            grads = iter(torch.autograd.grad(out, wanted, dout)) if wanted else iter(())
-        return (*(next(grads) if t is not None and t.requires_grad else None for t in inputs),
-                None)
+@torch.library.custom_op(
+    "gmtpu_torch::fused_conv3d", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w, Tensor scale, Tensor shift, Tensor bias, Tensor? residual, "
+           "bool apply_act) -> Tensor",
+)
+def fused_conv3d(x, w, scale, shift, bias, residual, apply_act):
+    """Kernel 5 (the CPU implementation: the plain version, laid out as the
+    kernel lays out its output)."""
+    out = _empty_output(x, w.shape[-1])
+    return out.copy_(
+        fused_norm_silu_conv3d_reference(x, w, scale, shift, bias, residual, apply_act)
+    )
+
+
+@fused_conv3d.register_kernel("cuda")
+def _fused_conv3d_cuda(x, w, scale, shift, bias, residual, apply_act):
+    return FUSED_CONV(x, w, scale, shift, bias, residual, apply_act)
+
+
+@fused_conv3d.register_fake
+def _fused_conv3d_fake(x, w, scale, shift, bias, residual, apply_act):
+    return _empty_output(x, w.shape[-1])
+
+
+def _fused_conv3d_setup(ctx, inputs, output):
+    *tensors, apply_act = inputs
+    ctx.save_for_backward(*tensors)
+    ctx.apply_act = apply_act
+
+
+def _fused_conv3d_backward(ctx, dout):
+    """Autograd of the plain version, as JAX's `_fused_bwd`."""
+    x, w, scale, shift, bias, residual = ctx.saved_tensors
+    inputs = [t.detach().requires_grad_(need) if t is not None else None
+              for t, need in zip((x, w, scale, shift, bias, residual), ctx.needs_input_grad)]
+    with torch.enable_grad():
+        out = fused_norm_silu_conv3d_reference(*inputs, ctx.apply_act)
+        wanted = [t for t in inputs if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, dout)) if wanted else iter(())
+    return (*(next(grads) if t is not None and t.requires_grad else None for t in inputs),
+            None)
+
+
+fused_conv3d.register_autograd(_fused_conv3d_backward, setup_context=_fused_conv3d_setup)
 
 
 def fused_norm_silu_conv3d(
@@ -313,4 +341,7 @@ def fused_norm_silu_conv3d(
         raise ValueError(f"fused_norm_silu_conv3d runs on CPU or CUDA tensors, not {x.device}")
     if bias is None:
         bias = torch.zeros((cout,), dtype=torch.float32, device=x.device)
-    return _FusedNormSiluConv3d.apply(x, w, scale, shift, bias, residual, apply_act)
+    # the op takes the affine and the bias f32 contiguous; the launcher casts
+    # and lays out the kernel w itself
+    return fused_conv3d(x, w, scale.float().contiguous(), shift.float().contiguous(),
+                        bias.float().contiguous(), residual, apply_act)

@@ -9,6 +9,13 @@ picks DDIM (default), DPM-Solver++ (2M) (`dpmsolver`) or its SDE variant
 `--checkpoint-dir` serves the weights a training recipe saved there (the
 latest step's "params", loaded into the UNet the flags describe);
 without it the weights are PyTorch's initialisation from seed 0.
+`--export-path F` serves the sampler exported to F (`utils/export.py`, a
+`torch.export` `.pt2` file) without building the model when F exists;
+otherwise it builds the sampler, exports it to F and serves the export.
+An exported sampler takes its noise as input (`SamplerGraph`): the server
+draws it from the request's seeded generator in the order the in-process
+sampler draws it (`draw_noise`), so a served export returns the
+in-process sampler's images to the bit.
 
 API:
     GET  /healthz            -> {"status": "ok", "batch": B, "shape": [...]}
@@ -21,8 +28,7 @@ Usage:
     python -m generativemodels_tpu_torch.recipes.serve --oneshot --out sample.npy
     python -m generativemodels_tpu_torch.recipes.serve --solver dpmsolver --ddim-steps 10
     python -m generativemodels_tpu_torch.recipes.serve --checkpoint-dir CKPT
-
-Not ported yet: `--export-path`.
+    python -m generativemodels_tpu_torch.recipes.serve --export-path sampler.pt2 --oneshot
 """
 from __future__ import annotations
 
@@ -30,17 +36,19 @@ import argparse
 import base64
 import io
 import json
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..inferers import DiffusionInferer
 from ..networks.nets import DiffusionModelUNet
 from ..networks.schedulers import DDIMScheduler, DPMSolverMultistepScheduler
-from ..utils import CheckpointManager
+from ..utils import CheckpointManager, ExportedFunction, load_exported, save_exported
 
 SOLVERS = ("ddim", "dpmsolver", "sde-dpmsolver")
 
@@ -67,6 +75,65 @@ class Sampler:
         generator = torch.Generator(self.device).manual_seed(seed)
         noise = torch.randn(self.shape, generator=generator, device=self.device)
         return self.inferer.sample(noise, self.model, generator=generator)
+
+
+def draw_noise(shape, seed: int, device, steps: int = 0) -> tuple[torch.Tensor, ...]:
+    """A request's noise from a generator seeded with `seed`, in the order
+    `Sampler.__call__` and the inferer draw it: the initial noise, then, for
+    a sampler that draws `steps` step noises (the SDE solver), one f32
+    draw of the image's shape a step, stacked."""
+    generator = torch.Generator(device).manual_seed(seed)
+    noise = torch.randn(shape, generator=generator, device=device)
+    if not steps:
+        return (noise,)
+    draws = [torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+             for _ in range(steps)]
+    return noise, torch.stack(draws)
+
+
+def noise_steps(sampler: Sampler) -> int:
+    """How many step noises the sampler's chain draws (0 unless SDE)."""
+    scheduler = sampler.inferer.scheduler
+    if getattr(scheduler, "algorithm_type", None) == "sde-dpmsolver++":
+        return len(scheduler.timesteps)
+    return 0
+
+
+class SamplerGraph(nn.Module):
+    """The sampler as a function of its noise, for `torch.export`:
+    `(noise[, step_noise]) -> images`."""
+
+    def __init__(self, sampler: Sampler) -> None:
+        super().__init__()
+        self.model = sampler.model
+        self.inferer = sampler.inferer
+
+    def forward(self, noise: torch.Tensor, step_noise: torch.Tensor | None = None):
+        return self.inferer.sample(noise, self.model, step_noise=step_noise)
+
+
+class ExportedSampler:
+    """`sampler(seed) -> images` over an exported `SamplerGraph`; its shape,
+    device and step-noise count are read from the export's inputs."""
+
+    def __init__(self, fn: ExportedFunction) -> None:
+        self.fn = fn
+        (self.shape, _, self.device), *rest = fn.input_specs
+        self.steps = rest[0][0][0] if rest else 0
+        require_device(self.device)
+
+    @torch.inference_mode()
+    def __call__(self, seed: int) -> torch.Tensor:
+        return self.fn(*draw_noise(self.shape, seed, self.device, self.steps))
+
+
+def export_sampler(sampler: Sampler, path: str) -> ExportedSampler:
+    """Export `sampler` (traced without gradients) to `path`, a `.pt2` file;
+    returns the exported sampler, as a process that loads the file serves it."""
+    example = draw_noise(sampler.shape, 0, sampler.device, noise_steps(sampler))
+    with torch.no_grad():
+        program = save_exported(path, SamplerGraph(sampler), *example)
+    return ExportedSampler(ExportedFunction(program))
 
 
 def build_sampler(
@@ -210,6 +277,9 @@ def main(argv: list[str] | None = None) -> None:
                         help="dpmsolver = DPM-Solver++ (2M), sde-dpmsolver its SDE variant")
     parser.add_argument("--checkpoint-dir", type=str, default=None,
                         help="serve the latest checkpoint a training recipe saved there")
+    parser.add_argument("--export-path", type=str, default=None,
+                        help="serve the sampler exported here (torch.export); if the file "
+                        "does not exist, export the sampler the flags describe to it first")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--port", type=int, default=8765)
     parser.add_argument("--oneshot", action="store_true",
@@ -218,20 +288,32 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
 
-    device = require_device(args.device)
     # full float32 matmuls and convolutions, as the JAX reference computes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fn, shape = build_sampler(
-        spatial_dims=args.spatial_dims, size=args.size, channels=tuple(args.channels),
-        norm_groups=args.norm_groups, batch=args.batch, ddim_steps=args.ddim_steps,
-        device=device, solver=args.solver, checkpoint_dir=args.checkpoint_dir,
-    )
+    if args.export_path and os.path.exists(args.export_path):
+        # the export's own shape and device win over the flags
+        fn = ExportedSampler(load_exported(args.export_path))
+        shape = fn.shape
+        print(f"serving exported sampler from {args.export_path} (no model build)")
+    else:
+        fn, shape = build_sampler(
+            spatial_dims=args.spatial_dims, size=args.size, channels=tuple(args.channels),
+            norm_groups=args.norm_groups, batch=args.batch, ddim_steps=args.ddim_steps,
+            device=require_device(args.device), solver=args.solver,
+            checkpoint_dir=args.checkpoint_dir,
+        )
+        if args.export_path:
+            t0 = time.time()
+            fn = export_sampler(fn, args.export_path)
+            print(f"exported sampler -> {args.export_path} ({time.time() - t0:.1f}s, "
+                  f"{os.path.getsize(args.export_path)} bytes)")
 
     t0 = time.time()
     first = fn(args.seed).cpu()
-    print(f"warmup sample ({tuple(first.shape)}, {args.solver}-{args.ddim_steps}): "
-          f"{time.time() - t0:.1f}s (kernel build included on a first run)")
+    what = "exported" if isinstance(fn, ExportedSampler) else f"{args.solver}-{args.ddim_steps}"
+    print(f"warmup sample ({tuple(first.shape)}, {what}): {time.time() - t0:.1f}s "
+          f"(kernel build included on a first run)")
 
     if args.oneshot:
         np.save(args.out, first.numpy())

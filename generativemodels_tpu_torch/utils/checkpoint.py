@@ -6,7 +6,10 @@ and no orbax: each step is one file, `<directory>/step_<step>.pt`, written
 under a temporary name and renamed, so a reader never sees half a file. A
 state is any tree of dicts, lists and tuples over tensors, numbers,
 `nn.Module`s and optimizers (the last two saved as their state dicts);
-files are read back with `weights_only=True`.
+files are read back with `weights_only=True`. A NamedTuple (`TrainState`,
+`GuardState`) is saved as a dict of its fields, since `weights_only`
+refuses its class, and is rebuilt as the template's type on restore, as
+the JAX manager restores a pytree into its template's structure.
 
 The JAX module's `migrate_legacy_conv_params` has no counterpart: it
 remaps a flax tree of the JAX package's first round, and the port's state
@@ -25,12 +28,18 @@ from torch import nn
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
 
+def _is_namedtuple(x: Any) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def _plain(state: Any) -> Any:
     """`state` with modules and optimizers replaced by their state dicts."""
     if isinstance(state, (nn.Module, torch.optim.Optimizer)):
         return state.state_dict()
     if isinstance(state, torch.Tensor):
         return state.detach()
+    if _is_namedtuple(state):
+        return {f: _plain(v) for f, v in zip(state._fields, state)}
     if isinstance(state, dict):
         return {k: _plain(v) for k, v in state.items()}
     if isinstance(state, (list, tuple)):
@@ -47,6 +56,8 @@ def _like(template: Any, value: Any) -> Any:
         return template
     if isinstance(template, torch.Tensor):
         return torch.as_tensor(value).to(dtype=template.dtype, device=template.device)
+    if _is_namedtuple(template):
+        return type(template)(*(_like(t, value[f]) for f, t in zip(template._fields, template)))
     if isinstance(template, dict):
         return {k: _like(template[k], value[k]) for k in template}
     if isinstance(template, (list, tuple)):

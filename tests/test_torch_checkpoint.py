@@ -160,3 +160,85 @@ def test_logger_writes_tensorboard_events_where_it_imports(tmp_path):
     logger.log(0, {"loss": 1.5})
     logger.close()
     assert any(name.startswith("events.out.tfevents") for name in os.listdir(tmp_path))
+
+
+def _trained_state(seed: int, steps: int = 2):
+    """A TrainState after `steps` Adam steps: a small model, Adam's moments,
+    the step count and EMA weights."""
+    from generativemodels_tpu_torch.parallel import TrainState
+
+    torch.manual_seed(seed)
+    model = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.Linear(4, 2))
+    opt = torch.optim.Adam(model.parameters(), lr=0.1)
+    for i in range(steps):
+        opt.zero_grad()
+        model(torch.full((5, 3), float(i + 1))).square().sum().backward()
+        opt.step()
+    ema = {k: v.detach() * 0.5 for k, v in model.named_parameters()}
+    return TrainState(model, opt, steps, ema)
+
+
+def _assert_same_state(got, want):
+    from generativemodels_tpu_torch.parallel import TrainState
+
+    assert type(got) is TrainState and got.step == want.step
+    for a, b in zip(got.model.state_dict().values(), want.model.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(got.optimizer.state.values(), want.optimizer.state.values()):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            torch.testing.assert_close(a[key], b[key], rtol=0, atol=0)
+    assert got.ema_params.keys() == want.ema_params.keys()
+    for k in want.ema_params:
+        torch.testing.assert_close(got.ema_params[k], want.ema_params[k], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("wrap", ["train_state", "guard_state", "dict"])
+def test_named_tuples_restore_into_their_template(tmp_path, wrap):
+    """C6: a TrainState, a GuardState around one, and a dict holding one save
+    as their fields and restore as the template's NamedTuple, bit for bit."""
+    saved, fresh = _trained_state(0), _trained_state(1, steps=1)
+    box = {
+        "train_state": lambda s: s,
+        "guard_state": lambda s: GuardState(s, 4),
+        "dict": lambda s: {"state": s, "epoch": 2},
+    }[wrap]
+    mgr = CheckpointManager(str(tmp_path))
+    assert mgr.save(2, box(saved))
+    template = box(fresh)
+    got = mgr.restore(template=template)
+    assert type(got) is type(template)
+    inner = {"train_state": lambda g: g, "guard_state": lambda g: g.inner,
+             "dict": lambda g: g["state"]}[wrap](got)
+    _assert_same_state(inner, saved)
+    assert inner.model is fresh.model and inner.optimizer is fresh.optimizer
+    if wrap == "guard_state":
+        assert got.skipped == 4
+    if wrap == "dict":
+        assert got["epoch"] == 2
+    # without a template the fields come back by name
+    raw = {"train_state": lambda r: r, "guard_state": lambda r: r["inner"],
+           "dict": lambda r: r["state"]}[wrap](mgr.restore())
+    assert set(raw) == {"model", "optimizer", "step", "ema_params"} and raw["step"] == 2
+
+
+def test_named_tuple_structure_matches_the_jax_manager(tmp_path):
+    """restore(template=state) gives back the template's NamedTuple type with
+    its fields in both managers."""
+    from generativemodels_tpu.parallel.train import TrainState as JaxTrainState
+    from generativemodels_tpu.utils.checkpoint import CheckpointManager as JaxManager
+
+    jax_state = JaxTrainState({"w": jnp.ones(3)}, {"mu": jnp.zeros(3)}, jnp.asarray(2),
+                              {"w": jnp.full(3, 0.5)})
+    jax_mgr = JaxManager(str(tmp_path / "jax"))
+    jax_mgr.save(2, jax_state)
+    jax_got = jax_mgr.restore(template=jax_state)
+    jax_mgr.close()
+    port_state = _trained_state(0)
+    port_mgr = CheckpointManager(str(tmp_path / "port"))
+    port_mgr.save(2, port_state)
+    port_got = port_mgr.restore(template=_trained_state(1, steps=1))
+    assert type(jax_got).__name__ == type(port_got).__name__ == "TrainState"
+    assert type(jax_got)._fields == ("params", "opt_state", "step", "ema_params")
+    assert type(port_got)._fields == ("model", "optimizer", "step", "ema_params")
+    assert int(jax_got.step) == port_got.step == 2
+    np.testing.assert_array_equal(np.asarray(jax_got.ema_params["w"]), np.full(3, 0.5))

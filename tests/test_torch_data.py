@@ -154,15 +154,69 @@ def test_png_directory_in_file_order(tmp_path):
     assert got == [np.float32(i) * np.float32(1.0 / 255) for i in range(FILES)]
 
 
-def test_missing_decoder_names_its_header(tmp_path, monkeypatch):
-    path = str(tmp_path / "img.png")
-    write_png(path, np.zeros((4, 4), np.uint8))
+def test_missing_decoder_names_its_header(tmp_path, monkeypatch, caplog):
+    """A PNG family whose decoder was left out of the build goes through PIL
+    with the native decoder's scaling, and one log line names png.h."""
+    for i in range(FILES):
+        write_png(str(tmp_path / f"p{i:03d}.png"), np.full((4, 4), i, np.uint8))
+    path = str(tmp_path / "p005.png")
     monkeypatch.setattr(native.load_library(), "gmtpu_decoders", lambda: 2)  # JPEG only
+    monkeypatch.setattr(native, "_announced", set())
     assert native.missing_decoder([path]) == "png.h"
-    with pytest.raises(RuntimeError, match="png.h"):
-        native.read_image(path)
-    with pytest.raises(RuntimeError, match="png.h"):
-        list(pipeline.file_dataset(str(tmp_path), loop=False))
+    assert native.decoder_routes() == {"png": "PIL (png.h not found)", "jpg": "native"}
+    with caplog.at_level("WARNING", logger=native.__name__):
+        np.testing.assert_array_equal(native.read_image(path),
+                                      np.full((4, 4), np.float32(5) * np.float32(1.0 / 255)))
+        got = [float(a[0, 0]) for a in pipeline.file_dataset(str(tmp_path), loop=False)]
+    assert got == [np.float32(i) * np.float32(1.0 / 255) for i in range(FILES)]
+    lines = [r.getMessage() for r in caplog.records if "png.h" in r.getMessage()]
+    assert len(lines) == 1 and "PIL" in lines[0]
+    # a failed build still raises: nothing reads on in its place
+    monkeypatch.setattr(native, "CXX_FLAGS", native.CXX_FLAGS + ("-fno-such-option",))
+    with pytest.raises(RuntimeError, match="failed"):
+        native.build_library()
+
+
+def _rgb_png(path, image: np.ndarray, palette: bool = False) -> None:
+    from PIL import Image
+
+    im = Image.fromarray(image, "RGB")
+    (im.quantize(16) if palette else im).save(path)
+
+
+@pytest.mark.parametrize("kind", ["grey8", "grey16", "rgb", "palette"])
+def test_pil_route_equals_the_native_png_decoder(tmp_path, kind):
+    """The route a missing decoder takes gives the native decoder's bits."""
+    rng = np.random.default_rng(5)
+    path = str(tmp_path / "img.png")
+    if kind in ("grey8", "grey16"):
+        dtype, top = (np.uint8, 255) if kind == "grey8" else (np.uint16, 65535)
+        write_png(path, rng.integers(0, top + 1, (13, 17)).astype(dtype))
+    else:
+        _rgb_png(path, rng.integers(0, 256, (13, 17, 3)).astype(np.uint8), kind == "palette")
+    for raw in (False, True):
+        want = native.read_image(path, raw=raw)
+        got = native._pil_decode_like_native(path, raw=raw)
+        assert got.dtype == np.float32 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB"])
+def test_pil_route_jpeg_within_one_grey_level(tmp_path, mode):
+    """On JPEG two libjpeg builds may round the inverse DCT apart: the PIL
+    route stays within one grey level (1/255) of the native decoder; the
+    largest difference found is stated by the assertion."""
+    from PIL import Image
+
+    rng = np.random.default_rng(6)
+    shape = (24, 40) if mode == "L" else (24, 40, 3)
+    smooth = np.cumsum(rng.integers(-8, 9, shape), axis=1) % 256
+    path = str(tmp_path / "img.jpg")
+    Image.fromarray(smooth.astype(np.uint8), mode).save(path, quality=90)
+    want = native.read_image(path)
+    got = native._pil_decode_like_native(path)
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert float(np.abs(got - want).max()) <= np.float32(1.0) / np.float32(255.0)
 
 
 def test_library_is_built_from_the_port_source():
@@ -262,6 +316,23 @@ def test_prefetch_to_device_keeps_order_and_raises():
         assert int(images[0]) == i and int(extra["label"][0]) == -i
     with pytest.raises(ValueError, match="source failed"):
         next(got)
+
+
+def test_to_device_keeps_a_named_tuple_batch():
+    """C6's pattern in the pipeline: a NamedTuple batch keeps its type and
+    fields on the way to the device, as JAX's tree_map keeps it."""
+    from typing import NamedTuple
+
+    class Batch(NamedTuple):
+        images: np.ndarray
+        labels: dict
+
+    batch = Batch(np.arange(6, dtype=np.float32).reshape(2, 3), {"seg": np.ones(2)})
+    got = pipeline._to_device([batch, (np.zeros(1),)], torch.device("cpu"))
+    assert type(got) is list and type(got[0]) is Batch and type(got[1]) is tuple
+    assert isinstance(got[0].images, torch.Tensor) and isinstance(got[0].labels["seg"],
+                                                                    torch.Tensor)
+    np.testing.assert_array_equal(got[0].images.numpy(), batch.images)
 
 
 def test_loader_never_opens_the_jax_library():

@@ -199,7 +199,7 @@ def test_contract_gradient_matches_jax(contract, case):
     the CPU, torch's autograd through the plain version) and through
     `flash_attention_backward_reference`, the plain version that kernels
     2-4 are held against on the card, fed the contract's inputs as
-    `_FlashAttention` feeds the kernels."""
+    the `flash_fwd` op's gradient feeds the kernels."""
     upcast, no_max = CONTRACTS[contract]
     bh, sq, sk, d, causal = CONTRACT_CASES[case]
     q, k, v = _qkv(bh, sq, sk, d, seed=10)

@@ -406,7 +406,7 @@ def test_contract_forward_kernel_matches_reference_on_gpu(cuda_device, contract,
 
 
 def _contract_backward_inputs(device, bh, sq, sk, d, dtype, causal, upcast, no_max, seed=8):
-    """The backward's inputs as `_FlashAttention` hands them on: q
+    """The backward's inputs as the `flash_fwd` op's gradient hands them on: q
     prescaled and the log2 lse under the exp2 contracts; q as it is and the
     natural lse under upcast."""
     q, k, v = _contract_inputs(device, bh, sq, sk, d, dtype, seed=seed, mult=4.0)
@@ -1158,3 +1158,103 @@ def test_eval_recipes_default_to_the_card(cuda_device):
 
     assert eval_quality.build_argparser().parse_args([]).device == "cuda"
     assert eval_brain_ldm.build_argparser().parse_args([]).device == "cuda"
+
+
+def _op_qkv(device, dtype, sq=128, sk=96, d=64, seed=40):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(2, s, d, generator=g).to(device=device, dtype=dtype)
+                 for s in (sq, sk, sk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default_f32", "causal_bf16", "running_max_f32",
+                                  "upcast_bf16"])
+def test_flash_ops_pass_opcheck_on_the_card(cuda_device, case):
+    """Kernels 1-4 as `gmtpu_torch` ops on CUDA tensors: schema, fake
+    implementation, autograd registration and a traced run agree with the
+    kernels' own outputs."""
+    from generativemodels_tpu_torch.ops import flash_fwd
+
+    kind, dtype = case.rsplit("_", 1)
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    causal, upcast, no_max = kind == "causal", kind == "upcast", kind != "running_max"
+    q, k, v = (t.requires_grad_() for t in _op_qkv(cuda_device, dtype))
+    torch.library.opcheck(flash_fwd, (q, k, v, 0.125, causal, upcast, no_max, not upcast))
+    before = FLASH_FWD.launches
+    out, lse = flash_fwd(q, k, v, 0.125, causal, upcast, no_max, not upcast)
+    assert FLASH_FWD.launches == before + 1 and lse.dtype == torch.float32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_ops_pass_opcheck_on_the_card(cuda_device, dtype):
+    from generativemodels_tpu_torch import ops
+
+    q, k, v = _op_qkv(cuda_device, dtype)
+    out, lse = ops.flash_fwd(q, k, v, 0.125, False, False, True, True)
+    dout, delta = _backward_rows(out, torch.randn_like(out))
+    args = (_prescaled(q, 0.125), k, v, dout.contiguous(), lse, delta, False, False, True, 1.0)
+    for op, launcher in ((ops.flash_bwd_dq, FLASH_BWD_DQ), (ops.flash_bwd_dkv, FLASH_BWD_DKV),
+                         (ops.flash_bwd_fused, FLASH_BWD_FUSED)):
+        torch.library.opcheck(op, args)
+        before = launcher.launches
+        op(*args)
+        assert launcher.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels_first", [False, True])
+def test_fused_conv_op_passes_opcheck_on_the_card(cuda_device, channels_first):
+    from generativemodels_tpu_torch.ops import fused_conv3d
+
+    g = torch.Generator().manual_seed(41)
+    shape = (1, 32, 8, 8, 16) if channels_first else (1, 8, 8, 16, 32)
+    x = torch.randn(shape, generator=g).to(cuda_device, torch.bfloat16)
+    if channels_first:
+        x = x.permute(0, 2, 3, 4, 1)
+    w = (torch.randn(3, 3, 3, 32, 48, generator=g) * 0.05).to(cuda_device)
+    scale, shift = (torch.randn(1, 32, generator=g).to(cuda_device) for _ in range(2))
+    bias = torch.randn(48, generator=g).to(cuda_device)
+    res = torch.randn(1, 8, 8, 16, 48, generator=g).to(cuda_device, torch.bfloat16)
+    args = [t.requires_grad_() for t in (x, w, scale, shift, bias, res)]
+    torch.library.opcheck(fused_conv3d, (*args, True), atol=2e-2, rtol=2e-2)
+    before = FUSED_CONV.launches
+    out = fused_conv3d(*args, True)
+    assert FUSED_CONV.launches == before + 1
+    assert out.stride() == fused_conv_module._empty_output(x, 48).stride()
+
+
+@pytest.mark.cuda
+def test_exported_sampler_equals_the_in_process_one_on_the_card(cuda_device, tmp_path):
+    """A small 2D sampler (its second level attends over 32x32 = 1024
+    tokens: kernel 1) exported and served from its file gives the
+    in-process images to the bit, with the same kernel-1 launches."""
+    from generativemodels_tpu_torch.recipes import serve
+    from generativemodels_tpu_torch.utils import load_exported
+
+    sampler, _ = serve.build_sampler(size=64, channels=(32, 64), norm_groups=8, batch=2,
+                                     ddim_steps=3, device=cuda_device)
+    FLASH_FWD.launches = 0
+    want = sampler(4)
+    in_process = FLASH_FWD.launches
+    serve.export_sampler(sampler, str(tmp_path / "s.pt2"))
+    FLASH_FWD.launches = 0
+    got = serve.ExportedSampler(load_exported(str(tmp_path / "s.pt2")))(4)
+    # the down, middle and two up attention blocks attend at 32x32; 3 steps
+    assert in_process == FLASH_FWD.launches == 12
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_png_family_reads_through_pil_where_the_decoder_is_missing(cuda_device, tmp_path):
+    """On a machine without png.h the loader reads PNGs through PIL, with
+    the native decoder's scaling, in file order."""
+    from PIL import Image
+
+    from generativemodels_tpu_torch.data import file_dataset, native
+
+    for i in range(12):
+        Image.fromarray(np.full((4, 4), 20 * i, np.uint8)).save(str(tmp_path / f"p{i:02d}.png"))
+    got = [float(a[0, 0]) for a in file_dataset(str(tmp_path), loop=False)]
+    assert got == [np.float32(20 * i) * (np.float32(1) / np.float32(255)) for i in range(12)]
+    assert native.decoder_routes()["png"] in ("native", "PIL (png.h not found)")

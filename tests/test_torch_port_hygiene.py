@@ -56,7 +56,11 @@ def test_port_modules_import_without_jax():
                  "metrics.mmd", "metrics.ssim", "config.parser", "config.bundle_compat",
                  "data.native", "data.pipeline", "data.transforms", "utils.checkpoint",
                  "utils.guards", "utils.logging", "recipes.data_flags", "recipes.eval_quality",
-                 "recipes.eval_brain_ldm"):
+                 "recipes.eval_brain_ldm", "utils.export", "ops.flash_attention",
+                 "ops.fused_conv", "recipes.draws", "recipes.anomaly", "recipes.inpaint",
+                 "recipes.super_resolution", "recipes.classifier_guidance",
+                 "recipes.diffusion_autoencoder", "recipes.train_controlnet",
+                 "recipes.segmentation_ddpm", "recipes.compare_schedulers"):
         assert f"generativemodels_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"
