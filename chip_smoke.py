@@ -4,7 +4,7 @@ train, sample the 3D 128^3 model and train it, run the attention probes, the
 latent route, the conditioned models, stage-1 adversarial training, the
 autoregressive VQ-VAE + transformer stack, SPADE, the host data path
 (the loader, training from disk, serving a checkpoint, the eval recipes),
-and export, tracing and the remaining recipes.
+export, tracing and the remaining recipes, and the multi-device paths.
 
 Run from the root of a checkout, with no arguments:
 
@@ -171,6 +171,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      plain path, `recipes.compare_schedulers.main` with a few training steps
      and step counts 10 and 25, and `recipes.segmentation_ddpm.main` at its
      defaults (no kernel).
+ 15. multi-device (parallel/, ops/sharded_attention.py): (a)
+     `recipes.train_3d_ddpm.main --data-parallel` at phase 6 (a)'s config on
+     an `nccl` group of one rank, its losses equal to phase 6 (a)'s split run
+     to the bit, kernels 1-3 counted; (b) the sequence-parallel pieces at the
+     3D attention shape (2, 32768, 32768, 64) bf16 for n = 2 and 4: the
+     allgather's local kernel 1 at (2, S/n, S, 64) and kernels 2-3 at Sq =
+     S/n against the unsharded kernels' rows (dk, dv summed over the n
+     blocks), the ring's n chunks of kernel 1 with its lse at (2, S/n, S/n,
+     64) merged by `_combine_chunks`, and kernel 5's halo-slab calls of the
+     128^3 96->32 case against its unsharded output, each timed; (c)
+     `probes/multi_card.py` on two `gloo` ranks that share cuda:0 (`nccl`
+     refuses two ranks on one card): the cut ("space": 2) 3D training step
+     at 128^3 and the allgather and ring attention at the 3D shape, against
+     one rank; a collective that gloo refuses fails the phase.
 Phase 2 also holds kernels 1-4 at phase 10's two f32 shapes, (2, 32768,
 32768, 64) and (2, 4096, 4096, 64), at phase 11's causal (64, 1024, 1024,
 32) f32, and under the JAX kernel's other two contracts
@@ -1832,7 +1846,7 @@ def train_3d_recipe(torch, ops, recipe3d) -> dict:
             raise AssertionError(f"3D recipe losses not finite: {losses}")
         check_launches(counts, expected_launches(TRAIN_STEPS, **TRAIN_3D_LAUNCHES[label]),
                        f"3D recipe main, {label} backward")
-        results[label] = dict(launches=counts, steps_per_sec=sps, peak_gib=peak)
+        results[label] = dict(launches=counts, steps_per_sec=sps, peak_gib=peak, losses=losses)
         del out
     return results
 
@@ -3967,6 +3981,266 @@ def run_export_and_recipes(torch, ops, nets, serve, inferers, schedulers, utils)
                 training=training)
 
 
+# phase 15 (b): the sequence-parallel pieces at the 3D attention shape, bf16,
+# for a sequence cut in n blocks; kernel 5's halo slab at FUSED_MAIN_CASE
+P15_SHAPE = (2, 32768, 32768, 64)
+P15_CUTS = (2, 4)
+# the ring's merged rows against the unsharded kernel 1's O, relative to
+# max|O|: each chunk's O is rounded to bf16 before the f32 merge, then the
+# merge is rounded once more, a few bf16 ulps at most; 2e-2 of max|O| is 2.5
+# to 5 ulps there (one ulp, 2.44e-4 at max|O| ~0.05, on the H100); the
+# allgather's rows must equal the unsharded kernel's to the bit (each query
+# row walks the same keys in the same order), as must kernel 2's dq rows and
+# kernel 5's cropped slabs; dk, dv are the n blocks' bf16 parts summed in f32
+# (BACKWARD_TOLERANCE)
+RING_TOLERANCE = 2e-2
+# phase 15 (c)'s two-rank runs on the one card, through probes/multi_card.py
+P15_SAME_CARD_CHECKS = ("cut_space", "attention")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_data_parallel_3d(torch, ops, recipe3d, trained_3d) -> dict:
+    """Phase 15 (a): the 3D recipe with --data-parallel on an nccl group of
+    one rank (GMTPU_COORD / GMTPU_NPROC / GMTPU_RANK), split backward; its
+    losses must equal phase 6 (a)'s split run to the bit: the world-1
+    all-reduces copy, and every draw is the non-parallel run's."""
+    env = dict(GMTPU_COORD=f"localhost:{free_port()}", GMTPU_NPROC="1", GMTPU_RANK="0")
+    os.environ.update(env)
+    torch.cuda.empty_cache()
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    try:
+        out = recipe3d.main([*TRAIN_3D_ARGS, "--steps", str(TRAIN_STEPS), "--device", DEVICE,
+                             "--data-parallel"])
+    finally:
+        for key in env:
+            os.environ.pop(key, None)
+    seconds = time.perf_counter() - t0
+    counts = read_launches(ops)
+    losses, sps = out["losses"], out["steps_per_sec"]
+    want = trained_3d["split"]["losses"]
+    same = losses == want
+    log(f"parallel: (a) train_3d_ddpm --data-parallel on an nccl group of one rank, "
+        f"{TRAIN_STEPS} steps in {seconds:.2f} s, {sps:.4f} steps/s over steps 3-{TRAIN_STEPS} "
+        f"(phase 6 (a) split {trained_3d['split']['steps_per_sec']:.4f}); losses "
+        + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; equal to phase 6 (a)'s to the bit: {same}")
+    if not same:
+        raise AssertionError(f"--data-parallel losses {losses} differ from phase 6's {want}")
+    check_launches(counts, expected_launches(TRAIN_STEPS, **TRAIN_3D_LAUNCHES["split"]),
+                   "3D recipe main --data-parallel")
+    return dict(launches=counts, steps_per_sec=sps)
+
+
+def check_sequence_chunks(torch, ops) -> dict:
+    """Phase 15 (b): for each n, every rank's pieces against the unsharded
+    kernels, and the times of rank 0's (all ranks' calls have one shape)."""
+    from generativemodels_tpu_torch.ops.flash_attention import _backward_rows, _prescaled
+    from generativemodels_tpu_torch.ops.sharded_attention import _combine_chunks
+
+    bh, s, _, d = P15_SHAPE
+    dtype = torch.bfloat16
+    scale = d**-0.5
+    g = torch.Generator("cuda").manual_seed(15)
+    q, k, v, dout = (torch.randn((bh, s, d), generator=g, device="cuda").to(dtype)
+                     for _ in range(4))
+    out, lse2 = ops.FLASH_FWD(q, k, v, scale=scale, log2_lse=True)
+    qp = _prescaled(q, scale)
+    do2, delta = _backward_rows(out, dout)
+    dq = ops.FLASH_BWD_DQ(qp, k, v, do2, lse2, delta)
+    dk, dv = ops.FLASH_BWD_DKV(qp, k, v, do2, lse2, delta)
+    esize = q.element_size()
+    results = {}
+    for n in P15_CUTS:
+        c = s // n
+        rows = [slice(r * c, (r + 1) * c) for r in range(n)]
+        blocks = [dict(q=q[:, sl].contiguous(), qp=qp[:, sl].contiguous(),
+                       do2=do2[:, sl].contiguous(), lse2=lse2[:, sl].contiguous(),
+                       delta=delta[:, sl].contiguous(), k=k[:, sl].contiguous(),
+                       v=v[:, sl].contiguous()) for sl in rows]
+
+        def gather_fwd(b):
+            return ops.FLASH_FWD(b["q"], k, v, scale=scale)[0]
+
+        def ring_chunk(b, j):
+            return ops.flash_attention_with_lse(b["q"], blocks[j]["k"], blocks[j]["v"],
+                                                scale=scale)
+
+        def ring(b):
+            acc, acc_lse = None, None
+            for j in range(n):
+                o, lse = ring_chunk(b, j)
+                acc, acc_lse = ((o.float(), lse) if acc is None
+                                else _combine_chunks(acc, acc_lse, o, lse))
+            return acc.to(dtype)
+
+        def local_dq(b):
+            return ops.FLASH_BWD_DQ(b["qp"], k, v, b["do2"], b["lse2"], b["delta"])
+
+        def local_dkv(b):
+            return ops.FLASH_BWD_DKV(b["qp"], k, v, b["do2"], b["lse2"], b["delta"])
+
+        gather_same = ring_err = dq_same = 0
+        ring_tol = RING_TOLERANCE * out.float().abs().max().item()
+        dk_sum = torch.zeros_like(dk, dtype=torch.float32)
+        dv_sum = torch.zeros_like(dv, dtype=torch.float32)
+        for sl, b in zip(rows, blocks):
+            gather_same += int(torch.equal(gather_fwd(b), out[:, sl]))
+            ring_err = max(ring_err, (ring(b).float() - out[:, sl].float()).abs().max().item())
+            dq_same += int(torch.equal(local_dq(b), dq[:, sl]))
+            dk_r, dv_r = local_dkv(b)
+            dk_sum += dk_r.float()
+            dv_sum += dv_r.float()
+        dkv_err = max(((dk_sum - dk.float()).abs().max() / dk.float().abs().max()).item(),
+                      ((dv_sum - dv.float()).abs().max() / dv.float().abs().max()).item())
+        del dk_sum, dv_sum
+        b0 = blocks[0]
+        o0, l0 = ring_chunk(b0, 0)
+        ms = dict(gather=time_ms(lambda: gather_fwd(b0)), chunk=time_ms(lambda: ring_chunk(b0, 0)),
+                  merge=time_ms(lambda: _combine_chunks(o0.float(), l0, o0, l0)),
+                  ring=time_ms(lambda: ring(b0)), dq=time_ms(lambda: local_dq(b0)),
+                  dkv=time_ms(lambda: local_dkv(b0)))
+        gather_lib, _ = library_attention_ms(torch, b0["q"], k, v, scale, False)
+        chunk_lib, _ = library_attention_ms(torch, b0["q"], b0["k"], b0["v"], scale, False)
+        rows2 = 8 * bh * c
+        lim = dict(
+            gather=bound(4 * bh * c * s * d, bh * d * esize * (2 * c + 2 * s) + 4 * bh * c,
+                         "bfloat16"),
+            chunk=bound(4 * bh * c * c * d, bh * d * esize * 4 * c + 4 * bh * c, "bfloat16"),
+            dq=bound(6 * bh * c * s * d, bh * d * esize * (3 * c + 2 * s) + rows2, "bfloat16"),
+            dkv=bound(8 * bh * c * s * d, bh * d * esize * (2 * c + 4 * s) + rows2, "bfloat16"),
+        )
+        ok = (gather_same == n and dq_same == n and ring_err <= ring_tol
+              and dkv_err <= BACKWARD_TOLERANCE["bfloat16"])
+        log(f"parallel: (b) n={n}: allgather kernel 1 at (BH={bh}, Sq={c}, Sk={s}, D={d}) bf16: "
+            f"{gather_same}/{n} blocks equal to the unsharded rows to the bit, {ms['gather']:.4f} "
+            f"ms (bound {lim['gather']['bound_ms']:.4f}, SDPA {gather_lib:.4f}); ring: {n} "
+            f"chunks of kernel 1 with lse at (BH={bh}, {c}, {c}, D={d}) {ms['chunk']:.4f} ms "
+            f"each (bound {lim['chunk']['bound_ms']:.4f}, SDPA {chunk_lib:.4f}), a merge "
+            f"{ms['merge']:.4f} ms, a rank's ring {ms['ring']:.4f} ms, merged max|dO| "
+            f"{ring_err:.3e} (tol {ring_tol:.3e}, {RING_TOLERANCE:g} of max|O|); kernel 2 at "
+            f"Sq={c}: {dq_same}/{n} dq blocks equal to the bit, {ms['dq']:.4f} ms (bound {lim['dq']['bound_ms']:.4f}); "
+            f"kernel 3 at Sq={c}: dk, dv summed over the blocks max|d|/max {dkv_err:.3e} (tol "
+            f"{BACKWARD_TOLERANCE['bfloat16']:g}), {ms['dkv']:.4f} ms (bound "
+            f"{lim['dkv']['bound_ms']:.4f}) -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"sequence-parallel pieces at n={n} disagree with the kernels")
+        results[n] = dict(
+            flash_fwd=dict(allgather=dict(max_abs_err=0.0, ms=ms["gather"], library_ms=gather_lib,
+                                          **lim["gather"]),
+                           ring_chunk=dict(max_abs_err=ring_err, ms=ms["chunk"],
+                                           merge_ms=ms["merge"], ring_ms=ms["ring"],
+                                           library_ms=chunk_lib, **lim["chunk"])),
+            flash_bwd_dq=dict(allgather=dict(max_abs_err=0.0, ms=ms["dq"], **lim["dq"])),
+            flash_bwd_dkv=dict(allgather=dict(max_abs_err=dkv_err, ms=ms["dkv"], **lim["dkv"])),
+        )
+        del blocks, o0, l0
+        torch.cuda.empty_cache()
+    del q, k, v, dout, out, lse2, qp, do2, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    results["fused_conv"] = check_halo_slabs(torch, ops)
+    return results
+
+
+def check_halo_slabs(torch, ops) -> dict:
+    """Phase 15 (b), kernel 5: the cut fused ResnetBlock's calls
+    (`networks/nets/diffusion_model_unet.py::_fused_conv_cf`) at
+    FUSED_MAIN_CASE: each rank's slab extended by one plane from each
+    neighbour (none at the outer border), the kernel's output cropped to
+    the slab; the crops must equal the unsharded output to the bit."""
+    name, (b, d, h, w), cin, cout, residual, dtype_name = next(
+        case for case in FUSED_CASES if case[0] == FUSED_MAIN_CASE)
+    g = torch.Generator("cuda").manual_seed(16)
+    x_cf = torch.randn((b, cin, d, h, w), generator=g, device="cuda").to(torch.bfloat16)
+    kernel = ((27 * cin) ** -0.5 * torch.randn((3, 3, 3, cin, cout), generator=g,
+                                               device="cuda")).to(torch.bfloat16)
+    scale, shift = ops.fold_groupnorm_affine(x_cf.permute(0, 2, 3, 4, 1),
+                                             torch.ones(cin, device="cuda"),
+                                             torch.zeros(cin, device="cuda"), 32)
+    bias = 0.1 * torch.randn(cout, generator=g, device="cuda")
+    full = ops.FUSED_CONV(x_cf.permute(0, 2, 3, 4, 1), kernel, scale, shift, bias)
+    results = {}
+    for n in P15_CUTS:
+        c = d // n
+        same, slabs = 0, []
+        for r in range(n):
+            lo, hi = max(0, r * c - 1), min(d, (r + 1) * c + 1)
+            slab = x_cf[:, :, lo:hi].contiguous()
+            slabs.append((slab, r * c - lo))
+            got = ops.FUSED_CONV(slab.permute(0, 2, 3, 4, 1), kernel, scale, shift, bias)
+            same += int(torch.equal(got[:, r * c - lo:r * c - lo + c], full[:, r * c:(r + 1) * c]))
+        slab, _ = slabs[min(1, n - 1)]
+        ms = time_ms(lambda: ops.FUSED_CONV(slab.permute(0, 2, 3, 4, 1), kernel, scale, shift,
+                                            bias))
+        # the work the cut needs: the slab's c output planes, from its planes
+        # and their halo planes
+        out_voxels, in_voxels = b * c * h * w, b * slab.shape[2] * h * w
+        lim = bound(2 * out_voxels * 27 * cin * cout,
+                    (in_voxels * cin + out_voxels * cout) * 2 + kernel.numel() * 2
+                    + 4 * (2 * b * cin + cout), dtype_name)
+        ok = same == n
+        log(f"parallel: (b) n={n}: kernel 5 {name} on halo slabs of {c} + 2 planes (B={b}, "
+            f"D={slab.shape[2]}, H={h}, W={w}): {same}/{n} cropped slabs equal to the unsharded "
+            f"output to the bit; an inner slab {ms:.4f} ms (bound {lim['bound_ms']:.4f}) -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"kernel 5's halo slabs at n={n} differ from the unsharded call")
+        results[n] = dict(max_abs_err=0.0, ms=ms, **lim)
+    return results
+
+
+def run_same_card() -> dict:
+    """Phase 15 (c): probes/multi_card.py on two gloo ranks on cuda:0 (nccl
+    refuses two ranks on one card): the cut ("space": 2) 3D training step at
+    128^3 against the uncut step, and the allgather and ring attention at the
+    3D shape against the unsharded kernels (the script's checks and
+    tolerances)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2", "--master_port",
+         str(free_port()), "-m", "generativemodels_tpu_torch.probes.multi_card", "--backend",
+         "gloo", "--device", "cuda:0", "--checks", *P15_SAME_CARD_CHECKS],
+        capture_output=True, text=True, timeout=600, cwd=REPO,
+    )
+    lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"two ranks on the one card failed ({proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    runs = json.loads(lines[-1])
+    cut, att = runs["cut_space"], runs["attention"]
+    log(f"parallel: (c) two gloo ranks on cuda:0 ({time.perf_counter() - t0:.1f} s): cut "
+        f"(\"space\": 2) 3D step at {THREE_D['size']}^3 against the uncut step: f32 loss "
+        f"{cut['f32']['loss_rel']:.3e}, gradients {cut['f32']['grad_rel']:.3e} (tol "
+        f"{cut['f32']['tol']:g}); bf16 gradients {cut['bf16']['grad_rel']:.3e} (tol twice the "
+        f"uncut bf16 step's distance from f32, {cut['bf16']['uncut_bf16_vs_f32']:.3e}); a cut "
+        f"bf16 step "
+        f"{cut['bf16']['step_ms']:.1f} ms, uncut {cut['bf16']['uncut_step_ms']:.1f} ms (two "
+        f"processes on one card, gloo staging through the host); attention {att['shape']}: "
+        f"allgather rows and dq equal to the bit {att['allgather_equal']} {att['dq_equal']}, "
+        f"dk, dv {att['dkv_rel']:.3e}, ring {att['ring_err']:.3e} (tol {att['ring_tol']:.3e}); "
+        f"allgather {att['allgather_ms']:.2f} ms, ring {att['ring_ms']:.2f} ms a call")
+    if not runs["ok"]:
+        raise AssertionError(f"two ranks on the one card disagree with one rank: {runs}")
+    return runs
+
+
+def run_parallel(torch, ops, recipe3d, trained_3d) -> dict:
+    """Phase 15."""
+    t0 = time.perf_counter()
+    dp = run_data_parallel_3d(torch, ops, recipe3d, trained_3d)
+    chunks = check_sequence_chunks(torch, ops)
+    same_card = run_same_card()
+    log(f"parallel: phase 15 in {time.perf_counter() - t0:.1f} s")
+    return dict(dp=dp, chunks=chunks, same_card=same_card)
+
+
 def build_kernels(build_library, sources: tuple = SOURCES) -> None:
     """Phase 1: one nvcc for each of `sources`, all started together."""
     results = {}
@@ -4202,6 +4476,11 @@ def main() -> int:
         f"{exports['training']['compare_s']:.1f} s, segmentation_ddpm "
         f"{exports['training']['segmentation_s']:.1f} s")
 
+    # phase 15: multi-device: (a) the 3D recipe with --data-parallel on a
+    # group of one rank, (b) the sequence-parallel pieces and kernel 5's halo
+    # slabs at the 3D shapes, (c) two ranks on the one card
+    parallel_results = run_parallel(torch, ops, recipe3d, trained_3d)
+
     # the numbers of each kernel at its main path's shape: serving for the
     # forward, the recipe's batch 64 for the split backward, the 3D training
     # step's attention for the fused backward, the 128^3 96->32 call for
@@ -4250,6 +4529,14 @@ def main() -> int:
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         extra.setdefault(name, {})["train_controlnet_launches"] = (
             exports["controlnet"]["launches"][name])
+    # phase 15's launches (the --data-parallel run) and pieces, n ranks
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        extra.setdefault(name, {})["data_parallel_launches"] = (
+            parallel_results["dp"]["launches"][name])
+        extra[name]["sequence_parallel"] = {
+            f"n{n}": parallel_results["chunks"][n][name] for n in P15_CUTS}
+    extra.setdefault("fused_conv", {})["halo_slab"] = {
+        f"n{n}": entry for n, entry in parallel_results["chunks"]["fused_conv"].items()}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=CSRC + source, replaces=replaces,

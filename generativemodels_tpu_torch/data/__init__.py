@@ -1,7 +1,7 @@
 """Host data path: the native loader, transforms, and streams onto the device.
 
-Counterpart of generativemodels_tpu/data/ for one process (the multi-host
-`multihost_device_batches` is not ported yet).
+Counterpart of generativemodels_tpu/data/, with several processes reading
+their own file partitions (`multihost_device_batches`).
 """
 from .native import (
     PrefetchLoader,
@@ -17,6 +17,7 @@ from .pipeline import (
     cached_dataset,
     device_batches,
     file_dataset,
+    multihost_device_batches,
     paired_stream,
     prefetch_to_device,
     training_stream,
@@ -34,6 +35,7 @@ __all__ = [
     "cached_dataset",
     "device_batches",
     "file_dataset",
+    "multihost_device_batches",
     "paired_stream",
     "prefetch_to_device",
     "training_stream",

@@ -11,8 +11,10 @@ seeded shuffle order): the port's loader keeps that order with any
 number of workers. A failed build of the loader raises; the JAX pipeline
 falls back to Python readers there.
 
-One process reads the whole dataset: `process_count` above 1 (the
-multi-host partitioning of the JAX package) is not ported yet.
+With several processes (a `torch.distributed` group, one rank each) every
+rank reads its own strided slice of each epoch's global order
+(`parallel.partition_files`), as the JAX pipeline slices per host, and
+`multihost_device_batches` hands each rank its rows of the global batch.
 """
 from __future__ import annotations
 
@@ -32,12 +34,17 @@ _IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff")
 _EXTS = (".nii", ".nii.gz", ".npy") + _IMAGE_EXTS
 
 
-def _single_process(process_index: int | None, process_count: int | None) -> None:
-    if (process_count or 1) > 1 or (process_index or 0) != 0:
-        raise NotImplementedError(
-            "reading a partition of the files in each of several processes is not ported "
-            "yet (ROADMAP A11); one process reads every file"
-        )
+def _partition(items: list, process_index: int | None, process_count: int | None) -> list:
+    """This process's strided slice of `items`: explicit arguments, else the
+    process group's rank and size; all of them for one process that was
+    given no index."""
+    from ..parallel.multihost import partition_files, process_count as group_size
+
+    if process_count is None:
+        process_count = group_size()
+    if process_count > 1 or process_index is not None:
+        return partition_files(items, process_index, process_count)
+    return items
 
 
 def _list_files(directory: str, pattern: str = "*") -> list[str]:
@@ -102,8 +109,13 @@ def file_dataset(
     `numpy.random.RandomState(seed + epoch)`, as in JAX: deterministic
     given `seed`. A directory that mixes families reads one, in priority
     order NIfTI > image > npy.
+
+    With several processes (`process_index` / `process_count`, by default
+    the process group's rank and size) each reads its strided slice of each
+    epoch's global order: every process applies the same seeded
+    permutation before slicing, so the slices are disjoint, cover the
+    dataset and reshuffle together.
     """
-    _single_process(process_index, process_count)
     paths = _list_files(data_dir, pattern)
     if not paths:
         raise FileNotFoundError(f"no {'/'.join(_EXTS)} files under {data_dir}/{pattern}")
@@ -120,6 +132,7 @@ def file_dataset(
             rng = np.random.RandomState((seed + epoch) & 0x7FFFFFFF)
             epoch_paths = list(family)
             rng.shuffle(epoch_paths)
+        epoch_paths = _partition(list(epoch_paths), process_index, process_count)
         count = 0
         for arr in _epoch_iter(epoch_paths, num_workers):
             count += 1
@@ -231,6 +244,44 @@ def device_batches(
     )
 
 
+def multihost_device_batches(
+    data_dir: str,
+    shape,
+    global_batch: int,
+    mesh,
+    fit: str = "crop_pad",
+    cache: bool = False,
+    augment: bool = False,
+    seed: int = 0,
+    prefetch: int = 2,
+) -> Iterator[torch.Tensor]:
+    """`device_batches` for several processes: each rank decodes only its
+    own file partition (`file_dataset`'s process slicing) and yields its
+    (global_batch / ranks, 1, *shape) rows of the global batch on its
+    device (`parallel.global_batches`).
+
+    The mesh cuts the batch only ("data" spans every rank). A global batch
+    that the rank count does not divide raises here, where the JAX function
+    checks the process count but not the device count (`pipeline.py:298`).
+    Reference: ddpm_training_ddp.py:105-125 (per-rank partition).
+    """
+    from ..parallel.multihost import global_batches
+
+    ranks = mesh.size
+    if mesh.axis_size("data") != ranks:
+        raise ValueError(f"multihost_device_batches cuts the batch only; mesh {mesh.shape}")
+    if global_batch % ranks:
+        raise ValueError(
+            f"global batch {global_batch} must divide evenly across {ranks} devices "
+            f"(one a process)"
+        )
+    local = global_batch // ranks
+    stream = training_stream(data_dir, shape, fit, cache=cache, augment=augment, seed=seed)
+    target = (local, 1) + tuple(shape)
+    local_iter = (np.asarray(b, np.float32).reshape(target) for b in batched(stream, local))
+    return global_batches(local_iter, mesh, prefetch=prefetch)
+
+
 def _read_any(path: str) -> np.ndarray:
     """Read one sample file by extension (npy / NIfTI / image)."""
     p = path.lower()
@@ -276,11 +327,11 @@ def paired_stream(
     each epoch applies one permutation, `RandomState(seed + epoch)`, to
     both. Images are rescaled to [0, 1] and fitted with `fit`; label maps
     keep their raw values and fit nearest-neighbour (zero-pad, or order-0
-    resize).
+    resize). Several processes slice each epoch's order as `file_dataset`
+    slices its files.
     """
     from .transforms import ensure_channel_first, fit_sample
 
-    _single_process(process_index, process_count)
     images, labels = _list_files(image_dir), _list_files(label_dir)
     if not images:
         raise FileNotFoundError(f"no samples under {image_dir}")
@@ -295,7 +346,7 @@ def paired_stream(
     while True:
         order = np.arange(len(images))
         np.random.RandomState((seed + epoch) & 0x7FFFFFFF).shuffle(order)
-        for i in order:
+        for i in _partition(list(order), process_index, process_count):
             img = ensure_channel_first(_read_any(images[i]), nd)
             lab = ensure_channel_first(_read_label(labels[i]), nd)
             if fit == "none":  # the same pass-through contract as fitted_stream

@@ -18,6 +18,13 @@ inside one step is the JAX step's:
 
 G's sampling noise (an AutoencoderKL's latent draw) comes from the
 `torch.Generator` passed to the step, so that a test can replay the draw.
+
+With a data mesh (`parallel/mesh.py`) each rank passes its rows of the
+global batch; the step runs inside `with mesh:` (so a synced BatchNorm and
+the EMA codebook take global statistics), G's and D's gradients are
+averaged over "data" before their updates, and the losses it returns are
+those of the global batch: the single-device step on the full batch, as the
+JAX step under a mesh.
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ from typing import Callable, NamedTuple
 import torch
 from torch import nn
 
-from ..parallel.train import ema_update_
+from ..parallel.mesh import Mesh
+from ..parallel.train import ema_update_, reduce_over_mesh_
 from ..utils import AdversarialIterationEvents, AdversarialKeys
 
 
@@ -80,6 +88,7 @@ class AdversarialTrainStep:
         adv_weight: weight of the adversarial term in G's loss.
         ema_decay: keep `state.g_ema_params` (seed it with copies of G's
             parameters, `init_adversarial_state(..., ema=True)`).
+        mesh: a data mesh (a "space" axis of more than one rank raises).
 
     `outputs` is keyed by AdversarialKeys (reals, fakes, the reconstruction,
     generator and discriminator losses) and "loss", G's total.
@@ -94,7 +103,9 @@ class AdversarialTrainStep:
         d_loss_fn: Callable,
         adv_weight: float = 1.0,
         ema_decay: float | None = None,
+        mesh: Mesh | None = None,
     ) -> None:
+        self.mesh = check_data_mesh(mesh)
         self.g_forward = g_forward
         self.d_forward = d_forward
         self.recon_loss_fn = recon_loss_fn
@@ -110,6 +121,15 @@ class AdversarialTrainStep:
         targets: torch.Tensor,
         generator: torch.Generator | None = None,
     ) -> tuple[AdversarialTrainState, dict]:
+        with self.mesh if self.mesh is not None else contextlib.nullcontext():
+            return self._step(state, inputs, targets, generator)
+
+    def _reduce(self, model: nn.Module, *losses: torch.Tensor) -> None:
+        if self.mesh is not None:
+            reduce_over_mesh_([p.grad for p in model.parameters() if p.grad is not None]
+                              + [loss.reshape(1) for loss in losses], self.mesh)
+
+    def _step(self, state, inputs, targets, generator):
         g, d = state.g_model, state.d_model
         # generator phase: D as it was, no gradient into it
         state.g_optimizer.zero_grad(set_to_none=True)
@@ -120,6 +140,9 @@ class AdversarialTrainStep:
         adv_loss = self.g_loss_fn(fake_logits)
         g_total = recon_loss + self.adv_weight * adv_loss
         g_total.backward()
+        recon_loss, adv_loss, g_total = (t.detach().clone()
+                                         for t in (recon_loss, adv_loss, g_total))
+        self._reduce(g, recon_loss, adv_loss, g_total)
         state.g_optimizer.step()
 
         # discriminator phase: reals, then the detached fakes
@@ -129,6 +152,8 @@ class AdversarialTrainStep:
         fake_logits = self.d_forward(d, fakes_detached)
         d_total = self.d_loss_fn(real_logits, fake_logits)
         d_total.backward()
+        d_total = d_total.detach().clone()
+        self._reduce(d, d_total)
         state.d_optimizer.step()
 
         g_ema = state.g_ema_params
@@ -143,10 +168,10 @@ class AdversarialTrainStep:
         outputs = {
             AdversarialKeys.REALS: inputs,
             AdversarialKeys.FAKES: fakes_detached,
-            AdversarialKeys.RECONSTRUCTION_LOSS: recon_loss.detach(),
-            AdversarialKeys.GENERATOR_LOSS: adv_loss.detach(),
-            AdversarialKeys.DISCRIMINATOR_LOSS: d_total.detach(),
-            "loss": g_total.detach(),
+            AdversarialKeys.RECONSTRUCTION_LOSS: recon_loss,
+            AdversarialKeys.GENERATOR_LOSS: adv_loss,
+            AdversarialKeys.DISCRIMINATOR_LOSS: d_total,
+            "loss": g_total,
         }
         return state._replace(step=state.step + 1, g_ema_params=g_ema), outputs
 
@@ -159,12 +184,21 @@ def make_adversarial_train_step(
     d_loss_fn: Callable,
     adv_weight: float = 1.0,
     ema_decay: float | None = None,
+    mesh: Mesh | None = None,
 ) -> AdversarialTrainStep:
     """Build the fused G + D step; see `AdversarialTrainStep`. The optimizers
     (the JAX function's `g_tx`, `d_tx`) live in the state."""
     return AdversarialTrainStep(
-        g_forward, d_forward, recon_loss_fn, g_loss_fn, d_loss_fn, adv_weight, ema_decay
+        g_forward, d_forward, recon_loss_fn, g_loss_fn, d_loss_fn, adv_weight, ema_decay, mesh
     )
+
+
+def check_data_mesh(mesh: Mesh | None) -> Mesh | None:
+    """`mesh` if it cuts the batch only: the adversarial steps take no
+    spatial cut (the JAX steps inherit any sharding; ROADMAP A11)."""
+    if mesh is not None and mesh.axis_size("space") > 1:
+        raise ValueError(f"the adversarial steps take a data mesh, got {mesh.shape}")
+    return mesh
 
 
 def init_adversarial_state(

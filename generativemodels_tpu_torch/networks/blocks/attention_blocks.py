@@ -54,6 +54,8 @@ class CrossAttention(nn.Module):
         self.to_out = nn.Sequential(Linear(inner_dim, query_dim, dtype=dtype), nn.Dropout(dropout))
 
     def forward(self, x: torch.Tensor, context: torch.Tensor | None = None) -> torch.Tensor:
+        # a context is whole on every rank: never cut by sequence sharding
+        seq_shard = None if context is None else False
         context = x if context is None else context
         out = dot_product_attention(
             self.to_q(x),
@@ -63,6 +65,7 @@ class CrossAttention(nn.Module):
             scale=self.scale,
             upcast=self.upcast_attention,
             use_flash=self.use_flash_attention,
+            seq_shard=seq_shard,
         )
         return self.to_out(out)
 

@@ -5,7 +5,9 @@ Counterpart of generativemodels_tpu/networks/blocks/convolutions.py.
 held as the child `conv` so that its keys read `<name>.conv.weight`, as in
 the reference's MONAI `Convolution`. Its `dtype` mirrors the JAX module's
 casts: parameters stay float32, input and kernel are cast to `dtype`, and
-the bias is cast and added after the convolution. The JAX module's TPU
+the bias is cast and added after the convolution. Under a spatial cut
+(parallel/spatial.py) it takes its halo planes from the neighbouring
+ranks. The JAX module's TPU
 lowerings (the depth-tap 3D decomposition and the fused upsample-conv)
 compute the same function and have no counterpart here.
 
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.spatial import current_spatial_cut, halo_conv
 from .layers import compute_dtype
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
@@ -73,15 +76,23 @@ class ConvND(nn.Module):
         self.nearest_upsample = nearest_upsample
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cut_pad_after: int = 0) -> torch.Tensor:
+        """`cut_pad_after`: zero planes that end the cut axis of the uncut
+        input (a caller's asymmetric pad, left out of the slabs)."""
         weight, bias = self.conv.weight, self.conv.bias
         dtype = compute_dtype(self.dtype, x, weight)
         x = x.to(dtype)
         if self.nearest_upsample:
             x = upsample_nearest(x, 2)
-        if dtype == weight.dtype:
+        cut = current_spatial_cut()
+        if cut is not None:  # the halo planes of the slab (parallel/spatial.py)
+            if dtype == weight.dtype:
+                return halo_conv(self.conv, x, weight, bias, cut, cut_pad_after)
+            y = halo_conv(self.conv, x, weight.to(dtype), None, cut, cut_pad_after)
+        elif dtype == weight.dtype:
             return self.conv(x)
-        y = self.conv._conv_forward(x, weight.to(dtype), None)
+        else:
+            y = self.conv._conv_forward(x, weight.to(dtype), None)
         return y if bias is None else y + bias.to(dtype).reshape(-1, *([1] * (x.ndim - 2)))
 
 
@@ -127,7 +138,11 @@ class ConvTransposeND(nn.Module):
 
 
 def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
-    """Average pooling (stride = window) over the spatial axes of (B, C, *spatial)."""
+    """Average pooling (stride = window) over the spatial axes of (B, C, *spatial).
+    Under a spatial cut each slab pools alone, so its depth must divide."""
+    cut = current_spatial_cut()
+    if cut is not None and x.shape[cut.dim] % window:
+        raise ValueError(f"a cut slab of {x.shape[cut.dim]} planes does not pool by {window}")
     return _AVG_POOL[x.ndim - 2](x, window)
 
 

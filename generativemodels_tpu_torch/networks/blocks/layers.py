@@ -10,7 +10,9 @@ modules and state-dict keys and add the same `dtype`:
   `use_bias=False`.
 - `GroupNorm`, `LayerNorm`: statistics and normalisation in float32 (flax
   reduces in float32 whatever the input type), the result cast to `dtype`.
-  Both default to flax's epsilon, 1e-6 (torch's is 1e-5).
+  Both default to flax's epsilon, 1e-6 (torch's is 1e-5). Under a spatial
+  cut (parallel/spatial.py) GroupNorm takes E[x] and E[x^2] over every slab
+  and its variance as E[x^2] - E[x]^2, as flax computes it.
 
 With `dtype=None` they compute in float32, as flax promotes to the float32
 parameters.
@@ -20,6 +22,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...parallel.collectives import global_moments
+from ...parallel.spatial import current_spatial_cut
 
 
 def compute_dtype(dtype: torch.dtype | None, x: torch.Tensor, param: torch.Tensor) -> torch.dtype:
@@ -58,7 +63,16 @@ class GroupNorm(nn.GroupNorm):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        cut = current_spatial_cut()
+        if cut is None:
+            y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        else:  # statistics over every slab of the cut (parallel/spatial.py)
+            xg = x.float().reshape(x.shape[0], self.num_groups, -1)
+            mean, msq = global_moments(xg, (2,), cut.group)
+            rstd = torch.rsqrt(msq - mean * mean + self.eps)
+            y = ((xg - mean[..., None]) * rstd[..., None]).reshape(x.shape)
+            affine = (1, -1) + (1,) * (x.ndim - 2)
+            y = y * self.weight.reshape(affine) + self.bias.reshape(affine)
         return y.to(compute_dtype(self.dtype, x, self.weight))
 
 

@@ -8,9 +8,11 @@ mutable flax collection; here `embedding.weight` (K, D), `ema_cluster_size`
 `torch.no_grad()` when the quantizer is called with `train=True` (by default
 when the module is in training mode). The distances are computed in float32
 whatever the input type, and the output passes the gradient straight
-through to the input. `distributed_synchronization` is the identity: the
-all-reduce of the statistics across processes waits for the multi-device
-slice.
+through to the input. `distributed_synchronization` all-reduces the
+statistics over the mesh axis `axis_name` when `ddp_sync` is set and a
+mesh is current (`with mesh:`, parallel/mesh.py; the train steps built
+with a mesh enter it), as the JAX module's psum over a bound axis; it is
+the identity otherwise.
 """
 from __future__ import annotations
 
@@ -56,8 +58,12 @@ class EMAQuantizer(nn.Module):
         decay: float = 0.99,
         epsilon: float = 1e-5,
         embedding_init: str = "normal",
+        ddp_sync: bool = True,
+        axis_name: str | None = None,
     ) -> None:
         super().__init__()
+        self.ddp_sync = ddp_sync
+        self.axis_name = axis_name
         self.spatial_dims = spatial_dims
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
@@ -96,8 +102,17 @@ class EMAQuantizer(nn.Module):
     def distributed_synchronization(
         self, encodings_sum: torch.Tensor, dw: torch.Tensor
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """The identity on one process (the JAX module's psum over a mesh axis)."""
-        return encodings_sum, dw
+        """The sums over the ranks of the current mesh's `axis_name` (the JAX
+        module's psum), when `ddp_sync` is set and a mesh with that axis is
+        current; else the identity."""
+        from ...parallel.collectives import all_reduce
+        from ...parallel.mesh import current_mesh
+
+        mesh = current_mesh()
+        if not self.ddp_sync or self.axis_name is None or mesh is None:
+            return encodings_sum, dw
+        group = mesh.group(self.axis_name)
+        return all_reduce(encodings_sum, group), all_reduce(dw, group)
 
     @torch.no_grad()
     def _ema_update(self, flat: torch.Tensor, encodings: torch.Tensor) -> None:

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.spatial import current_spatial_cut
 from ..blocks.attention_blocks import AttentionBlock
 from ..blocks.convolutions import ConvND, ConvTransposeND
 from ..blocks.layers import GroupNorm
@@ -74,7 +75,11 @@ class _Downsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # F.pad lists the last axis first: (0, 1) on each spatial axis, none on channels
-        return self.conv(F.pad(x, (0, 1) * self.spatial_dims))
+        if current_spatial_cut() is None:
+            return self.conv(F.pad(x, (0, 1) * self.spatial_dims))
+        # the cut axis (the first spatial one, F.pad's last pair) takes its
+        # pad plane at the outer border only, from the conv's halo
+        return self.conv(F.pad(x, (0, 1) * (self.spatial_dims - 1) + (0, 0)), cut_pad_after=1)
 
 
 class _Upsample(nn.Module):

@@ -34,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops import fold_groupnorm_affine, fused_norm_silu_conv3d, get_timestep_embedding
+from ...parallel.spatial import current_spatial_cut, halo_extend
 from ..blocks.attention_blocks import AttentionBlock, SpatialTransformer
 from ..blocks.convolutions import ConvND, avg_pool, upsample_nearest
 from ..blocks.layers import GroupNorm, Linear
@@ -215,29 +216,54 @@ class ResnetBlock(nn.Module):
         """
         dtype = self.dtype or x.dtype
         groups, eps = self.norm1.num_groups, self.norm1.eps
+        cut = current_spatial_cut()
+        group = None if cut is None else cut.group
         x = x.to(dtype).contiguous()
-        xl = x.permute(0, 2, 3, 4, 1)
 
         def kernel(conv):  # (Cout, Cin, 3, 3, 3) -> (3, 3, 3, Cin, Cout), a view
             # cast to x's type where it is used: by the launcher on CUDA, by
             # the plain version on the CPU
             return conv.conv.weight.permute(2, 3, 4, 1, 0)
 
-        s1, t1 = fold_groupnorm_affine(xl, self.norm1.weight, self.norm1.bias, groups, eps)
-        h = fused_norm_silu_conv3d(xl, kernel(self.conv1), s1, t1, bias=self.conv1.conv.bias)
+        s1, t1 = fold_groupnorm_affine(x.permute(0, 2, 3, 4, 1), self.norm1.weight,
+                                       self.norm1.bias, groups, eps, group=group)
+        h = _fused_conv_cf(x, kernel(self.conv1), s1, t1, self.conv1.conv.bias, None, cut)
 
         temb = F.linear(
             F.silu(emb.float()), self.time_emb_proj.weight, self.time_emb_proj.bias
         )  # (B, C) f32
         skip = x if self.skip_connection is None else self.skip_connection(x)
 
-        s2, t2 = fold_groupnorm_affine(h, self.norm2.weight, self.norm2.bias, groups, eps,
-                                       temb=temb)
-        out = fused_norm_silu_conv3d(
-            h, kernel(self.conv2), s2, t2, bias=self.conv2.conv.bias,
-            residual=skip.to(dtype).permute(0, 2, 3, 4, 1),
-        )
+        s2, t2 = fold_groupnorm_affine(h.permute(0, 2, 3, 4, 1), self.norm2.weight,
+                                       self.norm2.bias, groups, eps, temb=temb, group=group)
+        return _fused_conv_cf(h, kernel(self.conv2), s2, t2, self.conv2.conv.bias,
+                              skip.to(dtype), cut)
+
+
+def _fused_conv_cf(x, w, scale, shift, bias, residual, cut) -> torch.Tensor:
+    """`fused_norm_silu_conv3d` of channels-first x (B, C, D, H, W) through
+    its channels-last view, returning channels-first (no layout copy).
+
+    Under a spatial cut the kernel runs on the slab extended by one halo
+    plane from each neighbour (none at the outer border, where the kernel's
+    own zero padding of the activation is the uncut call's) and the planes
+    of the slab are cropped from its output: the function the uncut call
+    computes. The residual is padded with zeros to the extended depth.
+    """
+    if cut is None:
+        res = None if residual is None else residual.permute(0, 2, 3, 4, 1)
+        out = fused_norm_silu_conv3d(x.permute(0, 2, 3, 4, 1), w, scale, shift, bias=bias,
+                                     residual=res)
         return out.permute(0, 4, 1, 2, 3)
+    depth = x.shape[2]
+    xe, lo = halo_extend(x, 1, 1, cut, border="none")
+    res = None
+    if residual is not None:
+        hi = xe.shape[2] - depth - lo
+        res = F.pad(residual, (0, 0, 0, 0, lo, hi)).permute(0, 2, 3, 4, 1)
+    out = fused_norm_silu_conv3d(xe.permute(0, 2, 3, 4, 1), w, scale, shift, bias=bias,
+                                 residual=res)
+    return out.permute(0, 4, 1, 2, 3).narrow(2, lo, depth)
 
 
 def _attention(

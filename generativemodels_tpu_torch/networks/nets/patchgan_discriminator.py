@@ -14,7 +14,10 @@ The norms compute what the JAX module's do:
   E[x^2] - E[x]^2, biased, in float32) normalise and move the running
   statistics, in eval mode (the JAX module's `deterministic`) the running
   statistics normalise. Its scale is drawn from N(0, 0.02), as the JAX
-  module initialises it.
+  module initialises it. With `norm_axis_name` (the JAX module's synced
+  BatchNorm) the batch statistics are those of the global batch while a
+  mesh is current: f32 sums and counts all-reduced over that mesh axis
+  (differentiably), the same conventions kept.
 - "INSTANCE": no affine, the biased variance, eps 1e-5.
 - "GROUP": GroupNorm with affine; `("GROUP", {"num_groups": n, "eps": e})`.
 Norm kwargs that the JAX module would drop without a word raise ValueError.
@@ -73,7 +76,23 @@ def _norm_kind(norm) -> tuple[str, dict]:
 class BatchNormND(nn.BatchNorm1d):
     """flax BatchNorm over (B, C, *spatial) of any rank: torch momentum 0.1,
     the fast biased variance in the running statistics (torch keeps the
-    unbiased one), normalisation in float32."""
+    unbiased one), normalisation in float32. `axis_name`: take the batch
+    statistics over that axis of the current mesh (flax's `axis_name`)."""
+
+    def __init__(self, *args, axis_name: str | None = None, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.axis_name = axis_name
+
+    def _moments(self, xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Batch mean and E[x^2] per channel, over the mesh axis when synced."""
+        from ...parallel.collectives import global_moments
+        from ...parallel.mesh import current_mesh
+
+        axes = [0, *range(2, xf.ndim)]
+        mesh = current_mesh() if self.axis_name is not None else None
+        if mesh is None:
+            return xf.mean(axes), (xf * xf).mean(axes)
+        return global_moments(xf, axes, mesh.group(self.axis_name))
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         if x.ndim < 2:
@@ -84,9 +103,8 @@ class BatchNormND(nn.BatchNorm1d):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         xf = x.float()
         if self.training:
-            axes = [0, *range(2, x.ndim)]
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            mean, msq = self._moments(xf)
+            var = torch.clamp(msq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
                 self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
@@ -112,11 +130,12 @@ class _InstanceNorm(nn.Module):
 class _ADN(nn.Module):
     """Norm (child `N`), dropout, activation: the reference's ADN ordering."""
 
-    def __init__(self, norm, channels: int, dropout: float, act) -> None:
+    def __init__(self, norm, channels: int, dropout: float, act,
+                 axis_name: str | None = None) -> None:
         super().__init__()
         kind, kwargs = _norm_kind(norm)
         if kind == "BATCH":
-            self.N = BatchNormND(channels, eps=1e-5, momentum=0.1)
+            self.N = BatchNormND(channels, eps=1e-5, momentum=0.1, axis_name=axis_name)
             nn.init.normal_(self.N.weight, 0.0, 0.02)
         elif kind == "INSTANCE":
             self.N = _InstanceNorm()
@@ -170,6 +189,7 @@ class PatchDiscriminator(nn.Module):
         padding: int | Sequence[int] = 1,
         dropout: float = 0.0,
         last_conv_kernel_size: int | None = None,
+        norm_axis_name: str | None = None,
     ) -> None:
         super().__init__()
         act = _activation(activation)
@@ -184,7 +204,7 @@ class PatchDiscriminator(nn.Module):
             stride = 1 if l == num_layers_d - 1 else 2
             self.add_module(str(l), _Conv(
                 spatial_dims, c_in, c_out, kernel_size, stride, padding, bias,
-                adn=_ADN(norm, c_out, dropout, activation),
+                adn=_ADN(norm, c_out, dropout, activation, norm_axis_name),
             ))
             c_in, c_out = c_out, c_out * 2
         self.final_conv = _Conv(spatial_dims, c_in, out_channels, last_k, 1, (last_k - 1) // 2,
@@ -225,6 +245,7 @@ class MultiScalePatchDiscriminator(nn.Module):
         dropout: float = 0.0,
         minimum_size_im: int = 256,
         last_conv_kernel_size: int = 1,
+        norm_axis_name: str | None = None,
     ) -> None:
         super().__init__()
         if isinstance(num_layers_d, int):
@@ -250,6 +271,7 @@ class MultiScalePatchDiscriminator(nn.Module):
                 out_channels=out_channels, num_layers_d=n_layers, kernel_size=kernel_size,
                 activation=activation, norm=norm, bias=bias, padding=self.padding,
                 dropout=dropout, last_conv_kernel_size=last_conv_kernel_size,
+                norm_axis_name=norm_axis_name,
             ))
 
     def forward(self, x: torch.Tensor) -> tuple[list[torch.Tensor], list[list[torch.Tensor]]]:

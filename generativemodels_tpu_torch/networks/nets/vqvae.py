@@ -201,7 +201,8 @@ class VQVAE(nn.Module):
 
     `forward` returns (reconstruction, quantization loss). Arguments mirror
     the JAX module's; `use_checkpointing` recomputes the encoder and the
-    decoder in the backward.
+    decoder in the backward; `ddp_sync` and `axis_name` go to the
+    EMAQuantizer (its codebook statistics over a mesh axis).
     """
 
     def __init__(
@@ -223,6 +224,8 @@ class VQVAE(nn.Module):
         dropout: float = 0.0,
         act="RELU",
         output_act=None,
+        ddp_sync: bool = True,
+        axis_name: str | None = None,
         use_checkpointing: bool = False,
         dtype: torch.dtype | None = None,
     ) -> None:
@@ -260,7 +263,8 @@ class VQVAE(nn.Module):
         self.quantizer = VectorQuantizer(EMAQuantizer(
             spatial_dims=spatial_dims, num_embeddings=num_embeddings,
             embedding_dim=embedding_dim, commitment_cost=commitment_cost, decay=decay,
-            epsilon=epsilon, embedding_init=embedding_init,
+            epsilon=epsilon, embedding_init=embedding_init, ddp_sync=ddp_sync,
+            axis_name=axis_name,
         ))
 
     def _in(self, x: torch.Tensor) -> torch.Tensor:

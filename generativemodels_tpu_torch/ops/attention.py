@@ -2,7 +2,9 @@
 
 Counterpart of generativemodels_tpu/ops/attention.py. The dispatch rule is
 the JAX one with "on TPU" read as "q lies on a CUDA device"; its thresholds
-were set on a TPU and are to be measured again on the H100.
+were set on a TPU and are to be measured again on the H100. Under
+`sequence_sharding` a self-attention call goes through
+`ops/sharded_attention.py`, as in JAX.
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ def dot_product_attention(
     upcast: bool = False,
     use_flash: bool | None = None,
     mask: torch.Tensor | None = None,
+    seq_shard: bool | None = None,
 ) -> torch.Tensor:
     """Multi-head attention over packed (B, S, H*D) tensors.
 
@@ -64,6 +67,11 @@ def dot_product_attention(
             where a query attends. Forces the plain path (KV-cache
             decoding); masked scores are filled with the type's lowest value
             after the causal mask, as in JAX.
+        seq_shard: None consults the active `sequence_sharding` context
+            (ops/sharded_attention.py) and routes a self-attention call (Sq ==
+            Sk of this rank's blocks, no mask) through
+            `sequence_parallel_attention`; False keeps the call local (a
+            cross-attention context, and the sharded path's own calls).
 
     Returns:
         (B, Sq, inner_dim) in q's type.
@@ -73,6 +81,14 @@ def dot_product_attention(
     head_dim = inner // num_heads
     if scale is None:
         scale = 1.0 / (head_dim**0.5)
+
+    if seq_shard is not False and mask is None and sq == sk:
+        from .sharded_attention import current_sequence_sharding, sequence_parallel_attention
+
+        cfg = current_sequence_sharding()
+        if cfg is not None:
+            return sequence_parallel_attention(q, k, v, num_heads, cfg, scale=scale,
+                                               upcast=upcast, use_flash=use_flash, causal=causal)
 
     use_flash = resolve_use_flash(sq, head_dim, use_flash, on_cuda=q.is_cuda,
                                   has_mask=mask is not None)

@@ -73,6 +73,7 @@ def fold_groupnorm_affine(
     num_groups: int,
     eps: float = 1e-6,
     temb: torch.Tensor | None = None,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fold GroupNorm statistics (and an optional pre-norm channel bias) into
     a per-(batch, channel) affine: normalize(x + temb) == x * scale + shift.
@@ -80,12 +81,19 @@ def fold_groupnorm_affine(
     x: (B, *spatial, C) channels-last (any strides); temb: (B, C), added to
     x before the statistics. Returns f32 (B, C) scale and shift. Per-channel
     moments are taken in f32 and the group variance is E[x^2] - E[x]^2, as
-    the JAX function computes them.
+    the JAX function computes them. With `group` (the process group of the
+    ranks that hold the other slabs of x, under a spatial cut) the moments
+    are those of the whole volume (`parallel.collectives.global_moments`).
     """
     b, c = x.shape[0], x.shape[-1]
     red = tuple(range(1, x.ndim - 1))
-    mean_c = torch.mean(x, dim=red, dtype=torch.float32)  # (B, C)
-    msq_c = torch.mean(torch.square(x.float()), dim=red)
+    if group is None:
+        mean_c = torch.mean(x, dim=red, dtype=torch.float32)  # (B, C)
+        msq_c = torch.mean(torch.square(x.float()), dim=red)
+    else:
+        from ..parallel.collectives import global_moments
+
+        mean_c, msq_c = global_moments(x.float(), red, group)
     if temb is not None:
         t = temb.float()
         msq_c = msq_c + 2.0 * t * mean_c + torch.square(t)

@@ -9,15 +9,30 @@ timesteps are drawn from an explicit `torch.Generator` in place of a JAX
 key; `DiffusionTrainStep.update` takes them as given, which is how the tests
 feed it the draws of the JAX step.
 
-Not ported yet: `mesh` and `spatial_shard_axis` (the multi-device slice)
-raise NotImplementedError.
+Under a mesh (`parallel/mesh.py`) the step has the JAX step's global
+meaning: each rank passes its own rows of the global batch (and, with
+`spatial_shard_axis=2`, its own slab of axis 2, under `spatial_cut`), the
+loss and the gradients are those of the global batch, and every rank ends
+with the same parameters. The gradients are summed over "space" and
+averaged over "data" in one all-reduce after the backward (after the last
+microbatch when accumulating), and the loss likewise. Every rank draws the
+global batch's noise and timesteps from the same generator, in the
+single-device order, and keeps its own rows and slab: an N-rank step then
+equals the one-rank step on the full batch, up to the order of the
+reduction. The model's parameters start equal on every rank
+(`mesh.shard_params`).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from .mesh import Mesh, spatial_sharding
+from .spatial import spatial_cut
 
 
 class TrainState(NamedTuple):
@@ -46,6 +61,10 @@ class DiffusionTrainStep:
             `init_train_state(..., ema=True)`). The decay warms up as
             `min(ema_decay, (1+step)/(10+step))`, step taken before the
             increment.
+        mesh: a `parallel.Mesh`; the images are then this rank's rows of
+            the global batch over its "data" axis.
+        spatial_shard_axis: with a mesh, the images' axis cut over "space"
+            (2, the outermost spatial axis), run under `spatial_cut`.
     """
 
     def __init__(
@@ -55,17 +74,29 @@ class DiffusionTrainStep:
         prediction_target: str = "epsilon",
         accumulate_steps: int = 1,
         ema_decay: float | None = None,
+        mesh: Mesh | None = None,
+        spatial_shard_axis: int | None = None,
     ) -> None:
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh).__name__}")
+        if spatial_shard_axis is not None:
+            if mesh is None:
+                raise ValueError("spatial_shard_axis needs a mesh with a 'space' axis")
+            if "space" not in mesh.shape:
+                raise ValueError(f"mesh has no axis 'space': {mesh.axis_names}")
         self.scheduler = scheduler
         self.num_train_timesteps = num_train_timesteps or scheduler.num_train_timesteps
         self.prediction_target = prediction_target
         self.accumulate_steps = accumulate_steps
         self.ema_decay = ema_decay
+        self.mesh = mesh
+        self.spatial_shard_axis = spatial_shard_axis
 
     def loss_fn(
         self, model: nn.Module, images: torch.Tensor, noise: torch.Tensor, timesteps: torch.Tensor
     ) -> torch.Tensor:
-        """Mean squared error of the model's prediction at (noise, timesteps)."""
+        """Mean squared error of the model's prediction at (noise, timesteps);
+        under a spatial cut, this slab's share of its rows' mean."""
         noisy = self.scheduler.add_noise(images, noise, timesteps)
         pred = model(noisy, timesteps)
         if self.prediction_target == "epsilon":
@@ -74,7 +105,12 @@ class DiffusionTrainStep:
             target = self.scheduler.get_velocity(images, noise, timesteps)
         else:
             target = images
-        return torch.mean((pred - target) ** 2)
+        loss = torch.mean((pred - target) ** 2)
+        slabs = self._size("space") if self.spatial_shard_axis is not None else 1
+        return loss / slabs if slabs > 1 else loss
+
+    def _size(self, axis: str) -> int:
+        return self.mesh.axis_size(axis) if self.mesh is not None else 1
 
     def _backward(self, model, images, noise, timesteps) -> torch.Tensor:
         """Leaves the (averaged) gradients in `.grad`; returns the loss."""
@@ -98,33 +134,81 @@ class DiffusionTrainStep:
                 p.grad.mul_(inv)
         return total * inv
 
+    def _reduce(self, model: nn.Module, loss: torch.Tensor) -> torch.Tensor:
+        """The gradients and the loss of the global batch, on every rank."""
+        if self.mesh is not None:
+            loss = loss.clone()
+            reduce_over_mesh_([p.grad for p in model.parameters() if p.grad is not None]
+                              + [loss.reshape(1)], self.mesh)
+        return loss
+
     def update(
         self, state: TrainState, images: torch.Tensor, noise: torch.Tensor, timesteps: torch.Tensor
     ) -> tuple[TrainState, torch.Tensor]:
-        """The step with its noise and timesteps given: loss, gradients, one
+        """The step with its noise and timesteps given (under a mesh, this
+        rank's rows and slab of the global draws): loss, gradients, one
         optimizer update, the EMA; returns the advanced state and the loss."""
         state.optimizer.zero_grad(set_to_none=True)
-        loss = self._backward(state.model, images, noise, timesteps)
+        with self._placement():
+            loss = self._backward(state.model, images, noise, timesteps)
+            loss = self._reduce(state.model, loss)
         state.optimizer.step()
         ema_params = _ema_update(state, self.ema_decay)
         return TrainState(state.model, state.optimizer, state.step + 1, ema_params), loss
 
+    def _placement(self):
+        """`with mesh:` (and `spatial_cut` when the step cuts a spatial axis)."""
+        stack = contextlib.ExitStack()
+        if self.mesh is not None:
+            stack.enter_context(self.mesh)
+            if self.spatial_shard_axis is not None:
+                stack.enter_context(spatial_cut(self.mesh, dim=self.spatial_shard_axis))
+        return stack
+
+    def _local(self, x: torch.Tensor, with_space: bool) -> torch.Tensor:
+        """This rank's piece of a global draw."""
+        if self.mesh is None:
+            return x
+        if with_space and self.spatial_shard_axis is not None:
+            return spatial_sharding(self.mesh, x.ndim,
+                                    spatial_axis_index=self.spatial_shard_axis).shard(x)
+        return x.chunk(self._size("data"))[self.mesh.index("data")]
+
     def __call__(
         self, state: TrainState, images: torch.Tensor, generator: torch.Generator
     ) -> tuple[TrainState, torch.Tensor]:
-        noise = torch.randn(
-            images.shape, generator=generator, device=images.device, dtype=images.dtype
-        )
+        shape = list(images.shape)
+        shape[0] *= self._size("data")
+        if self.spatial_shard_axis is not None:
+            shape[self.spatial_shard_axis] *= self._size("space")
+        noise = torch.randn(shape, generator=generator, device=images.device, dtype=images.dtype)
         timesteps = torch.randint(
-            0, self.num_train_timesteps, (images.shape[0],), generator=generator,
-            device=images.device,
+            0, self.num_train_timesteps, (shape[0],), generator=generator, device=images.device,
         )
-        return self.update(state, images, noise, timesteps)
+        return self.update(state, images, self._local(noise, True), self._local(timesteps, False))
+
+
+@torch.no_grad()
+def reduce_over_mesh_(tensors: list[torch.Tensor], mesh: Mesh) -> None:
+    """Sum `tensors` in place over every rank of the mesh, then divide by its
+    "data" size: from each rank's share, the gradients (or losses) of the
+    global batch's mean. One all-reduce a dtype, over a flat copy."""
+    if not dist.is_initialized() or not tensors:
+        return
+    scale = 1.0 / mesh.axis_size("data")
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        same = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.reshape(-1) for t in same])
+        dist.all_reduce(flat)
+        if scale != 1.0:
+            flat.mul_(scale)
+        for t, chunk in zip(same, flat.split([t.numel() for t in same])):
+            t.copy_(chunk.view_as(t))
 
 
 def make_diffusion_train_step(
     scheduler,
-    mesh=None,
+    mesh: Mesh | None = None,
     num_train_timesteps: int | None = None,
     prediction_target: str = "epsilon",
     spatial_shard_axis: int | None = None,
@@ -133,13 +217,11 @@ def make_diffusion_train_step(
 ) -> DiffusionTrainStep:
     """Build a DDPM training step: `step(state, images, generator) -> (state, loss)`.
 
-    See `DiffusionTrainStep` for the arguments. `mesh` and
-    `spatial_shard_axis` are not ported yet.
+    See `DiffusionTrainStep` for the arguments.
     """
-    if mesh is not None or spatial_shard_axis is not None:
-        raise NotImplementedError("mesh-sharded training is not ported yet")
     return DiffusionTrainStep(
-        scheduler, num_train_timesteps, prediction_target, accumulate_steps, ema_decay
+        scheduler, num_train_timesteps, prediction_target, accumulate_steps, ema_decay,
+        mesh=mesh, spatial_shard_axis=spatial_shard_axis,
     )
 
 

@@ -18,7 +18,10 @@ Usage:
     python -m generativemodels_tpu_torch.recipes.train_2d_ddpm --data-dir DIR \\
         --fit crop_pad --augment --cache --checkpoint-dir CKPT
 
-Not ported yet: `--data-parallel/--multihost`.
+`--data-parallel` / `--multihost` train as one rank of a torchrun process
+group (recipes/data_flags.py): `--batch` is the global batch, every rank
+draws the global batch's images and noise alike and keeps its rows, only
+rank 0 prints and saves, and `--sample` is left to the saved checkpoint.
 """
 from __future__ import annotations
 
@@ -31,10 +34,15 @@ import torch
 from ..inferers import DiffusionInferer
 from ..networks.nets import DiffusionModelUNet
 from ..networks.schedulers import DDPMScheduler
-from ..parallel import init_train_state, make_diffusion_train_step
+from ..parallel import init_train_state, make_diffusion_train_step, shard_params
 from ..utils import CheckpointManager, StepTimer
-from .data_flags import add_data_arguments, data_batches
-from .serve import require_device
+from .data_flags import (
+    add_data_arguments,
+    add_parallel_arguments,
+    data_batches,
+    global_rows,
+    launch,
+)
 
 
 def synthetic_batch(
@@ -77,13 +85,15 @@ def main(argv: list[str] | None = None) -> dict:
                         help="maintain an EMA of the params (e.g. 0.9999); "
                         "sampling and the saved checkpoint then use the EMA weights")
     add_data_arguments(parser)
+    add_parallel_arguments(parser)
     parser.add_argument("--checkpoint-dir", type=str, default=None,
                         help="save {params, step} there after training")
     parser.add_argument("--sample", action="store_true", help="sample after training")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    device = require_device(args.device)
+    run = launch(args)
+    device = run.device
     if device.type == "cuda":
         # full float32 matmuls and convolutions, as the JAX reference computes
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -99,43 +109,51 @@ def main(argv: list[str] | None = None) -> dict:
             norm_num_groups=args.norm_groups,
         )
     model = model.to(device).train()
+    if run.mesh is not None:
+        shard_params(model, run.mesh)
     scheduler = DDPMScheduler(
         num_train_timesteps=1000, prediction_type=args.prediction_type, device=device
     )
     optimizer = torch.optim.Adam(model.parameters(), lr=args.lr)
     step = make_diffusion_train_step(
-        scheduler, prediction_target=args.prediction_type,
+        scheduler, mesh=run.mesh, prediction_target=args.prediction_type,
         accumulate_steps=args.accumulate, ema_decay=args.ema_decay,
     )
     state = init_train_state(model, optimizer, ema=args.ema_decay is not None)
 
     timer = StepTimer(warmup=2)
     generator = torch.Generator(device).manual_seed(42)
-    data_iter = data_batches(args, 2, device)
+    data_iter = data_batches(args, 2, device, run.mesh)
     losses = []
     for i in range(args.steps):
         if data_iter is not None:
             images = next(data_iter) * 2 - 1
         else:
-            images = synthetic_batch(generator, args.batch, args.size, device) * 2 - 1
+            images = global_rows(
+                run, lambda n: synthetic_batch(generator, n, args.size, device), args.batch) * 2 - 1
         state, loss = step(state, images, generator)
         losses.append(loss)
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # time the step, not its queueing
         timer.tick()
-        if (i + 1) % 20 == 0:
+        if (i + 1) % 20 == 0 and run.is_main:
             sps = timer.steps_per_sec
             print(f"step {i + 1}/{args.steps} loss={float(loss):.4f}"
                   + (f" {sps:.2f} steps/s" if sps else ""))
 
+    steps_per_sec = timer.steps_per_sec  # read now: it counts until it is read
     # EMA weights (when tracked) are what checkpoints and sampling consume
     final_params = state.ema_params if args.ema_decay is not None else state.model.state_dict()
-    if args.checkpoint_dir:
+    if args.checkpoint_dir and run.is_main:
         save_final(args.checkpoint_dir, final_params, state.step)
         print(f"checkpoint saved at step {state.step}"
               + (" (EMA weights)" if args.ema_decay is not None else ""))
 
-    if args.sample:
+    if args.sample and run.count > 1:
+        if run.is_main:
+            print("--sample is a single-process path; sample from the saved "
+                  "checkpoint instead (recipes/serve.py)")
+    elif args.sample:
         sampler = state.model
         if args.ema_decay is not None:
             sampler = copy.deepcopy(state.model)
@@ -151,11 +169,12 @@ def main(argv: list[str] | None = None) -> dict:
             )
         print(f"1000-step sample in {time.time() - t0:.1f}s, "
               f"range [{float(img.min()):.3f}, {float(img.max()):.3f}]")
+    run.close()
 
     return dict(
         state=state,
         losses=[float(x) for x in losses],
-        steps_per_sec=timer.steps_per_sec,
+        steps_per_sec=steps_per_sec,
     )
 
 

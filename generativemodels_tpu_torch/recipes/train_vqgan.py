@@ -26,9 +26,11 @@ from typing import NamedTuple
 
 import torch
 
-from ..engines.trainer import frozen
+from ..engines.trainer import check_data_mesh, frozen
 from ..losses import PatchAdversarialLoss, feature_matching_loss
 from ..networks.nets import VQVAE, PatchDiscriminator
+from ..parallel.mesh import Mesh
+from ..parallel.train import reduce_over_mesh_
 from .data_flags import add_data_arguments, data_batches
 from .serve import require_device
 from .train_2d_ddpm import synthetic_batch
@@ -47,16 +49,39 @@ class VQGANState(NamedTuple):
 class VQGANStep:
     """`step(state, images) -> (state, outputs)`: one G (+ EMA codebook) and
     one D update; `outputs` holds "g_total", "d_total" and the loss terms.
-    The VQ-VAE's codebook moves when it is in training mode."""
+    The VQ-VAE's codebook moves when it is in training mode.
+
+    With a data `mesh` the images are this rank's rows of the global batch:
+    the step runs inside `with mesh:`, G's and D's gradients and the losses
+    are averaged over "data", and the VQ-VAE's codebook statistics must be
+    global (build it with `axis_name="data"`), so the step is the
+    single-device step on the full batch.
+    """
 
     def __init__(self, adv_weight: float = 0.01, fm_weight: float = 1.0,
-                 quant_weight: float = 1.0) -> None:
+                 quant_weight: float = 1.0, mesh: Mesh | None = None) -> None:
         self.adv = PatchAdversarialLoss(criterion="least_squares")
         self.adv_weight = adv_weight
         self.fm_weight = fm_weight
         self.quant_weight = quant_weight
+        self.mesh = check_data_mesh(mesh)
+
+    def _reduce(self, model, outputs: dict, names: tuple) -> None:
+        if self.mesh is not None:
+            reduce_over_mesh_([p.grad for p in model.parameters() if p.grad is not None]
+                              + [outputs[k].reshape(1) for k in names], self.mesh)
 
     def __call__(self, state: VQGANState, images: torch.Tensor) -> tuple[VQGANState, dict]:
+        if self.mesh is None:
+            return self._step(state, images)
+        quantizer = state.vqvae.quantizer.quantizer
+        if not quantizer.ddp_sync or quantizer.axis_name != "data":
+            raise ValueError("under a mesh the VQ-VAE's codebook syncs over 'data': build it "
+                             "with ddp_sync=True, axis_name='data'")
+        with self.mesh:
+            return self._step(state, images)
+
+    def _step(self, state: VQGANState, images: torch.Tensor) -> tuple[VQGANState, dict]:
         vqvae, disc, adv = state.vqvae, state.disc, self.adv
         with torch.no_grad():
             real_feats = disc(images)[:-1]
@@ -71,6 +96,12 @@ class VQGANStep:
         g_total = (recon_l1 + self.quant_weight * q_loss
                    + self.adv_weight * (g_adv + self.fm_weight * fm))
         g_total.backward()
+        outputs = {
+            "g_total": g_total, "reconstruction_loss": recon_l1, "quantization_loss": q_loss,
+            "generator_loss": g_adv, "feature_matching_loss": fm,
+        }
+        outputs = {k: v.detach().clone() for k, v in outputs.items()}
+        self._reduce(vqvae, outputs, tuple(outputs))
         state.g_optimizer.step()
 
         fakes = recon.detach()
@@ -79,20 +110,16 @@ class VQGANStep:
         real_logits = disc(images)[-1]
         d_total = 0.5 * (adv(real_logits, True, True) + adv(fake_logits, False, True))
         d_total.backward()
+        outputs["d_total"] = d_total.detach().clone()
+        self._reduce(disc, outputs, ("d_total",))
         state.d_optimizer.step()
-
-        outputs = {
-            "g_total": g_total, "d_total": d_total, "reconstruction_loss": recon_l1,
-            "quantization_loss": q_loss, "generator_loss": g_adv,
-            "feature_matching_loss": fm,
-        }
-        return state._replace(step=state.step + 1), {k: v.detach() for k, v in outputs.items()}
+        return state._replace(step=state.step + 1), outputs
 
 
 def make_vqgan_step(adv_weight: float = 0.01, fm_weight: float = 1.0,
-                    quant_weight: float = 1.0) -> VQGANStep:
+                    quant_weight: float = 1.0, mesh: Mesh | None = None) -> VQGANStep:
     """The fused VQ-GAN step; the models and optimizers live in the state."""
-    return VQGANStep(adv_weight, fm_weight, quant_weight)
+    return VQGANStep(adv_weight, fm_weight, quant_weight, mesh)
 
 
 def build_models(spatial_dims: int = 2, channels: tuple = (128, 256)) -> tuple[VQVAE,

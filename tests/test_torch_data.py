@@ -226,10 +226,19 @@ def test_library_is_built_from_the_port_source():
 
 
 def test_several_processes_are_not_ported(order_dir):
-    with pytest.raises(NotImplementedError, match="A11"):
-        next(pipeline.file_dataset(order_dir, process_count=2, process_index=0))
-    with pytest.raises(NotImplementedError, match="A11"):
-        next(pipeline.paired_stream(order_dir, order_dir, (4, 4), process_count=2))
+    """(The name predates the multi-process port.) Each of two processes
+    reads its strided slice of the file order through the native loader,
+    and paired_stream slices its pairs alike."""
+    for rank in range(2):
+        got = [int(a.flat[0]) for a in pipeline.file_dataset(
+            order_dir, process_count=2, process_index=rank, loop=False)]
+        assert got == list(range(rank, FILES - FILES % 2, 2))
+    pairs = [list(pipeline.paired_stream(order_dir, order_dir, (4, 5, 6), fit="none",
+                                         loop=False, process_count=2, process_index=r))
+             for r in range(2)]
+    firsts = [sorted(int(a.flat[0]) for a, _ in p) for p in pairs]
+    assert len(firsts[0]) == len(firsts[1]) == FILES // 2
+    assert sorted(firsts[0] + firsts[1]) == list(range(FILES - FILES % 2))
 
 
 def _arrays(rng_seed, shape):

@@ -63,6 +63,15 @@ tokens, one training forward and backward on the kernels against the plain
 attention path (logits within 1e-4, gradients within 1e-3 of their largest
 value); greedy sampling on the card equal on the windowed and the cached
 paths; the AR and SPADE recipes on the card by default.
+The sequence-parallel pieces (ops/sharded_attention.py, chip_smoke.py's
+phase 15 (b) at smaller shapes): kernel 1 and kernel 2 at Sq = S/n, Sk = S
+give the unsharded kernels' rows to the bit, kernel 3's dk, dv over the n
+query blocks sum to the unsharded ones within the backward tolerance; the
+ring's n chunks of kernel 1 with its lse, merged by `_combine_chunks` on
+the card, within 1e-5 (f32) or 2e-2 of the largest |O| (bf16: a few ulps
+there) of the unsharded O; kernel 5 on the
+halo slabs of a cut volume, cropped, equal to the unsharded output to the
+bit.
 The host data path on the card's machine: the port's loader (built there
 without the decoders whose headers are missing) in file order and in the
 seeded shuffle order, batches landing on the card equal to the host
@@ -1258,3 +1267,105 @@ def test_png_family_reads_through_pil_where_the_decoder_is_missing(cuda_device, 
     got = [float(a[0, 0]) for a in file_dataset(str(tmp_path), loop=False)]
     assert got == [np.float32(20 * i) * (np.float32(1) / np.float32(255)) for i in range(12)]
     assert native.decoder_routes()["png"] in ("native", "PIL (png.h not found)")
+
+
+# the sequence-parallel pieces (ops/sharded_attention.py) at a rank's shapes:
+# (BH, S, D, dtype, n), the sequence cut in n blocks
+SEQ_PARALLEL_CASES = [(2, 4096, 64, torch.bfloat16, 2), (2, 4096, 64, torch.bfloat16, 4),
+                      (2, 2048, 128, torch.float32, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,dtype,n", SEQ_PARALLEL_CASES)
+def test_allgather_local_kernels_equal_the_unsharded_rows(cuda_device, bh, s, d, dtype, n):
+    """Kernel 1 at Sq = S/n, Sk = S (the allgather's local call) gives the
+    unsharded kernel's rows to the bit, as does kernel 2's dq; kernel 3's dk,
+    dv over the n query blocks sum to the unsharded ones (the gather's
+    backward reduce-scatters them) within the backward tolerance."""
+    g = torch.Generator("cuda").manual_seed(n)
+    q, k, v, dout = (torch.randn((bh, s, d), generator=g, device="cuda").to(dtype)
+                     for _ in range(4))
+    scale = d**-0.5
+    out, lse2 = FLASH_FWD(q, k, v, scale=scale, log2_lse=True)
+    qp = _prescaled(q, scale)
+    do2, delta = _backward_rows(out, dout)
+    dq = FLASH_BWD_DQ(qp, k, v, do2, lse2, delta)
+    dk, dv = FLASH_BWD_DKV(qp, k, v, do2, lse2, delta)
+    c = s // n
+    dk_sum = torch.zeros_like(dk, dtype=torch.float32)
+    dv_sum = torch.zeros_like(dv, dtype=torch.float32)
+    for r in range(n):
+        sl = slice(r * c, (r + 1) * c)
+
+        def rows(x):
+            return x[:, sl].contiguous()
+
+        local_out, _ = FLASH_FWD(rows(q), k, v, scale=scale)
+        assert torch.equal(local_out, out[:, sl])
+        assert torch.equal(FLASH_BWD_DQ(rows(qp), k, v, rows(do2), rows(lse2), rows(delta)),
+                           dq[:, sl])
+        dk_r, dv_r = FLASH_BWD_DKV(rows(qp), k, v, rows(do2), rows(lse2), rows(delta))
+        dk_sum += dk_r.float()
+        dv_sum += dv_r.float()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, want in ((dk_sum, dk), (dv_sum, dv)):
+        assert float((got - want.float()).abs().max() / want.float().abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,dtype,n", SEQ_PARALLEL_CASES)
+def test_ring_merge_of_kernel_chunks_on_gpu(cuda_device, bh, s, d, dtype, n):
+    """The ring's n chunks of kernel 1 with its lse, merged by
+    `_combine_chunks` on the card, give the unsharded kernel's O: within
+    1e-5 in f32, within 2e-2 of the largest |O| in bf16 (each chunk's O is
+    rounded to bf16 before the f32 merge: a few ulps at the largest |O|)."""
+    from generativemodels_tpu_torch.ops.sharded_attention import _combine_chunks
+
+    g = torch.Generator("cuda").manual_seed(10 + n)
+    q, k, v = (torch.randn((bh, s, d), generator=g, device="cuda").to(dtype) for _ in range(3))
+    scale = d**-0.5
+    full, _ = FLASH_FWD(q, k, v, scale=scale)
+    c = s // n
+    for r in range(n):
+        qr = q[:, r * c:(r + 1) * c].contiguous()
+        acc = acc_lse = None
+        for j in (r, *[(r - i - 1) % n for i in range(n - 1)]):  # the ring's order
+            o, lse = flash_attention_with_lse(qr, k[:, j * c:(j + 1) * c].contiguous(),
+                                              v[:, j * c:(j + 1) * c].contiguous(), scale=scale)
+            assert o.is_cuda and lse.dtype == torch.float32
+            acc, acc_lse = (o.float(), lse) if acc is None else _combine_chunks(acc, acc_lse, o,
+                                                                                 lse)
+        want = full[:, r * c:(r + 1) * c].float()
+        err = float((acc - want).abs().max())
+        assert err <= (1e-5 if dtype == torch.float32 else 2e-2 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_fused_conv_halo_slabs_equal_the_unsharded_output(cuda_device, n):
+    """Kernel 5 on each slab of a cut volume extended by one plane from
+    each neighbour (none at the outer border), cropped to the slab, as the
+    cut fused ResnetBlock calls it: the crops equal the unsharded output to
+    the bit, in both types, with and without the residual."""
+    g = torch.Generator("cuda").manual_seed(20 + n)
+    b, cin, cout, d, h, w = 1, 32, 32, 32, 32, 32
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((b, cin, d, h, w), generator=g, device="cuda").to(dtype)
+        res = torch.randn((b, cout, d, h, w), generator=g, device="cuda").to(dtype)
+        kernel = ((27 * cin) ** -0.5 * torch.randn((3, 3, 3, cin, cout), generator=g,
+                                                   device="cuda")).to(dtype)
+        scale = 1.0 + 0.1 * torch.randn((b, cin), generator=g, device="cuda")
+        shift = 0.1 * torch.randn((b, cin), generator=g, device="cuda")
+        bias = 0.1 * torch.randn(cout, generator=g, device="cuda")
+        for residual in (None, res):
+            full = FUSED_CONV(x.permute(0, 2, 3, 4, 1), kernel, scale, shift, bias,
+                              None if residual is None else residual.permute(0, 2, 3, 4, 1))
+            c = d // n
+            for r in range(n):
+                lo, hi = max(0, r * c - 1), min(d, (r + 1) * c + 1)
+                slab = x[:, :, lo:hi].contiguous()
+                res_slab = (None if residual is None
+                            else residual[:, :, lo:hi].contiguous().permute(0, 2, 3, 4, 1))
+                got = FUSED_CONV(slab.permute(0, 2, 3, 4, 1), kernel, scale, shift, bias, res_slab)
+                start = r * c - lo
+                assert torch.equal(got[:, start:start + c], full[:, r * c:(r + 1) * c])

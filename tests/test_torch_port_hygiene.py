@@ -60,7 +60,9 @@ def test_port_modules_import_without_jax():
                  "ops.fused_conv", "recipes.draws", "recipes.anomaly", "recipes.inpaint",
                  "recipes.super_resolution", "recipes.classifier_guidance",
                  "recipes.diffusion_autoencoder", "recipes.train_controlnet",
-                 "recipes.segmentation_ddpm", "recipes.compare_schedulers"):
+                 "recipes.segmentation_ddpm", "recipes.compare_schedulers",
+                 "parallel.mesh", "parallel.multihost", "parallel.spatial",
+                 "parallel.collectives", "ops.sharded_attention"):
         assert f"generativemodels_tpu_torch.{name}" in modules
     code = (
         "import importlib, sys\n"

@@ -252,8 +252,12 @@ def test_multi_step_train_matches_single_steps():
 
 
 def test_sharded_training_is_not_ported():
-    with pytest.raises(NotImplementedError):
+    """(The name predates the mesh step, tests/test_torch_parallel.py.) A
+    mesh must be the port's, and a spatial cut needs one."""
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         make_diffusion_train_step(DDPMScheduler(), mesh=object())
+    with pytest.raises(ValueError, match="needs a mesh"):
+        make_diffusion_train_step(DDPMScheduler(), spatial_shard_axis=2)
 
 
 def test_recipe_main_trains_on_cpu():
