@@ -184,7 +184,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      `probes/multi_card.py` on two `gloo` ranks that share cuda:0 (`nccl`
      refuses two ranks on one card): the cut ("space": 2) 3D training step
      at 128^3 and the allgather and ring attention at the 3D shape, against
-     one rank; a collective that gloo refuses fails the phase.
+     one rank; a collective that gloo refuses fails the phase; (d) the same
+     way, the 3D LDM recipe's stage-1 G+D step (`train_3d_ldm.build_models`,
+     128^3, batch 2) cut on {"space": 2} in f32 (losses within 1e-5 of the
+     uncut step, G's and D's gradients within 1e-5 or twice the distance of
+     two f32 orders of the uncut step, the PatchGAN's float64 gradients
+     within 1e-8) and bf16 (within twice the uncut bf16 step's distance from
+     f32), kernels 1-3 counted on each rank
+     over the cut f32 step (the AEKL's attention through the allgather at
+     (2, 16384, 32768, 64) f32), and the VQ-GAN recipe's step (64x64, batch
+     16) cut on {"space": 2}; (b) also times SDPA's backward at the
+     allgather's shapes and kernel 5's plain version and F.conv3d on a halo
+     slab.
 Phase 2 also holds kernels 1-4 at phase 10's two f32 shapes, (2, 32768,
 32768, 64) and (2, 4096, 4096, 64), at phase 11's causal (64, 1024, 1024,
 32) f32, and under the JAX kernel's other two contracts
@@ -3996,6 +4007,13 @@ P15_CUTS = (2, 4)
 RING_TOLERANCE = 2e-2
 # phase 15 (c)'s two-rank runs on the one card, through probes/multi_card.py
 P15_SAME_CARD_CHECKS = ("cut_space", "attention")
+# phase 15 (d)'s: the 3D LDM stage-1 G+D step at 128^3 (batch 2) and the
+# VQ-GAN step at 64x64 (batch 16), each cut on {"space": 2}; the probe
+# counts kernels 1-3 (the AEKL's attention through the allgather) on each
+# rank over the cut f32 stage-1 step
+P15_ADVERSARIAL_CHECKS = ("ldm_stage1", "vqgan")
+P15_KERNELS = {"flash_fwd": "FLASH_FWD", "flash_bwd_dq": "FLASH_BWD_DQ",
+               "flash_bwd_dkv": "FLASH_BWD_DKV"}
 
 
 def free_port() -> int:
@@ -4109,6 +4127,10 @@ def check_sequence_chunks(torch, ops) -> dict:
                   dkv=time_ms(lambda: local_dkv(b0)))
         gather_lib, _ = library_attention_ms(torch, b0["q"], k, v, scale, False)
         chunk_lib, _ = library_attention_ms(torch, b0["q"], b0["k"], b0["v"], scale, False)
+        # SDPA's backward (dq, dk, dv in one call) of the allgather's local
+        # attention: the yardstick of kernels 2 and 3 at Sq = S/n
+        bwd_lib, _ = library_attention_ms(torch, b0["q"], k, v, scale, False,
+                                          dout=dout[:, rows[0]].contiguous())
         rows2 = 8 * bh * c
         lim = dict(
             gather=bound(4 * bh * c * s * d, bh * d * esize * (2 * c + 2 * s) + 4 * bh * c,
@@ -4129,7 +4151,8 @@ def check_sequence_chunks(torch, ops) -> dict:
             f"Sq={c}: {dq_same}/{n} dq blocks equal to the bit, {ms['dq']:.4f} ms (bound {lim['dq']['bound_ms']:.4f}); "
             f"kernel 3 at Sq={c}: dk, dv summed over the blocks max|d|/max {dkv_err:.3e} (tol "
             f"{BACKWARD_TOLERANCE['bfloat16']:g}), {ms['dkv']:.4f} ms (bound "
-            f"{lim['dkv']['bound_ms']:.4f}) -> {'ok' if ok else 'FAIL'}")
+            f"{lim['dkv']['bound_ms']:.4f}); SDPA's backward at Sq={c} {bwd_lib:.4f} ms -> "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"sequence-parallel pieces at n={n} disagree with the kernels")
         results[n] = dict(
@@ -4138,8 +4161,10 @@ def check_sequence_chunks(torch, ops) -> dict:
                            ring_chunk=dict(max_abs_err=ring_err, ms=ms["chunk"],
                                            merge_ms=ms["merge"], ring_ms=ms["ring"],
                                            library_ms=chunk_lib, **lim["chunk"])),
-            flash_bwd_dq=dict(allgather=dict(max_abs_err=0.0, ms=ms["dq"], **lim["dq"])),
-            flash_bwd_dkv=dict(allgather=dict(max_abs_err=dkv_err, ms=ms["dkv"], **lim["dkv"])),
+            flash_bwd_dq=dict(allgather=dict(max_abs_err=0.0, ms=ms["dq"], library_ms=bwd_lib,
+                                             **lim["dq"])),
+            flash_bwd_dkv=dict(allgather=dict(max_abs_err=dkv_err, ms=ms["dkv"],
+                                              library_ms=bwd_lib, **lim["dkv"])),
         )
         del blocks, o0, l0
         torch.cuda.empty_cache()
@@ -4154,7 +4179,10 @@ def check_halo_slabs(torch, ops) -> dict:
     (`networks/nets/diffusion_model_unet.py::_fused_conv_cf`) at
     FUSED_MAIN_CASE: each rank's slab extended by one plane from each
     neighbour (none at the outer border), the kernel's output cropped to
-    the slab; the crops must equal the unsharded output to the bit."""
+    the slab; the crops must equal the unsharded output to the bit. An
+    inner slab is timed beside the plain version and F.conv3d alone."""
+    import torch.nn.functional as F
+
     name, (b, d, h, w), cin, cout, residual, dtype_name = next(
         case for case in FUSED_CASES if case[0] == FUSED_MAIN_CASE)
     g = torch.Generator("cuda").manual_seed(16)
@@ -4166,6 +4194,7 @@ def check_halo_slabs(torch, ops) -> dict:
                                              torch.zeros(cin, device="cuda"), 32)
     bias = 0.1 * torch.randn(cout, generator=g, device="cuda")
     full = ops.FUSED_CONV(x_cf.permute(0, 2, 3, 4, 1), kernel, scale, shift, bias)
+    w_oidhw = kernel.permute(4, 3, 0, 1, 2).contiguous()
     results = {}
     for n in P15_CUTS:
         c = d // n
@@ -4177,8 +4206,11 @@ def check_halo_slabs(torch, ops) -> dict:
             got = ops.FUSED_CONV(slab.permute(0, 2, 3, 4, 1), kernel, scale, shift, bias)
             same += int(torch.equal(got[:, r * c - lo:r * c - lo + c], full[:, r * c:(r + 1) * c]))
         slab, _ = slabs[min(1, n - 1)]
-        ms = time_ms(lambda: ops.FUSED_CONV(slab.permute(0, 2, 3, 4, 1), kernel, scale, shift,
-                                            bias))
+        slab_cl = slab.permute(0, 2, 3, 4, 1)
+        ms = time_ms(lambda: ops.FUSED_CONV(slab_cl, kernel, scale, shift, bias))
+        plain_ms = time_ms(lambda: ops.fused_norm_silu_conv3d_reference(slab_cl, kernel, scale,
+                                                                        shift, bias))
+        library_ms = time_ms(lambda: F.conv3d(slab, w_oidhw, bias.to(slab.dtype), padding=1))
         # the work the cut needs: the slab's c output planes, from its planes
         # and their halo planes
         out_voxels, in_voxels = b * c * h * w, b * slab.shape[2] * h * w
@@ -4188,32 +4220,38 @@ def check_halo_slabs(torch, ops) -> dict:
         ok = same == n
         log(f"parallel: (b) n={n}: kernel 5 {name} on halo slabs of {c} + 2 planes (B={b}, "
             f"D={slab.shape[2]}, H={h}, W={w}): {same}/{n} cropped slabs equal to the unsharded "
-            f"output to the bit; an inner slab {ms:.4f} ms (bound {lim['bound_ms']:.4f}) -> "
-            f"{'ok' if ok else 'FAIL'}")
+            f"output to the bit; an inner slab {ms:.4f} ms (bound {lim['bound_ms']:.4f}, plain "
+            f"{plain_ms:.4f}, F.conv3d alone {library_ms:.4f}) -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel 5's halo slabs at n={n} differ from the unsharded call")
-        results[n] = dict(max_abs_err=0.0, ms=ms, **lim)
+        results[n] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          **lim)
     return results
 
 
-def run_same_card() -> dict:
-    """Phase 15 (c): probes/multi_card.py on two gloo ranks on cuda:0 (nccl
-    refuses two ranks on one card): the cut ("space": 2) 3D training step at
-    128^3 against the uncut step, and the allgather and ring attention at the
-    3D shape against the unsharded kernels (the script's checks and
-    tolerances)."""
-    t0 = time.perf_counter()
+def two_ranks_on_one_card(checks) -> dict:
+    """probes/multi_card.py's `checks` on two gloo ranks on cuda:0 (nccl
+    refuses two ranks on one card): rank 0's JSON line."""
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2", "--master_port",
          str(free_port()), "-m", "generativemodels_tpu_torch.probes.multi_card", "--backend",
-         "gloo", "--device", "cuda:0", "--checks", *P15_SAME_CARD_CHECKS],
+         "gloo", "--device", "cuda:0", "--checks", *checks],
         capture_output=True, text=True, timeout=600, cwd=REPO,
     )
     lines = [line for line in proc.stdout.splitlines() if line.startswith("{")]
     if proc.returncode != 0 or not lines:
         raise AssertionError(f"two ranks on the one card failed ({proc.returncode}):\n"
-                             f"{proc.stderr[-3000:]}")
-    runs = json.loads(lines[-1])
+                             f"{lines[-1] if lines else ''}\n{proc.stderr[-3000:]}")
+    return json.loads(lines[-1])
+
+
+def run_same_card() -> dict:
+    """Phase 15 (c): on two gloo ranks on cuda:0, the cut ("space": 2) 3D
+    training step at 128^3 against the uncut step, and the allgather and ring
+    attention at the 3D shape against the unsharded kernels (the script's
+    checks and tolerances)."""
+    t0 = time.perf_counter()
+    runs = two_ranks_on_one_card(P15_SAME_CARD_CHECKS)
     cut, att = runs["cut_space"], runs["attention"]
     log(f"parallel: (c) two gloo ranks on cuda:0 ({time.perf_counter() - t0:.1f} s): cut "
         f"(\"space\": 2) 3D step at {THREE_D['size']}^3 against the uncut step: f32 loss "
@@ -4231,14 +4269,65 @@ def run_same_card() -> dict:
     return runs
 
 
+def run_cut_adversarial() -> dict:
+    """Phase 15 (d): on two gloo ranks on cuda:0, the 3D LDM recipe's stage-1
+    G+D step (AEKL (32, 64, 64), PatchGAN 3D, 128^3, batch 2) cut on
+    {"space": 2}, f32 and bf16, against the uncut step on one rank, and the
+    VQ-GAN recipe's step (64x64, batch 16) the same way in f32. The f32
+    stage-1 losses within 1e-5 (relative) of the uncut step's, its gradients
+    within 1e-5 or twice the distance between two f32 summation orders of
+    the uncut step, whichever is larger (its convolutions' weight gradients
+    cancel: `probes/multi_card.py::check_ldm_stage1`), bf16 within twice
+    the uncut bf16 step's own distance from f32; at 64^3 the float64 step
+    cut against uncut, every gradient leaf within 1e-8 (its losses, f32 sums
+    of the PatchGAN's f32 logits, within 1e-5), and the
+    cut f32 step's gradients within 1e-5 or twice the uncut f32 step's
+    distance of the float64 ones; kernels 1-3 launched on every
+    rank by the cut f32 step (the AEKL's attention at (2, 16384, 32768, 64)
+    f32 through the allgather; the probe zeroes the counts before that step
+    and reads them after it)."""
+    t0 = time.perf_counter()
+    runs = two_ranks_on_one_card(P15_ADVERSARIAL_CHECKS)
+    ldm, vq = runs["ldm_stage1"], runs["vqgan"]
+    f32, bf16, w = ldm["f32"], ldm["bf16"], ldm["witness"]
+    launches = {name: ldm["launches"][op] for name, op in P15_KERNELS.items()}
+    log(f"parallel: (d) two gloo ranks on cuda:0 ({time.perf_counter() - t0:.1f} s): 3D LDM "
+        f"stage-1 G+D step at {ldm['size']}^3, batch {ldm['batch']}, cut on {ldm['mesh']} "
+        f"against the uncut step: f32 losses {f32['loss_rel']:.3e} (tol {f32['tol']:g}), G "
+        f"gradients {f32['g_grad_rel']:.3e} (tol {f32['g_tol']:.3e}), D gradients "
+        f"{f32['d_grad_rel']:.3e} (tol {f32['d_tol']:.3e}; two f32 orders of the uncut step "
+        f"differ by {f32['uncut_orders']['g']:.3e}, {f32['uncut_orders']['d']:.3e}); at "
+        f"{w['size']}^3 the float64 step cut against uncut: losses {w['f64']['loss_rel']:.3e} "
+        f"(tol {w['f32_tol']:g}), the worst G leaf {w['f64']['g_leaf_rel']:.3e}, D leaf "
+        f"{w['f64']['d_leaf_rel']:.3e} (tol {w['f64_tol']:g}); from its uncut float64 "
+        f"gradients, the f32 G cut "
+        f"{w['f32']['g']['cut_vs_f64']:.3e}, uncut {w['f32']['g']['uncut_vs_f64']:.3e}, D cut "
+        f"{w['f32']['d']['cut_vs_f64']:.3e}, uncut {w['f32']['d']['uncut_vs_f64']:.3e} (f32 cut "
+        f"against uncut G {w['f32']['g']['cut_vs_uncut']:.3e}, D "
+        f"{w['f32']['d']['cut_vs_uncut']:.3e}); "
+        f"bf16 G {bf16['g_grad_rel']:.3e}, D {bf16['d_grad_rel']:.3e} (tol twice "
+        f"{bf16['uncut_bf16_vs_f32']:.3e}); a cut f32 step {f32['step_ms']:.1f} ms, uncut "
+        f"{f32['uncut_step_ms']:.1f} ms; bf16 {bf16['step_ms']:.1f} / "
+        f"{bf16['uncut_step_ms']:.1f} ms (two processes on one card); rank 0's launches over "
+        f"the cut f32 step {launches}; VQ-GAN step at {vq['size']}x{vq['size']}, batch "
+        f"{vq['batch']}, cut on {vq['mesh']}: losses {vq['loss_rel']:.3e}, G {vq['g_grad_rel']:.3e}, "
+        f"D {vq['d_grad_rel']:.3e}, codebook {vq['codebook_rel']:.3e} (tol {vq['tol']:g}); "
+        f"{vq['step_ms']:.1f} ms a cut step, uncut {vq['uncut_step_ms']:.1f}")
+    if not runs["ok"] or not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"the cut adversarial steps disagree with one rank, or the cut "
+                             f"stage-1 step launched no kernel 1-3: {runs}")
+    return dict(runs=runs, launches=launches)
+
+
 def run_parallel(torch, ops, recipe3d, trained_3d) -> dict:
     """Phase 15."""
     t0 = time.perf_counter()
     dp = run_data_parallel_3d(torch, ops, recipe3d, trained_3d)
     chunks = check_sequence_chunks(torch, ops)
     same_card = run_same_card()
+    adversarial = run_cut_adversarial()
     log(f"parallel: phase 15 in {time.perf_counter() - t0:.1f} s")
-    return dict(dp=dp, chunks=chunks, same_card=same_card)
+    return dict(dp=dp, chunks=chunks, same_card=same_card, adversarial=adversarial)
 
 
 def build_kernels(build_library, sources: tuple = SOURCES) -> None:
@@ -4478,7 +4567,8 @@ def main() -> int:
 
     # phase 15: multi-device: (a) the 3D recipe with --data-parallel on a
     # group of one rank, (b) the sequence-parallel pieces and kernel 5's halo
-    # slabs at the 3D shapes, (c) two ranks on the one card
+    # slabs at the 3D shapes, (c) two ranks on the one card, (d) the cut
+    # adversarial steps on two ranks on the one card
     parallel_results = run_parallel(torch, ops, recipe3d, trained_3d)
 
     # the numbers of each kernel at its main path's shape: serving for the
@@ -4529,10 +4619,12 @@ def main() -> int:
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         extra.setdefault(name, {})["train_controlnet_launches"] = (
             exports["controlnet"]["launches"][name])
-    # phase 15's launches (the --data-parallel run) and pieces, n ranks
+    # phase 15's launches (the --data-parallel run; rank 0's over the cut
+    # stage-1 step of (d)) and pieces, n ranks
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         extra.setdefault(name, {})["data_parallel_launches"] = (
             parallel_results["dp"]["launches"][name])
+        extra[name]["cut_stage1_launches"] = parallel_results["adversarial"]["launches"][name]
         extra[name]["sequence_parallel"] = {
             f"n{n}": parallel_results["chunks"][n][name] for n in P15_CUTS}
     extra.setdefault("fused_conv", {})["halo_slab"] = {

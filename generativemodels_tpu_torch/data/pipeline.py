@@ -193,10 +193,14 @@ def training_stream(
     cache: bool = False,
     augment: bool = False,
     seed: int = 0,
+    process_index: int | None = None,
+    process_count: int | None = None,
 ) -> Iterator[np.ndarray]:
     """The host-side training stream the recipes share: decode -> fit to
     `shape` -> (optional) RAM cache -> (optional) the tutorials' random
-    affine (rotate +-pi/36, translate +-1 px, scale +-5%, prob 0.5)."""
+    affine (rotate +-pi/36, translate +-1 px, scale +-5%, prob 0.5).
+    `process_index` / `process_count` choose the file partition read
+    (`file_dataset`'s; by default the process group's rank and size)."""
     from .transforms import augmented_stream, ensure_channel_first, fitted_stream
 
     nd = len(tuple(shape))
@@ -204,12 +208,13 @@ def training_stream(
     def _fitted(source):
         return fitted_stream((ensure_channel_first(a, nd) for a in source), shape, fit)
 
+    part = dict(process_index=process_index, process_count=process_count)
     if cache:
         stream: Iterator[np.ndarray] = cached_dataset(
-            _fitted(file_dataset(data_dir, loop=False)), shuffle=True, seed=seed,
+            _fitted(file_dataset(data_dir, loop=False, **part)), shuffle=True, seed=seed,
         )
     else:
-        stream = _fitted(file_dataset(data_dir, shuffle=True, seed=seed))
+        stream = _fitted(file_dataset(data_dir, shuffle=True, seed=seed, **part))
     if augment:
         stream = augmented_stream(
             stream, seed=seed, rotate_range=np.pi / 36, translate_range=1.0,
@@ -256,27 +261,32 @@ def multihost_device_batches(
     prefetch: int = 2,
 ) -> Iterator[torch.Tensor]:
     """`device_batches` for several processes: each rank decodes only its
-    own file partition (`file_dataset`'s process slicing) and yields its
-    (global_batch / ranks, 1, *shape) rows of the global batch on its
-    device (`parallel.global_batches`).
+    "data" group's file partition (`file_dataset`'s process slicing, over
+    the mesh's "data" axis) and yields its (global_batch / data ranks, 1,
+    *shape) rows of the global batch on its device
+    (`parallel.global_batches`).
 
-    The mesh cuts the batch only ("data" spans every rank). A global batch
-    that the rank count does not divide raises here, where the JAX function
-    checks the process count but not the device count (`pipeline.py:298`).
-    Reference: ddpm_training_ddp.py:105-125 (per-rank partition).
+    On a mesh with a "space" axis the ranks of one space group read the
+    same partition in the same order (and draw the same augmentations), so
+    they hold the same rows, as the JAX function's batch is replicated over
+    "space" (`parallel/multihost.py:114-124`); a cut step takes each rank's
+    slab of them (`parallel.spatial_sharding(mesh, ndim, data_axis=None)`).
+    A global batch that the "data" ranks do not divide raises here, where
+    the JAX function checks the process count but not the device count
+    (`pipeline.py:298`). Reference: ddpm_training_ddp.py:105-125 (per-rank
+    partition).
     """
     from ..parallel.multihost import global_batches
 
-    ranks = mesh.size
-    if mesh.axis_size("data") != ranks:
-        raise ValueError(f"multihost_device_batches cuts the batch only; mesh {mesh.shape}")
+    ranks = mesh.axis_size("data")
     if global_batch % ranks:
         raise ValueError(
-            f"global batch {global_batch} must divide evenly across {ranks} devices "
+            f"global batch {global_batch} must divide evenly across {ranks} data ranks "
             f"(one a process)"
         )
     local = global_batch // ranks
-    stream = training_stream(data_dir, shape, fit, cache=cache, augment=augment, seed=seed)
+    stream = training_stream(data_dir, shape, fit, cache=cache, augment=augment, seed=seed,
+                             process_index=mesh.index("data"), process_count=ranks)
     target = (local, 1) + tuple(shape)
     local_iter = (np.asarray(b, np.float32).reshape(target) for b in batched(stream, local))
     return global_batches(local_iter, mesh, prefetch=prefetch)

@@ -19,12 +19,17 @@ inside one step is the JAX step's:
 G's sampling noise (an AutoencoderKL's latent draw) comes from the
 `torch.Generator` passed to the step, so that a test can replay the draw.
 
-With a data mesh (`parallel/mesh.py`) each rank passes its rows of the
-global batch; the step runs inside `with mesh:` (so a synced BatchNorm and
-the EMA codebook take global statistics), G's and D's gradients are
-averaged over "data" before their updates, and the losses it returns are
-those of the global batch: the single-device step on the full batch, as the
-JAX step under a mesh.
+With a mesh (`parallel/mesh.py`) each rank passes its rows of the global
+batch, and with `spatial_shard_axis=2` its slab of axis 2 over "space";
+the step runs inside `with mesh:` (so a synced BatchNorm and the EMA
+codebook take global statistics) and, when it cuts, under `spatial_cut`
+(the convolutions take their halos, the norms and the losses' means their
+statistics over the slabs: parallel/spatial.py). G's and D's gradients are
+summed over every rank and divided by the "data" size before their
+updates, and the losses it returns are those of the global batch: the
+single-device step on the full batch, as the JAX step is whatever the
+inputs' sharding. An AutoencoderKL G draws its latent noise for the global
+batch on every rank and keeps its rows and slab (`parallel.mesh.draw_local`).
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import Mesh
-from ..parallel.train import ema_update_, reduce_over_mesh_
+from ..parallel.train import check_mesh, ema_update_, placement, reduce_over_mesh_
 from ..utils import AdversarialIterationEvents, AdversarialKeys
 
 
@@ -88,7 +93,11 @@ class AdversarialTrainStep:
         adv_weight: weight of the adversarial term in G's loss.
         ema_decay: keep `state.g_ema_params` (seed it with copies of G's
             parameters, `init_adversarial_state(..., ema=True)`).
-        mesh: a data mesh (a "space" axis of more than one rank raises).
+        mesh: a `parallel.Mesh`; the inputs are then this rank's rows of the
+            global batch over "data".
+        spatial_shard_axis: with a mesh, the inputs' axis cut over "space"
+            (2, the outermost spatial axis), run under `spatial_cut`; a
+            "space" axis of more than one rank needs it.
 
     `outputs` is keyed by AdversarialKeys (reals, fakes, the reconstruction,
     generator and discriminator losses) and "loss", G's total.
@@ -104,8 +113,10 @@ class AdversarialTrainStep:
         adv_weight: float = 1.0,
         ema_decay: float | None = None,
         mesh: Mesh | None = None,
+        spatial_shard_axis: int | None = None,
     ) -> None:
-        self.mesh = check_data_mesh(mesh)
+        self.mesh = check_mesh(mesh, spatial_shard_axis)
+        self.spatial_shard_axis = spatial_shard_axis
         self.g_forward = g_forward
         self.d_forward = d_forward
         self.recon_loss_fn = recon_loss_fn
@@ -121,7 +132,7 @@ class AdversarialTrainStep:
         targets: torch.Tensor,
         generator: torch.Generator | None = None,
     ) -> tuple[AdversarialTrainState, dict]:
-        with self.mesh if self.mesh is not None else contextlib.nullcontext():
+        with placement(self.mesh, self.spatial_shard_axis):
             return self._step(state, inputs, targets, generator)
 
     def _reduce(self, model: nn.Module, *losses: torch.Tensor) -> None:
@@ -185,20 +196,14 @@ def make_adversarial_train_step(
     adv_weight: float = 1.0,
     ema_decay: float | None = None,
     mesh: Mesh | None = None,
+    spatial_shard_axis: int | None = None,
 ) -> AdversarialTrainStep:
     """Build the fused G + D step; see `AdversarialTrainStep`. The optimizers
     (the JAX function's `g_tx`, `d_tx`) live in the state."""
     return AdversarialTrainStep(
-        g_forward, d_forward, recon_loss_fn, g_loss_fn, d_loss_fn, adv_weight, ema_decay, mesh
+        g_forward, d_forward, recon_loss_fn, g_loss_fn, d_loss_fn, adv_weight, ema_decay, mesh,
+        spatial_shard_axis,
     )
-
-
-def check_data_mesh(mesh: Mesh | None) -> Mesh | None:
-    """`mesh` if it cuts the batch only: the adversarial steps take no
-    spatial cut (the JAX steps inherit any sharding; ROADMAP A11)."""
-    if mesh is not None and mesh.axis_size("space") > 1:
-        raise ValueError(f"the adversarial steps take a data mesh, got {mesh.shape}")
-    return mesh
 
 
 def init_adversarial_state(

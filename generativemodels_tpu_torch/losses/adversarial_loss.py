@@ -5,7 +5,9 @@ Counterpart of generativemodels_tpu/losses/adversarial_loss.py:
 one per discriminator), with each criterion's activation, the generator's
 forced real target, hinge = -mean(min(+-D - 1, 0)); and
 `feature_matching_loss` over the discriminators' intermediate features,
-the real features detached.
+the real features detached. Each mean over a tensor is a
+`parallel.spatial.cut_mean`: under a spatial cut, this rank's share of the
+uncut mean (the PatchGAN's slabs need not be equal).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import warnings
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spatial import cut_mean
 from ..utils import StrEnum
 
 
@@ -74,12 +77,12 @@ class PatchAdversarialLoss:
         elif self.criterion == AdversarialCriterions.LEAST_SQUARE.value:
             elems = (input - target) ** 2
         else:
-            return -torch.mean(torch.minimum(input - 1.0, self.get_zero_tensor(input)))
+            return -cut_mean(torch.minimum(input - 1.0, self.get_zero_tensor(input)))
         if self.reduction == "sum":
             return torch.sum(elems)
         if self.reduction == "none":
             return elems
-        return torch.mean(elems)
+        return cut_mean(elems)
 
     def _single(self, disc_out: torch.Tensor, target_is_real: bool) -> torch.Tensor:
         if self.activation is not None:
@@ -121,4 +124,4 @@ def feature_matching_loss(real_features, fake_features) -> torch.Tensor:
         pairs = list(zip(real_features, fake_features))
     if not pairs:
         raise ValueError("feature_matching_loss needs at least one feature pair")
-    return torch.mean(torch.stack([torch.mean(torch.abs(r.detach() - f)) for r, f in pairs]))
+    return torch.mean(torch.stack([cut_mean(torch.abs(r.detach() - f)) for r, f in pairs]))

@@ -15,7 +15,9 @@ compute the same function and have no counterpart here.
 weight (I, O, *k) is applied as the adjoint of a convolution; the JAX
 module's kernel (*k, I, O) runs through `lax.conv_transpose` without
 `transpose_kernel`, so a kernel carried between the two is transposed and
-flipped on every spatial axis (networks/convert.py).
+flipped on every spatial axis (networks/convert.py). Under a spatial cut it
+takes the input planes its kernel reaches across the cut
+(`parallel.spatial.halo_conv_transpose`).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...parallel.spatial import current_spatial_cut, halo_conv
+from ...parallel.spatial import current_spatial_cut, halo_conv, halo_conv_transpose
 from .layers import compute_dtype
 
 _CONV = {1: nn.Conv1d, 2: nn.Conv2d, 3: nn.Conv3d}
@@ -128,13 +130,18 @@ class ConvTransposeND(nn.Module):
         conv = self.conv
         dtype = self.dtype or x.dtype
         x = x.to(dtype)
+        weight = conv.weight if dtype == conv.weight.dtype else conv.weight.to(dtype)
+        bias = conv.bias.to(dtype)
+        cut = current_spatial_cut()
+        if cut is not None:  # the halo planes of the slab (parallel/spatial.py)
+            return halo_conv_transpose(conv, x, weight, bias, cut)
         if dtype == conv.weight.dtype:
             return conv(x)
         y = _CONV_TRANSPOSE_FN[x.ndim - 2](
-            x, conv.weight.to(dtype), None, conv.stride, conv.padding, conv.output_padding,
-            conv.groups, conv.dilation,
+            x, weight, None, conv.stride, conv.padding, conv.output_padding, conv.groups,
+            conv.dilation,
         )
-        return y + conv.bias.to(dtype).reshape(-1, *([1] * (x.ndim - 2)))
+        return y + bias.reshape(-1, *([1] * (x.ndim - 2)))
 
 
 def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:

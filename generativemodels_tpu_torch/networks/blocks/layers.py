@@ -11,8 +11,10 @@ modules and state-dict keys and add the same `dtype`:
 - `GroupNorm`, `LayerNorm`: statistics and normalisation in float32 (flax
   reduces in float32 whatever the input type), the result cast to `dtype`.
   Both default to flax's epsilon, 1e-6 (torch's is 1e-5). Under a spatial
-  cut (parallel/spatial.py) GroupNorm takes E[x] and E[x^2] over every slab
-  and its variance as E[x^2] - E[x]^2, as flax computes it.
+  cut (parallel/spatial.py) GroupNorm takes the mean and then the variance
+  of the centred values over every slab (two all-reduces), the two-pass
+  variance that F.group_norm takes uncut: flax's E[x^2] - E[x]^2 cancels
+  in its gradient where a group's mean is far above its spread.
 
 With `dtype=None` they compute in float32, as flax promotes to the float32
 parameters.
@@ -23,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...parallel.collectives import global_moments
+from ...parallel.collectives import global_mean_var
 from ...parallel.spatial import current_spatial_cut
 
 
@@ -64,12 +66,14 @@ class GroupNorm(nn.GroupNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cut = current_spatial_cut()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if cut is None:
-            y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+            y = F.group_norm(xf, self.num_groups, self.weight.to(xf.dtype),
+                             self.bias.to(xf.dtype), self.eps)
         else:  # statistics over every slab of the cut (parallel/spatial.py)
-            xg = x.float().reshape(x.shape[0], self.num_groups, -1)
-            mean, msq = global_moments(xg, (2,), cut.group)
-            rstd = torch.rsqrt(msq - mean * mean + self.eps)
+            xg = xf.reshape(x.shape[0], self.num_groups, -1)
+            mean, var = global_mean_var(xg, (2,), cut.group)
+            rstd = torch.rsqrt(var + self.eps)
             y = ((xg - mean[..., None]) * rstd[..., None]).reshape(x.shape)
             affine = (1, -1) + (1,) * (x.ndim - 2)
             y = y * self.weight.reshape(affine) + self.bias.reshape(affine)

@@ -11,8 +11,10 @@ whatever the input type, and the output passes the gradient straight
 through to the input. `distributed_synchronization` all-reduces the
 statistics over the mesh axis `axis_name` when `ddp_sync` is set and a
 mesh is current (`with mesh:`, parallel/mesh.py; the train steps built
-with a mesh enter it), as the JAX module's psum over a bound axis; it is
-the identity otherwise.
+with a mesh enter it), as the JAX module's psum over a bound axis, and
+over "space" under a spatial cut (what the JAX step's GSPMD sums over a
+"data" x "space" batch); it is the identity otherwise. The commitment loss
+is a `cut_mean`.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...parallel.spatial import cut_mean
 
 __all__ = ["EMAQuantizer", "VectorQuantizer"]
 
@@ -104,14 +108,20 @@ class EMAQuantizer(nn.Module):
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """The sums over the ranks of the current mesh's `axis_name` (the JAX
         module's psum), when `ddp_sync` is set and a mesh with that axis is
-        current; else the identity."""
+        current, and over the slabs of a spatial cut; else the identity."""
         from ...parallel.collectives import all_reduce
         from ...parallel.mesh import current_mesh
+        from ...parallel.spatial import current_spatial_cut
 
-        mesh = current_mesh()
-        if not self.ddp_sync or self.axis_name is None or mesh is None:
+        mesh, cut = current_mesh(), current_spatial_cut()
+        names = ([self.axis_name] if self.ddp_sync and self.axis_name is not None
+                 and mesh is not None and self.axis_name in mesh.shape else [])
+        if cut is not None:
+            mesh = cut.mesh
+            names.append(cut.axis)
+        if not names:
             return encodings_sum, dw
-        group = mesh.group(self.axis_name)
+        group = mesh.group(tuple(names))
         return all_reduce(encodings_sum, group), all_reduce(dw, group)
 
     @torch.no_grad()
@@ -137,7 +147,7 @@ class EMAQuantizer(nn.Module):
         quantized = self.embed(indices).to(inputs.dtype)
         if self.training if train is None else train:
             self._ema_update(flat, encodings)
-        loss = self.commitment_cost * torch.mean((quantized.detach() - inputs) ** 2)
+        loss = self.commitment_cost * cut_mean((quantized.detach() - inputs) ** 2)
         # straight-through estimator
         quantized = inputs + (quantized - inputs).detach()
         return quantized, loss, indices

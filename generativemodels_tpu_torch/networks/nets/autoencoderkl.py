@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.mesh import draw_local
 from ...parallel.spatial import current_spatial_cut
 from ..blocks.attention_blocks import AttentionBlock
 from ..blocks.convolutions import ConvND, ConvTransposeND
@@ -325,10 +326,12 @@ class AutoencoderKL(nn.Module):
     def sampling(
         self, z_mu: torch.Tensor, z_sigma: torch.Tensor, generator: torch.Generator | None = None
     ) -> torch.Tensor:
-        """Reparameterised gaussian sample z = mu + eps * sigma."""
-        eps = torch.randn(
-            z_sigma.shape, generator=generator, device=z_sigma.device, dtype=z_sigma.dtype
-        )
+        """Reparameterised gaussian sample z = mu + eps * sigma. While a mesh
+        is current, eps is this rank's rows and slab of the global batch's
+        draw (`parallel.mesh.draw_local`)."""
+        eps = draw_local(lambda shape: torch.randn(
+            shape, generator=generator, device=z_sigma.device, dtype=z_sigma.dtype
+        ), z_sigma.shape)
         return z_mu + eps * z_sigma
 
     def reconstruct(self, x: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,15 @@ The norms compute what the JAX module's do:
 Norm kwargs that the JAX module would drop without a word raise ValueError.
 Convolutions take symmetric padding and N(0, 0.02) weights; the prediction
 is cast to float32.
+
+Under a spatial cut (parallel/spatial.py) the convolutions and the
+multi-scale pooling take their halo planes, and each rank computes the
+output planes the cut's ownership rule gives it: the stride-1 layers and
+the last conv (kernel 4, padding 1) shrink the axis by one plane each, so
+the last rank's slab shrinks. The norms take their statistics over the
+slabs: instance and group norm the two-pass variance from f32 sums and
+counts all-reduced over "space", BatchNorm (flax's E[x^2] - E[x]^2, as
+uncut) over "space" and, when synced, "data" too.
 """
 from __future__ import annotations
 
@@ -31,6 +40,11 @@ from collections.abc import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...parallel.collectives import global_mean_var, global_moments
+from ...parallel.mesh import current_mesh
+from ...parallel.spatial import current_spatial_cut, halo_conv, halo_window
+from ..blocks.layers import GroupNorm
 
 __all__ = ["PatchDiscriminator", "MultiScalePatchDiscriminator"]
 
@@ -77,22 +91,26 @@ class BatchNormND(nn.BatchNorm1d):
     """flax BatchNorm over (B, C, *spatial) of any rank: torch momentum 0.1,
     the fast biased variance in the running statistics (torch keeps the
     unbiased one), normalisation in float32. `axis_name`: take the batch
-    statistics over that axis of the current mesh (flax's `axis_name`)."""
+    statistics over that axis of the current mesh (flax's `axis_name`);
+    under a spatial cut they are also taken over the slabs."""
 
     def __init__(self, *args, axis_name: str | None = None, **kwargs) -> None:
         super().__init__(*args, **kwargs)
         self.axis_name = axis_name
 
     def _moments(self, xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """Batch mean and E[x^2] per channel, over the mesh axis when synced."""
-        from ...parallel.collectives import global_moments
-        from ...parallel.mesh import current_mesh
-
+        """Batch mean and E[x^2] per channel, over the mesh axes the batch
+        (when synced) and the slab are cut over."""
         axes = [0, *range(2, xf.ndim)]
-        mesh = current_mesh() if self.axis_name is not None else None
-        if mesh is None:
+        mesh, cut = current_mesh(), current_spatial_cut()
+        names = ([self.axis_name] if self.axis_name is not None and mesh is not None
+                 and self.axis_name in mesh.shape else [])
+        if cut is not None:
+            mesh = cut.mesh
+            names.append(cut.axis)
+        if not names:
             return xf.mean(axes), (xf * xf).mean(axes)
-        return global_moments(xf, axes, mesh.group(self.axis_name))
+        return global_moments(xf, axes, mesh.group(tuple(names)))
 
     def _check_input_dim(self, x: torch.Tensor) -> None:
         if x.ndim < 2:
@@ -119,12 +137,20 @@ class BatchNormND(nn.BatchNorm1d):
 class _InstanceNorm(nn.Module):
     """(x - mean) / sqrt(var + 1e-5) over each sample's and channel's spatial
     axes (biased variance; a single voxel normalises to 0, where
-    F.instance_norm refuses it in training mode)."""
+    F.instance_norm refuses it in training mode). Under a spatial cut the
+    statistics are the mean and the two-pass variance from sums and counts
+    over the slabs (`collectives.global_mean_var`), in f32 at least."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         axes = tuple(range(2, x.ndim))
-        var, mean = torch.var_mean(x, dim=axes, correction=0, keepdim=True)
-        return (x - mean) / torch.sqrt(var + 1e-5)
+        cut = current_spatial_cut()
+        if cut is None:
+            var, mean = torch.var_mean(x, dim=axes, correction=0, keepdim=True)
+            return (x - mean) / torch.sqrt(var + 1e-5)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean, var = global_mean_var(xf, axes, cut.group)
+        shape = mean.shape + (1,) * len(axes)
+        return ((xf - mean.reshape(shape)) / torch.sqrt(var.reshape(shape) + 1e-5)).to(x.dtype)
 
 
 class _ADN(nn.Module):
@@ -140,8 +166,8 @@ class _ADN(nn.Module):
         elif kind == "INSTANCE":
             self.N = _InstanceNorm()
         else:
-            self.N = nn.GroupNorm(kwargs.get("num_groups", min(32, channels)), channels,
-                                  eps=kwargs.get("eps", 1e-5))
+            self.N = GroupNorm(kwargs.get("num_groups", min(32, channels)), channels,
+                               eps=kwargs.get("eps", 1e-5))
         self.D = nn.Dropout(dropout)
         self.act = _activation(act)
 
@@ -164,7 +190,11 @@ class _Conv(nn.Module):
         self.adn = adn
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+        cut = current_spatial_cut()
+        if cut is None:
+            x = self.conv(x)
+        else:  # the halo planes of the slab (parallel/spatial.py)
+            x = halo_conv(self.conv, x, self.conv.weight, self.conv.bias, cut)
         return self.adn(x) if self.adn is not None else x
 
 
@@ -280,9 +310,22 @@ class MultiScalePatchDiscriminator(nn.Module):
             inp = x
             if self.pooling_method is not None:
                 for _ in range(i):
-                    inp = _AVG_POOL[x.ndim - 2](inp, self.kernel_size, stride=2,
-                                                padding=self.padding, count_include_pad=True)
+                    inp = self._pool(inp)
             outs = getattr(self, f"discriminator_{i}")(inp)
             outputs.append(outs[-1])
             features.append(outs[:-1])
         return outputs, features
+
+    def _pool(self, x: torch.Tensor) -> torch.Tensor:
+        """Average pooling (window `kernel_size`, stride 2, zero padding
+        counted in the mean); under a spatial cut, of the slab and its halo
+        planes."""
+        k, p, pool = self.kernel_size, self.padding, _AVG_POOL[x.ndim - 2]
+        cut = current_spatial_cut()
+        if cut is None:
+            return pool(x, k, stride=2, padding=p, count_include_pad=True)
+        x, count = halo_window(x, k, 2, p, cut)
+        padding = [p] * (x.ndim - 2)
+        padding[cut.dim - 2] = 0
+        return pool(x, k, stride=2, padding=tuple(padding), count_include_pad=True).narrow(
+            cut.dim, 0, count)

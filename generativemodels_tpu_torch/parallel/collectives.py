@@ -10,6 +10,8 @@ collective's transpose:
 - `all_gather` along a dimension: the backward reduce-scatters the
   gradient (a rank's slice collects what every rank's loss asks of it), as
   JAX transposes `all_gather` (ops/sharded_attention.py:17-21).
+- `global_moments` and `global_mean_var`: a norm's statistics over the
+  ranks' slabs, from sums and element counts (one or two all-reduces).
 - `ppermute(x, perm)`: each rank sends to the destination its (src, dst)
   pair names and receives from the source that names it, zeros where none
   does, in one all-to-all; the backward sends the gradient back along the
@@ -70,6 +72,27 @@ def global_moments(
     mean, msq = (sums[:-1] / sums[-1]).chunk(2)
     shape = [n for d, n in enumerate(x.shape) if d not in dims]
     return mean.reshape(shape), msq.reshape(shape)
+
+
+def global_mean_var(
+    x: torch.Tensor, dims: Sequence[int], group
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """E[x] and the variance E[(x - E[x])^2] of x over `dims` and over the
+    group's ranks, in two passes (two all-reduces of the sums with the
+    element counts, differentiable): the two-pass variance of torch's
+    norms. Its gradient keeps x - E[x] whole where E[x]^2 is far above the
+    variance; `global_moments`' E[x^2] - E[x]^2 cancels there."""
+    count = x.new_full((1,), math.prod(x.shape[d] for d in dims))
+    keep = [1 if d in dims else n for d, n in enumerate(x.shape)]
+
+    def mean_of(t):
+        sums = all_reduce(torch.cat([t.sum(dims).reshape(-1), count]), group)
+        return (sums[:-1] / sums[-1]).reshape(keep)
+
+    mean = mean_of(x)
+    centred = x - mean
+    shape = [n for d, n in enumerate(x.shape) if d not in dims]
+    return mean.reshape(shape), mean_of(centred * centred).reshape(shape)
 
 
 def _gather0(x: torch.Tensor, group) -> torch.Tensor:

@@ -32,6 +32,7 @@ __all__ = [
     "batch_sharding",
     "create_mesh",
     "current_mesh",
+    "draw_local",
     "replicated",
     "shard_batch",
     "shard_params",
@@ -54,7 +55,8 @@ class Mesh:
     Attributes: `shape` (axis name -> size), `axis_names`, `size` (ranks),
     `rank`, `coords` (this rank's index along each axis), `device` (this
     rank's device). `group(axis)` is the subgroup of the ranks that share
-    every other coordinate (None without a process group).
+    every other coordinate (None without a process group); `group(("data",
+    "space"))` is the whole mesh's.
     """
 
     def __init__(self, shape: dict[str, int], device: torch.device) -> None:
@@ -82,10 +84,20 @@ class Mesh:
                 if self.rank in ranks:
                     self._groups[axis] = group
 
-    def group(self, axis: str):
-        if axis not in self.shape:
-            raise ValueError(f"mesh has no axis {axis!r}: {self.axis_names}")
-        return self._groups.get(axis)
+    def group(self, axes: str | Sequence[str]):
+        """The subgroup of the ranks that differ only along `axes` (one
+        axis name, or several: the axes of more than one rank among them
+        must be one axis or span the mesh, as "data" and "space" do)."""
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        for axis in names:
+            if axis not in self.shape:
+                raise ValueError(f"mesh has no axis {axis!r}: {self.axis_names}")
+        cut = [a for a in names if self.shape[a] > 1]
+        if len(cut) <= 1:
+            return self._groups.get(cut[0] if cut else names[0])
+        if set(cut) != {a for a, n in self.shape.items() if n > 1}:
+            raise ValueError(f"no subgroup spans the axes {cut} of mesh {self.shape}")
+        return dist.group.WORLD if dist.is_initialized() else None
 
     def index(self, axis: str) -> int:
         return self.coords[axis] if axis in self.coords else 0
@@ -178,6 +190,28 @@ def spatial_sharding(
 def replicated(mesh: Mesh) -> Sharding:
     """Every rank holds the whole tensor (parameters, scalars)."""
     return Sharding(mesh, ())
+
+
+def draw_local(draw, shape) -> torch.Tensor:
+    """This rank's piece of a random draw: `draw(global_shape)` for a
+    tensor of this rank's `shape`. While a mesh is current (`with mesh:`)
+    the global batch's tensor is drawn (axis 0 times the "data" size, and
+    under an even spatial cut axis 2 times the "space" size) and the rank
+    keeps its rows and slab, so that every rank draws what the
+    single-device step draws from the same generator; outside a mesh,
+    `draw(shape)`."""
+    from .spatial import current_spatial_cut
+
+    mesh = current_mesh()
+    if mesh is None:
+        return draw(tuple(shape))
+    cut = current_spatial_cut()
+    spec = ["data" if "data" in mesh.shape else None] + [None] * (len(shape) - 1)
+    full = [shape[0] * mesh.axis_size("data"), *shape[1:]]
+    if cut is not None:
+        spec[cut.dim] = cut.axis
+        full[cut.dim] *= cut.n
+    return Sharding(mesh, tuple(spec)).shard(draw(tuple(full)))
 
 
 def _tree_map(fn, tree):

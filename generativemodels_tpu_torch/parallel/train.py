@@ -32,7 +32,7 @@ import torch.distributed as dist
 from torch import nn
 
 from .mesh import Mesh, spatial_sharding
-from .spatial import spatial_cut
+from .spatial import CUT_DIM, cut_mean, spatial_cut
 
 
 class TrainState(NamedTuple):
@@ -77,13 +77,7 @@ class DiffusionTrainStep:
         mesh: Mesh | None = None,
         spatial_shard_axis: int | None = None,
     ) -> None:
-        if mesh is not None and not isinstance(mesh, Mesh):
-            raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh).__name__}")
-        if spatial_shard_axis is not None:
-            if mesh is None:
-                raise ValueError("spatial_shard_axis needs a mesh with a 'space' axis")
-            if "space" not in mesh.shape:
-                raise ValueError(f"mesh has no axis 'space': {mesh.axis_names}")
+        check_mesh(mesh, spatial_shard_axis)
         self.scheduler = scheduler
         self.num_train_timesteps = num_train_timesteps or scheduler.num_train_timesteps
         self.prediction_target = prediction_target
@@ -96,7 +90,7 @@ class DiffusionTrainStep:
         self, model: nn.Module, images: torch.Tensor, noise: torch.Tensor, timesteps: torch.Tensor
     ) -> torch.Tensor:
         """Mean squared error of the model's prediction at (noise, timesteps);
-        under a spatial cut, this slab's share of its rows' mean."""
+        under a spatial cut, this slab's share of its rows' mean (`cut_mean`)."""
         noisy = self.scheduler.add_noise(images, noise, timesteps)
         pred = model(noisy, timesteps)
         if self.prediction_target == "epsilon":
@@ -105,9 +99,7 @@ class DiffusionTrainStep:
             target = self.scheduler.get_velocity(images, noise, timesteps)
         else:
             target = images
-        loss = torch.mean((pred - target) ** 2)
-        slabs = self._size("space") if self.spatial_shard_axis is not None else 1
-        return loss / slabs if slabs > 1 else loss
+        return cut_mean((pred - target) ** 2)
 
     def _size(self, axis: str) -> int:
         return self.mesh.axis_size(axis) if self.mesh is not None else 1
@@ -157,13 +149,7 @@ class DiffusionTrainStep:
         return TrainState(state.model, state.optimizer, state.step + 1, ema_params), loss
 
     def _placement(self):
-        """`with mesh:` (and `spatial_cut` when the step cuts a spatial axis)."""
-        stack = contextlib.ExitStack()
-        if self.mesh is not None:
-            stack.enter_context(self.mesh)
-            if self.spatial_shard_axis is not None:
-                stack.enter_context(spatial_cut(self.mesh, dim=self.spatial_shard_axis))
-        return stack
+        return placement(self.mesh, self.spatial_shard_axis)
 
     def _local(self, x: torch.Tensor, with_space: bool) -> torch.Tensor:
         """This rank's piece of a global draw."""
@@ -186,6 +172,36 @@ class DiffusionTrainStep:
             0, self.num_train_timesteps, (shape[0],), generator=generator, device=images.device,
         )
         return self.update(state, images, self._local(noise, True), self._local(timesteps, False))
+
+
+def check_mesh(mesh: Mesh | None, spatial_shard_axis: int | None) -> Mesh | None:
+    """`mesh` if a step can take it: a `parallel.Mesh` whose "space" axis,
+    if it has more than one rank, the step cuts (`spatial_shard_axis=2`:
+    the ranks of one space group would otherwise each count the same rows);
+    `spatial_shard_axis` needs a "space" axis, and the cut takes axis 2."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh).__name__}")
+    if spatial_shard_axis is not None:
+        if mesh is None:
+            raise ValueError("spatial_shard_axis needs a mesh with a 'space' axis")
+        if "space" not in mesh.shape:
+            raise ValueError(f"mesh has no axis 'space': {mesh.axis_names}")
+        if spatial_shard_axis != CUT_DIM:
+            raise ValueError(f"the spatial cut takes axis {CUT_DIM} (the outermost), got "
+                             f"{spatial_shard_axis}")
+    elif mesh is not None and mesh.axis_size("space") > 1:
+        raise ValueError(f"a mesh with a 'space' axis ({mesh.shape}) needs spatial_shard_axis=2")
+    return mesh
+
+
+def placement(mesh: Mesh | None, spatial_shard_axis: int | None) -> contextlib.ExitStack:
+    """`with mesh:` (and `spatial_cut` when the step cuts a spatial axis)."""
+    stack = contextlib.ExitStack()
+    if mesh is not None:
+        stack.enter_context(mesh)
+        if spatial_shard_axis is not None:
+            stack.enter_context(spatial_cut(mesh, dim=spatial_shard_axis))
+    return stack
 
 
 @torch.no_grad()

@@ -17,7 +17,7 @@ does, and computes each one-rank reference itself:
    {"space": N} (batch 1), in f32 and bf16, against the uncut one-rank step
    (accumulating over the batch). f32: loss and gradient norm within 1e-5
    (relative: the slabs take other convolution algorithms and their
-   GroupNorms E[x^2] - E[x]^2, sums in another order; the H100 reads 4e-7).
+   GroupNorms sums over the slabs, in another order; the H100 reads 4e-7).
    bf16: within twice the uncut bf16 step's own distance from the uncut f32
    step.
 3. Sequence-parallel attention at the 3D shape, (2, 32768, 32768, 64) bf16
@@ -27,12 +27,36 @@ does, and computes each one-rank reference itself:
    rows within 2e-2 of the largest |O| (bf16: a few ulps there, the chunks'
    O rounded before the merge); 1e-5 in f32.
 
+4. The 3D LDM recipe's stage-1 G+D step (`recipes/train_3d_ldm.py`'s
+   `build_models`: AEKL (32, 64, 64) with attention on its last level,
+   PatchGAN 3D with instance norm; `--ldm-size` 128, batch 2, the adversarial
+   step of `train_2d_ldm.make_stage1_steps`) cut on {"space": N}, in f32 and
+   bf16, against the uncut step on rank 0 alone (the other ranks wait, so
+   that two ranks sharing a card hold one uncut step's memory). The AEKL's
+   attention level (32^3 tokens at 128^3) goes through the allgather:
+   kernel 1 at Sq = S/N and kernels 2-3 in its backward, counted on each
+   rank over the cut f32 step. f32: losses within 1e-5 (relative); G's and
+   D's gradients within 1e-5 or twice the distance between two f32
+   summation orders of the uncut step (cuDNN's convolutions and PyTorch's
+   own), whichever is larger (`check_ldm_stage1` says why); bf16: gradients
+   within twice the uncut bf16 step's own distance from the uncut f32 step.
+   A witness at half the side (64^3; 32^3 at the least, the PatchGAN's
+   smallest) holds the step in float64, cut against uncut: every leaf of
+   G's and D's gradients within 1e-8, the losses within 1e-5 (the
+   PatchGAN's logits are f32 by contract, so the losses are f32 sums); and
+   the cut f32 step's gradients no further from the uncut float64 ones
+   than 1e-5 or twice the uncut f32 step's distance from them.
+5. The VQ-GAN recipe's step (`recipes/train_vqgan.py`'s `build_models`,
+   64x64, batch 16, f32) cut on {"space": N} (on four or more ranks
+   {"data": 2, "space": N/2}), against the uncut step on rank 0: losses,
+   gradients and the EMA codebook within 1e-5 (relative).
+
 Times: a step on the host clock after a synchronize (the mean of steps 2-4
 of each run), an attention call on the host clock between barriers. Rank 0
 prints one JSON line, and writes it to `--out`. Rehearse on the CPU with
 gloo: `torchrun --nproc_per_node=4 -m generativemodels_tpu_torch.probes.multi_card
 --device cpu --size 16 --channels 16 32 --head-channels 16 --norm-groups 8
---seq 256`. `--backend gloo --device cuda:0` puts every rank on one card.
+--seq 256 --ldm-size 32 --vq-size 32 --vq-batch 4`. `--backend gloo --device cuda:0` puts every rank on one card.
 """
 from __future__ import annotations
 
@@ -60,8 +84,12 @@ from ..parallel import (
 
 TIMED_STEPS = 3
 CUT_F32_TOL = 1e-5  # relative, loss and gradient norm
+F64_TOL = 1e-8  # relative: the cut float64 stage-1 step against the uncut, leaf by leaf
+LDM_BATCH = 2  # the 3D LDM recipe's batch
+PATCHGAN_MIN = 32  # the smallest side the recipe's PatchGAN takes
 RING_BF16_TOL = 2e-2  # of the largest |O|
-CHECKS = ("data_parallel", "cut_data_space", "cut_space", "attention")
+CHECKS = ("data_parallel", "cut_data_space", "cut_space", "attention", "ldm_stage1", "vqgan")
+KERNELS_1_3 = ("FLASH_FWD", "FLASH_BWD_DQ", "FLASH_BWD_DKV")
 
 
 def build_args(argv=None):
@@ -73,6 +101,9 @@ def build_args(argv=None):
     parser.add_argument("--head-channels", type=int, default=64)
     parser.add_argument("--norm-groups", type=int, default=32)
     parser.add_argument("--seq", type=int, default=32768)
+    parser.add_argument("--ldm-size", type=int, default=128)
+    parser.add_argument("--vq-size", type=int, default=64)
+    parser.add_argument("--vq-batch", type=int, default=16)
     parser.add_argument("--checks", nargs="+", default=list(CHECKS), choices=list(CHECKS))
     parser.add_argument("--out", default=None)
     return parser.parse_args(argv)
@@ -120,15 +151,8 @@ def run_steps(args, dtype, device, images, mesh=None, spatial=False, accumulate=
                                      accumulate_steps=accumulate)
     g = torch.Generator(device).manual_seed(7)
     state, loss = step(state, images, g)
-    grad = torch.cat([p.grad.reshape(-1).float() for p in net.parameters()]).clone()
-    seconds = []
-    for _ in range(TIMED_STEPS):
-        sync(device)
-        t0 = time.perf_counter()
-        state, _ = step(state, images, g)
-        sync(device)
-        seconds.append(time.perf_counter() - t0)
-    out = dict(loss=float(loss), grad=grad, step_ms=1e3 * sum(seconds[1:]) / (TIMED_STEPS - 1))
+    out = dict(loss=float(loss), grad=flat_grads(net),
+               step_ms=timed_steps(lambda: step(state, images, g), device))
     del state, net
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -235,6 +259,240 @@ def same(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool((a - b).abs().max() <= 1e-5 * b.abs().max())
 
 
+def leaf_grads(*modules) -> list[torch.Tensor]:
+    return [p.grad.detach().reshape(-1).clone() for m in modules for p in m.parameters()
+            if p.grad is not None]
+
+
+def flat_grads(*modules) -> torch.Tensor:
+    return torch.cat([g.float() for g in leaf_grads(*modules)])
+
+
+def leaf_rel(got: list, want: list) -> float:
+    """The largest distance of a leaf from its reference, relative to the
+    reference leaf's norm, or to a millionth of all leaves' norm where that
+    is larger (a gradient that is ~0, as a bias's before a norm)."""
+    floor = 1e-6 * float(torch.cat(want).double().norm())
+    return max(float((a.double() - b.double()).norm()) / max(float(b.double().norm()), floor)
+               for a, b in zip(got, want, strict=True))
+
+
+def reset_launches() -> None:
+    from .. import ops
+
+    for name in KERNELS_1_3:
+        getattr(ops, name).launches = 0
+
+
+def read_launches() -> dict:
+    from .. import ops
+
+    return {name: getattr(ops, name).launches for name in KERNELS_1_3}
+
+
+def run_stage1(dtype, device, images, mesh=None, count=False, native=False,
+               timed=True) -> dict:
+    """The 3D LDM recipe's adversarial stage-1 step from the recipe's seed-0
+    weights and its generator seed 42: step 1's losses and G's and D's
+    gradients, leaf by leaf (and, with `count`, its launches of kernels
+    1-3), then, if `timed`, the mean host time of TIMED_STEPS more steps.
+    `native`: PyTorch's own convolutions in place of cuDNN's (another f32
+    summation order of the same step). float64: the weights and images in
+    float64, the attention on its plain path (the kernels take f32 and
+    bf16), and the AEKL's outputs (f32 by contract) cast back to float64
+    for the losses and the PatchGAN."""
+    from ..engines import init_adversarial_state
+    from ..recipes.train_2d_ldm import aekl_forward, make_stage1_steps
+    from ..recipes.train_3d_ldm import build_models
+
+    wide = dtype == torch.float64
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        aekl, disc, _ = build_models(None if wide else dtype,
+                                     use_flash_attention=False if wide else None)
+    aekl, disc = aekl.to(device).train(), disc.to(device).train()
+    g_forward = aekl_forward
+    if wide:
+        aekl, disc, images = aekl.double(), disc.double(), images.double()
+
+        def g_forward(model, inputs, generator):
+            return tuple(t.double() for t in aekl_forward(model, inputs, generator))
+
+    state = init_adversarial_state(aekl, torch.optim.Adam(aekl.parameters(), lr=1e-4),
+                                   disc, torch.optim.Adam(disc.parameters(), lr=1e-4))
+    _, step = make_stage1_steps(1e-6, 0.01, g_forward, mesh=mesh,
+                                spatial_shard_axis=None if mesh is None else 2)
+    g = torch.Generator(device).manual_seed(42)
+    if count:
+        sync(device)
+        reset_launches()
+    cudnn = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = cudnn and not native
+    try:
+        state, out = step(state, images, images, g)
+        sync(device)
+    finally:
+        torch.backends.cudnn.enabled = cudnn
+    launches = read_launches() if count else None
+    res = dict(losses={str(k): float(v) for k, v in out.items()
+                       if isinstance(v, torch.Tensor) and v.ndim == 0},
+               g_grads=leaf_grads(aekl), d_grads=leaf_grads(disc), launches=launches)
+    res["g_grad"], res["d_grad"] = (torch.cat([t.float() for t in res[k]])
+                                    for k in ("g_grads", "d_grads"))
+    if timed:
+        res["step_ms"] = timed_steps(lambda: step(state, images, images, g), device)
+    del state, aekl, disc, out
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def timed_steps(fn, device) -> float:
+    seconds = []
+    for _ in range(TIMED_STEPS):
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        seconds.append(time.perf_counter() - t0)
+    return 1e3 * sum(seconds[1:]) / (TIMED_STEPS - 1)
+
+
+def loss_rel(got: dict, want: dict) -> float:
+    return max(abs(got[k] - v) / max(abs(v), 1e-30) for k, v in want.items())
+
+
+def on_rank0(fn):
+    """fn() on rank 0 alone (the others wait at a barrier); None elsewhere."""
+    out = fn() if dist.get_rank() == 0 else None
+    dist.barrier()
+    return out
+
+
+def check_ldm_stage1(args, device, shape: dict) -> dict:
+    """The cut stage-1 step against the uncut one on rank 0. The f32
+    gradients of this step are ill-conditioned at 128^3: the weight
+    gradient of a convolution whose input has a mean far from 0 and whose
+    output is normalised sums terms that cancel, so that two f32 summation
+    orders of the uncut step itself disagree by ~1e-4. So the f32
+    gradients are held to CUT_F32_TOL or to twice the distance between two
+    f32 orders of the uncut step (cuDNN's convolutions and PyTorch's own),
+    whichever is larger; the losses to CUT_F32_TOL. The witness at half the
+    side holds what that cannot: the cut step's function in float64, leaf
+    by leaf, and the cut f32 step as near to it as the uncut f32 step."""
+    from ..recipes.train_3d_ddpm import synthetic_volume
+
+    mesh = create_mesh(shape, device=device)
+    g = torch.Generator(device).manual_seed(42)
+    full = synthetic_volume(g, LDM_BATCH, args.ldm_size, device)
+    local = spatial_sharding(mesh, full.ndim).shard(full)
+    out = dict(mesh=shape, size=args.ldm_size, batch=LDM_BATCH)
+    runs = {}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        cut = run_stage1(dtype, device, local, mesh, count=name == "f32")
+        ref = on_rank0(lambda: run_stage1(dtype, device, full))
+        runs[name] = (cut, ref)
+        out[name] = dict(step_ms=cut["step_ms"])
+        if name == "f32":
+            out["launches"] = cut["launches"]
+        if ref is not None:
+            out[name].update(loss_rel=loss_rel(cut["losses"], ref["losses"]),
+                             g_grad_rel=rel(cut["g_grad"], ref["g_grad"]),
+                             d_grad_rel=rel(cut["d_grad"], ref["d_grad"]),
+                             uncut_step_ms=ref["step_ms"])
+    native = on_rank0(lambda: run_stage1(None, device, full, native=True, timed=False))
+    side = max(PATCHGAN_MIN, args.ldm_size // 2)
+    small = synthetic_volume(g, LDM_BATCH, side, device)
+    witness = {}
+    for name, dtype in (("f64", torch.float64), ("f32", None)):
+        cut = run_stage1(dtype, device, spatial_sharding(mesh, small.ndim).shard(small), mesh,
+                         timed=False)
+        witness[name] = (cut, on_rank0(lambda: run_stage1(dtype, device, small, timed=False)))
+    launched = all(v > 0 for v in out["launches"].values()) or device.type != "cuda"
+    if dist.get_rank() != 0:
+        out["ok"] = launched
+        return out
+    f32, bf16 = out["f32"], out["bf16"]
+    uncut32 = runs["f32"][1]
+    f32["uncut_orders"] = dict(g=rel(native["g_grad"], uncut32["g_grad"]),
+                               d=rel(native["d_grad"], uncut32["d_grad"]),
+                               loss=loss_rel(native["losses"], uncut32["losses"]))
+    f32["tol"] = CUT_F32_TOL
+    f32["g_tol"] = max(CUT_F32_TOL, 2 * f32["uncut_orders"]["g"])
+    f32["d_tol"] = max(CUT_F32_TOL, 2 * f32["uncut_orders"]["d"])
+    own = max(rel(runs["bf16"][1]["g_grad"], uncut32["g_grad"]),
+              rel(runs["bf16"][1]["d_grad"], uncut32["d_grad"]))
+    bf16["uncut_bf16_vs_f32"] = own
+    (cut64, ref64), (cut32, ref32) = witness["f64"], witness["f32"]
+    w = out["witness"] = dict(size=side, f64_tol=F64_TOL, f32_tol=CUT_F32_TOL)
+    w["f64"] = dict(loss_rel=loss_rel(cut64["losses"], ref64["losses"]),
+                    g_leaf_rel=leaf_rel(cut64["g_grads"], ref64["g_grads"]),
+                    d_leaf_rel=leaf_rel(cut64["d_grads"], ref64["d_grads"]))
+    w["f32"] = {}
+    for part in ("g", "d"):
+        truth = ref64[f"{part}_grad"].double()
+        w["f32"][part] = dict(cut_vs_f64=rel(cut32[f"{part}_grad"].double(), truth),
+                              uncut_vs_f64=rel(ref32[f"{part}_grad"].double(), truth),
+                              cut_vs_uncut=rel(cut32[f"{part}_grad"], ref32[f"{part}_grad"]))
+    out["ok"] = (f32["loss_rel"] <= CUT_F32_TOL and f32["g_grad_rel"] <= f32["g_tol"]
+                 and f32["d_grad_rel"] <= f32["d_tol"]
+                 and max(bf16["g_grad_rel"], bf16["d_grad_rel"]) <= 2 * own
+                 and w["f64"]["loss_rel"] <= CUT_F32_TOL
+                 and max(w["f64"]["g_leaf_rel"], w["f64"]["d_leaf_rel"]) <= F64_TOL
+                 and all(r["cut_vs_f64"] <= max(CUT_F32_TOL, 2 * r["uncut_vs_f64"])
+                         for r in w["f32"].values())
+                 and launched)
+    return out
+
+
+def run_vqgan(args, device, images, mesh=None) -> dict:
+    """The VQ-GAN recipe's adversarial step from its seed-0 weights: step 1's
+    losses, gradients and codebook, then the mean host time of TIMED_STEPS
+    more steps."""
+    from ..recipes.train_vqgan import VQGANState, build_models, make_vqgan_step
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        vqvae, disc = build_models(2, (128, 256))
+    vqvae.quantizer.quantizer.axis_name = "data"
+    vqvae, disc = vqvae.to(device).train(), disc.to(device).train()
+    state = VQGANState(vqvae, torch.optim.Adam(vqvae.parameters(), lr=1e-4),
+                       disc, torch.optim.Adam(disc.parameters(), lr=5e-4), 0)
+    step = make_vqgan_step(mesh=mesh, spatial_shard_axis=None if mesh is None else 2)
+    state, out = step(state, images)
+    sync(device)
+    q = vqvae.quantizer.quantizer
+    res = dict(losses={k: float(v) for k, v in out.items()}, g_grad=flat_grads(vqvae),
+               d_grad=flat_grads(disc), codebook=q.embedding.weight.detach().clone())
+    res["step_ms"] = timed_steps(lambda: step(state, images), device)
+    del state, vqvae, disc, out
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def check_vqgan(args, device, shape: dict) -> dict:
+    from ..recipes.train_2d_ddpm import synthetic_batch
+
+    mesh = create_mesh(shape, device=device)
+    full = synthetic_batch(torch.Generator(device).manual_seed(42), args.vq_batch, args.vq_size,
+                           device)
+    cut = run_vqgan(args, device, spatial_sharding(mesh, full.ndim).shard(full), mesh)
+    ref = on_rank0(lambda: run_vqgan(args, device, full))
+    out = dict(mesh=shape, size=args.vq_size, batch=args.vq_batch, step_ms=cut["step_ms"])
+    if ref is None:
+        out["ok"] = True
+        return out
+    out.update(loss_rel=loss_rel(cut["losses"], ref["losses"]),
+               g_grad_rel=rel(cut["g_grad"], ref["g_grad"]),
+               d_grad_rel=rel(cut["d_grad"], ref["d_grad"]),
+               codebook_rel=rel(cut["codebook"], ref["codebook"]),
+               uncut_step_ms=ref["step_ms"], tol=CUT_F32_TOL)
+    out["ok"] = max(out["loss_rel"], out["g_grad_rel"], out["d_grad_rel"],
+                    out["codebook_rel"]) <= CUT_F32_TOL
+    return out
+
+
 def gather_ok(results: dict, device) -> bool:
     """Every rank's checks passed (the flag on the rank's device: nccl takes
     no CPU tensor)."""
@@ -263,6 +521,9 @@ def main(argv=None) -> dict:
         cut_data_space=lambda: check_cut(args, device, {"data": 2, "space": n // 2}),
         cut_space=lambda: check_cut(args, device, {"space": n}),
         attention=lambda: check_attention(args, device, n),
+        ldm_stage1=lambda: check_ldm_stage1(args, device, {"space": n}),
+        vqgan=lambda: check_vqgan(args, device, {"data": 2, "space": n // 2} if n >= 4
+                                  else {"space": n}),
     )
     if n < 4 or n % 2:  # {"data": 2, "space": N/2} needs a space axis of 2 or more
         checks.pop("cut_data_space")

@@ -31,6 +31,7 @@ from ..inferers import LatentDiffusionInferer
 from ..losses import PatchAdversarialLoss
 from ..networks.nets import AutoencoderKL, DiffusionModelUNet, PatchDiscriminator
 from ..networks.schedulers import DDPMScheduler
+from ..parallel.spatial import cut_mean
 from .data_flags import add_data_arguments, data_batches
 from .serve import require_device
 from .train_2d_ddpm import synthetic_batch
@@ -56,19 +57,21 @@ def disc_forward(disc: PatchDiscriminator, images_or_g_out) -> torch.Tensor:
 
 
 def make_stage1_steps(
-    kl_weight: float, adv_weight: float, g_forward=aekl_forward
+    kl_weight: float, adv_weight: float, g_forward=aekl_forward, mesh=None,
+    spatial_shard_axis: int | None = None,
 ) -> tuple[AdversarialTrainStep, AdversarialTrainStep]:
     """(reconstruction-only warm-up step, adversarial step): L1 + kl_weight *
     KL for G, plus adv_weight * the least-squares generator loss in the
     adversarial step; D's loss 0.5 * (real + fake) in both. `g_forward`
     gives G's (reconstruction, z_mu, z_sigma) (the SPADE recipe's takes
-    (images, seg) inputs)."""
+    (images, seg) inputs). `mesh` and `spatial_shard_axis` go to
+    `make_adversarial_train_step` (the means are `cut_mean`s)."""
     adv = PatchAdversarialLoss(criterion="least_squares")
 
     def recon_loss_fn(g_out, targets):
         recon, z_mu, z_sigma = g_out
-        l1 = torch.mean(torch.abs(recon - targets))
-        kl = 0.5 * torch.mean(z_mu**2 + z_sigma**2 - torch.log(z_sigma**2 + 1e-12) - 1)
+        l1 = cut_mean(torch.abs(recon - targets))
+        kl = 0.5 * cut_mean(z_mu**2 + z_sigma**2 - torch.log(z_sigma**2 + 1e-12) - 1)
         return l1 + kl_weight * kl
 
     def g_adv_loss(fake_logits):
@@ -79,7 +82,8 @@ def make_stage1_steps(
 
     def build(weight):
         return make_adversarial_train_step(
-            g_forward, disc_forward, recon_loss_fn, g_adv_loss, d_loss_fn, adv_weight=weight
+            g_forward, disc_forward, recon_loss_fn, g_adv_loss, d_loss_fn, adv_weight=weight,
+            mesh=mesh, spatial_shard_axis=spatial_shard_axis,
         )
 
     return build(0.0), build(adv_weight)

@@ -26,11 +26,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..engines.trainer import check_data_mesh, frozen
+from ..engines.trainer import frozen
 from ..losses import PatchAdversarialLoss, feature_matching_loss
 from ..networks.nets import VQVAE, PatchDiscriminator
 from ..parallel.mesh import Mesh
-from ..parallel.train import reduce_over_mesh_
+from ..parallel.spatial import cut_mean
+from ..parallel.train import check_mesh, placement, reduce_over_mesh_
 from .data_flags import add_data_arguments, data_batches
 from .serve import require_device
 from .train_2d_ddpm import synthetic_batch
@@ -51,20 +52,24 @@ class VQGANStep:
     one D update; `outputs` holds "g_total", "d_total" and the loss terms.
     The VQ-VAE's codebook moves when it is in training mode.
 
-    With a data `mesh` the images are this rank's rows of the global batch:
-    the step runs inside `with mesh:`, G's and D's gradients and the losses
-    are averaged over "data", and the VQ-VAE's codebook statistics must be
-    global (build it with `axis_name="data"`), so the step is the
-    single-device step on the full batch.
+    With a `mesh` the images are this rank's rows of the global batch, and
+    with `spatial_shard_axis=2` its slab of axis 2 over "space": the step
+    runs inside `with mesh:` (and `spatial_cut`), G's and D's gradients and
+    the losses are summed over every rank and divided by the "data" size,
+    and the VQ-VAE's codebook statistics must be global (build it with
+    `axis_name="data"`; under the cut they are summed over "space" too), so
+    the step is the single-device step on the full batch.
     """
 
     def __init__(self, adv_weight: float = 0.01, fm_weight: float = 1.0,
-                 quant_weight: float = 1.0, mesh: Mesh | None = None) -> None:
+                 quant_weight: float = 1.0, mesh: Mesh | None = None,
+                 spatial_shard_axis: int | None = None) -> None:
         self.adv = PatchAdversarialLoss(criterion="least_squares")
         self.adv_weight = adv_weight
         self.fm_weight = fm_weight
         self.quant_weight = quant_weight
-        self.mesh = check_data_mesh(mesh)
+        self.mesh = check_mesh(mesh, spatial_shard_axis)
+        self.spatial_shard_axis = spatial_shard_axis
 
     def _reduce(self, model, outputs: dict, names: tuple) -> None:
         if self.mesh is not None:
@@ -78,7 +83,7 @@ class VQGANStep:
         if not quantizer.ddp_sync or quantizer.axis_name != "data":
             raise ValueError("under a mesh the VQ-VAE's codebook syncs over 'data': build it "
                              "with ddp_sync=True, axis_name='data'")
-        with self.mesh:
+        with placement(self.mesh, self.spatial_shard_axis):
             return self._step(state, images)
 
     def _step(self, state: VQGANState, images: torch.Tensor) -> tuple[VQGANState, dict]:
@@ -90,7 +95,7 @@ class VQGANStep:
         recon, q_loss = vqvae(images)
         with frozen(disc):
             fake_outs = disc(recon)
-        recon_l1 = torch.mean(torch.abs(recon - images))
+        recon_l1 = cut_mean(torch.abs(recon - images))
         g_adv = adv(fake_outs[-1], target_is_real=True, for_discriminator=False)
         fm = feature_matching_loss(real_feats, fake_outs[:-1])
         g_total = (recon_l1 + self.quant_weight * q_loss
@@ -117,9 +122,10 @@ class VQGANStep:
 
 
 def make_vqgan_step(adv_weight: float = 0.01, fm_weight: float = 1.0,
-                    quant_weight: float = 1.0, mesh: Mesh | None = None) -> VQGANStep:
+                    quant_weight: float = 1.0, mesh: Mesh | None = None,
+                    spatial_shard_axis: int | None = None) -> VQGANStep:
     """The fused VQ-GAN step; the models and optimizers live in the state."""
-    return VQGANStep(adv_weight, fm_weight, quant_weight, mesh)
+    return VQGANStep(adv_weight, fm_weight, quant_weight, mesh, spatial_shard_axis)
 
 
 def build_models(spatial_dims: int = 2, channels: tuple = (128, 256)) -> tuple[VQVAE,

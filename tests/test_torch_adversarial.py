@@ -54,6 +54,9 @@ from generativemodels_tpu_torch.utils import AdversarialIterationEvents, Adversa
 from tests.test_torch_patchgan import random_stats
 from tests.test_torch_unet import random_params
 from tests.test_torch_vqvae import random_codebook
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 LOSS_RTOL = 1e-6
 STEP_RTOL = 1e-4

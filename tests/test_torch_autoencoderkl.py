@@ -22,6 +22,9 @@ from generativemodels_tpu.networks.nets import AutoencoderKL as JaxAEKL
 from generativemodels_tpu_torch.networks import autoencoderkl_state_dict_from_jax
 from generativemodels_tpu_torch.networks.blocks import ConvTransposeND
 from generativemodels_tpu_torch.networks.nets import AutoencoderKL
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = 1e-5
 BF16_RATIO = 2.0

@@ -37,6 +37,9 @@ from generativemodels_tpu_torch.networks.blocks import (
 from generativemodels_tpu_torch.networks.nets import DiffusionModelEncoder, DiffusionModelUNet
 
 from .test_torch_unet import random_params
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BLOCK_TOL = dict(atol=1e-5, rtol=1e-5)
 NET_TOL = dict(atol=1e-4, rtol=1e-4)

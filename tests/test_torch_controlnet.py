@@ -46,6 +46,9 @@ from generativemodels_tpu_torch.networks.nets import (
 
 from .test_torch_latent import IMAGE, LATENT, aekl  # noqa: F401  (aekl: a fixture)
 from .test_torch_unet import random_params
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 CHAIN_RTOL = 1e-4

@@ -6,8 +6,9 @@ tests/test_torch_sharded_attention.py) starts a world of `gloo` ranks, one
 process each, that import only torch, numpy and the port
 (tests/torch_dist_workers.py), hands them pickled inputs made from numpy
 seeds, and returns each rank's results to the pytest process, where the JAX
-functions compute the references on one CPU device. Each spawn has its
-own 120 s limit, so a hang fails fast. One spawn here serves every check.
+functions compute the references on one CPU device. The ranks of a spawn
+share one 240 s deadline, and a rank that fails ends its world at once,
+so a hang or a fault fails fast. One spawn here serves every check.
 
 Tolerances:
 - the train step: the loss within 1e-6 and the parameters' L1 norm within
@@ -23,6 +24,7 @@ import os
 import pickle
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -41,41 +43,61 @@ from generativemodels_tpu_torch.networks import unet_state_dict_from_jax
 from generativemodels_tpu_torch.networks.nets import DiffusionModelUNet
 
 from .test_torch_unet import random_params
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = Path(__file__).resolve().parents[1]
-SPAWN_TIMEOUT = 120
+# one deadline for the whole world: a healthy spawn here takes 10-40 s
+SPAWN_TIMEOUT = 240
 
 
 def spawn(case: str, world: int, inputs: dict, tmp_path: Path,
           timeout: float = SPAWN_TIMEOUT) -> list[dict]:
     """Run `case` of tests/torch_dist_workers.py on `world` gloo ranks (one
-    process each); returns their results in rank order."""
+    process each); returns their results in rank order.
+
+    The ranks share one deadline. The first rank that fails ends the world
+    at once (the others would wait in their next collective), and the error
+    carries every rank's stderr; so does a world that outlives the
+    deadline."""
     tmp_path.mkdir(parents=True, exist_ok=True)
     in_path = tmp_path / f"{case}_inputs.pkl"
     in_path.write_bytes(pickle.dumps(inputs))
     store = tmp_path / f"{case}_store"
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
-    procs = [
-        subprocess.Popen(
-            [sys.executable, "-m", "tests.torch_dist_workers", case, str(rank), str(world),
-             str(store), str(in_path), str(tmp_path / f"{case}_out{rank}.pkl")],
-            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        )
-        for rank in range(world)
-    ]
-    errors = []
+    logs = [tmp_path / f"{case}_err{rank}.txt" for rank in range(world)]
+    procs = []
+    for rank in range(world):
+        with open(logs[rank], "w") as err:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "tests.torch_dist_workers", case, str(rank), str(world),
+                 str(store), str(in_path), str(tmp_path / f"{case}_out{rank}.pkl")],
+                cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=err,
+            ))
+    deadline = time.monotonic() + timeout
+    failed = None
     try:
-        for rank, p in enumerate(procs):
-            _, stderr = p.communicate(timeout=timeout)
-            if p.returncode != 0:
-                errors.append(f"rank {rank} failed:\n{stderr[-3000:]}")
+        while failed is None:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes):
+                break
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited with {codes[bad[0]]}"
+            elif time.monotonic() > deadline:
+                failed = f"the world of {world} outlived its {timeout:.0f} s deadline"
+            else:
+                time.sleep(0.05)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
-    if errors:
-        raise RuntimeError("\n".join(errors))
+            p.wait()
+    if failed is not None:
+        tails = "\n".join(f"--- rank {rank} stderr:\n{log.read_text()[-3000:]}"
+                          for rank, log in enumerate(logs))
+        raise RuntimeError(f"{case}: {failed}\n{tails}")
     return [pickle.loads((tmp_path / f"{case}_out{rank}.pkl").read_bytes())
             for rank in range(world)]
 

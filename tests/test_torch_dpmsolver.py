@@ -21,6 +21,9 @@ import torch
 
 from generativemodels_tpu.networks import schedulers as jsched
 from generativemodels_tpu_torch.networks import schedulers as tsched
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 OWN_TABLE_TOL = dict(atol=1e-6, rtol=1e-3)
 STEP_TOL = dict(atol=1e-6, rtol=1e-5)

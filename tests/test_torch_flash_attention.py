@@ -33,6 +33,9 @@ from generativemodels_tpu_torch.ops import (
     flash_attention_with_lse,
     resolve_use_flash,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 BF16_TOL = dict(atol=1e-2, rtol=0)

@@ -33,6 +33,9 @@ from generativemodels_tpu_torch.ops import (
     flash_attention_reference,
 )
 from generativemodels_tpu_torch.ops.flash_attention import LOG2E
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 F32_TOL = 1e-5
 BF16_REL = 2e-2

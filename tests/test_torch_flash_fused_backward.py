@@ -38,6 +38,9 @@ from generativemodels_tpu_torch.ops import (
 )
 from generativemodels_tpu_torch.ops.flash_attention import _BLOCK
 from generativemodels_tpu_torch.ops.fused_conv import CONV_RUNS
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -44,6 +44,9 @@ from generativemodels_tpu_torch.ops import (
 from generativemodels_tpu_torch.ops.flash_probes import relative_error
 from generativemodels_tpu_torch import probes
 from generativemodels_tpu_torch.probes import probe_attn_vpu, probe_overlap
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 REPO = Path(__file__).resolve().parent.parent
 SHAPE = (2, 512, 64)

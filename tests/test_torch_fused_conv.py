@@ -40,6 +40,9 @@ from generativemodels_tpu_torch.ops import (
 from generativemodels_tpu_torch.ops.fused_conv import CONV_BN, CONV_RUNS, conv_tiles
 
 from .test_torch_unet import BATCH, build_pair, inputs, random_params
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)

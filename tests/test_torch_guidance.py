@@ -35,6 +35,9 @@ from generativemodels_tpu_torch.recipes import brain_ldm_sampler as tbrain
 from generativemodels_tpu_torch.recipes import guidance as tguidance
 
 from .test_torch_unet import random_params
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = 1e-5
 SHAPE = (2, 1, 6, 6)

@@ -39,6 +39,9 @@ from generativemodels_tpu_torch.networks import (
 from generativemodels_tpu_torch.networks.nets import AutoencoderKL, DiffusionModelUNet
 from generativemodels_tpu_torch.probes import bench_3d_ldm
 from tests.test_torch_unet import random_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = 1e-5
 BATCH = 2

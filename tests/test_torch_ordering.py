@@ -8,6 +8,9 @@ import pytest
 
 from generativemodels_tpu.utils.ordering import Ordering as JaxOrdering
 from generativemodels_tpu_torch.utils import Ordering, OrderingTransformations, OrderingType
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # (name, transformation kwargs) for a (rows, cols[, depths]) grid
 TRANSFORMS = {

@@ -1,8 +1,8 @@
 """The port's mesh steps and layers across real processes, held against the
 JAX package (tests/test_parallel.py's checks).
 
-Two spawns (tests/test_torch_distributed.py::spawn), each with its own 120 s
-limit:
+Two spawns (tests/test_torch_distributed.py::spawn, each world with one
+deadline):
 - two ranks on {"data": 2}: the step against the JAX single-device step on
   the full batch (with the JAX draws given), with accumulation and the EMA;
   the step's own draws against the port's one-rank step on the full batch;
@@ -22,13 +22,14 @@ Tolerances:
   frameworks' convolution and attention sums); Adam runs with eps 1e-3 as
   there;
 - the cut step: the same loss and L1 bounds at 1e-5: its GroupNorms take
-  E[x^2] - E[x]^2 from sums over the slabs, and its gradients are summed
+  their statistics from sums over the slabs, and its gradients are summed
   over four ranks in a different order;
 - the cut forwards: 1e-5 of the largest output (f32);
 - the guided sampler, cut against whole: 1e-4 of the largest output. The
-  cut GroupNorms take E[x^2] - E[x]^2 (flax's variance), the whole run's
-  F.group_norm the two-pass one; their ~1e-7 apart grows through four
-  guided steps (scale 3) and the decode to ~2e-5 of the largest value;
+  cut GroupNorms sum their statistics over the slabs, the whole run's
+  F.group_norm in one pass over the volume; their ~1e-7 apart grows
+  through four guided steps (scale 3) and the decode to ~2e-5 of the
+  largest value;
 - the synced BatchNorm and the codebook: rtol 1e-5, atol 1e-6, as the JAX
   tests;
 - the adversarial and VQ-GAN steps and the port's own draws: losses rtol
@@ -78,6 +79,9 @@ from .test_torch_distributed import (
     spawn,
     unet_pair,
 )
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 UNET = dict(spatial_dims=2, in_channels=1, out_channels=1, num_res_blocks=1,
             num_channels=(8, 16), attention_levels=(False, True), norm_num_groups=8,
@@ -448,8 +452,9 @@ def test_sharding_pieces_of_a_global_tensor():
 
 
 def test_multihost_batches_check_the_batch(tmp_path):
-    """A global batch that the ranks do not divide raises here (the JAX
-    function checks only the process count, pipeline.py:298)."""
+    """A global batch that the "data" ranks do not divide raises here (the
+    JAX function checks only the process count, pipeline.py:298); a "space"
+    axis leaves each rank the whole rows of its data group."""
     from generativemodels_tpu_torch.data import multihost_device_batches
 
     mesh = create_mesh({"data": 1}, device="cpu")
@@ -460,8 +465,13 @@ def test_multihost_batches_check_the_batch(tmp_path):
     batches.close()
     cut = create_mesh({"data": 1, "space": 1}, device="cpu")
     cut.size, cut.shape = 2, {"data": 1, "space": 2}  # a stand-in for a cut mesh of two ranks
-    with pytest.raises(ValueError, match="cuts the batch only"):
-        multihost_device_batches(str(tmp_path), (4, 4), 2, cut)
+    batches = multihost_device_batches(str(tmp_path), (4, 4), 2, cut)
+    assert tuple(next(batches).shape) == (2, 1, 4, 4)
+    batches.close()
+    two = create_mesh({"data": 1}, device="cpu")
+    two.size, two.shape = 2, {"data": 2}  # a stand-in for a data axis of two ranks
+    with pytest.raises(ValueError, match="across 2 data ranks"):
+        multihost_device_batches(str(tmp_path), (4, 4), 3, two)
 
 
 def test_recipe_batch_must_divide_over_the_processes(monkeypatch):
@@ -479,18 +489,26 @@ def test_recipe_batch_must_divide_over_the_processes(monkeypatch):
 
 
 def test_adversarial_steps_refuse_a_spatial_cut():
-    """The adversarial steps take a data mesh; a "space" axis of more than
-    one rank raises (ROADMAP A11's item), as does a VQ-GAN step under a mesh
-    whose codebook does not sync over "data"."""
+    """The adversarial steps refuse a spatial cut they cannot serve: a
+    "space" axis of more than one rank that the step does not cut, a cut of
+    an axis other than 2 (ROADMAP C's difference from the JAX package), and
+    a VQ-GAN step under a mesh whose codebook does not sync over "data"."""
     from generativemodels_tpu_torch.engines import trainer
     from generativemodels_tpu_torch.recipes import train_vqgan
 
     cut = create_mesh({"data": 1, "space": 1}, device="cpu")
     cut.shape = {"data": 1, "space": 2}  # a stand-in for a cut mesh of two ranks
-    with pytest.raises(ValueError, match="data mesh"):
-        trainer.make_adversarial_train_step(*([lambda *a: None] * 5), mesh=cut)
-    with pytest.raises(ValueError, match="data mesh"):
+    fns = [lambda *a: None] * 5
+    with pytest.raises(ValueError, match="needs spatial_shard_axis=2"):
+        trainer.make_adversarial_train_step(*fns, mesh=cut)
+    with pytest.raises(ValueError, match="needs spatial_shard_axis=2"):
         train_vqgan.make_vqgan_step(mesh=cut)
+    for axis in (3, 4):
+        with pytest.raises(ValueError, match="takes axis 2"):
+            trainer.make_adversarial_train_step(*fns, mesh=cut, spatial_shard_axis=axis)
+        with pytest.raises(ValueError, match="takes axis 2"):
+            train_vqgan.make_vqgan_step(mesh=cut, spatial_shard_axis=axis)
+    assert trainer.make_adversarial_train_step(*fns, mesh=cut, spatial_shard_axis=2).mesh is cut
     c = _vqgan_inputs()
     vq = VQVAE(**c["vq_cfg"])  # axis_name None: its codebook stays local
     state = train_vqgan.VQGANState(vq, None, PatchDiscriminator(**c["d_cfg"]), None, 0)

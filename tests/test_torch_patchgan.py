@@ -27,6 +27,9 @@ from generativemodels_tpu_torch.networks.nets import (
     PatchDiscriminator,
 )
 from tests.test_torch_unet import random_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = 1e-5
 BATCH = 2

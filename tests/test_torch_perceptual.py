@@ -32,6 +32,9 @@ from generativemodels_tpu_torch.networks import backbone_state_dict_from_jax, ba
 from generativemodels_tpu_torch.networks import pretrained
 from tests.test_torch_patchgan import random_stats
 from tests.test_torch_unet import random_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = 1e-5
 # name: (JAX module, port module, NAME_MAPS key, input shape channels-first)

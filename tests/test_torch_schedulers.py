@@ -16,6 +16,9 @@ import torch
 
 from generativemodels_tpu.networks import schedulers as jsched
 from generativemodels_tpu_torch.networks import schedulers as tsched
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SCHEDULES = ["linear_beta", "scaled_linear_beta", "sigmoid_beta", "cosine"]
 ATOL = 1e-6

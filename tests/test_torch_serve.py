@@ -33,6 +33,9 @@ from generativemodels_tpu_torch.networks.schedulers import (
 from generativemodels_tpu_torch.recipes import serve
 
 from .test_torch_unet import BATCH, SPATIAL, build_pair
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TINY_SERVE = dict(size=16, channels=(32, 64, 64), norm_groups=8, batch=2, ddim_steps=2)
 # loopback only: never route the requests through a proxy from the environment

@@ -28,6 +28,9 @@ from generativemodels_tpu_torch.ops.sharded_attention import (
 from generativemodels_tpu_torch.parallel import create_mesh
 
 from .test_torch_distributed import spawn
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-5
 HEADS = 2

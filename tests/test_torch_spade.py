@@ -41,6 +41,9 @@ from generativemodels_tpu_torch.networks.nets import (
 )
 from generativemodels_tpu_torch.networks.nets.spade_network import kld_loss
 from tests.test_torch_unet import random_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = 1e-5
 NET_RTOL = 1e-4

@@ -53,6 +53,9 @@ from generativemodels_tpu_torch.networks.nets import (
 from generativemodels_tpu_torch.recipes import train_spade_ldm as tldm
 from generativemodels_tpu_torch.recipes import train_spade_vae as tvae
 from tests.test_torch_unet import random_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = 1e-4
 B, LABEL_NC = 2, 3

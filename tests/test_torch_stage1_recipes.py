@@ -56,6 +56,9 @@ from tests.test_torch_adversarial import (
     run_stage1_pair,
 )
 from tests.test_torch_unet import random_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 BATCH = 2
 SIZE = 16

@@ -44,6 +44,9 @@ from generativemodels_tpu_torch.parallel.train import _ema_update
 from generativemodels_tpu_torch.recipes import train_2d_ddpm
 
 from .test_torch_unet import BATCH, SPATIAL, TINY, build_pair, inputs
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GRAD_TOL = 1e-4
 GRAD_FLOOR = 1e-6

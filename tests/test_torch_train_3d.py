@@ -40,6 +40,9 @@ from generativemodels_tpu_torch.recipes import train_3d_ddpm
 
 from .test_torch_train import EPS, LR, _jax_draws, _to_port_layout
 from .test_torch_unet import random_params
+from .torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL_3D = dict(
     spatial_dims=3, in_channels=1, out_channels=1, num_res_blocks=1,

@@ -30,6 +30,9 @@ from generativemodels_tpu_torch.networks.blocks import SABlock, TransformerBlock
 from generativemodels_tpu_torch.networks.nets import DecoderOnlyTransformer
 from generativemodels_tpu_torch.ops import dot_product_attention, resolve_use_flash
 from tests.test_torch_unet import random_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = 1e-5
 BF16_RATIO = 2.0

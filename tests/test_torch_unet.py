@@ -20,6 +20,9 @@ from generativemodels_tpu.networks import zoo_convert
 from generativemodels_tpu.networks.nets import DiffusionModelUNet as JaxUNet
 from generativemodels_tpu_torch.networks import unet_state_dict_from_jax
 from generativemodels_tpu_torch.networks.nets import DiffusionModelUNet
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 TINY = dict(

@@ -30,6 +30,9 @@ from generativemodels_tpu_torch.networks import vqvae_state_dict_from_jax
 from generativemodels_tpu_torch.networks.layers import EMAQuantizer, VectorQuantizer
 from generativemodels_tpu_torch.networks.nets import VQVAE
 from tests.test_torch_unet import random_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = 1e-5
 GRAD_TOL = 1e-4

@@ -37,6 +37,9 @@ from generativemodels_tpu_torch.recipes import train_vqvae_transformer as trecip
 from generativemodels_tpu_torch.utils import Ordering
 from tests.test_torch_unet import random_params
 from tests.test_torch_vqvae import SMALL, build_vq_pair
+from tests.torch_threads import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 RTOL = 1e-5
 GAP_TOL = 1e-4

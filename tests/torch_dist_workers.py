@@ -58,8 +58,9 @@ def _unet(cfg: dict, state: dict):
 
 
 def _cut(mesh, x: np.ndarray) -> torch.Tensor:
-    """This rank's rows and slab of axis 2 of a global array."""
-    return spatial_sharding(mesh, x.ndim).shard(_t(x))
+    """This rank's rows and slab of axis 2 of a global array (all of it
+    without a mesh)."""
+    return _t(x) if mesh is None else spatial_sharding(mesh, x.ndim).shard(_t(x))
 
 
 # ---------------------------------------------------------------- attention
@@ -308,6 +309,265 @@ def _guided(mesh, c: dict) -> dict:
                     guidance_scale=3.0) / 0.42)
         out[name] = {"whole": _np(whole), "cut": _np(cut)}
     return out
+
+
+# ---------------------------------------------------------------- space cut
+
+
+def _pieces(x: torch.Tensor, sizes) -> torch.Tensor:
+    """This rank's piece of axis 2 when the space ranks hold `sizes` planes."""
+    r = torch.distributed.get_rank()
+    return x.narrow(2, sum(sizes[:r]), sizes[r])
+
+
+def _sum_grads(module, group) -> dict:
+    """The module's parameter gradients summed over the group's ranks."""
+    out = {}
+    for name, p in module.named_parameters():
+        g = p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+        torch.distributed.all_reduce(g, group=group)
+        out[name] = _np(g)
+    return out
+
+
+def _cut_and_whole(mesh, build, x: np.ndarray, sizes=None, enter_mesh=False) -> dict:
+    """The module from `build()` on this rank's piece of x under the cut and,
+    as a second copy, on the whole of x: outputs (a tensor or a list),
+    the input's gradient and the parameters' gradients (summed over the
+    ranks) of the loss sum_k mean(sin(3 out_k)) (`cut_mean` under the cut;
+    a normalised output's mean square would have no gradient), and the
+    buffers after the call."""
+    from contextlib import ExitStack
+
+    from generativemodels_tpu_torch.parallel.spatial import cut_mean
+
+    res = {}
+    for name in ("whole", "cut"):
+        module = build()
+        xt = _t(x)
+        if name == "cut":
+            n = mesh.axis_size("space")
+            xt = _pieces(xt, sizes or [x.shape[2] // n] * n)
+        xt = xt.clone().requires_grad_()
+        with ExitStack() as stack:
+            if name == "cut":
+                if enter_mesh:
+                    stack.enter_context(mesh)
+                stack.enter_context(spatial_cut(mesh))
+            out = module(xt)
+            outs = out if isinstance(out, list) else [out]
+            loss = sum(cut_mean(torch.sin(3 * o.float())) for o in outs)
+            loss.backward()
+        res[name] = dict(out=[_np(o) for o in outs], dx=_np(xt.grad),
+                         grads=(_sum_grads(module, mesh.group("space")) if name == "cut"
+                                else {k: _np(p.grad) for k, p in module.named_parameters()}),
+                         buffers={k: _np(b) for k, b in module.named_buffers()})
+    return res
+
+
+def _seeded_module(cls, seed: int, **cfg):
+    def build():
+        torch.manual_seed(seed)
+        return cls(**cfg).train()
+    return build
+
+
+def _layer_checks(mesh, c: dict) -> dict:
+    """The cut layers, each against the uncut module on this rank (a layer
+    that raises reports its error)."""
+    from generativemodels_tpu_torch.networks.blocks.convolutions import ConvTransposeND
+    from generativemodels_tpu_torch.networks.nets import (
+        MultiScalePatchDiscriminator,
+        PatchDiscriminator,
+    )
+    from generativemodels_tpu_torch.networks.nets.patchgan_discriminator import (
+        BatchNormND,
+        _InstanceNorm,
+    )
+
+    def batch_norm(channels):
+        def build():
+            torch.manual_seed(4)
+            m = BatchNormND(channels, eps=1e-5, momentum=0.1, axis_name="data")
+            torch.nn.init.normal_(m.weight, 1.0, 0.1)
+            torch.nn.init.normal_(m.bias, 0.0, 0.1)
+            return m.train()
+        return build
+
+    def group_norm(channels):
+        def build():
+            from generativemodels_tpu_torch.networks.blocks.layers import GroupNorm
+
+            torch.manual_seed(6)
+            m = GroupNorm(2, channels)
+            torch.nn.init.normal_(m.weight, 1.0, 0.1)
+            torch.nn.init.normal_(m.bias, 0.0, 0.1)
+            return m
+        return build
+
+    checks = (
+        [(f"conv_transpose_{name}", (_seeded_module(ConvTransposeND, 1, **cfg), x), {})
+         for name, cfg, x in c["conv_transpose"]]
+        + [(f"patchgan_{name}", (_seeded_module(PatchDiscriminator, 2, **cfg), x),
+            dict(enter_mesh=True)) for name, cfg, x in c["patchgan"]]
+        + [(f"multiscale_{name}", (_Wrap.of(MultiScalePatchDiscriminator, 3, cfg), x), {})
+           for name, cfg, x in c["multiscale"]]
+        + [(f"instance_norm_{name}", (_InstanceNorm, x, sizes), {})
+           for name, x, sizes in c["instance_norm"]]
+        + [(f"group_norm_{name}", (group_norm(x.shape[1]), x, sizes), {})
+           for name, x, sizes in c["group_norm"]]
+        + [(f"batch_norm_{name}", (batch_norm(x.shape[1]), x, sizes), dict(enter_mesh=True))
+           for name, x, sizes in c["batch_norm"]]
+        + [(f"fused_unet_{name}", (_FusedUNet.of(cfg, t), x), {})
+           for name, cfg, x, t in c["fused_unet"]]
+    )
+    res = {}
+    for name, args, kw in checks:
+        try:
+            res[name] = _cut_and_whole(mesh, *args, **kw)
+        except Exception as exc:  # reported to the test that reads it
+            res[name] = {"error": f"{type(exc).__name__}: {exc}"}
+    return res
+
+
+class _FusedUNet(torch.nn.Module):
+    """A 3D UNet with random weights (its zero-initialised out conv too)
+    whose forward at fixed timesteps takes the fused ResnetBlock route
+    (GMTPU_FUSED_RESBLOCK=1: kernel 5's plain version on the CPU)."""
+
+    def __init__(self, cfg: dict, t) -> None:
+        from generativemodels_tpu_torch.networks.nets import DiffusionModelUNet
+
+        super().__init__()
+        self.unet = DiffusionModelUNet(**cfg)
+        with torch.no_grad():
+            for p in self.unet.parameters():
+                p.normal_(0.0, 0.2)
+        self.t = _t(t)
+
+    @classmethod
+    def of(cls, cfg: dict, t):
+        def build():
+            torch.manual_seed(5)
+            return cls(cfg, t).train()
+        return build
+
+    def forward(self, x):
+        os.environ["GMTPU_FUSED_RESBLOCK"] = "1"
+        try:
+            return self.unet(x, self.t)
+        finally:
+            os.environ.pop("GMTPU_FUSED_RESBLOCK")
+
+
+class _Wrap(torch.nn.Module):
+    """A multi-scale discriminator whose forward returns its predictions and
+    features as one list."""
+
+    def __init__(self, inner) -> None:
+        super().__init__()
+        self.inner = inner
+
+    @classmethod
+    def of(cls, inner_cls, seed: int, cfg: dict):
+        def build():
+            torch.manual_seed(seed)
+            return cls(inner_cls(**cfg)).train()
+        return build
+
+    def forward(self, x):
+        outputs, features = self.inner(x)
+        return list(outputs) + [f for fs in features for f in fs]
+
+
+def _cut_mean_check(mesh, c: dict) -> dict:
+    """The shares of `cut_mean` over pieces of unequal depth add up to the
+    whole mean; each piece's gradient is the whole mean's."""
+    from generativemodels_tpu_torch.parallel.spatial import cut_mean
+
+    x = _t(c["x"])
+    piece = _pieces(x, c["sizes"]).clone().requires_grad_()
+    with spatial_cut(mesh):
+        share = cut_mean(piece)
+    share.backward()
+    total = share.detach().clone().reshape(1)
+    torch.distributed.all_reduce(total, group=mesh.group("space"))
+    whole = x.clone().requires_grad_()
+    torch.mean(whole).backward()
+    return dict(total=float(total), whole=float(torch.mean(x)), grad=_np(piece.grad),
+                whole_grad=_np(_pieces(whole.grad, c["sizes"])))
+
+
+def _cut_adversarial(mesh, c: dict) -> dict:
+    """The 3D LDM recipe's stage-1 step, 2D and tiny, under the cut (uncut
+    without a mesh): its AEKL latent draw from a seeded generator (the
+    global batch's, this rank's slab kept), D with BatchNorm synced over
+    "data"."""
+    from generativemodels_tpu_torch.engines import init_adversarial_state
+    from generativemodels_tpu_torch.networks.nets import AutoencoderKL, PatchDiscriminator
+    from generativemodels_tpu_torch.recipes.train_2d_ldm import make_stage1_steps
+
+    g = AutoencoderKL(**c["g_cfg"])
+    g.load_state_dict({k: _t(v) for k, v in c["g_state"].items()})
+    d = PatchDiscriminator(**c["d_cfg"])
+    d.load_state_dict({k: _t(v) for k, v in c["d_state"].items()})
+    g.train(), d.train()
+    _, step = make_stage1_steps(c["kl_weight"], c["adv_weight"], mesh=mesh,
+                                spatial_shard_axis=None if mesh is None else 2)
+    state = init_adversarial_state(
+        g, torch.optim.Adam(g.parameters(), lr=c["lr"], eps=c["eps"]),
+        d, torch.optim.Adam(d.parameters(), lr=c["lr"], eps=c["eps"]))
+    images = _cut(mesh, c["x"])
+    _, out = step(state, images, images, torch.Generator().manual_seed(c["seed"]))
+    return {"losses": {str(k): float(v) for k, v in out.items()
+                       if isinstance(v, torch.Tensor) and v.ndim == 0},
+            "g": _params(g), "d": _params(d)}
+
+
+def _cut_vqgan(mesh, c: dict) -> dict:
+    from generativemodels_tpu_torch.recipes.train_vqgan import VQGANState, make_vqgan_step
+
+    vq, d = vqgan_models(c)
+    state = VQGANState(vq, torch.optim.Adam(vq.parameters(), lr=c["lr"], eps=c["eps"]),
+                       d, torch.optim.Adam(d.parameters(), lr=c["lr"], eps=c["eps"]), 0)
+    step = make_vqgan_step(adv_weight=c["adv_weight"], fm_weight=c["fm_weight"], mesh=mesh,
+                           spatial_shard_axis=None if mesh is None else 2)
+    _, out = step(state, _cut(mesh, c["x"]))
+    return {"losses": {k: float(v) for k, v in out.items()}, "g": _params(vq),
+            "d": _params(d)}
+
+
+def _space_batches(mesh, c: dict) -> dict:
+    """Two global batches of `multihost_device_batches` on the cut mesh:
+    each row's file value, and the shape of this rank's slab of them."""
+    from generativemodels_tpu_torch.data import multihost_device_batches
+
+    it = multihost_device_batches(c["dir"], c["shape"], c["batch"], mesh)
+    rows, slab = [], None
+    for _ in range(2):
+        b = next(it)
+        rows += [float(v) for v in b[:, 0, 0, 0]]
+        slab = tuple(spatial_sharding(mesh, b.ndim, data_axis=None).shard(b).shape)
+    it.close()
+    return dict(rows=rows, shape=tuple(b.shape), slab=slab)
+
+
+@case
+def space_cut(inputs: dict) -> dict:
+    """On a {"data": 1, "space": 2} mesh: the cut layers against the uncut
+    modules, `cut_mean`, the cut stage-1 and VQ-GAN steps, and the
+    multi-process batches. A check that raises reports its error (the
+    ranks raise together: each check's collectives are symmetric)."""
+    mesh = create_mesh({"data": 1, "space": 2}, device="cpu")
+    res = {"space": mesh.index("space")}
+    for name, fn in (("layers", _layer_checks), ("cut_mean", _cut_mean_check),
+                     ("adversarial", _cut_adversarial), ("vqgan", _cut_vqgan),
+                     ("batches", _space_batches)):
+        try:
+            res[name] = fn(mesh, inputs[name])
+        except Exception as exc:  # reported to the test that reads it
+            res[name] = {"error": f"{type(exc).__name__}: {exc}"}
+    return res
 
 
 # ---------------------------------------------------------------- processes
