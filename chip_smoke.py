@@ -20,14 +20,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      with their times, the compiler's warnings and each entry function's
      registers, stack frame and spill bytes from ptxas (kernels 1-7 must
      have neither, and no wgmma may be serialized: kernels 6 and 7 overlap
-     their products with the softmax);
+     their products with the softmax, and kernels 2 and 3 on their wgmma
+     route issue one tile's products with the next tile's);
   2. kernels against their plain versions: O and lse of the flash-attention
      forward kernel against `flash_attention_reference` (then the forward
      against the plain attention path at seq 256-1024, the numbers behind
      the flash threshold), dq, dk, dv of the split backward kernels and of
      the fused backward kernel against `flash_attention_backward_reference`
-     (the fused one also against the split ones, and each dq kernel against
-     itself: its dq must be the same to the bit over two launches), and the
+     (the fused one also against the split ones: dk, dv to the bit where
+     kernel 3 runs the body the two share, within the fused dq margin where
+     `backward_route` puts kernels 2 and 3 on their wgmma body, bf16 at D =
+     64; and each dq kernel against itself: its dq must be the same to the
+     bit over two launches; each case prints its route; the wgmma route's
+     own cases, ROUTE_CASES, run in both exp2 contracts), and the
      fused GroupNorm-SiLU-conv3d kernel against
      `fused_norm_silu_conv3d_reference` (two launches equal to the bit, and
      the sums over one 3D forward's 22 launches), at the shapes the serving, training
@@ -290,14 +295,17 @@ THRESHOLD_CASES = ((2, 2, 64, "bfloat16"), (4, 1, 256, "float32"))
 # in phase 1 (kernels 1-7, whose accumulators live in registers), and how
 # many instantiations the ptxas log of each source must report for them
 # (kernel 1: 4 head widths x the contracts, 2 in bf16 and 3 in f32
-# (csrc/flash_contract.cuh); kernels 2-4: 3 kernels x the same 20; kernel 5: the
+# (csrc/flash_contract.cuh); kernels 2-4: 3 kernels x the same 20, where
+# kernels 2 and 3 at bf16 D = 64 in the 2 exp2 contracts are their wgmma
+# bodies (4) in place of mma.sync ones; kernel 5: the
 # f32 kernel at 3 BN, the bf16 kernel at the 3 depth runs of
 # `ops.fused_conv.CONV_RUNS`; kernels 6 and 7: 7 overlap variants and the 4
 # (scale in kernel, bf16 p) pairs), so that a log that stops matching fails
 NO_STACK_KERNELS = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "flash_bwd_dq_kernel",
-                    "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel", "fused_conv_f32_kernel",
-                    "fused_conv_mma_kernel", "flash_probe_overlap_kernel",
-                    "flash_probe_vpu_kernel")
+                    "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel",
+                    "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+                    "fused_conv_f32_kernel", "fused_conv_mma_kernel",
+                    "flash_probe_overlap_kernel", "flash_probe_vpu_kernel")
 NO_STACK_INSTANCES = {"flash_fwd.cu": 20, "flash_bwd.cu": 60, "fused_conv.cu": 6,
                       "flash_probes.cu": 11}
 # (name, (BH, Sq, Sk, D), dtype name, causal) of the backward kernels
@@ -450,21 +458,6 @@ GRAD_SIZE_3D = 64  # the f32 gradient check: attention at 16^3 = 4096 tokens, pl
 # embedding's bias), one re-rounded term is ~1e-2 of it, as two runs of the
 # same fused path show
 BF16_GRAD_RTOL_3D = 1e-2
-# kernel groups of a 3D training step's profile, matched in this order by name
-TRAIN_PROFILE_GROUPS = (
-    ("flash_bwd_fused (kernel 4)", ("flash_bwd_fused",)),
-    ("flash_bwd_dq (kernel 2)", ("flash_bwd_dq",)),
-    ("flash_bwd_dkv (kernel 3)", ("flash_bwd_dkv",)),
-    ("flash_fwd (kernel 1)", ("flash_fwd",)),
-    ("cuDNN convolutions and cuBLAS products", ("xmma", "cudnn", "conv", "gemm", "Conv")),
-    ("GroupNorm forward and backward", ("Moments", "GroupNorm", "group_norm", "FusedParams",
-                                        "InternalGradients")),
-    ("copies, casts and fills", ("copy", "nchwToNhwc", "nhwcToNchw", "Memcpy", "Memset",
-                                 "fill")),
-    ("Adam", ("multi_tensor", "adam", "Adam")),
-    ("other (SiLU, adds, upsampling, loss)", ("",)),
-)
-
 # phase 2 (d): the JAX kernel's other two contracts on kernels 1-4, as
 # (upcast, no_max): `upcast=True` (the reference's upcast_attention: f32
 # operands, the scale after the product, natural exp, running max) and
@@ -490,6 +483,23 @@ CONTRACT_CASES = (
     ("ctx77_1024", (8, 1024, 77, 64), "float32", False, False),
     ("ctx77_4096", (4, 4096, 77, 256), "bfloat16", False, False),
 )
+# the wgmma route's own cases (bf16 at D = 64; Sq and Sk no multiples of its
+# 64-row tiles or 128-row blocks): causal, ragged, the contexts Sk = 1 and 77,
+# Sq below and above Sk (the sequence-parallel allgather's local rows against
+# every key). Phase 2 (d) runs them after CONTRACT_CASES under each contract
+# of CONTRACTS and under the default one (no_max), which phase 2's backward
+# cases hold at the model shapes alone
+ROUTE_CASES = (
+    ("route_causal", (3, 257, 257, 64), "bfloat16", True, False),
+    ("route_ragged", (2, 200, 333, 64), "bfloat16", False, False),
+    ("route_ctx1", (4, 1024, 1, 64), "bfloat16", False, False),
+    ("route_ctx77", (4, 1000, 77, 64), "bfloat16", False, False),
+    ("route_sq_below_sk", (2, 512, 2048, 64), "bfloat16", False, False),
+    ("route_sq_above_sk_causal", (2, 700, 300, 64), "bfloat16", True, False),
+)
+CONTRACT_RUNS = ([(c, flags, CONTRACT_CASES) for c, flags in CONTRACTS.items()]
+                 + [(c, flags, ROUTE_CASES)
+                    for c, flags in {**CONTRACTS, "no_max": (False, True)}.items()])
 # the kernels line's contract numbers: kernel 1 and kernels 2 + 3 at the 2D
 # serving shape in f32 (kernel 1's main case), kernel 4 at the 3D shape
 CONTRACT_MAIN = {"flash_fwd": ("serve", "float32"), "flash_bwd_dq": ("serve", "float32"),
@@ -882,13 +892,46 @@ def fused_dq_adds(bh: int, sq: int, sk: int, d: int, dtype_name: str, causal: bo
     return bh * rows * d // 2
 
 
+def within_fused_margin(torch, got, want) -> bool:
+    """`got` within FUSED_DQ_RTOL of max|want| of `want`, elementwise, plus
+    one bf16 ulp of each element's value in bf16 (the same f32 sums in
+    another order may round to the other side of a tie)."""
+    a, b = got.float(), want.float()
+    margin = FUSED_DQ_RTOL * b.abs().max()
+    if want.dtype == torch.bfloat16:
+        margin = margin + torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30))) - 7)
+    return bool(((a - b).abs() <= margin).all())
+
+
+def route_name(ops, dtype, d: int, upcast: bool = False) -> str:
+    """The body kernels 2 and 3 run for these inputs (`ops.backward_route`)."""
+    from generativemodels_tpu_torch.ops.flash_attention import ROUTE_WGMMA
+
+    return "wgmma" if ops.backward_route(dtype, d, upcast) == ROUTE_WGMMA else "mma"
+
+
+def fused_dkv_agree(torch, ops, fused, split, d: int, upcast: bool = False) -> tuple[bool, str]:
+    """Kernel 4's dk, dv against kernel 3's on the same inputs: equal to the
+    bit where kernel 3 runs the mma.sync body the two share (`dkv_block`);
+    on the wgmma route (`ops.backward_route`) within the fused margin, as
+    kernel 4's dq is held against kernel 2's. Returns (agree, the rule)."""
+    if route_name(ops, split[1].dtype, d, upcast) == "mma":
+        return (torch.equal(fused[1], split[1]) and torch.equal(fused[2], split[2]),
+                "equal to the bit (one body)")
+    return (within_fused_margin(torch, fused[1], split[1])
+            and within_fused_margin(torch, fused[2], split[2]),
+            f"within {FUSED_DQ_RTOL:g} + one bf16 ulp (wgmma route)")
+
+
 def check_backward(torch, ops) -> dict:
     """Phase 2, backward: dq of kernel 2, dk, dv of kernel 3 and all three of
     kernel 4 against the plain backward, from the forward kernel's O and log2
-    lse; kernel 4 also against kernels 2 + 3 on the same inputs; kernels 2
-    and 4 against themselves: kernel 2's dq rows belong to one block and
-    kernel 4's dq parts are added in key-block order, so two launches of
-    each must give the same dq to the bit."""
+    lse; kernel 4 also against kernels 2 + 3 on the same inputs (dq within
+    the fused margin, dk and dv by `fused_dkv_agree`); kernels 2 and 4
+    against themselves: kernel 2's dq rows belong to one block (one
+    warpgroup on the wgmma route) and kernel 4's dq parts are added in
+    key-block order, so two launches of each must give the same dq to the
+    bit. Each case records the route of kernels 2 and 3."""
     from generativemodels_tpu_torch.ops.flash_attention import _backward_rows, _prescaled
 
     results = {}
@@ -935,21 +978,20 @@ def check_backward(torch, ops) -> dict:
             rel_err[label] = abs_err[label] / ref
             fused_abs[label] = (f.float() - b.float()).abs().max().item()
             fused_rel[label] = fused_abs[label] / ref
-        # kernel 4 against kernels 2 + 3: dk, dv to the bit, dq by FUSED_DQ_RTOL
-        same_dkv = torch.equal(fused[1], got[1]) and torch.equal(fused[2], got[2])
+        # kernel 4 against kernels 2 + 3: dk, dv by the route's rule, dq by
+        # FUSED_DQ_RTOL
+        route = route_name(ops, dtype, d)
+        same_dkv, dkv_rule = fused_dkv_agree(torch, ops, fused, got, d)
         dq_f, dq_s = fused[0].float(), got[0].float()
-        margin = FUSED_DQ_RTOL * dq_s.abs().max()
-        if dtype == torch.bfloat16:
-            margin = margin + torch.exp2(torch.floor(torch.log2(dq_s.abs().clamp_min(1e-30))) - 7)
         dq_vs_split = ((dq_f - dq_s).abs().max() / dq_s.abs().max()).item()
-        dq_ok = bool(((dq_f - dq_s).abs() <= margin).all())
+        dq_ok = within_fused_margin(torch, fused[0], got[0])
         # the dq elements of kernel 4 that differ from kernel 2's, printed:
         # they differ in the order of their f32 sums over the keys only
         dq_differ = int((fused[0] != got[0]).sum().item())
         spread = (fused_again[0].float() - dq_f).abs().max().item()
         spread_count = int((fused_again[0] != fused[0]).sum().item())
         dq_spread_count = int((dq_again != got[0]).sum().item())
-        del got, want, fused, fused_again, dq_again, dq_f, dq_s, margin
+        del got, want, fused, fused_again, dq_again, dq_f, dq_s
         torch.cuda.empty_cache()
         ms_dq, ms_dkv, plain_ms = time_ms(dq_kernel), time_ms(dkv_kernel), time_ms(plain)
         ms_fused = time_ms(fused_kernel)
@@ -969,6 +1011,7 @@ def check_backward(torch, ops) -> dict:
         fused_ok = (all(e <= tol for e in fused_rel.values()) and same_dkv and dq_ok
                     and spread_count == 0)
         log(f"backward {name}: (BH={bh}, Sq={sq}, Sk={sk}, D={d}) {dtype_name} causal={causal} "
+            f"route {route} "
             + " ".join(f"max|d{x[1:]}|/max={rel_err[x]:.3e}" for x in ("dq", "dk", "dv"))
             + f" tol={tol:g}; dq kernel two launches differ in {dq_spread_count} elements "
             f"(must be 0); dq kernel {ms_dq:.4f} ms (bound {lim_dq['bound_ms']:.4f}), "
@@ -977,7 +1020,7 @@ def check_backward(torch, ops) -> dict:
             f"backward {library_ms:.4f} ms -> {'ok' if ok else 'FAIL'}")
         log(f"fused backward {name}: "
             + " ".join(f"max|d{x[1:]}|/max={fused_rel[x]:.3e}" for x in ("dq", "dk", "dv"))
-            + f" tol={tol:g}; against kernels 2 + 3: dk, dv equal to the bit {same_dkv}, "
+            + f" tol={tol:g}; against kernels 2 + 3: dk, dv {dkv_rule}: {same_dkv}, "
             f"max|ddq|/max|dq| {dq_vs_split:.3e} (within {FUSED_DQ_RTOL:g}"
             + (" + one bf16 ulp" if dtype == torch.bfloat16 else "") + f": {dq_ok}; "
             f"{dq_differ} dq elements differ); "
@@ -992,9 +1035,9 @@ def check_backward(torch, ops) -> dict:
             raise AssertionError(f"fused backward case {name} out of tolerance")
         results[name] = dict(
             dq=dict(max_abs_err=abs_err["dq"], ms=ms_dq, plain_ms=plain_ms,
-                    library_ms=library_ms, **lim_dq),
+                    library_ms=library_ms, backward_route=route, **lim_dq),
             dkv=dict(max_abs_err=max(abs_err["dk"], abs_err["dv"]), ms=ms_dkv, plain_ms=plain_ms,
-                     library_ms=library_ms, **lim_dkv),
+                     library_ms=library_ms, backward_route=route, **lim_dkv),
             fused=dict(max_abs_err=max(fused_abs.values()), ms=ms_fused, plain_ms=plain_ms,
                        library_ms=library_ms, **lim_fused),
         )
@@ -1049,19 +1092,21 @@ def grad_error(a, b, floor) -> float:
 
 def check_contracts(torch, ops) -> dict:
     """Phase 2 (d): kernels 1-4 under the JAX kernel's other two contracts
-    (CONTRACTS) against their plain versions at CONTRACT_CASES: O and the
-    lse of kernel 1 against `flash_attention_reference`, dq, dk, dv of
+    (CONTRACTS) against their plain versions at CONTRACT_CASES, and at
+    ROUTE_CASES under those and the default contract (CONTRACT_RUNS): O and
+    the lse of kernel 1 against `flash_attention_reference`, dq, dk, dv of
     kernels 2 + 3 and of kernel 4 against `flash_attention_backward_reference`
     (from the kernel's O and lse, fed as the `flash_fwd` op's gradient feeds them), with
-    kernel 4's dk, dv equal to kernel 3's to the bit. The timed cases print
-    each kernel's time beside the plain version's, the bound and SDPA's."""
+    kernel 4's dk, dv against kernel 3's by `fused_dkv_agree` and two launches of
+    kernels 2 and 3 equal to the bit. The timed cases print each kernel's time
+    beside the plain version's, the bound and SDPA's."""
     from generativemodels_tpu_torch.ops.flash_attention import _backward_rows, _prescaled
 
     results = {}
     g = torch.Generator("cuda").manual_seed(21)
-    for contract, (upcast, no_max) in CONTRACTS.items():
+    for contract, (upcast, no_max), cases in CONTRACT_RUNS:
         kw = dict(upcast=upcast, no_max=no_max)
-        for name, (bh, sq, sk, d), dtype_name, causal, timed in CONTRACT_CASES:
+        for name, (bh, sq, sk, d), dtype_name, causal, timed in cases:
             dtype = getattr(torch, dtype_name)
 
             def rand(n):
@@ -1106,8 +1151,10 @@ def check_contracts(torch, ops) -> dict:
                 return plain_by_heads(torch, lambda *a: ops.flash_attention_backward_reference(
                     *a, **bkw), q_in, k, v, out, lse_b, dout)
 
-            got_s, got_f, want = split(), fused(), plain_bwd()
+            got_s, again_s, got_f, want = split(), split(), fused(), plain_bwd()
             torch.cuda.synchronize()
+            same_bits = all(torch.equal(a, b) for a, b in zip(got_s, again_s))
+            del again_s
             floors = grad_scales(torch, q_in, k, v, dout, upcast, scale)
             rel_s = max(grad_error(a, b, f) for a, b, f in zip(got_s, want, floors))
             rel_f = max(grad_error(a, b, f) for a, b, f in zip(got_f, want, floors))
@@ -1115,19 +1162,21 @@ def check_contracts(torch, ops) -> dict:
                         for a, b in zip(got_s, want))
             abs_f = max((a.to(b.dtype).float() - b.float()).abs().max().item()
                         for a, b in zip(got_f, want))
-            same_dkv = torch.equal(got_f[1], got_s[1]) and torch.equal(got_f[2], got_s[2])
+            same_dkv, dkv_rule = fused_dkv_agree(torch, ops, got_f, got_s, d, upcast)
             finite = all(bool(torch.isfinite(t.float()).all()) for t in (o, *got_s, *got_f))
             del got_s, got_f, want
             tol, lse_tol = TOLERANCE[dtype_name], LSE_TOLERANCE[dtype_name]
             btol = BACKWARD_TOLERANCE[dtype_name]
             ok = (finite and err_o <= tol and err_lse <= lse_tol * lse_scale and rel_s <= btol
-                  and rel_f <= btol and same_dkv)
+                  and rel_f <= btol and same_dkv and same_bits)
             label = (f"contract {contract} {name}: (BH={bh}, Sq={sq}, Sk={sk}, D={d}) "
                      f"{dtype_name} causal={causal}")
             log(f"{label}: kernel 1 max|dO|={err_o:.3e} (tol {tol:g}) max|dlse|={err_lse:.3e} "
                 f"(tol {lse_tol:g} x {lse_scale:.2f}); kernels 2 + 3 max|dgrad|/max "
-                f"{rel_s:.3e}, kernel 4 {rel_f:.3e} (tol {btol:g}); kernel 4's dk, dv equal "
-                f"kernel 3's to the bit: {same_dkv} -> {'ok' if ok else 'FAIL'}")
+                f"{rel_s:.3e}, kernel 4 {rel_f:.3e} (tol {btol:g}); kernel 4's dk, dv against "
+                f"kernel 3's, {dkv_rule}: {same_dkv}; kernels 2 + 3 twice equal to the bit: "
+                f"{same_bits} (route {route_name(ops, dtype, d, upcast)}) -> "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{label}: out of tolerance")
             if timed:
@@ -1922,35 +1971,27 @@ def check_gradients_3d(torch, ops, nets, parallel, schedulers, recipe3d) -> None
     torch.cuda.empty_cache()
 
 
-def profile_train_3d(torch, nets, parallel, schedulers) -> None:
+def profile_train_3d(torch) -> None:
     """Phase 6 (c): device time of one bench.py 3D training step (bf16,
     128^3, batch 1, Adam) with each backward, by group and by kernel, and the
-    busy share of the step's wall time (host clock, ending in a synchronize)."""
-    from torch.profiler import ProfilerActivity, profile
+    busy share of the step's wall time (host clock, ending in a synchronize):
+    `probes/train_profile.py`'s `bench3d_bf16` step, which that probe also
+    runs in turns against another checkout."""
+    from generativemodels_tpu_torch.probes import train_profile
 
-    model = model_3d(torch, nets, dtype=torch.bfloat16).train()
-    randomize(torch, model)
-    step = parallel.make_diffusion_train_step(
-        schedulers.DDPMScheduler(num_train_timesteps=1000, device=DEVICE)
-    )
-    state = parallel.init_train_state(model, torch.optim.Adam(model.parameters(), lr=2.5e-5))
-    g = torch.Generator(DEVICE).manual_seed(8)
-    images = torch.rand((THREE_D["batch"], 1) + (THREE_D["size"],) * 3, generator=g,
-                        device=DEVICE) * 2 - 1
     for label, flag in BACKWARDS:
         with fused_backward(flag):
-            for _ in range(2):
-                state, _ = step(state, images, g)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                state, _ = step(state, images, g)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-        report_profile(prof, wall, TRAIN_PROFILE_GROUPS,
-                       f"train3d: profile of one bf16 training step, {label} backward")
-    del state, model
-    torch.cuda.empty_cache()
+            line = train_profile.profile_step(torch, "bench3d_bf16")
+        total = line["device_ms"]
+        log(f"train3d: profile of one bf16 training step, {label} backward: {total:.3f} ms of "
+            f"device time in {line['kernels']} kernels, {line['wall_ms']:.3f} ms of wall time "
+            f"(busy share {line['busy_share']:.3f})")
+        for group, ms in line["groups_ms"].items():
+            log(f"  group {group}: {ms:.3f} ms ({100 * ms / total:.1f}%)")
+        for e in line["top"]:
+            log(f"  {e['ms']:9.3f} ms {100 * e['ms'] / total:5.1f}% x{e['count']:<4d} "
+                f"{e['kernel'][:110]}")
+        torch.cuda.empty_cache()
 
 
 def probe_calls(ops, scale: float) -> list:
@@ -4480,7 +4521,7 @@ def main() -> int:
     os.environ["GMTPU_FUSED_RESBLOCK"] = "0"
     trained_3d = train_3d_recipe(torch, ops, recipe3d)
     check_gradients_3d(torch, ops, nets, parallel, schedulers, recipe3d)
-    profile_train_3d(torch, nets, parallel, schedulers)
+    profile_train_3d(torch)
 
     # phase 7: the attention-forward probes (kernels 6 and 7), each kernel
     # variant against its plain version, then both entry points
@@ -4594,6 +4635,10 @@ def main() -> int:
     extra = {name: dict(contracts=entry) for name, entry in contract_numbers(contracts).items()}
     for contract, count in contract_launches.items():
         extra["flash_fwd"]["contracts"][contract]["launches"] = count
+    # kernels 2 and 3 at every phase-2 backward case, each with its route
+    # (`backward_route`: the wgmma body for bf16 at D = 64, else mma.sync)
+    for name, part in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv")):
+        extra[name]["backward_cases"] = {case: entry[part] for case, entry in backward.items()}
     # kernels 1-4 on phase 10's f32 3D LDM path: phase 2's numbers at the
     # stage-1 AEKL's shape, with the launches of the f32 recipe run (kernel 4
     # from the fused run)

@@ -1,5 +1,6 @@
 // Hopper's asynchronous copies and products, shared by the kernels of this
-// directory that use them (fused_conv.cu, flash_probes.cu) on sm_90a:
+// directory that use them (fused_conv.cu, flash_probes.cu, flash_bwd.cu) on
+// sm_90a:
 // - mbarriers, the tensor-memory accelerator's tiled loads (TMA) into
 //   shared memory, and the host-side encoding of their tensor maps (reached
 //   through the runtime's driver entry point, so a library needs no link to
@@ -178,13 +179,16 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// d += a b for a 64 x N tile, K = 16: A from registers (the mma.sync
+// d (+)= a b for a 64 x 64 tile, K = 16: A from registers (the mma.sync
 // m16n8k16 A fragment of each warp's 16 rows: rows g, g + 8, columns 2 (t %
 // 4) + {0, 1} and + 8; the accumulator of two n8 blocks rounded to bf16
-// pairs is one), B from shared memory by descriptor, MN-major (transposed).
-template <int N>
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
-// the same with B K-major (not transposed)
+// pairs is one), B from shared memory by descriptor, MN-major (TransB:
+// transposed) or K-major; scale_d 0 overwrites d.
+template <bool TransB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d);
+// d += a b for a 64 x N tile, K = 16: A from registers as wgmma_rs_n64's, B
+// K-major
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b);
 
@@ -260,8 +264,9 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+template <bool TransB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -269,7 +274,7 @@ __device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32], const uint32_t (
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -279,7 +284,7 @@ __device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32], const uint32_t (
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TransB ? 1 : 0));
 }
 
 template <>

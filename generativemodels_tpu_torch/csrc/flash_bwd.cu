@@ -1,5 +1,12 @@
 // Flash-attention backward for Hopper (sm_90a) on the tensor cores, plain C
-// interface for ctypes.
+// interface for ctypes. How chip_smoke.py's phase 2 checks these kernels:
+// kernels 2 + 3 and kernel 4 against flash_attention_backward_reference at
+// every BACKWARD_CASES and CONTRACT_CASES shape (dq, dk, dv within 2e-2 of
+// the largest gradient in bf16, 1e-4 in f32), two launches of kernels 2
+// and 4 equal to the bit, and kernel 4's dq against kernel 2's within 1e-5
+// of its largest value plus one bf16 ulp; its dk and dv against kernel 3's
+// to the bit where kernel 3 runs dkv_block (the mma.sync route) and by the
+// dq rule on the wgmma route.
 //
 // Replaces the Pallas TPU kernels of the backward `_flash_bwd` in
 // generativemodels_tpu/ops/flash_attention.py: the split backward's
@@ -7,7 +14,8 @@
 // `_dkv_kernel` (with _dkv_tile) flash_bwd_dkv_kernel (kernel 3); the fused
 // backward's `_dfused_kernel` (with _dfused_tile, run under
 // GMTPU_FLASH_FUSED_BWD=1) becomes flash_bwd_fused_kernel (kernel 4). The
-// last two share one body, dkv_block.
+// last two share one body, dkv_block. On the wgmma route (below) kernels 2
+// and 3 are flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel.
 // Default contract, as flash_fwd.cu: q arrives prescaled by scale*log2(e)
 // (rounded to q's type), dO arrives multiplied by ln2 (rounded to dO's
 // type), lse2 is the forward's log2-domain lse and delta = rowsum(dO ln2 * O)
@@ -32,9 +40,23 @@
 // dq), 8.2e11 operations, kernel 3 four (s, dp, dv, dk), 1.1e12 operations,
 // on 17 MB: 0.83 and 1.11 ms at the bf16 tensor-core rate (989 TFLOP/s),
 // bound by operations; kernel 4 adds the fifth, dq, and adds its key
-// blocks' dq parts into one f32 buffer. With mma.sync (as kernel 1) the
-// tensor pipe's issue rate and the operand fragments read from shared
-// memory set the floor.
+// blocks' dq parts into one f32 buffer.
+//
+// Two bodies of kernels 2 and 3, each input taking one: the `route`
+// argument of their C entries names it (ops/flash_attention.py::
+// backward_route picks it; an unknown route, or a route the inputs do not
+// take, raises; nothing falls back to the other body):
+// - kRouteWgmma, bf16 at D = 64 in the two exp2 contracts (the 3D training
+//   step, the latent UNet, the 3D LDM's bf16 stages): warpgroup products
+//   (wgmma) fed by a TMA ring from a producer warpgroup, below. The
+//   softmax arithmetic between the products (an exp2 on the SFU and a
+//   handful of CUDA-core instructions a score) is what keeps it from the
+//   tensor-core bound.
+// - kRouteMma, every other case (f32 and upcast as 3xTF32, bf16 at D = 32,
+//   128 and 256; kernels 2 and 3 have no mma.sync instance at bf16 D = 64
+//   in the exp2 contracts), and kernel 4 always: the mma.sync bodies, where
+//   the tensor pipe's issue rate (mma.sync, as kernel 1) and the operand
+//   fragments read from shared memory by ldmatrix set the floor.
 // - bf16: mma.sync m16n8k16, bf16 operands, f32 accumulation.
 // - f32: mma.sync m16n8k8 as 3xTF32, as flash_fwd.cu: each operand a is
 //   split into hi = tf32(a) and lo = tf32(a - hi) as it is read (scalar
@@ -73,7 +95,7 @@
 // added in f32, as an f32 k8 step is, so dq stays within f32 summation
 // error of kernel 4's over 32768 keys. At the end the slices' partial dq
 // add in slice order through shared memory; dq is cast once.
-// - bf16, D <= 64: 8 row groups (128 rows), 64-key tiles, the Q and dO A
+// - bf16, D = 32: 8 row groups (128 rows), 64-key tiles, the Q and dO A
 //   fragments resident in registers for the whole key loop; D = 128: the
 //   same tiles, Q and dO fragments re-read by ldmatrix; D = 256: the 16 x
 //   256 f32 dq accumulator takes 128 registers a thread, so 4 row groups x
@@ -145,13 +167,62 @@
 // and dv are equal to the bit. The caller casts dq once.
 // Kernels 2 and 3 are deterministic too: dq rows belong to one block (its
 // slices add in a fixed order), dK/dV rows to one block.
+//
+// Kernels 2 and 3 on the wgmma route (namespace wg, flash_bwd_dq_wgmma_kernel
+// and flash_bwd_dkv_wgmma_kernel; the design of kernels 6 and 7 in
+// flash_probes.cu, helpers in async_sm90.cuh). A block is three
+// warpgroups: two consumers of 64 rows each and a producer, with setmaxnreg
+// giving the consumers 240 registers and the producer 24. The producer's
+// first thread loads 64-row tiles by TMA into a ring of six stages on full
+// and empty mbarriers, from maps of the (BH, S, 64) bf16 tensors seen as
+// (64, S, BH): rows past S of a head read as 0, and each 128-byte row is one
+// 128-byte swizzle row, which wgmma_desc_sw128 reads K-major (a k-step of 16
+// columns, 32 bytes) or MN-major (a k-step of 16 rows, 2048 bytes). Each
+// consumer holds its 64 rows' A operands of the d products (Q and dO, or K
+// and V) in registers, loaded once from device memory, so every product is
+// wgmma m64n64k16 with A from registers:
+// - kernel 3, key-major: a block owns 128 keys and streams q tiles (Q, dO,
+//   and the tile's lse2 and delta rows, which the producer's second warp
+//   copies with plain loads: a head's f32 rows start at any 4-byte offset,
+//   where TMA needs 16-byte aligned addresses). Per tile a consumer
+//   computes S^T = K Q^T and dP^T = V dO^T (B the tile K-major), then P^T
+//   and dS^T in registers by prob_ds's formula, and dV += round(P^T) dO,
+//   dK += dS^T Q with the two rounded to bf16 pairs as the A operands (a
+//   wgmma accumulator of two n8 blocks is an A fragment) and B the tile
+//   MN-major. dK, dV stay in registers and are stored once;
+// - kernel 2, query-major: a block owns 128 query rows and streams K, V
+//   tiles of 64 keys. Per tile a consumer computes S = Q K^T and dP = dO
+//   V^T, dS in registers, and the tile's dq part dS K (B = K MN-major) from
+//   zero, added in f32 to the running dq, so dq sums the same 64-key parts
+//   in the same order as the mma.sync body: each dq row belongs to one
+//   warpgroup, no partial dq is summed across warps, and dq is cast once.
+// Per tile a consumer issues the tile's last products (dV, dK or the dq
+// part) and the next tile's S and dP in one commit group and waits once;
+// no branch lies between a product's issue and its wait and no register a
+// product in flight reads or writes is touched, so ptxas keeps every
+// product asynchronous (chip_smoke.py's phase 1 fails on its C7513 and
+// C7514 notes, and on a stack frame or spills). The two consumers of a
+// block share every stage and overlap one's softmax arithmetic with the
+// other's products. p is exp2 on the SFU (ex2.approx.ftz: within 2 ulp of
+// exp2f; on the card it has given the mma.sync body's bits); p and ds are
+// exactly 0 for masked pairs, tested only in a tile that reaches past Sq,
+// Sk or the causal diagonal (a uniform branch taken with no product in
+// flight). Under the causal mask kernel 3's q loop starts at its first key
+// and kernel 2's key loop ends at its last row, so tiles wholly past the
+// diagonal are never loaded. The grid is one block per 128 rows (512
+// blocks at the 3D shape, 3.9 waves on 132 SMs); a persistent grid would
+// save the last wave's tail, about 3%. No atomics: two launches give the
+// same bits. D = 32 and 128 are not this code with another constant (a
+// 64-byte row takes another swizzle; a 256-byte row is two swizzle atoms,
+// and a 64 x 128 accumulator takes 64 registers a thread): they keep the
+// mma.sync body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async_sm90.cuh"
 #include "flash_contract.cuh"
-#include "mma_sm90.cuh"
 
 namespace {
 
@@ -976,6 +1047,477 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_fused_kernel(
                            causal, sscale);
 }
 
+// ---- kernels 2 and 3 on the wgmma route (kRouteWgmma): bf16, D = 64 ----
+
+namespace wg {
+
+constexpr int kD = 64;                         // head width: one 128-byte swizzle row
+constexpr int kRows = 64;                      // A rows of a consumer warpgroup (wgmma's M)
+constexpr int kConsumers = 2;                  // consumer warpgroups a block
+constexpr int kBlockRows = kConsumers * kRows;  // query rows (kernel 2) or keys (kernel 3) a block
+constexpr int kTile = 64;                      // keys (kernel 2) or query rows (kernel 3) a stage
+constexpr int kStages = 6;                     // the ring
+constexpr int kConsumerThreads = kConsumers * 128;
+constexpr int kThreads = kConsumerThreads + 128;  // + the producer warpgroup
+constexpr int kConsumerWarps = kConsumerThreads / 32;  // arrivals that empty a stage
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+constexpr int kTileBytes = kTile * kD * 2;     // 8 KB: K or V (kernel 2), Q or dO (kernel 3)
+constexpr int kRowBytes = kTile * 4;           // 256 B: lse2 or delta of a q tile (kernel 3)
+constexpr int kDSteps = kD / 16;               // k-steps over d: S, dP (and S^T, dP^T)
+constexpr int kTileSteps = kTile / 16;         // k-steps over a tile: dq (and dV, dK)
+constexpr int kAcc = 32;                       // accumulator floats of an m64n64 tile
+static_assert(kTile == 64 && kD == 64, "every product is m64n64k16");
+
+// dynamic shared memory from a 1024-byte-aligned base: kStages stages of two
+// tiles (K, V or Q, dO), then kernel 3's lse2 and delta rows of each stage,
+// then the full and empty mbarriers of each stage
+constexpr int kSmemRows = kStages * 2 * kTileBytes;
+constexpr int kSmemBars = kSmemRows + kStages * 2 * kRowBytes;
+constexpr int kSmemBytes = kSmemBars + 2 * kStages * 8 + 1024;  // + alignment
+
+struct Ring {
+  unsigned char* base;  // 1024-byte aligned
+  uint64_t* bars;
+
+  __device__ unsigned char* first(int st) const { return base + st * 2 * kTileBytes; }
+  __device__ unsigned char* second(int st) const { return first(st) + kTileBytes; }
+  __device__ float* lse(int st) const {
+    return reinterpret_cast<float*>(base + kSmemRows + st * 2 * kRowBytes);
+  }
+  __device__ float* delta(int st) const { return lse(st) + kTile; }
+  __device__ uint64_t* full(int st) const { return bars + st; }
+  __device__ uint64_t* empty(int st) const { return bars + kStages + st; }
+};
+
+// the ring in this block's dynamic shared memory, its barriers initialised,
+// `fills` arrivals filling a stage (the one __syncthreads of the kernels: the
+// roles split after it)
+__device__ __forceinline__ Ring make_ring(unsigned char* raw, int fills) {
+  Ring r;
+  r.base = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+  r.bars = reinterpret_cast<uint64_t*>(r.base + kSmemBars);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(r.full(st), fills);
+      mbar_init(r.empty(st), kConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return r;
+}
+
+// a consumer warp's release of stage st (its wgmmas on the stage are done)
+__device__ __forceinline__ void release(const Ring& r, int st) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(r.empty(st));
+}
+
+// the producer's wait before it refills the stage of load j
+__device__ __forceinline__ int claim(const Ring& r, int j) {
+  const int st = j % kStages;
+  if (j >= kStages) mbar_wait(r.empty(st), (j / kStages - 1) & 1);
+  return st;
+}
+
+// The A fragments (k-steps over d) of 64 rows of a (S, 64) bf16 head from
+// device memory, this thread's rows row and row + 8 of its warp's 16 (rows
+// at or past s read as 0): the mma.sync m16n8k16 A layout that a register
+// operand of wgmma takes, loaded once per block
+__device__ __forceinline__ void load_rows(uint32_t (&f)[kDSteps][4], const bf16* __restrict__ head,
+                                          int row, int s) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = row + 8 * h < s;
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(
+        head + static_cast<size_t>(ok ? row + 8 * h : 0) * kD + 2 * t);
+#pragma unroll
+    for (int kk = 0; kk < kDSteps; ++kk) {
+      f[kk][h] = ok ? src[8 * kk] : 0u;         // columns 16 kk + 2t, + 1
+      f[kk][h + 2] = ok ? src[8 * kk + 4] : 0u;  // columns + 8
+    }
+  }
+}
+
+// x = a b^T over d, from zero: A fragments from registers, B the 64-row
+// tile at `tile` (K-major; kDSteps wgmmas)
+__device__ __forceinline__ void products_over_d(float (&x)[kAcc], const uint32_t (&a)[kDSteps][4],
+                                                const unsigned char* tile) {
+  const uint64_t desc = wgmma_desc_sw128(smem_addr(tile));
+#pragma unroll
+  for (int kk = 0; kk < kDSteps; ++kk) {
+    wgmma_rs_n64<false>(x, a[kk], wgmma_desc_add(desc, 32 * kk), kk > 0);
+  }
+}
+
+// x (+)= a b over a tile's 64 rows: A fragments from registers, B the tile
+// at `tile` (MN-major; kTileSteps wgmmas); from_zero: x = a b
+__device__ __forceinline__ void products_over_tile(float (&x)[kAcc],
+                                                   const uint32_t (&a)[kTileSteps][4],
+                                                   const unsigned char* tile, bool from_zero) {
+  const uint64_t desc = wgmma_desc_sw128(smem_addr(tile));
+#pragma unroll
+  for (int js = 0; js < kTileSteps; ++js) {
+    wgmma_rs_n64<true>(x, a[js], wgmma_desc_add(desc, 2048 * js), !(from_zero && js == 0));
+  }
+}
+
+// this thread's rows row and row + 8 of an m64n64 f32 accumulator rounded
+// to bf16 and stored at `out` (rows of 64), times `mul`; rows at or past s
+// are not stored
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (&x)[kAcc], int row,
+                                           int s, float mul) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= s) continue;
+    bf16* dst = out + static_cast<size_t>(row + 8 * h) * kD + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < kD / 8; ++nb) {
+      store2(dst + 8 * nb, x[4 * nb + 2 * h] * mul, x[4 * nb + 2 * h + 1] * mul);
+    }
+  }
+}
+
+// p and ds of one (query, key) pair by prob_ds's formula in the exp2
+// contracts, exp2 on the SFU (ex2.approx.ftz: within 2 ulp of exp2f, and 0
+// below 2^-126, where a p of that size adds nothing to a bf16 product)
+template <int K>
+__device__ __forceinline__ void prob_ds_sfu(float s, float dp, float lse2, float delta, bool live,
+                                            float& p, float& ds) {
+  static_assert(K != kUpcast, "the wgmma route runs the exp2 contracts");
+  float e;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"((K == kNoMax ? fminf(s, 80.f) : s) - lse2));
+  p = live ? e : 0.f;
+  ds = p * (dp - delta);
+}
+
+// ds of one K, V tile (keys from `key0`), rounded to bf16 pairs: the A
+// fragments of dq's k-steps (this thread's rows row and row + 8); kMasked:
+// some (row, key) pair of the warpgroup's tile is past sq, sk or the causal
+// diagonal, so each pair is tested
+template <int K, bool kMasked>
+__device__ __forceinline__ void dq_ds(uint32_t (&df)[kTileSteps][4], const float (&s)[kAcc],
+                                      const float (&dp)[kAcc], const float (&r_lse)[2],
+                                      const float (&r_delta)[2], int row, int key0, int sq,
+                                      int sk, int causal) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int js = 0; js < kTileSteps; ++js) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // row + 8 (e & 1), keys 16 js + 8 (e >> 1) + 2t, + 1
+      const int h = e & 1;
+      const int rq = row + 8 * h;
+      const int key = key0 + 16 * js + 8 * (e >> 1) + 2 * t;
+      float p, ds[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const bool live = !kMasked || (rq < sq && key + c < sk && (!causal || key + c <= rq));
+        prob_ds_sfu<K>(s[8 * js + 2 * e + c], dp[8 * js + 2 * e + c], r_lse[h], r_delta[h], live,
+                       p, ds[c]);
+      }
+      df[js][e] = pack_bf16(ds[0], ds[1]);
+    }
+  }
+}
+
+// dq_ds, masked where the warpgroup's tile (rows row0 .., keys key0 ..)
+// reaches past sq, sk or the causal diagonal (a uniform branch: no product of
+// the warpgroup is in flight)
+template <int K>
+__device__ __forceinline__ void dq_tile_ds(uint32_t (&df)[kTileSteps][4], const float (&s)[kAcc],
+                                           const float (&dp)[kAcc], const float (&r_lse)[2],
+                                           const float (&r_delta)[2], int row, int row0,
+                                           int key0, int sq, int sk, int causal) {
+  if (row0 + kRows > sq || key0 + kTile > sk || (causal && key0 + kTile - 1 > row0)) {
+    dq_ds<K, true>(df, s, dp, r_lse, r_delta, row, key0, sq, sk, causal);
+  } else {
+    dq_ds<K, false>(df, s, dp, r_lse, r_delta, row, key0, sq, sk, causal);
+  }
+}
+
+// Kernel 2's consumer warpgroup: its 64 query rows over every K, V tile.
+// S and dP of tile j + 1 are issued with tile j's dq part in one group, so a
+// tile costs one wait; the part is summed over the tile's keys from zero and
+// then added in f32.
+template <int K>
+__device__ __forceinline__ void dq_consume(const Ring& r, const bf16* __restrict__ q,
+                                           const bf16* __restrict__ dout,
+                                           const float* __restrict__ lse2,
+                                           const float* __restrict__ delta,
+                                           bf16* __restrict__ dq, int row0, int sq, int sk,
+                                           int tiles, int causal) {
+  const int lane = threadIdx.x % 32;
+  // this thread's rows row and row + 8 (C and A fragments alike)
+  const int row = row0 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  uint32_t qf[kDSteps][4], of[kDSteps][4];
+  load_rows(qf, q, row, sq);
+  load_rows(of, dout, row, sq);
+  float r_lse[2], r_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = row + 8 * h < sq;
+    r_lse[h] = ok ? lse2[row + 8 * h] : 0.f;
+    r_delta[h] = ok ? delta[row + 8 * h] : 0.f;
+  }
+  float acc[kAcc], part[kAcc], s[kAcc], dp[kAcc];
+  uint32_t df[kTileSteps][4];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = part[i] = 0.f;
+
+  // tiles >= 1: a launch has sk >= 1, and the causal mask leaves key 0
+  mbar_wait(r.full(0), 0);
+  wgmma_fence();
+  products_over_d(s, qf, r.first(0));   // S = Q K^T
+  products_over_d(dp, of, r.second(0));  // dP = dO V^T
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(s);
+  reg_fence(dp);
+#pragma unroll 1
+  for (int j = 0; j + 1 < tiles; ++j) {
+    const int st = j % kStages;
+    const int next = (j + 1) % kStages;
+    dq_tile_ds<K>(df, s, dp, r_lse, r_delta, row, row0, j * kTile, sq, sk, causal);
+    mbar_wait(r.full(next), ((j + 1) / kStages) & 1);
+    wgmma_fence();
+    products_over_tile(part, df, r.first(st), true);  // tile j's dq part dS K
+    products_over_d(s, qf, r.first(next));
+    products_over_d(dp, of, r.second(next));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(part);
+    reg_fence(s);
+    reg_fence(dp);
+    release(r, st);
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] += part[i];
+  }
+  const int last = tiles - 1;
+  dq_tile_ds<K>(df, s, dp, r_lse, r_delta, row, row0, last * kTile, sq, sk, causal);
+  wgmma_fence();
+  products_over_tile(part, df, r.first(last % kStages), true);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(part);
+  release(r, last % kStages);
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] += part[i];
+  store_rows(dq, acc, row, sq, 1.f);
+}
+
+// P^T and dS^T of one q tile (queries from q0; lse2 and delta rows from the
+// stage), rounded to bf16 pairs: the A fragments of dV's and dK's k-steps
+// over the tile's queries (this thread's keys key and key + 8); kMasked as
+// dq_ds's
+template <int K, bool kMasked>
+__device__ __forceinline__ void dkv_probs(uint32_t (&pf)[kTileSteps][4],
+                                          uint32_t (&sf)[kTileSteps][4], const float (&s)[kAcc],
+                                          const float (&dp)[kAcc], const float* lse,
+                                          const float* del, int key, int q0, int sq, int sk,
+                                          int causal) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int js = 0; js < kTileSteps; ++js) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // key + 8 (e & 1), queries 16 js + 8 (e >> 1) + 2t, + 1
+      const int kr = key + 8 * (e & 1);
+      const int col = 16 * js + 8 * (e >> 1) + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse + col);
+      const float2 dl = *reinterpret_cast<const float2*>(del + col);
+      float p[2], ds[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int rq = q0 + col + c;
+        const bool live = !kMasked || (rq < sq && kr < sk && (!causal || kr <= rq));
+        prob_ds_sfu<K>(s[8 * js + 2 * e + c], dp[8 * js + 2 * e + c], c ? l2.y : l2.x,
+                       c ? dl.y : dl.x, live, p[c], ds[c]);
+      }
+      pf[js][e] = pack_bf16(p[0], p[1]);
+      sf[js][e] = pack_bf16(ds[0], ds[1]);
+    }
+  }
+}
+
+// dkv_probs, masked where the warpgroup's tile (keys key0 .., queries q0 ..)
+// reaches past sq, sk or the causal diagonal
+template <int K>
+__device__ __forceinline__ void dkv_tile_probs(uint32_t (&pf)[kTileSteps][4],
+                                               uint32_t (&sf)[kTileSteps][4],
+                                               const float (&s)[kAcc], const float (&dp)[kAcc],
+                                               const float* lse, const float* del, int key,
+                                               int key0, int q0, int sq, int sk, int causal) {
+  if (q0 + kTile > sq || key0 + kRows > sk || (causal && key0 + kRows - 1 > q0)) {
+    dkv_probs<K, true>(pf, sf, s, dp, lse, del, key, q0, sq, sk, causal);
+  } else {
+    dkv_probs<K, false>(pf, sf, s, dp, lse, del, key, q0, sq, sk, causal);
+  }
+}
+
+// Kernel 3's consumer warpgroup: its 64 keys over every q tile. S^T and dP^T
+// of tile j + 1 are issued with tile j's dV and dK products in one group.
+template <int K>
+__device__ __forceinline__ void dkv_consume(const Ring& r, const bf16* __restrict__ k,
+                                            const bf16* __restrict__ v, bf16* __restrict__ dk,
+                                            bf16* __restrict__ dv, int key0, int q_begin, int sq,
+                                            int sk, int tiles, int causal) {
+  const int lane = threadIdx.x % 32;
+  // this thread's keys key and key + 8
+  const int key = key0 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  uint32_t kf[kDSteps][4], vf[kDSteps][4];
+  load_rows(kf, k, key, sk);
+  load_rows(vf, v, key, sk);
+  float acc_k[kAcc], acc_v[kAcc], s[kAcc], dp[kAcc];
+  uint32_t pf[kTileSteps][4], sf[kTileSteps][4];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc_k[i] = acc_v[i] = 0.f;
+  if (tiles > 0) {
+    mbar_wait(r.full(0), 0);
+    wgmma_fence();
+    products_over_d(s, kf, r.first(0));   // S^T = K Q^T
+    products_over_d(dp, vf, r.second(0));  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+#pragma unroll 1
+    for (int j = 0; j + 1 < tiles; ++j) {
+      const int st = j % kStages;
+      const int next = (j + 1) % kStages;
+      dkv_tile_probs<K>(pf, sf, s, dp, r.lse(st), r.delta(st), key, key0, q_begin + j * kTile, sq,
+                        sk, causal);
+      mbar_wait(r.full(next), ((j + 1) / kStages) & 1);
+      wgmma_fence();
+      products_over_tile(acc_v, pf, r.second(st), false);  // dV += P^T dO
+      products_over_tile(acc_k, sf, r.first(st), false);   // dK += dS^T Q
+      products_over_d(s, kf, r.first(next));
+      products_over_d(dp, vf, r.second(next));
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc_v);
+      reg_fence(acc_k);
+      reg_fence(s);
+      reg_fence(dp);
+      release(r, st);
+    }
+    const int last = tiles - 1;
+    const int st = last % kStages;
+    dkv_tile_probs<K>(pf, sf, s, dp, r.lse(st), r.delta(st), key, key0, q_begin + last * kTile, sq,
+                      sk, causal);
+    wgmma_fence();
+    products_over_tile(acc_v, pf, r.second(st), false);
+    products_over_tile(acc_k, sf, r.first(st), false);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc_v);
+    reg_fence(acc_k);
+    release(r, st);
+  }
+  store_rows(dk, acc_k, key, sk, 1.f);
+  // dO arrived multiplied by ln2 for ds; dv must not carry it
+  store_rows(dv, acc_v, key, sk, kLog2e);
+}
+
+}  // namespace wg
+
+// Kernel 2 on the wgmma route. Grid: one block per (bh, wg::kBlockRows query
+// rows), flattened into blockIdx.x; wg::kThreads threads, wg::kSmemBytes of
+// dynamic shared memory. Warpgroups 0 and 1 consume, 2 produces: its first
+// thread loads the K and V tiles by TMA (maps of (64, sk, bh), box 64 keys).
+template <int K>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map, const bf16* __restrict__ q,
+                          const bf16* __restrict__ dout, const float* __restrict__ lse2,
+                          const float* __restrict__ delta, bf16* __restrict__ dq, int sq, int sk,
+                          int num_qb, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const wg::Ring r = wg::make_ring(smem_raw, 1);
+  const int bh = blockIdx.x / num_qb;
+  const int q0 = (blockIdx.x % num_qb) * wg::kBlockRows;
+  // under the causal mask, keys past the block's last row are dead for every row
+  const int kv_end = causal ? min(sk, q0 + wg::kBlockRows) : sk;
+  const int tiles = (kv_end + wg::kTile - 1) / wg::kTile;
+  if (threadIdx.x >= wg::kConsumerThreads) {
+    regs_lower<wg::kProducerRegs>();
+    if (threadIdx.x != wg::kConsumerThreads) return;
+    for (int j = 0; j < tiles; ++j) {
+      const int st = wg::claim(r, j);
+      mbar_expect(r.full(st), 2 * wg::kTileBytes);
+      tma_load_3d(r.first(st), &k_map, r.full(st), 0, j * wg::kTile, bh);
+      tma_load_3d(r.second(st), &v_map, r.full(st), 0, j * wg::kTile, bh);
+    }
+  } else {
+    regs_raise<wg::kConsumerRegs>();
+    const size_t head = static_cast<size_t>(bh) * sq;
+    wg::dq_consume<K>(r, q + head * wg::kD, dout + head * wg::kD, lse2 + head, delta + head,
+                      dq + head * wg::kD, q0 + threadIdx.x / 128 * wg::kRows, sq, sk, tiles,
+                      causal);
+  }
+}
+
+// Kernel 3 on the wgmma route. Grid: one block per (bh, wg::kBlockRows keys),
+// flattened into blockIdx.x; threads, shared memory and roles as kernel 2's.
+// The producer's first thread loads each q tile's Q and dO rows by TMA (maps
+// of (64, sq, bh), box 64 rows); its second warp copies the tile's lse2 and
+// delta rows (0 past sq) with plain loads and stores, since a head's f32 rows
+// start at any 4-byte offset and TMA reads a box from 16-byte aligned
+// addresses. Two arrivals fill a stage: the TMA thread's, counting the bytes,
+// and the warp's after its stores.
+template <int K>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const bf16* __restrict__ k, const bf16* __restrict__ v,
+                           const float* __restrict__ lse2, const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                           int num_kb, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const wg::Ring r = wg::make_ring(smem_raw, 2);
+  const int bh = blockIdx.x / num_kb;
+  const int k0 = (blockIdx.x % num_kb) * wg::kBlockRows;
+  // under the causal mask, query rows before the block's first key are dead
+  // (k0 is a multiple of the q tile)
+  const int q_begin = causal ? k0 : 0;
+  const int tiles = q_begin < sq ? (sq - q_begin + wg::kTile - 1) / wg::kTile : 0;
+  if (threadIdx.x >= wg::kConsumerThreads) {
+    regs_lower<wg::kProducerRegs>();
+    const int pt = threadIdx.x - wg::kConsumerThreads;
+    if (pt == 0) {
+      for (int j = 0; j < tiles; ++j) {
+        const int st = wg::claim(r, j);
+        const int q0 = q_begin + j * wg::kTile;
+        mbar_expect(r.full(st), 2 * wg::kTileBytes);
+        tma_load_3d(r.first(st), &q_map, r.full(st), 0, q0, bh);
+        tma_load_3d(r.second(st), &do_map, r.full(st), 0, q0, bh);
+      }
+    } else if (pt / 32 == 1) {
+      const int lane = pt % 32;
+      const float* lb = lse2 + static_cast<size_t>(bh) * sq;
+      const float* db = delta + static_cast<size_t>(bh) * sq;
+      for (int j = 0; j < tiles; ++j) {
+        const int st = wg::claim(r, j);
+        const int q0 = q_begin + j * wg::kTile;
+#pragma unroll
+        for (int i = lane; i < wg::kTile; i += 32) {
+          const bool ok = q0 + i < sq;
+          r.lse(st)[i] = ok ? lb[q0 + i] : 0.f;
+          r.delta(st)[i] = ok ? db[q0 + i] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(r.full(st));
+      }
+    }
+  } else {
+    regs_raise<wg::kConsumerRegs>();
+    const size_t head = static_cast<size_t>(bh) * sk * wg::kD;
+    wg::dkv_consume<K>(r, k + head, v + head, dk + head, dv + head,
+                       k0 + threadIdx.x / 128 * wg::kRows, q_begin, sq, sk, tiles, causal);
+  }
+}
+
 // ---- the test entry of the one s, dp computation ----
 
 // Block i takes tile i: 16 queries (q, dout, lse2, delta) and 16 keys (k,
@@ -1062,6 +1604,9 @@ flash_bwd_roles_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 enum class Entry { kDq, kDkv, kFused, kRoles };
 
+// the bodies of kernels 2 and 3, chosen by ops/flash_attention.py::backward_route
+enum Route : int { kRouteMma = 0, kRouteWgmma = 1 };
+
 struct Args {
   const void *q, *k, *v, *dout, *lse2, *delta;
   void *out0, *out1, *out2;  // dq; or dk and dv; or the f32 dq buffer, dk and dv
@@ -1069,6 +1614,7 @@ struct Args {
   int bh, sq, sk, causal;  // the roles entry: bh = tiles
   int contract;  // a Contract of flash_contract.cuh
   float sscale;  // the softmax scale under kUpcast, else unread
+  int route;  // a Route: the body of kernels 2 and 3 (kernels 4 and the roles entry: kRouteMma)
   cudaStream_t stream;
 };
 
@@ -1093,7 +1639,11 @@ template <typename T, int D, bool Fused, int K>
 int launch_dkv(const Args& a) {
   using C = DkvCfg<T, D>;
   static_assert(C::kSmem <= 232448, "shared memory of one block");
-  auto kernel = Fused ? flash_bwd_fused_kernel<T, D, K> : flash_bwd_dkv_kernel<T, D, K>;
+  // only the kernel launched is instantiated (kernel 4 at bf16 D = 64 needs no kernel 3)
+  auto kernel = [] {
+    if constexpr (Fused) return flash_bwd_fused_kernel<T, D, K>;
+    else return flash_bwd_dkv_kernel<T, D, K>;
+  }();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1123,9 +1673,73 @@ int launch_roles(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The TMA map of a (bh, rows, 64) bf16 tensor seen as (64, rows, bh), box
+// wg::kTile rows in the 128-byte swizzle (rows past `rows` of a head read as 0)
+cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int rows, int bh) {
+  const cuuint64_t dims[3] = {wg::kD, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {wg::kD * 2, static_cast<cuuint64_t>(rows) * wg::kD * 2};
+  const cuuint32_t box[3] = {wg::kD, wg::kTile, 1};
+  return encode_tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int K>
+int launch_dq_wgmma(const Args& a) {
+  CUtensorMap maps[2];
+  cudaError_t err = encode_rows_map(&maps[0], a.k, a.sk, a.bh);
+  if (err == cudaSuccess) err = encode_rows_map(&maps[1], a.v, a.sk, a.bh);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = flash_bwd_dq_wgmma_kernel<K>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int num_qb = (a.sq + wg::kBlockRows - 1) / wg::kBlockRows;
+  kernel<<<num_qb * a.bh, wg::kThreads, wg::kSmemBytes, a.stream>>>(
+      maps[0], maps[1], static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse2), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), a.sq, a.sk, num_qb, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int launch_dkv_wgmma(const Args& a) {
+  CUtensorMap maps[2];
+  cudaError_t err = encode_rows_map(&maps[0], a.q, a.sq, a.bh);
+  if (err == cudaSuccess) err = encode_rows_map(&maps[1], a.dout, a.sq, a.bh);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = flash_bwd_dkv_wgmma_kernel<K>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int num_kb = (a.sk + wg::kBlockRows - 1) / wg::kBlockRows;
+  kernel<<<num_kb * a.bh, wg::kThreads, wg::kSmemBytes, a.stream>>>(
+      maps[0], maps[1], static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const float*>(a.lse2), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.sq, a.sk, num_kb, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernels 2 and 3 on the wgmma route: bf16 at D = wg::kD, the exp2 contracts
+template <Entry E>
+int launch_wgmma(const Args& a, int d, int dtype) {
+  if (dtype != 1 || d != wg::kD) return static_cast<int>(cudaErrorInvalidValue);
+  switch (a.contract) {
+    case kNoMax: return E == Entry::kDq ? launch_dq_wgmma<kNoMax>(a) : launch_dkv_wgmma<kNoMax>(a);
+    case kRunningMax:
+      return E == Entry::kDq ? launch_dq_wgmma<kRunningMax>(a) : launch_dkv_wgmma<kRunningMax>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// bf16 at D = wg::kD in the exp2 contracts: kernels 2 and 3 run only their
+// wgmma body there (launch_wgmma), so kRouteMma is refused
+template <Entry E, typename T, int D, int K>
+constexpr bool kWgmmaOnly = (E == Entry::kDq || E == Entry::kDkv) && sizeof(T) == 2 &&
+                            D == wg::kD && K != kUpcast;
+
 template <Entry E, typename T, int D, int K>
 int launch_entry(const Args& a) {
-  if constexpr (E == Entry::kDq) {
+  if constexpr (kWgmmaOnly<E, T, D, K>) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else if constexpr (E == Entry::kDq) {
     return launch_dq<T, D, K>(a);
   } else if constexpr (E == Entry::kRoles) {
     return launch_roles<T, D, K>(a);
@@ -1161,6 +1775,11 @@ template <Entry E>
 int launch(const Args& a, int d, int dtype, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (a.route == kRouteWgmma) {
+    if constexpr (E == Entry::kDq || E == Entry::kDkv) return launch_wgmma<E>(a, d, dtype);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.route != kRouteMma) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return launch_d<E, float>(a, d);
   if (dtype == 1) return launch_d<E, __nv_bfloat16>(a, d);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1173,24 +1792,30 @@ int launch(const Args& a, int d, int dtype, int device) {
 // dq (bh, sq, d) in the input type. All contiguous. contract is a Contract
 // of flash_contract.cuh: under kUpcast (f32 only) q is unscaled, dout has no
 // ln2, lse2 is the natural-log lse and sscale the softmax scale (sscale is
-// not read otherwise). Launches on `stream` of `device` and returns
-// cudaGetLastError() of the launch (0 on success).
+// not read otherwise). route is a Route (ops/flash_attention.py::
+// backward_route): kRouteWgmma runs the wgmma body, which takes bf16 at
+// d = 64 in the two exp2 contracts, kRouteMma the mma.sync body, which takes
+// every other type, width and contract; any other route, or a route on
+// inputs it does not take, returns cudaErrorInvalidValue and launches
+// nothing. Launches on `stream`
+// of `device` and returns the first CUDA error of the tensor maps'
+// encoding, the shared-memory attribute or the launch (0 on success).
 extern "C" int gm_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse2, const void* delta, void* dq, int bh, int sq,
                                int sk, int d, int dtype, int causal, int contract, float sscale,
-                               int device, void* stream) {
-  const Args a{q,  k,  v,  dout,   lse2,     delta,  dq, nullptr, nullptr, nullptr,
-               bh, sq, sk, causal, contract, sscale, static_cast<cudaStream_t>(stream)};
+                               int route, int device, void* stream) {
+  const Args a{q,  k,  v,  dout,   lse2,     delta,  dq,    nullptr, nullptr, nullptr,
+               bh, sq, sk, causal, contract, sscale, route, static_cast<cudaStream_t>(stream)};
   return launch<Entry::kDq>(a, d, dtype, device);
 }
 
-// The same inputs; dk and dv (bh, sk, d) in the input type.
+// The same inputs and route; dk and dv (bh, sk, d) in the input type.
 extern "C" int gm_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse2, const void* delta, void* dk, void* dv, int bh,
                                 int sq, int sk, int d, int dtype, int causal, int contract,
-                                float sscale, int device, void* stream) {
-  const Args a{q,  k,  v,  dout,   lse2,     delta,  dk, dv, nullptr, nullptr,
-               bh, sq, sk, causal, contract, sscale, static_cast<cudaStream_t>(stream)};
+                                float sscale, int route, int device, void* stream) {
+  const Args a{q,  k,  v,  dout,   lse2,     delta,  dk,    dv, nullptr, nullptr,
+               bh, sq, sk, causal, contract, sscale, route, static_cast<cudaStream_t>(stream)};
   return launch<Entry::kDkv>(a, d, dtype, device);
 }
 
@@ -1203,8 +1828,8 @@ extern "C" int gm_flash_bwd_fused(const void* q, const void* k, const void* v, c
                                   void* dq_lock, void* dk, void* dv, int bh, int sq, int sk, int d,
                                   int dtype, int causal, int contract, float sscale, int device,
                                   void* stream) {
-  const Args a{q,  k,  v,  dout,   lse2,     delta,  dq_acc, dk, dv, dq_lock,
-               bh, sq, sk, causal, contract, sscale, static_cast<cudaStream_t>(stream)};
+  const Args a{q,  k,  v,  dout,   lse2,     delta,  dq_acc,    dk, dv, dq_lock,
+               bh, sq, sk, causal, contract, sscale, kRouteMma, static_cast<cudaStream_t>(stream)};
   return launch<Entry::kFused>(a, d, dtype, device);
 }
 
@@ -1217,7 +1842,7 @@ extern "C" int gm_flash_bwd_roles(const void* q, const void* k, const void* v, c
                                   const void* lse2, const void* delta, void* out, int tiles,
                                   int d, int dtype, int contract, float sscale, int device,
                                   void* stream) {
-  const Args a{q,     k,  v,  dout, lse2,     delta,  out, nullptr, nullptr, nullptr,
-               tiles, 16, 16, 0,    contract, sscale, static_cast<cudaStream_t>(stream)};
+  const Args a{q,     k,  v,  dout, lse2,     delta,  out,       nullptr, nullptr, nullptr,
+               tiles, 16, 16, 0,    contract, sscale, kRouteMma, static_cast<cudaStream_t>(stream)};
   return launch<Entry::kRoles>(a, d, dtype, device);
 }

@@ -296,7 +296,7 @@ __device__ __forceinline__ void pv_products(float (&acc)[kORegs],
                                             uint64_t v_desc) {
 #pragma unroll
   for (int js = 0; js < N; ++js) {
-    wgmma_rs_tb<kD>(acc, p[first + js], wgmma_desc_add(v_desc, 2048 * (first + js)));
+    wgmma_rs_n64<true>(acc, p[first + js], wgmma_desc_add(v_desc, 2048 * (first + js)), 1);
   }
 }
 
@@ -308,7 +308,7 @@ __device__ __forceinline__ void pv_products_rowsum(float (&acc)[kORegs], float (
                                                    uint64_t v_desc, uint64_t ones_desc) {
 #pragma unroll
   for (int js = 0; js < N; ++js) {
-    wgmma_rs_tb<kD>(acc, p[first + js], wgmma_desc_add(v_desc, 2048 * (first + js)));
+    wgmma_rs_n64<true>(acc, p[first + js], wgmma_desc_add(v_desc, 2048 * (first + js)), 1);
     wgmma_rs<8>(l, p[first + js], ones_desc);
   }
 }

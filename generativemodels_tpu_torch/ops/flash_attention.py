@@ -4,7 +4,10 @@ Counterpart of generativemodels_tpu/ops/flash_attention.py. The Pallas TPU
 kernels become kernels written for Hopper: the forward `_fwd_kernel` is
 `csrc/flash_fwd.cu`; the split backward `_dq_kernel` and `_dkv_kernel` and
 the fused backward `_dfused_kernel` are `csrc/flash_bwd.cu`; each source's
-header says what bounds it and how it is laid out.
+header says what bounds it and how it is laid out. The split backward's two
+kernels have two bodies there, and `backward_route` alone picks one per
+launch: wgmma fed by a TMA ring for bf16 at head width 64 in the exp2
+contracts, mma.sync for every other case.
 `flash_attention_reference` and `flash_attention_backward_reference` are
 plain PyTorch code for the same functions and contract: the CPU path, and
 what the kernels are held against.
@@ -272,15 +275,33 @@ _BWD_ARGTYPES = (
 # unscaled, dO without ln2, the natural lse, and `scale`) or the exp2
 # contracts with (`no_max`) or without the clamp
 
+# the bodies of kernels 2 and 3 (`Route` in csrc/flash_bwd.cu), each input
+# taking one: the wgmma one fed by a TMA ring, and the mma.sync bodies
+ROUTE_MMA, ROUTE_WGMMA = 0, 1
+_ROUTE_WGMMA_D = 64  # the head width of the wgmma body
+
+
+def backward_route(dtype: torch.dtype, d: int, upcast: bool = False) -> int:
+    """The body that kernels 2 and 3 run for inputs of `dtype` at head width
+    `d` under the contract `upcast` names: ROUTE_WGMMA for bf16 at D = 64 in
+    the two exp2 contracts, ROUTE_MMA for everything else (f32 and upcast,
+    whose 3xTF32 products are mma.sync's, and the other bf16 widths). The
+    launchers pass it to the C entry, which raises on a route it does not
+    run for the inputs it gets."""
+    if dtype == torch.bfloat16 and d == _ROUTE_WGMMA_D and not upcast:
+        return ROUTE_WGMMA
+    return ROUTE_MMA
+
 
 class _FlashBackwardKernel(Launcher):
     source = "flash_bwd.cu"
 
     def _run(
         self, outputs, q, k, v, dout, lse2, delta, causal: bool, upcast: bool, no_max: bool,
-        scale: float,
+        scale: float, *route: int,
     ) -> None:
-        """Launch with the inputs, then the outputs."""
+        """Launch with the inputs, then the outputs, then (kernels 2 and 3)
+        the route of `backward_route`."""
         _check_kernel_inputs(q, k, v)
         _check_backward_rows(q, dout, lse2, delta)
         if upcast and q.dtype != torch.float32:
@@ -294,7 +315,7 @@ class _FlashBackwardKernel(Launcher):
             q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse2.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outputs),
             bh, sq, k.shape[1], d, _DTYPE_CODES[q.dtype], int(causal),
-            _contract(upcast, no_max), scale if upcast else 1.0,
+            _contract(upcast, no_max), scale if upcast else 1.0, *route,
         )
 
 
@@ -302,7 +323,7 @@ class FlashBackwardDqKernel(_FlashBackwardKernel):
     """Launcher of the dq entry point of `csrc/flash_bwd.cu` (replaces `_dq_kernel`)."""
 
     symbol = "gm_flash_bwd_dq"
-    argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) + _BWD_ARGTYPES[6:]
+    argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) + _BWD_ARGTYPES[6:] + (ctypes.c_int,)
 
     def __call__(
         self, q, k, v, dout, lse2, delta, *, causal: bool = False, upcast: bool = False,
@@ -311,7 +332,8 @@ class FlashBackwardDqKernel(_FlashBackwardKernel):
         """dq from dO and delta (`_backward_rows`) and the lse, each in the
         contract's form (`flash_attention_backward_reference`'s arguments)."""
         dq = torch.empty_like(q)
-        self._run((dq,), q, k, v, dout, lse2, delta, causal, upcast, no_max, scale)
+        self._run((dq,), q, k, v, dout, lse2, delta, causal, upcast, no_max, scale,
+                  backward_route(q.dtype, q.shape[2], upcast))
         return dq
 
 
@@ -319,7 +341,7 @@ class FlashBackwardDkvKernel(_FlashBackwardKernel):
     """Launcher of the dkv entry point of `csrc/flash_bwd.cu` (replaces `_dkv_kernel`)."""
 
     symbol = "gm_flash_bwd_dkv"
-    argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) * 2 + _BWD_ARGTYPES[6:]
+    argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) * 2 + _BWD_ARGTYPES[6:] + (ctypes.c_int,)
 
     def __call__(
         self, q, k, v, dout, lse2, delta, *, causal: bool = False, upcast: bool = False,
@@ -327,7 +349,8 @@ class FlashBackwardDkvKernel(_FlashBackwardKernel):
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """(dk, dv) from the same inputs as the dq launcher."""
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-        self._run((dk, dv), q, k, v, dout, lse2, delta, causal, upcast, no_max, scale)
+        self._run((dk, dv), q, k, v, dout, lse2, delta, causal, upcast, no_max, scale,
+                  backward_route(q.dtype, q.shape[2], upcast))
         return dk, dv
 
 

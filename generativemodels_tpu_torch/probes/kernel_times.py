@@ -12,7 +12,9 @@ from its own sources.
 Run it on two checkouts in turns (A, B, B, A) and compare within the call.
 Each case is timed with CUDA events over 20 launches after 3, on standard
 normal inputs from seed 0 (kernel 5: x and the residual channels-first seen
-as NDHWC, as the 3D UNet hands them over, the kernel at 1 / sqrt(27 Cin)).
+as NDHWC, as the 3D UNet hands them over, the kernel at 1 / sqrt(27 Cin)); a
+line of kernel 2 or 3 names its body (`route`: mma or wgmma, as
+`ops.backward_route` picks it).
 `--kernels` keeps the cases of the kernels named. Prints one JSON object per
 case and, with `--out`, appends them to FILE.
 """
@@ -27,15 +29,20 @@ import sys
 HERE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # (kernel, (BH, Sq, Sk, D), dtype name): kernel 1 at the 3D, serving and 2D
 # bench training shapes; kernels 2, 3 and 4 at the 3D shape and the 2D bench
-# and recipe training shapes
+# and recipe training shapes; kernels 2 and 3 also at the latent UNet's
+# shape and the 3D shape's sequence-parallel allgather rows (n = 2)
 CASES = (
     ("flash_fwd", (2, 32768, 32768, 64), "bfloat16"),
     ("flash_fwd", (4, 1024, 1024, 256), "float32"),
     ("flash_fwd", (128, 1024, 1024, 256), "bfloat16"),
     ("flash_bwd_dq", (2, 32768, 32768, 64), "bfloat16"),
+    ("flash_bwd_dq", (2, 4096, 4096, 64), "bfloat16"),
+    ("flash_bwd_dq", (2, 16384, 32768, 64), "bfloat16"),
     ("flash_bwd_dq", (128, 1024, 1024, 256), "bfloat16"),
     ("flash_bwd_dq", (64, 1024, 1024, 256), "float32"),
     ("flash_bwd_dkv", (2, 32768, 32768, 64), "bfloat16"),
+    ("flash_bwd_dkv", (2, 4096, 4096, 64), "bfloat16"),
+    ("flash_bwd_dkv", (2, 16384, 32768, 64), "bfloat16"),
     ("flash_bwd_dkv", (128, 1024, 1024, 256), "bfloat16"),
     ("flash_bwd_dkv", (64, 1024, 1024, 256), "float32"),
     ("flash_bwd_fused", (2, 32768, 32768, 64), "bfloat16"),
@@ -120,6 +127,10 @@ def main(argv=None) -> list[dict]:
             del out, lse2, qp, do2, delta
         line = dict(root=root, kernel=kernel, shape=[bh, sq, sk, d], dtype=dtype_name, ms=ms,
                     card=card)
+        if kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+            # a checkout from before `backward_route` has the mma.sync bodies alone
+            routed = getattr(ops, "backward_route", None)
+            line["route"] = ("wgmma" if routed and routed(dtype, d) == 1 else "mma")
         print(json.dumps(line), flush=True)
         results.append(line)
         del q, k, v, dout

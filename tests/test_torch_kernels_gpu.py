@@ -14,11 +14,18 @@ products keep f32 accuracy) and 2e-2 for bf16 (O rounded to bf16); the lse
 Backward (dq, dk, dv of kernels 2 and 3, and of the fused kernel 4),
 relative to the largest gradient: 1e-4 for f32 (summation order over up to
 1024 keys), 2e-2 for bf16. Kernel 4 against kernels 2 + 3 on the same
-inputs: dk and dv equal to the bit (one body, the same mma order); dq
-within 1e-5 of its largest value in f32 (f32 sums of the key blocks' parts
-in key-block order), and in bf16 within one bf16 ulp of its value (those
-sums may round to the other side of a bf16 tie) plus that 1e-5 (sums that
-cancel). Kernels 2-4 compute s and dp by one function, kernel 2 with the
+inputs: dk and dv equal to the bit where kernel 3 runs the mma.sync body
+the two share (one body, the same mma order); dq within 1e-5 of its
+largest value in f32 (f32 sums of the key blocks' parts in key-block
+order), and in bf16 within one bf16 ulp of its value (those sums may round
+to the other side of a bf16 tie) plus that 1e-5 (sums that cancel); where
+`backward_route` puts kernels 2 and 3 on their wgmma body (bf16 at D = 64)
+their dk and dv are held to kernel 4's by that dq rule too. The wgmma
+route against the plain backward in both exp2 contracts, causal, ragged,
+Sk = 1 and 77 and Sq below and above Sk, two launches equal to the bit;
+each input takes one body, so the C entries refuse the mma.sync route at
+bf16 D = 64, the wgmma route at f32 and an unknown route. Kernels 2-4
+compute s and dp by one function, kernel 2 with the
 queries as the mma's A operand, kernels 3 and 4 with the keys: both roles
 give the same s, dp and ds to the bit, so every bf16 ds rounds alike in
 the three. Two launches of kernel 2, and two of kernel 4, give the same dq
@@ -110,8 +117,11 @@ from generativemodels_tpu_torch.ops import (
 )
 from generativemodels_tpu_torch.ops.flash_attention import (
     FLASH_BWD_ROLES,
+    ROUTE_MMA,
+    ROUTE_WGMMA,
     _backward_rows,
     _prescaled,
+    backward_route,
 )
 from generativemodels_tpu_torch.ops import fused_conv as fused_conv_module
 from generativemodels_tpu_torch.ops.flash_probes import nearest_shape, relative_error
@@ -267,14 +277,33 @@ def test_fused_backward_kernel_on_gpu(cuda_device, monkeypatch, d, dtype, bh, sq
     for a, b in zip(fused, want):
         assert a.dtype == dtype and a.shape == b.shape
         assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
-    torch.testing.assert_close(fused[1], split[1], rtol=0, atol=0)
-    torch.testing.assert_close(fused[2], split[2], rtol=0, atol=0)
-    dq_f, dq_s = fused[0].float(), split[0].float()
-    if dtype == torch.float32:
-        assert (dq_f - dq_s).abs().max().item() <= 1e-5 * dq_s.abs().max().item()
-    else:  # one bf16 ulp (2**-7 of the value's power of two) and the f32 margin
-        ulp = torch.exp2(torch.floor(torch.log2(dq_s.abs().clamp_min(1e-30))) - 7)
-        assert bool(((dq_f - dq_s).abs() <= ulp + 1e-5 * dq_s.abs().max()).all())
+    _assert_fused_dkv_agree(fused, split, d)
+    _assert_within_fused_margin(fused[0], split[0])
+
+
+def _assert_within_fused_margin(got, want):
+    """Kernel 4's dq against kernel 2's (and its dk, dv against kernel 3's
+    on the wgmma route): the same f32 products summed in another order,
+    within 1e-5 of the largest value in f32, and in bf16 within one bf16
+    ulp (2**-7 of the value's power of two) plus that margin."""
+    a, b = got.float(), want.float()
+    if want.dtype == torch.float32:
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30))) - 7)
+        assert bool(((a - b).abs() <= ulp + 1e-5 * b.abs().max()).all())
+
+
+def _assert_fused_dkv_agree(fused, split, d, upcast=False):
+    """Kernel 4's dk, dv against kernel 3's: equal to the bit where kernel 3
+    runs the mma.sync body the two share, within the fused margin on the
+    wgmma route."""
+    if backward_route(split[1].dtype, d, upcast) == ROUTE_MMA:
+        torch.testing.assert_close(fused[1], split[1], rtol=0, atol=0)
+        torch.testing.assert_close(fused[2], split[2], rtol=0, atol=0)
+    else:
+        _assert_within_fused_margin(fused[1], split[1])
+        _assert_within_fused_margin(fused[2], split[2])
 
 
 @pytest.mark.cuda
@@ -436,7 +465,8 @@ def test_contract_backward_kernels_match_reference_on_gpu(cuda_device, monkeypat
                                                           case, d, dtype):
     """Kernels 2 + 3 and kernel 4 under each contract against the plain
     backward, relative to the largest gradient at BWD_TOL; kernel 4's dk
-    and dv equal kernels 3's to the bit, as in the default contract. At
+    and dv against kernel 3's as in the default contract (to the bit on
+    the mma.sync body, within the fused margin on the wgmma route). At
     Sk = 1 each row's softmax is 1 and ds = p (dp - delta) cancels to
     rounding, so dq and dk are 0 in exact arithmetic: they are held to the
     size of the cancelling terms (max|dO| max|v| max|k|, or max|q| for dk,
@@ -454,23 +484,92 @@ def test_contract_backward_kernels_match_reference_on_gpu(cuda_device, monkeypat
     want = flash_attention_backward_reference(*args, **kw)
     torch.cuda.synchronize()
     assert [c.launches for c in counters] == [n + 1 for n in before]
-    sizes = [b.float().abs().max().item() for b in want]
-    if sk == 1:
-        q_in, k, v, _, _, dout = args
-
-        def rows(t):
-            return t.float().norm(dim=-1).max().item()
-
-        terms = rows(dout) * rows(v) * (kw["scale"] if upcast else 1.0)
-        sizes[0] = max(sizes[0], terms * rows(k))
-        sizes[1] = max(sizes[1], terms * rows(q_in))
+    sizes = _gradient_sizes(args, kw, want)
     for got in (split, fused):
         for a, b, size in zip(got, want, sizes):
             assert a.dtype == dtype and a.shape == b.shape
             assert bool(torch.isfinite(a.float()).all())
             assert (a.float() - b.float()).abs().max().item() <= BWD_TOL[dtype] * size
-    torch.testing.assert_close(fused[1], split[1], rtol=0, atol=0)
-    torch.testing.assert_close(fused[2], split[2], rtol=0, atol=0)
+    _assert_fused_dkv_agree(fused, split, d, upcast)
+
+
+def _gradient_sizes(args, kw, want) -> list[float]:
+    """The size each gradient's error is held to: its largest value, and at
+    Sk = 1 for dq and dk the size of the terms that cancel in them."""
+    sizes = [b.float().abs().max().item() for b in want]
+    q_in, k, v, _, _, dout = args
+    if k.shape[1] == 1:
+
+        def rows(t):
+            return t.float().norm(dim=-1).max().item()
+
+        terms = rows(dout) * rows(v) * (kw["scale"] if kw["upcast"] else 1.0)
+        sizes[0] = max(sizes[0], terms * rows(k))
+        sizes[1] = max(sizes[1], terms * rows(q_in))
+    return sizes
+
+
+# the wgmma route of kernels 2 and 3 (bf16 at D = 64): (BH, Sq, Sk, causal);
+# Sq and Sk no multiples of its 64-row tiles or 128-row blocks, the
+# cross-attention contexts Sk = 1 and 77, and Sq below and above Sk (the
+# sequence-parallel allgather's local rows against every key)
+WGMMA_SHAPES = {
+    "causal": (3, 257, 257, True),
+    "ragged": (2, 200, 333, False),
+    "ctx1": (4, 1024, 1, False),
+    "ctx77": (4, 1000, 77, False),
+    "sq_below_sk": (2, 512, 2048, False),
+    "sq_above_sk_causal": (2, 700, 300, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_SHAPES))
+@pytest.mark.parametrize("contract", ["no_max", "running_max"])
+def test_wgmma_route_backward_kernels_on_gpu(cuda_device, contract, case):
+    """Kernels 2 and 3 on the wgmma route against the plain backward at
+    BWD_TOL (relative to `_gradient_sizes`), in both exp2 contracts; two
+    launches of each give the same bits (no atomics: a dq row belongs to
+    one warpgroup, a dk, dv row to one)."""
+    bh, sq, sk, causal = WGMMA_SHAPES[case]
+    assert backward_route(torch.bfloat16, 64) == ROUTE_WGMMA
+    args, kw = _contract_backward_inputs(cuda_device, bh, sq, sk, 64, torch.bfloat16, causal,
+                                         False, contract == "no_max")
+    q_in, k, v, out, lse2, dout = args
+    do2, delta = _backward_rows(out, dout)
+    bkw = dict(causal=causal, no_max=kw["no_max"])
+    before = FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches
+    first = (FLASH_BWD_DQ(q_in, k, v, do2, lse2, delta, **bkw),
+             *FLASH_BWD_DKV(q_in, k, v, do2, lse2, delta, **bkw))
+    again = (FLASH_BWD_DQ(q_in, k, v, do2, lse2, delta, **bkw),
+             *FLASH_BWD_DKV(q_in, k, v, do2, lse2, delta, **bkw))
+    want = flash_attention_backward_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches) == (before[0] + 2, before[1] + 2)
+    for a, a2, b, size in zip(first, again, want, _gradient_sizes(args, kw, want)):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert bool(torch.isfinite(a.float()).all())
+        assert (a.float() - b.float()).abs().max().item() <= BWD_TOL[torch.bfloat16] * size
+        assert torch.equal(a.view(torch.int16), a2.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, route", [(torch.bfloat16, ROUTE_MMA),
+                                          (torch.float32, ROUTE_WGMMA), (torch.bfloat16, 2)],
+                         ids=["mma_at_bf16_d64", "wgmma_at_f32", "unknown"])
+def test_backward_route_refused_on_gpu(cuda_device, dtype, route):
+    """Each input of kernels 2 and 3 takes one body: their C entries refuse
+    the mma.sync route at bf16 D = 64 (exp2 contracts), the wgmma route at
+    f32 and an unknown route; the launcher raises and counts no launch."""
+    args, _ = _contract_backward_inputs(cuda_device, 2, 128, 128, 64, dtype, False, False, True)
+    q_in, k, v, out, lse2, dout = args
+    do2, delta = _backward_rows(out, dout)
+    for kernel, outputs in ((FLASH_BWD_DQ, (torch.empty_like(q_in),)),
+                            (FLASH_BWD_DKV, (torch.empty_like(k), torch.empty_like(v)))):
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kernel._run(outputs, q_in, k, v, do2, lse2, delta, False, False, True, 1.0, route)
+        assert kernel.launches == before
 
 
 @pytest.mark.cuda
