@@ -1,8 +1,9 @@
 // Hopper's asynchronous copies and products, shared by the kernels of this
-// directory that use them (fused_conv.cu, flash_probes.cu, flash_bwd.cu) on
-// sm_90a:
+// directory that use them (fused_conv.cu, flash_probes.cu, flash_fwd.cu,
+// flash_bwd.cu) on sm_90a:
 // - mbarriers, the tensor-memory accelerator's tiled loads (TMA) into
-//   shared memory, and the host-side encoding of their tensor maps (reached
+//   shared memory and reductions into global memory, and the host-side
+//   encoding of their tensor maps (reached
 //   through the runtime's driver entry point, so a library needs no link to
 //   the driver);
 // - warpgroup products (wgmma.mma_async) of bf16 operands with f32
@@ -81,6 +82,31 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// ---- TMA reductions: the box of `map` at the coordinates += the tile at
+// `src` (f32 add, outside the tensor dropped), as one bulk group of the
+// issuing thread (bulk_commit, then bulk_wait until at most N of the
+// thread's groups are still running)
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map, const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group "
+      "[%0, {%1, %2, %3}], [%4];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// global-memory accesses of this thread ordered against those of the
+// asynchronous proxy (the TMA reductions it issues or has completed)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // The tiled TMA map of a `rank`-D tensor of `type` at `base`: dims and box
 // innermost first, strides in bytes of dims 1 .. rank - 1, L2 promotion of
 // 128 bytes, zero fill outside the tensor. cuTensorMapEncodeTiled comes from
@@ -107,6 +133,20 @@ inline cudaError_t encode_tiled_map(CUtensorMap* map, CUtensorMapDataType type, 
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The TMA map of a contiguous (bh, rows, 64) bf16 tensor (attention's heads)
+// seen as (64, rows, bh): a box of `box_cols` columns x `box_rows` rows in
+// `swizzle`, rows past `rows` of a head read as 0
+inline cudaError_t encode_head_rows_map(CUtensorMap* map, const void* base, int rows, int bh,
+                                        int box_cols, int box_rows,
+                                        CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {64 * 2, static_cast<cuuint64_t>(rows) * 64 * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
+                             1};
+  return encode_tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box,
+                          swizzle);
+}
+
 // ---- wgmma
 
 // The descriptor of a bf16 tile as TMA writes it with
@@ -129,6 +169,16 @@ __device__ __forceinline__ uint64_t wgmma_desc_plain(uint32_t addr, uint32_t lea
                                                      uint32_t stride) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lead >> 4) << 16)
          | (static_cast<uint64_t>(stride >> 4) << 32);
+}
+// The descriptor of a bf16 tile as TMA writes it with
+// CU_TENSOR_MAP_SWIZZLE_64B: rows of 32 elements (64 bytes), 8-row groups
+// 512 bytes apart (the stride byte offset), the tile 1024-byte aligned. Read
+// MN-major (transposed) it is an operand of N = 32 whose rows run along K (a
+// k-step of 16 rows adds 1024 bytes); the leading byte offset, the next
+// 32 elements along N, is not read at that width.
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(512 >> 4) << 32)
+         | (static_cast<uint64_t>(2) << 62);
 }
 // the descriptor moved by `bytes` (a multiple of 16)
 __device__ __forceinline__ uint64_t wgmma_desc_add(uint64_t desc, uint32_t bytes) {
@@ -261,6 +311,25 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a b for a 64 x 32 tile, K = 16: A and B from shared memory by
+// descriptor, both MN-major (transposed: A's rows and B's rows run along K);
+// scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n32_mn(float (&d)[16], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

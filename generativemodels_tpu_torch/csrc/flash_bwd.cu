@@ -5,8 +5,9 @@
 // the largest gradient in bf16, 1e-4 in f32), two launches of kernels 2
 // and 4 equal to the bit, and kernel 4's dq against kernel 2's within 1e-5
 // of its largest value plus one bf16 ulp; its dk and dv against kernel 3's
-// to the bit where kernel 3 runs dkv_block (the mma.sync route) and by the
-// dq rule on the wgmma route.
+// to the bit on either route (the two run the same dV and dK products in
+// the same order: dkv_block on the mma.sync route, dkv_tile_probs and
+// products_over_tile on the wgmma route).
 //
 // Replaces the Pallas TPU kernels of the backward `_flash_bwd` in
 // generativemodels_tpu/ops/flash_attention.py: the split backward's
@@ -14,8 +15,9 @@
 // `_dkv_kernel` (with _dkv_tile) flash_bwd_dkv_kernel (kernel 3); the fused
 // backward's `_dfused_kernel` (with _dfused_tile, run under
 // GMTPU_FLASH_FUSED_BWD=1) becomes flash_bwd_fused_kernel (kernel 4). The
-// last two share one body, dkv_block. On the wgmma route (below) kernels 2
-// and 3 are flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel.
+// last two share one body, dkv_block. On the wgmma route (below) kernels
+// 2-4 are flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel and
+// flash_bwd_fused_wgmma_kernel.
 // Default contract, as flash_fwd.cu: q arrives prescaled by scale*log2(e)
 // (rounded to q's type), dO arrives multiplied by ln2 (rounded to dO's
 // type), lse2 is the forward's log2-domain lse and delta = rowsum(dO ln2 * O)
@@ -39,12 +41,13 @@
 // D=64, bf16) kernel 2 does 3 products of BH*S*S*D multiply-adds (s, dp,
 // dq), 8.2e11 operations, kernel 3 four (s, dp, dv, dk), 1.1e12 operations,
 // on 17 MB: 0.83 and 1.11 ms at the bf16 tensor-core rate (989 TFLOP/s),
-// bound by operations; kernel 4 adds the fifth, dq, and adds its key
-// blocks' dq parts into one f32 buffer.
+// bound by operations; kernel 4 adds the fifth, dq (1.39 ms), and adds its
+// key blocks' dq parts into an f32 buffer: BH * Sq * D * Sk / 128 adds, 4.3
+// GB of reductions at the 3D shape, ordered across the key blocks.
 //
-// Two bodies of kernels 2 and 3, each input taking one: the `route`
+// Two bodies of kernels 2, 3 and 4, each input taking one: the `route`
 // argument of their C entries names it (ops/flash_attention.py::
-// backward_route picks it; an unknown route, or a route the inputs do not
+// attention_route picks it; an unknown route, or a route the inputs do not
 // take, raises; nothing falls back to the other body):
 // - kRouteWgmma, bf16 at D = 64 in the two exp2 contracts (the 3D training
 //   step, the latent UNet, the 3D LDM's bf16 stages): warpgroup products
@@ -53,8 +56,8 @@
 //   handful of CUDA-core instructions a score) is what keeps it from the
 //   tensor-core bound.
 // - kRouteMma, every other case (f32 and upcast as 3xTF32, bf16 at D = 32,
-//   128 and 256; kernels 2 and 3 have no mma.sync instance at bf16 D = 64
-//   in the exp2 contracts), and kernel 4 always: the mma.sync bodies, where
+//   128 and 256; kernels 2-4 have no mma.sync instance at bf16 D = 64 in
+//   the exp2 contracts): the mma.sync bodies, where
 //   the tensor pipe's issue rate (mma.sync, as kernel 1) and the operand
 //   fragments read from shared memory by ldmatrix set the floor.
 // - bf16: mma.sync m16n8k16, bf16 operands, f32 accumulation.
@@ -144,8 +147,9 @@
 // barrier between the two phases, and dS^T goes to shared memory only for
 // kernel 4's dq part.
 //
-// Kernel 4 adds each q tile's dq part into one zeroed f32 (BH, Sq, D)
-// buffer in a fixed order, so dq is the same to the bit from run to run
+// On the mma.sync route kernel 4 adds each q tile's dq part into one zeroed
+// f32 (BH, Sq, D) buffer in a fixed order, so dq is the same to the bit from
+// run to run
 // (the TPU kernel writes one f32 partial-dq slab per kv tile and sums them
 // in XLA; at the 3D shape that would be 8.6 GB of slabs): one int counter
 // per (bh, Br-row q tile), zeroed by the caller, counts the key blocks whose
@@ -168,8 +172,9 @@
 // Kernels 2 and 3 are deterministic too: dq rows belong to one block (its
 // slices add in a fixed order), dK/dV rows to one block.
 //
-// Kernels 2 and 3 on the wgmma route (namespace wg, flash_bwd_dq_wgmma_kernel
-// and flash_bwd_dkv_wgmma_kernel; the design of kernels 6 and 7 in
+// Kernels 2-4 on the wgmma route (namespace wg, flash_bwd_dq_wgmma_kernel,
+// flash_bwd_dkv_wgmma_kernel and flash_bwd_fused_wgmma_kernel; the design
+// of kernels 6 and 7 in
 // flash_probes.cu, helpers in async_sm90.cuh). A block is three
 // warpgroups: two consumers of 64 rows each and a producer, with setmaxnreg
 // giving the consumers 240 registers and the producer 24. The producer's
@@ -196,6 +201,28 @@
 //   zero, added in f32 to the running dq, so dq sums the same 64-key parts
 //   in the same order as the mma.sync body: each dq row belongs to one
 //   warpgroup, no partial dq is summed across warps, and dq is cast once.
+// - kernel 4, kernel 3's block and consumers (the same dV and dK products
+//   in the same order, so its dk and dv have kernel 3's bits) and each q
+//   tile's dq part dS K over the block's 128 keys: both consumers write
+//   their dS^T (bf16, 64 keys x 64 queries each, as TMA writes a tile in
+//   the 128-byte swizzle) to one of two buffers and meet at a named
+//   barrier; each then computes its 32 columns of the part as wgmma
+//   m64n32k16 with A = dS read MN-major from the buffers (the descriptor's
+//   transpose bit) and B = its half of the block's K, loaded once by TMA in
+//   the 64-byte swizzle and read MN-major (16 f32 registers beside kernel
+//   3's), issued with the tile's dV, dK and the next tile's S^T, dP^T. The
+//   part goes to a ring of four f32 staging stages (the 128-byte swizzle);
+//   two threads of the producer warpgroup, one for the even and one for the
+//   odd q tiles, add it into the zeroed f32 dq buffer by TMA reductions
+//   (cp.reduce.async.bulk.tensor .add.f32, two 32-column boxes a tile) in
+//   key-block order: each waits until the q tile's counter reads the number
+//   of key blocks before this one that add into the same buffer, reduces,
+//   waits until the reduction is complete, fences and counts the block
+//   (the consumers never wait on another block, and issue no atomics).
+//   The key blocks of a head fall into the caller's groups (kb % groups),
+//   each with its own buffer and counters, which the caller sums: a chain
+//   of blocks that wait on one another is one group's, 32 blocks at the 3D
+//   shape in place of 256. dq is the same to the bit from run to run.
 // Per tile a consumer issues the tile's last products (dV, dK or the dq
 // part) and the next tile's S and dP in one commit group and waits once;
 // no branch lies between a product's issue and its wait and no register a
@@ -211,8 +238,9 @@
 // and kernel 2's key loop ends at its last row, so tiles wholly past the
 // diagonal are never loaded. The grid is one block per 128 rows (512
 // blocks at the 3D shape, 3.9 waves on 132 SMs); a persistent grid would
-// save the last wave's tail, about 3%. No atomics: two launches give the
-// same bits. D = 32 and 128 are not this code with another constant (a
+// save the last wave's tail, about 3%. Kernels 2 and 3 use no atomics, and
+// kernel 4 adds in a fixed order: two launches give the same bits. D = 32
+// and 128 are not this code with another constant (a
 // 64-byte row takes another swizzle; a 256-byte row is two swizzle atoms,
 // and a 64 x 128 accumulator takes 64 registers a thread): they keep the
 // mma.sync body.
@@ -1069,12 +1097,31 @@ constexpr int kTileSteps = kTile / 16;         // k-steps over a tile: dq (and d
 constexpr int kAcc = 32;                       // accumulator floats of an m64n64 tile
 static_assert(kTile == 64 && kD == 64, "every product is m64n64k16");
 
+constexpr int kKdqCols = kD / kConsumers;       // kernel 4: dq columns of a consumer
+constexpr int kKdqBytes = kBlockRows * kKdqCols * 2;  // 8 KB: K's columns for one consumer's dq
+constexpr int kDsBytes = kRows * kTile * 2;     // 8 KB: one consumer's dS^T of a q tile
+constexpr int kDqAcc = kTile * kKdqCols / 128;  // accumulator floats of an m64n32 tile
+constexpr int kDqStages = 4;                    // kernel 4: the dq parts' staging ring
+constexpr int kDqHalfBytes = kTile * kKdqCols * 4;  // 8 KB: one consumer's f32 dq part
+
 // dynamic shared memory from a 1024-byte-aligned base: kStages stages of two
-// tiles (K, V or Q, dO), then kernel 3's lse2 and delta rows of each stage,
-// then the full and empty mbarriers of each stage
+// tiles (K, V or Q, dO), then kernels 3 and 4's lse2 and delta rows of each
+// stage, then the full and empty mbarriers of each stage, kernel 4's K
+// barrier and the full and empty mbarriers of its dq staging stages; kernel
+// 4 adds, 1024-byte aligned, the block's K in two 64-byte swizzled halves of
+// 32 columns (B of the dq parts), two buffers of the q tile's dS^T, both
+// consumers' 64 keys each (A of the dq parts), and kDqStages stages of the
+// q tile's f32 dq part, both consumers' 32 columns each in the 128-byte
+// swizzle (what the TMA reductions read)
 constexpr int kSmemRows = kStages * 2 * kTileBytes;
 constexpr int kSmemBars = kSmemRows + kStages * 2 * kRowBytes;
-constexpr int kSmemBytes = kSmemBars + 2 * kStages * 8 + 1024;  // + alignment
+constexpr int kSmemBarsEnd = kSmemBars + (2 * kStages + 1 + 2 * kDqStages) * 8;
+constexpr int kSmemBytes = kSmemBarsEnd + 1024;  // + alignment
+constexpr int kSmemKdq = (kSmemBarsEnd + 1023) / 1024 * 1024;
+constexpr int kSmemDs = kSmemKdq + kConsumers * kKdqBytes;
+constexpr int kSmemDq = kSmemDs + 2 * kConsumers * kDsBytes;
+constexpr int kSmemFusedBytes = kSmemDq + kDqStages * kConsumers * kDqHalfBytes + 1024;
+static_assert(kSmemFusedBytes <= 232448, "shared memory of one block");
 
 struct Ring {
   unsigned char* base;  // 1024-byte aligned
@@ -1088,6 +1135,16 @@ struct Ring {
   __device__ float* delta(int st) const { return lse(st) + kTile; }
   __device__ uint64_t* full(int st) const { return bars + st; }
   __device__ uint64_t* empty(int st) const { return bars + kStages + st; }
+  // kernel 4: the K halves' barrier, the half of consumer c, dS^T buffer b,
+  // the dq part of staging stage b (and its barriers)
+  __device__ uint64_t* kdq_full() const { return bars + 2 * kStages; }
+  __device__ unsigned char* kdq(int c) const { return base + kSmemKdq + c * kKdqBytes; }
+  __device__ unsigned char* ds(int b) const { return base + kSmemDs + b * kConsumers * kDsBytes; }
+  __device__ unsigned char* dq(int b) const {
+    return base + kSmemDq + b * kConsumers * kDqHalfBytes;
+  }
+  __device__ uint64_t* dq_full(int b) const { return bars + 2 * kStages + 1 + b; }
+  __device__ uint64_t* dq_empty(int b) const { return bars + 2 * kStages + 1 + kDqStages + b; }
 };
 
 // the ring in this block's dynamic shared memory, its barriers initialised,
@@ -1101,6 +1158,11 @@ __device__ __forceinline__ Ring make_ring(unsigned char* raw, int fills) {
     for (int st = 0; st < kStages; ++st) {
       mbar_init(r.full(st), fills);
       mbar_init(r.empty(st), kConsumerWarps);
+    }
+    mbar_init(r.kdq_full());
+    for (int b = 0; b < kDqStages; ++b) {
+      mbar_init(r.dq_full(b), kConsumerWarps);
+      mbar_init(r.dq_empty(b));
     }
     mbar_fence_init();
   }
@@ -1420,6 +1482,178 @@ __device__ __forceinline__ void dkv_consume(const Ring& r, const bf16* __restric
   store_rows(dv, acc_v, key, sk, kLog2e);
 }
 
+// Kernel 4: this consumer's dS^T fragments (its 64 keys x the q tile's 64
+// queries, bf16 pairs) into its tile of dS^T buffer `buf` as TMA would write
+// a (64, 64) bf16 tile in the 128-byte swizzle, rows by key, then made
+// visible to the wgmmas that read it as the MN-major A operand of dS K
+__device__ __forceinline__ void store_ds(unsigned char* buf, const uint32_t (&sf)[kTileSteps][4]) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  unsigned char* tile = buf + threadIdx.x / 128 * kDsBytes;
+#pragma unroll
+  for (int js = 0; js < kTileSteps; ++js) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // key + 8 (e & 1), queries 16 js + 8 (e >> 1) + 2t, + 1
+      const int kl = (threadIdx.x % 128) / 32 * 16 + g + 8 * (e & 1);  // kl % 8 == g
+      const int chunk = 2 * js + (e >> 1);  // the 16-byte chunk of the key's 128-byte row
+      *reinterpret_cast<uint32_t*>(tile + kl * 128 + ((chunk ^ g) << 4) + 4 * t) = sf[js][e];
+    }
+  }
+  fence_proxy_async();
+}
+
+// Kernel 4: the q tile's dq part dS K over the block's 128 keys, this
+// consumer's 32 columns, from zero: A = dS^T of both consumers (`buf`,
+// MN-major), B = the consumer's K half (MN-major, 64-byte swizzle)
+__device__ __forceinline__ void dq_part(float (&x)[kDqAcc], const unsigned char* buf,
+                                        const unsigned char* kdq) {
+  const uint64_t a = wgmma_desc_sw128(smem_addr(buf));
+  const uint64_t b = wgmma_desc_sw64(smem_addr(kdq));
+#pragma unroll
+  for (int js = 0; js < kBlockRows / 16; ++js) {
+    wgmma_ss_n32_mn(x, wgmma_desc_add(a, 2048 * js), wgmma_desc_add(b, 1024 * js), js > 0);
+  }
+}
+
+// Kernel 4: this consumer's dq part (its 32 columns of the q tile's 64
+// rows, an m64n32 accumulator) into staging stage j % kDqStages, as TMA
+// reads a (32, 64) f32 box in the 128-byte swizzle, once the reduction of
+// the tile kDqStages before has read the stage; each warp then arrives on
+// the stage's full barrier (its writes made visible to the TMA unit first)
+__device__ __forceinline__ void stage_dq(const Ring& r, int j, const float (&x)[kDqAcc]) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int b = j % kDqStages;
+  if (j >= kDqStages) mbar_wait(r.dq_empty(b), (j / kDqStages - 1) & 1);
+  unsigned char* half = r.dq(b) + threadIdx.x / 128 * kDqHalfBytes;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = (threadIdx.x % 128) / 32 * 16 + g + 8 * h;  // row % 8 == g
+#pragma unroll
+    for (int nb = 0; nb < kKdqCols / 8; ++nb) {  // columns 8 nb + 2t, + 1: chunk 2 nb + t / 2
+      *reinterpret_cast<float2*>(half + row * 128 + (((2 * nb + t / 2) ^ g) << 4) + 8 * (t % 2)) =
+          make_float2(x[4 * nb + 2 * h], x[4 * nb + 2 * h + 1]);
+    }
+  }
+  fence_proxy_async();
+  __syncwarp();
+  if (lane == 0) mbar_arrive(r.dq_full(b));
+}
+
+// Kernel 4's ordered adds, by one thread of the producer warpgroup for each
+// q tile j of `tiles` with j % `step` == `first`: it waits until both
+// consumers have staged the tile's dq part and until `lock` (the q tile's
+// counter of this group's key blocks that have added their part) reads
+// `ahead`, the key blocks of the group before this one; then adds the part
+// into the f32 buffer of `dq_map` (coordinates (column, row, gbh)) by two
+// TMA reductions, waits until they have completed, and counts the block.
+// Rows past sq fall outside the map and are dropped.
+__device__ __forceinline__ void reduce_dq(const Ring& r, const CUtensorMap* dq_map,
+                                          int* __restrict__ locks, int ahead, int gbh,
+                                          int q_begin, int tiles, int first, int step) {
+  for (int j = first; j < tiles; j += step) {
+    const int b = j % kDqStages;
+    const int q0 = q_begin + j * kTile;
+    int* lock = locks + q0 / kTile;
+    mbar_wait(r.dq_full(b), (j / kDqStages) & 1);
+    while (ld_acquire(lock) < ahead) __nanosleep(32);
+    fence_proxy_async_global();  // the reductions come after the blocks before
+#pragma unroll
+    for (int c = 0; c < kConsumers; ++c) {
+      tma_reduce_add_3d(dq_map, r.dq(b) + c * kDqHalfBytes, c * kKdqCols, q0, gbh);
+    }
+    bulk_commit();
+    bulk_wait<0>();
+    fence_proxy_async_global();  // the completed reductions come before the count
+    __threadfence();
+    atomicAdd(lock, 1);
+    mbar_arrive(r.dq_empty(b));
+  }
+}
+
+// Kernel 4's consumer warpgroup: kernel 3's (its 64 keys over every q tile,
+// the same dV and dK products in the same order, so dk and dv have kernel
+// 3's bits) and each q tile's dq part. Per tile the two consumers write
+// their dS^T to the tile's buffer and meet at named barrier 1; each then
+// issues the tile's dV, dK and dq part and the next tile's S^T and dP^T in
+// one group, waits once, and stages its dq columns for reduce_dq.
+template <int K>
+__device__ __forceinline__ void fused_consume(const Ring& r, const bf16* __restrict__ k,
+                                              const bf16* __restrict__ v, bf16* __restrict__ dk,
+                                              bf16* __restrict__ dv, int key0, int q_begin,
+                                              int sq, int sk, int tiles, int causal) {
+  const int lane = threadIdx.x % 32;
+  const int c = threadIdx.x / 128;
+  // this thread's keys key and key + 8
+  const int key = key0 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  uint32_t kf[kDSteps][4], vf[kDSteps][4];
+  load_rows(kf, k, key, sk);
+  load_rows(vf, v, key, sk);
+  float acc_k[kAcc], acc_v[kAcc], s[kAcc], dp[kAcc], part[kDqAcc];
+  uint32_t pf[kTileSteps][4], sf[kTileSteps][4];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc_k[i] = acc_v[i] = 0.f;
+  if (tiles > 0) {
+    const unsigned char* kdq = r.kdq(c);
+    mbar_wait(r.kdq_full(), 0);
+    mbar_wait(r.full(0), 0);
+    wgmma_fence();
+    products_over_d(s, kf, r.first(0));   // S^T = K Q^T
+    products_over_d(dp, vf, r.second(0));  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+#pragma unroll 1
+    for (int j = 0; j + 1 < tiles; ++j) {
+      const int st = j % kStages;
+      const int next = (j + 1) % kStages;
+      dkv_tile_probs<K>(pf, sf, s, dp, r.lse(st), r.delta(st), key, key0, q_begin + j * kTile, sq,
+                        sk, causal);
+      store_ds(r.ds(j & 1), sf);
+      named_sync(1, kConsumerThreads);  // both halves of dS^T are in
+      mbar_wait(r.full(next), ((j + 1) / kStages) & 1);
+      wgmma_fence();
+      products_over_tile(acc_v, pf, r.second(st), false);  // dV += P^T dO
+      products_over_tile(acc_k, sf, r.first(st), false);   // dK += dS^T Q
+      dq_part(part, r.ds(j & 1), kdq);                      // dS K
+      products_over_d(s, kf, r.first(next));
+      products_over_d(dp, vf, r.second(next));
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(acc_v);
+      reg_fence(acc_k);
+      reg_fence(part);
+      reg_fence(s);
+      reg_fence(dp);
+      release(r, st);
+      stage_dq(r, j, part);
+    }
+    const int last = tiles - 1;
+    const int st = last % kStages;
+    dkv_tile_probs<K>(pf, sf, s, dp, r.lse(st), r.delta(st), key, key0, q_begin + last * kTile,
+                      sq, sk, causal);
+    store_ds(r.ds(last & 1), sf);
+    named_sync(1, kConsumerThreads);
+    wgmma_fence();
+    products_over_tile(acc_v, pf, r.second(st), false);
+    products_over_tile(acc_k, sf, r.first(st), false);
+    dq_part(part, r.ds(last & 1), kdq);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc_v);
+    reg_fence(acc_k);
+    reg_fence(part);
+    release(r, st);
+    stage_dq(r, last, part);
+  }
+  store_rows(dk, acc_k, key, sk, 1.f);
+  // dO arrived multiplied by ln2 for ds; dv must not carry it
+  store_rows(dv, acc_v, key, sk, kLog2e);
+}
+
 }  // namespace wg
 
 // Kernel 2 on the wgmma route. Grid: one block per (bh, wg::kBlockRows query
@@ -1458,14 +1692,53 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
+namespace wg {
+
+// The producer warpgroup of kernels 3 and 4 after its first thread's other
+// loads: that thread loads each q tile's Q and dO rows by TMA (maps of (64,
+// sq, bh), box 64 rows); its second warp copies the tile's lse2 and delta
+// rows (0 past sq) with plain loads and stores, since a head's f32 rows start
+// at any 4-byte offset and TMA reads a box from 16-byte aligned addresses.
+// Two arrivals fill a stage: the TMA thread's, counting the bytes, and the
+// warp's after its stores.
+__device__ __forceinline__ void produce_q_tiles(const Ring& r, const CUtensorMap* q_map,
+                                                const CUtensorMap* do_map,
+                                                const float* __restrict__ lse2,
+                                                const float* __restrict__ delta, int bh, int sq,
+                                                int q_begin, int tiles) {
+  const int pt = threadIdx.x - kConsumerThreads;
+  if (pt == 0) {
+    for (int j = 0; j < tiles; ++j) {
+      const int st = claim(r, j);
+      const int q0 = q_begin + j * kTile;
+      mbar_expect(r.full(st), 2 * kTileBytes);
+      tma_load_3d(r.first(st), q_map, r.full(st), 0, q0, bh);
+      tma_load_3d(r.second(st), do_map, r.full(st), 0, q0, bh);
+    }
+  } else if (pt / 32 == 1) {
+    const int lane = pt % 32;
+    const float* lb = lse2 + static_cast<size_t>(bh) * sq;
+    const float* db = delta + static_cast<size_t>(bh) * sq;
+    for (int j = 0; j < tiles; ++j) {
+      const int st = claim(r, j);
+      const int q0 = q_begin + j * kTile;
+#pragma unroll
+      for (int i = lane; i < kTile; i += 32) {
+        const bool ok = q0 + i < sq;
+        r.lse(st)[i] = ok ? lb[q0 + i] : 0.f;
+        r.delta(st)[i] = ok ? db[q0 + i] : 0.f;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(r.full(st));
+    }
+  }
+}
+
+}  // namespace wg
+
 // Kernel 3 on the wgmma route. Grid: one block per (bh, wg::kBlockRows keys),
-// flattened into blockIdx.x; threads, shared memory and roles as kernel 2's.
-// The producer's first thread loads each q tile's Q and dO rows by TMA (maps
-// of (64, sq, bh), box 64 rows); its second warp copies the tile's lse2 and
-// delta rows (0 past sq) with plain loads and stores, since a head's f32 rows
-// start at any 4-byte offset and TMA reads a box from 16-byte aligned
-// addresses. Two arrivals fill a stage: the TMA thread's, counting the bytes,
-// and the warp's after its stores.
+// flattened into blockIdx.x; threads, shared memory and roles as kernel 2's;
+// the producer runs produce_q_tiles.
 template <int K>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -1484,37 +1757,69 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int tiles = q_begin < sq ? (sq - q_begin + wg::kTile - 1) / wg::kTile : 0;
   if (threadIdx.x >= wg::kConsumerThreads) {
     regs_lower<wg::kProducerRegs>();
-    const int pt = threadIdx.x - wg::kConsumerThreads;
-    if (pt == 0) {
-      for (int j = 0; j < tiles; ++j) {
-        const int st = wg::claim(r, j);
-        const int q0 = q_begin + j * wg::kTile;
-        mbar_expect(r.full(st), 2 * wg::kTileBytes);
-        tma_load_3d(r.first(st), &q_map, r.full(st), 0, q0, bh);
-        tma_load_3d(r.second(st), &do_map, r.full(st), 0, q0, bh);
-      }
-    } else if (pt / 32 == 1) {
-      const int lane = pt % 32;
-      const float* lb = lse2 + static_cast<size_t>(bh) * sq;
-      const float* db = delta + static_cast<size_t>(bh) * sq;
-      for (int j = 0; j < tiles; ++j) {
-        const int st = wg::claim(r, j);
-        const int q0 = q_begin + j * wg::kTile;
-#pragma unroll
-        for (int i = lane; i < wg::kTile; i += 32) {
-          const bool ok = q0 + i < sq;
-          r.lse(st)[i] = ok ? lb[q0 + i] : 0.f;
-          r.delta(st)[i] = ok ? db[q0 + i] : 0.f;
-        }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(r.full(st));
-      }
-    }
+    wg::produce_q_tiles(r, &q_map, &do_map, lse2, delta, bh, sq, q_begin, tiles);
   } else {
     regs_raise<wg::kConsumerRegs>();
     const size_t head = static_cast<size_t>(bh) * sk * wg::kD;
     wg::dkv_consume<K>(r, k + head, v + head, dk + head, dv + head,
                        k0 + threadIdx.x / 128 * wg::kRows, q_begin, sq, sk, tiles, causal);
+  }
+}
+
+// Kernel 4 on the wgmma route. Grid, threads and roles as kernel 3's, with
+// wg::kSmemFusedBytes of dynamic shared memory; the producer's first thread
+// first loads the block's K by TMA in two 32-column halves (a map of (64,
+// sk, bh), box 32 columns x 128 keys in the 64-byte swizzle), and its third
+// and fourth warps' first threads add the staged dq parts of the even and
+// the odd q tiles (reduce_dq). The key blocks of a head fall into `groups`
+// interleaved groups (key block kb in group kb % groups), each with its own
+// f32 dq buffer (the map `dq_map` of the caller's zeroed (groups, bh, sq,
+// 64) buffer seen as (64, sq, groups * bh), box 32 columns x 64 rows in the
+// 128-byte swizzle) and its own counters, dq_lock, int (groups, bh, ceil(sq
+// / 64)), zeroed by the caller, who sums the groups' buffers in a fixed
+// order: a group's key blocks add their dq parts into its buffer in key
+// block order. Groups shorten the chains of blocks that wait on one another
+// (each link costs a reduction's trip to L2 and back).
+template <int K>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap do_map,
+                             const __grid_constant__ CUtensorMap kdq_map,
+                             const __grid_constant__ CUtensorMap dq_map,
+                             const bf16* __restrict__ k, const bf16* __restrict__ v,
+                             const float* __restrict__ lse2, const float* __restrict__ delta,
+                             int* __restrict__ dq_lock, bf16* __restrict__ dk,
+                             bf16* __restrict__ dv, int sq, int sk, int num_kb, int causal,
+                             int groups) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const wg::Ring r = wg::make_ring(smem_raw, 2);
+  const int bh = blockIdx.x / num_kb;
+  const int kbi = blockIdx.x % num_kb;
+  const int k0 = kbi * wg::kBlockRows;
+  const int q_begin = causal ? k0 : 0;
+  const int tiles = q_begin < sq ? (sq - q_begin + wg::kTile - 1) / wg::kTile : 0;
+  const int q_tiles = (sq + wg::kTile - 1) / wg::kTile;
+  // this block's dq buffer and counters: its group's, and in them its head's
+  const int gbh = kbi % groups * (gridDim.x / num_kb) + bh;
+  if (threadIdx.x >= wg::kConsumerThreads) {
+    regs_lower<wg::kProducerRegs>();
+    const int pt = threadIdx.x - wg::kConsumerThreads;
+    if (pt == 0 && tiles > 0) {
+      mbar_expect(r.kdq_full(), wg::kConsumers * wg::kKdqBytes);
+      for (int c = 0; c < wg::kConsumers; ++c) {
+        tma_load_3d(r.kdq(c), &kdq_map, r.kdq_full(), c * wg::kKdqCols, k0, bh);
+      }
+    }
+    wg::produce_q_tiles(r, &q_map, &do_map, lse2, delta, bh, sq, q_begin, tiles);
+    if (pt % 32 == 0 && pt / 32 >= 2) {  // a block waits for the blocks of its group before it
+      wg::reduce_dq(r, &dq_map, dq_lock + static_cast<size_t>(gbh) * q_tiles, kbi / groups, gbh,
+                    q_begin, tiles, pt / 32 - 2, 2);
+    }
+  } else {
+    regs_raise<wg::kConsumerRegs>();
+    const size_t head = static_cast<size_t>(bh) * sk * wg::kD;
+    wg::fused_consume<K>(r, k + head, v + head, dk + head, dv + head,
+                         k0 + threadIdx.x / 128 * wg::kRows, q_begin, sq, sk, tiles, causal);
   }
 }
 
@@ -1604,17 +1909,18 @@ flash_bwd_roles_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 enum class Entry { kDq, kDkv, kFused, kRoles };
 
-// the bodies of kernels 2 and 3, chosen by ops/flash_attention.py::backward_route
+// the bodies of kernels 2, 3 and 4, chosen by ops/flash_attention.py::attention_route
 enum Route : int { kRouteMma = 0, kRouteWgmma = 1 };
 
 struct Args {
   const void *q, *k, *v, *dout, *lse2, *delta;
   void *out0, *out1, *out2;  // dq; or dk and dv; or the f32 dq buffer, dk and dv
   void* dq_lock;  // kernel 4's dq counters, else nullptr
+  int groups;  // kernel 4's groups of key blocks (1 on the mma.sync route), else 1
   int bh, sq, sk, causal;  // the roles entry: bh = tiles
   int contract;  // a Contract of flash_contract.cuh
   float sscale;  // the softmax scale under kUpcast, else unread
-  int route;  // a Route: the body of kernels 2 and 3 (kernels 4 and the roles entry: kRouteMma)
+  int route;  // a Route: the body of kernels 2, 3 and 4 (the roles entry: kRouteMma)
   cudaStream_t stream;
 };
 
@@ -1673,21 +1979,11 @@ int launch_roles(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The TMA map of a (bh, rows, 64) bf16 tensor seen as (64, rows, bh), box
-// wg::kTile rows in the 128-byte swizzle (rows past `rows` of a head read as 0)
-cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int rows, int bh) {
-  const cuuint64_t dims[3] = {wg::kD, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {wg::kD * 2, static_cast<cuuint64_t>(rows) * wg::kD * 2};
-  const cuuint32_t box[3] = {wg::kD, wg::kTile, 1};
-  return encode_tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box,
-                          CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 template <int K>
 int launch_dq_wgmma(const Args& a) {
   CUtensorMap maps[2];
-  cudaError_t err = encode_rows_map(&maps[0], a.k, a.sk, a.bh);
-  if (err == cudaSuccess) err = encode_rows_map(&maps[1], a.v, a.sk, a.bh);
+  cudaError_t err = encode_head_rows_map(&maps[0], a.k, a.sk, a.bh, wg::kD, wg::kTile);
+  if (err == cudaSuccess) err = encode_head_rows_map(&maps[1], a.v, a.sk, a.bh, wg::kD, wg::kTile);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto kernel = flash_bwd_dq_wgmma_kernel<K>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmemBytes);
@@ -1703,8 +1999,10 @@ int launch_dq_wgmma(const Args& a) {
 template <int K>
 int launch_dkv_wgmma(const Args& a) {
   CUtensorMap maps[2];
-  cudaError_t err = encode_rows_map(&maps[0], a.q, a.sq, a.bh);
-  if (err == cudaSuccess) err = encode_rows_map(&maps[1], a.dout, a.sq, a.bh);
+  cudaError_t err = encode_head_rows_map(&maps[0], a.q, a.sq, a.bh, wg::kD, wg::kTile);
+  if (err == cudaSuccess) {
+    err = encode_head_rows_map(&maps[1], a.dout, a.sq, a.bh, wg::kD, wg::kTile);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   auto kernel = flash_bwd_dkv_wgmma_kernel<K>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmemBytes);
@@ -1717,23 +2015,62 @@ int launch_dkv_wgmma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernels 2 and 3 on the wgmma route: bf16 at D = wg::kD, the exp2 contracts
+template <int K>
+int launch_fused_wgmma(const Args& a) {
+  CUtensorMap maps[4];
+  cudaError_t err = encode_head_rows_map(&maps[0], a.q, a.sq, a.bh, wg::kD, wg::kTile);
+  if (err == cudaSuccess) {
+    err = encode_head_rows_map(&maps[1], a.dout, a.sq, a.bh, wg::kD, wg::kTile);
+  }
+  if (err == cudaSuccess) {
+    err = encode_head_rows_map(&maps[2], a.k, a.sk, a.bh, wg::kKdqCols, wg::kBlockRows,
+                               CU_TENSOR_MAP_SWIZZLE_64B);
+  }
+  if (err == cudaSuccess) {  // the groups' f32 dq buffers, box 32 columns x 64 rows
+    const cuuint64_t dims[3] = {wg::kD, static_cast<cuuint64_t>(a.sq),
+                                static_cast<cuuint64_t>(a.groups) * a.bh};
+    const cuuint64_t strides[2] = {wg::kD * 4, static_cast<cuuint64_t>(a.sq) * wg::kD * 4};
+    const cuuint32_t box[3] = {wg::kKdqCols, wg::kTile, 1};
+    err = encode_tiled_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, a.out0, dims, strides,
+                           box, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = flash_bwd_fused_wgmma_kernel<K>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wg::kSmemFusedBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int num_kb = (a.sk + wg::kBlockRows - 1) / wg::kBlockRows;
+  kernel<<<num_kb * a.bh, wg::kThreads, wg::kSmemFusedBytes, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const float*>(a.lse2),
+      static_cast<const float*>(a.delta), static_cast<int*>(a.dq_lock),
+      static_cast<bf16*>(a.out1), static_cast<bf16*>(a.out2), a.sq, a.sk, num_kb, a.causal,
+      a.groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <Entry E, int K>
+int launch_wgmma_entry(const Args& a) {
+  if constexpr (E == Entry::kDq) return launch_dq_wgmma<K>(a);
+  else if constexpr (E == Entry::kDkv) return launch_dkv_wgmma<K>(a);
+  else return launch_fused_wgmma<K>(a);
+}
+
+// Kernels 2, 3 and 4 on the wgmma route: bf16 at D = wg::kD, the exp2 contracts
 template <Entry E>
 int launch_wgmma(const Args& a, int d, int dtype) {
   if (dtype != 1 || d != wg::kD) return static_cast<int>(cudaErrorInvalidValue);
   switch (a.contract) {
-    case kNoMax: return E == Entry::kDq ? launch_dq_wgmma<kNoMax>(a) : launch_dkv_wgmma<kNoMax>(a);
-    case kRunningMax:
-      return E == Entry::kDq ? launch_dq_wgmma<kRunningMax>(a) : launch_dkv_wgmma<kRunningMax>(a);
+    case kNoMax: return launch_wgmma_entry<E, kNoMax>(a);
+    case kRunningMax: return launch_wgmma_entry<E, kRunningMax>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// bf16 at D = wg::kD in the exp2 contracts: kernels 2 and 3 run only their
-// wgmma body there (launch_wgmma), so kRouteMma is refused
+// bf16 at D = wg::kD in the exp2 contracts: kernels 2, 3 and 4 run only
+// their wgmma bodies there (launch_wgmma), so kRouteMma is refused
 template <Entry E, typename T, int D, int K>
-constexpr bool kWgmmaOnly = (E == Entry::kDq || E == Entry::kDkv) && sizeof(T) == 2 &&
-                            D == wg::kD && K != kUpcast;
+constexpr bool kWgmmaOnly = E != Entry::kRoles && sizeof(T) == 2 && D == wg::kD && K != kUpcast;
 
 template <Entry E, typename T, int D, int K>
 int launch_entry(const Args& a) {
@@ -1775,8 +2112,11 @@ template <Entry E>
 int launch(const Args& a, int d, int dtype, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (a.groups < 1 || (a.groups > 1 && a.route != kRouteWgmma)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (a.route == kRouteWgmma) {
-    if constexpr (E == Entry::kDq || E == Entry::kDkv) return launch_wgmma<E>(a, d, dtype);
+    if constexpr (E != Entry::kRoles) return launch_wgmma<E>(a, d, dtype);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a.route != kRouteMma) return static_cast<int>(cudaErrorInvalidValue);
@@ -1793,7 +2133,7 @@ int launch(const Args& a, int d, int dtype, int device) {
 // of flash_contract.cuh: under kUpcast (f32 only) q is unscaled, dout has no
 // ln2, lse2 is the natural-log lse and sscale the softmax scale (sscale is
 // not read otherwise). route is a Route (ops/flash_attention.py::
-// backward_route): kRouteWgmma runs the wgmma body, which takes bf16 at
+// attention_route): kRouteWgmma runs the wgmma body, which takes bf16 at
 // d = 64 in the two exp2 contracts, kRouteMma the mma.sync body, which takes
 // every other type, width and contract; any other route, or a route on
 // inputs it does not take, returns cudaErrorInvalidValue and launches
@@ -1804,7 +2144,7 @@ extern "C" int gm_flash_bwd_dq(const void* q, const void* k, const void* v, cons
                                const void* lse2, const void* delta, void* dq, int bh, int sq,
                                int sk, int d, int dtype, int causal, int contract, float sscale,
                                int route, int device, void* stream) {
-  const Args a{q,  k,  v,  dout,   lse2,     delta,  dq,    nullptr, nullptr, nullptr,
+  const Args a{q,  k,  v,  dout,   lse2,     delta,  dq,    nullptr, nullptr, nullptr, 1,
                bh, sq, sk, causal, contract, sscale, route, static_cast<cudaStream_t>(stream)};
   return launch<Entry::kDq>(a, d, dtype, device);
 }
@@ -1814,22 +2154,26 @@ extern "C" int gm_flash_bwd_dkv(const void* q, const void* k, const void* v, con
                                 const void* lse2, const void* delta, void* dk, void* dv, int bh,
                                 int sq, int sk, int d, int dtype, int causal, int contract,
                                 float sscale, int route, int device, void* stream) {
-  const Args a{q,  k,  v,  dout,   lse2,     delta,  dk,    dv, nullptr, nullptr,
+  const Args a{q,  k,  v,  dout,   lse2,     delta,  dk,    dv, nullptr, nullptr, 1,
                bh, sq, sk, causal, contract, sscale, route, static_cast<cudaStream_t>(stream)};
   return launch<Entry::kDkv>(a, d, dtype, device);
 }
 
-// The same inputs; one launch adds dq into `dq_acc`, f32 (bh, sq, d) and
-// zeroed by the caller, in the order kept by `dq_lock`, int32, at least
-// bh * ceil(sq / Br) of them (Br = kBrBf16 or kBrF32 by input type) and
-// zeroed by the caller, and writes dk and dv (bh, sk, d) in the input type.
+// The same inputs and route; one launch adds dq into `dq_acc`, f32 (groups,
+// bh, sq, d) and zeroed by the caller (key block kb into group kb % groups;
+// the caller sums the groups), in the order kept by `dq_lock`, int32,
+// zeroed by the caller, at least groups * bh * ceil(sq / Br) of them (Br =
+// kBrBf16 or kBrF32 by input type on the mma.sync route, wg::kTile on the
+// wgmma route), and writes dk and dv (bh, sk, d) in the input type. groups
+// is 1 on the mma.sync route, at least 1 on the wgmma route; another value
+// returns cudaErrorInvalidValue.
 extern "C" int gm_flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse2, const void* delta, void* dq_acc,
                                   void* dq_lock, void* dk, void* dv, int bh, int sq, int sk, int d,
-                                  int dtype, int causal, int contract, float sscale, int device,
-                                  void* stream) {
-  const Args a{q,  k,  v,  dout,   lse2,     delta,  dq_acc,    dk, dv, dq_lock,
-               bh, sq, sk, causal, contract, sscale, kRouteMma, static_cast<cudaStream_t>(stream)};
+                                  int dtype, int causal, int contract, float sscale, int route,
+                                  int groups, int device, void* stream) {
+  const Args a{q,  k,  v,  dout,   lse2,     delta,  dq_acc, dk, dv, dq_lock, groups,
+               bh, sq, sk, causal, contract, sscale, route,  static_cast<cudaStream_t>(stream)};
   return launch<Entry::kFused>(a, d, dtype, device);
 }
 
@@ -1842,7 +2186,7 @@ extern "C" int gm_flash_bwd_roles(const void* q, const void* k, const void* v, c
                                   const void* lse2, const void* delta, void* out, int tiles,
                                   int d, int dtype, int contract, float sscale, int device,
                                   void* stream) {
-  const Args a{q,     k,  v,  dout, lse2,     delta,  out,       nullptr, nullptr, nullptr,
+  const Args a{q,     k,  v,  dout, lse2,     delta,  out,       nullptr, nullptr, nullptr, 1,
                tiles, 16, 16, 0,    contract, sscale, kRouteMma, static_cast<cudaStream_t>(stream)};
   return launch<Entry::kRoles>(a, d, dtype, device);
 }

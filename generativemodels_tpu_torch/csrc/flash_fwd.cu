@@ -34,7 +34,9 @@
 //   against 0.005 ms for the bytes: bound by operations. With mma.sync the
 //   tensor pipe's issue rate and the K/V fragment reads from shared memory
 //   set the floor (the probes of csrc/flash_probes.cu measured it: 1.86 ms
-//   for the products alone, 1.85-1.90 ms with two 16-row fragments a warp).
+//   for the products alone, 1.85-1.90 ms with two 16-row fragments a warp);
+//   on the wgmma route the softmax between the products and each block's
+//   reads of its head's K and V from L2 (8 MB a block at the 3D shape).
 // - Serving shape (BH=4, S=1024, D=256, f32): 4.3e9 useful operations on 16
 //   MB, 0.064 ms at the CUDA-core f32 rate. The f32 path runs on the tensor
 //   cores as 3xTF32 (three TF32 products per f32 product), 1.3e10
@@ -44,13 +46,50 @@
 //   chain of loads, splits and products bounds it (0.30 ms measured, slower
 //   than the plain version's 0.18).
 //
-// What the design does about it (the FlashAttention-2 register reuse, as
-// the probes): a warp owns 16-row fragments of q, and the warps of a block
-// loop over key tiles staged in shared memory by cp.async two deep, so the
-// next tile's copy runs under this tile's products; the TPU's sequential
-// innermost grid axis becomes that loop.
+// Two bodies, each input taking one: the `route` argument of the C entry
+// names it (ops/flash_attention.py::attention_route picks it; an unknown
+// route, or a route the inputs do not take, returns an error and launches
+// nothing):
+// - kRouteWgmma, bf16 at D = 64 in the two exp2 contracts (the 3D UNet's
+//   attention, the latent UNet's, the 3D LDM's bf16 stages and the
+//   sequence-parallel calls): flash_fwd_wgmma_kernel, kernel 6's main loop
+//   (csrc/flash_probes.cu) with the contract's masks and rows. A producer
+//   warpgroup's first thread loads each consumer's 64 Q rows once and keeps
+//   128-key K and V tiles in flight by TMA into a four-stage ring (maps of
+//   (64, S, BH): rows past S read as 0); each consumer warpgroup scales its
+//   Q tile by qscale in place (rounded to bf16, as load_q_bf16), then per
+//   tile issues S = Q K^T as wgmma m64n128k16 (both operands from shared
+//   memory, K-major) and, with the next tile's, O += P V as m64n64k16 with P
+//   rounded to bf16 pairs as the register A operand and V MN-major, and
+//   waits once; the softmax runs between the waits (ex2.approx.ftz on the
+//   SFU). kNoMax: p = exp2(min(s, 80)) and l from one m64n8k16 product of
+//   the same A fragment against a block of ones a k-step (the f32 sum of the
+//   bf16 p, the JAX kernel's fold_l); kRunningMax: a running max m a row
+//   (quad shuffles), p = exp2(s - m), l the f32 sum of the unrounded p, O
+//   rescaled by exp2(m_prev - m) once the product adding to it is done.
+//   Masked keys get p = 0 exactly, tested only in a tile that reaches past
+//   Sk or across the causal diagonal (a uniform branch with no product in
+//   flight); under the causal mask key tiles wholly above a block are
+//   never loaded. A block is two consumers (128 rows) unless BH *
+//   ceil(Sq / 128) blocks leave half of the card's SMs or more idle, then
+//   one (64 rows: the latent UNet's (2, 4096, 4096) takes 128 blocks, not
+//   64); keys are never split, so a row is computed by one warpgroup over
+//   every key tile in the same order and its bits do not depend on Sq or
+//   the block height (the sequence-parallel rows equal the unsharded ones).
+//   FlashAttention-3's intra-warpgroup order (the PV product in flight
+//   during the next tile's softmax, kernel 7's loop) was 4-11% faster under
+//   kNoMax at the 3D and sequence-parallel shapes, not at the latent one,
+//   and ptxas serialized its running-max products (C7520): not kept. bf16
+//   at D = 64 in the exp2 contracts has no mma.sync instance.
+// - kRouteMma, every other case: the mma.sync bodies below.
+//
+// What the mma.sync design does about it (the FlashAttention-2 register
+// reuse, as the probes): a warp owns 16-row fragments of q, and the warps
+// of a block loop over key tiles staged in shared memory by cp.async two
+// deep, so the next tile's copy runs under this tile's products; the TPU's
+// sequential innermost grid axis becomes that loop.
 // - bf16: both products with mma.sync m16n8k16 (bf16 operands, f32
-//   accumulation). Two fragments a warp at D <= 64 (128-row blocks), so each
+//   accumulation). Two fragments a warp at D = 32 (128-row blocks), so each
 //   K/V fragment read from shared memory feeds two products; one above. Q
 //   fragments stay in registers for the whole loop at D <= 128 and are
 //   re-read from shared memory (ldmatrix) at D = 256, where the 16 x 256 f32
@@ -89,8 +128,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "async_sm90.cuh"
 #include "flash_contract.cuh"
-#include "mma_sm90.cuh"
 
 namespace {
 
@@ -690,6 +729,336 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- the wgmma body (kRouteWgmma): bf16, D = 64, the exp2 contracts ----
+
+namespace wg {
+
+constexpr int kD = 64;                        // head width: one 128-byte swizzle row
+constexpr int kRows = 64;                     // query rows of a consumer warpgroup (wgmma's M)
+constexpr int kBlockK = 128;                  // keys of a ring stage
+constexpr int kStages = 4;                    // the K/V ring
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+constexpr int kQBytes = kRows * kD * 2;       // 8 KB
+constexpr int kTileBytes = kBlockK * kD * 2;  // 16 KB: a K or V stage
+constexpr int kDSteps = kD / 16;              // k-steps of the QK product
+constexpr int kPvSteps = kBlockK / 16;        // k-steps of the PV product in a tile
+constexpr int kORegs = kD / 2;                // accumulator floats of O (m64n64)
+constexpr int kSRegs = kBlockK / 2;           // accumulator floats of S (m64n128)
+constexpr int kOnesBytes = 256;               // a k16 x n8 B operand of ones
+
+// Dynamic shared memory of a block of C consumer warpgroups, from a
+// 1024-byte-aligned base: the Q tiles, the K and V stages, the mbarriers
+// (q_full[C], k_full[kStages], v_full[kStages], empty[kStages]), the ones of
+// the kNoMax row-sum product
+template <int C>
+struct Smem {
+  static constexpr int kThreads = C * 128 + 128;  // + the producer warpgroup
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + C * kQBytes;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBars = kV + kStages * kTileBytes;
+  static constexpr int kOnes = kBars + 128;
+  static_assert(8 * (C + 3 * kStages) <= 128, "barriers overlap the ones");
+  static constexpr int kBytes = kOnes + kOnesBytes + 1024;  // + alignment
+};
+
+template <int C>
+struct Ring {
+  using S = Smem<C>;
+  unsigned char* base;  // 1024-byte aligned
+  uint64_t* bars;
+
+  __device__ unsigned char* q(int w) const { return base + S::kQ + w * kQBytes; }
+  __device__ unsigned char* k(int st) const { return base + S::kK + st * kTileBytes; }
+  __device__ unsigned char* v(int st) const { return base + S::kV + st * kTileBytes; }
+  __device__ uint64_t* q_full(int w) const { return bars + w; }
+  __device__ uint64_t* k_full(int st) const { return bars + C + st; }
+  __device__ uint64_t* v_full(int st) const { return bars + C + kStages + st; }
+  __device__ uint64_t* empty(int st) const { return bars + C + 2 * kStages + st; }
+  // B of the row-sum product: all ones, so its layout is moot
+  __device__ uint64_t ones_desc() const {
+    return wgmma_desc_plain(smem_addr(base + S::kOnes), 128, 128);
+  }
+};
+
+// the ring in this block's dynamic shared memory, its barriers initialised
+// and its ones written (the one __syncthreads of the kernel: the roles split
+// after it)
+template <int C>
+__device__ __forceinline__ Ring<C> make_ring(unsigned char* raw) {
+  Ring<C> r;
+  r.base = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+  r.bars = reinterpret_cast<uint64_t*>(r.base + Smem<C>::kBars);
+  if (threadIdx.x < kOnesBytes / 4) {
+    reinterpret_cast<uint32_t*>(r.base + Smem<C>::kOnes)[threadIdx.x] = kOnes;
+    fence_proxy_async();
+  }
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < C; ++w) mbar_init(r.q_full(w));
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(r.k_full(st));
+      mbar_init(r.v_full(st));
+      mbar_init(r.empty(st), 4 * C);  // every consumer warp releases a stage
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return r;
+}
+
+// a consumer warp's release of stage st (its wgmmas on the stage are done)
+template <int C>
+__device__ __forceinline__ void release(const Ring<C>& r, int st) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(r.empty(st));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The consumer's Q tile times qscale, rounded to bf16, in place (every
+// element alike, so the swizzle is moot), then made visible to its wgmmas:
+// the rounded prescale of load_q_bf16
+__device__ __forceinline__ void scale_q(unsigned char* tile, float qscale, int w) {
+  uint4* chunks = reinterpret_cast<uint4*>(tile) + threadIdx.x % 128;
+#pragma unroll
+  for (int i = 0; i < kQBytes / 16; i += 128) {
+    uint4 raw = chunks[i];
+    bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * qscale);
+    chunks[i] = raw;
+  }
+  fence_proxy_async();
+  named_sync(1 + w, 128);
+}
+
+// s = q k^T over one K stage: kDSteps wgmmas m64n128k16, both operands
+// K-major from shared memory (s overwritten)
+__device__ __forceinline__ void qk_products(float (&s)[kSRegs], uint64_t q_desc, uint64_t k_desc) {
+#pragma unroll
+  for (int kk = 0; kk < kDSteps; ++kk) {
+    wgmma_ss<kBlockK>(s, wgmma_desc_add(q_desc, 32 * kk), wgmma_desc_add(k_desc, 32 * kk), kk > 0);
+  }
+}
+
+// acc += p V over one V stage (V MN-major) and, under kNoMax, l += p 1
+// against the ones (every column of l holds a row sum: l[0] of row g, l[2]
+// of row g + 8)
+template <int K>
+__device__ __forceinline__ void pv_products(float (&acc)[kORegs], float (&l)[4],
+                                            const uint32_t (&p)[kPvSteps][4], uint64_t v_desc,
+                                            uint64_t ones_desc) {
+#pragma unroll
+  for (int js = 0; js < kPvSteps; ++js) {
+    wgmma_rs_n64<true>(acc, p[js], wgmma_desc_add(v_desc, 2048 * js), 1);
+    if constexpr (K == kNoMax) wgmma_rs<8>(l, p[js], ones_desc);
+  }
+}
+
+// The softmax of one tile's scores s (this thread's rows row and row + 8 of
+// the warpgroup, 32 keys each, from key0) into the PV A fragments p (bf16
+// pairs). kMasked: keys past sk, and under the causal mask keys past the
+// row, get p = 0. kNoMax: p = exp2(min(s, 80)). kRunningMax: the rows' max
+// m and their unrounded sums l (this thread's parts) move on, p = exp2(s -
+// m), and acc is rescaled to the new max.
+template <int K, bool kMasked>
+__device__ __forceinline__ void tile_probs(const float (&s)[kSRegs], uint32_t (&p)[kPvSteps][4],
+                                           float (&acc)[kORegs], float (&m)[2], float (&l)[2],
+                                           int row, int key0, int sk, int causal) {
+  const int t = threadIdx.x % 4;
+  auto live = [&](int i) {  // element i: row + 8 ((i / 2) & 1), key key0 + 8 (i / 4) + 2t + i % 2
+    const int key = key0 + 8 * (i / 4) + 2 * t + (i & 1);
+    return !kMasked || (key < sk && (!causal || key <= row + 8 * ((i >> 1) & 1)));
+  };
+  if constexpr (K == kNoMax) {
+#pragma unroll
+    for (int js = 0; js < kPvSteps; ++js) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * js + 2 * e;
+        p[js][e] = pack_bf16(live(i) ? ex2(fminf(s[i], 80.f)) : 0.f,
+                             live(i + 1) ? ex2(fminf(s[i + 1], 80.f)) : 0.f);
+      }
+    }
+  } else {
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < kSRegs; ++i) {
+      if (live(i)) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    }
+    float offset[2], alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) offset[h] = advance_max<K>(m[h], quad_max(mx[h]), alpha[h]);
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int js = 0; js < kPvSteps; ++js) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * js + 2 * e;
+        const int h = e & 1;
+        const float a = live(i) ? ex2(s[i] - offset[h]) : 0.f;
+        const float b = live(i + 1) ? ex2(s[i + 1] - offset[h]) : 0.f;
+        part[h] += a + b;
+        p[js][e] = pack_bf16(a, b);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + part[h];
+#pragma unroll
+    for (int nb = 0; nb < kD / 8; ++nb) {
+      acc[4 * nb] *= alpha[0];
+      acc[4 * nb + 1] *= alpha[0];
+      acc[4 * nb + 2] *= alpha[1];
+      acc[4 * nb + 3] *= alpha[1];
+    }
+  }
+}
+
+// tile_probs, masked where the warpgroup's tile (rows row0 .. row0 + 63,
+// keys key0 .. key0 + 127) reaches past sk or across the causal diagonal (a
+// uniform branch: no product of the warpgroup is in flight)
+template <int K>
+__device__ __forceinline__ void probs(const float (&s)[kSRegs], uint32_t (&p)[kPvSteps][4],
+                                      float (&acc)[kORegs], float (&m)[2], float (&l)[2], int row,
+                                      int row0, int key0, int sk, int causal) {
+  if (key0 + kBlockK > sk || (causal && key0 + kBlockK - 1 > row0)) {
+    tile_probs<K, true>(s, p, acc, m, l, row, key0, sk, causal);
+  } else {
+    tile_probs<K, false>(s, p, acc, m, l, row, key0, sk, causal);
+  }
+}
+
+// A consumer warpgroup: its 64 query rows from row0 over every K, V tile.
+// Tile j's PV product is issued with tile j + 1's QK product in one group,
+// so a tile costs one wait; the softmax runs between the waits.
+template <int K, int C>
+__device__ __forceinline__ void consume(const Ring<C>& r, bf16* __restrict__ o,
+                                        float* __restrict__ lse, int row0, int sq, int sk,
+                                        int tiles, int causal, float qscale, float lse_mul) {
+  const int w = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  // this thread's rows row and row + 8 (C fragments)
+  const int row = row0 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  mbar_wait(r.q_full(w), 0);
+  scale_q(r.q(w), qscale, w);
+  const uint64_t q_desc = wgmma_desc_sw128(smem_addr(r.q(w)));
+  const uint64_t ones_desc = r.ones_desc();
+  float acc[kORegs], s[kSRegs];
+  float lsum[4] = {0.f, 0.f, 0.f, 0.f};  // kNoMax: the ones product's row sums
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // kRunningMax
+  uint32_t p[kPvSteps][4];
+#pragma unroll
+  for (int i = 0; i < kORegs; ++i) acc[i] = 0.f;
+
+  // tiles >= 1: a launch has sk >= 1, and the causal mask leaves key 0
+  mbar_wait(r.k_full(0), 0);
+  wgmma_fence();
+  qk_products(s, q_desc, wgmma_desc_sw128(smem_addr(r.k(0))));
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(s);
+#pragma unroll 1
+  for (int j = 0; j + 1 < tiles; ++j) {
+    const int st = j % kStages;
+    const int next = (j + 1) % kStages;
+    probs<K>(s, p, acc, m, l, row, row0, j * kBlockK, sk, causal);
+    mbar_wait(r.v_full(st), (j / kStages) & 1);
+    mbar_wait(r.k_full(next), ((j + 1) / kStages) & 1);
+    wgmma_fence();
+    pv_products<K>(acc, lsum, p, wgmma_desc_sw128(smem_addr(r.v(st))), ones_desc);
+    qk_products(s, q_desc, wgmma_desc_sw128(smem_addr(r.k(next))));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    reg_fence(lsum);
+    reg_fence(s);
+    reg_fence(p);
+    release(r, st);
+  }
+  const int last = tiles - 1;
+  const int st = last % kStages;
+  probs<K>(s, p, acc, m, l, row, row0, last * kBlockK, sk, causal);
+  mbar_wait(r.v_full(st), (last / kStages) & 1);
+  wgmma_fence();
+  pv_products<K>(acc, lsum, p, wgmma_desc_sw128(smem_addr(r.v(st))), ones_desc);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(lsum);
+  reg_fence(p);
+  release(r, st);
+
+  const float rows_l[2] = {K == kNoMax ? lsum[0] : quad_sum(l[0]),
+                           K == kNoMax ? lsum[2] : quad_sum(l[1])};
+  const int t = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r_h = row + 8 * h;
+    if (r_h >= sq) continue;
+    const float ls = fmaxf(rows_l[h], 1e-30f);
+    bf16* orow = o + static_cast<size_t>(r_h) * kD + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < kD / 8; ++nb) {
+      *reinterpret_cast<uint32_t*>(orow + 8 * nb) =
+          pack_bf16(acc[4 * nb + 2 * h] / ls, acc[4 * nb + 2 * h + 1] / ls);
+    }
+    if (t == 0) lse[r_h] = row_lse<K>(ls, m[h], lse_mul);
+  }
+}
+
+}  // namespace wg
+
+// Kernel 1 on the wgmma route. Grid: one block per (bh, C * 64 query rows),
+// flattened into blockIdx.x; Smem<C>::kThreads threads and Smem<C>::kBytes of dynamic shared
+// memory. Warpgroups 0 .. C - 1 consume, C produces: its first thread loads
+// each consumer's Q tile once (a tile wholly past sq loads rows 0 .. 63: its
+// warpgroup stores nothing), then the K and V tiles into the ring, a stage
+// as soon as every consumer warp has released it (maps of (64, s, bh), rows
+// past s read as 0).
+template <int K, int C>
+__global__ void __launch_bounds__(wg::Smem<C>::kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+                       float* __restrict__ lse, int sq, int sk, int num_qb, int causal,
+                       float qscale, float lse_mul) {
+  static_assert(K != kUpcast, "the wgmma route runs the exp2 contracts");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const wg::Ring<C> r = wg::make_ring<C>(smem_raw);
+  const int bh = blockIdx.x / num_qb;
+  const int row0 = (blockIdx.x % num_qb) * C * wg::kRows;
+  // under the causal mask, keys past the block's last row are dead for every row
+  const int kv_end = causal ? min(sk, row0 + C * wg::kRows) : sk;
+  const int tiles = (kv_end + wg::kBlockK - 1) / wg::kBlockK;
+  if (threadIdx.x >= C * 128) {
+    regs_lower<wg::kProducerRegs>();
+    if (threadIdx.x != C * 128) return;
+    for (int w = 0; w < C; ++w) {
+      const int first = row0 + w * wg::kRows;
+      mbar_expect(r.q_full(w), wg::kQBytes);
+      tma_load_3d(r.q(w), &q_map, r.q_full(w), 0, first < sq ? first : 0, bh);
+    }
+    for (int j = 0; j < tiles; ++j) {
+      const int st = j % wg::kStages;
+      if (j >= wg::kStages) mbar_wait(r.empty(st), (j / wg::kStages - 1) & 1);
+      mbar_expect(r.k_full(st), wg::kTileBytes);
+      tma_load_3d(r.k(st), &k_map, r.k_full(st), 0, j * wg::kBlockK, bh);
+      mbar_expect(r.v_full(st), wg::kTileBytes);
+      tma_load_3d(r.v(st), &v_map, r.v_full(st), 0, j * wg::kBlockK, bh);
+    }
+  } else {
+    regs_raise<wg::kConsumerRegs>();
+    const size_t head = static_cast<size_t>(bh) * sq;
+    wg::consume<K, C>(r, o + head * wg::kD, lse + head, row0 + threadIdx.x / 128 * wg::kRows, sq,
+                      sk, tiles, causal, qscale, lse_mul);
+  }
+}
+
 // The kernel of an input type and contract, chosen at compile time.
 template <typename T, int D, int K>
 struct KernelOf;
@@ -725,11 +1094,23 @@ int launch(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the bodies of kernel 1 (ops/flash_attention.py::attention_route picks one)
+enum Route : int { kRouteMma = 0, kRouteWgmma = 1 };
+
+// bf16 at D = wg::kD in the exp2 contracts runs only the wgmma body, so its
+// mma.sync instances are never built and kRouteMma is refused there
+template <typename T, int D, int K>
+constexpr bool kWgmmaOnly = sizeof(T) == 2 && D == wg::kD && K != kUpcast;
+
 template <typename T, int D>
 int launch_contract(const Args& a, int contract) {
   switch (contract) {
-    case kNoMax: return launch<T, D, kNoMax>(a);
-    case kRunningMax: return launch<T, D, kRunningMax>(a);
+    case kNoMax:
+      if constexpr (kWgmmaOnly<T, D, kNoMax>) return static_cast<int>(cudaErrorInvalidValue);
+      else return launch<T, D, kNoMax>(a);
+    case kRunningMax:
+      if constexpr (kWgmmaOnly<T, D, kRunningMax>) return static_cast<int>(cudaErrorInvalidValue);
+      else return launch<T, D, kRunningMax>(a);
     case kUpcast:
       if constexpr (sizeof(T) == 4) return launch<T, D, kUpcast>(a);
       return static_cast<int>(cudaErrorInvalidValue);
@@ -748,6 +1129,65 @@ int launch_d(const Args& a, int d, int contract) {
   }
 }
 
+// The devices (bit d: device d < 64) on which the kernel's shared-memory
+// attribute is set, once a device: at the latent shape a launch takes ~0.035
+// ms on the card, so the host's work for it shows.
+template <int K, int C>
+uint64_t wgmma_attribute_set = 0;
+
+template <int K, int C>
+int launch_wgmma_blocks(const Args& a, int device) {
+  CUtensorMap maps[3];
+  cudaError_t err = encode_head_rows_map(&maps[0], a.q, a.sq, a.bh, wg::kD, wg::kRows);
+  if (err == cudaSuccess) {
+    err = encode_head_rows_map(&maps[1], a.k, a.sk, a.bh, wg::kD, wg::kBlockK);
+  }
+  if (err == cudaSuccess) {
+    err = encode_head_rows_map(&maps[2], a.v, a.sk, a.bh, wg::kD, wg::kBlockK);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using S = wg::Smem<C>;
+  auto kernel = flash_fwd_wgmma_kernel<K, C>;
+  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
+  if (!(wgmma_attribute_set<K, C> & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    wgmma_attribute_set<K, C> |= bit;
+  }
+  const int num_qb = (a.sq + C * wg::kRows - 1) / (C * wg::kRows);
+  kernel<<<num_qb * a.bh, S::kThreads, S::kBytes, a.stream>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(a.o), static_cast<float*>(a.lse), a.sq, a.sk,
+      num_qb, a.causal, a.qscale, a.lse_mul);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 128-row blocks (two consumer warpgroups) unless they leave half of the
+// card's SMs or more idle, then 64-row blocks (one), which still fit in one
+// wave: a row is computed by one warpgroup over every key tile in the same
+// order either way, so its bits do not depend on the choice. (64-row blocks
+// in two waves were 1.65x slower than 128-row ones in one at the 3D shape's
+// sequence-parallel rows, (2, 8192, 32768, 64): each block reads its head's
+// K and V once, and one consumer gets no other's products under its softmax.)
+template <int K>
+int launch_wgmma_rows(const Args& a, int device) {
+  int sms = 0;
+  const cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(a.bh) * ((a.sq + 2 * wg::kRows - 1) /
+                                                           (2 * wg::kRows));
+  return 2 * blocks <= sms ? launch_wgmma_blocks<K, 1>(a, device)
+                           : launch_wgmma_blocks<K, 2>(a, device);
+}
+
+int launch_wgmma(const Args& a, int d, int dtype, int contract, int device) {
+  if (dtype != 1 || d != wg::kD) return static_cast<int>(cudaErrorInvalidValue);
+  switch (contract) {
+    case kNoMax: return launch_wgmma_rows<kNoMax>(a, device);
+    case kRunningMax: return launch_wgmma_rows<kRunningMax>(a, device);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d) in one type (dtype 0 =
@@ -756,15 +1196,24 @@ int launch_d(const Args& a, int d, int contract) {
 // multiplies q (scale*log2(e) already rounded to the input type; 1 under
 // kUpcast), sscale the scores after the product (kUpcast only: the softmax
 // scale); lse_mul is ln2 for a natural-log lse, 1 for a log2 one (not read
-// under kUpcast, whose lse is natural). Launches on `stream` of `device` and
-// returns cudaGetLastError() of the launch (0 on success).
+// under kUpcast, whose lse is natural). route is a Route (ops/flash_attention.py
+// ::attention_route): kRouteWgmma runs the wgmma body, which takes bf16 at
+// d = 64 in the two exp2 contracts, kRouteMma the mma.sync bodies, which take
+// every other type, width and contract; any other route, or a route on inputs
+// it does not take, returns cudaErrorInvalidValue and launches nothing.
+// Launches on `stream` of `device` and returns the first CUDA error of the
+// tensor maps' encoding, the shared-memory attribute or the launch (0 on
+// success).
 extern "C" int gm_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                             int bh, int sq, int sk, int d, int dtype, int causal, int contract,
-                            float qscale, float lse_mul, float sscale, int device, void* stream) {
+                            float qscale, float lse_mul, float sscale, int route, int device,
+                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Args a{q,      k,       v,      o, lse, bh, sq, sk, causal,
                qscale, lse_mul, sscale, static_cast<cudaStream_t>(stream)};
+  if (route == kRouteWgmma) return launch_wgmma(a, d, dtype, contract, device);
+  if (route != kRouteMma) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return launch_d<float>(a, d, contract);
   if (dtype == 1) return launch_d<bf16>(a, d, contract);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -622,20 +622,10 @@ flash_probe_vpu_kernel(const __grid_constant__ CUtensorMap q_map,
 // the 128-byte swizzle
 cudaError_t encode_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, int bh,
                         int sq, int sk) {
-  const void* base[3] = {q, k, v};
-  const int rows[3] = {sq, sk, sk};
-  const cuuint32_t box_rows[3] = {kRowsWg, kBlockK, kBlockK};
-  for (int i = 0; i < 3; ++i) {
-    const cuuint64_t dims[3] = {kD, static_cast<cuuint64_t>(rows[i]),
-                                static_cast<cuuint64_t>(bh)};
-    const cuuint64_t strides[2] = {kD * 2, static_cast<cuuint64_t>(rows[i]) * kD * 2};
-    const cuuint32_t box[3] = {kD, box_rows[i], 1};
-    const cudaError_t err = encode_tiled_map(&maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                                             base[i], dims, strides, box,
-                                             CU_TENSOR_MAP_SWIZZLE_128B);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  cudaError_t err = encode_head_rows_map(&maps[0], q, sq, bh, kD, kRowsWg);
+  if (err == cudaSuccess) err = encode_head_rows_map(&maps[1], k, sk, bh, kD, kBlockK);
+  if (err == cudaSuccess) err = encode_head_rows_map(&maps[2], v, sk, bh, kD, kBlockK);
+  return err;
 }
 
 template <typename Kernel, typename... Args>

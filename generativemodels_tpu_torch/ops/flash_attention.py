@@ -4,10 +4,10 @@ Counterpart of generativemodels_tpu/ops/flash_attention.py. The Pallas TPU
 kernels become kernels written for Hopper: the forward `_fwd_kernel` is
 `csrc/flash_fwd.cu`; the split backward `_dq_kernel` and `_dkv_kernel` and
 the fused backward `_dfused_kernel` are `csrc/flash_bwd.cu`; each source's
-header says what bounds it and how it is laid out. The split backward's two
-kernels have two bodies there, and `backward_route` alone picks one per
-launch: wgmma fed by a TMA ring for bf16 at head width 64 in the exp2
-contracts, mma.sync for every other case.
+header says what bounds it and how it is laid out. Each of the four kernels
+has two bodies there, and `attention_route` alone picks one per launch:
+wgmma fed by a TMA ring for bf16 at head width 64 in the exp2 contracts,
+mma.sync for every other case.
 `flash_attention_reference` and `flash_attention_backward_reference` are
 plain PyTorch code for the same functions and contract: the CPU path, and
 what the kernels are held against.
@@ -48,6 +48,7 @@ tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
@@ -74,6 +75,13 @@ def _contract(upcast: bool, no_max: bool) -> int:
 def _prescaled(q: torch.Tensor, scale: float) -> torch.Tensor:
     # the constant is rounded to q's type first, as the JAX wrapper does
     return q * torch.tensor(scale * LOG2E, dtype=q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _qscale(scale: float, dtype: torch.dtype) -> float:
+    """scale*log2(e) rounded to `dtype`: the prescale kernel 1 applies (kept,
+    so that a launch builds no tensor for it)."""
+    return float(torch.tensor(scale * LOG2E, dtype=dtype))
 
 
 def flash_attention_reference(
@@ -236,7 +244,8 @@ class FlashForwardKernel(Launcher):
 
     source = "flash_fwd.cu"
     symbol = "gm_flash_fwd"
-    argtypes = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (ctypes.c_float,) * 3
+    argtypes = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7 + (ctypes.c_float,) * 3
+                + (ctypes.c_int,))
 
     def __call__(
         self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
@@ -259,11 +268,12 @@ class FlashForwardKernel(Launcher):
             return o.to(dtype), lse
         # the exp2 contracts prescale q by the constant rounded to q's type,
         # as the JAX wrapper does; upcast scales s after the product
-        qscale = 1.0 if upcast else float(torch.tensor(scale * LOG2E, dtype=q.dtype))
+        qscale = 1.0 if upcast else _qscale(scale, q.dtype)
         self._launch(
             q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             bh, sq, k.shape[1], d, _DTYPE_CODES[q.dtype], int(causal),
             _contract(upcast, no_max), qscale, 1.0 if log2_lse else LN2, scale if upcast else 1.0,
+            attention_route(q.dtype, d, upcast),
         )
         return o.to(dtype), lse
 
@@ -275,19 +285,24 @@ _BWD_ARGTYPES = (
 # unscaled, dO without ln2, the natural lse, and `scale`) or the exp2
 # contracts with (`no_max`) or without the clamp
 
-# the bodies of kernels 2 and 3 (`Route` in csrc/flash_bwd.cu), each input
-# taking one: the wgmma one fed by a TMA ring, and the mma.sync bodies
+# the bodies of kernels 1-4 (`Route` in csrc/flash_fwd.cu and
+# csrc/flash_bwd.cu), each input taking one: the wgmma ones fed by a TMA
+# ring, and the mma.sync bodies
 ROUTE_MMA, ROUTE_WGMMA = 0, 1
-_ROUTE_WGMMA_D = 64  # the head width of the wgmma body
+_ROUTE_WGMMA_D = 64  # the head width of the wgmma bodies
+# kernel 4's groups of key blocks on the wgmma route, each adding into its
+# own dq buffer in its own key-block order (the 3D shape's 256 key blocks a
+# head in 8 chains of 32)
+FUSED_DQ_GROUPS = 8
 
 
-def backward_route(dtype: torch.dtype, d: int, upcast: bool = False) -> int:
-    """The body that kernels 2 and 3 run for inputs of `dtype` at head width
-    `d` under the contract `upcast` names: ROUTE_WGMMA for bf16 at D = 64 in
-    the two exp2 contracts, ROUTE_MMA for everything else (f32 and upcast,
-    whose 3xTF32 products are mma.sync's, and the other bf16 widths). The
-    launchers pass it to the C entry, which raises on a route it does not
-    run for the inputs it gets."""
+def attention_route(dtype: torch.dtype, d: int, upcast: bool = False) -> int:
+    """The body that kernels 1-4 run for inputs of `dtype` at head width `d`
+    under the contract `upcast` names: ROUTE_WGMMA for bf16 at D = 64 in the
+    two exp2 contracts, ROUTE_MMA for everything else (f32 and upcast, whose
+    3xTF32 products are mma.sync's, and the other bf16 widths). The four
+    launchers pass it to their C entries, which raise on a route they do not
+    run for the inputs they get."""
     if dtype == torch.bfloat16 and d == _ROUTE_WGMMA_D and not upcast:
         return ROUTE_WGMMA
     return ROUTE_MMA
@@ -300,8 +315,8 @@ class _FlashBackwardKernel(Launcher):
         self, outputs, q, k, v, dout, lse2, delta, causal: bool, upcast: bool, no_max: bool,
         scale: float, *route: int,
     ) -> None:
-        """Launch with the inputs, then the outputs, then (kernels 2 and 3)
-        the route of `backward_route`."""
+        """Launch with the inputs, then the outputs, then the route of
+        `attention_route` (and kernel 4's groups)."""
         _check_kernel_inputs(q, k, v)
         _check_backward_rows(q, dout, lse2, delta)
         if upcast and q.dtype != torch.float32:
@@ -333,7 +348,7 @@ class FlashBackwardDqKernel(_FlashBackwardKernel):
         contract's form (`flash_attention_backward_reference`'s arguments)."""
         dq = torch.empty_like(q)
         self._run((dq,), q, k, v, dout, lse2, delta, causal, upcast, no_max, scale,
-                  backward_route(q.dtype, q.shape[2], upcast))
+                  attention_route(q.dtype, q.shape[2], upcast))
         return dq
 
 
@@ -350,7 +365,7 @@ class FlashBackwardDkvKernel(_FlashBackwardKernel):
         """(dk, dv) from the same inputs as the dq launcher."""
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         self._run((dk, dv), q, k, v, dout, lse2, delta, causal, upcast, no_max, scale,
-                  backward_route(q.dtype, q.shape[2], upcast))
+                  attention_route(q.dtype, q.shape[2], upcast))
         return dk, dv
 
 
@@ -359,25 +374,33 @@ class FlashBackwardFusedKernel(_FlashBackwardKernel):
     `_dfused_kernel`)."""
 
     symbol = "gm_flash_bwd_fused"
-    argtypes = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) * 4 + _BWD_ARGTYPES[6:]
+    argtypes = (_BWD_ARGTYPES[:6] + (ctypes.c_void_p,) * 4 + _BWD_ARGTYPES[6:]
+                + (ctypes.c_int,) * 2)
 
     def __call__(
         self, q, k, v, dout, lse2, delta, *, causal: bool = False, upcast: bool = False,
         no_max: bool = True, scale: float = 1.0,
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(dq, dk, dv) from the same inputs as the split launchers, in one
-        launch. The kernel's key blocks add their dq parts into one zeroed
-        f32 buffer in key-block order, kept by one zeroed int32 counter per
-        (bh, q tile) (the kernel's q tiles hold at least _BLOCK rows, so
-        ceil(Sq / _BLOCK) counters a head are enough), in place of the TPU
-        kernel's f32 partial slab per kv tile: dq is the same to the bit
-        from run to run. The buffer is cast once to the input type here."""
-        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        lock = torch.zeros((q.shape[0], -(-q.shape[1] // _BLOCK)), dtype=torch.int32,
+        launch. The kernel's key blocks add their dq parts into zeroed f32
+        buffers in key-block order, kept by zeroed int32 counters, one per
+        (bh, q tile) (the kernel's q tiles hold at least _BLOCK rows on
+        either route, so ceil(Sq / _BLOCK) counters a head are enough), in
+        place of the TPU kernel's f32 partial slab per kv tile: one buffer
+        on the mma.sync route, FUSED_DQ_GROUPS on the wgmma route (key
+        block kb adds into buffer kb % FUSED_DQ_GROUPS, so fewer blocks wait
+        on one another), summed here in one torch.sum (no atomics). dq is
+        the same to the bit from run to run; it is cast once to the input
+        type here."""
+        route = attention_route(q.dtype, q.shape[2], upcast)
+        groups = FUSED_DQ_GROUPS if route == ROUTE_WGMMA else 1
+        dq = torch.zeros((groups, *q.shape), dtype=torch.float32, device=q.device)
+        lock = torch.zeros((groups, q.shape[0], -(-q.shape[1] // _BLOCK)), dtype=torch.int32,
                            device=q.device)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
-        self._run((dq, lock, dk, dv), q, k, v, dout, lse2, delta, causal, upcast, no_max, scale)
-        return dq.to(q.dtype), dk, dv
+        self._run((dq, lock, dk, dv), q, k, v, dout, lse2, delta, causal, upcast, no_max, scale,
+                  route, groups)
+        return (dq[0] if groups == 1 else dq.sum(0)).to(q.dtype), dk, dv
 
 
 class FlashBackwardRolesKernel(Launcher):

@@ -106,6 +106,28 @@ def test_fused_backward_matches_jax_bf16(monkeypatch):
         assert np.abs(x - w).max() <= BF16_REL * np.abs(w).max(), label
 
 
+# the bf16, head width 64 cases that the fused kernel runs on its wgmma body
+# on the card: (numpy seed, BH, Sq, Sk, D, causal, q multiplier), a causal
+# square and a causal one whose rows and keys are no multiple of 128
+BF16_MASKED_CASES = {
+    "causal": (11, 2, 256, 256, 64, True, 1.0),
+    "ragged_causal": (12, 2, 320, 320, 64, True, 1.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_MASKED_CASES))
+def test_fused_backward_matches_jax_bf16_masked(name, monkeypatch):
+    """As test_fused_backward_matches_jax_bf16, under the causal mask."""
+    monkeypatch.setenv("GMTPU_FLASH_FUSED_BWD", "1")
+    seed, bh, sq, sk, d, causal, mult = BF16_MASKED_CASES[name]
+    q, k, v = _inputs(seed, bh, sq, sk, d, mult)
+    want = _jax_grads(q, k, v, causal=causal, dtype=jnp.bfloat16)
+    got = _port_grads(q, k, v, causal=causal, dtype=torch.bfloat16)
+    for w, x, label in zip(want, got, ("dq", "dk", "dv")):
+        assert np.abs(w).max() > 1e-3, label  # the check is not empty
+        assert np.abs(x - w).max() <= BF16_REL * np.abs(w).max(), label
+
+
 def test_fused_switch_launches_no_kernel_on_cpu(monkeypatch):
     """On CPU tensors the switch changes nothing: the plain backward, no launch."""
     q, k, v = _inputs(2, 2, 96, 80, 32, 1.0)
@@ -131,17 +153,31 @@ def _chip_smoke():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"], ids=["f32", "bf16"])
 def test_launcher_tiles_follow_the_kernel_source(dtype, d):
     """chip_smoke's tiles of kernels 3 and 4 are the `constexpr`s that
-    csrc/flash_bwd.cu declares, chosen as the kernel chooses them; the
-    launcher's kernel-4 counters (one per _BLOCK rows a head) cover every
-    q tile the kernel counts (a lock too small means counters out of bounds
-    or a wait that never ends); and chip_smoke's count of ordered dq adds
-    follows the kernel's loops."""
+    csrc/flash_bwd.cu declares, chosen as the kernel chooses them (the wgmma
+    bodies' 64-row q tiles and 128-key blocks at bf16 D = 64, the mma.sync
+    body's otherwise); the launcher's kernel-4 counters (one per _BLOCK rows
+    a head) cover every q tile the kernel counts (a lock too small means
+    counters out of bounds or a wait that never ends); chip_smoke's count of
+    ordered dq adds follows the kernel's loops; and its kernel-1 block
+    heights are csrc/flash_fwd.cu's (64- or 128-row blocks on the wgmma
+    route, by whether 128-row ones leave half of the card's SMs idle)."""
     text = (REPO / "generativemodels_tpu_torch" / "csrc" / "flash_bwd.cu").read_text()
-    tiles = {name: int(value) for name, value in re.findall(r"constexpr int (k\w+) = (\d+);", text)}
+    tiles = {}
+    for name, value in re.findall(r"constexpr int (k\w+) = (\d+);", text):
+        tiles.setdefault(name, int(value))
     assert "kBr = kBf16 ? kBrBf16 : kBrF32;" in text
     assert "kBc = D <= kNarrowD ? kBcNarrow : kBcWide;" in text
-    rows = tiles["kBrBf16"] if dtype == "bfloat16" else tiles["kBrF32"]
-    keys = tiles["kBcNarrow"] if d <= tiles["kNarrowD"] else tiles["kBcWide"]
+    assert "constexpr int kBlockRows = kConsumers * kRows;" in text
+    # the wgmma body's counters: ceil(sq / kTile) a head in each group
+    assert "const int q_tiles = (sq + wg::kTile - 1) / wg::kTile;" in text
+    assert "dq_lock + static_cast<size_t>(gbh) * q_tiles" in text
+    wgmma = dtype == "bfloat16" and d == tiles["kD"]
+    if wgmma:
+        rows, keys = tiles["kTile"], tiles["kConsumers"] * tiles["kRows"]
+        assert (rows, keys) == (64, 128)
+    else:
+        rows = tiles["kBrBf16"] if dtype == "bfloat16" else tiles["kBrF32"]
+        keys = tiles["kBcNarrow"] if d <= tiles["kNarrowD"] else tiles["kBcWide"]
     smoke = _chip_smoke()
     assert smoke.dkv_tiles(dtype, d) == (rows, keys)
     bh, sq, sk = 3, 257, 300  # no multiples of either tile
@@ -154,6 +190,19 @@ def test_launcher_tiles_follow_the_kernel_source(dtype, d):
             for q0 in range(k0 if causal else 0, sq, rows):
                 adds += bh * min(rows, sq - q0) * d // 2
         assert smoke.fused_dq_adds(bh, sq, sk, d, dtype, causal) == adds
+    fwd = (REPO / "generativemodels_tpu_torch" / "csrc" / "flash_fwd.cu").read_text()
+    assert "constexpr int kRows = 64;" in fwd
+    assert ("return 2 * blocks <= sms ? launch_wgmma_blocks<K, 1>(a, device)\n"
+            "                           : launch_wgmma_blocks<K, 2>(a, device);") in fwd
+    assert "static constexpr int kM = D <= 64 ? 2 : 1;" in fwd
+    sms = 132
+    for bh, sq in ((2, 4096), (2, 8192), (2, 32768), (3, 257), (66, 128), (67, 128)):
+        blocks_128 = bh * -(-sq // 128)
+        if wgmma:
+            want = 64 if 2 * blocks_128 <= sms else 128
+        else:
+            want = 32 if dtype == "float32" else 128 if d <= 64 else 64
+        assert smoke.forward_block_rows(bh, sq, d, dtype, sms) == want
 
 
 _PTXAS_LOG = """ptxas info    : Compiling entry function '_Z20flash_bwd_dkv_kernelIfLi64EEvPKT_' for 'sm_90a'
@@ -207,6 +256,40 @@ ptxas info    : Function properties for _ZN12_GLOBAL__N_121fused_conv_mma_kernel
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers
 """
+
+
+_FLASH_PTXAS_ENTRY = ("ptxas info    : Compiling entry function "
+                      "'_ZN45_GLOBAL__N__0eb68e6c_12_flash_fwd_cu_a0ddee6c{name}' for 'sm_90a'\n"
+                      "ptxas info    : Function properties for x\n"
+                      "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+                      "ptxas info    : Used 168 registers\n")
+
+
+@pytest.mark.parametrize("extra", [None, "21flash_fwd_bf16_kernelILi64ELi0EEEvPK13__nv_bfloat16"],
+                         ids=["as_built", "mma_at_bf16_d64"])
+def test_phase1_counts_each_flash_kernel(extra):
+    """Phase 1 reads kernel 1's instantiations kernel by kernel: the
+    mma.sync bf16 body at D 32, 128 and 256 in the two exp2 contracts, the
+    f32 one at four widths in three, the wgmma body in two contracts at two
+    block heights; an mma.sync bf16 instance at D = 64 (which the wgmma body
+    replaces) changes the counts. The counts of both flash sources add up
+    to NO_STACK_INSTANCES."""
+    smoke = _chip_smoke()
+    names = ([f"21flash_fwd_bf16_kernelILi{d}ELi{c}EEEvPK13__nv_bfloat16"
+              for d in (32, 128, 256) for c in (0, 1)]
+             + [f"20flash_fwd_f32_kernelILi{d}ELi{c}EEEvPKfS2_" for d in (32, 64, 128, 256)
+                for c in (0, 1, 2)]
+             + [f"22flash_fwd_wgmma_kernelILi{c}ELi{n}EEEv14CUtensorMap_st" for c in (0, 1)
+                for n in (1, 2)])
+    if extra:
+        names.append(extra)
+    entries = smoke.ptxas_entries("".join(_FLASH_PTXAS_ENTRY.format(name=n) for n in names))
+    want = smoke.KERNEL_INSTANCES["flash_fwd.cu"]
+    counts = smoke.kernel_instances(entries, want)
+    assert (counts == want) == (extra is None)
+    assert smoke.stack_offenders(entries) == ([], len(names))
+    for source in ("flash_fwd.cu", "flash_bwd.cu"):
+        assert sum(smoke.KERNEL_INSTANCES[source].values()) == smoke.NO_STACK_INSTANCES[source]
 
 
 @pytest.mark.parametrize("stack, stores, loads", [(0, 0, 0), (24, 24, 24)],

@@ -14,17 +14,17 @@ products keep f32 accuracy) and 2e-2 for bf16 (O rounded to bf16); the lse
 Backward (dq, dk, dv of kernels 2 and 3, and of the fused kernel 4),
 relative to the largest gradient: 1e-4 for f32 (summation order over up to
 1024 keys), 2e-2 for bf16. Kernel 4 against kernels 2 + 3 on the same
-inputs: dk and dv equal to the bit where kernel 3 runs the mma.sync body
-the two share (one body, the same mma order); dq within 1e-5 of its
+inputs: dk and dv equal to the bit on either body of `attention_route`
+(the mma.sync body the two share, and on the wgmma route, bf16 at D = 64,
+the same dV and dK products in the same order); dq within 1e-5 of its
 largest value in f32 (f32 sums of the key blocks' parts in key-block
 order), and in bf16 within one bf16 ulp of its value (those sums may round
-to the other side of a bf16 tie) plus that 1e-5 (sums that cancel); where
-`backward_route` puts kernels 2 and 3 on their wgmma body (bf16 at D = 64)
-their dk and dv are held to kernel 4's by that dq rule too. The wgmma
-route against the plain backward in both exp2 contracts, causal, ragged,
-Sk = 1 and 77 and Sq below and above Sk, two launches equal to the bit;
-each input takes one body, so the C entries refuse the mma.sync route at
-bf16 D = 64, the wgmma route at f32 and an unknown route. Kernels 2-4
+to the other side of a bf16 tie) plus that 1e-5 (sums that cancel). The
+wgmma route of kernels 1-4 against the plain versions in both exp2
+contracts, causal, ragged, Sk = 1 and 77 and Sq below and above Sk, two
+launches equal to the bit; each input takes one body, so the four C
+entries refuse the mma.sync route at bf16 D = 64, the wgmma route at f32
+and an unknown route. Kernels 2-4
 compute s and dp by one function, kernel 2 with the
 queries as the mma's A operand, kernels 3 and 4 with the keys: both roles
 give the same s, dp and ds to the bit, so every bf16 ds rounds alike in
@@ -88,6 +88,7 @@ those tests).
 from __future__ import annotations
 
 import copy
+import sys
 
 import numpy as np
 import pytest
@@ -121,7 +122,7 @@ from generativemodels_tpu_torch.ops.flash_attention import (
     ROUTE_WGMMA,
     _backward_rows,
     _prescaled,
-    backward_route,
+    attention_route,
 )
 from generativemodels_tpu_torch.ops import fused_conv as fused_conv_module
 from generativemodels_tpu_torch.ops.flash_probes import nearest_shape, relative_error
@@ -277,7 +278,7 @@ def test_fused_backward_kernel_on_gpu(cuda_device, monkeypatch, d, dtype, bh, sq
     for a, b in zip(fused, want):
         assert a.dtype == dtype and a.shape == b.shape
         assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
-    _assert_fused_dkv_agree(fused, split, d)
+    _assert_fused_dkv_agree(fused, split)
     _assert_within_fused_margin(fused[0], split[0])
 
 
@@ -294,16 +295,11 @@ def _assert_within_fused_margin(got, want):
         assert bool(((a - b).abs() <= ulp + 1e-5 * b.abs().max()).all())
 
 
-def _assert_fused_dkv_agree(fused, split, d, upcast=False):
-    """Kernel 4's dk, dv against kernel 3's: equal to the bit where kernel 3
-    runs the mma.sync body the two share, within the fused margin on the
-    wgmma route."""
-    if backward_route(split[1].dtype, d, upcast) == ROUTE_MMA:
-        torch.testing.assert_close(fused[1], split[1], rtol=0, atol=0)
-        torch.testing.assert_close(fused[2], split[2], rtol=0, atol=0)
-    else:
-        _assert_within_fused_margin(fused[1], split[1])
-        _assert_within_fused_margin(fused[2], split[2])
+def _assert_fused_dkv_agree(fused, split):
+    """Kernel 4's dk, dv against kernel 3's: equal to the bit on either
+    route (each runs kernel 3's dV and dK products in kernel 3's order)."""
+    torch.testing.assert_close(fused[1], split[1], rtol=0, atol=0)
+    torch.testing.assert_close(fused[2], split[2], rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -465,8 +461,7 @@ def test_contract_backward_kernels_match_reference_on_gpu(cuda_device, monkeypat
                                                           case, d, dtype):
     """Kernels 2 + 3 and kernel 4 under each contract against the plain
     backward, relative to the largest gradient at BWD_TOL; kernel 4's dk
-    and dv against kernel 3's as in the default contract (to the bit on
-    the mma.sync body, within the fused margin on the wgmma route). At
+    and dv against kernel 3's as in the default contract (to the bit). At
     Sk = 1 each row's softmax is 1 and ds = p (dp - delta) cancels to
     rounding, so dq and dk are 0 in exact arithmetic: they are held to the
     size of the cancelling terms (max|dO| max|v| max|k|, or max|q| for dk,
@@ -490,7 +485,7 @@ def test_contract_backward_kernels_match_reference_on_gpu(cuda_device, monkeypat
             assert a.dtype == dtype and a.shape == b.shape
             assert bool(torch.isfinite(a.float()).all())
             assert (a.float() - b.float()).abs().max().item() <= BWD_TOL[dtype] * size
-    _assert_fused_dkv_agree(fused, split, d, upcast)
+    _assert_fused_dkv_agree(fused, split)
 
 
 def _gradient_sizes(args, kw, want) -> list[float]:
@@ -527,40 +522,82 @@ WGMMA_SHAPES = {
 @pytest.mark.parametrize("case", sorted(WGMMA_SHAPES))
 @pytest.mark.parametrize("contract", ["no_max", "running_max"])
 def test_wgmma_route_backward_kernels_on_gpu(cuda_device, contract, case):
-    """Kernels 2 and 3 on the wgmma route against the plain backward at
+    """Kernels 2, 3 and 4 on the wgmma route against the plain backward at
     BWD_TOL (relative to `_gradient_sizes`), in both exp2 contracts; two
-    launches of each give the same bits (no atomics: a dq row belongs to
-    one warpgroup, a dk, dv row to one)."""
+    launches of each give the same bits (kernels 2 and 3: no atomics, a dq
+    row belongs to one warpgroup, a dk, dv row to one; kernel 4: its key
+    blocks add their dq parts in key-block order); kernel 4's dk, dv equal
+    kernel 3's to the bit and its dq is within the fused margin of kernel
+    2's."""
     bh, sq, sk, causal = WGMMA_SHAPES[case]
-    assert backward_route(torch.bfloat16, 64) == ROUTE_WGMMA
+    assert attention_route(torch.bfloat16, 64) == ROUTE_WGMMA
     args, kw = _contract_backward_inputs(cuda_device, bh, sq, sk, 64, torch.bfloat16, causal,
                                          False, contract == "no_max")
     q_in, k, v, out, lse2, dout = args
     do2, delta = _backward_rows(out, dout)
     bkw = dict(causal=causal, no_max=kw["no_max"])
-    before = FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches
+    counters = (FLASH_BWD_DQ, FLASH_BWD_DKV, FLASH_BWD_FUSED)
+    before = [c.launches for c in counters]
     first = (FLASH_BWD_DQ(q_in, k, v, do2, lse2, delta, **bkw),
              *FLASH_BWD_DKV(q_in, k, v, do2, lse2, delta, **bkw))
     again = (FLASH_BWD_DQ(q_in, k, v, do2, lse2, delta, **bkw),
              *FLASH_BWD_DKV(q_in, k, v, do2, lse2, delta, **bkw))
+    fused = FLASH_BWD_FUSED(q_in, k, v, do2, lse2, delta, **bkw)
+    fused_again = FLASH_BWD_FUSED(q_in, k, v, do2, lse2, delta, **bkw)
     want = flash_attention_backward_reference(*args, **kw)
     torch.cuda.synchronize()
-    assert (FLASH_BWD_DQ.launches, FLASH_BWD_DKV.launches) == (before[0] + 2, before[1] + 2)
-    for a, a2, b, size in zip(first, again, want, _gradient_sizes(args, kw, want)):
-        assert a.dtype == torch.bfloat16 and a.shape == b.shape
-        assert bool(torch.isfinite(a.float()).all())
-        assert (a.float() - b.float()).abs().max().item() <= BWD_TOL[torch.bfloat16] * size
-        assert torch.equal(a.view(torch.int16), a2.view(torch.int16))
+    assert [c.launches for c in counters] == [n + 2 for n in before]
+    sizes = _gradient_sizes(args, kw, want)
+    for got, repeat in ((first, again), (fused, fused_again)):
+        for a, a2, b, size in zip(got, repeat, want, sizes):
+            assert a.dtype == torch.bfloat16 and a.shape == b.shape
+            assert bool(torch.isfinite(a.float()).all())
+            assert (a.float() - b.float()).abs().max().item() <= BWD_TOL[torch.bfloat16] * size
+            assert torch.equal(a.view(torch.int16), a2.view(torch.int16))
+    _assert_fused_dkv_agree(fused, first)
+    _assert_within_fused_margin(fused[0], first[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_SHAPES) + ["many_blocks_causal"])
+@pytest.mark.parametrize("contract", ["no_max", "running_max"])
+def test_wgmma_route_forward_kernel_on_gpu(cuda_device, contract, case):
+    """Kernel 1 on the wgmma route against the plain version at the forward
+    tolerances (the lse relative to max(1, max|lse|)), in both exp2
+    contracts, at 64-row blocks (the WGMMA_SHAPES leave half of the SMs
+    idle at 128 rows) and at 128-row ones (many_blocks_causal, whose rows
+    also equal to the bit those of launches on two heads at a time, at
+    64-row blocks); two launches give the same bits."""
+    bh, sq, sk, causal = WGMMA_SHAPES.get(case, (140, 300, 300, True))
+    assert attention_route(torch.bfloat16, 64) == ROUTE_WGMMA
+    q, k, v = _contract_inputs(cuda_device, bh, sq, sk, 64, torch.bfloat16)
+    kw = dict(scale=0.125, causal=causal, no_max=contract == "no_max")
+    before = FLASH_FWD.launches
+    o, lse = FLASH_FWD(q, k, v, **kw)
+    o2, lse2 = FLASH_FWD(q, k, v, **kw)
+    ref_o, ref_lse = flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FLASH_FWD.launches == before + 2
+    assert bool(torch.isfinite(o.float()).all())
+    o_tol, lse_tol = FWD_TOL[torch.bfloat16]
+    assert (o.float() - ref_o.float()).abs().max().item() <= o_tol
+    assert (lse - ref_lse).abs().max().item() <= lse_tol * max(1.0, ref_lse.abs().max().item())
+    assert torch.equal(o.view(torch.int16), o2.view(torch.int16)) and torch.equal(lse, lse2)
+    if case == "many_blocks_causal":
+        for i in range(0, bh, 2):
+            part, part_lse = FLASH_FWD(q[i:i + 2], k[i:i + 2], v[i:i + 2], **kw)
+            assert torch.equal(part.view(torch.int16), o[i:i + 2].view(torch.int16))
+            assert torch.equal(part_lse, lse[i:i + 2])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, route", [(torch.bfloat16, ROUTE_MMA),
                                           (torch.float32, ROUTE_WGMMA), (torch.bfloat16, 2)],
                          ids=["mma_at_bf16_d64", "wgmma_at_f32", "unknown"])
-def test_backward_route_refused_on_gpu(cuda_device, dtype, route):
-    """Each input of kernels 2 and 3 takes one body: their C entries refuse
-    the mma.sync route at bf16 D = 64 (exp2 contracts), the wgmma route at
-    f32 and an unknown route; the launcher raises and counts no launch."""
+def test_backward_route_refused_on_gpu(cuda_device, monkeypatch, dtype, route):
+    """Each input of kernels 1-4 takes one body: their C entries refuse the
+    mma.sync route at bf16 D = 64 (exp2 contracts), the wgmma route at f32
+    and an unknown route; the launcher raises and counts no launch."""
     args, _ = _contract_backward_inputs(cuda_device, 2, 128, 128, 64, dtype, False, False, True)
     q_in, k, v, out, lse2, dout = args
     do2, delta = _backward_rows(out, dout)
@@ -569,6 +606,16 @@ def test_backward_route_refused_on_gpu(cuda_device, dtype, route):
         before = kernel.launches
         with pytest.raises(RuntimeError, match="CUDA error"):
             kernel._run(outputs, q_in, k, v, do2, lse2, delta, False, False, True, 1.0, route)
+        assert kernel.launches == before
+    # kernels 1 and 4 take the route from `attention_route`: stand the one
+    # under test in for it
+    monkeypatch.setattr(sys.modules[FLASH_FWD.__module__], "attention_route",
+                        lambda *a, **k_: route)
+    for kernel, call in ((FLASH_FWD, lambda: FLASH_FWD(q_in, k, v, scale=0.125)),
+                         (FLASH_BWD_FUSED, lambda: FLASH_BWD_FUSED(q_in, k, v, do2, lse2, delta))):
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            call()
         assert kernel.launches == before
 
 
@@ -1371,7 +1418,9 @@ def test_png_family_reads_through_pil_where_the_decoder_is_missing(cuda_device, 
 # the sequence-parallel pieces (ops/sharded_attention.py) at a rank's shapes:
 # (BH, S, D, dtype, n), the sequence cut in n blocks
 SEQ_PARALLEL_CASES = [(2, 4096, 64, torch.bfloat16, 2), (2, 4096, 64, torch.bfloat16, 4),
-                      (2, 2048, 128, torch.float32, 2)]
+                      (2, 2048, 128, torch.float32, 2),
+                      # kernel 1's wgmma body at 128-row blocks unsharded, 64-row ones local
+                      (8, 4096, 64, torch.bfloat16, 4)]
 
 
 @pytest.mark.cuda
