@@ -5,9 +5,10 @@
 // the largest gradient in bf16, 1e-4 in f32), two launches of kernels 2
 // and 4 equal to the bit, and kernel 4's dq against kernel 2's within 1e-5
 // of its largest value plus one bf16 ulp; its dk and dv against kernel 3's
-// to the bit on either route (the two run the same dV and dK products in
+// to the bit where the two share a body (the same dV and dK products in
 // the same order: dkv_block on the mma.sync route, dkv_tile_probs and
-// products_over_tile on the wgmma route).
+// products_over_tile on the wgmma route), and within that margin at f32
+// D = 64, where kernel 3 runs the TF32 body and kernel 4 the mma.sync one.
 //
 // Replaces the Pallas TPU kernels of the backward `_flash_bwd` in
 // generativemodels_tpu/ops/flash_attention.py: the split backward's
@@ -17,7 +18,8 @@
 // GMTPU_FLASH_FUSED_BWD=1) becomes flash_bwd_fused_kernel (kernel 4). The
 // last two share one body, dkv_block. On the wgmma route (below) kernels
 // 2-4 are flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel and
-// flash_bwd_fused_wgmma_kernel.
+// flash_bwd_fused_wgmma_kernel; on the TF32 route kernels 2 and 3 are
+// flash_bwd_dq_tf32_kernel and flash_bwd_dkv_tf32_kernel.
 // Default contract, as flash_fwd.cu: q arrives prescaled by scale*log2(e)
 // (rounded to q's type), dO arrives multiplied by ln2 (rounded to dO's
 // type), lse2 is the forward's log2-domain lse and delta = rowsum(dO ln2 * O)
@@ -45,19 +47,25 @@
 // key blocks' dq parts into an f32 buffer: BH * Sq * D * Sk / 128 adds, 4.3
 // GB of reductions at the 3D shape, ordered across the key blocks.
 //
-// Two bodies of kernels 2, 3 and 4, each input taking one: the `route`
-// argument of their C entries names it (ops/flash_attention.py::
-// attention_route picks it; an unknown route, or a route the inputs do not
-// take, raises; nothing falls back to the other body):
+// Three bodies of kernels 2 and 3 and two of kernel 4, each (kernel, input)
+// taking one: the `route` argument of their C entries names it
+// (ops/flash_attention.py::attention_route picks it; an unknown route, or a
+// route the inputs do not take, raises; nothing falls back to another
+// body):
 // - kRouteWgmma, bf16 at D = 64 in the two exp2 contracts (the 3D training
 //   step, the latent UNet, the 3D LDM's bf16 stages): warpgroup products
 //   (wgmma) fed by a TMA ring from a producer warpgroup, below. The
 //   softmax arithmetic between the products (an exp2 on the SFU and a
 //   handful of CUDA-core instructions a score) is what keeps it from the
 //   tensor-core bound.
+// - kRouteTf32, kernels 2 and 3 at f32 D = 64 in all three contracts (the
+//   f32 3D LDM recipe's stage-1 and stage-2 attention, upcast's D = 64
+//   contexts): warpgroup products on TF32 operands (wgmma m64nNk8, 3xTF32)
+//   fed by a TMA ring and a converter role, below.
 // - kRouteMma, every other case (f32 and upcast as 3xTF32, bf16 at D = 32,
 //   128 and 256; kernels 2-4 have no mma.sync instance at bf16 D = 64 in
-//   the exp2 contracts): the mma.sync bodies, where
+//   the exp2 contracts, kernels 2 and 3 none at f32 D = 64; kernel 4 keeps
+//   it there): the mma.sync bodies, where
 //   the tensor pipe's issue rate (mma.sync, as kernel 1) and the operand
 //   fragments read from shared memory by ldmatrix set the floor.
 // - bf16: mma.sync m16n8k16, bf16 operands, f32 accumulation.
@@ -244,6 +252,72 @@
 // 64-byte row takes another swizzle; a 256-byte row is two swizzle atoms,
 // and a 64 x 128 accumulator takes 64 registers a thread): they keep the
 // mma.sync body.
+//
+// Kernels 2 and 3 on the TF32 route (namespace tf, flash_bwd_dq_tf32_kernel
+// and flash_bwd_dkv_tf32_kernel): f32 at D = 64, every contract (kUpcast
+// with its natural exp). The same three warpgroups, with setmaxnreg giving
+// the consumers 224 registers and the producer 56 (its converters' loops
+// spilled at 40), but a TF32 wgmma is no bf16 one with another type:
+// - TF32 has no transposed operand: both shared-memory operands are read
+//   K-major. The d products (S = Q K^T and dP = dO V^T, or S^T = K Q^T and
+//   dP^T = V dO^T) read the tensors as they lie, but the tile products (dq
+//   += dS K; dV += P^T dO and dK += dS^T Q) contract over the streamed
+//   tile's rows, so they read a transposed copy of it (K^T; Q^T and dO^T),
+//   64 rows of the tile's 32 rows each, one 128-byte swizzle row.
+// - 3xTF32 needs each operand's hi = tf32(x) and lo = tf32(x - hi) (cvt.rna,
+//   as split_tf32); TMA copies raw f32. hi is written over the raw tile in
+//   place, so whatever a TF32 read does with the low 13 bits of a raw f32
+//   never matters, and lo beside it in the same swizzle.
+// - The A operand of a tile product is an accumulator (P^T, dS^T or dS):
+//   a TF32 A fragment holds columns t, t + 4 of its row, the accumulator
+//   columns 2t, 2t + 1, so the transposed copy lays the tile's rows in the
+//   order tile_pos gives (row 2u + e of each 8 at position u + 4e), and
+//   each accumulator splits into its hi and lo A fragments in registers.
+// - An f32 row of 64 is 256 bytes, two 128-byte swizzle atoms: each tile is
+//   two 32-column halves, one TMA box each (box 32 columns), and a k-step of
+//   8 values (32 bytes) stays inside a half, whose descriptor is
+//   wgmma_desc_sw128's (its leading byte offset is still not read).
+// Roles: the producer warpgroup's first thread loads by TMA the block's
+// resident operands once (Q and dO for kernel 2's 128 query rows, K and V
+// for kernel 3's 128 keys: the A operands of the d products, 64 rows a
+// consumer) and the streamed 32-row tiles (K and V, or Q and dO) into a
+// ring of two stages; its warps 1-3 convert (tf::convert): the split of the
+// resident operands once and of each stage as it lands (and, kernel 3, the
+// stage's lse2 and delta rows, by plain loads), a tile ahead of the
+// consumers. The consumers write each tile's transposed hi and lo copies
+// (done by the three converter warps, the transposes set the pace of the
+// tile loop, 5700 of its 8300 cycles), meeting at a named barrier before
+// and after (consumers_meet): kernel 3's two share one copy of Q^T and
+// dO^T, kernel 2's each write their own K^T, so they need not keep in step
+// (one's transpose and probabilities run beside the other's products: 4%
+// faster for kernel 2 at the 3D shape than one shared copy). Shared
+// memory: resident 2 x 2 x 128 x 64 f32 (128 KB), two stages of 2 x 2 x 32
+// x 64 (64 KB), the transposed tiles 4 x 64 x 32 (32 KB), the rows and
+// barriers: 229952 bytes of the 232448 a block may take, which is what sets
+// the 32-row tile (wgmma N = 32 for the d products) and kernel 3's one
+// transposed copy. Registers set the consumers' A operands: the resident
+// ones' hi and lo would take 128 registers a thread, so the d products read
+// A from shared memory (wgmma_tf32_ss_n32) and the tile products from
+// registers (wgmma_tf32_rs_n64, P and dS split in place). A consumer issues
+// each 3xTF32 product as 3 chains (lo x hi over all k, then hi x lo, then hi
+// x hi), from zero; per tile j the d products, then the tile products
+// (kernel 2's dq part; kernel 3's dV part, then its dK part: one part
+// accumulator between them, so that kernel 3's consumers need no more than
+// 160 registers of accumulators and fragments), a group each (no branch
+// between a product's issue and its wait; chip_smoke.py's phase 1 fails on
+// ptxas's C7513 and C7514 notes, and on a stack frame or spills). The wgmma
+// descriptors are moved by an opaque add where they are used (desc_at):
+// hoisted out of the tile loop, those of the resident and transposed
+// operands spilled kernel 3. Each tile's part is summed over the tile's 32
+// keys or queries from zero and added in f32 to the running dq, dk or dv,
+// as the other bodies do, so the sums over 32768 keys stay within f32
+// summation error; no atomics, so two launches give the same bits. Rows
+// past Sq or Sk read as 0 (TMA) and their p is 0 (tile_probs tests each
+// pair only in a tile that reaches past Sq, Sk or the causal diagonal);
+// under the causal mask kernel 3's q loop starts at its first key and
+// kernel 2's key loop ends at its last row. Kernel 4 keeps the mma.sync
+// body at f32 D = 64, so its dk and dv there differ from kernel 3's in
+// summation order (within the fused dq margin), not to the bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1823,6 +1897,603 @@ flash_bwd_fused_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ---- kernels 2 and 3 on the TF32 wgmma route (kRouteTf32): f32, D = 64 ----
+
+namespace tf {
+
+constexpr int kD = 64;                          // head width: two 128-byte swizzle rows
+constexpr int kRows = 64;                       // A rows of a consumer warpgroup (wgmma's M)
+constexpr int kConsumers = 2;                   // consumer warpgroups a block
+constexpr int kBlockRows = kConsumers * kRows;  // query rows (kernel 2) or keys (kernel 3) a block
+constexpr int kTile = 32;                       // keys (kernel 2) or query rows (kernel 3) a stage
+constexpr int kStages = 2;                      // streamed tiles in flight
+constexpr int kConsumerThreads = kConsumers * 128;
+constexpr int kThreads = kConsumerThreads + 128;  // + the producer warpgroup
+constexpr int kConsumerWarps = kConsumerThreads / 32;
+constexpr int kConverterWarps = 3;              // the producer warpgroup's warps 1-3
+constexpr int kConverterThreads = 32 * kConverterWarps;
+constexpr int kConsumerRegs = 224;
+constexpr int kProducerRegs = 56;  // the converters' loops spilled at 40
+constexpr int kHalfCols = 32;                   // f32 columns of a 128-byte swizzle row
+constexpr int kDSteps = kD / 8;                 // k8 steps over d: S, dP (and S^T, dP^T)
+constexpr int kTileSteps = kTile / 8;           // k8 steps over a tile: dq (and dV, dK)
+constexpr int kSAcc = kTile / 2;                // accumulator floats of an m64n32 tile
+constexpr int kAcc = kD / 2;                    // accumulator floats of an m64n64 tile
+constexpr int kResHalf = kBlockRows * 128;      // 16 KB: 32 columns of the block's rows
+constexpr int kResPart = 2 * kResHalf;          // 32 KB: hi or lo of one resident operand
+constexpr int kNatHalf = kTile * 128;           // 4 KB: 32 columns of a streamed tile
+constexpr int kNatPart = 2 * kNatHalf;          // 8 KB: hi or lo of one streamed tile
+constexpr int kTPart = kD * kTile * 4;          // 8 KB: hi or lo of one transposed tile
+constexpr int kStageBytes = 4 * kNatPart;       // two tiles, hi and lo
+static_assert(kTile == kHalfCols, "a transposed tile row is one 128-byte swizzle row");
+
+// dynamic shared memory from a 1024-byte-aligned base: the two resident
+// operands (Q and dO, or K and V: the A operands of the d products) hi then
+// lo, kStages stages of the two streamed tiles (K and V, or Q and dO: B of
+// the d products) hi then lo, the transposed tiles (each consumer's K^T; or
+// Q^T and dO^T: B of the tile products) hi and lo, kernel 3's lse2 and
+// delta rows of each stage, then the mbarriers
+constexpr int kSmemNat = 4 * kResPart;
+constexpr int kSmemT = kSmemNat + kStages * kStageBytes;
+constexpr int kSmemRows = kSmemT + 4 * kTPart;
+constexpr int kSmemBars = kSmemRows + kStages * 2 * kTile * 4;
+constexpr int kBars = 3 * kStages + 2;
+constexpr int kSmemBytes = kSmemBars + kBars * 8 + 1024;  // + alignment
+static_assert(kSmemBytes <= 232448, "shared memory of one block");
+
+struct Smem {
+  unsigned char* base;  // 1024-byte aligned
+  uint64_t* bars;
+
+  // resident operand o, part 0 (hi: where TMA wrote the raw tile) or 1 (lo)
+  __device__ unsigned char* res(int o, int part) const { return base + (2 * part + o) * kResPart; }
+  // streamed tile o of stage st, part as res's
+  __device__ unsigned char* nat(int st, int o, int part) const {
+    return base + kSmemNat + st * kStageBytes + (2 * part + o) * kNatPart;
+  }
+  // transposed tile o (kernel 2: the consumer's own K^T), part 0 (hi) or 1 (lo)
+  __device__ unsigned char* tr(int o, int part) const {
+    return base + kSmemT + (2 * o + part) * kTPart;
+  }
+  __device__ float* lse(int st) const {
+    return reinterpret_cast<float*>(base + kSmemRows) + st * 2 * kTile;
+  }
+  __device__ float* delta(int st) const { return lse(st) + kTile; }
+  // a stage's raw tiles are in (TMA), split (converters), free again
+  // (consumers)
+  __device__ uint64_t* full(int st) const { return bars + st; }
+  __device__ uint64_t* ready(int st) const { return bars + kStages + st; }
+  __device__ uint64_t* empty(int st) const { return bars + 2 * kStages + st; }
+  // the resident operands are in (TMA), split
+  __device__ uint64_t* res_full() const { return bars + 3 * kStages; }
+  __device__ uint64_t* res_ready() const { return bars + 3 * kStages + 1; }
+};
+
+// the layout in this block's dynamic shared memory, its barriers
+// initialised (the one __syncthreads of the kernels: the roles split after
+// it)
+__device__ __forceinline__ Smem make_smem(unsigned char* raw) {
+  Smem m;
+  m.base = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+  m.bars = reinterpret_cast<uint64_t*>(m.base + kSmemBars);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(m.full(st));
+      mbar_init(m.ready(st), kConverterWarps);
+      mbar_init(m.empty(st), kConsumerWarps);
+    }
+    mbar_init(m.res_full());
+    mbar_init(m.res_ready(), kConverterWarps);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return m;
+}
+
+// one arrival of this warp on `bar`, after its lanes' work
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+}
+
+// The producer warpgroup's first thread: the block's two resident operands
+// (maps res0, res1 of (64, rows, bh), box 32 columns x kBlockRows rows from
+// row res_row) once, then the two streamed tiles of each stage (maps nat0,
+// nat1, box 32 columns x kTile rows from row nat_row + j kTile), each as
+// two 32-column halves, rows past the tensor's read as 0
+__device__ __forceinline__ void produce(const Smem& m, const CUtensorMap* res0,
+                                        const CUtensorMap* res1, const CUtensorMap* nat0,
+                                        const CUtensorMap* nat1, int bh, int res_row,
+                                        int nat_row, int tiles) {
+  if (tiles == 0) return;
+  mbar_expect(m.res_full(), 4 * kResHalf);
+  for (int h = 0; h < 2; ++h) {
+    tma_load_3d(m.res(0, 0) + h * kResHalf, res0, m.res_full(), h * kHalfCols, res_row, bh);
+    tma_load_3d(m.res(1, 0) + h * kResHalf, res1, m.res_full(), h * kHalfCols, res_row, bh);
+  }
+  for (int j = 0; j < tiles; ++j) {
+    const int st = j % kStages;
+    if (j >= kStages) mbar_wait(m.empty(st), (j / kStages - 1) & 1);
+    mbar_expect(m.full(st), 4 * kNatHalf);
+    const int row = nat_row + j * kTile;
+    for (int h = 0; h < 2; ++h) {
+      tma_load_3d(m.nat(st, 0, 0) + h * kNatHalf, nat0, m.full(st), h * kHalfCols, row, bh);
+      tma_load_3d(m.nat(st, 1, 0) + h * kNatHalf, nat1, m.full(st), h * kHalfCols, row, bh);
+    }
+  }
+}
+
+// The TF32 split of kBytes of f32 values at `hi`: hi = tf32(x) in place and
+// lo = tf32(x - hi) at the same offset from `lo` (both keep the swizzle TMA
+// wrote, so the wgmma descriptors read them alike); 16 bytes a step, this
+// converter thread's share
+template <int kBytes>
+__device__ __forceinline__ void split_in_place(unsigned char* hi, unsigned char* lo, int ct) {
+  for (int o = 16 * ct; o < kBytes; o += 16 * kConverterThreads) {
+    const float4 x = *reinterpret_cast<const float4*>(hi + o);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
+  }
+}
+
+// the position of row l of a streamed tile along the k of the tile
+// products: in each 8-row group, row 2u + e at u + 4e, so that the TF32 A
+// fragment built from an accumulator (columns 2t, 2t + 1 of each n8 block:
+// positions t and t + 4) meets the right B rows
+__device__ __forceinline__ int tile_pos(int l) {
+  return (l & ~7) | ((l & 1) << 2) | ((l >> 1) & 3);
+}
+
+// A streamed tile's `kOps` operands, hi and lo parts (kTile rows x 64
+// columns each, two 32-column halves in the 128-byte swizzle), transposed
+// by the consumers: column n of operand o's part to row n of m.tr(o, part)
+// (64 rows of kTile positions, one swizzle row each), row l at position
+// tile_pos(l): K-major for the tile products. kOwn (kernel 2, one operand):
+// each consumer writes its own copy, m.tr(consumer, part), with its four
+// warps; else both consumers' eight warps write one. An item is 4 columns
+// of one part, a lane a row (the 32 stores of a column fill one swizzle
+// row, in distinct banks); warp w of the writers takes items w, w + warps,
+// ..., all loads first, then the stores, in straight-line code
+template <int kOps, bool kOwn>
+__device__ __forceinline__ void transpose_tile(const Smem& m, int st) {
+  constexpr int kWarps = kOwn ? kConsumerWarps / kConsumers : kConsumerWarps;
+  constexpr int kPer = kOps * 2 * 16 / kWarps;  // items a warp
+  const int cw = threadIdx.x / 32 % kWarps;
+  const int lane = threadIdx.x % 32;
+  const int p = tile_pos(lane);
+  float4 x[kPer];
+#pragma unroll
+  for (int b = 0; b < kPer; ++b) {
+    const int item = cw + kWarps * b;
+    const int cg = item % 16;  // the 4-column group, chunk cg % 8 of half cg / 8
+    x[b] = *reinterpret_cast<const float4*>(m.nat(st, item / 32, item / 16 % 2) +
+                                            cg / 8 * kNatHalf + lane * 128 +
+                                            (((cg % 8) ^ (lane & 7)) << 4));
+  }
+#pragma unroll
+  for (int b = 0; b < kPer; ++b) {
+    const int item = cw + kWarps * b;
+    unsigned char* dst = m.tr(kOwn ? threadIdx.x / 128 : item / 32, item / 16 % 2);
+    const float v[4] = {x[b].x, x[b].y, x[b].z, x[b].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 4 * (item % 16) + j;
+      *reinterpret_cast<float*>(dst + n * 128 + (((p >> 2) ^ (n & 7)) << 4) + 4 * (p & 3)) = v[j];
+    }
+  }
+  fence_proxy_async();
+}
+
+// The converters (the producer warpgroup's warps 1-3): the resident
+// operands' split once, then each streamed tile's as TMA lands it (and,
+// kernel 3, its lse2 and delta rows, 0 past sq, by plain loads: a head's
+// f32 rows start at any 4-byte offset, where TMA needs 16-byte aligned
+// addresses), a tile ahead of the consumers.
+template <bool kRowsToo>
+__device__ __forceinline__ void convert(const Smem& m, int tiles, const float* __restrict__ lse2,
+                                        const float* __restrict__ delta, int q_begin, int sq) {
+  if (tiles == 0) return;
+  const int ct = threadIdx.x - kConsumerThreads - 32;
+  mbar_wait(m.res_full(), 0);
+  split_in_place<2 * kResPart>(m.res(0, 0), m.res(0, 1), ct);
+  fence_proxy_async();
+  warp_arrive(m.res_ready());
+  auto split_tile = [&](int j) {
+    const int st = j % kStages;
+    // kernel 3: the tile's lse2 or delta row of this thread, loaded first
+    // (its latency under the split)
+    const int row = q_begin + j * kTile + ct % kTile;
+    const float row_value = kRowsToo && ct < 2 * kTile && row < sq
+                                ? (ct < kTile ? lse2 : delta)[row]
+                                : 0.f;
+    mbar_wait(m.full(st), (j / kStages) & 1);
+    split_in_place<2 * kNatPart>(m.nat(st, 0, 0), m.nat(st, 0, 1), ct);
+    if (kRowsToo && ct < 2 * kTile) (ct < kTile ? m.lse(st) : m.delta(st))[ct % kTile] = row_value;
+    fence_proxy_async();
+    warp_arrive(m.ready(st));
+  };
+  for (int j = 0; j < tiles; ++j) split_tile(j);
+}
+
+// the descriptor moved by `bytes` (a multiple of 16), computed where the
+// wgmma that reads it is issued: an opaque add, so that the compiler does
+// not hoist the loop-invariant descriptors of the resident and transposed
+// operands (some 60 64-bit values a tile) out of the tile loop, where they
+// would take the registers of kernel 3's accumulators and spill
+__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t bytes) {
+  uint64_t moved;
+  asm volatile("add.s64 %0, %1, %2;\n" : "=l"(moved) : "l"(desc), "l"(uint64_t{bytes >> 4}));
+  return moved;
+}
+
+// x = a b^T over d, from zero, in 3xTF32: A the consumer's 64 rows of a
+// resident operand (a_hi, a_lo: its rows in the first 32-column half), B a
+// streamed tile (b_hi, b_lo); the lo x hi products over all of d, then hi x
+// lo, then hi x hi (the small terms summed first)
+__device__ __forceinline__ void products_over_d(float (&x)[kSAcc], const unsigned char* a_hi,
+                                                const unsigned char* a_lo,
+                                                const unsigned char* b_hi,
+                                                const unsigned char* b_lo) {
+  const uint64_t ah = wgmma_desc_sw128(smem_addr(a_hi));
+  const uint64_t al = wgmma_desc_sw128(smem_addr(a_lo));
+  const uint64_t bh = wgmma_desc_sw128(smem_addr(b_hi));
+  const uint64_t bl = wgmma_desc_sw128(smem_addr(b_lo));
+#pragma unroll
+  for (int kk = 0; kk < kDSteps; ++kk) {
+    wgmma_tf32_ss_n32(x, desc_at(al, kk / 4 * kResHalf + 32 * (kk % 4)),
+                      desc_at(bh, kk / 4 * kNatHalf + 32 * (kk % 4)), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kDSteps; ++kk) {
+    wgmma_tf32_ss_n32(x, desc_at(ah, kk / 4 * kResHalf + 32 * (kk % 4)),
+                      desc_at(bl, kk / 4 * kNatHalf + 32 * (kk % 4)), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kDSteps; ++kk) {
+    wgmma_tf32_ss_n32(x, desc_at(ah, kk / 4 * kResHalf + 32 * (kk % 4)),
+                      desc_at(bh, kk / 4 * kNatHalf + 32 * (kk % 4)), 1);
+  }
+}
+
+// x = a b over a tile, from zero, in 3xTF32: A fragments (hi, lo) from
+// registers, B a transposed tile (b_hi, b_lo); in the order of
+// products_over_d
+__device__ __forceinline__ void products_over_tile(float (&x)[kAcc],
+                                                   const uint32_t (&a_hi)[kTileSteps][4],
+                                                   const uint32_t (&a_lo)[kTileSteps][4],
+                                                   const unsigned char* b_hi,
+                                                   const unsigned char* b_lo) {
+  const uint64_t bh = wgmma_desc_sw128(smem_addr(b_hi));
+  const uint64_t bl = wgmma_desc_sw128(smem_addr(b_lo));
+#pragma unroll
+  for (int js = 0; js < kTileSteps; ++js) {
+    wgmma_tf32_rs_n64(x, a_lo[js], desc_at(bh, 32 * js), js > 0);
+  }
+#pragma unroll
+  for (int js = 0; js < kTileSteps; ++js) {
+    wgmma_tf32_rs_n64(x, a_hi[js], desc_at(bl, 32 * js), 1);
+  }
+#pragma unroll
+  for (int js = 0; js < kTileSteps; ++js) {
+    wgmma_tf32_rs_n64(x, a_hi[js], desc_at(bh, 32 * js), 1);
+  }
+}
+
+// this thread's rows row and row + 8 of an m64n64 f32 accumulator times
+// `mul` at `out` (rows of 64); rows at or past s are not stored
+__device__ __forceinline__ void store_rows(float* __restrict__ out, const float (&x)[kAcc], int row,
+                                           int s, float mul) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= s) continue;
+    float* dst = out + static_cast<size_t>(row + 8 * h) * kD + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < kD / 8; ++nb) {
+      store2(dst + 8 * nb, x[4 * nb + 2 * h] * mul, x[4 * nb + 2 * h + 1] * mul);
+    }
+  }
+}
+
+// p and ds of an m64n32 accumulator pair by prob_ds (the mma.sync body's
+// arithmetic), split into TF32 hi and lo A fragments of the tile products:
+// element (A row a + 8h, column 8i + 2t + e) of s, dp goes to register 2e +
+// h of k-step i (column t + 4e of the fragment, tile_pos of that column).
+// The A rows are queries (kernel 2: `qrow(h)`, lse2 and delta from r_*) or
+// keys (kernel 3: lse2 and delta of the columns from shared memory); `live`
+// masks a pair, tested only under kMasked
+template <int K, bool kKeyMajor, bool kMasked>
+__device__ __forceinline__ void tile_probs(uint32_t (&ph)[kTileSteps][4],
+                                           uint32_t (&pl)[kTileSteps][4],
+                                           uint32_t (&sh)[kTileSteps][4],
+                                           uint32_t (&sl)[kTileSteps][4], const float (&s)[kSAcc],
+                                           const float (&dp)[kSAcc], const float* lse,
+                                           const float* del, const float (&r_lse)[2],
+                                           const float (&r_delta)[2], int arow, int col0, int sq,
+                                           int sk, int causal, float sscale) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < kTileSteps; ++i) {
+    // kernel 3: the lse2 and delta of the thread's columns 8i + 2t, + 1
+    float2 l2 = {0.f, 0.f}, dl = {0.f, 0.f};
+    if constexpr (kKeyMajor) {
+      l2 = *reinterpret_cast<const float2*>(lse + 8 * i + 2 * t);
+      dl = *reinterpret_cast<const float2*>(del + 8 * i + 2 * t);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int cl = 8 * i + 2 * t + e;  // the column in the tile
+        const int a = arow + 8 * h;
+        const int row = kKeyMajor ? col0 + cl : a;  // query
+        const int key = kKeyMajor ? a : col0 + cl;
+        const bool live = !kMasked || (row < sq && key < sk && (!causal || key <= row));
+        float p, ds;
+        prob_ds<K>(s[4 * i + 2 * h + e], dp[4 * i + 2 * h + e],
+                   kKeyMajor ? (e ? l2.y : l2.x) : r_lse[h],
+                   kKeyMajor ? (e ? dl.y : dl.x) : r_delta[h], live, sscale, p, ds);
+        if constexpr (kKeyMajor) split_tf32(p, ph[i][2 * e + h], pl[i][2 * e + h]);
+        split_tf32(ds, sh[i][2 * e + h], sl[i][2 * e + h]);
+      }
+    }
+  }
+}
+
+// tile_probs, masked where the warpgroup's tile (A rows a0 .., columns col0
+// ..) reaches past sq, sk or the causal diagonal (a uniform branch: no
+// product of the warpgroup is in flight)
+template <int K, bool kKeyMajor>
+__device__ __forceinline__ void tile_probs_at(uint32_t (&ph)[kTileSteps][4],
+                                              uint32_t (&pl)[kTileSteps][4],
+                                              uint32_t (&sh)[kTileSteps][4],
+                                              uint32_t (&sl)[kTileSteps][4],
+                                              const float (&s)[kSAcc], const float (&dp)[kSAcc],
+                                              const float* lse, const float* del,
+                                              const float (&r_lse)[2], const float (&r_delta)[2],
+                                              int arow, int a0, int col0, int sq, int sk,
+                                              int causal, float sscale) {
+  const int q_end = kKeyMajor ? col0 + kTile : a0 + kRows;  // past the last query
+  const int k_end = kKeyMajor ? a0 + kRows : col0 + kTile;  // past the last key
+  const int q_first = kKeyMajor ? col0 : a0;
+  if (q_end > sq || k_end > sk || (causal && k_end - 1 > q_first)) {
+    tile_probs<K, kKeyMajor, true>(ph, pl, sh, sl, s, dp, lse, del, r_lse, r_delta, arow, col0, sq,
+                                   sk, causal, sscale);
+  } else {
+    tile_probs<K, kKeyMajor, false>(ph, pl, sh, sl, s, dp, lse, del, r_lse, r_delta, arow, col0,
+                                    sq, sk, causal, sscale);
+  }
+}
+
+// Per streamed tile j a consumer: wait for the split of tile j, meet (every
+// tile product of tile j - 1 is done: the transposed tiles are free),
+// transpose the tile, run its d products, compute its probabilities, meet
+// again (the transposed tiles are whole), free the stage and run the tile
+// products. Kernel 3's two consumers share one transposed copy (Q^T and
+// dO^T: there is room for one) and meet at named barrier 1; kernel 2's
+// each write their own K^T and meet their own warps only (barrier 2 + c),
+// so they need not keep in step, and one's transpose and probabilities
+// run beside the other's products. (The transpose issued while the d
+// products run, its straight-line loads and stores between their issue and
+// wait, crashed nvcc with a segmentation fault.)
+template <bool kOwn>
+__device__ __forceinline__ void consumers_meet() {
+  if constexpr (kOwn) {
+    named_sync(2 + threadIdx.x / 128, 128);
+  } else {
+    named_sync(1, kConsumerThreads);
+  }
+}
+
+// Kernel 2's consumer warpgroup: its 64 query rows (from row0, A rows of the
+// resident Q, dO) over every K, V tile: S and dP, dS, then the tile's dq
+// part dS K (one group; the part summed over the tile's keys from zero,
+// then added in f32).
+template <int K>
+__device__ __forceinline__ void dq_consume(const Smem& m, const float* __restrict__ lse2,
+                                           const float* __restrict__ delta,
+                                           float* __restrict__ dq, int row0, int sq, int sk,
+                                           int tiles, int causal, float sscale) {
+  const int c = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  // this thread's rows row and row + 8 (C and A fragments alike)
+  const int row = row0 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  float r_lse[2], r_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = row + 8 * h < sq;
+    r_lse[h] = ok ? lse2[row + 8 * h] : 0.f;
+    r_delta[h] = ok ? delta[row + 8 * h] : 0.f;
+  }
+  const unsigned char* qh = m.res(0, 0) + c * kRows * 128;
+  const unsigned char* ql = m.res(0, 1) + c * kRows * 128;
+  const unsigned char* oh = m.res(1, 0) + c * kRows * 128;
+  const unsigned char* ol = m.res(1, 1) + c * kRows * 128;
+  float acc[kAcc], part[kAcc], s[kSAcc], dp[kSAcc];
+  uint32_t dh[kTileSteps][4], dl[kTileSteps][4];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+
+  // tiles >= 1: a launch has sk >= 1, and the causal mask leaves key 0
+  mbar_wait(m.res_ready(), 0);
+#pragma unroll 1
+  for (int j = 0; j < tiles; ++j) {
+    const int st = j % kStages;
+    mbar_wait(m.ready(st), (j / kStages) & 1);
+    consumers_meet<true>();
+    transpose_tile<1, true>(m, st);  // this consumer's K^T
+    consumers_meet<true>();
+    wgmma_fence();
+    products_over_d(s, qh, ql, m.nat(st, 0, 0), m.nat(st, 0, 1));   // S = Q K^T
+    products_over_d(dp, oh, ol, m.nat(st, 1, 0), m.nat(st, 1, 1));  // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    // kernel 2 has no P: only dS's fragments (dh, dl) are written
+    tile_probs_at<K, false>(dh, dh, dh, dl, s, dp, nullptr, nullptr, r_lse, r_delta, row, row0,
+                            j * kTile, sq, sk, causal, sscale);
+    warp_arrive(m.empty(st));
+    wgmma_fence();
+    products_over_tile(part, dh, dl, m.tr(c, 0), m.tr(c, 1));  // the dq part dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(part);
+    reg_fence(dh);
+    reg_fence(dl);
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] += part[i];
+  }
+  store_rows(dq, acc, row, sq, 1.f);
+}
+
+// Kernel 3's consumer warpgroup: its 64 keys (from key0, A rows of the
+// resident K, V) over every q tile: S^T and dP^T, P^T and dS^T, then dV's
+// part and dK's part (a group each: one part accumulator between them, so
+// that the consumers need no more than 160 registers of accumulators and
+// fragments; each part summed over the tile's queries from zero, then
+// added in f32).
+template <int K>
+__device__ __forceinline__ void dkv_consume(const Smem& m, float* __restrict__ dk,
+                                            float* __restrict__ dv, int key0, int q_begin,
+                                            int sq, int sk, int tiles, int causal, float sscale) {
+  const int c = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  // this thread's keys key and key + 8
+  const int key = key0 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  const unsigned char* kh = m.res(0, 0) + c * kRows * 128;
+  const unsigned char* kl = m.res(0, 1) + c * kRows * 128;
+  const unsigned char* vh = m.res(1, 0) + c * kRows * 128;
+  const unsigned char* vl = m.res(1, 1) + c * kRows * 128;
+  const float none[2] = {0.f, 0.f};
+  float acc_k[kAcc], acc_v[kAcc], part[kAcc], s[kSAcc], dp[kSAcc];
+  uint32_t ph[kTileSteps][4], pl[kTileSteps][4], sh[kTileSteps][4], sl[kTileSteps][4];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) acc_k[i] = acc_v[i] = 0.f;
+  if (tiles > 0) mbar_wait(m.res_ready(), 0);
+#pragma unroll 1
+  for (int j = 0; j < tiles; ++j) {
+    const int st = j % kStages;
+    mbar_wait(m.ready(st), (j / kStages) & 1);
+    consumers_meet<false>();
+    transpose_tile<2, false>(m, st);  // Q^T and dO^T
+    wgmma_fence();
+    products_over_d(s, kh, kl, m.nat(st, 0, 0), m.nat(st, 0, 1));   // S^T = K Q^T
+    products_over_d(dp, vh, vl, m.nat(st, 1, 0), m.nat(st, 1, 1));  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    tile_probs_at<K, true>(ph, pl, sh, sl, s, dp, m.lse(st), m.delta(st), none, none, key, key0,
+                           q_begin + j * kTile, sq, sk, causal, sscale);
+    consumers_meet<false>();
+    warp_arrive(m.empty(st));  // the stage's tiles and rows are read
+    wgmma_fence();
+    products_over_tile(part, ph, pl, m.tr(1, 0), m.tr(1, 1));  // dV part P^T dO
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(part);
+    reg_fence(ph);
+    reg_fence(pl);
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc_v[i] += part[i];
+    wgmma_fence();
+    products_over_tile(part, sh, sl, m.tr(0, 0), m.tr(0, 1));  // dK part dS^T Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(part);
+    reg_fence(sh);
+    reg_fence(sl);
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc_k[i] += part[i];
+  }
+  store_rows(dk, acc_k, key, sk, 1.f);
+  // dO arrived multiplied by ln2 for ds (not under kUpcast); dv must not carry it
+  store_rows(dv, acc_v, key, sk, K == kUpcast ? 1.f : kLog2e);
+}
+
+}  // namespace tf
+
+// Kernel 2 on the TF32 route. Grid: one block per (bh, tf::kBlockRows query
+// rows), flattened into blockIdx.x; tf::kThreads threads, tf::kSmemBytes of
+// dynamic shared memory. Warpgroups 0 and 1 consume; in warpgroup 2 the
+// first thread loads by TMA the block's Q and dO rows (maps of (64, sq,
+// bh), box 32 columns x 128 rows) and the K and V tiles (maps of (64, sk,
+// bh), box 32 columns x 32 keys), and warps 1-3 convert (tf::convert).
+template <int K>
+__global__ void __launch_bounds__(tf::kThreads, 1)
+flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const float* __restrict__ lse2, const float* __restrict__ delta,
+                         float* __restrict__ dq, int sq, int sk, int num_qb, int causal,
+                         float sscale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const tf::Smem m = tf::make_smem(smem_raw);
+  const int bh = blockIdx.x / num_qb;
+  const int q0 = (blockIdx.x % num_qb) * tf::kBlockRows;
+  // under the causal mask, keys past the block's last row are dead for every row
+  const int kv_end = causal ? min(sk, q0 + tf::kBlockRows) : sk;
+  const int tiles = (kv_end + tf::kTile - 1) / tf::kTile;
+  if (threadIdx.x >= tf::kConsumerThreads) {
+    regs_lower<tf::kProducerRegs>();
+    const int pt = threadIdx.x - tf::kConsumerThreads;
+    if (pt == 0) {
+      tf::produce(m, &q_map, &do_map, &k_map, &v_map, bh, q0, 0, tiles);
+    } else if (pt >= 32) {
+      tf::convert<false>(m, tiles, nullptr, nullptr, 0, sq);
+    }
+  } else {
+    regs_raise<tf::kConsumerRegs>();
+    const size_t head = static_cast<size_t>(bh) * sq;
+    tf::dq_consume<K>(m, lse2 + head, delta + head, dq + head * tf::kD,
+                      q0 + threadIdx.x / 128 * tf::kRows, sq, sk, tiles, causal, sscale);
+  }
+}
+
+// Kernel 3 on the TF32 route. Grid: one block per (bh, tf::kBlockRows keys),
+// flattened into blockIdx.x; threads, shared memory and roles as kernel 2's,
+// with K and V resident (box 128 keys) and Q, dO streamed (box 32 rows).
+template <int K>
+__global__ void __launch_bounds__(tf::kThreads, 1)
+flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse2, const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
+                          int num_kb, int causal, float sscale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const tf::Smem m = tf::make_smem(smem_raw);
+  const int bh = blockIdx.x / num_kb;
+  const int k0 = (blockIdx.x % num_kb) * tf::kBlockRows;
+  // under the causal mask, query rows before the block's first key are dead
+  // (k0 is a multiple of the q tile)
+  const int q_begin = causal ? k0 : 0;
+  const int tiles = q_begin < sq ? (sq - q_begin + tf::kTile - 1) / tf::kTile : 0;
+  if (threadIdx.x >= tf::kConsumerThreads) {
+    regs_lower<tf::kProducerRegs>();
+    const int pt = threadIdx.x - tf::kConsumerThreads;
+    if (pt == 0) {
+      tf::produce(m, &k_map, &v_map, &q_map, &do_map, bh, k0, q_begin, tiles);
+    } else if (pt >= 32) {
+      const size_t rows = static_cast<size_t>(bh) * sq;
+      tf::convert<true>(m, tiles, lse2 + rows, delta + rows, q_begin, sq);
+    }
+  } else {
+    regs_raise<tf::kConsumerRegs>();
+    const size_t head = static_cast<size_t>(bh) * sk * tf::kD;
+    tf::dkv_consume<K>(m, dk + head, dv + head, k0 + threadIdx.x / 128 * tf::kRows, q_begin, sq,
+                       sk, tiles, causal, sscale);
+  }
+}
+
 // ---- the test entry of the one s, dp computation ----
 
 // Block i takes tile i: 16 queries (q, dout, lse2, delta) and 16 keys (k,
@@ -1910,7 +2581,7 @@ flash_bwd_roles_kernel(const T* __restrict__ q, const T* __restrict__ k,
 enum class Entry { kDq, kDkv, kFused, kRoles };
 
 // the bodies of kernels 2, 3 and 4, chosen by ops/flash_attention.py::attention_route
-enum Route : int { kRouteMma = 0, kRouteWgmma = 1 };
+enum Route : int { kRouteMma = 0, kRouteWgmma = 1, kRouteTf32 = 2 };
 
 struct Args {
   const void *q, *k, *v, *dout, *lse2, *delta;
@@ -2049,6 +2720,70 @@ int launch_fused_wgmma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The TMA map of a contiguous (bh, rows, 64) f32 tensor seen as (64, rows,
+// bh): a box of 32 columns (one 128-byte swizzle row) x `box_rows` rows,
+// rows past `rows` of a head read as 0
+inline cudaError_t encode_f32_rows_map(CUtensorMap* map, const void* base, int rows, int bh,
+                                       int box_rows) {
+  const cuuint64_t dims[3] = {tf::kD, static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {tf::kD * 4, static_cast<cuuint64_t>(rows) * tf::kD * 4};
+  const cuuint32_t box[3] = {tf::kHalfCols, static_cast<cuuint32_t>(box_rows), 1};
+  return encode_tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// kernel 2 (E = kDq) or 3 on the TF32 route: the resident operands' maps
+// (Q, dO or K, V; box kBlockRows rows), then the streamed ones' (box kTile)
+template <Entry E, int K>
+int launch_tf32_entry(const Args& a) {
+  const bool dq = E == Entry::kDq;
+  const void* res[2] = {dq ? a.q : a.k, dq ? a.dout : a.v};
+  const void* nat[2] = {dq ? a.k : a.q, dq ? a.v : a.dout};
+  const int res_rows = dq ? a.sq : a.sk;
+  const int nat_rows = dq ? a.sk : a.sq;
+  CUtensorMap maps[4];
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+    err = encode_f32_rows_map(&maps[i], res[i], res_rows, a.bh, tf::kBlockRows);
+    if (err == cudaSuccess) {
+      err = encode_f32_rows_map(&maps[2 + i], nat[i], nat_rows, a.bh, tf::kTile);
+    }
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = [] {
+    if constexpr (E == Entry::kDq) return flash_bwd_dq_tf32_kernel<K>;
+    else return flash_bwd_dkv_tf32_kernel<K>;
+  }();
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tf::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (res_rows + tf::kBlockRows - 1) / tf::kBlockRows;
+  if constexpr (E == Entry::kDq) {
+    kernel<<<blocks * a.bh, tf::kThreads, tf::kSmemBytes, a.stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse2),
+        static_cast<const float*>(a.delta), static_cast<float*>(a.out0), a.sq, a.sk, blocks,
+        a.causal, a.sscale);
+  } else {
+    kernel<<<blocks * a.bh, tf::kThreads, tf::kSmemBytes, a.stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse2),
+        static_cast<const float*>(a.delta), static_cast<float*>(a.out0),
+        static_cast<float*>(a.out1), a.sq, a.sk, blocks, a.causal, a.sscale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernels 2 and 3 on the TF32 route: f32 at D = tf::kD, every contract
+template <Entry E>
+int launch_tf32(const Args& a, int d, int dtype) {
+  if (dtype != 0 || d != tf::kD) return static_cast<int>(cudaErrorInvalidValue);
+  switch (a.contract) {
+    case kNoMax: return launch_tf32_entry<E, kNoMax>(a);
+    case kRunningMax: return launch_tf32_entry<E, kRunningMax>(a);
+    case kUpcast: return launch_tf32_entry<E, kUpcast>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <Entry E, int K>
 int launch_wgmma_entry(const Args& a) {
   if constexpr (E == Entry::kDq) return launch_dq_wgmma<K>(a);
@@ -2068,9 +2803,13 @@ int launch_wgmma(const Args& a, int d, int dtype) {
 }
 
 // bf16 at D = wg::kD in the exp2 contracts: kernels 2, 3 and 4 run only
-// their wgmma bodies there (launch_wgmma), so kRouteMma is refused
+// their wgmma bodies there (launch_wgmma); f32 at D = tf::kD, every
+// contract: kernels 2 and 3 run only their TF32 bodies (launch_tf32). So
+// kRouteMma is refused there, and those mma.sync instances are never built
 template <Entry E, typename T, int D, int K>
-constexpr bool kWgmmaOnly = E != Entry::kRoles && sizeof(T) == 2 && D == wg::kD && K != kUpcast;
+constexpr bool kWgmmaOnly =
+    (E != Entry::kRoles && sizeof(T) == 2 && D == wg::kD && K != kUpcast) ||
+    ((E == Entry::kDq || E == Entry::kDkv) && sizeof(T) == 4 && D == tf::kD);
 
 template <Entry E, typename T, int D, int K>
 int launch_entry(const Args& a) {
@@ -2119,6 +2858,10 @@ int launch(const Args& a, int d, int dtype, int device) {
     if constexpr (E != Entry::kRoles) return launch_wgmma<E>(a, d, dtype);
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (a.route == kRouteTf32) {
+    if constexpr (E == Entry::kDq || E == Entry::kDkv) return launch_tf32<E>(a, d, dtype);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (a.route != kRouteMma) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return launch_d<E, float>(a, d);
   if (dtype == 1) return launch_d<E, __nv_bfloat16>(a, d);
@@ -2134,10 +2877,11 @@ int launch(const Args& a, int d, int dtype, int device) {
 // ln2, lse2 is the natural-log lse and sscale the softmax scale (sscale is
 // not read otherwise). route is a Route (ops/flash_attention.py::
 // attention_route): kRouteWgmma runs the wgmma body, which takes bf16 at
-// d = 64 in the two exp2 contracts, kRouteMma the mma.sync body, which takes
-// every other type, width and contract; any other route, or a route on
-// inputs it does not take, returns cudaErrorInvalidValue and launches
-// nothing. Launches on `stream`
+// d = 64 in the two exp2 contracts, kRouteTf32 (dq and dkv entries only)
+// the TF32 wgmma body, which takes f32 at d = 64 in every contract,
+// kRouteMma the mma.sync body, which takes every other type, width and
+// contract; any other route, or a route on inputs it does not take,
+// returns cudaErrorInvalidValue and launches nothing. Launches on `stream`
 // of `device` and returns the first CUDA error of the tensor maps'
 // encoding, the shared-memory attribute or the launch (0 on success).
 extern "C" int gm_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

@@ -5,9 +5,11 @@ kernels become kernels written for Hopper: the forward `_fwd_kernel` is
 `csrc/flash_fwd.cu`; the split backward `_dq_kernel` and `_dkv_kernel` and
 the fused backward `_dfused_kernel` are `csrc/flash_bwd.cu`; each source's
 header says what bounds it and how it is laid out. Each of the four kernels
-has two bodies there, and `attention_route` alone picks one per launch:
-wgmma fed by a TMA ring for bf16 at head width 64 in the exp2 contracts,
-mma.sync for every other case.
+has two or three bodies there, and `attention_route` alone picks one per
+launch: wgmma fed by a TMA ring for bf16 at head width 64 in the exp2
+contracts, TF32 wgmma fed by a TMA ring for the split backward (kernels 2
+and 3) at f32 head width 64 in every contract, mma.sync for every other
+case.
 `flash_attention_reference` and `flash_attention_backward_reference` are
 plain PyTorch code for the same functions and contract: the CPU path, and
 what the kernels are held against.
@@ -273,7 +275,7 @@ class FlashForwardKernel(Launcher):
             q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             bh, sq, k.shape[1], d, _DTYPE_CODES[q.dtype], int(causal),
             _contract(upcast, no_max), qscale, 1.0 if log2_lse else LN2, scale if upcast else 1.0,
-            attention_route(q.dtype, d, upcast),
+            attention_route(q.dtype, d, upcast, kernel="flash_fwd"),
         )
         return o.to(dtype), lse
 
@@ -286,26 +288,37 @@ _BWD_ARGTYPES = (
 # contracts with (`no_max`) or without the clamp
 
 # the bodies of kernels 1-4 (`Route` in csrc/flash_fwd.cu and
-# csrc/flash_bwd.cu), each input taking one: the wgmma ones fed by a TMA
-# ring, and the mma.sync bodies
-ROUTE_MMA, ROUTE_WGMMA = 0, 1
+# csrc/flash_bwd.cu), each (kernel, input) taking one: the bf16 wgmma ones
+# fed by a TMA ring, the TF32 wgmma ones of kernels 2 and 3, and the
+# mma.sync bodies
+ROUTE_MMA, ROUTE_WGMMA, ROUTE_TF32 = 0, 1, 2
 _ROUTE_WGMMA_D = 64  # the head width of the wgmma bodies
+# the kernels with a TF32 body (f32 at D = 64, every contract)
+_TF32_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+_ROUTE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
 # kernel 4's groups of key blocks on the wgmma route, each adding into its
 # own dq buffer in its own key-block order (the 3D shape's 256 key blocks a
 # head in 8 chains of 32)
 FUSED_DQ_GROUPS = 8
 
 
-def attention_route(dtype: torch.dtype, d: int, upcast: bool = False) -> int:
-    """The body that kernels 1-4 run for inputs of `dtype` at head width `d`
-    under the contract `upcast` names: ROUTE_WGMMA for bf16 at D = 64 in the
-    two exp2 contracts, ROUTE_MMA for everything else (f32 and upcast, whose
-    3xTF32 products are mma.sync's, and the other bf16 widths). The four
-    launchers pass it to their C entries, which raise on a route they do not
-    run for the inputs they get."""
-    if dtype == torch.bfloat16 and d == _ROUTE_WGMMA_D and not upcast:
+def attention_route(dtype: torch.dtype, d: int, upcast: bool = False, *, kernel: str) -> int:
+    """The body that `kernel` (the name of kernel 1, 2, 3 or 4's launcher,
+    which every caller gives) runs for inputs of `dtype` at head width `d`
+    under the contract `upcast` names: ROUTE_WGMMA for bf16 at D = 64 in
+    the two exp2 contracts; ROUTE_TF32 for kernels 2 and 3 at D = 64 on f32
+    operands (f32 inputs, or any inputs under upcast, which runs f32);
+    ROUTE_MMA for everything else (kernels 1 and 4 at f32 D = 64, whose
+    3xTF32 products are mma.sync's, and the other widths). The four
+    launchers pass it to their C entries, which raise on a route they do
+    not run for the inputs they get."""
+    if kernel not in _ROUTE_KERNELS:
+        raise ValueError(f"no flash kernel {kernel!r}; one of {_ROUTE_KERNELS}")
+    if d != _ROUTE_WGMMA_D:
+        return ROUTE_MMA
+    if dtype == torch.bfloat16 and not upcast:
         return ROUTE_WGMMA
-    return ROUTE_MMA
+    return ROUTE_TF32 if kernel in _TF32_KERNELS else ROUTE_MMA
 
 
 class _FlashBackwardKernel(Launcher):
@@ -348,7 +361,7 @@ class FlashBackwardDqKernel(_FlashBackwardKernel):
         contract's form (`flash_attention_backward_reference`'s arguments)."""
         dq = torch.empty_like(q)
         self._run((dq,), q, k, v, dout, lse2, delta, causal, upcast, no_max, scale,
-                  attention_route(q.dtype, q.shape[2], upcast))
+                  attention_route(q.dtype, q.shape[2], upcast, kernel="flash_bwd_dq"))
         return dq
 
 
@@ -365,7 +378,7 @@ class FlashBackwardDkvKernel(_FlashBackwardKernel):
         """(dk, dv) from the same inputs as the dq launcher."""
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         self._run((dk, dv), q, k, v, dout, lse2, delta, causal, upcast, no_max, scale,
-                  attention_route(q.dtype, q.shape[2], upcast))
+                  attention_route(q.dtype, q.shape[2], upcast, kernel="flash_bwd_dkv"))
         return dk, dv
 
 
@@ -392,7 +405,7 @@ class FlashBackwardFusedKernel(_FlashBackwardKernel):
         on one another), summed here in one torch.sum (no atomics). dq is
         the same to the bit from run to run; it is cast once to the input
         type here."""
-        route = attention_route(q.dtype, q.shape[2], upcast)
+        route = attention_route(q.dtype, q.shape[2], upcast, kernel="flash_bwd_fused")
         groups = FUSED_DQ_GROUPS if route == ROUTE_WGMMA else 1
         dq = torch.zeros((groups, *q.shape), dtype=torch.float32, device=q.device)
         lock = torch.zeros((groups, q.shape[0], -(-q.shape[1] // _BLOCK)), dtype=torch.int32,

@@ -13,7 +13,7 @@ Run it on two checkouts in turns (A, B, B, A) and compare within the call.
 Each case is timed with CUDA events over 20 launches after 3, on standard
 normal inputs from seed 0 (kernel 5: x and the residual channels-first seen
 as NDHWC, as the 3D UNet hands them over, the kernel at 1 / sqrt(27 Cin)); a
-line of kernels 1-4 names its body (`route`: mma or wgmma, as
+line of kernels 1-4 names its body (`route`: mma, wgmma or tf32, as
 `ops.attention_route` picks it; a checkout from before it has the mma.sync
 bodies alone, but for kernels 2 and 3 where its `backward_route` names
 wgmma).
@@ -33,7 +33,9 @@ HERE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fi
 # bench training shapes; kernels 2, 3 and 4 at the 3D shape and the 2D bench
 # and recipe training shapes; kernels 1-4 also at the latent UNet's shape and
 # the 3D shape's sequence-parallel allgather rows (n = 2): every bf16 D = 64
-# shape the main paths give them
+# shape the main paths give them; kernels 2 and 3 at the same three shapes in
+# f32 (the 3D LDM recipe's f32 stage-1 and stage-2 attention and its cut
+# stage-1 step's allgather rows)
 CASES = (
     ("flash_fwd", (2, 32768, 32768, 64), "bfloat16"),
     ("flash_fwd", (2, 4096, 4096, 64), "bfloat16"),
@@ -55,6 +57,12 @@ CASES = (
     ("flash_bwd_fused", (2, 16384, 32768, 64), "bfloat16"),
     ("flash_bwd_fused", (128, 1024, 1024, 256), "bfloat16"),
     ("flash_bwd_fused", (64, 1024, 1024, 256), "float32"),
+    ("flash_bwd_dq", (2, 32768, 32768, 64), "float32"),
+    ("flash_bwd_dq", (2, 4096, 4096, 64), "float32"),
+    ("flash_bwd_dq", (2, 16384, 32768, 64), "float32"),
+    ("flash_bwd_dkv", (2, 32768, 32768, 64), "float32"),
+    ("flash_bwd_dkv", (2, 4096, 4096, 64), "float32"),
+    ("flash_bwd_dkv", (2, 16384, 32768, 64), "float32"),
 )
 # kernel 5 at the 13 bf16 call shapes of the 3D UNet's forward at 128^3
 # (chip_smoke.py's FUSED_CASES): (name, (B, D, H, W), Cin, Cout, residual)
@@ -76,6 +84,23 @@ CONV_CASES = (
 # the backward launchers by kernel name
 BACKWARD = {"flash_bwd_dq": "FLASH_BWD_DQ", "flash_bwd_dkv": "FLASH_BWD_DKV",
             "flash_bwd_fused": "FLASH_BWD_FUSED"}
+
+
+def route_name(ops, kernel: str, dtype, d: int) -> str:
+    """The body `kernel` runs for these inputs: `ops.attention_route`'s (by
+    kernel where it takes one: a checkout from before the TF32 route passes
+    no kernel), or `backward_route`'s for kernels 2 and 3 in a checkout from
+    before `attention_route`, else mma.sync."""
+    routed = getattr(ops, "attention_route", None)
+    if routed is None and kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        routed = getattr(ops, "backward_route", None)
+    if routed is None:
+        return "mma"
+    try:
+        route = routed(dtype, d, False, kernel=kernel)
+    except TypeError:
+        route = routed(dtype, d)
+    return {1: "wgmma", 2: "tf32"}.get(route, "mma")
 
 
 def time_ms(torch, fn, iters: int = 20) -> float:
@@ -134,10 +159,7 @@ def main(argv=None) -> list[dict]:
             del out, lse2, qp, do2, delta
         line = dict(root=root, kernel=kernel, shape=[bh, sq, sk, d], dtype=dtype_name, ms=ms,
                     card=card)
-        routed = getattr(ops, "attention_route", None)
-        if routed is None and kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
-            routed = getattr(ops, "backward_route", None)
-        line["route"] = "wgmma" if routed and routed(dtype, d) == 1 else "mma"
+        line["route"] = route_name(ops, kernel, dtype, d)
         print(json.dumps(line), flush=True)
         results.append(line)
         del q, k, v, dout

@@ -14,17 +14,22 @@ products keep f32 accuracy) and 2e-2 for bf16 (O rounded to bf16); the lse
 Backward (dq, dk, dv of kernels 2 and 3, and of the fused kernel 4),
 relative to the largest gradient: 1e-4 for f32 (summation order over up to
 1024 keys), 2e-2 for bf16. Kernel 4 against kernels 2 + 3 on the same
-inputs: dk and dv equal to the bit on either body of `attention_route`
-(the mma.sync body the two share, and on the wgmma route, bf16 at D = 64,
-the same dV and dK products in the same order); dq within 1e-5 of its
+inputs: dk and dv equal to the bit where the two run one body of
+`attention_route` (the mma.sync body the two share, and on the wgmma
+route, bf16 at D = 64, the same dV and dK products in the same order), and
+at f32 D = 64, where kernel 3 runs its TF32 wgmma body and kernel 4
+mma.sync, within 1e-5 of their largest value (the same f32 products summed
+in another order); dq within 1e-5 of its
 largest value in f32 (f32 sums of the key blocks' parts in key-block
 order), and in bf16 within one bf16 ulp of its value (those sums may round
 to the other side of a bf16 tie) plus that 1e-5 (sums that cancel). The
 wgmma route of kernels 1-4 against the plain versions in both exp2
-contracts, causal, ragged, Sk = 1 and 77 and Sq below and above Sk, two
-launches equal to the bit; each input takes one body, so the four C
-entries refuse the mma.sync route at bf16 D = 64, the wgmma route at f32
-and an unknown route. Kernels 2-4
+contracts, and the TF32 route of kernels 2 and 3 (f32 at D = 64) in all
+three, causal, ragged, Sk = 1 and 77 and Sq below and above Sk, two
+launches equal to the bit; each (kernel, input) takes one body, so the C
+entries refuse the mma.sync route at bf16 D = 64 (and kernels 2 and 3 at
+f32 D = 64), the wgmma route at f32, the TF32 route in kernels 1 and 4
+and at bf16, and an unknown route. Kernels 2-4
 compute s and dp by one function, kernel 2 with the
 queries as the mma's A operand, kernels 3 and 4 with the keys: both roles
 give the same s, dp and ds to the bit, so every bf16 ds rounds alike in
@@ -119,6 +124,7 @@ from generativemodels_tpu_torch.ops import (
 from generativemodels_tpu_torch.ops.flash_attention import (
     FLASH_BWD_ROLES,
     ROUTE_MMA,
+    ROUTE_TF32,
     ROUTE_WGMMA,
     _backward_rows,
     _prescaled,
@@ -278,28 +284,39 @@ def test_fused_backward_kernel_on_gpu(cuda_device, monkeypatch, d, dtype, bh, sq
     for a, b in zip(fused, want):
         assert a.dtype == dtype and a.shape == b.shape
         assert (a.float() - b.float()).abs().max().item() <= tol * b.float().abs().max().item()
-    _assert_fused_dkv_agree(fused, split)
+    _assert_fused_dkv_agree(fused, split, dtype, d)
     _assert_within_fused_margin(fused[0], split[0])
 
 
-def _assert_within_fused_margin(got, want):
+def _assert_within_fused_margin(got, want, size=None):
     """Kernel 4's dq against kernel 2's (and its dk, dv against kernel 3's
-    on the wgmma route): the same f32 products summed in another order,
-    within 1e-5 of the largest value in f32, and in bf16 within one bf16
-    ulp (2**-7 of the value's power of two) plus that margin."""
+    where the two run different bodies): the same f32 products summed in
+    another order, within 1e-5 of the largest value in f32, and in bf16
+    within one bf16 ulp (2**-7 of the value's power of two) plus that
+    margin. `size` stands in for the largest value where a gradient
+    cancels to rounding (`_gradient_sizes`: dq and dk at Sk = 1)."""
     a, b = got.float(), want.float()
+    scale = b.abs().max().item() if size is None else size
     if want.dtype == torch.float32:
-        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-5 * scale
     else:
         ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30))) - 7)
-        assert bool(((a - b).abs() <= ulp + 1e-5 * b.abs().max()).all())
+        assert bool(((a - b).abs() <= ulp + 1e-5 * scale).all())
 
 
-def _assert_fused_dkv_agree(fused, split):
-    """Kernel 4's dk, dv against kernel 3's: equal to the bit on either
-    route (each runs kernel 3's dV and dK products in kernel 3's order)."""
-    torch.testing.assert_close(fused[1], split[1], rtol=0, atol=0)
-    torch.testing.assert_close(fused[2], split[2], rtol=0, atol=0)
+def _assert_fused_dkv_agree(fused, split, dtype, d, upcast=False, sizes=(None,) * 3):
+    """Kernel 4's dk, dv against kernel 3's: equal to the bit where the two
+    run one body (each runs kernel 3's dV and dK products in kernel 3's
+    order); at f32 D = 64 (kernel 3 on its TF32 body, kernel 4 on
+    mma.sync) within the fused margin, as kernel 4's dq is held (`sizes`:
+    `_gradient_sizes`, where dk cancels to rounding)."""
+    if (attention_route(dtype, d, upcast, kernel="flash_bwd_dkv")
+            == attention_route(dtype, d, upcast, kernel="flash_bwd_fused")):
+        torch.testing.assert_close(fused[1], split[1], rtol=0, atol=0)
+        torch.testing.assert_close(fused[2], split[2], rtol=0, atol=0)
+    else:
+        _assert_within_fused_margin(fused[1], split[1], sizes[1])
+        _assert_within_fused_margin(fused[2], split[2], sizes[2])
 
 
 @pytest.mark.cuda
@@ -461,7 +478,8 @@ def test_contract_backward_kernels_match_reference_on_gpu(cuda_device, monkeypat
                                                           case, d, dtype):
     """Kernels 2 + 3 and kernel 4 under each contract against the plain
     backward, relative to the largest gradient at BWD_TOL; kernel 4's dk
-    and dv against kernel 3's as in the default contract (to the bit). At
+    and dv against kernel 3's as in the default contract (to the bit where
+    they share a body). At
     Sk = 1 each row's softmax is 1 and ds = p (dp - delta) cancels to
     rounding, so dq and dk are 0 in exact arithmetic: they are held to the
     size of the cancelling terms (max|dO| max|v| max|k|, or max|q| for dk,
@@ -485,7 +503,7 @@ def test_contract_backward_kernels_match_reference_on_gpu(cuda_device, monkeypat
             assert a.dtype == dtype and a.shape == b.shape
             assert bool(torch.isfinite(a.float()).all())
             assert (a.float() - b.float()).abs().max().item() <= BWD_TOL[dtype] * size
-    _assert_fused_dkv_agree(fused, split)
+    _assert_fused_dkv_agree(fused, split, dtype, d, upcast, sizes)
 
 
 def _gradient_sizes(args, kw, want) -> list[float]:
@@ -530,7 +548,8 @@ def test_wgmma_route_backward_kernels_on_gpu(cuda_device, contract, case):
     kernel 3's to the bit and its dq is within the fused margin of kernel
     2's."""
     bh, sq, sk, causal = WGMMA_SHAPES[case]
-    assert attention_route(torch.bfloat16, 64) == ROUTE_WGMMA
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused"):
+        assert attention_route(torch.bfloat16, 64, kernel=kernel) == ROUTE_WGMMA
     args, kw = _contract_backward_inputs(cuda_device, bh, sq, sk, 64, torch.bfloat16, causal,
                                          False, contract == "no_max")
     q_in, k, v, out, lse2, dout = args
@@ -554,8 +573,47 @@ def test_wgmma_route_backward_kernels_on_gpu(cuda_device, contract, case):
             assert bool(torch.isfinite(a.float()).all())
             assert (a.float() - b.float()).abs().max().item() <= BWD_TOL[torch.bfloat16] * size
             assert torch.equal(a.view(torch.int16), a2.view(torch.int16))
-    _assert_fused_dkv_agree(fused, first)
+    _assert_fused_dkv_agree(fused, first, torch.bfloat16, 64)
     _assert_within_fused_margin(fused[0], first[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_SHAPES))
+@pytest.mark.parametrize("contract", ["no_max", "running_max", "upcast"])
+def test_tf32_route_backward_kernels_on_gpu(cuda_device, contract, case):
+    """Kernels 2 and 3 on their TF32 wgmma body (f32 at D = 64), in all three
+    contracts, at the wgmma route's shapes in f32 (Sq and Sk no multiples of
+    the body's 32-row tiles or 128-row blocks): against the plain backward
+    at BWD_TOL (relative to `_gradient_sizes`), two launches equal to the
+    bit (no atomics; a dq row belongs to one warpgroup, a dk, dv row to
+    one); kernel 4 (mma.sync there) within the fused margin of them."""
+    bh, sq, sk, causal = WGMMA_SHAPES[case]
+    upcast = contract == "upcast"
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert attention_route(torch.float32, 64, upcast, kernel=kernel) == ROUTE_TF32
+    args, kw = _contract_backward_inputs(cuda_device, bh, sq, sk, 64, torch.float32, causal,
+                                         upcast, contract != "running_max")
+    q_in, k, v, out, lse, dout = args
+    do_k, delta = _backward_rows(out, dout, upcast)
+    bkw = dict(causal=causal, upcast=upcast, no_max=kw["no_max"], scale=kw["scale"])
+    counters = (FLASH_BWD_DQ, FLASH_BWD_DKV)
+    before = [c.launches for c in counters]
+    first = (FLASH_BWD_DQ(q_in, k, v, do_k, lse, delta, **bkw),
+             *FLASH_BWD_DKV(q_in, k, v, do_k, lse, delta, **bkw))
+    again = (FLASH_BWD_DQ(q_in, k, v, do_k, lse, delta, **bkw),
+             *FLASH_BWD_DKV(q_in, k, v, do_k, lse, delta, **bkw))
+    fused = FLASH_BWD_FUSED(q_in, k, v, do_k, lse, delta, **bkw)
+    want = flash_attention_backward_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [n + 2 for n in before]
+    sizes = _gradient_sizes(args, kw, want)
+    for a, a2, b, size in zip(first, again, want, sizes):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert bool(torch.isfinite(a).all())
+        assert (a - b).abs().max().item() <= BWD_TOL[torch.float32] * size
+        assert torch.equal(a.view(torch.int32), a2.view(torch.int32))
+    _assert_fused_dkv_agree(fused, first, torch.float32, 64, upcast, sizes)
+    _assert_within_fused_margin(fused[0], first[0], sizes[0])
 
 
 @pytest.mark.cuda
@@ -569,7 +627,7 @@ def test_wgmma_route_forward_kernel_on_gpu(cuda_device, contract, case):
     also equal to the bit those of launches on two heads at a time, at
     64-row blocks); two launches give the same bits."""
     bh, sq, sk, causal = WGMMA_SHAPES.get(case, (140, 300, 300, True))
-    assert attention_route(torch.bfloat16, 64) == ROUTE_WGMMA
+    assert attention_route(torch.bfloat16, 64, kernel="flash_fwd") == ROUTE_WGMMA
     q, k, v = _contract_inputs(cuda_device, bh, sq, sk, 64, torch.bfloat16)
     kw = dict(scale=0.125, causal=causal, no_max=contract == "no_max")
     before = FLASH_FWD.launches
@@ -590,33 +648,51 @@ def test_wgmma_route_forward_kernel_on_gpu(cuda_device, contract, case):
             assert torch.equal(part_lse, lse[i:i + 2])
 
 
+# a route that no kernel takes
+UNKNOWN_ROUTE = 3
+ALL_FOUR = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype, route", [(torch.bfloat16, ROUTE_MMA),
-                                          (torch.float32, ROUTE_WGMMA), (torch.bfloat16, 2)],
-                         ids=["mma_at_bf16_d64", "wgmma_at_f32", "unknown"])
-def test_backward_route_refused_on_gpu(cuda_device, monkeypatch, dtype, route):
-    """Each input of kernels 1-4 takes one body: their C entries refuse the
-    mma.sync route at bf16 D = 64 (exp2 contracts), the wgmma route at f32
-    and an unknown route; the launcher raises and counts no launch."""
+@pytest.mark.parametrize(
+    "dtype, route, refusing",
+    [(torch.bfloat16, ROUTE_MMA, ALL_FOUR), (torch.float32, ROUTE_WGMMA, ALL_FOUR),
+     (torch.bfloat16, UNKNOWN_ROUTE, ALL_FOUR),
+     (torch.float32, ROUTE_MMA, ("flash_bwd_dq", "flash_bwd_dkv")),
+     (torch.float32, ROUTE_TF32, ("flash_fwd", "flash_bwd_fused")),
+     (torch.bfloat16, ROUTE_TF32, ALL_FOUR)],
+    ids=["mma_at_bf16_d64", "wgmma_at_f32", "unknown", "mma_at_f32_d64_split",
+         "tf32_in_kernels_1_and_4", "tf32_at_bf16"])
+def test_backward_route_refused_on_gpu(cuda_device, monkeypatch, dtype, route, refusing):
+    """Each (kernel, input) of kernels 1-4 takes one body: their C entries
+    refuse the mma.sync route at bf16 D = 64 (exp2 contracts) and, in
+    kernels 2 and 3, at f32 D = 64, the wgmma route at f32, the TF32 route
+    in kernels 1 and 4 and at bf16, and an unknown route; the launcher
+    raises and counts no launch."""
     args, _ = _contract_backward_inputs(cuda_device, 2, 128, 128, 64, dtype, False, False, True)
     q_in, k, v, out, lse2, dout = args
     do2, delta = _backward_rows(out, dout)
-    for kernel, outputs in ((FLASH_BWD_DQ, (torch.empty_like(q_in),)),
-                            (FLASH_BWD_DKV, (torch.empty_like(k), torch.empty_like(v)))):
-        before = kernel.launches
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            kernel._run(outputs, q_in, k, v, do2, lse2, delta, False, False, True, 1.0, route)
-        assert kernel.launches == before
     # kernels 1 and 4 take the route from `attention_route`: stand the one
     # under test in for it
     monkeypatch.setattr(sys.modules[FLASH_FWD.__module__], "attention_route",
                         lambda *a, **k_: route)
-    for kernel, call in ((FLASH_FWD, lambda: FLASH_FWD(q_in, k, v, scale=0.125)),
-                         (FLASH_BWD_FUSED, lambda: FLASH_BWD_FUSED(q_in, k, v, do2, lse2, delta))):
+    calls = {
+        "flash_bwd_dq": (FLASH_BWD_DQ, lambda: FLASH_BWD_DQ._run(
+            (torch.empty_like(q_in),), q_in, k, v, do2, lse2, delta, False, False, True, 1.0,
+            route)),
+        "flash_bwd_dkv": (FLASH_BWD_DKV, lambda: FLASH_BWD_DKV._run(
+            (torch.empty_like(k), torch.empty_like(v)), q_in, k, v, do2, lse2, delta, False,
+            False, True, 1.0, route)),
+        "flash_fwd": (FLASH_FWD, lambda: FLASH_FWD(q_in, k, v, scale=0.125)),
+        "flash_bwd_fused": (FLASH_BWD_FUSED, lambda: FLASH_BWD_FUSED(q_in, k, v, do2, lse2,
+                                                                     delta)),
+    }
+    for name in refusing:
+        kernel, call = calls[name]
         before = kernel.launches
         with pytest.raises(RuntimeError, match="CUDA error"):
             call()
-        assert kernel.launches == before
+        assert kernel.launches == before, name
 
 
 @pytest.mark.cuda
@@ -1419,6 +1495,8 @@ def test_png_family_reads_through_pil_where_the_decoder_is_missing(cuda_device, 
 # (BH, S, D, dtype, n), the sequence cut in n blocks
 SEQ_PARALLEL_CASES = [(2, 4096, 64, torch.bfloat16, 2), (2, 4096, 64, torch.bfloat16, 4),
                       (2, 2048, 128, torch.float32, 2),
+                      # kernels 2 and 3 on their TF32 body (the cut f32 stage-1 step's)
+                      (2, 4096, 64, torch.float32, 2),
                       # kernel 1's wgmma body at 128-row blocks unsharded, 64-row ones local
                       (8, 4096, 64, torch.bfloat16, 4)]
 
