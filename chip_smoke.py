@@ -23,8 +23,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      their products with the softmax, and kernels 1-4 on their wgmma route
      issue one tile's products with the next tile's), and each kernel's
      count of instantiations (kernels 1-4 have no mma.sync one at bf16 D =
-     64 in the exp2 contracts, kernels 2 and 3 none at f32 D = 64, where
-     their TF32 wgmma bodies run in all three contracts);
+     64 in the exp2 contracts, kernels 2 and 3 none at bf16 D = 256 in the
+     exp2 contracts, where their D = 256 wgmma body runs, nor at f32 D = 64,
+     where their TF32 wgmma bodies run in all three contracts);
   2. kernels against their plain versions: O and lse of the flash-attention
      forward kernel against `flash_attention_reference` (then the forward
      against the plain attention path at seq 256-1024, the numbers behind
@@ -33,7 +34,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the fused one also against the split ones: dk, dv to the bit where
      the two run one body of `attention_route` (the wgmma one for bf16 at D
      = 64, else mma.sync), within the fused dq margin at f32 D = 64, where
-     kernel 3 runs its TF32 wgmma body, and dq within the fused dq margin
+     kernel 3 runs its TF32 wgmma body, and at bf16 D = 256, where it runs
+     its D = 256 wgmma body, and dq within the fused dq margin
      of its largest value (at f32 D = 64, where kernel 2 runs the TF32 body,
      also of the size of the terms that cancel at Sk = 1: `fused_agree`);
      and kernels 2 and 3 against themselves: dq, dk and dv must be the same
@@ -42,7 +44,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      them), the plain version's and SDPA's backward; the wgmma route's own
      cases, ROUTE_CASES, run kernels 1-4 in both exp2 contracts and under
      upcast, ROUTE_CASES_F32 the same shapes in f32, on kernels 2 and 3's
-     TF32 body), and the
+     TF32 body, ROUTE_CASES_WIDE the same shapes at bf16 D = 256, on
+     kernels 2 and 3's D = 256 wgmma body), and the
      fused GroupNorm-SiLU-conv3d kernel against
      `fused_norm_silu_conv3d_reference` (two launches equal to the bit, and
      the sums over one 3D forward's 22 launches), at the shapes the serving, training
@@ -58,8 +61,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      for every step of one DDIM-50 chain;
   4. training: (a) `recipes.train_2d_ddpm.main` at its defaults (f32, batch
      64, 64x64) for ten steps, (b) the bench.py config (bf16 compute, batch
-     128) through `make_diffusion_train_step` for ten steps, each with the
-     three kernels' launches counted over the run; (c) one step's parameter
+     128; kernels 2 and 3 on their D = 256 wgmma body) through
+     `make_diffusion_train_step` for ten steps, each with the three
+     kernels' launches counted over the run; (c) one step's parameter
      gradients with seeded random weights, the kernel path against the
      plain attention path, without and with `use_checkpointing`;
   5. 3D sampling: bench.py's 3D UNet (32, 64, 128) in bf16 at 128^3, batch
@@ -309,8 +313,10 @@ THRESHOLD_CASES = ((2, 2, 64, "bfloat16"), (4, 1, 256, "float32"))
 # (csrc/flash_contract.cuh), where bf16 D = 64 in the 2 exp2 contracts is
 # the wgmma body at 64- and 128-row blocks (4) in place of 2 mma.sync ones;
 # kernels 2-4: 3 kernels x the same 20, where each at bf16 D = 64 in the 2
-# exp2 contracts is its wgmma body (6 in all), and kernels 2 and 3 at f32 D
-# = 64 in the 3 contracts their TF32 wgmma body (6 in all); kernel 5: the
+# exp2 contracts is its wgmma body (6 in all), kernels 2 and 3 at bf16 D =
+# 256 in the 2 exp2 contracts their D = 256 wgmma body (4 in all), and
+# kernels 2 and 3 at f32 D = 64 in the 3 contracts their TF32 wgmma body (6
+# in all); kernel 5: the
 # f32 kernel at 3 BN, the bf16 kernel at the 3 depth runs of
 # `ops.fused_conv.CONV_RUNS`; kernels 6 and 7: 7 overlap variants and the 4
 # (scale in kernel, bf16 p) pairs), so that a log that stops matching fails
@@ -318,7 +324,8 @@ NO_STACK_KERNELS = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "flash_fwd_
                     "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel",
                     "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                     "flash_bwd_fused_wgmma_kernel", "flash_bwd_dq_tf32_kernel",
-                    "flash_bwd_dkv_tf32_kernel",
+                    "flash_bwd_dkv_tf32_kernel", "flash_bwd_dq_wide_kernel",
+                    "flash_bwd_dkv_wide_kernel",
                     "fused_conv_f32_kernel", "fused_conv_mma_kernel",
                     "flash_probe_overlap_kernel", "flash_probe_vpu_kernel")
 NO_STACK_INSTANCES = {"flash_fwd.cu": 22, "flash_bwd.cu": 60, "fused_conv.cu": 6,
@@ -327,13 +334,15 @@ NO_STACK_INSTANCES = {"flash_fwd.cu": 22, "flash_bwd.cu": 60, "fused_conv.cu": 6
 # bodies of kernels 1-4 lack bf16 D = 64 in the exp2 contracts (kernel 1's
 # bf16 one: 3 other widths x 2 contracts; kernels 2-4's: 20 - 2), which the
 # wgmma bodies take (kernel 1 at two block heights); those of kernels 2 and
-# 3 also lack f32 D = 64 (20 - 2 - 3), which their TF32 bodies take
+# 3 also lack bf16 D = 256 in the exp2 contracts and f32 D = 64 (20 - 2 - 2
+# - 3), which their D = 256 wgmma and TF32 bodies take
 KERNEL_INSTANCES = {
     "flash_fwd.cu": {"flash_fwd_bf16_kernel": 6, "flash_fwd_f32_kernel": 12,
                      "flash_fwd_wgmma_kernel": 4},
-    "flash_bwd.cu": {"flash_bwd_dq_kernel": 15, "flash_bwd_dkv_kernel": 15,
+    "flash_bwd.cu": {"flash_bwd_dq_kernel": 13, "flash_bwd_dkv_kernel": 13,
                      "flash_bwd_fused_kernel": 18, "flash_bwd_dq_wgmma_kernel": 2,
                      "flash_bwd_dkv_wgmma_kernel": 2, "flash_bwd_fused_wgmma_kernel": 2,
+                     "flash_bwd_dq_wide_kernel": 2, "flash_bwd_dkv_wide_kernel": 2,
                      "flash_bwd_dq_tf32_kernel": 3, "flash_bwd_dkv_tf32_kernel": 3},
 }
 # (name, (BH, Sq, Sk, D), dtype name, causal) of the backward kernels
@@ -532,8 +541,15 @@ ROUTE_CASES = (
 # 32-row tiles, 128-row blocks) in all three contracts
 ROUTE_CASES_F32 = tuple((f"{name}_f32", shape, "float32", causal, timed)
                         for name, shape, _, causal, timed in ROUTE_CASES)
+# the same shapes at head width 256 in bf16: kernels 2 and 3's D = 256
+# wgmma body (kernel 2: 128-row blocks, 32-key tiles; kernel 3: 64-key
+# blocks, 64-row q tiles) in both exp2 contracts, kernels 1 and 4 on
+# mma.sync (upcast runs them all in f32)
+ROUTE_CASES_WIDE = tuple((f"{name}_d256", (bh, sq, sk, 256), dtype_name, causal, timed)
+                         for name, (bh, sq, sk, _), dtype_name, causal, timed in ROUTE_CASES)
 CONTRACT_RUNS = ([(c, flags, CONTRACT_CASES) for c, flags in CONTRACTS.items()]
-                 + [(c, flags, cases) for cases in (ROUTE_CASES, ROUTE_CASES_F32)
+                 + [(c, flags, cases) for cases in (ROUTE_CASES, ROUTE_CASES_F32,
+                                                    ROUTE_CASES_WIDE)
                     for c, flags in {**CONTRACTS, "no_max": (False, True)}.items()])
 # the kernels line's contract numbers: kernel 1 and kernels 2 + 3 at the 2D
 # serving shape in f32 (kernel 1's main case), kernel 4 at the 3D shape
@@ -926,12 +942,13 @@ def source_constants(source: str) -> dict:
 
 
 def dkv_tiles(dtype_name: str, d: int) -> tuple[int, int]:
-    """(q rows of a q tile, keys of a block) of kernels 3 and 4 for inputs
-    of `dtype_name` and head width `d`, read from the `constexpr int`s of
-    csrc/flash_bwd.cu: on the wgmma route (bf16 at D = 64, its namespace
-    `wg`) a q tile is `kTile` rows and a block `kConsumers` x `kRows` keys,
-    else the mma.sync body's `kBrBf16` or `kBrF32` and `kBcNarrow` or
-    `kBcWide`."""
+    """(q rows of a q tile, keys of a block) of kernel 4 (and of kernel 3
+    where it shares kernel 4's body) for inputs of `dtype_name` and head
+    width `d`, read from the `constexpr int`s of csrc/flash_bwd.cu: on the
+    wgmma route (bf16 at D = 64, its namespace `wg`) a q tile is `kTile`
+    rows and a block `kConsumers` x `kRows` keys, else the mma.sync body's
+    `kBrBf16` or `kBrF32` and `kBcNarrow` or `kBcWide` (kernel 4 keeps
+    mma.sync at bf16 D = 256, where kernel 3 runs namespace `wd`)."""
     tiles = source_constants("flash_bwd.cu")
     if dtype_name == "bfloat16" and d == tiles["kD"]:
         return tiles["kTile"], tiles["kConsumers"] * tiles["kRows"]
@@ -1602,9 +1619,12 @@ def train_recipe(torch, ops, recipe) -> dict:
     return dict(launches=counts, steps_per_sec=sps)
 
 
-def train_bench(torch, ops, nets, parallel, schedulers) -> float:
+def train_bench(torch, ops, nets, parallel, schedulers) -> dict:
     """Phase 4 (b): bench.py's config (bf16 compute, batch 128) through
-    make_diffusion_train_step; returns steps/s over the steps after two."""
+    make_diffusion_train_step; returns the launches (counted from 0 over
+    its TRAIN_STEPS steps) and steps/s over the steps after two. Its
+    attention runs at (128, 1024, 1024, 256) bf16: kernels 2 and 3 on their
+    D = 256 wgmma body, kernel 1 on mma.sync."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = nets.DiffusionModelUNet(
@@ -1640,9 +1660,12 @@ def train_bench(torch, ops, nets, parallel, schedulers) -> float:
         raise AssertionError(f"bench-config losses not finite: {losses}")
     check_launches(counts, expected_launches(TRAIN_STEPS, flash_fwd=3, flash_bwd_dq=3,
                                              flash_bwd_dkv=3), "bench config")
+    log("train: bench config bodies: " + ", ".join(
+        f"{kernel} {route_name(ops, torch.bfloat16, BENCH['channels'][-1], False, kernel)}"
+        for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")))
     del state, model
     torch.cuda.empty_cache()
-    return sps
+    return dict(launches=counts, steps_per_sec=sps)
 
 
 def max_grad_diff(got: dict, want: dict) -> tuple[float, str]:
@@ -4615,7 +4638,7 @@ def main() -> int:
 
     # phase 4: training through its entry points
     trained = train_recipe(torch, ops, recipe)
-    train_bench(torch, ops, nets, parallel, schedulers)
+    bench = train_bench(torch, ops, nets, parallel, schedulers)
     check_gradients(torch, ops, nets, parallel, schedulers, recipe)
 
     # phase 5: 3D sampling through its entry points, then DPM-Solver++ serving
@@ -4751,6 +4774,13 @@ def main() -> int:
     for name, part in (("flash_bwd_dq", "dq"), ("flash_bwd_dkv", "dkv"),
                        ("flash_bwd_fused", "fused")):
         extra[name]["backward_cases"] = {case: entry[part] for case, entry in backward.items()}
+    # kernels 1-3 on phase 4 (b)'s bench.py step (bf16, batch 128): phase 2's
+    # numbers at its shape (kernels 2 and 3 on their D = 256 wgmma body),
+    # with the step's launches
+    for name, entry in (("flash_fwd", forward["train_bench_bf16"]),
+                        ("flash_bwd_dq", backward["train_bench_bf16"]["dq"]),
+                        ("flash_bwd_dkv", backward["train_bench_bf16"]["dkv"])):
+        extra.setdefault(name, {})["bench_bf16"] = dict(entry, launches=bench["launches"][name])
     # kernels 1-4 on phase 10's f32 3D LDM path: phase 2's numbers at the
     # stage-1 AEKL's shape, with the launches of the f32 recipe run (kernel 4
     # from the fused run)

@@ -133,14 +133,17 @@ inline cudaError_t encode_tiled_map(CUtensorMap* map, CUtensorMapDataType type, 
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// The TMA map of a contiguous (bh, rows, 64) bf16 tensor (attention's heads)
-// seen as (64, rows, bh): a box of `box_cols` columns x `box_rows` rows in
-// `swizzle`, rows past `rows` of a head read as 0
-inline cudaError_t encode_head_rows_map(CUtensorMap* map, const void* base, int rows, int bh,
-                                        int box_cols, int box_rows,
+// The TMA map of a contiguous (bh, rows, width) bf16 tensor (attention's
+// heads) seen as (width, rows, bh): a box of `box_cols` columns x `box_rows`
+// rows in `swizzle`, rows past `rows` of a head read as 0. A box is at most
+// one swizzle row wide (64 columns in the 128-byte swizzle), so a wider head
+// is loaded as one box per 64 columns
+inline cudaError_t encode_head_rows_map(CUtensorMap* map, const void* base, int width, int rows,
+                                        int bh, int box_cols, int box_rows,
                                         CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
-  const cuuint64_t dims[3] = {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {64 * 2, static_cast<cuuint64_t>(rows) * 64 * 2};
+  const cuuint64_t w = static_cast<cuuint64_t>(width);
+  const cuuint64_t dims[3] = {w, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {w * 2, static_cast<cuuint64_t>(rows) * w * 2};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
                              1};
   return encode_tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box,
@@ -158,7 +161,11 @@ inline cudaError_t encode_head_rows_map(CUtensorMap* map, const void* base, int 
 // the swizzle's row) and MN-major, with the transpose bit, for one whose rows
 // run along K (V of o = p v: a k-step of 16 rows adds 2048 bytes). The
 // leading byte offset is not read at this width: a K-major row and an
-// MN-major row of 64 elements are each one swizzle atom wide.
+// MN-major row of 64 elements are each one swizzle atom wide. A wider bf16
+// row (256 columns: four atoms) lies as one such tile per 64 columns, each
+// loaded by its own TMA box: a K-major k-step of 16 columns stays inside
+// one atom (the k-steps over d move from atom to atom), and an MN-major
+// operand is read one atom, N = 64, at a time.
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 32)
          | (static_cast<uint64_t>(1) << 62);
@@ -330,6 +337,31 @@ __device__ __forceinline__ void wgmma_ss_n32_mn(float (&d)[16], uint64_t a, uint
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a b for a 64 x 64 tile, K = 16: A and B from shared memory by
+// descriptor, A K-major and B MN-major (transposed: B's rows run along K);
+// scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64_trans_b(float (&d)[32], uint64_t a, uint64_t b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

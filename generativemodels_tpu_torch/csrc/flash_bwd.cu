@@ -7,8 +7,10 @@
 // of its largest value plus one bf16 ulp; its dk and dv against kernel 3's
 // to the bit where the two share a body (the same dV and dK products in
 // the same order: dkv_block on the mma.sync route, dkv_tile_probs and
-// products_over_tile on the wgmma route), and within that margin at f32
-// D = 64, where kernel 3 runs the TF32 body and kernel 4 the mma.sync one.
+// products_over_tile on the wgmma route at D = 64), and within that margin
+// where they do not: at f32 D = 64, where kernel 3 runs the TF32 body, and
+// at bf16 D = 256, where it runs the D = 256 wgmma body, and kernel 4 the
+// mma.sync one.
 //
 // Replaces the Pallas TPU kernels of the backward `_flash_bwd` in
 // generativemodels_tpu/ops/flash_attention.py: the split backward's
@@ -18,8 +20,10 @@
 // GMTPU_FLASH_FUSED_BWD=1) becomes flash_bwd_fused_kernel (kernel 4). The
 // last two share one body, dkv_block. On the wgmma route (below) kernels
 // 2-4 are flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel and
-// flash_bwd_fused_wgmma_kernel; on the TF32 route kernels 2 and 3 are
-// flash_bwd_dq_tf32_kernel and flash_bwd_dkv_tf32_kernel.
+// flash_bwd_fused_wgmma_kernel at D = 64, and kernels 2 and 3
+// flash_bwd_dq_wide_kernel and flash_bwd_dkv_wide_kernel at D = 256; on
+// the TF32 route kernels 2 and 3 are flash_bwd_dq_tf32_kernel and
+// flash_bwd_dkv_tf32_kernel.
 // Default contract, as flash_fwd.cu: q arrives prescaled by scale*log2(e)
 // (rounded to q's type), dO arrives multiplied by ln2 (rounded to dO's
 // type), lse2 is the forward's log2-domain lse and delta = rowsum(dO ln2 * O)
@@ -57,15 +61,18 @@
 //   (wgmma) fed by a TMA ring from a producer warpgroup, below. The
 //   softmax arithmetic between the products (an exp2 on the SFU and a
 //   handful of CUDA-core instructions a score) is what keeps it from the
-//   tensor-core bound.
+//   tensor-core bound. Kernels 2 and 3 take the route at bf16 D = 256 too
+//   (the 2D UNets' 256-wide heads: bench.py's training step), on a body of
+//   their own (namespace wd, below); kernel 4 keeps mma.sync there.
 // - kRouteTf32, kernels 2 and 3 at f32 D = 64 in all three contracts (the
 //   f32 3D LDM recipe's stage-1 and stage-2 attention, upcast's D = 64
 //   contexts): warpgroup products on TF32 operands (wgmma m64nNk8, 3xTF32)
 //   fed by a TMA ring and a converter role, below.
-// - kRouteMma, every other case (f32 and upcast as 3xTF32, bf16 at D = 32,
-//   128 and 256; kernels 2-4 have no mma.sync instance at bf16 D = 64 in
-//   the exp2 contracts, kernels 2 and 3 none at f32 D = 64; kernel 4 keeps
-//   it there): the mma.sync bodies, where
+// - kRouteMma, every other case (f32 and upcast as 3xTF32, bf16 at D = 32
+//   and 128, and kernel 4 at bf16 D = 256; kernels 2-4 have no mma.sync
+//   instance at bf16 D = 64 in the exp2 contracts, kernels 2 and 3 none at
+//   bf16 D = 256 there nor at f32 D = 64; kernel 4 keeps it at both): the
+//   mma.sync bodies, where
 //   the tensor pipe's issue rate (mma.sync, as kernel 1) and the operand
 //   fragments read from shared memory by ldmatrix set the floor.
 // - bf16: mma.sync m16n8k16, bf16 operands, f32 accumulation.
@@ -251,7 +258,69 @@
 // and 128 are not this code with another constant (a
 // 64-byte row takes another swizzle; a 256-byte row is two swizzle atoms,
 // and a 64 x 128 accumulator takes 64 registers a thread): they keep the
-// mma.sync body.
+// mma.sync body. D = 256 is another design again (below).
+//
+// Kernels 2 and 3 on the wgmma route at bf16 D = 256 (namespace wd,
+// flash_bwd_dq_wide_kernel and flash_bwd_dkv_wide_kernel, both exp2
+// contracts; the 2D UNets' attention at 1024 tokens in heads of 256). Three
+// warpgroups as above (setmaxnreg 240 / 24), but a row of 256 bf16 is 512
+// bytes, four 128-byte swizzle atoms, and an m64n256 f32 accumulator takes
+// 128 registers a thread:
+// - Each operand tile lies in shared memory as four atoms, one per
+//   64-column TMA box (maps of (256, S, BH), box 64 columns; atom a holds
+//   columns 64a .. 64a + 63 of the tile's rows, 128 bytes a row in the
+//   128-byte swizzle, the atoms rows x 128 bytes apart). A K-major k-step of
+//   16 columns stays inside one atom, so the products over d (S, dP; S^T,
+//   dP^T) step from atom to atom by moving the descriptor's address; an
+//   MN-major operand (K in dq's part; Q and dO in dK's and dV's) is read
+//   one atom, N = 64, at a time, so no descriptor spans atoms and the
+//   leading byte offset stays unread.
+// - Registers: the accumulators that live over the tile loop (dq, or half
+//   of dK's and dV's columns: 64 + 64 a thread) leave no room for A
+//   operands resident in registers (the D = 64 body's design, 64 a thread
+//   each at D = 256) nor for a whole part beside them. So the products over d read
+//   A and B from shared memory (m64n32), and each tile's part is summed
+//   from zero over the tile's keys or queries in 64-column chunks (m64n64,
+//   one 32-register part accumulator), each added in f32 once its group is
+//   waited for; the next tile's S and dP (or S^T and dP^T) are issued with
+//   the last chunk, in one group. (A second part accumulator, each chunk's
+//   add under the next chunk's products, spilled kernel 2 and gained 3% in
+//   kernel 3: not kept.)
+// - Kernel 2 (query-major): a block owns 128 query rows, 64 a consumer; Q
+//   and dO of the block stay resident (128 KB) and K, V come in 32-key
+//   tiles through a three-stage ring (96 KB). Per tile a consumer computes
+//   S = Q K^T and dP = dO V^T (m64n32k16, 16 k-steps each), dS in
+//   registers (rounded to bf16 pairs: the A fragments of the part), and the
+//   dq part dS K (m64n64k16 with A from registers, B an atom of the K tile
+//   MN-major) in four chunks. Shared memory 230456 bytes.
+// - Kernel 3 (key-major): a block owns 64 keys, which both consumers
+//   share; K and V stay resident (64 KB) and Q, dO come in 64-row tiles
+//   through a two-stage ring (128 KB). Per tile consumer c computes S^T =
+//   K Q^T and dP^T = V dO^T for the tile's queries 32c .. 32c + 31
+//   (m64n32k16), P^T and dS^T of those, rounded to bf16 and stored into
+//   its half of the tile's P^T and dS^T buffers (64 keys x 64 queries
+//   each, as TMA writes a tile in the 128-byte swizzle); after both meet at
+//   named barrier 1 it computes its 128 columns of dV += P^T dO and dK +=
+//   dS^T Q over all 64 queries (A the buffers K-major, B the tile's atoms
+//   2c and 2c + 1 MN-major), in four chunks. The buffers alternate between
+//   tiles, so one barrier a tile keeps a buffer from being rewritten while
+//   the other consumer reads it. The tile's lse2 and delta rows come as
+//   above (the producer's second warp). Shared memory 231464 bytes, of the
+//   232448 a block may take: that sets the two stages and the 64-row tile.
+// - The masks, the ragged edges (rows past S read as 0 by TMA, p = 0 for
+//   pairs past Sq, Sk or the causal diagonal, tested only in a tile that
+//   reaches them) and the causal loop bounds are the D = 64 body's; the
+//   grid is one block per 128 query rows (kernel 2) or 64 keys (kernel 3).
+// - What bounds it at (128, 1024, 1024, 256): the operations (0.21 ms for
+//   kernel 2, 0.28 for kernel 3 at 989 TFLOP/s) and shared memory's
+//   bandwidth close behind: the m64n32 products read 3 KB of operands
+//   each 16 tensor cycles, above the 128 bytes a cycle shared memory
+//   gives, so the products over d run at ~2/3 of the tensor rate; then the
+//   chunks' waits. Each block also re-reads its head's streamed operands
+//   from L2 (kernel 3: 1 MiB of Q and dO a block).
+// Kernel 4 keeps the mma.sync body (dkv_block) at bf16 D = 256, so its dk
+// and dv there differ from kernel 3's in summation order (within the
+// fused dq margin), not to the bit.
 //
 // Kernels 2 and 3 on the TF32 route (namespace tf, flash_bwd_dq_tf32_kernel
 // and flash_bwd_dkv_tf32_kernel): f32 at D = 64, every contract (kUpcast
@@ -1147,6 +1216,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_fused_kernel(
     int sq, int sk, int num_kb, int causal, float sscale) {
   dkv_block<T, D, true, K>(q, k, v, dout, lse2, delta, dk, dv, dq_acc, dq_lock, sq, sk, num_kb,
                            causal, sscale);
+}
+
+// the descriptor moved by `bytes` (a multiple of 16), computed where the
+// wgmma that reads it is issued: an opaque add, so that the compiler does
+// not hoist the loop-invariant descriptors of resident operands (some 60
+// 64-bit values a tile in the TF32 body, 32 in the D = 256 one) out of the
+// tile loop, where they would take the registers of the accumulators and
+// spill
+__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t bytes) {
+  uint64_t moved;
+  asm volatile("add.s64 %0, %1, %2;\n" : "=l"(moved) : "l"(desc), "l"(uint64_t{bytes >> 4}));
+  return moved;
 }
 
 // ---- kernels 2 and 3 on the wgmma route (kRouteWgmma): bf16, D = 64 ----
@@ -2120,17 +2201,6 @@ __device__ __forceinline__ void convert(const Smem& m, int tiles, const float* _
   for (int j = 0; j < tiles; ++j) split_tile(j);
 }
 
-// the descriptor moved by `bytes` (a multiple of 16), computed where the
-// wgmma that reads it is issued: an opaque add, so that the compiler does
-// not hoist the loop-invariant descriptors of the resident and transposed
-// operands (some 60 64-bit values a tile) out of the tile loop, where they
-// would take the registers of kernel 3's accumulators and spill
-__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t bytes) {
-  uint64_t moved;
-  asm volatile("add.s64 %0, %1, %2;\n" : "=l"(moved) : "l"(desc), "l"(uint64_t{bytes >> 4}));
-  return moved;
-}
-
 // x = a b^T over d, from zero, in 3xTF32: A the consumer's 64 rows of a
 // resident operand (a_hi, a_lo: its rows in the first 32-column half), B a
 // streamed tile (b_hi, b_lo); the lo x hi products over all of d, then hi x
@@ -2494,6 +2564,619 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
+// ---- kernels 2 and 3 on the wgmma route (kRouteWgmma): bf16, D = 256 ----
+
+namespace wd {
+
+constexpr int kD = 256;                       // head width: four 128-byte swizzle atoms a row
+constexpr int kAtomCols = 64;                 // bf16 columns of an atom (one TMA box's width)
+constexpr int kRows = 64;                     // rows of a consumer warpgroup (wgmma's M)
+constexpr int kConsumers = 2;                 // consumer warpgroups a block
+constexpr int kConsumerThreads = kConsumers * 128;
+constexpr int kThreads = kConsumerThreads + 128;  // + the producer warpgroup
+constexpr int kConsumerWarps = kConsumerThreads / 32;  // arrivals that empty a stage
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
+constexpr int kDSteps = kD / 16;              // k-steps over d: S, dP (and S^T, dP^T)
+constexpr int kPartAcc = 32;                  // accumulator floats of an m64n64 part
+// kernel 2: a block of 128 query rows (64 a consumer), Q and dO resident,
+// K and V streamed in tiles of 32 keys
+constexpr int kDqRows = kConsumers * kRows;
+constexpr int kDqTile = 32;
+constexpr int kDqStages = 3;
+constexpr int kDqTileSteps = kDqTile / 16;    // k-steps of a dq part over the tile's keys
+constexpr int kSAcc = kDqTile / 2;            // accumulator floats of an m64n32 tile
+constexpr int kDqAcc = kD / 2;                // accumulator floats of an m64n256 tile (dq)
+// kernel 3: a block of 64 keys (both consumers), K and V resident, Q and dO
+// streamed in tiles of 64 query rows; a consumer computes S^T and dP^T for
+// half of a tile's queries and owns half of dK's and dV's columns
+constexpr int kDkvKeys = kRows;
+constexpr int kDkvTile = 64;
+constexpr int kDkvStages = 2;
+constexpr int kHalfTile = kDkvTile / kConsumers;  // 32 queries of a consumer's S^T, dP^T
+constexpr int kDkvCols = kD / kConsumers;         // 128 columns of a consumer's dK, dV
+constexpr int kDkvTileSteps = kDkvTile / 16;      // k-steps of dV's, dK's parts
+constexpr int kDkvAcc = kDkvCols / 2;             // accumulator floats of dK or dV (m64n128)
+static_assert(kHalfTile == kDqTile, "S^T, dP^T and S, dP are both m64n32 tiles");
+static_assert(kDkvTile * 2 == 128, "a P^T or dS^T row is one 128-byte swizzle row");
+
+// Dynamic shared memory from a 1024-byte-aligned base: the two resident
+// operands (Q and dO, or K and V), kStages stages of the two streamed ones
+// (K and V, or Q and dO), each an operand of `rows` x 256 bf16 as four atoms,
+// one per 64-column TMA box (atom a: columns 64a .. 64a + 63 of the rows,
+// 128 bytes a row in the 128-byte swizzle, atoms rows x 128 bytes apart);
+// kernel 3 (kProbs) then two buffers of the q tile's P^T and dS^T (64 keys
+// x 64 queries each, one atom), and the lse2 and delta rows of each stage;
+// then the full and empty mbarriers of each stage and the resident
+// operands' barrier
+template <int kResRows, int kTileRows, int kStages, bool kProbs>
+struct Layout {
+  static constexpr int kResRowsN = kResRows;
+  static constexpr int kTileRowsN = kTileRows;
+  static constexpr int kStagesN = kStages;
+  static constexpr int kResBytes = kResRows * kD * 2;    // one resident operand
+  static constexpr int kTileBytes = kTileRows * kD * 2;  // one streamed operand
+  static constexpr int kStagesAt = 2 * kResBytes;
+  static constexpr int kBufAt = kStagesAt + kStages * 2 * kTileBytes;
+  static constexpr int kBufBytes = kProbs ? kDkvKeys * kDkvTile * 2 : 0;  // P^T or dS^T, 8 KB
+  static constexpr int kRowsAt = kBufAt + 2 * 2 * kBufBytes;
+  static constexpr int kRowBytes = kProbs ? kTileRows * 4 : 0;  // lse2 or delta of a stage
+  static constexpr int kBarsAt = kRowsAt + kStages * 2 * kRowBytes;
+  static constexpr int kBytes = kBarsAt + (2 * kStages + 1) * 8 + 1024;  // + alignment
+};
+using DqLayout = Layout<kDqRows, kDqTile, kDqStages, false>;
+using DkvLayout = Layout<kDkvKeys, kDkvTile, kDkvStages, true>;
+// 128 KB of Q and dO + 3 x 32 KB of K, V tiles
+static_assert(DqLayout::kBytes == 230456, "kernel 2's shared memory");
+// 64 KB of K and V + 2 x 64 KB of Q, dO tiles + 2 x 16 KB of P^T, dS^T + 1 KB of rows
+static_assert(DkvLayout::kBytes == 231464, "kernel 3's shared memory");
+static_assert(DkvLayout::kBytes <= 232448 && DqLayout::kBytes <= 232448,
+              "shared memory of one block");
+
+template <class L>
+struct Smem {
+  unsigned char* base;  // 1024-byte aligned
+  uint64_t* bars;
+
+  // resident operand o (0: Q or K, 1: dO or V)
+  __device__ unsigned char* res(int o) const { return base + o * L::kResBytes; }
+  // streamed operand o (0: K or Q, 1: V or dO) of stage st
+  __device__ unsigned char* tile(int st, int o) const {
+    return base + L::kStagesAt + (2 * st + o) * L::kTileBytes;
+  }
+  // kernel 3: P^T (o = 0) or dS^T (o = 1) of buffer b
+  __device__ unsigned char* probs(int b, int o) const {
+    return base + L::kBufAt + (2 * b + o) * L::kBufBytes;
+  }
+  __device__ float* lse(int st) const {
+    return reinterpret_cast<float*>(base + L::kRowsAt + st * 2 * L::kRowBytes);
+  }
+  __device__ float* delta(int st) const { return lse(st) + L::kTileRowsN; }
+  __device__ uint64_t* full(int st) const { return bars + st; }
+  __device__ uint64_t* empty(int st) const { return bars + L::kStagesN + st; }
+  __device__ uint64_t* res_full() const { return bars + 2 * L::kStagesN; }
+};
+
+// the layout in this block's dynamic shared memory, its barriers
+// initialised, `fills` arrivals filling a stage (the one __syncthreads of
+// the kernels: the roles split after it)
+template <class L>
+__device__ __forceinline__ Smem<L> make_smem(unsigned char* raw, int fills) {
+  Smem<L> m;
+  m.base = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+  m.bars = reinterpret_cast<uint64_t*>(m.base + L::kBarsAt);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < L::kStagesN; ++st) {
+      mbar_init(m.full(st), fills);
+      mbar_init(m.empty(st), kConsumerWarps);
+    }
+    mbar_init(m.res_full());
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return m;
+}
+
+// the producer's wait before it refills the stage of load j
+template <class L>
+__device__ __forceinline__ int claim(const Smem<L>& m, int j) {
+  const int st = j % L::kStagesN;
+  if (j >= L::kStagesN) mbar_wait(m.empty(st), (j / L::kStagesN - 1) & 1);
+  return st;
+}
+
+// The producer warpgroup's first thread: the block's two resident operands
+// (maps res0, res1, box 64 columns x kResRows rows from row res_row) once,
+// then the two streamed operands of each stage (maps nat0, nat1, box 64
+// columns x kTileRows rows from row nat_row + j kTileRows), each as four
+// 64-column atoms; rows past the tensor's read as 0
+template <class L>
+__device__ __forceinline__ void produce(const Smem<L>& m, const CUtensorMap* res0,
+                                        const CUtensorMap* res1, const CUtensorMap* nat0,
+                                        const CUtensorMap* nat1, int bh, int res_row, int nat_row,
+                                        int tiles) {
+  if (tiles == 0) return;
+  constexpr int kResAtom = L::kResRowsN * 128;
+  constexpr int kTileAtom = L::kTileRowsN * 128;
+  mbar_expect(m.res_full(), 2 * L::kResBytes);
+  for (int a = 0; a < kD / kAtomCols; ++a) {
+    tma_load_3d(m.res(0) + a * kResAtom, res0, m.res_full(), a * kAtomCols, res_row, bh);
+    tma_load_3d(m.res(1) + a * kResAtom, res1, m.res_full(), a * kAtomCols, res_row, bh);
+  }
+  for (int j = 0; j < tiles; ++j) {
+    const int st = claim(m, j);
+    const int row = nat_row + j * L::kTileRowsN;
+    mbar_expect(m.full(st), 2 * L::kTileBytes);
+    for (int a = 0; a < kD / kAtomCols; ++a) {
+      tma_load_3d(m.tile(st, 0) + a * kTileAtom, nat0, m.full(st), a * kAtomCols, row, bh);
+      tma_load_3d(m.tile(st, 1) + a * kTileAtom, nat1, m.full(st), a * kAtomCols, row, bh);
+    }
+  }
+}
+
+// a consumer warp's release of stage st (its wgmmas on the stage are done)
+template <class L>
+__device__ __forceinline__ void release(const Smem<L>& m, int st) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(m.empty(st));
+}
+
+// x = a b^T over d, from zero: A 64 rows of a resident operand at `a`
+// (K-major, its atoms kAAtom bytes apart), B 32 rows of a streamed operand
+// at `b` (K-major, atoms kBAtom bytes apart); kDSteps wgmma m64n32k16, a
+// k-step of 16 columns inside one atom
+template <int kAAtom, int kBAtom>
+__device__ __forceinline__ void products_over_d(float (&x)[kSAcc], uint64_t a, uint64_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kDSteps; ++kk) {
+    const uint32_t at = 32 * (kk % 4);  // the k-step's 32 bytes in the atom's rows
+    wgmma_ss<kSAcc * 2>(x, desc_at(a, kk / 4 * kAAtom + at), desc_at(b, kk / 4 * kBAtom + at),
+                        kk > 0);
+  }
+}
+
+// the part accumulator added into 64 columns (chunk h) of an accumulator
+// of m64n64 chunks
+template <int N>
+__device__ __forceinline__ void add_part(float (&acc)[N], const float (&part)[kPartAcc], int h) {
+#pragma unroll
+  for (int i = 0; i < kPartAcc; ++i) acc[kPartAcc * h + i] += part[i];
+}
+
+// this thread's rows row and row + 8 of an accumulator of `kCols` columns
+// (m64 x kCols f32) rounded to bf16, times `mul`, at columns col0 .. of
+// `out` (rows of kD); rows at or past s are not stored
+template <int kCols>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (&x)[kCols / 2],
+                                           int row, int col0, int s, float mul) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= s) continue;
+    bf16* dst = out + static_cast<size_t>(row + 8 * h) * kD + col0 + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < kCols / 8; ++nb) {
+      store2(dst + 8 * nb, x[4 * nb + 2 * h] * mul, x[4 * nb + 2 * h + 1] * mul);
+    }
+  }
+}
+
+// ds of one K, V tile of 32 keys (keys from `key0`), rounded to bf16 pairs:
+// the A fragments of the dq part's k-steps (this thread's rows row and row +
+// 8; wg::dq_ds's layout); kMasked: some (row, key) pair of the warpgroup's
+// tile is past sq, sk or the causal diagonal, so each pair is tested
+template <int K, bool kMasked>
+__device__ __forceinline__ void dq_ds(uint32_t (&df)[kDqTileSteps][4], const float (&s)[kSAcc],
+                                      const float (&dp)[kSAcc], const float (&r_lse)[2],
+                                      const float (&r_delta)[2], int row, int key0, int sq,
+                                      int sk, int causal) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int js = 0; js < kDqTileSteps; ++js) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // row + 8 (e & 1), keys 16 js + 8 (e >> 1) + 2t, + 1
+      const int h = e & 1;
+      const int rq = row + 8 * h;
+      const int key = key0 + 16 * js + 8 * (e >> 1) + 2 * t;
+      float p, ds[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const bool live = !kMasked || (rq < sq && key + c < sk && (!causal || key + c <= rq));
+        wg::prob_ds_sfu<K>(s[8 * js + 2 * e + c], dp[8 * js + 2 * e + c], r_lse[h], r_delta[h],
+                           live, p, ds[c]);
+      }
+      df[js][e] = pack_bf16(ds[0], ds[1]);
+    }
+  }
+}
+
+// dq_ds, masked where the warpgroup's tile (rows row0 .., keys key0 ..)
+// reaches past sq, sk or the causal diagonal (a uniform branch: no product
+// of the warpgroup is in flight)
+template <int K>
+__device__ __forceinline__ void dq_tile_ds(uint32_t (&df)[kDqTileSteps][4],
+                                           const float (&s)[kSAcc], const float (&dp)[kSAcc],
+                                           const float (&r_lse)[2], const float (&r_delta)[2],
+                                           int row, int row0, int key0, int sq, int sk,
+                                           int causal) {
+  if (row0 + kRows > sq || key0 + kDqTile > sk || (causal && key0 + kDqTile - 1 > row0)) {
+    dq_ds<K, true>(df, s, dp, r_lse, r_delta, row, key0, sq, sk, causal);
+  } else {
+    dq_ds<K, false>(df, s, dp, r_lse, r_delta, row, key0, sq, sk, causal);
+  }
+}
+
+// kernel 2: the tile's dq part of columns 64 h .. 64 h + 63, dS K over the
+// tile's 32 keys, from zero: A the dS fragments, B atom h of the K tile at
+// `k_atom` (MN-major: a k-step of 16 keys is 2048 bytes)
+__device__ __forceinline__ void dq_part(float (&part)[kPartAcc],
+                                        const uint32_t (&df)[kDqTileSteps][4], uint64_t k_atom) {
+#pragma unroll
+  for (int js = 0; js < kDqTileSteps; ++js) {
+    wgmma_rs_n64<true>(part, df[js], desc_at(k_atom, 2048 * js), js > 0);
+  }
+}
+
+// Kernel 2's consumer warpgroup: its 64 query rows (from row0, rows of the
+// resident Q and dO) over every K, V tile. Per tile: S = Q K^T and dP = dO
+// V^T (m64n32, A and B from shared memory), dS in registers, then the dq
+// part dS K in four 64-column chunks, each summed over the tile's 32 keys
+// from zero and added in f32 to the running dq (a chunk at a time: the
+// m64n256 dq accumulator takes 128 registers a thread, so a whole part
+// would not fit beside it). The next tile's S and dP are issued with the
+// last chunk, in one group.
+template <int K>
+__device__ __forceinline__ void dq_consume(const Smem<DqLayout>& m,
+                                           const float* __restrict__ lse2,
+                                           const float* __restrict__ delta,
+                                           bf16* __restrict__ dq, int row0, int sq, int sk,
+                                           int tiles, int causal) {
+  constexpr int kResAtom = kDqRows * 128;  // 16 KB: an atom of Q or dO
+  constexpr int kTileAtom = kDqTile * 128;  // 4 KB: an atom of a K or V tile
+  const int c = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  // this thread's rows row and row + 8 (C and A fragments alike)
+  const int row = row0 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  float r_lse[2], r_delta[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = row + 8 * h < sq;
+    r_lse[h] = ok ? lse2[row + 8 * h] : 0.f;
+    r_delta[h] = ok ? delta[row + 8 * h] : 0.f;
+  }
+  // the consumer's 64 rows of Q and dO: A of S and dP
+  const uint64_t qd = wgmma_desc_sw128(smem_addr(m.res(0) + c * kRows * 128));
+  const uint64_t od = wgmma_desc_sw128(smem_addr(m.res(1) + c * kRows * 128));
+  float acc[kDqAcc], part[kPartAcc], s[kSAcc], dp[kSAcc];
+  uint32_t df[kDqTileSteps][4];
+#pragma unroll
+  for (int i = 0; i < kDqAcc; ++i) acc[i] = 0.f;
+  auto kdesc = [&](int st, int o) { return wgmma_desc_sw128(smem_addr(m.tile(st, o))); };
+
+  // tiles >= 1: a launch has sk >= 1, and the causal mask leaves key 0
+  mbar_wait(m.res_full(), 0);
+  mbar_wait(m.full(0), 0);
+  wgmma_fence();
+  products_over_d<kResAtom, kTileAtom>(s, qd, kdesc(0, 0));   // S = Q K^T
+  products_over_d<kResAtom, kTileAtom>(dp, od, kdesc(0, 1));  // dP = dO V^T
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(s);
+  reg_fence(dp);
+  // the dq part's chunks 0-2 of tile j (stage st), each waited for and added
+  auto first_chunks = [&](int st) {
+#pragma unroll
+    for (int h = 0; h < 3; ++h) {
+      wgmma_fence();
+      dq_part(part, df, wgmma_desc_add(kdesc(st, 0), h * kTileAtom));
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(part);
+      add_part(acc, part, h);
+    }
+  };
+#pragma unroll 1
+  for (int j = 0; j + 1 < tiles; ++j) {
+    const int st = j % kDqStages;
+    const int next = (j + 1) % kDqStages;
+    dq_tile_ds<K>(df, s, dp, r_lse, r_delta, row, row0, j * kDqTile, sq, sk, causal);
+    first_chunks(st);
+    mbar_wait(m.full(next), ((j + 1) / kDqStages) & 1);
+    wgmma_fence();
+    dq_part(part, df, wgmma_desc_add(kdesc(st, 0), 3 * kTileAtom));  // chunk 3
+    products_over_d<kResAtom, kTileAtom>(s, qd, kdesc(next, 0));
+    products_over_d<kResAtom, kTileAtom>(dp, od, kdesc(next, 1));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(part);
+    reg_fence(s);
+    reg_fence(dp);
+    reg_fence(df);
+    release(m, st);
+    add_part(acc, part, 3);
+  }
+  const int last = tiles - 1;
+  const int st = last % kDqStages;
+  dq_tile_ds<K>(df, s, dp, r_lse, r_delta, row, row0, last * kDqTile, sq, sk, causal);
+  first_chunks(st);
+  wgmma_fence();
+  dq_part(part, df, wgmma_desc_add(kdesc(st, 0), 3 * kTileAtom));
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(part);
+  reg_fence(df);
+  release(m, st);
+  add_part(acc, part, 3);
+  store_rows<kD>(dq, acc, row, 0, sq, 1.f);
+}
+
+// P^T and dS^T of a q tile's 64 keys x this consumer's 32 queries (from
+// q0 + 32 c; lse2 and delta rows from the stage), rounded to bf16 pairs and
+// stored into this consumer's half of the buffers `pbuf`, `sbuf` as TMA
+// would write a (64, 64) bf16 tile in the 128-byte swizzle (rows by key),
+// then made visible to the wgmmas that read them as dV's and dK's K-major
+// A operands; kMasked as dq_ds's
+template <int K, bool kMasked>
+__device__ __forceinline__ void dkv_probs(unsigned char* pbuf, unsigned char* sbuf,
+                                          const float (&s)[kSAcc], const float (&dp)[kSAcc],
+                                          const float* lse, const float* del, int key, int q0,
+                                          int sq, int sk, int causal) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int c = threadIdx.x / 128;
+  // the thread's key row in the tile (kl % 8 == g), and kl + 8
+  const int kl = (threadIdx.x % 128) / 32 * 16 + g;
+#pragma unroll
+  for (int i = 0; i < kSAcc / 4; ++i) {  // n8 block i: queries 8i + 2t, + 1 of the consumer's 32
+    const int col = c * kHalfTile + 8 * i + 2 * t;  // the query's column in the tile
+    const float2 l2 = *reinterpret_cast<const float2*>(lse + col);
+    const float2 dl = *reinterpret_cast<const float2*>(del + col);
+    const int chunk = col / 8;  // the 16-byte chunk of the key's 128-byte row
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // keys key, key + 8
+      const int kr = key + 8 * h;
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int rq = q0 + col + e;
+        const bool live = !kMasked || (rq < sq && kr < sk && (!causal || kr <= rq));
+        wg::prob_ds_sfu<K>(s[4 * i + 2 * h + e], dp[4 * i + 2 * h + e], e ? l2.y : l2.x,
+                           e ? dl.y : dl.x, live, p[e], ds[e]);
+      }
+      const int off = (kl + 8 * h) * 128 + ((chunk ^ g) << 4) + 4 * t;
+      *reinterpret_cast<uint32_t*>(pbuf + off) = pack_bf16(p[0], p[1]);
+      *reinterpret_cast<uint32_t*>(sbuf + off) = pack_bf16(ds[0], ds[1]);
+    }
+  }
+  fence_proxy_async();
+}
+
+// dkv_probs, masked where the block's tile (keys key0 .., queries q0 ..)
+// reaches past sq, sk or the causal diagonal
+template <int K>
+__device__ __forceinline__ void dkv_tile_probs(unsigned char* pbuf, unsigned char* sbuf,
+                                               const float (&s)[kSAcc], const float (&dp)[kSAcc],
+                                               const float* lse, const float* del, int key,
+                                               int key0, int q0, int sq, int sk, int causal) {
+  if (q0 + kDkvTile > sq || key0 + kDkvKeys > sk || (causal && key0 + kDkvKeys - 1 > q0)) {
+    dkv_probs<K, true>(pbuf, sbuf, s, dp, lse, del, key, q0, sq, sk, causal);
+  } else {
+    dkv_probs<K, false>(pbuf, sbuf, s, dp, lse, del, key, q0, sq, sk, causal);
+  }
+}
+
+// kernel 3: a part of 64 columns of dV (or dK) over a q tile's 64 queries,
+// from zero: A the block's P^T (or dS^T) at `a` (K-major), B an atom of the
+// tile's dO (or Q) at `b` (MN-major)
+__device__ __forceinline__ void dkv_part(float (&part)[kPartAcc], uint64_t a, uint64_t b) {
+#pragma unroll
+  for (int js = 0; js < kDkvTileSteps; ++js) {
+    wgmma_ss_n64_trans_b(part, desc_at(a, 32 * js), desc_at(b, 2048 * js), js > 0);
+  }
+}
+
+// Kernel 3's consumer warpgroup c: the block's 64 keys (from key0) over
+// every q tile. Per tile: S^T = K Q^T and dP^T = V dO^T for the tile's
+// queries 32 c .. 32 c + 31 (m64n32, A and B from shared memory), P^T and
+// dS^T of those into the tile's buffers; after both consumers meet at named
+// barrier 1, dV's and dK's parts of its columns 128 c .. 128 c + 127 over
+// all 64 queries, in 64-column chunks (two accumulators of m64n128 take 128
+// registers a thread: a part beside them is one m64n64 chunk), each summed
+// from zero and added in f32. The next tile's S^T and dP^T are issued with
+// the last chunk, in one group; the buffers alternate between tiles, so
+// one barrier a tile keeps a buffer from being rewritten while read.
+template <int K>
+__device__ __forceinline__ void dkv_consume(const Smem<DkvLayout>& m, bf16* __restrict__ dk,
+                                            bf16* __restrict__ dv, int key0, int q_begin,
+                                            int sq, int sk, int tiles, int causal) {
+  constexpr int kAtom = kDkvKeys * 128;  // 8 KB: an atom of K, V or a Q, dO tile (64 rows)
+  const int c = threadIdx.x / 128;
+  const int lane = threadIdx.x % 32;
+  // this thread's keys key and key + 8
+  const int key = key0 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  float acc_k[kDkvAcc], acc_v[kDkvAcc], part[kPartAcc], s[kSAcc], dp[kSAcc];
+#pragma unroll
+  for (int i = 0; i < kDkvAcc; ++i) acc_k[i] = acc_v[i] = 0.f;
+  if (tiles > 0) {
+    const uint64_t kd = wgmma_desc_sw128(smem_addr(m.res(0)));
+    const uint64_t vd = wgmma_desc_sw128(smem_addr(m.res(1)));
+    // the consumer's 32 queries of a tile (B of S^T, dP^T)
+    auto half = [&](int st, int o) {
+      return wgmma_desc_sw128(smem_addr(m.tile(st, o) + c * kHalfTile * 128));
+    };
+    // atom 2c + h of a tile's Q (o = 0) or dO (o = 1): B of dK's or dV's chunk h
+    auto cols = [&](int st, int o, int h) {
+      return wgmma_desc_sw128(smem_addr(m.tile(st, o) + (kConsumers * c + h) * kAtom));
+    };
+    auto buf = [&](int b, int o) { return wgmma_desc_sw128(smem_addr(m.probs(b, o))); };
+    // the tile's P^T and dS^T in buffer b, both consumers' halves, once both meet
+    auto write_probs = [&](int j, int st, int b) {
+      dkv_tile_probs<K>(m.probs(b, 0), m.probs(b, 1), s, dp, m.lse(st), m.delta(st), key, key0,
+                        q_begin + j * kDkvTile, sq, sk, causal);
+      named_sync(1, kConsumerThreads);
+    };
+    // dV's chunks 0, 1 and dK's chunk 0 of the tile, each waited for and added
+    auto first_chunks = [&](int st, int b) {
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        const int o = n < 2 ? 1 : 0;  // dV = P^T dO, then dK = dS^T Q
+        wgmma_fence();
+        dkv_part(part, buf(b, n < 2 ? 0 : 1), cols(st, o, n % 2));
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(part);
+        if (n < 2) {
+          add_part(acc_v, part, n);
+        } else {
+          add_part(acc_k, part, 0);
+        }
+      }
+    };
+    mbar_wait(m.res_full(), 0);
+    mbar_wait(m.full(0), 0);
+    wgmma_fence();
+    products_over_d<kAtom, kAtom>(s, kd, half(0, 0));   // S^T = K Q^T
+    products_over_d<kAtom, kAtom>(dp, vd, half(0, 1));  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+#pragma unroll 1
+    for (int j = 0; j + 1 < tiles; ++j) {
+      const int st = j % kDkvStages;
+      const int next = (j + 1) % kDkvStages;
+      const int b = j & 1;
+      write_probs(j, st, b);
+      first_chunks(st, b);
+      mbar_wait(m.full(next), ((j + 1) / kDkvStages) & 1);
+      wgmma_fence();
+      dkv_part(part, buf(b, 1), cols(st, 0, 1));  // dK's chunk 1
+      products_over_d<kAtom, kAtom>(s, kd, half(next, 0));
+      products_over_d<kAtom, kAtom>(dp, vd, half(next, 1));
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(part);
+      reg_fence(s);
+      reg_fence(dp);
+      release(m, st);
+      add_part(acc_k, part, 1);
+    }
+    const int last = tiles - 1;
+    const int st = last % kDkvStages;
+    const int b = last & 1;
+    write_probs(last, st, b);
+    first_chunks(st, b);
+    wgmma_fence();
+    dkv_part(part, buf(b, 1), cols(st, 0, 1));
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(part);
+    release(m, st);
+    add_part(acc_k, part, 1);
+  }
+  store_rows<kDkvCols>(dk, acc_k, key, kDkvCols * c, sk, 1.f);
+  // dO arrived multiplied by ln2 for ds; dv must not carry it
+  store_rows<kDkvCols>(dv, acc_v, key, kDkvCols * c, sk, kLog2e);
+}
+
+// The producer warpgroup's second warp in kernel 3: each q tile's lse2 and
+// delta rows (0 past sq) with plain loads and stores, as wg::produce_q_tiles
+// copies them (a head's f32 rows start at any 4-byte offset, where TMA
+// needs 16-byte aligned addresses), one of the stage's two fills
+__device__ __forceinline__ void produce_rows(const Smem<DkvLayout>& m,
+                                             const float* __restrict__ lse2,
+                                             const float* __restrict__ delta, int sq,
+                                             int q_begin, int tiles) {
+  const int lane = threadIdx.x % 32;
+  for (int j = 0; j < tiles; ++j) {
+    const int st = claim(m, j);
+    const int q0 = q_begin + j * kDkvTile;
+#pragma unroll
+    for (int i = lane; i < kDkvTile; i += 32) {
+      const bool ok = q0 + i < sq;
+      m.lse(st)[i] = ok ? lse2[q0 + i] : 0.f;
+      m.delta(st)[i] = ok ? delta[q0 + i] : 0.f;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(m.full(st));
+  }
+}
+
+}  // namespace wd
+
+// Kernel 2 on the wgmma route at D = 256. Grid: one block per (bh,
+// wd::kDqRows query rows), flattened into blockIdx.x; wd::kThreads threads,
+// wd::DqLayout::kBytes of dynamic shared memory. Warpgroups 0 and 1
+// consume, 2 produces: its first thread loads by TMA the block's Q and dO
+// rows (maps of (256, sq, bh), box 64 columns x 128 rows) and the K and V
+// tiles (maps of (256, sk, bh), box 64 columns x 32 keys), four boxes an
+// operand.
+template <int K>
+__global__ void __launch_bounds__(wd::kThreads, 1)
+flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const float* __restrict__ lse2, const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int sq, int sk, int num_qb, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const wd::Smem<wd::DqLayout> m = wd::make_smem<wd::DqLayout>(smem_raw, 1);
+  const int bh = blockIdx.x / num_qb;
+  const int q0 = (blockIdx.x % num_qb) * wd::kDqRows;
+  // under the causal mask, keys past the block's last row are dead for every row
+  const int kv_end = causal ? min(sk, q0 + wd::kDqRows) : sk;
+  const int tiles = (kv_end + wd::kDqTile - 1) / wd::kDqTile;
+  if (threadIdx.x >= wd::kConsumerThreads) {
+    regs_lower<wd::kProducerRegs>();
+    if (threadIdx.x != wd::kConsumerThreads) return;
+    wd::produce(m, &q_map, &do_map, &k_map, &v_map, bh, q0, 0, tiles);
+  } else {
+    regs_raise<wd::kConsumerRegs>();
+    const size_t head = static_cast<size_t>(bh) * sq;
+    wd::dq_consume<K>(m, lse2 + head, delta + head, dq + head * wd::kD,
+                      q0 + threadIdx.x / 128 * wd::kRows, sq, sk, tiles, causal);
+  }
+}
+
+// Kernel 3 on the wgmma route at D = 256. Grid: one block per (bh,
+// wd::kDkvKeys keys), flattened into blockIdx.x; threads and roles as
+// kernel 2's, with K and V resident (box 64 keys) and Q, dO streamed (box
+// 64 rows), wd::DkvLayout::kBytes of dynamic shared memory; the producer's
+// second warp copies each q tile's lse2 and delta rows (wd::produce_rows).
+template <int K>
+__global__ void __launch_bounds__(wd::kThreads, 1)
+flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse2, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk,
+                          int num_kb, int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const wd::Smem<wd::DkvLayout> m = wd::make_smem<wd::DkvLayout>(smem_raw, 2);
+  const int bh = blockIdx.x / num_kb;
+  const int k0 = (blockIdx.x % num_kb) * wd::kDkvKeys;
+  // under the causal mask, query rows before the block's first key are dead
+  // (k0 is a multiple of the q tile)
+  const int q_begin = causal ? k0 : 0;
+  const int tiles = q_begin < sq ? (sq - q_begin + wd::kDkvTile - 1) / wd::kDkvTile : 0;
+  if (threadIdx.x >= wd::kConsumerThreads) {
+    regs_lower<wd::kProducerRegs>();
+    const int pt = threadIdx.x - wd::kConsumerThreads;
+    if (pt == 0) {
+      wd::produce(m, &k_map, &v_map, &q_map, &do_map, bh, k0, q_begin, tiles);
+    } else if (pt / 32 == 1) {
+      const size_t rows = static_cast<size_t>(bh) * sq;
+      wd::produce_rows(m, lse2 + rows, delta + rows, sq, q_begin, tiles);
+    }
+  } else {
+    regs_raise<wd::kConsumerRegs>();
+    const size_t head = static_cast<size_t>(bh) * sk * wd::kD;
+    wd::dkv_consume<K>(m, dk + head, dv + head, k0, q_begin, sq, sk, tiles, causal);
+  }
+}
+
 // ---- the test entry of the one s, dp computation ----
 
 // Block i takes tile i: 16 queries (q, dout, lse2, delta) and 16 keys (k,
@@ -2653,8 +3336,10 @@ int launch_roles(const Args& a) {
 template <int K>
 int launch_dq_wgmma(const Args& a) {
   CUtensorMap maps[2];
-  cudaError_t err = encode_head_rows_map(&maps[0], a.k, a.sk, a.bh, wg::kD, wg::kTile);
-  if (err == cudaSuccess) err = encode_head_rows_map(&maps[1], a.v, a.sk, a.bh, wg::kD, wg::kTile);
+  cudaError_t err = encode_head_rows_map(&maps[0], a.k, wg::kD, a.sk, a.bh, wg::kD, wg::kTile);
+  if (err == cudaSuccess) {
+    err = encode_head_rows_map(&maps[1], a.v, wg::kD, a.sk, a.bh, wg::kD, wg::kTile);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   auto kernel = flash_bwd_dq_wgmma_kernel<K>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::kSmemBytes);
@@ -2670,9 +3355,9 @@ int launch_dq_wgmma(const Args& a) {
 template <int K>
 int launch_dkv_wgmma(const Args& a) {
   CUtensorMap maps[2];
-  cudaError_t err = encode_head_rows_map(&maps[0], a.q, a.sq, a.bh, wg::kD, wg::kTile);
+  cudaError_t err = encode_head_rows_map(&maps[0], a.q, wg::kD, a.sq, a.bh, wg::kD, wg::kTile);
   if (err == cudaSuccess) {
-    err = encode_head_rows_map(&maps[1], a.dout, a.sq, a.bh, wg::kD, wg::kTile);
+    err = encode_head_rows_map(&maps[1], a.dout, wg::kD, a.sq, a.bh, wg::kD, wg::kTile);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   auto kernel = flash_bwd_dkv_wgmma_kernel<K>;
@@ -2689,12 +3374,12 @@ int launch_dkv_wgmma(const Args& a) {
 template <int K>
 int launch_fused_wgmma(const Args& a) {
   CUtensorMap maps[4];
-  cudaError_t err = encode_head_rows_map(&maps[0], a.q, a.sq, a.bh, wg::kD, wg::kTile);
+  cudaError_t err = encode_head_rows_map(&maps[0], a.q, wg::kD, a.sq, a.bh, wg::kD, wg::kTile);
   if (err == cudaSuccess) {
-    err = encode_head_rows_map(&maps[1], a.dout, a.sq, a.bh, wg::kD, wg::kTile);
+    err = encode_head_rows_map(&maps[1], a.dout, wg::kD, a.sq, a.bh, wg::kD, wg::kTile);
   }
   if (err == cudaSuccess) {
-    err = encode_head_rows_map(&maps[2], a.k, a.sk, a.bh, wg::kKdqCols, wg::kBlockRows,
+    err = encode_head_rows_map(&maps[2], a.k, wg::kD, a.sk, a.bh, wg::kKdqCols, wg::kBlockRows,
                                CU_TENSOR_MAP_SWIZZLE_64B);
   }
   if (err == cudaSuccess) {  // the groups' f32 dq buffers, box 32 columns x 64 rows
@@ -2784,31 +3469,86 @@ int launch_tf32(const Args& a, int d, int dtype) {
   }
 }
 
+// kernel 2 (E = kDq) or 3 on the wgmma route at D = wd::kD: the resident
+// operands' maps (Q, dO or K, V; box the block's rows), then the streamed
+// ones' (box a stage's rows), each box 64 columns wide
 template <Entry E, int K>
-int launch_wgmma_entry(const Args& a) {
+int launch_wide_entry(const Args& a) {
+  const bool dq = E == Entry::kDq;
+  const void* res[2] = {dq ? a.q : a.k, dq ? a.dout : a.v};
+  const void* nat[2] = {dq ? a.k : a.q, dq ? a.v : a.dout};
+  const int res_rows = dq ? a.sq : a.sk;
+  const int nat_rows = dq ? a.sk : a.sq;
+  const int res_box = dq ? wd::kDqRows : wd::kDkvKeys;
+  const int nat_box = dq ? wd::kDqTile : wd::kDkvTile;
+  CUtensorMap maps[4];
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+    err = encode_head_rows_map(&maps[i], res[i], wd::kD, res_rows, a.bh, wd::kAtomCols, res_box);
+    if (err == cudaSuccess) {
+      err = encode_head_rows_map(&maps[2 + i], nat[i], wd::kD, nat_rows, a.bh, wd::kAtomCols,
+                                 nat_box);
+    }
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (res_rows + res_box - 1) / res_box;
+  if constexpr (E == Entry::kDq) {
+    auto kernel = flash_bwd_dq_wide_kernel<K>;
+    constexpr int smem = wd::DqLayout::kBytes;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks * a.bh, wd::kThreads, smem, a.stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse2),
+        static_cast<const float*>(a.delta), static_cast<bf16*>(a.out0), a.sq, a.sk, blocks,
+        a.causal);
+  } else {
+    auto kernel = flash_bwd_dkv_wide_kernel<K>;
+    constexpr int smem = wd::DkvLayout::kBytes;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks * a.bh, wd::kThreads, smem, a.stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse2),
+        static_cast<const float*>(a.delta), static_cast<bf16*>(a.out0),
+        static_cast<bf16*>(a.out1), a.sq, a.sk, blocks, a.causal);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <Entry E, int K>
+int launch_wgmma_entry(const Args& a, int d) {
+  if (d == wd::kD) {  // kernels 2 and 3 only (kernel 4 keeps mma.sync there)
+    if constexpr (E == Entry::kDq || E == Entry::kDkv) {
+      return launch_wide_entry<E, K>(a);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   if constexpr (E == Entry::kDq) return launch_dq_wgmma<K>(a);
   else if constexpr (E == Entry::kDkv) return launch_dkv_wgmma<K>(a);
   else return launch_fused_wgmma<K>(a);
 }
 
-// Kernels 2, 3 and 4 on the wgmma route: bf16 at D = wg::kD, the exp2 contracts
+// Kernels 2, 3 and 4 on the wgmma route: bf16 at D = wg::kD, and kernels 2
+// and 3 at D = wd::kD, in the exp2 contracts
 template <Entry E>
 int launch_wgmma(const Args& a, int d, int dtype) {
-  if (dtype != 1 || d != wg::kD) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1 || (d != wg::kD && d != wd::kD)) return static_cast<int>(cudaErrorInvalidValue);
   switch (a.contract) {
-    case kNoMax: return launch_wgmma_entry<E, kNoMax>(a);
-    case kRunningMax: return launch_wgmma_entry<E, kRunningMax>(a);
+    case kNoMax: return launch_wgmma_entry<E, kNoMax>(a, d);
+    case kRunningMax: return launch_wgmma_entry<E, kRunningMax>(a, d);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // bf16 at D = wg::kD in the exp2 contracts: kernels 2, 3 and 4 run only
-// their wgmma bodies there (launch_wgmma); f32 at D = tf::kD, every
-// contract: kernels 2 and 3 run only their TF32 bodies (launch_tf32). So
-// kRouteMma is refused there, and those mma.sync instances are never built
+// their wgmma bodies there (launch_wgmma), as kernels 2 and 3 do at D =
+// wd::kD; f32 at D = tf::kD, every contract: kernels 2 and 3 run only their
+// TF32 bodies (launch_tf32). So kRouteMma is refused there, and those
+// mma.sync instances are never built
 template <Entry E, typename T, int D, int K>
 constexpr bool kWgmmaOnly =
     (E != Entry::kRoles && sizeof(T) == 2 && D == wg::kD && K != kUpcast) ||
+    ((E == Entry::kDq || E == Entry::kDkv) && sizeof(T) == 2 && D == wd::kD && K != kUpcast) ||
     ((E == Entry::kDq || E == Entry::kDkv) && sizeof(T) == 4 && D == tf::kD);
 
 template <Entry E, typename T, int D, int K>
@@ -2877,7 +3617,8 @@ int launch(const Args& a, int d, int dtype, int device) {
 // ln2, lse2 is the natural-log lse and sscale the softmax scale (sscale is
 // not read otherwise). route is a Route (ops/flash_attention.py::
 // attention_route): kRouteWgmma runs the wgmma body, which takes bf16 at
-// d = 64 in the two exp2 contracts, kRouteTf32 (dq and dkv entries only)
+// d = 64 in the two exp2 contracts (and, in the dq and dkv entries, at d =
+// 256), kRouteTf32 (dq and dkv entries only)
 // the TF32 wgmma body, which takes f32 at d = 64 in every contract,
 // kRouteMma the mma.sync body, which takes every other type, width and
 // contract; any other route, or a route on inputs it does not take,

@@ -1138,12 +1138,12 @@ uint64_t wgmma_attribute_set = 0;
 template <int K, int C>
 int launch_wgmma_blocks(const Args& a, int device) {
   CUtensorMap maps[3];
-  cudaError_t err = encode_head_rows_map(&maps[0], a.q, a.sq, a.bh, wg::kD, wg::kRows);
+  cudaError_t err = encode_head_rows_map(&maps[0], a.q, wg::kD, a.sq, a.bh, wg::kD, wg::kRows);
   if (err == cudaSuccess) {
-    err = encode_head_rows_map(&maps[1], a.k, a.sk, a.bh, wg::kD, wg::kBlockK);
+    err = encode_head_rows_map(&maps[1], a.k, wg::kD, a.sk, a.bh, wg::kD, wg::kBlockK);
   }
   if (err == cudaSuccess) {
-    err = encode_head_rows_map(&maps[2], a.v, a.sk, a.bh, wg::kD, wg::kBlockK);
+    err = encode_head_rows_map(&maps[2], a.v, wg::kD, a.sk, a.bh, wg::kD, wg::kBlockK);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   using S = wg::Smem<C>;

@@ -622,9 +622,9 @@ flash_probe_vpu_kernel(const __grid_constant__ CUtensorMap q_map,
 // the 128-byte swizzle
 cudaError_t encode_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, int bh,
                         int sq, int sk) {
-  cudaError_t err = encode_head_rows_map(&maps[0], q, sq, bh, kD, kRowsWg);
-  if (err == cudaSuccess) err = encode_head_rows_map(&maps[1], k, sk, bh, kD, kBlockK);
-  if (err == cudaSuccess) err = encode_head_rows_map(&maps[2], v, sk, bh, kD, kBlockK);
+  cudaError_t err = encode_head_rows_map(&maps[0], q, kD, sq, bh, kD, kRowsWg);
+  if (err == cudaSuccess) err = encode_head_rows_map(&maps[1], k, kD, sk, bh, kD, kBlockK);
+  if (err == cudaSuccess) err = encode_head_rows_map(&maps[2], v, kD, sk, bh, kD, kBlockK);
   return err;
 }
 

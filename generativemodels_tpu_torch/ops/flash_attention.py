@@ -292,9 +292,11 @@ _BWD_ARGTYPES = (
 # fed by a TMA ring, the TF32 wgmma ones of kernels 2 and 3, and the
 # mma.sync bodies
 ROUTE_MMA, ROUTE_WGMMA, ROUTE_TF32 = 0, 1, 2
-_ROUTE_WGMMA_D = 64  # the head width of the wgmma bodies
-# the kernels with a TF32 body (f32 at D = 64, every contract)
-_TF32_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+_ROUTE_WGMMA_D = 64  # the head width of the wgmma and TF32 bodies of kernels 1-4
+_ROUTE_WIDE_D = 256  # the head width of the split backward's other bf16 wgmma body
+# the split backward's kernels: the ones with a TF32 body (f32 at D = 64,
+# every contract) and a bf16 wgmma body at D = 256
+_SPLIT_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 _ROUTE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
 # kernel 4's groups of key blocks on the wgmma route, each adding into its
 # own dq buffer in its own key-block order (the 3D shape's 256 key blocks a
@@ -306,19 +308,23 @@ def attention_route(dtype: torch.dtype, d: int, upcast: bool = False, *, kernel:
     """The body that `kernel` (the name of kernel 1, 2, 3 or 4's launcher,
     which every caller gives) runs for inputs of `dtype` at head width `d`
     under the contract `upcast` names: ROUTE_WGMMA for bf16 at D = 64 in
-    the two exp2 contracts; ROUTE_TF32 for kernels 2 and 3 at D = 64 on f32
-    operands (f32 inputs, or any inputs under upcast, which runs f32);
-    ROUTE_MMA for everything else (kernels 1 and 4 at f32 D = 64, whose
-    3xTF32 products are mma.sync's, and the other widths). The four
-    launchers pass it to their C entries, which raise on a route they do
-    not run for the inputs they get."""
+    the two exp2 contracts, and for kernels 2 and 3 there at D = 256 too;
+    ROUTE_TF32 for kernels 2 and 3 at D = 64 on f32 operands (f32 inputs,
+    or any inputs under upcast, which runs f32); ROUTE_MMA for everything
+    else (kernels 1 and 4 at f32 D = 64, whose 3xTF32 products are
+    mma.sync's, kernels 1 and 4 at bf16 D = 256, and the other widths). The
+    four launchers pass it to their C entries, which raise on a route they
+    do not run for the inputs they get."""
     if kernel not in _ROUTE_KERNELS:
         raise ValueError(f"no flash kernel {kernel!r}; one of {_ROUTE_KERNELS}")
+    bf16 = dtype == torch.bfloat16 and not upcast
+    if d == _ROUTE_WIDE_D and bf16 and kernel in _SPLIT_KERNELS:
+        return ROUTE_WGMMA
     if d != _ROUTE_WGMMA_D:
         return ROUTE_MMA
-    if dtype == torch.bfloat16 and not upcast:
+    if bf16:
         return ROUTE_WGMMA
-    return ROUTE_TF32 if kernel in _TF32_KERNELS else ROUTE_MMA
+    return ROUTE_TF32 if kernel in _SPLIT_KERNELS else ROUTE_MMA
 
 
 class _FlashBackwardKernel(Launcher):

@@ -16,13 +16,22 @@ as NDHWC, as the 3D UNet hands them over, the kernel at 1 / sqrt(27 Cin)); a
 line of kernels 1-4 names its body (`route`: mma, wgmma or tf32, as
 `ops.attention_route` picks it; a checkout from before it has the mma.sync
 bodies alone, but for kernels 2 and 3 where its `backward_route` names
-wgmma).
+wgmma) and gives the least time the card could take for the same work
+(`bound_ms`, `bound_by`: the operations over the bf16 tensor-core rate,
+or for f32 over the 3xTF32 rate, against the bytes of the inputs and
+outputs once over the memory rate, by chip_smoke.py's `bound`) and the
+time of one PyTorch call computing the same function (`library_ms`:
+chip_smoke.py's `library_attention_ms`, SDPA's forward for kernel 1 and
+its backward, dq, dk and dv, for kernels 2-4, one backend pinned: flash
+for bf16, memory-efficient for f32), a yardstick never used by the port.
+chip_smoke.py is loaded from the checkout holding this file.
 `--kernels` keeps the cases of the kernels named. Prints one JSON object per
 case and, with `--out`, appends them to FILE.
 """
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
@@ -35,7 +44,11 @@ HERE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fi
 # the 3D shape's sequence-parallel allgather rows (n = 2): every bf16 D = 64
 # shape the main paths give them; kernels 2 and 3 at the same three shapes in
 # f32 (the 3D LDM recipe's f32 stage-1 and stage-2 attention and its cut
-# stage-1 step's allgather rows)
+# stage-1 step's allgather rows); kernels 2 and 3 at the bf16 D = 256
+# contract shapes of chip_smoke.py's phase 2 (d) (the 2D serving shape and
+# the conditioned UNets' 77-token context at 4096 queries); and ControlNet's
+# f32 head-width-128 shapes: kernel 1 at its sampler's batch 4 (4 launches a
+# DDIM step), kernels 1-3 at `recipes/train_controlnet.py`'s batch 16
 CASES = (
     ("flash_fwd", (2, 32768, 32768, 64), "bfloat16"),
     ("flash_fwd", (2, 4096, 4096, 64), "bfloat16"),
@@ -63,7 +76,22 @@ CASES = (
     ("flash_bwd_dkv", (2, 32768, 32768, 64), "float32"),
     ("flash_bwd_dkv", (2, 4096, 4096, 64), "float32"),
     ("flash_bwd_dkv", (2, 16384, 32768, 64), "float32"),
+    ("flash_bwd_dq", (4, 1024, 1024, 256), "bfloat16"),
+    ("flash_bwd_dkv", (4, 1024, 1024, 256), "bfloat16"),
+    ("flash_bwd_dq", (4, 4096, 77, 256), "bfloat16"),
+    ("flash_bwd_dkv", (4, 4096, 77, 256), "bfloat16"),
+    ("flash_fwd", (4, 1024, 1024, 128), "float32"),
+    ("flash_fwd", (16, 1024, 1024, 128), "float32"),
+    ("flash_bwd_dq", (16, 1024, 1024, 128), "float32"),
+    ("flash_bwd_dkv", (16, 1024, 1024, 128), "float32"),
 )
+# (multiply-adds a (query, key) pair and head column, (sq, sk) rows of
+# inputs and outputs of width D) of kernels 1-4: the forward's two products
+# (s, o), the dq kernel's three (s, dp, dq), the dk, dv kernel's four, the
+# fused kernel's five; each also reads or writes two or one f32 row values
+# (lse2 and delta; the lse) of each query
+WORK = {"flash_fwd": (2, (2, 2), 4), "flash_bwd_dq": (3, (3, 2), 8),
+        "flash_bwd_dkv": (4, (2, 4), 8), "flash_bwd_fused": (5, (3, 4), 8)}
 # kernel 5 at the 13 bf16 call shapes of the 3D UNet's forward at 128^3
 # (chip_smoke.py's FUSED_CASES): (name, (B, D, H, W), Cin, Cout, residual)
 CONV_CASES = (
@@ -103,6 +131,26 @@ def route_name(ops, kernel: str, dtype, d: int) -> str:
     return {1: "wgmma", 2: "tf32"}.get(route, "mma")
 
 
+def chip_smoke():
+    """The repo's chip_smoke.py, from the checkout holding this file (its
+    `bound` and its SDPA yardstick `library_attention_ms`)."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_times_chip_smoke", os.path.join(HERE_ROOT, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def bound(smoke, kernel: str, bh: int, sq: int, sk: int, d: int, esize: int) -> dict:
+    """The least time the card could take for `kernel`'s work at (BH, Sq,
+    Sk, D) without a mask, f32 products counted as 3xTF32."""
+    products, (rows_q, rows_k), row_bytes = WORK[kernel]
+    nbytes = bh * d * esize * (rows_q * sq + rows_k * sk) + row_bytes * bh * sq
+    return smoke.bound(2 * products * bh * sq * sk * d, nbytes,
+                       "bfloat16" if esize == 2 else "float32",
+                       None if esize == 2 else smoke.PEAK_3XTF32)
+
+
 def time_ms(torch, fn, iters: int = 20) -> float:
     for _ in range(3):
         fn()
@@ -139,6 +187,7 @@ def main(argv=None) -> list[dict]:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     root = os.path.dirname(os.path.dirname(os.path.abspath(ops.__file__)))
+    smoke = chip_smoke()
     results = []
     for kernel, (bh, sq, sk, d), dtype_name in CASES:
         if args.kernels is not None and kernel not in args.kernels:
@@ -157,8 +206,11 @@ def main(argv=None) -> list[dict]:
             launcher = getattr(ops, BACKWARD[kernel])
             ms = time_ms(torch, lambda: launcher(qp, k, v, do2, lse2, delta))
             del out, lse2, qp, do2, delta
+        lib_ms, backend = smoke.library_attention_ms(
+            torch, q, k, v, scale, False, dout=None if kernel == "flash_fwd" else dout)
         line = dict(root=root, kernel=kernel, shape=[bh, sq, sk, d], dtype=dtype_name, ms=ms,
-                    card=card)
+                    **bound(smoke, kernel, bh, sq, sk, d, q.element_size()), library_ms=lib_ms,
+                    library=backend, card=card)
         line["route"] = route_name(ops, kernel, dtype, d)
         print(json.dumps(line), flush=True)
         results.append(line)

@@ -5,11 +5,12 @@ The forward, dq, dk/dv and fused launchers pass `attention_route(q.dtype,
 D, upcast, kernel=...)`, each naming itself, to the C entries of
 csrc/flash_fwd.cu and
 csrc/flash_bwd.cu: bf16 at head width 64 in the two exp2 contracts takes
-the wgmma bodies fed by a TMA ring (ROUTE_WGMMA); f32 at head width 64 in
-every contract (the upcast contract's launchers run f32 inputs) takes the
-TF32 wgmma bodies in kernels 2 and 3 (ROUTE_TF32) and the mma.sync bodies
-in kernels 1 and 4; every other width keeps the mma.sync bodies
-(ROUTE_MMA).
+the wgmma bodies fed by a TMA ring (ROUTE_WGMMA), and so does bf16 at head
+width 256 in kernels 2 and 3 (their D = 256 wgmma body), while kernels 1
+and 4 keep mma.sync there; f32 at head width 64 in every contract (the
+upcast contract's launchers run f32 inputs) takes the TF32 wgmma bodies in
+kernels 2 and 3 (ROUTE_TF32) and the mma.sync bodies in kernels 1 and 4;
+every other width keeps the mma.sync bodies (ROUTE_MMA).
 The CPU path never reaches a route: on CPU tensors the ops run the plain
 versions, which tests/test_torch_flash_attention.py and
 tests/test_torch_flash_backward.py hold against the JAX kernels. Here each
@@ -50,12 +51,16 @@ WGMMA_CASES = {(torch.bfloat16, 64, "no_max"), (torch.bfloat16, 64, "running_max
 TF32_CASES = {(torch.float32, 64, "no_max"), (torch.float32, 64, "running_max"),
               (torch.float32, 64, "upcast"), (torch.bfloat16, 64, "upcast")}
 TF32_KERNELS = {"flash_bwd_dq", "flash_bwd_dkv"}
+# the cases of kernels 2 and 3 (TF32_KERNELS) alone on their D = 256 wgmma body
+WIDE_CASES = {(torch.bfloat16, 256, "no_max"), (torch.bfloat16, 256, "running_max")}
 LAUNCHERS = {"flash_fwd": FLASH_FWD, "flash_bwd_dq": FLASH_BWD_DQ,
              "flash_bwd_dkv": FLASH_BWD_DKV, "flash_bwd_fused": FLASH_BWD_FUSED}
 
 
 def expected_route(kernel, dtype, d, contract) -> int:
     if (dtype, d, contract) in WGMMA_CASES:
+        return ROUTE_WGMMA
+    if kernel in TF32_KERNELS and (dtype, d, contract) in WIDE_CASES:
         return ROUTE_WGMMA
     if kernel in TF32_KERNELS and (dtype, d, contract) in TF32_CASES:
         return ROUTE_TF32
@@ -72,6 +77,20 @@ def test_backward_route(dtype, d, contract):
     want = ROUTE_WGMMA if (dtype, d, contract) in WGMMA_CASES else ROUTE_MMA
     for kernel in ("flash_fwd", "flash_bwd_fused"):
         assert attention_route(dtype, d, upcast, kernel=kernel) == want
+
+
+@pytest.mark.parametrize("contract", sorted(CONTRACTS))
+@pytest.mark.parametrize("kernel", sorted(LAUNCHERS))
+def test_wide_backward_route(kernel, contract):
+    """At bf16 head width 256 (the 2D UNets' 256-wide heads: bench.py's
+    training step, serving) kernels 2 and 3 take their D = 256 wgmma body
+    in the two exp2 contracts; kernels 1 and 4 keep mma.sync there, and
+    upcast (f32 operands, no body at D = 256 but mma.sync) keeps it in all
+    four."""
+    upcast, _ = CONTRACTS[contract]
+    want = (ROUTE_WGMMA if kernel in TF32_KERNELS and not upcast else ROUTE_MMA)
+    assert attention_route(torch.bfloat16, 256, upcast, kernel=kernel) == want
+    assert attention_route(torch.float32, 256, upcast, kernel=kernel) == ROUTE_MMA
 
 
 def test_route_of_an_unknown_kernel_raises():

@@ -17,19 +17,23 @@ relative to the largest gradient: 1e-4 for f32 (summation order over up to
 inputs: dk and dv equal to the bit where the two run one body of
 `attention_route` (the mma.sync body the two share, and on the wgmma
 route, bf16 at D = 64, the same dV and dK products in the same order), and
-at f32 D = 64, where kernel 3 runs its TF32 wgmma body and kernel 4
-mma.sync, within 1e-5 of their largest value (the same f32 products summed
-in another order); dq within 1e-5 of its
+where they do not (f32 D = 64, where kernel 3 runs its TF32 wgmma body and
+kernel 4 mma.sync; bf16 D = 256, where kernel 3 runs its D = 256 wgmma
+body), within the fused margin below (the same products summed in another
+order); dq within 1e-5 of its
 largest value in f32 (f32 sums of the key blocks' parts in key-block
 order), and in bf16 within one bf16 ulp of its value (those sums may round
 to the other side of a bf16 tie) plus that 1e-5 (sums that cancel). The
 wgmma route of kernels 1-4 against the plain versions in both exp2
-contracts, and the TF32 route of kernels 2 and 3 (f32 at D = 64) in all
+contracts, the D = 256 wgmma body of kernels 2 and 3 (bf16 at D = 256)
+in both, and the TF32 route of kernels 2 and 3 (f32 at D = 64) in all
 three, causal, ragged, Sk = 1 and 77 and Sq below and above Sk, two
-launches equal to the bit; each (kernel, input) takes one body, so the C
+launches equal to the bit; the profiler names the D = 256 body's kernels
+as the ones that ran; each (kernel, input) takes one body, so the C
 entries refuse the mma.sync route at bf16 D = 64 (and kernels 2 and 3 at
-f32 D = 64), the wgmma route at f32, the TF32 route in kernels 1 and 4
-and at bf16, and an unknown route. Kernels 2-4
+f32 D = 64 and bf16 D = 256), the wgmma route at f32 and in kernels 1 and
+4 at D = 256, the TF32 route in kernels 1 and 4 and at bf16, and an
+unknown route. Kernels 2-4
 compute s and dp by one function, kernel 2 with the
 queries as the mma's A operand, kernels 3 and 4 with the keys: both roles
 give the same s, dp and ds to the bit, so every bf16 ds rounds alike in
@@ -579,6 +583,68 @@ def test_wgmma_route_backward_kernels_on_gpu(cuda_device, contract, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(WGMMA_SHAPES))
+@pytest.mark.parametrize("contract", ["no_max", "running_max"])
+def test_wide_route_backward_kernels_on_gpu(cuda_device, contract, case):
+    """Kernels 2 and 3 on their D = 256 wgmma body (bf16 at head width 256,
+    both exp2 contracts), at the wgmma route's shapes (Sq and Sk no
+    multiples of kernel 2's 32-key tiles and 128-row blocks or kernel 3's
+    64-row q tiles and 64-key blocks): against the plain backward at
+    BWD_TOL (relative to `_gradient_sizes`), two launches equal to the bit
+    (no atomics; a dq row belongs to one warpgroup, a dk, dv element to
+    one); kernel 4 (mma.sync there) within the fused margin of them."""
+    bh, sq, sk, causal = WGMMA_SHAPES[case]
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert attention_route(torch.bfloat16, 256, kernel=kernel) == ROUTE_WGMMA
+    assert attention_route(torch.bfloat16, 256, kernel="flash_bwd_fused") == ROUTE_MMA
+    args, kw = _contract_backward_inputs(cuda_device, bh, sq, sk, 256, torch.bfloat16, causal,
+                                         False, contract == "no_max")
+    q_in, k, v, out, lse2, dout = args
+    do2, delta = _backward_rows(out, dout)
+    bkw = dict(causal=causal, no_max=kw["no_max"])
+    counters = (FLASH_BWD_DQ, FLASH_BWD_DKV)
+    before = [c.launches for c in counters]
+    first = (FLASH_BWD_DQ(q_in, k, v, do2, lse2, delta, **bkw),
+             *FLASH_BWD_DKV(q_in, k, v, do2, lse2, delta, **bkw))
+    again = (FLASH_BWD_DQ(q_in, k, v, do2, lse2, delta, **bkw),
+             *FLASH_BWD_DKV(q_in, k, v, do2, lse2, delta, **bkw))
+    fused = FLASH_BWD_FUSED(q_in, k, v, do2, lse2, delta, **bkw)
+    want = flash_attention_backward_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [n + 2 for n in before]
+    sizes = _gradient_sizes(args, kw, want)
+    for a, a2, b, size in zip(first, again, want, sizes):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert bool(torch.isfinite(a.float()).all())
+        assert (a.float() - b.float()).abs().max().item() <= BWD_TOL[torch.bfloat16] * size
+        assert torch.equal(a.view(torch.int16), a2.view(torch.int16))
+    _assert_fused_dkv_agree(fused, first, torch.bfloat16, 256, sizes=sizes)
+    _assert_within_fused_margin(fused[0], first[0], sizes[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_wide_route_runs_its_own_kernel_on_gpu(cuda_device, kernel):
+    """Which kernel ran, as the profiler names it: at bf16 D = 256 the dq
+    and dkv launchers launch `flash_bwd_dq_wide_kernel` and
+    `flash_bwd_dkv_wide_kernel` (the D = 256 wgmma body), and no mma.sync
+    body."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args, _ = _contract_backward_inputs(cuda_device, 2, 300, 300, 256, torch.bfloat16, False,
+                                        False, True)
+    q_in, k, v, out, lse2, dout = args
+    do2, delta = _backward_rows(out, dout)
+    launcher = FLASH_BWD_DQ if kernel == "flash_bwd_dq" else FLASH_BWD_DKV
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        launcher(q_in, k, v, do2, lse2, delta)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if f"{kernel}_" in e.name and "_kernel" in e.name]
+    assert names and all(f"{kernel}_wide_kernel" in name for name in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_SHAPES))
 @pytest.mark.parametrize("contract", ["no_max", "running_max", "upcast"])
 def test_tf32_route_backward_kernels_on_gpu(cuda_device, contract, case):
     """Kernels 2 and 3 on their TF32 wgmma body (f32 at D = 64), in all three
@@ -655,21 +721,26 @@ ALL_FOUR = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "dtype, route, refusing",
-    [(torch.bfloat16, ROUTE_MMA, ALL_FOUR), (torch.float32, ROUTE_WGMMA, ALL_FOUR),
-     (torch.bfloat16, UNKNOWN_ROUTE, ALL_FOUR),
-     (torch.float32, ROUTE_MMA, ("flash_bwd_dq", "flash_bwd_dkv")),
-     (torch.float32, ROUTE_TF32, ("flash_fwd", "flash_bwd_fused")),
-     (torch.bfloat16, ROUTE_TF32, ALL_FOUR)],
+    "dtype, route, refusing, d",
+    [(torch.bfloat16, ROUTE_MMA, ALL_FOUR, 64), (torch.float32, ROUTE_WGMMA, ALL_FOUR, 64),
+     (torch.bfloat16, UNKNOWN_ROUTE, ALL_FOUR, 64),
+     (torch.float32, ROUTE_MMA, ("flash_bwd_dq", "flash_bwd_dkv"), 64),
+     (torch.float32, ROUTE_TF32, ("flash_fwd", "flash_bwd_fused"), 64),
+     (torch.bfloat16, ROUTE_TF32, ALL_FOUR, 64),
+     (torch.bfloat16, ROUTE_MMA, ("flash_bwd_dq", "flash_bwd_dkv"), 256),
+     (torch.bfloat16, ROUTE_WGMMA, ("flash_fwd", "flash_bwd_fused"), 256),
+     (torch.float32, ROUTE_WGMMA, ALL_FOUR, 256)],
     ids=["mma_at_bf16_d64", "wgmma_at_f32", "unknown", "mma_at_f32_d64_split",
-         "tf32_in_kernels_1_and_4", "tf32_at_bf16"])
-def test_backward_route_refused_on_gpu(cuda_device, monkeypatch, dtype, route, refusing):
+         "tf32_in_kernels_1_and_4", "tf32_at_bf16", "mma_at_bf16_d256_split",
+         "wgmma_in_kernels_1_and_4_at_d256", "wgmma_at_f32_d256"])
+def test_backward_route_refused_on_gpu(cuda_device, monkeypatch, dtype, route, refusing, d):
     """Each (kernel, input) of kernels 1-4 takes one body: their C entries
     refuse the mma.sync route at bf16 D = 64 (exp2 contracts) and, in
-    kernels 2 and 3, at f32 D = 64, the wgmma route at f32, the TF32 route
-    in kernels 1 and 4 and at bf16, and an unknown route; the launcher
-    raises and counts no launch."""
-    args, _ = _contract_backward_inputs(cuda_device, 2, 128, 128, 64, dtype, False, False, True)
+    kernels 2 and 3, at f32 D = 64 and bf16 D = 256, the wgmma route at f32
+    and in kernels 1 and 4 at D = 256, the TF32 route in kernels 1 and 4
+    and at bf16, and an unknown route; the launcher raises and counts no
+    launch."""
+    args, _ = _contract_backward_inputs(cuda_device, 2, 128, 128, d, dtype, False, False, True)
     q_in, k, v, out, lse2, dout = args
     do2, delta = _backward_rows(out, dout)
     # kernels 1 and 4 take the route from `attention_route`: stand the one
