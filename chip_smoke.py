@@ -25,7 +25,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      count of instantiations (kernels 1-4 have no mma.sync one at bf16 D =
      64 in the exp2 contracts, kernels 2 and 3 none at bf16 D = 256 in the
      exp2 contracts, where their D = 256 wgmma body runs, nor at f32 D = 64,
-     where their TF32 wgmma bodies run in all three contracts);
+     128 and 256, where their TF32 wgmma bodies run in all three contracts);
   2. kernels against their plain versions: O and lse of the flash-attention
      forward kernel against `flash_attention_reference` (then the forward
      against the plain attention path at seq 256-1024, the numbers behind
@@ -33,11 +33,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      the fused backward kernel against `flash_attention_backward_reference`
      (the fused one also against the split ones: dk, dv to the bit where
      the two run one body of `attention_route` (the wgmma one for bf16 at D
-     = 64, else mma.sync), within the fused dq margin at f32 D = 64, where
-     kernel 3 runs its TF32 wgmma body, and at bf16 D = 256, where it runs
-     its D = 256 wgmma body, and dq within the fused dq margin
-     of its largest value (at f32 D = 64, where kernel 2 runs the TF32 body,
-     also of the size of the terms that cancel at Sk = 1: `fused_agree`);
+     = 64, else mma.sync), within the fused dq margin at f32 D = 64, 128
+     and 256, where kernel 3 runs its TF32 wgmma bodies, and at bf16 D =
+     256, where it runs its D = 256 wgmma body, and dq within the fused dq
+     margin of its largest value (at f32 D = 64, 128 and 256, where kernel 2
+     runs the TF32 bodies, also of the size of the terms that cancel at Sk =
+     1: `fused_agree`);
      and kernels 2 and 3 against themselves: dq, dk and dv must be the same
      to the bit over two launches; each case prints its routes, and the
      times of kernels 2 and 3 beside their bounds (and their share of
@@ -45,7 +46,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      cases, ROUTE_CASES, run kernels 1-4 in both exp2 contracts and under
      upcast, ROUTE_CASES_F32 the same shapes in f32, on kernels 2 and 3's
      TF32 body, ROUTE_CASES_WIDE the same shapes at bf16 D = 256, on
-     kernels 2 and 3's D = 256 wgmma body), and the
+     kernels 2 and 3's D = 256 wgmma body, ROUTE_CASES_F32_WIDE the same
+     shapes in f32 at D = 128 and 256, on kernels 2 and 3's TF32 body
+     streamed over D), and the
      fused GroupNorm-SiLU-conv3d kernel against
      `fused_norm_silu_conv3d_reference` (two launches equal to the bit, and
      the sums over one 3D forward's 22 launches), at the shapes the serving, training
@@ -316,7 +319,8 @@ THRESHOLD_CASES = ((2, 2, 64, "bfloat16"), (4, 1, 256, "float32"))
 # exp2 contracts is its wgmma body (6 in all), kernels 2 and 3 at bf16 D =
 # 256 in the 2 exp2 contracts their D = 256 wgmma body (4 in all), and
 # kernels 2 and 3 at f32 D = 64 in the 3 contracts their TF32 wgmma body (6
-# in all); kernel 5: the
+# in all) and at f32 D = 128 and 256 their TF32 body streamed over D (12 in
+# all); kernel 5: the
 # f32 kernel at 3 BN, the bf16 kernel at the 3 depth runs of
 # `ops.fused_conv.CONV_RUNS`; kernels 6 and 7: 7 overlap variants and the 4
 # (scale in kernel, bf16 p) pairs), so that a log that stops matching fails
@@ -325,7 +329,8 @@ NO_STACK_KERNELS = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "flash_fwd_
                     "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                     "flash_bwd_fused_wgmma_kernel", "flash_bwd_dq_tf32_kernel",
                     "flash_bwd_dkv_tf32_kernel", "flash_bwd_dq_wide_kernel",
-                    "flash_bwd_dkv_wide_kernel",
+                    "flash_bwd_dkv_wide_kernel", "flash_bwd_dq_stream_kernel",
+                    "flash_bwd_dkv_stream_kernel",
                     "fused_conv_f32_kernel", "fused_conv_mma_kernel",
                     "flash_probe_overlap_kernel", "flash_probe_vpu_kernel")
 NO_STACK_INSTANCES = {"flash_fwd.cu": 22, "flash_bwd.cu": 60, "fused_conv.cu": 6,
@@ -334,16 +339,18 @@ NO_STACK_INSTANCES = {"flash_fwd.cu": 22, "flash_bwd.cu": 60, "fused_conv.cu": 6
 # bodies of kernels 1-4 lack bf16 D = 64 in the exp2 contracts (kernel 1's
 # bf16 one: 3 other widths x 2 contracts; kernels 2-4's: 20 - 2), which the
 # wgmma bodies take (kernel 1 at two block heights); those of kernels 2 and
-# 3 also lack bf16 D = 256 in the exp2 contracts and f32 D = 64 (20 - 2 - 2
-# - 3), which their D = 256 wgmma and TF32 bodies take
+# 3 also lack bf16 D = 256 in the exp2 contracts and f32 at D = 64, 128 and
+# 256 (20 - 2 - 2 - 9: bf16 D = 32 and 128 and f32 D = 32 are left), which
+# their D = 256 wgmma and TF32 bodies take
 KERNEL_INSTANCES = {
     "flash_fwd.cu": {"flash_fwd_bf16_kernel": 6, "flash_fwd_f32_kernel": 12,
                      "flash_fwd_wgmma_kernel": 4},
-    "flash_bwd.cu": {"flash_bwd_dq_kernel": 13, "flash_bwd_dkv_kernel": 13,
+    "flash_bwd.cu": {"flash_bwd_dq_kernel": 7, "flash_bwd_dkv_kernel": 7,
                      "flash_bwd_fused_kernel": 18, "flash_bwd_dq_wgmma_kernel": 2,
                      "flash_bwd_dkv_wgmma_kernel": 2, "flash_bwd_fused_wgmma_kernel": 2,
                      "flash_bwd_dq_wide_kernel": 2, "flash_bwd_dkv_wide_kernel": 2,
-                     "flash_bwd_dq_tf32_kernel": 3, "flash_bwd_dkv_tf32_kernel": 3},
+                     "flash_bwd_dq_tf32_kernel": 3, "flash_bwd_dkv_tf32_kernel": 3,
+                     "flash_bwd_dq_stream_kernel": 6, "flash_bwd_dkv_stream_kernel": 6},
 }
 # (name, (BH, Sq, Sk, D), dtype name, causal) of the backward kernels
 BACKWARD_CASES = (
@@ -544,12 +551,17 @@ ROUTE_CASES_F32 = tuple((f"{name}_f32", shape, "float32", causal, timed)
 # the same shapes at head width 256 in bf16: kernels 2 and 3's D = 256
 # wgmma body (kernel 2: 128-row blocks, 32-key tiles; kernel 3: 64-key
 # blocks, 64-row q tiles) in both exp2 contracts, kernels 1 and 4 on
-# mma.sync (upcast runs them all in f32)
+# mma.sync (upcast runs them all in f32 on the TF32 body below)
 ROUTE_CASES_WIDE = tuple((f"{name}_d256", (bh, sq, sk, 256), dtype_name, causal, timed)
                          for name, (bh, sq, sk, _), dtype_name, causal, timed in ROUTE_CASES)
+# the same shapes in f32 at head widths 128 and 256: kernels 2 and 3's TF32
+# body streamed over D (64-row blocks, 32-row tiles) in all three contracts
+ROUTE_CASES_F32_WIDE = tuple((f"{name}_f32_d{d}", (bh, sq, sk, d), "float32", causal, timed)
+                             for d in (128, 256)
+                             for name, (bh, sq, sk, _), _, causal, timed in ROUTE_CASES)
 CONTRACT_RUNS = ([(c, flags, CONTRACT_CASES) for c, flags in CONTRACTS.items()]
                  + [(c, flags, cases) for cases in (ROUTE_CASES, ROUTE_CASES_F32,
-                                                    ROUTE_CASES_WIDE)
+                                                    ROUTE_CASES_WIDE, ROUTE_CASES_F32_WIDE)
                     for c, flags in {**CONTRACTS, "no_max": (False, True)}.items()])
 # the kernels line's contract numbers: kernel 1 and kernels 2 + 3 at the 2D
 # serving shape in f32 (kernel 1's main case), kernel 4 at the 3D shape
@@ -1009,10 +1021,10 @@ def fused_agree(torch, ops, fused, split, upcast: bool = False,
     order: the mma.sync body `dkv_block`; the wgmma bodies' shared products
     and probabilities), else within the fused margin. dq: within the fused
     margin (its parts are summed in another order). Where two kernels run
-    different bodies (kernels 2 and 3 on the TF32 one at f32 D = 64, kernel
-    4 on mma.sync), the margin is also taken of `floors` (`grad_scales`:
-    at Sk = 1 dq and dk cancel to rounding, and two bodies' rounding
-    differs); where they share one, of the largest value alone."""
+    different bodies (kernels 2 and 3 on the TF32 ones at f32 D = 64, 128
+    and 256, kernel 4 on mma.sync), the margin is also taken of `floors`
+    (`grad_scales`: at Sk = 1 dq and dk cancel to rounding, and two bodies'
+    rounding differs); where they share one, of the largest value alone."""
     dtype, d = split[1].dtype, split[1].shape[-1]
     dq_body, dkv_body, fused_body = (route_name(ops, dtype, d, upcast, kernel) for kernel in
                                      ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused"))
@@ -1600,7 +1612,9 @@ def check_launches(counts: dict, expected: dict, what: str) -> None:
 
 
 def train_recipe(torch, ops, recipe) -> dict:
-    """Phase 4 (a): the recipe's main at its defaults for TRAIN_STEPS steps."""
+    """Phase 4 (a): the recipe's main at its defaults for TRAIN_STEPS steps.
+    Its attention runs at (64, 1024, 1024, 256) f32: kernels 2 and 3 on
+    their TF32 body streamed over D, kernel 1 on mma.sync."""
     reset_launches(ops)
     t0 = time.perf_counter()
     out = recipe.main(["--steps", str(TRAIN_STEPS), "--device", DEVICE])
@@ -1616,6 +1630,9 @@ def train_recipe(torch, ops, recipe) -> dict:
     # 2D: no kernel 5, and the split backward (GMTPU_FLASH_FUSED_BWD unset)
     check_launches(counts, expected_launches(TRAIN_STEPS, flash_fwd=3, flash_bwd_dq=3,
                                              flash_bwd_dkv=3), "recipe main")
+    log("train: recipe main bodies (its 256-wide heads in f32): " + ", ".join(
+        f"{kernel} {route_name(ops, torch.float32, 256, False, kernel)}"
+        for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")))
     return dict(launches=counts, steps_per_sec=sps)
 
 

@@ -408,6 +408,25 @@ __device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t a, ui
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d (+)= a b for a 64 x 32 tile, K = 8, TF32 operands: A from registers as
+// wgmma_tf32_rs_n64's (below), B K-major from shared memory by descriptor;
+// scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 // d (+)= a b for a 64 x 64 tile, K = 8, TF32 operands: A from registers
 // (the mma.sync m16n8k8 TF32 A fragment of each warp's 16 rows: rows g,
 // g + 8, columns t % 4 and + 4), B K-major from shared memory by descriptor;

@@ -8,9 +8,9 @@
 // to the bit where the two share a body (the same dV and dK products in
 // the same order: dkv_block on the mma.sync route, dkv_tile_probs and
 // products_over_tile on the wgmma route at D = 64), and within that margin
-// where they do not: at f32 D = 64, where kernel 3 runs the TF32 body, and
-// at bf16 D = 256, where it runs the D = 256 wgmma body, and kernel 4 the
-// mma.sync one.
+// where they do not: in f32 at D = 64, 128 and 256, where kernel 3 runs a
+// TF32 body, and at bf16 D = 256, where it runs the D = 256 wgmma body, and
+// kernel 4 the mma.sync one.
 //
 // Replaces the Pallas TPU kernels of the backward `_flash_bwd` in
 // generativemodels_tpu/ops/flash_attention.py: the split backward's
@@ -23,7 +23,8 @@
 // flash_bwd_fused_wgmma_kernel at D = 64, and kernels 2 and 3
 // flash_bwd_dq_wide_kernel and flash_bwd_dkv_wide_kernel at D = 256; on
 // the TF32 route kernels 2 and 3 are flash_bwd_dq_tf32_kernel and
-// flash_bwd_dkv_tf32_kernel.
+// flash_bwd_dkv_tf32_kernel at D = 64, and flash_bwd_dq_stream_kernel and
+// flash_bwd_dkv_stream_kernel at D = 128 and 256.
 // Default contract, as flash_fwd.cu: q arrives prescaled by scale*log2(e)
 // (rounded to q's type), dO arrives multiplied by ln2 (rounded to dO's
 // type), lse2 is the forward's log2-domain lse and delta = rowsum(dO ln2 * O)
@@ -64,15 +65,19 @@
 //   tensor-core bound. Kernels 2 and 3 take the route at bf16 D = 256 too
 //   (the 2D UNets' 256-wide heads: bench.py's training step), on a body of
 //   their own (namespace wd, below); kernel 4 keeps mma.sync there.
-// - kRouteTf32, kernels 2 and 3 at f32 D = 64 in all three contracts (the
-//   f32 3D LDM recipe's stage-1 and stage-2 attention, upcast's D = 64
-//   contexts): warpgroup products on TF32 operands (wgmma m64nNk8, 3xTF32)
-//   fed by a TMA ring and a converter role, below.
-// - kRouteMma, every other case (f32 and upcast as 3xTF32, bf16 at D = 32
-//   and 128, and kernel 4 at bf16 D = 256; kernels 2-4 have no mma.sync
-//   instance at bf16 D = 64 in the exp2 contracts, kernels 2 and 3 none at
-//   bf16 D = 256 there nor at f32 D = 64; kernel 4 keeps it at both): the
-//   mma.sync bodies, where
+// - kRouteTf32, kernels 2 and 3 on f32 operands at D = 64, 128 and 256 in
+//   all three contracts (the f32 3D LDM recipe's stage-1 and stage-2
+//   attention at D = 64, the 2D f32 recipe's and ControlNet's training
+//   steps at D = 256 and 128, upcast at those widths): warpgroup products
+//   on TF32 operands (wgmma m64nNk8, 3xTF32) fed by a TMA ring and a
+//   converter role, on two bodies below (namespace tf at D = 64, ts at 128
+//   and 256).
+// - kRouteMma, every other case (f32 and upcast as 3xTF32 at D = 32 and in
+//   kernels 1 and 4, bf16 at D = 32 and 128, and kernel 4 at bf16 D = 256;
+//   kernels 2-4 have no mma.sync instance at bf16 D = 64 in the exp2
+//   contracts, kernels 2 and 3 none at bf16 D = 256 there nor in f32 at D
+//   = 64, 128 and 256; kernel 4 keeps it at all of them): the mma.sync
+//   bodies, where
 //   the tensor pipe's issue rate (mma.sync, as kernel 1) and the operand
 //   fragments read from shared memory by ldmatrix set the floor.
 // - bf16: mma.sync m16n8k16, bf16 operands, f32 accumulation.
@@ -387,6 +392,82 @@
 // kernel 2's key loop ends at its last row. Kernel 4 keeps the mma.sync
 // body at f32 D = 64, so its dk and dv there differ from kernel 3's in
 // summation order (within the fused dq margin), not to the bit.
+//
+// Kernels 2 and 3 on the TF32 route at D = 128 and 256 (namespace ts,
+// flash_bwd_dq_stream_kernel and flash_bwd_dkv_stream_kernel, one template
+// over the atoms of a row, kAtoms = D / 32 = 4 or 8; every contract; the 2D
+// f32 recipe's attention at D = 256, ControlNet's at D = 128). The tf body
+// does not scale to these widths: it keeps the resident operands in hi and
+// lo, 256 KB at D = 128 and 512 KB at D = 256. What fits in the 232448
+// bytes a block may take, with f32 at 4 D bytes a row and 8 D in hi and lo:
+// - The resident side of a block is 64 rows (kernel 2: query rows, Q and
+//   dO; kernel 3: keys, K and V), kept raw as TMA wrote them (64 KB at D =
+//   128, 128 KB at D = 256). The consumers split their A fragments into hi
+//   and lo in registers as they load them, each tile again.
+// - The streamed side (kernel 2: K, V; kernel 3: Q, dO) comes in 32-row
+//   tiles, each as atoms of 32 columns (one 128-byte swizzle row of f32,
+//   one TMA box) through a ring of 16 KB stages. A whole tile in hi and lo
+//   (64 KB an operand at D = 256) does not fit beside the resident rows, so
+//   the d products are a k-loop over D, a stage an atom of each operand
+//   (two atoms split by the converters, hi over the raw atoms and lo after
+//   them), and the tile products load the tile's atoms a second time from
+//   L2, a stage two 64-column slabs (four raw atoms). The stages are as
+//   many as the rest leaves room for (Layout::kStagesN): 3-4 at D = 256,
+//   7-8 at D = 128. At D = 128 a layout holding whole split tiles would
+//   fit, but one template serves both widths: D = 128 streams as well.
+// - No transposed copy (the tf body's converters spent most of a tile on
+//   it): the tile products run transposed, dq^T = K^T dS^T (kernel 2) and
+//   dV^T = dO^T P, dK^T = Q^T dS (kernel 3), so that the streamed tile is
+//   the A operand, loaded from its raw atoms by ld.shared in the order the
+//   fragment needs and split in registers, and B is P^T, dS or dS^T as the
+//   consumers write them from their accumulators, K-major (a row of 32 f32
+//   is one swizzle row). A fragment's k columns t and t + 4 read the tile's
+//   rows 2t and 2t + 1 (the B buffers hold column c of the tile at
+//   position tile_pos(c)), which also puts the eight rows a warp's lanes
+//   read at once in eight distinct 16-byte chunks. Consumer c takes slab 2p
+//   + c of each stage's pair p, N all 64 resident rows (m64n64): its
+//   accumulators are D / 2 x 64, D / 128 m64n64 tiles an output.
+// - Roles, a tile: consumer 0 computes x = S (or S^T) over d, consumer 1
+//   dP (or dP^T), both m64n32 (A its resident operand, B the stage's split
+//   atom); consumer 0 then p, into an exchange in shared memory and
+//   (kernel 3) the P^T buffers, consumer 1 ds from it into the dS buffers
+//   (named barriers 1-3: consumer 0 writes only once consumer 1 is done
+//   with the last tile's); then both run the tile products, a slab a stage.
+// - Registers: kernel 3's dV^T and dK^T take D / 2 f32 a thread (128 at D
+//   = 256: setmaxnreg 224 / 56, as tf: 232 / 48 asks for more registers
+//   than the launch holds, and setmaxnreg.inc then waits for ever), a
+//   fragment set 32 (4 k-steps, hi and lo), a part 16 or 32. Loading and
+//   splitting the next two k-steps' fragments while the last ones' products
+//   run (a second set, one chain over all of d) spilled kernel 3 at D = 256
+//   and gained little in kernel 2: not kept.
+// - Rates (a microbenchmark on the H100): with two warpgroups issuing,
+//   TF32 m64n32k8 from registers and m64n64k8 either way run at the tensor
+//   cores' rate, m64n32k8 with A from shared memory below it, and so does
+//   one warpgroup alone. The products are not what holds the body back: a
+//   stage's loads, splits and waits are, since each consumer issues, waits
+//   and then prepares the next.
+// - The TF32 split: integer operations on the bits (round_tf32, the same
+//   bits as cvt.rna.tf32.f32), for the consumers' fragments and the
+//   converters' stages alike: with cvt.rna.tf32.f32 the conversions' rate
+//   held the body back (timed side by side on the H100).
+// - What bounds it: the operations are 0.6247 + 0.8330 ms at (64, 1024,
+//   1024, 256) f32 (the H100's published 3xTF32 rate at 700 W); shared memory carries ~1 MB a tile of kernel 2 at D =
+//   256 (the converters' split, the fragments' loads, the B operands),
+//   about twice the tensor cores' 4.6K cycles at 128 bytes a cycle, and the
+//   L2 reloads of the streamed tile (3 GB a launch of kernel 2, 4 GB of
+//   kernel 3 there) stay under 2 TB/s. On the H100, leaving a stage's
+//   work out in turn (the products, the splits) shows neither alone sets
+//   the pace; the converters' split was on the critical path until each
+//   thread loaded all its pieces before splitting any.
+// - Sums: each d product is summed an atom at a time from zero (lo x hi
+//   over the atom's 4 k-steps, then hi x lo, then hi x hi) and added in
+//   f32; each tile part over the tile's 32 rows from zero, added in f32. No
+//   atomics: two launches give the same bits. Edges as the other bodies:
+//   rows past S read as 0 (TMA), p = 0 past Sq, Sk and the causal diagonal,
+//   tested only in a tile that reaches them; the causal loop bounds of tf.
+// Kernel 4 keeps dkv_block (mma.sync) at f32 D = 128 and 256, so its dk and
+// dv there differ from kernel 3's in summation order (within the fused dq
+// margin), not to the bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -640,17 +721,30 @@ __device__ __forceinline__ void sdp_products(float (&s)[NTiles][4], float (&dp)[
 
 // p and ds of one (query, key) pair, p = 0 for a masked pair: kNoMax p =
 // exp2(min(s, 80) - lse2), ds = p (dp - delta); kRunningMax the same without
-// the clamp; kUpcast p = exp(s * sscale - lse), ds = sscale * p (dp - delta)
+// the clamp; kUpcast p = exp(s * sscale - lse), ds = sscale * p (dp - delta).
+// prob and grad_s are its two halves (the TF32 body at D = 128 and 256
+// computes them in different warpgroups)
+template <int K>
+__device__ __forceinline__ float prob(float s, float lse2, bool live, float sscale) {
+  if constexpr (K == kUpcast) {
+    return live ? expf(s * sscale - lse2) : 0.f;
+  } else {
+    return live ? exp2f((K == kNoMax ? fminf(s, 80.f) : s) - lse2) : 0.f;
+  }
+}
+template <int K>
+__device__ __forceinline__ float grad_s(float p, float dp, float delta, float sscale) {
+  if constexpr (K == kUpcast) {
+    return sscale * (p * (dp - delta));
+  } else {
+    return p * (dp - delta);
+  }
+}
 template <int K>
 __device__ __forceinline__ void prob_ds(float s, float dp, float lse2, float delta, bool live,
                                         float sscale, float& p, float& ds) {
-  if constexpr (K == kUpcast) {
-    p = live ? expf(s * sscale - lse2) : 0.f;
-    ds = sscale * (p * (dp - delta));
-  } else {
-    p = live ? exp2f((K == kNoMax ? fminf(s, 80.f) : s) - lse2) : 0.f;
-    ds = p * (dp - delta);
-  }
+  p = prob<K>(s, lse2, live, sscale);
+  ds = grad_s<K>(p, dp, delta, sscale);
 }
 
 // Stage `Rows` rows of width D (contiguous in global memory, from `src`)
@@ -3177,6 +3271,542 @@ flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
+// ---- kernels 2 and 3 on the TF32 route at D = 128 and 256: f32, streamed over D ----
+
+namespace ts {
+
+constexpr int kAtomCols = 32;    // f32 columns of an atom: one 128-byte swizzle row, one TMA box
+constexpr int kRows = 64;        // resident rows of a block (kernel 2: queries, 3: keys): wgmma's M
+constexpr int kTile = 32;        // streamed rows of a tile (kernel 2: keys, 3: queries)
+constexpr int kConsumerThreads = 2 * 128;
+constexpr int kThreads = kConsumerThreads + 128;  // + the producer warpgroup
+constexpr int kConsumerWarps = kConsumerThreads / 32;  // arrivals that empty a stage
+constexpr int kConsumerRegs = 224;
+constexpr int kProducerRegs = 56;
+constexpr int kAcc = 16;                    // accumulator floats of an m64n32 tile
+constexpr int kPartAcc = 32;                // accumulator floats of an m64n64 tile
+constexpr int kSteps = kAtomCols / 8;       // k8 steps of an atom (or of a tile's 32 rows)
+constexpr int kResAtom = kRows * 128;       // 8 KB: an atom of a resident operand
+constexpr int kTileAtom = kTile * 128;      // 4 KB: an atom of a streamed tile
+constexpr int kStageBytes = 4 * kTileAtom;  // a stage: four atoms (two, then their lo parts)
+constexpr int kBufBytes = kRows * 128;      // a tile product's B operand, hi or lo: 64 rows x 32
+constexpr int kXLd = kTile + 8;             // floats a row of the P exchange (float2s in distinct banks)
+constexpr int kXBytes = kRows * kXLd * 4;
+static_assert(kTile == kAtomCols, "a row of a B buffer is one 128-byte swizzle row");
+static_assert(kXBytes % 1024 == 0, "the ring starts 1024-byte aligned");
+
+// x = hi + lo, both TF32, as split_tf32 gives them (cvt.rna.tf32.f32: the
+// nearest TF32 value, ties away from zero) but by integer operations on the
+// bits, faster than the conversion here (the head note's TF32 split)
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = round_tf32(x);
+  lo = round_tf32(x - __uint_as_float(hi));
+}
+
+// Dynamic shared memory from a 1024-byte-aligned base, for kAtoms = D / 32
+// atoms a row: the two resident operands (Q and dO, or K and V: 64 rows,
+// raw f32 as TMA wrote them, atom a at a * kResAtom), the tile products' B
+// operands (kernel 2: dS hi, lo; kernel 3 (kDkv): P^T hi, lo, dS^T hi, lo;
+// 64 rows of 32 positions each), the P exchange (64 x kXLd f32), the ring
+// (as many stages as the rest leaves room for), then its full, ready and
+// empty barriers and the resident operands' one. kLoads is the stages of a
+// tile: kAtoms for the d products (two atoms a stage, then their lo
+// parts), then for the tile products two 64-column slabs a stage (four raw
+// atoms): kernel 2's kAtoms / 4 (K), kernel 3's kAtoms / 2 (dO, then Q, of
+// each pair of slabs)
+template <int kAtoms, bool kDkv>
+struct Layout {
+  static constexpr int kAtomsN = kAtoms;
+  static constexpr bool kDkvN = kDkv;
+  static constexpr int kSlabs = kAtoms / 2;  // m64 slabs of D in the tile products
+  static constexpr int kPairs = kSlabs / 2;  // tile-product stages of one operand
+  static constexpr int kLoads = kAtoms + (kDkv ? 2 : 1) * kPairs;
+  static constexpr int kResBytes = kAtoms * kResAtom;
+  static constexpr int kBufAt = 2 * kResBytes;
+  static constexpr int kXAt = kBufAt + (kDkv ? 4 : 2) * kBufBytes;
+  static constexpr int kRingAt = kXAt + kXBytes;
+  static constexpr int kStagesN = (232448 - 1024 - 256 - kRingAt) / kStageBytes;
+  static constexpr int kBarsAt = kRingAt + kStagesN * kStageBytes;
+  static constexpr int kBytes = kBarsAt + (3 * kStagesN + 1) * 8 + 1024;  // + alignment
+  static_assert(kStagesN >= 3 && kBytes <= 232448, "shared memory of one block");
+};
+
+template <class L>
+struct Smem {
+  unsigned char* base;  // 1024-byte aligned
+  uint64_t* bars;
+
+  // resident operand o (0: Q or K, 1: dO or V)
+  __device__ unsigned char* res(int o) const { return base + o * L::kResBytes; }
+  // B operand buffer b (as Layout lists them)
+  __device__ unsigned char* buf(int b) const { return base + L::kBufAt + b * kBufBytes; }
+  __device__ float* xch() const { return reinterpret_cast<float*>(base + L::kXAt); }
+  __device__ unsigned char* stage(int st) const { return base + L::kRingAt + st * kStageBytes; }
+  // a stage's raw atoms are in (TMA), split (converters), free again (consumers)
+  __device__ uint64_t* full(int st) const { return bars + st; }
+  __device__ uint64_t* ready(int st) const { return bars + L::kStagesN + st; }
+  __device__ uint64_t* empty(int st) const { return bars + 2 * L::kStagesN + st; }
+  __device__ uint64_t* res_full() const { return bars + 3 * L::kStagesN; }
+};
+
+// the layout in this block's dynamic shared memory, its barriers
+// initialised (the one __syncthreads of the kernels: the roles split after
+// it)
+template <class L>
+__device__ __forceinline__ Smem<L> make_smem(unsigned char* raw) {
+  Smem<L> m;
+  m.base = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+  m.bars = reinterpret_cast<uint64_t*>(m.base + L::kBarsAt);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < L::kStagesN; ++st) {
+      mbar_init(m.full(st));
+      mbar_init(m.ready(st), tf::kConverterWarps);
+      mbar_init(m.empty(st), kConsumerWarps);
+    }
+    mbar_init(m.res_full());
+    mbar_fence_init();
+  }
+  __syncthreads();
+  return m;
+}
+
+// The producer warpgroup's first thread: the block's two resident operands
+// (maps r0, r1, box 32 columns x 64 rows from row res_row) once, then the
+// kLoads stages of each tile (rows tile_row + j kTile; maps t0, t1, box 32
+// columns x 32 rows): atom a of t0 and of t1 for the d products; then for
+// the tile products the four atoms of each pair of 64-column slabs, of t0
+// (kernel 2: K) or of t1 and then t0 (kernel 3: dO, then Q); rows past the
+// tensor's read as 0
+template <class L>
+__device__ __forceinline__ void produce(const Smem<L>& m, const CUtensorMap* r0,
+                                        const CUtensorMap* r1, const CUtensorMap* t0,
+                                        const CUtensorMap* t1, int bh, int res_row, int tile_row,
+                                        int tiles) {
+  if (tiles == 0) return;
+  mbar_expect(m.res_full(), 2 * L::kResBytes);
+  for (int a = 0; a < L::kAtomsN; ++a) {
+    tma_load_3d(m.res(0) + a * kResAtom, r0, m.res_full(), a * kAtomCols, res_row, bh);
+    tma_load_3d(m.res(1) + a * kResAtom, r1, m.res_full(), a * kAtomCols, res_row, bh);
+  }
+  int g = 0;  // loads so far
+  for (int j = 0; j < tiles; ++j) {
+    const int row = tile_row + j * kTile;
+    for (int l = 0; l < L::kLoads; ++l, ++g) {
+      const int st = g % L::kStagesN;
+      if (g >= L::kStagesN) mbar_wait(m.empty(st), (g / L::kStagesN - 1) & 1);
+      if (l < L::kAtomsN) {
+        mbar_expect(m.full(st), 2 * kTileAtom);
+        tma_load_3d(m.stage(st), t0, m.full(st), l * kAtomCols, row, bh);
+        tma_load_3d(m.stage(st) + kTileAtom, t1, m.full(st), l * kAtomCols, row, bh);
+      } else {
+        const int u = l - L::kAtomsN;  // the tile products' load
+        const CUtensorMap* map = L::kDkvN && u % 2 == 0 ? t1 : t0;
+        const int col = 4 * kAtomCols * (L::kDkvN ? u / 2 : u);
+        mbar_expect(m.full(st), 4 * kTileAtom);
+        for (int i = 0; i < 4; ++i) {
+          tma_load_3d(m.stage(st) + i * kTileAtom, map, m.full(st), col + i * kAtomCols, row, bh);
+        }
+      }
+    }
+  }
+}
+
+// The converters (the producer warpgroup's warps 1-3): the TF32 split of
+// each d-product stage as TMA lands it (hi over the raw atoms, lo after
+// them: B operands of the d products); the tile products' stages stay raw
+// (their atoms are A operands, split by the consumers as they load them)
+template <class L>
+__device__ __forceinline__ void convert(const Smem<L>& m, int tiles) {
+  const int ct = threadIdx.x - kConsumerThreads - 32;
+  int g = 0;
+  for (int j = 0; j < tiles; ++j) {
+    for (int l = 0; l < L::kLoads; ++l, ++g) {
+      const int st = g % L::kStagesN;
+      mbar_wait(m.full(st), (g / L::kStagesN) & 1);
+      if (l < L::kAtomsN) {  // hi over the raw atoms, lo at the same offset after them
+        // this thread's 16-byte pieces, all loaded before any is split
+        unsigned char* hi = m.stage(st);
+        constexpr int kPer = (2 * kTileAtom / 16 + tf::kConverterThreads - 1) /
+                             tf::kConverterThreads;
+        float4 x[kPer];
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int o = 16 * (ct + i * tf::kConverterThreads);
+          if (o < 2 * kTileAtom) x[i] = *reinterpret_cast<const float4*>(hi + o);
+        }
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int o = 16 * (ct + i * tf::kConverterThreads);
+          if (o < 2 * kTileAtom) {
+            uint4 h, lo;
+            split(x[i].x, h.x, lo.x);
+            split(x[i].y, h.y, lo.y);
+            split(x[i].z, h.z, lo.z);
+            split(x[i].w, h.w, lo.w);
+            *reinterpret_cast<uint4*>(hi + o) = h;
+            *reinterpret_cast<uint4*>(hi + 2 * kTileAtom + o) = lo;
+          }
+        }
+        fence_proxy_async();
+      }
+      tf::warp_arrive(m.ready(st));
+    }
+  }
+}
+
+// the byte offset of (row, position pos) in a B buffer: rows of 32 f32
+// positions, one 128-byte swizzle row each
+__device__ __forceinline__ int buf_at(int row, int pos) {
+  return row * 128 + (((pos / 4) ^ (row % 8)) << 4) + 4 * (pos % 4);
+}
+
+// The probabilities of one tile, from the d products' accumulators (x:
+// consumer 0's S or S^T, consumer 1's dP or dP^T; element 4i + 2h + e is
+// resident row rw + 8h, tile column 8i + 2t + e). Consumer 0 computes p
+// (once consumer 1 is done with the last tile's), writes it to the
+// exchange and, kernel 3, its TF32 hi and lo to the P^T buffers; consumer 1
+// then reads it and writes ds's hi and lo to the dS (or dS^T) buffers. A
+// buffer row is a resident row, column c of the tile at position tile_pos(c)
+// (8i + 4e + t), the k order in which the tile products' A fragments read
+// the tile's rows. stat: kernel 2, the lse2 (consumer 0) or delta of rows
+// rw, rw + 8; kernel 3, of columns 8i + 2t + e. kMasked: the pair (resident
+// row r0 + row, tile column t0 + col) is live only inside sq, sk and the
+// causal diagonal
+template <class L, int K, bool kMasked>
+__device__ __forceinline__ void tile_probs(const Smem<L>& m, const float (&x)[kAcc],
+                                           const float (&stat)[4][2], int rw, int r0, int t0,
+                                           int sq, int sk, int causal, float sscale, int j) {
+  const int c = threadIdx.x / 128;
+  const int t = threadIdx.x % 4;
+  float* xch = m.xch();
+  if (c == 0) {
+    if (j > 0) named_sync(1, kConsumerThreads);  // consumer 1 is done with tile j - 1
+#pragma unroll
+    for (int i = 0; i < kAcc / 4; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rw + 8 * h;
+        float p[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * i + 2 * t + e;
+          const int q = L::kDkvN ? t0 + col : r0 + row;
+          const int k = L::kDkvN ? r0 + row : t0 + col;
+          const bool live = !kMasked || (q < sq && k < sk && (!causal || k <= q));
+          p[e] = prob<K>(x[4 * i + 2 * h + e], L::kDkvN ? stat[i][e] : stat[h][0], live, sscale);
+          if constexpr (L::kDkvN) {
+            uint32_t hi, lo;
+            split(p[e], hi, lo);
+            const int at = buf_at(row, 8 * i + 4 * e + t);
+            *reinterpret_cast<uint32_t*>(m.buf(0) + at) = hi;
+            *reinterpret_cast<uint32_t*>(m.buf(1) + at) = lo;
+          }
+        }
+        *reinterpret_cast<float2*>(xch + row * kXLd + 8 * i + 2 * t) = make_float2(p[0], p[1]);
+      }
+    }
+    if constexpr (L::kDkvN) fence_proxy_async();
+    named_arrive(2, kConsumerThreads);
+  } else {
+    named_sync(2, kConsumerThreads);
+    unsigned char* ds_hi = m.buf(L::kDkvN ? 2 : 0);
+    unsigned char* ds_lo = m.buf(L::kDkvN ? 3 : 1);
+#pragma unroll
+    for (int i = 0; i < kAcc / 4; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = rw + 8 * h;
+        const float2 p = *reinterpret_cast<const float2*>(xch + row * kXLd + 8 * i + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ds = grad_s<K>(e ? p.y : p.x, x[4 * i + 2 * h + e],
+                                     L::kDkvN ? stat[i][e] : stat[h][0], sscale);
+          uint32_t hi, lo;
+          split(ds, hi, lo);
+          const int at = buf_at(row, 8 * i + 4 * e + t);
+          *reinterpret_cast<uint32_t*>(ds_hi + at) = hi;
+          *reinterpret_cast<uint32_t*>(ds_lo + at) = lo;
+        }
+      }
+    }
+    fence_proxy_async();
+  }
+  named_sync(3, kConsumerThreads);  // the buffers are whole
+}
+
+// A consumer warpgroup of either kernel (c = 0 or 1), over the block's 64
+// resident rows (from r0) and `tiles` tiles of 32 streamed rows (from
+// t_begin). Per tile:
+// - the d products: consumer c's x = R_c T_c^T over d (kernel 2: S = Q K^T,
+//   dP = dO V^T; kernel 3: S^T = K Q^T, dP^T = V dO^T), one stage an atom:
+//   A this thread's fragments of resident operand c, loaded from its raw
+//   atom and split into TF32 hi and lo in registers, B the stage's split
+//   atom of T_c; each atom's part (lo x hi over its 4 k-steps, then hi x
+//   lo, then hi x hi) from zero, added in f32;
+// - tile_probs;
+// - the tile products, transposed so that the streamed tile is A (from
+//   registers) and all 64 resident rows are N: kernel 2 dq^T += K^T dS^T,
+//   kernel 3 dV^T += dO^T P and dK^T += Q^T dS, two m64 slabs of D a
+//   stage, consumer c taking slab 2p + c of pair p, each part (m64n64)
+//   summed over the tile's 32 rows from zero and added in f32. Accumulator
+//   element 4i + 2h + e of pair p is d = 64 (2p + c) + 16 w + g + 8h of
+//   resident row 8i + 2t + e.
+// out0: dq (kernel 2) or dk, out1: dv, each (rows, D) of the head; rows at
+// or past `limit` are not stored.
+template <class L, int K>
+__device__ __forceinline__ void consume(const Smem<L>& m, const float* __restrict__ lse2,
+                                        const float* __restrict__ delta, float* __restrict__ out0,
+                                        float* __restrict__ out1, int r0, int t_begin, int sq,
+                                        int sk, int tiles, int causal, float sscale) {
+  constexpr int kAtoms = L::kAtomsN;
+  constexpr int kPairs = L::kPairs;
+  constexpr int kD = kAtoms * kAtomCols;
+  constexpr int kProds = L::kDkvN ? 2 : 1;  // kernel 3: dV^T (0) and dK^T (1)
+  constexpr int S = L::kStagesN;
+  const int c = threadIdx.x / 128;
+  const int w = threadIdx.x % 128 / 32;
+  const int g = threadIdx.x % 32 / 4;
+  const int t = threadIdx.x % 4;
+  const int rw = 16 * w + g;  // this thread's A and C rows rw and rw + 8
+  float acc[kProds][kPairs][kPartAcc];
+#pragma unroll
+  for (int p = 0; p < kProds; ++p) {
+#pragma unroll
+    for (int s = 0; s < kPairs; ++s) {
+#pragma unroll
+      for (int i = 0; i < kPartAcc; ++i) acc[p][s][i] = 0.f;
+    }
+  }
+  // kernel 2: the lse2 (consumer 0) or delta (consumer 1) of rows rw, rw + 8
+  float stat[4][2] = {};
+  const float* __restrict__ stats = c == 0 ? lse2 : delta;
+  if constexpr (!L::kDkvN) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) stat[h][0] = r0 + rw + 8 * h < sq ? stats[r0 + rw + 8 * h] : 0.f;
+  }
+  if (tiles > 0) mbar_wait(m.res_full(), 0);
+  const unsigned char* res = m.res(c) + rw * 128;
+  int gl = 0;  // loads so far
+#pragma unroll 1
+  for (int j = 0; j < tiles; ++j) {
+    const int t0 = t_begin + j * kTile;
+    if constexpr (L::kDkvN) {  // the lse2 or delta of this thread's columns
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = t0 + 8 * i + 2 * t + e;
+          stat[i][e] = q < sq ? stats[q] : 0.f;
+        }
+      }
+    }
+    float x[kAcc], part[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) x[i] = 0.f;
+#pragma unroll 1
+    for (int a = 0; a < kAtoms; ++a, ++gl) {
+      const int st = gl % S;
+      // this thread's A fragments of atom a: rows rw + 8h, columns 8ks + t + 4e
+      uint32_t ah[kSteps][4], al[kSteps][4];
+      const unsigned char* ra = res + a * kResAtom;
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float v =
+                *reinterpret_cast<const float*>(ra + h * 1024 + (((2 * ks + e) ^ g) << 4) + 4 * t);
+            split(v, ah[ks][2 * e + h], al[ks][2 * e + h]);
+          }
+        }
+      }
+      mbar_wait(m.ready(st), (gl / S) & 1);
+      const uint64_t bh = wgmma_desc_sw128(smem_addr(m.stage(st) + c * kTileAtom));
+      const uint64_t bl = wgmma_desc_sw128(smem_addr(m.stage(st) + (2 + c) * kTileAtom));
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) wgmma_tf32_rs_n32(part, al[ks], desc_at(bh, 32 * ks), ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) wgmma_tf32_rs_n32(part, ah[ks], desc_at(bl, 32 * ks), 1);
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) wgmma_tf32_rs_n32(part, ah[ks], desc_at(bh, 32 * ks), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(part);
+      reg_fence(ah);
+      reg_fence(al);
+      tf::warp_arrive(m.empty(st));
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) x[i] += part[i];
+    }
+    const bool edge = L::kDkvN
+        ? r0 + kRows > sk || t0 + kTile > sq || (causal && r0 + kRows - 1 > t0)
+        : r0 + kRows > sq || t0 + kTile > sk || (causal && t0 + kTile - 1 > r0);
+    if (edge) {
+      tile_probs<L, K, true>(m, x, stat, rw, r0, t0, sq, sk, causal, sscale, j);
+    } else {
+      tile_probs<L, K, false>(m, x, stat, rw, r0, t0, sq, sk, causal, sscale, j);
+    }
+    // the tile products: load u of the tile is slab pair u (kernel 2) or
+    // pair u / 2, dV^T for even u and dK^T for odd (kernel 3)
+    float tp[kPartAcc];
+#pragma unroll
+    for (int u = 0; u < L::kLoads - kAtoms; ++u, ++gl) {
+      const int pair = L::kDkvN ? u / 2 : u;
+      const int prod = L::kDkvN ? u % 2 : 0;
+      const int st = gl % S;
+      mbar_wait(m.ready(st), (gl / S) & 1);
+      mbar_wait(m.full(st), (gl / S) & 1);
+      // A: slab c's d (rows 16w + g + 8hh: column 16 (w % 2) + g + 8hh of
+      // atom 2c + w / 2) x the tile's rows 8ks + 2t + e (k positions t + 4e)
+      const unsigned char* at = m.stage(st) + (2 * c + w / 2) * kTileAtom;
+      uint32_t fh[kSteps][4], fl[kSteps][4];
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = 8 * ks + 2 * t + e;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int col = 16 * (w % 2) + g + 8 * hh;
+            const float v = *reinterpret_cast<const float*>(
+                at + row * 128 + (((col / 4) ^ (row % 8)) << 4) + 4 * (col % 4));
+            split(v, fh[ks][2 * e + hh], fl[ks][2 * e + hh]);
+          }
+        }
+      }
+      // B: the 64 rows of P^T (kernel 3's dV), dS^T (its dK) or dS (kernel
+      // 2), hi then lo
+      const unsigned char* b = m.buf(2 * prod);
+      const uint64_t bh = wgmma_desc_sw128(smem_addr(b));
+      const uint64_t bl = wgmma_desc_sw128(smem_addr(b + kBufBytes));
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) wgmma_tf32_rs_n64(tp, fl[ks], desc_at(bh, 32 * ks), ks > 0);
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) wgmma_tf32_rs_n64(tp, fh[ks], desc_at(bl, 32 * ks), 1);
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks) wgmma_tf32_rs_n64(tp, fh[ks], desc_at(bh, 32 * ks), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(tp);
+      reg_fence(fh);
+      reg_fence(fl);
+      tf::warp_arrive(m.empty(st));
+#pragma unroll
+      for (int i = 0; i < kPartAcc; ++i) acc[prod][pair][i] += tp[i];
+    }
+    // consumer 0 may overwrite the exchange and the buffers for tile j + 1
+    if (c == 1 && j + 1 < tiles) named_arrive(1, kConsumerThreads);
+  }
+  const int limit = L::kDkvN ? sk : sq;
+#pragma unroll
+  for (int p = 0; p < kProds; ++p) {
+    // kernel 3's dv: dO arrived multiplied by ln2 for ds (not under kUpcast)
+    float* out = L::kDkvN && p == 0 ? out1 : out0;
+    const float mul = L::kDkvN && p == 0 && K != kUpcast ? kLog2e : 1.f;
+#pragma unroll
+    for (int i = 0; i < kPartAcc / 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = r0 + 8 * i + 2 * t + e;
+        if (row >= limit) continue;
+        float* dst = out + static_cast<size_t>(row) * kD + 64 * c + rw;
+#pragma unroll
+        for (int s = 0; s < kPairs; ++s) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) dst[128 * s + 8 * h] = acc[p][s][4 * i + 2 * h + e] * mul;
+        }
+      }
+    }
+  }
+}
+
+}  // namespace ts
+
+// Kernel 2 on the TF32 route at D = 32 kAtoms (128, 256). Grid: one block
+// per (bh, 64 query rows), flattened into blockIdx.x; ts::kThreads threads,
+// ts::Layout<kAtoms, false>::kBytes of dynamic shared memory. Warpgroups 0
+// and 1 consume; in warpgroup 2 the first thread loads by TMA the block's Q
+// and dO rows (maps of (D, sq, bh), box 32 columns x 64 rows) and the K and
+// V atoms (maps of (D, sk, bh), box 32 columns x 32 keys), and warps 1-3
+// convert (ts::convert).
+template <int kAtoms, int K>
+__global__ void __launch_bounds__(ts::kThreads, 1)
+flash_bwd_dq_stream_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const float* __restrict__ lse2, const float* __restrict__ delta,
+                           float* __restrict__ dq, int sq, int sk, int num_qb, int causal,
+                           float sscale) {
+  using L = ts::Layout<kAtoms, false>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ts::Smem<L> m = ts::make_smem<L>(smem_raw);
+  const int bh = blockIdx.x / num_qb;
+  const int q0 = (blockIdx.x % num_qb) * ts::kRows;
+  // under the causal mask, keys past the block's last row are dead for every row
+  const int kv_end = causal ? min(sk, q0 + ts::kRows) : sk;
+  const int tiles = (kv_end + ts::kTile - 1) / ts::kTile;
+  if (threadIdx.x >= ts::kConsumerThreads) {
+    regs_lower<ts::kProducerRegs>();
+    const int pt = threadIdx.x - ts::kConsumerThreads;
+    if (pt == 0) {
+      ts::produce(m, &q_map, &do_map, &k_map, &v_map, bh, q0, 0, tiles);
+    } else if (pt >= 32) {
+      ts::convert(m, tiles);
+    }
+  } else {
+    regs_raise<ts::kConsumerRegs>();
+    const size_t head = static_cast<size_t>(bh) * sq;
+    ts::consume<L, K>(m, lse2 + head, delta + head, dq + head * kAtoms * ts::kAtomCols, nullptr,
+                      q0, 0, sq, sk, tiles, causal, sscale);
+  }
+}
+
+// Kernel 3 on the TF32 route at D = 32 kAtoms. Grid: one block per (bh, 64
+// keys), flattened into blockIdx.x; threads and roles as kernel 2's, with K
+// and V resident (box 64 keys) and Q, dO streamed (box 32 rows),
+// ts::Layout<kAtoms, true>::kBytes of dynamic shared memory.
+template <int kAtoms, int K>
+__global__ void __launch_bounds__(ts::kThreads, 1)
+flash_bwd_dkv_stream_kernel(const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap do_map,
+                            const float* __restrict__ lse2, const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
+                            int num_kb, int causal, float sscale) {
+  using L = ts::Layout<kAtoms, true>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ts::Smem<L> m = ts::make_smem<L>(smem_raw);
+  const int bh = blockIdx.x / num_kb;
+  const int k0 = (blockIdx.x % num_kb) * ts::kRows;
+  // under the causal mask, query rows before the block's first key are dead
+  // (k0 is a multiple of the q tile)
+  const int q_begin = causal ? k0 : 0;
+  const int tiles = q_begin < sq ? (sq - q_begin + ts::kTile - 1) / ts::kTile : 0;
+  if (threadIdx.x >= ts::kConsumerThreads) {
+    regs_lower<ts::kProducerRegs>();
+    const int pt = threadIdx.x - ts::kConsumerThreads;
+    if (pt == 0) {
+      ts::produce(m, &k_map, &v_map, &q_map, &do_map, bh, k0, q_begin, tiles);
+    } else if (pt >= 32) {
+      ts::convert(m, tiles);
+    }
+  } else {
+    regs_raise<ts::kConsumerRegs>();
+    const size_t rows = static_cast<size_t>(bh) * sq;
+    const size_t head = static_cast<size_t>(bh) * sk * kAtoms * ts::kAtomCols;
+    ts::consume<L, K>(m, lse2 + rows, delta + rows, dk + head, dv + head, k0, q_begin, sq, sk,
+                      tiles, causal, sscale);
+  }
+}
+
 // ---- the test entry of the one s, dp computation ----
 
 // Block i takes tile i: 16 queries (q, dout, lse2, delta) and 16 keys (k,
@@ -3405,14 +4035,14 @@ int launch_fused_wgmma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The TMA map of a contiguous (bh, rows, 64) f32 tensor seen as (64, rows,
-// bh): a box of 32 columns (one 128-byte swizzle row) x `box_rows` rows,
-// rows past `rows` of a head read as 0
-inline cudaError_t encode_f32_rows_map(CUtensorMap* map, const void* base, int rows, int bh,
-                                       int box_rows) {
-  const cuuint64_t dims[3] = {tf::kD, static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {tf::kD * 4, static_cast<cuuint64_t>(rows) * tf::kD * 4};
+// The TMA map of a contiguous (bh, rows, width) f32 tensor seen as (width,
+// rows, bh): a box of 32 columns (one 128-byte swizzle row) x `box_rows`
+// rows, rows past `rows` of a head read as 0
+inline cudaError_t encode_f32_rows_map(CUtensorMap* map, const void* base, int width, int rows,
+                                       int bh, int box_rows) {
+  const cuuint64_t w = static_cast<cuuint64_t>(width);
+  const cuuint64_t dims[3] = {w, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {w * 4, static_cast<cuuint64_t>(rows) * w * 4};
   const cuuint32_t box[3] = {tf::kHalfCols, static_cast<cuuint32_t>(box_rows), 1};
   return encode_tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box,
                           CU_TENSOR_MAP_SWIZZLE_128B);
@@ -3430,9 +4060,9 @@ int launch_tf32_entry(const Args& a) {
   CUtensorMap maps[4];
   cudaError_t err = cudaSuccess;
   for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
-    err = encode_f32_rows_map(&maps[i], res[i], res_rows, a.bh, tf::kBlockRows);
+    err = encode_f32_rows_map(&maps[i], res[i], tf::kD, res_rows, a.bh, tf::kBlockRows);
     if (err == cudaSuccess) {
-      err = encode_f32_rows_map(&maps[2 + i], nat[i], nat_rows, a.bh, tf::kTile);
+      err = encode_f32_rows_map(&maps[2 + i], nat[i], tf::kD, nat_rows, a.bh, tf::kTile);
     }
   }
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -3457,14 +4087,69 @@ int launch_tf32_entry(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Kernels 2 and 3 on the TF32 route: f32 at D = tf::kD, every contract
+// kernel 2 (E = kDq) or 3 on the TF32 route at D = 32 kAtoms (ts): the
+// resident operands' maps (Q, dO or K, V; box ts::kRows rows), then the
+// streamed ones' (box ts::kTile rows)
+template <Entry E, int kAtoms, int K>
+int launch_stream_entry(const Args& a) {
+  constexpr int kD = kAtoms * ts::kAtomCols;
+  const bool dq = E == Entry::kDq;
+  const void* res[2] = {dq ? a.q : a.k, dq ? a.dout : a.v};
+  const void* nat[2] = {dq ? a.k : a.q, dq ? a.v : a.dout};
+  const int res_rows = dq ? a.sq : a.sk;
+  const int nat_rows = dq ? a.sk : a.sq;
+  CUtensorMap maps[4];
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+    err = encode_f32_rows_map(&maps[i], res[i], kD, res_rows, a.bh, ts::kRows);
+    if (err == cudaSuccess) {
+      err = encode_f32_rows_map(&maps[2 + i], nat[i], kD, nat_rows, a.bh, ts::kTile);
+    }
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (res_rows + ts::kRows - 1) / ts::kRows;
+  if constexpr (E == Entry::kDq) {
+    auto kernel = flash_bwd_dq_stream_kernel<kAtoms, K>;
+    constexpr int smem = ts::Layout<kAtoms, false>::kBytes;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks * a.bh, ts::kThreads, smem, a.stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse2),
+        static_cast<const float*>(a.delta), static_cast<float*>(a.out0), a.sq, a.sk, blocks,
+        a.causal, a.sscale);
+  } else {
+    auto kernel = flash_bwd_dkv_stream_kernel<kAtoms, K>;
+    constexpr int smem = ts::Layout<kAtoms, true>::kBytes;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks * a.bh, ts::kThreads, smem, a.stream>>>(
+        maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse2),
+        static_cast<const float*>(a.delta), static_cast<float*>(a.out0),
+        static_cast<float*>(a.out1), a.sq, a.sk, blocks, a.causal, a.sscale);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kernel 2 or 3 on the TF32 route in contract K: the tf body at D = tf::kD,
+// the ts body at D = 128 and 256
+template <Entry E, int K>
+int launch_tf32_entry_d(const Args& a, int d) {
+  switch (d) {
+    case tf::kD: return launch_tf32_entry<E, K>(a);
+    case 128: return launch_stream_entry<E, 128 / ts::kAtomCols, K>(a);
+    case 256: return launch_stream_entry<E, 256 / ts::kAtomCols, K>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Kernels 2 and 3 on the TF32 route: f32 at D = 64, 128 and 256, every contract
 template <Entry E>
 int launch_tf32(const Args& a, int d, int dtype) {
-  if (dtype != 0 || d != tf::kD) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (a.contract) {
-    case kNoMax: return launch_tf32_entry<E, kNoMax>(a);
-    case kRunningMax: return launch_tf32_entry<E, kRunningMax>(a);
-    case kUpcast: return launch_tf32_entry<E, kUpcast>(a);
+    case kNoMax: return launch_tf32_entry_d<E, kNoMax>(a, d);
+    case kRunningMax: return launch_tf32_entry_d<E, kRunningMax>(a, d);
+    case kUpcast: return launch_tf32_entry_d<E, kUpcast>(a, d);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -3542,14 +4227,14 @@ int launch_wgmma(const Args& a, int d, int dtype) {
 
 // bf16 at D = wg::kD in the exp2 contracts: kernels 2, 3 and 4 run only
 // their wgmma bodies there (launch_wgmma), as kernels 2 and 3 do at D =
-// wd::kD; f32 at D = tf::kD, every contract: kernels 2 and 3 run only their
-// TF32 bodies (launch_tf32). So kRouteMma is refused there, and those
-// mma.sync instances are never built
+// wd::kD; f32 at D = 64, 128 and 256, every contract: kernels 2 and 3 run
+// only their TF32 bodies (launch_tf32). So kRouteMma is refused there, and
+// those mma.sync instances are never built
 template <Entry E, typename T, int D, int K>
 constexpr bool kWgmmaOnly =
     (E != Entry::kRoles && sizeof(T) == 2 && D == wg::kD && K != kUpcast) ||
     ((E == Entry::kDq || E == Entry::kDkv) && sizeof(T) == 2 && D == wd::kD && K != kUpcast) ||
-    ((E == Entry::kDq || E == Entry::kDkv) && sizeof(T) == 4 && D == tf::kD);
+    ((E == Entry::kDq || E == Entry::kDkv) && sizeof(T) == 4 && D >= tf::kD);
 
 template <Entry E, typename T, int D, int K>
 int launch_entry(const Args& a) {
@@ -3619,7 +4304,7 @@ int launch(const Args& a, int d, int dtype, int device) {
 // attention_route): kRouteWgmma runs the wgmma body, which takes bf16 at
 // d = 64 in the two exp2 contracts (and, in the dq and dkv entries, at d =
 // 256), kRouteTf32 (dq and dkv entries only)
-// the TF32 wgmma body, which takes f32 at d = 64 in every contract,
+// the TF32 wgmma bodies, which take f32 at d = 64, 128 and 256 in every contract,
 // kRouteMma the mma.sync body, which takes every other type, width and
 // contract; any other route, or a route on inputs it does not take,
 // returns cudaErrorInvalidValue and launches nothing. Launches on `stream`

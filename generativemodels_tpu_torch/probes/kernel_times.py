@@ -48,7 +48,9 @@ HERE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fi
 # contract shapes of chip_smoke.py's phase 2 (d) (the 2D serving shape and
 # the conditioned UNets' 77-token context at 4096 queries); and ControlNet's
 # f32 head-width-128 shapes: kernel 1 at its sampler's batch 4 (4 launches a
-# DDIM step), kernels 1-3 at `recipes/train_controlnet.py`'s batch 16
+# DDIM step), kernels 1-3 at `recipes/train_controlnet.py`'s batch 16; and
+# kernels 2 and 3 at the f32 D = 128 and 256 contract shapes of phase 2 (d)
+# (the 2D serving shape, and the causal case's shape without the mask)
 CASES = (
     ("flash_fwd", (2, 32768, 32768, 64), "bfloat16"),
     ("flash_fwd", (2, 4096, 4096, 64), "bfloat16"),
@@ -84,6 +86,10 @@ CASES = (
     ("flash_fwd", (16, 1024, 1024, 128), "float32"),
     ("flash_bwd_dq", (16, 1024, 1024, 128), "float32"),
     ("flash_bwd_dkv", (16, 1024, 1024, 128), "float32"),
+    ("flash_bwd_dq", (4, 1024, 1024, 256), "float32"),
+    ("flash_bwd_dkv", (4, 1024, 1024, 256), "float32"),
+    ("flash_bwd_dq", (4, 1024, 1024, 128), "float32"),
+    ("flash_bwd_dkv", (4, 1024, 1024, 128), "float32"),
 )
 # (multiply-adds a (query, key) pair and head column, (sq, sk) rows of
 # inputs and outputs of width D) of kernels 1-4: the forward's two products

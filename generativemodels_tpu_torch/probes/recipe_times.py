@@ -1,5 +1,5 @@
-"""Time two of chip_smoke.py's recipe-level measurements on one checkout of
-the port, so that two checkouts can be compared on one card in one call:
+"""Time recipe-level measurements on one checkout of the port, so that two
+checkouts can be compared on one card in one call:
 
 - `stage1`: the f32 3D LDM stage-1 G+D step of `recipes/train_3d_ldm.py`
   at 128^3, batch 2, split backward (chip_smoke.py's phase 10 (a)): the
@@ -8,10 +8,18 @@ the port, so that two checkouts can be compared on one card in one call:
 - `export2d`: `recipes.serve.export_sampler` on the 2D serving sampler at
   its serving config (chip_smoke.py's SERVE: 64x64, UNet (128, 256, 256),
   batch 4, DDIM-50; phase 14 (b) exports it with the chain cut to
-  DDIM-10): seconds to trace and save the .pt2 file, a host cost.
+  DDIM-10): seconds to trace and save the .pt2 file, a host cost;
+- `controlnet`: the ControlNet step of `recipes/train_controlnet.py` at its
+  defaults (UNet and ControlNet (64, 128, 128), 64x64, batch 16, f32, TF32
+  off; kernels 1-3 at (16, 1024, 1024, 128)), the UNet frozen and the
+  ControlNet seeded from it as the recipe does: each step's host clock
+  ending in a synchronize and its CUDA-event time, over the steps after the
+  warm-up ones, then one step under torch.profiler for its device time,
+  busy share (device time over that step's wall time) and kernels 1-3's
+  device time.
 
     python generativemodels_tpu_torch/probes/recipe_times.py [--root DIR]
-        [--what stage1 export2d] [--out FILE]
+        [--what stage1 export2d controlnet] [--out FILE]
 
 `--root` is the root of the checkout whose `generativemodels_tpu_torch` is
 imported (default: the checkout holding this file); its kernels are built
@@ -32,6 +40,7 @@ import time
 
 HERE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STAGE1_WARMUP, STAGE1_STEPS = 2, 8  # chip_smoke.py's LDM3D_STEPS
+CONTROLNET_WARMUP, CONTROLNET_STEPS = 2, 10
 # chip_smoke.py's SERVE, the chain whole
 SERVE = dict(spatial_dims=2, size=64, channels=(128, 256, 256), norm_groups=32, batch=4,
              ddim_steps=50)
@@ -58,7 +67,55 @@ def export2d(torch) -> dict:
         return dict(seconds=time.perf_counter() - t0)
 
 
-MEASURES = {"stage1": stage1, "export2d": export2d}
+def controlnet(torch) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from generativemodels_tpu_torch.networks.nets import copy_weights_to_controlnet
+    from generativemodels_tpu_torch.networks.schedulers import DDPMScheduler
+    from generativemodels_tpu_torch.parallel import init_train_state
+    from generativemodels_tpu_torch.recipes import train_controlnet as tc
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the recipe sets them
+    torch.backends.cudnn.allow_tf32 = False
+    unet, cn = tc.build_models()
+    unet, cn = unet.to("cuda").train(), cn.to("cuda").train()
+    copy_weights_to_controlnet(cn, unet)
+    step = tc.make_controlnet_train_step(unet, DDPMScheduler(num_train_timesteps=1000,
+                                                             device="cuda"))
+    state = init_train_state(cn, torch.optim.Adam(cn.parameters(), lr=2.5e-5))
+    g = torch.Generator("cuda").manual_seed(42)
+    images, masks = tc.synthetic_masked_batch(g, 16, 64, "cuda")
+    for _ in range(CONTROLNET_WARMUP):
+        state, _ = step(state, images, masks, g)
+    torch.cuda.synchronize()
+    host, events = [], []
+    for _ in range(CONTROLNET_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, _ = step(state, images, masks, g)
+        stop.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(stop))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, images, masks, g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_time_total > 0]
+    device = sum(e.device_time_total for e in kernels) / 1e3
+    if device == 0:
+        raise RuntimeError("the profiler saw no device time")
+    flash = {name: sum(e.device_time_total for e in kernels if name + "_" in e.key) / 1e3
+             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    return dict(seconds=sum(host) / len(host) / 1e3, host_ms=host, event_ms=events,
+                profiled_device_ms=device, profiled_wall_ms=wall * 1e3,
+                busy_share=device / (wall * 1e3), flash_ms=flash)
+
+
+MEASURES = {"stage1": stage1, "export2d": export2d, "controlnet": controlnet}
 
 
 def main(argv=None) -> list[dict]:

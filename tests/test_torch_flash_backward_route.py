@@ -7,10 +7,10 @@ csrc/flash_fwd.cu and
 csrc/flash_bwd.cu: bf16 at head width 64 in the two exp2 contracts takes
 the wgmma bodies fed by a TMA ring (ROUTE_WGMMA), and so does bf16 at head
 width 256 in kernels 2 and 3 (their D = 256 wgmma body), while kernels 1
-and 4 keep mma.sync there; f32 at head width 64 in every contract (the
-upcast contract's launchers run f32 inputs) takes the TF32 wgmma bodies in
-kernels 2 and 3 (ROUTE_TF32) and the mma.sync bodies in kernels 1 and 4;
-every other width keeps the mma.sync bodies (ROUTE_MMA).
+and 4 keep mma.sync there; f32 at head widths 64, 128 and 256 in every
+contract (the upcast contract's launchers run f32 inputs) takes the TF32
+wgmma bodies in kernels 2 and 3 (ROUTE_TF32) and the mma.sync bodies in
+kernels 1 and 4; every other case keeps the mma.sync bodies (ROUTE_MMA).
 The CPU path never reaches a route: on CPU tensors the ops run the plain
 versions, which tests/test_torch_flash_attention.py and
 tests/test_torch_flash_backward.py hold against the JAX kernels. Here each
@@ -46,10 +46,11 @@ flash_module = importlib.import_module("generativemodels_tpu_torch.ops.flash_att
 CONTRACTS = {"no_max": (False, True), "running_max": (False, False), "upcast": (True, True)}
 # the (dtype, head width, contract) cases on the wgmma bodies; every other
 # case keeps the mma.sync bodies, but for kernels 2 and 3 on f32 operands at
-# head width 64 (TF32_CASES, and upcast whatever the input type)
+# head widths 64, 128 and 256 (TF32_CASES, and upcast whatever the input type)
 WGMMA_CASES = {(torch.bfloat16, 64, "no_max"), (torch.bfloat16, 64, "running_max")}
-TF32_CASES = {(torch.float32, 64, "no_max"), (torch.float32, 64, "running_max"),
-              (torch.float32, 64, "upcast"), (torch.bfloat16, 64, "upcast")}
+TF32_CASES = {case for d in (64, 128, 256)
+              for case in ((torch.float32, d, "no_max"), (torch.float32, d, "running_max"),
+                           (torch.float32, d, "upcast"), (torch.bfloat16, d, "upcast"))}
 TF32_KERNELS = {"flash_bwd_dq", "flash_bwd_dkv"}
 # the cases of kernels 2 and 3 (TF32_KERNELS) alone on their D = 256 wgmma body
 WIDE_CASES = {(torch.bfloat16, 256, "no_max"), (torch.bfloat16, 256, "running_max")}
@@ -84,13 +85,15 @@ def test_backward_route(dtype, d, contract):
 def test_wide_backward_route(kernel, contract):
     """At bf16 head width 256 (the 2D UNets' 256-wide heads: bench.py's
     training step, serving) kernels 2 and 3 take their D = 256 wgmma body
-    in the two exp2 contracts; kernels 1 and 4 keep mma.sync there, and
-    upcast (f32 operands, no body at D = 256 but mma.sync) keeps it in all
-    four."""
+    in the two exp2 contracts; on f32 operands (f32 inputs, or upcast) they
+    take their TF32 body there, in all three contracts; kernels 1 and 4 keep
+    mma.sync in every case."""
     upcast, _ = CONTRACTS[contract]
-    want = (ROUTE_WGMMA if kernel in TF32_KERNELS and not upcast else ROUTE_MMA)
+    split = kernel in TF32_KERNELS
+    want = ROUTE_MMA if not split else ROUTE_TF32 if upcast else ROUTE_WGMMA
     assert attention_route(torch.bfloat16, 256, upcast, kernel=kernel) == want
-    assert attention_route(torch.float32, 256, upcast, kernel=kernel) == ROUTE_MMA
+    want_f32 = ROUTE_TF32 if split else ROUTE_MMA
+    assert attention_route(torch.float32, 256, upcast, kernel=kernel) == want_f32
 
 
 def test_route_of_an_unknown_kernel_raises():
@@ -110,8 +113,8 @@ def test_launchers_pass_the_route(monkeypatch, entry, dtype, d, contract):
     `attention_route` for itself and the inputs it launches on (under
     upcast the backward's inputs are f32, as `flash_attention_backward`
     casts them, and the forward casts bf16 itself; kernel 4 then its
-    groups), with as many arguments as its C entry declares: at f32 D = 64
-    the TF32 route from kernels 2 and 3 alone."""
+    groups), with as many arguments as its C entry declares: at f32 D = 64,
+    128 and 256 the TF32 route from kernels 2 and 3 alone."""
     upcast, no_max = CONTRACTS[contract]
     launcher = LAUNCHERS[entry]
     calls = []

@@ -17,21 +17,22 @@ relative to the largest gradient: 1e-4 for f32 (summation order over up to
 inputs: dk and dv equal to the bit where the two run one body of
 `attention_route` (the mma.sync body the two share, and on the wgmma
 route, bf16 at D = 64, the same dV and dK products in the same order), and
-where they do not (f32 D = 64, where kernel 3 runs its TF32 wgmma body and
-kernel 4 mma.sync; bf16 D = 256, where kernel 3 runs its D = 256 wgmma
-body), within the fused margin below (the same products summed in another
+where they do not (f32 D = 64, 128 and 256, where kernel 3 runs its TF32
+wgmma bodies and kernel 4 mma.sync; bf16 D = 256, where kernel 3 runs its
+D = 256 wgmma body), within the fused margin below (the same products summed in another
 order); dq within 1e-5 of its
 largest value in f32 (f32 sums of the key blocks' parts in key-block
 order), and in bf16 within one bf16 ulp of its value (those sums may round
 to the other side of a bf16 tie) plus that 1e-5 (sums that cancel). The
 wgmma route of kernels 1-4 against the plain versions in both exp2
 contracts, the D = 256 wgmma body of kernels 2 and 3 (bf16 at D = 256)
-in both, and the TF32 route of kernels 2 and 3 (f32 at D = 64) in all
-three, causal, ragged, Sk = 1 and 77 and Sq below and above Sk, two
-launches equal to the bit; the profiler names the D = 256 body's kernels
-as the ones that ran; each (kernel, input) takes one body, so the C
-entries refuse the mma.sync route at bf16 D = 64 (and kernels 2 and 3 at
-f32 D = 64 and bf16 D = 256), the wgmma route at f32 and in kernels 1 and
+in both, and the TF32 route of kernels 2 and 3 (f32 at D = 64, 128 and
+256) in all three, causal, ragged, Sk = 1 and 77 and Sq below and above
+Sk, two launches equal to the bit; the profiler names the D = 256 body's
+kernels, and the f32 D = 128 and 256 body's, as the ones that ran; each
+(kernel, input) takes one body, so the C entries refuse the mma.sync route
+at bf16 D = 64 (and kernels 2 and 3 at f32 D = 64, 128 and 256 and bf16 D
+= 256), the wgmma route at f32 and in kernels 1 and
 4 at D = 256, the TF32 route in kernels 1 and 4 and at bf16, and an
 unknown route. Kernels 2-4
 compute s and dp by one function, kernel 2 with the
@@ -622,16 +623,20 @@ def test_wide_route_backward_kernels_on_gpu(cuda_device, contract, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype, d, body", [(torch.bfloat16, 256, "wide"),
+                                            (torch.float32, 128, "stream"),
+                                            (torch.float32, 256, "stream")],
+                         ids=["bf16_d256", "f32_d128", "f32_d256"])
 @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkv"])
-def test_wide_route_runs_its_own_kernel_on_gpu(cuda_device, kernel):
+def test_wide_route_runs_its_own_kernel_on_gpu(cuda_device, kernel, dtype, d, body):
     """Which kernel ran, as the profiler names it: at bf16 D = 256 the dq
     and dkv launchers launch `flash_bwd_dq_wide_kernel` and
-    `flash_bwd_dkv_wide_kernel` (the D = 256 wgmma body), and no mma.sync
-    body."""
+    `flash_bwd_dkv_wide_kernel` (the D = 256 wgmma body), at f32 D = 128
+    and 256 `flash_bwd_dq_stream_kernel` and `flash_bwd_dkv_stream_kernel`
+    (the TF32 body streamed over D), and no mma.sync body."""
     from torch.profiler import ProfilerActivity, profile
 
-    args, _ = _contract_backward_inputs(cuda_device, 2, 300, 300, 256, torch.bfloat16, False,
-                                        False, True)
+    args, _ = _contract_backward_inputs(cuda_device, 2, 300, 300, d, dtype, False, False, True)
     q_in, k, v, out, lse2, dout = args
     do2, delta = _backward_rows(out, dout)
     launcher = FLASH_BWD_DQ if kernel == "flash_bwd_dq" else FLASH_BWD_DKV
@@ -640,24 +645,26 @@ def test_wide_route_runs_its_own_kernel_on_gpu(cuda_device, kernel):
         launcher(q_in, k, v, do2, lse2, delta)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if f"{kernel}_" in e.name and "_kernel" in e.name]
-    assert names and all(f"{kernel}_wide_kernel" in name for name in names), names
+    assert names and all(f"{kernel}_{body}_kernel" in name for name in names), names
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", sorted(WGMMA_SHAPES))
 @pytest.mark.parametrize("contract", ["no_max", "running_max", "upcast"])
-def test_tf32_route_backward_kernels_on_gpu(cuda_device, contract, case):
-    """Kernels 2 and 3 on their TF32 wgmma body (f32 at D = 64), in all three
-    contracts, at the wgmma route's shapes in f32 (Sq and Sk no multiples of
-    the body's 32-row tiles or 128-row blocks): against the plain backward
-    at BWD_TOL (relative to `_gradient_sizes`), two launches equal to the
-    bit (no atomics; a dq row belongs to one warpgroup, a dk, dv row to
-    one); kernel 4 (mma.sync there) within the fused margin of them."""
+def test_tf32_route_backward_kernels_on_gpu(cuda_device, contract, case, d):
+    """Kernels 2 and 3 on their TF32 wgmma bodies (f32 at D = 64; at D = 128
+    and 256 the body streamed over D), in all three contracts, at the wgmma
+    route's shapes in f32 (Sq and Sk no multiples of the bodies' 32-row
+    tiles or 64- and 128-row blocks): against the plain backward at BWD_TOL
+    (relative to `_gradient_sizes`), two launches equal to the bit (no
+    atomics; a dq row belongs to one warpgroup, a dk, dv element to one);
+    kernel 4 (mma.sync there) within the fused margin of them."""
     bh, sq, sk, causal = WGMMA_SHAPES[case]
     upcast = contract == "upcast"
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
-        assert attention_route(torch.float32, 64, upcast, kernel=kernel) == ROUTE_TF32
-    args, kw = _contract_backward_inputs(cuda_device, bh, sq, sk, 64, torch.float32, causal,
+        assert attention_route(torch.float32, d, upcast, kernel=kernel) == ROUTE_TF32
+    args, kw = _contract_backward_inputs(cuda_device, bh, sq, sk, d, torch.float32, causal,
                                          upcast, contract != "running_max")
     q_in, k, v, out, lse, dout = args
     do_k, delta = _backward_rows(out, dout, upcast)
@@ -678,7 +685,7 @@ def test_tf32_route_backward_kernels_on_gpu(cuda_device, contract, case):
         assert bool(torch.isfinite(a).all())
         assert (a - b).abs().max().item() <= BWD_TOL[torch.float32] * size
         assert torch.equal(a.view(torch.int32), a2.view(torch.int32))
-    _assert_fused_dkv_agree(fused, first, torch.float32, 64, upcast, sizes)
+    _assert_fused_dkv_agree(fused, first, torch.float32, d, upcast, sizes)
     _assert_within_fused_margin(fused[0], first[0], sizes[0])
 
 
@@ -729,14 +736,19 @@ ALL_FOUR = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
      (torch.bfloat16, ROUTE_TF32, ALL_FOUR, 64),
      (torch.bfloat16, ROUTE_MMA, ("flash_bwd_dq", "flash_bwd_dkv"), 256),
      (torch.bfloat16, ROUTE_WGMMA, ("flash_fwd", "flash_bwd_fused"), 256),
-     (torch.float32, ROUTE_WGMMA, ALL_FOUR, 256)],
+     (torch.float32, ROUTE_WGMMA, ALL_FOUR, 256),
+     (torch.float32, ROUTE_MMA, ("flash_bwd_dq", "flash_bwd_dkv"), 128),
+     (torch.float32, ROUTE_MMA, ("flash_bwd_dq", "flash_bwd_dkv"), 256),
+     (torch.float32, ROUTE_TF32, ("flash_fwd", "flash_bwd_fused"), 256)],
     ids=["mma_at_bf16_d64", "wgmma_at_f32", "unknown", "mma_at_f32_d64_split",
          "tf32_in_kernels_1_and_4", "tf32_at_bf16", "mma_at_bf16_d256_split",
-         "wgmma_in_kernels_1_and_4_at_d256", "wgmma_at_f32_d256"])
+         "wgmma_in_kernels_1_and_4_at_d256", "wgmma_at_f32_d256", "mma_at_f32_d128_split",
+         "mma_at_f32_d256_split", "tf32_in_kernels_1_and_4_at_d256"])
 def test_backward_route_refused_on_gpu(cuda_device, monkeypatch, dtype, route, refusing, d):
     """Each (kernel, input) of kernels 1-4 takes one body: their C entries
     refuse the mma.sync route at bf16 D = 64 (exp2 contracts) and, in
-    kernels 2 and 3, at f32 D = 64 and bf16 D = 256, the wgmma route at f32
+    kernels 2 and 3, at f32 D = 64, 128 and 256 and bf16 D = 256, the wgmma
+    route at f32
     and in kernels 1 and 4 at D = 256, the TF32 route in kernels 1 and 4
     and at bf16, and an unknown route; the launcher raises and counts no
     launch."""
