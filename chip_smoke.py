@@ -46,8 +46,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      cases, ROUTE_CASES, run kernels 1-4 in both exp2 contracts and under
      upcast, ROUTE_CASES_F32 the same shapes in f32, on kernels 2 and 3's
      TF32 body, ROUTE_CASES_WIDE the same shapes at bf16 D = 256, on
-     kernels 2 and 3's D = 256 wgmma body, ROUTE_CASES_F32_WIDE the same
-     shapes in f32 at D = 128 and 256, on kernels 2 and 3's TF32 body
+     kernels 1-3's D = 256 wgmma bodies, ROUTE_CASES_F32_WIDE the same
+     shapes in f32 at D = 128 and 256, on kernels 1-3's TF32 bodies
      streamed over D), and the
      fused GroupNorm-SiLU-conv3d kernel against
      `fused_norm_silu_conv3d_reference` (two launches equal to the bit, and
@@ -296,6 +296,12 @@ KERNEL_CASES = (
     # phase 11's autoregressive training path: the recipe's stage 2 at --size
     # 128, batch 16 x 4 heads of 32 over 1024 causal tokens
     ("ar_causal_f32", (64, 1024, 1024, 32), "float32", True),
+    # ControlNet's sampler (batch 4) and training step at its defaults (batch
+    # 16), heads of 128, and the 2D f32 recipe's training step (batch 64,
+    # heads of 256): kernel 1's TF32 body at the shapes those paths give it
+    ("controlnet_sample_f32", (4, 1024, 1024, 128), "float32", False),
+    ("controlnet_train_f32", (16, 1024, 1024, 128), "float32", False),
+    ("train_recipe_f32", (64, 1024, 1024, 256), "float32", False),
 )
 # O, max|diff|: f32 differs from the plain version only in summation order
 # (the 3xTF32 products keep f32 accuracy); bf16 O is rounded to bf16 (one
@@ -325,6 +331,7 @@ THRESHOLD_CASES = ((2, 2, 64, "bfloat16"), (4, 1, 256, "float32"))
 # `ops.fused_conv.CONV_RUNS`; kernels 6 and 7: 7 overlap variants and the 4
 # (scale in kernel, bf16 p) pairs), so that a log that stops matching fails
 NO_STACK_KERNELS = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "flash_fwd_wgmma_kernel",
+                    "flash_fwd_wide_kernel", "flash_fwd_stream_kernel",
                     "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel",
                     "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                     "flash_bwd_fused_wgmma_kernel", "flash_bwd_dq_tf32_kernel",
@@ -333,7 +340,7 @@ NO_STACK_KERNELS = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "flash_fwd_
                     "flash_bwd_dkv_stream_kernel",
                     "fused_conv_f32_kernel", "fused_conv_mma_kernel",
                     "flash_probe_overlap_kernel", "flash_probe_vpu_kernel")
-NO_STACK_INSTANCES = {"flash_fwd.cu": 22, "flash_bwd.cu": 60, "fused_conv.cu": 6,
+NO_STACK_INSTANCES = {"flash_fwd.cu": 24, "flash_bwd.cu": 60, "fused_conv.cu": 6,
                       "flash_probes.cu": 11}
 # the same counts kernel by kernel for the flash sources: the mma.sync
 # bodies of kernels 1-4 lack bf16 D = 64 in the exp2 contracts (kernel 1's
@@ -343,8 +350,9 @@ NO_STACK_INSTANCES = {"flash_fwd.cu": 22, "flash_bwd.cu": 60, "fused_conv.cu": 6
 # 256 (20 - 2 - 2 - 9: bf16 D = 32 and 128 and f32 D = 32 are left), which
 # their D = 256 wgmma and TF32 bodies take
 KERNEL_INSTANCES = {
-    "flash_fwd.cu": {"flash_fwd_bf16_kernel": 6, "flash_fwd_f32_kernel": 12,
-                     "flash_fwd_wgmma_kernel": 4},
+    "flash_fwd.cu": {"flash_fwd_bf16_kernel": 4, "flash_fwd_f32_kernel": 6,
+                     "flash_fwd_wgmma_kernel": 4, "flash_fwd_wide_kernel": 4,
+                     "flash_fwd_stream_kernel": 6},
     "flash_bwd.cu": {"flash_bwd_dq_kernel": 7, "flash_bwd_dkv_kernel": 7,
                      "flash_bwd_fused_kernel": 18, "flash_bwd_dq_wgmma_kernel": 2,
                      "flash_bwd_dkv_wgmma_kernel": 2, "flash_bwd_fused_wgmma_kernel": 2,
@@ -548,14 +556,17 @@ ROUTE_CASES = (
 # 32-row tiles, 128-row blocks) in all three contracts
 ROUTE_CASES_F32 = tuple((f"{name}_f32", shape, "float32", causal, timed)
                         for name, shape, _, causal, timed in ROUTE_CASES)
-# the same shapes at head width 256 in bf16: kernels 2 and 3's D = 256
-# wgmma body (kernel 2: 128-row blocks, 32-key tiles; kernel 3: 64-key
-# blocks, 64-row q tiles) in both exp2 contracts, kernels 1 and 4 on
-# mma.sync (upcast runs them all in f32 on the TF32 body below)
+# the same shapes at head width 256 in bf16: kernels 1, 2 and 3's D = 256
+# wgmma bodies (kernel 1: 64- or 128-row blocks, 64-key stages; kernel 2:
+# 128-row blocks, 32-key tiles; kernel 3: 64-key blocks, 64-row q tiles) in
+# both exp2 contracts, kernel 4 on mma.sync (upcast runs them all in f32 on
+# the TF32 bodies below)
 ROUTE_CASES_WIDE = tuple((f"{name}_d256", (bh, sq, sk, 256), dtype_name, causal, timed)
                          for name, (bh, sq, sk, _), dtype_name, causal, timed in ROUTE_CASES)
-# the same shapes in f32 at head widths 128 and 256: kernels 2 and 3's TF32
-# body streamed over D (64-row blocks, 32-row tiles) in all three contracts
+# the same shapes in f32 at head widths 128 and 256: kernels 1, 2 and 3's
+# TF32 bodies streamed over D (64-row blocks, 32-row tiles; kernel 1's
+# blocks in clusters of two that split the keys where its blocks would leave
+# half of the SMs idle, as these shapes' do) in all three contracts
 ROUTE_CASES_F32_WIDE = tuple((f"{name}_f32_d{d}", (bh, sq, sk, d), "float32", causal, timed)
                              for d in (128, 256)
                              for name, (bh, sq, sk, _), _, causal, timed in ROUTE_CASES)
@@ -927,9 +938,10 @@ def check_kernel(torch, ops) -> dict:
         ok = (err_o <= tol and err_lse <= lse_tol and bool(torch.isfinite(o.float()).all())
               and ms >= lim["bound_ms"])
         route = route_name(ops, dtype, d, False, "flash_fwd")
-        rows = forward_block_rows(bh, sq, d, dtype_name, sms)
+        rows, splits = forward_block_rows(bh, sq, d, dtype_name, sms)
+        blocks = f"{rows}-row blocks" + (f" in clusters of {splits}" if splits > 1 else "")
         log(f"kernel {name}: (BH={bh}, Sq={sq}, Sk={sk}, D={d}) {dtype_name} causal={causal} "
-            f"route {route}, {rows}-row blocks: "
+            f"route {route}, {blocks}: "
             f"max|dO|={err_o:.3e} (tol {tol:g}) max|dlse|={err_lse:.3e} (tol {lse_tol:g}) "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA ({backend}) {library_ms:.4f} ms, "
             f"bound {lim['bound_ms']:.4f} ms ({lim['bound_by']}) -> {'ok' if ok else 'FAIL'}")
@@ -968,18 +980,26 @@ def dkv_tiles(dtype_name: str, d: int) -> tuple[int, int]:
     return rows, tiles["kBcNarrow"] if d <= tiles["kNarrowD"] else tiles["kBcWide"]
 
 
-def forward_block_rows(bh: int, sq: int, d: int, dtype_name: str, sms: int) -> int:
-    """Query rows of one block of kernel 1, as its launcher picks them: on
-    the wgmma route (bf16 at D = 64, csrc/flash_fwd.cu's namespace `wg`)
-    two consumer warpgroups of `kRows` unless their blocks leave half of the
-    card's SMs or more idle, then one; on the mma.sync bodies 128 rows at
-    bf16 D = 32 (4 warps of two 16-row fragments), 64 above, 32 in f32."""
-    rows = source_constants("flash_fwd.cu")["kRows"]
-    if dtype_name == "bfloat16" and d == 64:
-        return rows if 2 * bh * -(-sq // (2 * rows)) <= sms else 2 * rows
+def forward_block_rows(bh: int, sq: int, d: int, dtype_name: str, sms: int) -> tuple[int, int]:
+    """Query rows of one block of kernel 1 and the blocks of a cluster that
+    share their keys, as its launcher picks them (for the exp2 contracts;
+    upcast runs the f32 bodies): on the wgmma routes (bf16 at D = 64 and
+    256, csrc/flash_fwd.cu's namespaces `wg` and `wd`) two consumer
+    warpgroups of `kRows` unless their blocks leave half of the card's SMs
+    or more idle, then one; on the TF32 route (f32 at D = 128 and 256,
+    namespace `ts`) `kRows` rows, in clusters of `kSplits` blocks, each
+    taking a share of the keys, where one block a row block leaves half of
+    the SMs or more idle; on the mma.sync bodies 128 rows at bf16 D = 32 (4
+    warps of two 16-row fragments), 64 at bf16 D = 128, 32 in f32."""
+    consts = source_constants("flash_fwd.cu")
+    rows = consts["kRows"]
+    if dtype_name == "bfloat16" and d in (64, 256):
+        return (rows if 2 * bh * -(-sq // (2 * rows)) <= sms else 2 * rows), 1
+    if dtype_name == "float32" and d in (128, 256):
+        return rows, consts["kSplits"] if 2 * bh * -(-sq // rows) <= sms else 1
     if dtype_name == "bfloat16":
-        return 128 if d <= 64 else 64
-    return 32
+        return (128 if d <= 64 else 64), 1
+    return 32, 1
 
 
 def fused_dq_adds(bh: int, sq: int, sk: int, d: int, dtype_name: str, causal: bool) -> int:
@@ -1613,8 +1633,8 @@ def check_launches(counts: dict, expected: dict, what: str) -> None:
 
 def train_recipe(torch, ops, recipe) -> dict:
     """Phase 4 (a): the recipe's main at its defaults for TRAIN_STEPS steps.
-    Its attention runs at (64, 1024, 1024, 256) f32: kernels 2 and 3 on
-    their TF32 body streamed over D, kernel 1 on mma.sync."""
+    Its attention runs at (64, 1024, 1024, 256) f32: kernels 1, 2 and 3 on
+    their TF32 bodies streamed over D."""
     reset_launches(ops)
     t0 = time.perf_counter()
     out = recipe.main(["--steps", str(TRAIN_STEPS), "--device", DEVICE])
@@ -1640,8 +1660,8 @@ def train_bench(torch, ops, nets, parallel, schedulers) -> dict:
     """Phase 4 (b): bench.py's config (bf16 compute, batch 128) through
     make_diffusion_train_step; returns the launches (counted from 0 over
     its TRAIN_STEPS steps) and steps/s over the steps after two. Its
-    attention runs at (128, 1024, 1024, 256) bf16: kernels 2 and 3 on their
-    D = 256 wgmma body, kernel 1 on mma.sync."""
+    attention runs at (128, 1024, 1024, 256) bf16: kernels 1, 2 and 3 on
+    their D = 256 wgmma bodies."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = nets.DiffusionModelUNet(

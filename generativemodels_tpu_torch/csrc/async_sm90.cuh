@@ -10,7 +10,8 @@
 //   accumulation, their shared-memory descriptors in the 128-byte swizzle
 //   that TMA writes, and the fence, commit and wait that order them;
 // - named barriers and the warpgroup register limit (setmaxnreg) of warp
-//   specialisation.
+//   specialisation, and the barrier and shared-memory window of a thread
+//   block cluster.
 // ops/native.py hashes every .cuh of this directory into each library's
 // name, so an edit here rebuilds all of them.
 #pragma once
@@ -41,6 +42,12 @@ __device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
 }
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// one arrival of this warp on `bar`, after its lanes' work (a consumer
+// warp's release of a ring stage, a converter warp's "split")
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
 }
 // until the phase of parity `parity` has completed (the n-th completion,
 // counting from 0, has parity n & 1)
@@ -150,6 +157,19 @@ inline cudaError_t encode_head_rows_map(CUtensorMap* map, const void* base, int 
                           swizzle);
 }
 
+// The TMA map of a contiguous (bh, rows, width) f32 tensor seen as (width,
+// rows, bh): a box of 32 columns (one 128-byte swizzle row) x `box_rows`
+// rows, rows past `rows` of a head read as 0
+inline cudaError_t encode_f32_rows_map(CUtensorMap* map, const void* base, int width, int rows,
+                                       int bh, int box_rows) {
+  const cuuint64_t w = static_cast<cuuint64_t>(width);
+  const cuuint64_t dims[3] = {w, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {w * 4, static_cast<cuuint64_t>(rows) * w * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(box_rows), 1};
+  return encode_tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 // ---- wgmma
 
 // The descriptor of a bf16 tile as TMA writes it with
@@ -187,9 +207,26 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw64(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(512 >> 4) << 32)
          | (static_cast<uint64_t>(2) << 62);
 }
+// the byte offset of (row, column col) in a tile of 32-f32 rows in the
+// 128-byte swizzle (one swizzle row a tile row), as TMA writes such a tile
+// and wgmma_desc_sw128 reads it: the TF32 bodies' B operands written by
+// their consumers
+__device__ __forceinline__ int swizzle128_f32(int row, int col) {
+  return row * 128 + (((col / 4) ^ (row % 8)) << 4) + 4 * (col % 4);
+}
 // the descriptor moved by `bytes` (a multiple of 16)
 __device__ __forceinline__ uint64_t wgmma_desc_add(uint64_t desc, uint32_t bytes) {
   return desc + (bytes >> 4);
+}
+// the same, computed where the wgmma that reads it is issued: an opaque
+// add, so that the compiler does not hoist the loop-invariant descriptors of
+// resident operands (some 60 64-bit values a tile in flash_bwd.cu's TF32
+// body, 32 in its D = 256 one) out of the tile loop, where they would take
+// the registers of the accumulators and spill
+__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t bytes) {
+  uint64_t moved;
+  asm volatile("add.s64 %0, %1, %2;\n" : "=l"(moved) : "l"(desc), "l"(uint64_t{bytes >> 4}));
+  return moved;
 }
 
 // before the first wgmma, and between registers written by other
@@ -474,6 +511,25 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+// ---- thread block clusters
+
+// every thread of every block of the cluster arrives, then waits for the
+// others: shared-memory writes before it are visible to the cluster's
+// reads after it (every thread of the blocks executes it, none having
+// exited)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the generic address of `p` (this block's shared memory) in the shared
+// memory of the cluster's block `rank`
+__device__ __forceinline__ const float* cluster_peer(const float* p, uint32_t rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(out) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const float*>(out);
+}
+
 // the warpgroup's register limit, raised or lowered (a multiple of 8 in
 // [24, 256]); every warp of the warpgroup executes it
 template <int N>

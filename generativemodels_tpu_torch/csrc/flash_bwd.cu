@@ -1312,18 +1312,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_fused_kernel(
                            causal, sscale);
 }
 
-// the descriptor moved by `bytes` (a multiple of 16), computed where the
-// wgmma that reads it is issued: an opaque add, so that the compiler does
-// not hoist the loop-invariant descriptors of resident operands (some 60
-// 64-bit values a tile in the TF32 body, 32 in the D = 256 one) out of the
-// tile loop, where they would take the registers of the accumulators and
-// spill
-__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t bytes) {
-  uint64_t moved;
-  asm volatile("add.s64 %0, %1, %2;\n" : "=l"(moved) : "l"(desc), "l"(uint64_t{bytes >> 4}));
-  return moved;
-}
-
 // ---- kernels 2 and 3 on the wgmma route (kRouteWgmma): bf16, D = 64 ----
 
 namespace wg {
@@ -2163,12 +2151,6 @@ __device__ __forceinline__ Smem make_smem(unsigned char* raw) {
   }
   __syncthreads();
   return m;
-}
-
-// one arrival of this warp on `bar`, after its lanes' work
-__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
 }
 
 // The producer warpgroup's first thread: the block's two resident operands
@@ -3295,17 +3277,6 @@ constexpr int kXBytes = kRows * kXLd * 4;
 static_assert(kTile == kAtomCols, "a row of a B buffer is one 128-byte swizzle row");
 static_assert(kXBytes % 1024 == 0, "the ring starts 1024-byte aligned");
 
-// x = hi + lo, both TF32, as split_tf32 gives them (cvt.rna.tf32.f32: the
-// nearest TF32 value, ties away from zero) but by integer operations on the
-// bits, faster than the conversion here (the head note's TF32 split)
-__device__ __forceinline__ uint32_t round_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = round_tf32(x);
-  lo = round_tf32(x - __uint_as_float(hi));
-}
-
 // Dynamic shared memory from a 1024-byte-aligned base, for kAtoms = D / 32
 // atoms a row: the two resident operands (Q and dO, or K and V: 64 rows,
 // raw f32 as TMA wrote them, atom a at a * kResAtom), the tile products' B
@@ -3442,25 +3413,19 @@ __device__ __forceinline__ void convert(const Smem<L>& m, int tiles) {
           const int o = 16 * (ct + i * tf::kConverterThreads);
           if (o < 2 * kTileAtom) {
             uint4 h, lo;
-            split(x[i].x, h.x, lo.x);
-            split(x[i].y, h.y, lo.y);
-            split(x[i].z, h.z, lo.z);
-            split(x[i].w, h.w, lo.w);
+            split_tf32_bits(x[i].x, h.x, lo.x);
+            split_tf32_bits(x[i].y, h.y, lo.y);
+            split_tf32_bits(x[i].z, h.z, lo.z);
+            split_tf32_bits(x[i].w, h.w, lo.w);
             *reinterpret_cast<uint4*>(hi + o) = h;
             *reinterpret_cast<uint4*>(hi + 2 * kTileAtom + o) = lo;
           }
         }
         fence_proxy_async();
       }
-      tf::warp_arrive(m.ready(st));
+      warp_arrive(m.ready(st));
     }
   }
-}
-
-// the byte offset of (row, position pos) in a B buffer: rows of 32 f32
-// positions, one 128-byte swizzle row each
-__device__ __forceinline__ int buf_at(int row, int pos) {
-  return row * 128 + (((pos / 4) ^ (row % 8)) << 4) + 4 * (pos % 4);
 }
 
 // The probabilities of one tile, from the d products' accumulators (x:
@@ -3499,8 +3464,8 @@ __device__ __forceinline__ void tile_probs(const Smem<L>& m, const float (&x)[kA
           p[e] = prob<K>(x[4 * i + 2 * h + e], L::kDkvN ? stat[i][e] : stat[h][0], live, sscale);
           if constexpr (L::kDkvN) {
             uint32_t hi, lo;
-            split(p[e], hi, lo);
-            const int at = buf_at(row, 8 * i + 4 * e + t);
+            split_tf32_bits(p[e], hi, lo);
+            const int at = swizzle128_f32(row, 8 * i + 4 * e + t);
             *reinterpret_cast<uint32_t*>(m.buf(0) + at) = hi;
             *reinterpret_cast<uint32_t*>(m.buf(1) + at) = lo;
           }
@@ -3525,8 +3490,8 @@ __device__ __forceinline__ void tile_probs(const Smem<L>& m, const float (&x)[kA
           const float ds = grad_s<K>(e ? p.y : p.x, x[4 * i + 2 * h + e],
                                      L::kDkvN ? stat[i][e] : stat[h][0], sscale);
           uint32_t hi, lo;
-          split(ds, hi, lo);
-          const int at = buf_at(row, 8 * i + 4 * e + t);
+          split_tf32_bits(ds, hi, lo);
+          const int at = swizzle128_f32(row, 8 * i + 4 * e + t);
           *reinterpret_cast<uint32_t*>(ds_hi + at) = hi;
           *reinterpret_cast<uint32_t*>(ds_lo + at) = lo;
         }
@@ -3620,7 +3585,7 @@ __device__ __forceinline__ void consume(const Smem<L>& m, const float* __restric
           for (int h = 0; h < 2; ++h) {
             const float v =
                 *reinterpret_cast<const float*>(ra + h * 1024 + (((2 * ks + e) ^ g) << 4) + 4 * t);
-            split(v, ah[ks][2 * e + h], al[ks][2 * e + h]);
+            split_tf32_bits(v, ah[ks][2 * e + h], al[ks][2 * e + h]);
           }
         }
       }
@@ -3639,7 +3604,7 @@ __device__ __forceinline__ void consume(const Smem<L>& m, const float* __restric
       reg_fence(part);
       reg_fence(ah);
       reg_fence(al);
-      tf::warp_arrive(m.empty(st));
+      warp_arrive(m.empty(st));
 #pragma unroll
       for (int i = 0; i < kAcc; ++i) x[i] += part[i];
     }
@@ -3675,7 +3640,7 @@ __device__ __forceinline__ void consume(const Smem<L>& m, const float* __restric
             const int col = 16 * (w % 2) + g + 8 * hh;
             const float v = *reinterpret_cast<const float*>(
                 at + row * 128 + (((col / 4) ^ (row % 8)) << 4) + 4 * (col % 4));
-            split(v, fh[ks][2 * e + hh], fl[ks][2 * e + hh]);
+            split_tf32_bits(v, fh[ks][2 * e + hh], fl[ks][2 * e + hh]);
           }
         }
       }
@@ -3696,7 +3661,7 @@ __device__ __forceinline__ void consume(const Smem<L>& m, const float* __restric
       reg_fence(tp);
       reg_fence(fh);
       reg_fence(fl);
-      tf::warp_arrive(m.empty(st));
+      warp_arrive(m.empty(st));
 #pragma unroll
       for (int i = 0; i < kPartAcc; ++i) acc[prod][pair][i] += tp[i];
     }
@@ -4033,19 +3998,6 @@ int launch_fused_wgmma(const Args& a) {
       static_cast<bf16*>(a.out1), static_cast<bf16*>(a.out2), a.sq, a.sk, num_kb, a.causal,
       a.groups);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The TMA map of a contiguous (bh, rows, width) f32 tensor seen as (width,
-// rows, bh): a box of 32 columns (one 128-byte swizzle row) x `box_rows`
-// rows, rows past `rows` of a head read as 0
-inline cudaError_t encode_f32_rows_map(CUtensorMap* map, const void* base, int width, int rows,
-                                       int bh, int box_rows) {
-  const cuuint64_t w = static_cast<cuuint64_t>(width);
-  const cuuint64_t dims[3] = {w, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {w * 4, static_cast<cuuint64_t>(rows) * w * 4};
-  const cuuint32_t box[3] = {tf::kHalfCols, static_cast<cuuint32_t>(box_rows), 1};
-  return encode_tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, base, dims, strides, box,
-                          CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // kernel 2 (E = kDq) or 3 on the TF32 route: the resident operands' maps

@@ -100,4 +100,16 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
+// The same split by integer operations on the bits (round_tf32 gives the
+// bits of cvt.rna.tf32.f32: the nearest TF32 value, ties away from zero),
+// faster than the conversion where the TF32 wgmma bodies split their
+// operands (csrc/flash_bwd.cu's head note, the TF32 split)
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+__device__ __forceinline__ void split_tf32_bits(float x, uint32_t& hi, uint32_t& lo) {
+  hi = round_tf32(x);
+  lo = round_tf32(x - __uint_as_float(hi));
+}
+
 }  // namespace

@@ -7,9 +7,9 @@ the fused backward `_dfused_kernel` are `csrc/flash_bwd.cu`; each source's
 header says what bounds it and how it is laid out. Each of the four kernels
 has two or three bodies there, and `attention_route` alone picks one per
 launch: wgmma fed by a TMA ring for bf16 at head width 64 in the exp2
-contracts, TF32 wgmma fed by a TMA ring for the split backward (kernels 2
-and 3) at f32 head width 64 in every contract, mma.sync for every other
-case.
+contracts (and at 256 in kernels 1-3), TF32 wgmma fed by a TMA ring for
+f32 in every contract at head widths 128 and 256 (kernels 1-3) and 64
+(kernels 2 and 3), mma.sync for every other case.
 `flash_attention_reference` and `flash_attention_backward_reference` are
 plain PyTorch code for the same functions and contract: the CPU path, and
 what the kernels are held against.
@@ -289,16 +289,14 @@ _BWD_ARGTYPES = (
 
 # the bodies of kernels 1-4 (`Route` in csrc/flash_fwd.cu and
 # csrc/flash_bwd.cu), each (kernel, input) taking one: the bf16 wgmma ones
-# fed by a TMA ring, the TF32 wgmma ones of kernels 2 and 3, and the
-# mma.sync bodies
+# fed by a TMA ring, the TF32 wgmma ones, and the mma.sync bodies
 ROUTE_MMA, ROUTE_WGMMA, ROUTE_TF32 = 0, 1, 2
-_ROUTE_WGMMA_D = 64  # the head width of the wgmma bodies of kernels 1-4
-_ROUTE_WIDE_D = 256  # the head width of the split backward's other bf16 wgmma body
-_ROUTE_TF32_D = (64, 128, 256)  # the head widths of the split backward's TF32 bodies
-# the split backward's kernels: the ones with TF32 bodies (f32 at D = 64,
-# 128 and 256, every contract) and a bf16 wgmma body at D = 256
-_SPLIT_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
-_ROUTE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
+# the head widths of each kernel's bf16 wgmma bodies (the exp2 contracts)
+# and of its TF32 bodies (f32 operands, every contract); mma.sync elsewhere
+_WGMMA_D = {"flash_fwd": (64, 256), "flash_bwd_dq": (64, 256), "flash_bwd_dkv": (64, 256),
+            "flash_bwd_fused": (64,)}
+_TF32_D = {"flash_fwd": (128, 256), "flash_bwd_dq": (64, 128, 256),
+           "flash_bwd_dkv": (64, 128, 256), "flash_bwd_fused": ()}
 # kernel 4's groups of key blocks on the wgmma route, each adding into its
 # own dq buffer in its own key-block order (the 3D shape's 256 key blocks a
 # head in 8 chains of 32)
@@ -308,23 +306,19 @@ FUSED_DQ_GROUPS = 8
 def attention_route(dtype: torch.dtype, d: int, upcast: bool = False, *, kernel: str) -> int:
     """The body that `kernel` (the name of kernel 1, 2, 3 or 4's launcher,
     which every caller gives) runs for inputs of `dtype` at head width `d`
-    under the contract `upcast` names: ROUTE_WGMMA for bf16 at D = 64 in
-    the two exp2 contracts, and for kernels 2 and 3 there at D = 256 too;
-    ROUTE_TF32 for kernels 2 and 3 at D = 64, 128 and 256 on f32 operands
-    (f32 inputs, or any inputs under upcast, which runs f32); ROUTE_MMA for
-    everything else (kernels 1 and 4 on f32 operands, whose 3xTF32 products
-    are mma.sync's, kernels 1 and 4 at bf16 D = 256, and the other widths).
-    The four launchers pass it to their C entries, which raise on a route
-    they do not run for the inputs they get."""
-    if kernel not in _ROUTE_KERNELS:
-        raise ValueError(f"no flash kernel {kernel!r}; one of {_ROUTE_KERNELS}")
-    bf16 = dtype == torch.bfloat16 and not upcast
-    if kernel in _SPLIT_KERNELS and not bf16 and d in _ROUTE_TF32_D:
-        return ROUTE_TF32
-    if (d == _ROUTE_WIDE_D and bf16 and kernel in _SPLIT_KERNELS) or (
-            d == _ROUTE_WGMMA_D and bf16):
-        return ROUTE_WGMMA
-    return ROUTE_MMA
+    under the contract `upcast` names: on bf16 operands (the exp2
+    contracts) ROUTE_WGMMA at D = 64, and at D = 256 in kernels 1-3; on f32
+    operands (f32 inputs, or any inputs under upcast, which runs f32)
+    ROUTE_TF32 at D = 128 and 256 in kernels 1-3, and at D = 64 in kernels
+    2 and 3; ROUTE_MMA for everything else (kernel 4 but at bf16 D = 64,
+    kernel 1 on f32 at D = 32 and 64, and D = 32 and bf16 D = 128 in every
+    kernel). The four launchers pass it to their C entries, which raise on
+    a route they do not run for the inputs they get."""
+    if kernel not in _WGMMA_D:
+        raise ValueError(f"no flash kernel {kernel!r}; one of {tuple(_WGMMA_D)}")
+    if dtype == torch.bfloat16 and not upcast:
+        return ROUTE_WGMMA if d in _WGMMA_D[kernel] else ROUTE_MMA
+    return ROUTE_TF32 if d in _TF32_D[kernel] else ROUTE_MMA
 
 
 class _FlashBackwardKernel(Launcher):

@@ -50,7 +50,9 @@ HERE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fi
 # f32 head-width-128 shapes: kernel 1 at its sampler's batch 4 (4 launches a
 # DDIM step), kernels 1-3 at `recipes/train_controlnet.py`'s batch 16; and
 # kernels 2 and 3 at the f32 D = 128 and 256 contract shapes of phase 2 (d)
-# (the 2D serving shape, and the causal case's shape without the mask)
+# (the 2D serving shape, and the causal case's shape without the mask);
+# kernel 1 at the 2D f32 recipe's training shape and at the serving shape
+# in bf16
 CASES = (
     ("flash_fwd", (2, 32768, 32768, 64), "bfloat16"),
     ("flash_fwd", (2, 4096, 4096, 64), "bfloat16"),
@@ -90,6 +92,8 @@ CASES = (
     ("flash_bwd_dkv", (4, 1024, 1024, 256), "float32"),
     ("flash_bwd_dq", (4, 1024, 1024, 128), "float32"),
     ("flash_bwd_dkv", (4, 1024, 1024, 128), "float32"),
+    ("flash_fwd", (64, 1024, 1024, 256), "float32"),
+    ("flash_fwd", (4, 1024, 1024, 256), "bfloat16"),
 )
 # (multiply-adds a (query, key) pair and head column, (sq, sk) rows of
 # inputs and outputs of width D) of kernels 1-4: the forward's two products

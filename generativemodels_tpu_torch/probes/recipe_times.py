@@ -16,10 +16,17 @@ checkouts can be compared on one card in one call:
   ending in a synchronize and its CUDA-event time, over the steps after the
   warm-up ones, then one step under torch.profiler for its device time,
   busy share (device time over that step's wall time) and kernels 1-3's
-  device time.
+  device time;
+- `serve2d`: a DDIM-50 request of the 2D serving sampler at its serving
+  config (chip_smoke.py's phase 3: 150 launches of kernel 1 at (4, 1024,
+  1024, 256) and (4, 256, 256, 256) f32): each request's host clock ending
+  in a synchronize over the requests after a warm-up one, then one request
+  under torch.profiler for its device time, busy share and kernel 1's
+  device time, and one with the host's activity too for the host time of
+  the `gmtpu_torch::flash_fwd` op (its launcher, launch included).
 
     python generativemodels_tpu_torch/probes/recipe_times.py [--root DIR]
-        [--what stage1 export2d controlnet] [--out FILE]
+        [--what stage1 export2d controlnet serve2d] [--out FILE]
 
 `--root` is the root of the checkout whose `generativemodels_tpu_torch` is
 imported (default: the checkout holding this file); its kernels are built
@@ -40,6 +47,7 @@ import time
 
 HERE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 STAGE1_WARMUP, STAGE1_STEPS = 2, 8  # chip_smoke.py's LDM3D_STEPS
+SERVE_REQUESTS = 3
 CONTROLNET_WARMUP, CONTROLNET_STEPS = 2, 10
 # chip_smoke.py's SERVE, the chain whole
 SERVE = dict(spatial_dims=2, size=64, channels=(128, 256, 256), norm_groups=32, batch=4,
@@ -115,7 +123,43 @@ def controlnet(torch) -> dict:
                 busy_share=device / (wall * 1e3), flash_ms=flash)
 
 
-MEASURES = {"stage1": stage1, "export2d": export2d, "controlnet": controlnet}
+def serve2d(torch) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    from generativemodels_tpu_torch.recipes import serve
+
+    sampler, _ = serve.build_sampler(device="cuda", **SERVE)
+    sampler(0)  # warm-up
+    torch.cuda.synchronize()
+    host = []
+    for seed in range(1, 1 + SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        sampler(seed)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sampler(1 + SERVE_REQUESTS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_time_total > 0]
+    device = sum(e.device_time_total for e in kernels) / 1e3
+    if device == 0:
+        raise RuntimeError("the profiler saw no device time")
+    flash = sum(e.device_time_total for e in kernels if "flash_fwd_" in e.key) / 1e3
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sampler(2 + SERVE_REQUESTS)
+        torch.cuda.synchronize()
+    op = [e for e in prof.key_averages() if e.key == "gmtpu_torch::flash_fwd"]
+    return dict(seconds=sum(host) / len(host) / 1e3, host_ms=host, profiled_device_ms=device,
+                profiled_wall_ms=wall * 1e3, busy_share=device / (wall * 1e3),
+                flash_ms={"flash_fwd": flash},
+                flash_fwd_host_ms=sum(e.cpu_time_total for e in op) / 1e3,
+                flash_fwd_calls=sum(e.count for e in op))
+
+
+MEASURES = {"stage1": stage1, "export2d": export2d, "controlnet": controlnet,
+            "serve2d": serve2d}
 
 
 def main(argv=None) -> list[dict]:

@@ -160,7 +160,10 @@ def test_launcher_tiles_follow_the_kernel_source(dtype, d):
     counters out of bounds or a wait that never ends); chip_smoke's count of
     ordered dq adds follows the kernel's loops; and its kernel-1 block
     heights are csrc/flash_fwd.cu's (64- or 128-row blocks on the wgmma
-    route, by whether 128-row ones leave half of the card's SMs idle)."""
+    routes, bf16 at D = 64 and 256, by whether 128-row ones leave half of
+    the card's SMs idle; on the TF32 route, f32 at D = 128 and 256, 64-row
+    blocks in clusters of two that split the keys where one block a row
+    block leaves half of them idle)."""
     text = (REPO / "generativemodels_tpu_torch" / "csrc" / "flash_bwd.cu").read_text()
     tiles = {}
     for name, value in re.findall(r"constexpr int (k\w+) = (\d+);", text):
@@ -192,16 +195,21 @@ def test_launcher_tiles_follow_the_kernel_source(dtype, d):
         assert smoke.fused_dq_adds(bh, sq, sk, d, dtype, causal) == adds
     fwd = (REPO / "generativemodels_tpu_torch" / "csrc" / "flash_fwd.cu").read_text()
     assert "constexpr int kRows = 64;" in fwd
-    assert ("return 2 * blocks <= sms ? launch_wgmma_blocks<K, 1>(a, device)\n"
-            "                           : launch_wgmma_blocks<K, 2>(a, device);") in fwd
+    assert ("return 2 * blocks <= sms ? launch_wgmma_blocks<D, K, 1>(a, device)\n"
+            "                           : launch_wgmma_blocks<D, K, 2>(a, device);") in fwd
     assert "static constexpr int kM = D <= 64 ? 2 : 1;" in fwd
+    assert "constexpr int kSplits = 2;" in fwd
+    assert "const int splits = 2 * blocks <= sms ? ts::kSplits : 1;" in fwd
     sms = 132
-    for bh, sq in ((2, 4096), (2, 8192), (2, 32768), (3, 257), (66, 128), (67, 128)):
+    for bh, sq in ((2, 4096), (2, 8192), (2, 32768), (3, 257), (66, 128), (67, 128),
+                   (4, 1024), (16, 1024), (66, 64), (67, 64)):
         blocks_128 = bh * -(-sq // 128)
-        if wgmma:
-            want = 64 if 2 * blocks_128 <= sms else 128
+        if dtype == "bfloat16" and d in (64, 256):
+            want = 64 if 2 * blocks_128 <= sms else 128, 1
+        elif dtype == "float32" and d in (128, 256):
+            want = 64, 2 if 2 * bh * -(-sq // 64) <= sms else 1
         else:
-            want = 32 if dtype == "float32" else 128 if d <= 64 else 64
+            want = 32 if dtype == "float32" else 128 if d <= 64 else 64, 1
         assert smoke.forward_block_rows(bh, sq, d, dtype, sms) == want
 
 
@@ -269,18 +277,23 @@ _FLASH_PTXAS_ENTRY = ("ptxas info    : Compiling entry function "
                          ids=["as_built", "mma_at_bf16_d64"])
 def test_phase1_counts_each_flash_kernel(extra):
     """Phase 1 reads kernel 1's instantiations kernel by kernel: the
-    mma.sync bf16 body at D 32, 128 and 256 in the two exp2 contracts, the
-    f32 one at four widths in three, the wgmma body in two contracts at two
-    block heights; an mma.sync bf16 instance at D = 64 (which the wgmma body
+    mma.sync bf16 body at D 32 and 128 in the two exp2 contracts, the f32
+    one at D 32 and 64 in three, the wgmma bodies at D = 64 and 256 in two
+    contracts at two block heights, the TF32 body at D = 128 and 256 in
+    three; an mma.sync bf16 instance at D = 64 (which the wgmma body
     replaces) changes the counts. The counts of both flash sources add up
     to NO_STACK_INSTANCES."""
     smoke = _chip_smoke()
     names = ([f"21flash_fwd_bf16_kernelILi{d}ELi{c}EEEvPK13__nv_bfloat16"
-              for d in (32, 128, 256) for c in (0, 1)]
-             + [f"20flash_fwd_f32_kernelILi{d}ELi{c}EEEvPKfS2_" for d in (32, 64, 128, 256)
+              for d in (32, 128) for c in (0, 1)]
+             + [f"20flash_fwd_f32_kernelILi{d}ELi{c}EEEvPKfS2_" for d in (32, 64)
                 for c in (0, 1, 2)]
              + [f"22flash_fwd_wgmma_kernelILi{c}ELi{n}EEEv14CUtensorMap_st" for c in (0, 1)
-                for n in (1, 2)])
+                for n in (1, 2)]
+             + [f"21flash_fwd_wide_kernelILi{c}ELi{n}EEEv14CUtensorMap_st" for c in (0, 1)
+                for n in (1, 2)]
+             + [f"23flash_fwd_stream_kernelILi{a}ELi{c}EEEv14CUtensorMap_st" for a in (4, 8)
+                for c in (0, 1, 2)])
     if extra:
         names.append(extra)
     entries = smoke.ptxas_entries("".join(_FLASH_PTXAS_ENTRY.format(name=n) for n in names))

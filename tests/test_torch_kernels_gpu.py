@@ -25,16 +25,16 @@ largest value in f32 (f32 sums of the key blocks' parts in key-block
 order), and in bf16 within one bf16 ulp of its value (those sums may round
 to the other side of a bf16 tie) plus that 1e-5 (sums that cancel). The
 wgmma route of kernels 1-4 against the plain versions in both exp2
-contracts, the D = 256 wgmma body of kernels 2 and 3 (bf16 at D = 256)
-in both, and the TF32 route of kernels 2 and 3 (f32 at D = 64, 128 and
-256) in all three, causal, ragged, Sk = 1 and 77 and Sq below and above
-Sk, two launches equal to the bit; the profiler names the D = 256 body's
-kernels, and the f32 D = 128 and 256 body's, as the ones that ran; each
-(kernel, input) takes one body, so the C entries refuse the mma.sync route
-at bf16 D = 64 (and kernels 2 and 3 at f32 D = 64, 128 and 256 and bf16 D
-= 256), the wgmma route at f32 and in kernels 1 and
-4 at D = 256, the TF32 route in kernels 1 and 4 and at bf16, and an
-unknown route. Kernels 2-4
+contracts, the D = 256 wgmma bodies of kernels 1-3 (bf16 at D = 256)
+in both, and the TF32 routes of kernels 2 and 3 (f32 at D = 64, 128 and
+256) and kernel 1 (f32 at D = 128 and 256) in all three, causal, ragged,
+Sk = 1 and 77 and Sq below and above Sk, two launches equal to the bit,
+kernel 1's key split (a cluster of two blocks at the serving shape)
+against an unsplit launch; the profiler names the D = 256 bodies'
+kernels, and the f32 D = 128 and 256 bodies', as the ones that ran; each
+(kernel, input) takes one body, so the C entries refuse the routes the
+inputs do not take (`test_backward_route_refused_on_gpu`) and an unknown
+route. Kernels 2-4
 compute s and dp by one function, kernel 2 with the
 queries as the mma's A operand, kernels 3 and 4 with the keys: both roles
 give the same s, dp and ds to the bit, so every bf16 ds rounds alike in
@@ -721,6 +721,108 @@ def test_wgmma_route_forward_kernel_on_gpu(cuda_device, contract, case):
             assert torch.equal(part_lse, lse[i:i + 2])
 
 
+
+def _forward_against_reference(q, k, v, kw, dtype):
+    """Two launches of kernel 1 against the plain version: O and the lse
+    (relative to max(1, max|lse|)) at FWD_TOL, the two launches equal to the
+    bit; returns (O, lse)."""
+    before = FLASH_FWD.launches
+    o, lse = FLASH_FWD(q, k, v, **kw)
+    o2, lse2 = FLASH_FWD(q, k, v, **kw)
+    ref_o, ref_lse = flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FLASH_FWD.launches == before + 2
+    assert o.dtype == dtype and bool(torch.isfinite(o.float()).all())
+    o_tol, lse_tol = FWD_TOL[dtype]
+    assert (o.float() - ref_o.float()).abs().max().item() <= o_tol
+    assert (lse - ref_lse).abs().max().item() <= lse_tol * max(1.0, ref_lse.abs().max().item())
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(o.view(bits), o2.view(bits))
+    assert torch.equal(lse.view(torch.int32), lse2.view(torch.int32))
+    return o, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_SHAPES) + ["many_blocks_causal"])
+@pytest.mark.parametrize("contract", ["no_max", "running_max"])
+def test_wide_route_forward_kernel_on_gpu(cuda_device, contract, case):
+    """Kernel 1 on its D = 256 wgmma body (bf16, both exp2 contracts)
+    against the plain version at the forward tolerances, at 64-row blocks
+    (the WGMMA_SHAPES leave half of the SMs idle at 128 rows) and 128-row
+    ones (many_blocks_causal), causal, ragged, Sk = 1 and 77; its row sum is
+    the f32 sum of the unrounded p, the plain version's at D % 128 == 0; two
+    launches give the same bits."""
+    bh, sq, sk, causal = WGMMA_SHAPES.get(case, (140, 300, 300, True))
+    assert attention_route(torch.bfloat16, 256, kernel="flash_fwd") == ROUTE_WGMMA
+    q, k, v = _contract_inputs(cuda_device, bh, sq, sk, 256, torch.bfloat16)
+    kw = dict(scale=256**-0.5, causal=causal, no_max=contract == "no_max")
+    _forward_against_reference(q, k, v, kw, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("case", sorted(WGMMA_SHAPES) + ["many_blocks_causal"])
+@pytest.mark.parametrize("contract", ["no_max", "running_max", "upcast"])
+def test_tf32_route_forward_kernel_on_gpu(cuda_device, contract, case, d):
+    """Kernel 1 on its TF32 body (f32 at D = 128 and 256, all three
+    contracts; under upcast bf16 inputs too, cast to f32 by the launcher)
+    against the plain version at the forward tolerances, causal, ragged, Sk
+    = 1 and 77, Sq below and above Sk: the WGMMA_SHAPES run in clusters of
+    two blocks that split the keys (one 64-row block a row block would leave
+    half of the SMs idle), many_blocks_causal unsplit; two launches give the
+    same bits (each merge runs in a fixed order)."""
+    bh, sq, sk, causal = WGMMA_SHAPES.get(case, (140, 300, 300, True))
+    upcast, no_max = {"no_max": (False, True), "running_max": (False, False),
+                      "upcast": (True, True)}[contract]
+    assert attention_route(torch.float32, d, upcast, kernel="flash_fwd") == ROUTE_TF32
+    for dtype in (torch.float32, torch.bfloat16) if upcast else (torch.float32,):
+        q, k, v = _contract_inputs(cuda_device, bh, sq, sk, d, dtype)
+        kw = dict(scale=d**-0.5, causal=causal, upcast=upcast, no_max=no_max)
+        _forward_against_reference(q, k, v, kw, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("contract", ["no_max", "running_max", "upcast"])
+def test_tf32_forward_key_split_on_gpu(cuda_device, contract, d):
+    """The serving shape (4, 1024, 1024, D) in f32: 64 row blocks, so the TF32
+    body runs in clusters of two blocks, each taking half of the keys, the
+    second's state merged into the first's through distributed shared
+    memory. Its O and lse against the same rows of an unsplit launch (the
+    heads twice: 128 row blocks) within FWD_TOL (the same sums in another
+    order), and against the plain version."""
+    upcast, no_max = {"no_max": (False, True), "running_max": (False, False),
+                      "upcast": (True, True)}[contract]
+    q, k, v = _contract_inputs(cuda_device, 4, 1024, 1024, d, torch.float32)
+    kw = dict(scale=d**-0.5, upcast=upcast, no_max=no_max)
+    o, lse = _forward_against_reference(q, k, v, kw, torch.float32)
+    o8, lse8 = FLASH_FWD(*(torch.cat([t, t]) for t in (q, k, v)), **kw)
+    torch.cuda.synchronize()
+    o_tol, lse_tol = FWD_TOL[torch.float32]
+    assert (o8[:4] - o).abs().max().item() <= o_tol
+    assert (lse8[:4] - lse).abs().max().item() <= lse_tol * max(1.0, lse.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, d, body", [(torch.bfloat16, 64, "wgmma"),
+                                            (torch.bfloat16, 256, "wide"),
+                                            (torch.float32, 128, "stream"),
+                                            (torch.float32, 256, "stream")],
+                         ids=["bf16_d64", "bf16_d256", "f32_d128", "f32_d256"])
+def test_forward_runs_its_own_kernel_on_gpu(cuda_device, dtype, d, body):
+    """Which kernel 1 ran, as the profiler names it: `flash_fwd_wgmma_kernel`
+    at bf16 D = 64, `flash_fwd_wide_kernel` at bf16 D = 256 and
+    `flash_fwd_stream_kernel` at f32 D = 128 and 256, and no mma.sync body."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = _contract_inputs(cuda_device, 2, 300, 300, d, dtype)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        FLASH_FWD(q, k, v, scale=d**-0.5)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "flash_fwd_" in e.name and "_kernel" in e.name]
+    assert names and all(f"flash_fwd_{body}_kernel" in name for name in names), names
+
 # a route that no kernel takes
 UNKNOWN_ROUTE = 3
 ALL_FOUR = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
@@ -734,24 +836,27 @@ ALL_FOUR = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
      (torch.float32, ROUTE_MMA, ("flash_bwd_dq", "flash_bwd_dkv"), 64),
      (torch.float32, ROUTE_TF32, ("flash_fwd", "flash_bwd_fused"), 64),
      (torch.bfloat16, ROUTE_TF32, ALL_FOUR, 64),
-     (torch.bfloat16, ROUTE_MMA, ("flash_bwd_dq", "flash_bwd_dkv"), 256),
-     (torch.bfloat16, ROUTE_WGMMA, ("flash_fwd", "flash_bwd_fused"), 256),
+     (torch.bfloat16, ROUTE_MMA, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 256),
+     (torch.bfloat16, ROUTE_WGMMA, ("flash_bwd_fused",), 256),
      (torch.float32, ROUTE_WGMMA, ALL_FOUR, 256),
-     (torch.float32, ROUTE_MMA, ("flash_bwd_dq", "flash_bwd_dkv"), 128),
-     (torch.float32, ROUTE_MMA, ("flash_bwd_dq", "flash_bwd_dkv"), 256),
-     (torch.float32, ROUTE_TF32, ("flash_fwd", "flash_bwd_fused"), 256)],
+     (torch.float32, ROUTE_MMA, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 128),
+     (torch.float32, ROUTE_MMA, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 256),
+     (torch.float32, ROUTE_TF32, ("flash_bwd_fused",), 256),
+     (torch.bfloat16, ROUTE_TF32, ALL_FOUR, 256),
+     (torch.float32, ROUTE_WGMMA, ALL_FOUR, 128),
+     (torch.bfloat16, ROUTE_WGMMA, ALL_FOUR, 128)],
     ids=["mma_at_bf16_d64", "wgmma_at_f32", "unknown", "mma_at_f32_d64_split",
          "tf32_in_kernels_1_and_4", "tf32_at_bf16", "mma_at_bf16_d256_split",
-         "wgmma_in_kernels_1_and_4_at_d256", "wgmma_at_f32_d256", "mma_at_f32_d128_split",
-         "mma_at_f32_d256_split", "tf32_in_kernels_1_and_4_at_d256"])
+         "wgmma_in_kernel_4_at_d256", "wgmma_at_f32_d256", "mma_at_f32_d128_split",
+         "mma_at_f32_d256_split", "tf32_in_kernel_4_at_d256", "tf32_at_bf16_d256",
+         "wgmma_at_f32_d128", "wgmma_at_bf16_d128"])
 def test_backward_route_refused_on_gpu(cuda_device, monkeypatch, dtype, route, refusing, d):
     """Each (kernel, input) of kernels 1-4 takes one body: their C entries
-    refuse the mma.sync route at bf16 D = 64 (exp2 contracts) and, in
-    kernels 2 and 3, at f32 D = 64, 128 and 256 and bf16 D = 256, the wgmma
-    route at f32
-    and in kernels 1 and 4 at D = 256, the TF32 route in kernels 1 and 4
-    and at bf16, and an unknown route; the launcher raises and counts no
-    launch."""
+    refuse the mma.sync route at bf16 D = 64 (exp2 contracts), in kernels
+    1-3 at bf16 D = 256 and f32 D = 128 and 256 and in kernels 2 and 3 at
+    f32 D = 64; the wgmma route at f32, at bf16 D = 128 and in kernel 4 at
+    D = 256; the TF32 route in kernel 4, in kernel 1 at D = 64 and at bf16;
+    and an unknown route. The launcher raises and counts no launch."""
     args, _ = _contract_backward_inputs(cuda_device, 2, 128, 128, d, dtype, False, False, True)
     q_in, k, v, out, lse2, dout = args
     do2, delta = _backward_rows(out, dout)
