@@ -23,30 +23,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      their products with the softmax, and kernels 1-4 on their wgmma route
      issue one tile's products with the next tile's), and each kernel's
      count of instantiations (kernels 1-4 have no mma.sync one at bf16 D =
-     64 in the exp2 contracts, kernels 2 and 3 none at bf16 D = 256 in the
-     exp2 contracts, where their D = 256 wgmma body runs, nor at f32 D = 64,
-     128 and 256, where their TF32 wgmma bodies run in all three contracts);
+     64 and 256 in the exp2 contracts, where their wgmma bodies run, kernels
+     2-4 none at f32 D = 64, nor kernels 2 and 3 at f32 D = 128 and 256,
+     where their TF32 wgmma bodies run in all three contracts);
   2. kernels against their plain versions: O and lse of the flash-attention
      forward kernel against `flash_attention_reference` (then the forward
      against the plain attention path at seq 256-1024, the numbers behind
      the flash threshold), dq, dk, dv of the split backward kernels and of
      the fused backward kernel against `flash_attention_backward_reference`
      (the fused one also against the split ones: dk, dv to the bit where
-     the two run one body of `attention_route` (the wgmma one for bf16 at D
-     = 64, else mma.sync), within the fused dq margin at f32 D = 64, 128
-     and 256, where kernel 3 runs its TF32 wgmma bodies, and at bf16 D =
-     256, where it runs its D = 256 wgmma body, and dq within the fused dq
-     margin of its largest value (at f32 D = 64, 128 and 256, where kernel 2
-     runs the TF32 bodies, also of the size of the terms that cancel at Sk =
-     1: `fused_agree`);
+     the two run one body of `attention_route` (the wgmma ones for bf16 at
+     D = 64 and 256, the TF32 one at f32 D = 64, else mma.sync), within the
+     fused dq margin at f32 D = 128 and 256, where kernel 3 runs its TF32
+     wgmma bodies and kernel 4 mma.sync, and dq within the fused dq margin
+     of its largest value (at f32 D = 64, 128 and 256, where kernel 2 runs
+     the TF32 bodies, also of the size of the terms that cancel at Sk = 1:
+     `fused_agree`);
      and kernels 2 and 3 against themselves: dq, dk and dv must be the same
      to the bit over two launches; each case prints its routes, and the
      times of kernels 2 and 3 beside their bounds (and their share of
      them), the plain version's and SDPA's backward; the wgmma route's own
      cases, ROUTE_CASES, run kernels 1-4 in both exp2 contracts and under
-     upcast, ROUTE_CASES_F32 the same shapes in f32, on kernels 2 and 3's
+     upcast, ROUTE_CASES_F32 the same shapes in f32, on kernels 2-4's
      TF32 body, ROUTE_CASES_WIDE the same shapes at bf16 D = 256, on
-     kernels 1-3's D = 256 wgmma bodies, ROUTE_CASES_F32_WIDE the same
+     kernels 1-4's D = 256 wgmma bodies, ROUTE_CASES_F32_WIDE the same
      shapes in f32 at D = 128 and 256, on kernels 1-3's TF32 bodies
      streamed over D), and the
      fused GroupNorm-SiLU-conv3d kernel against
@@ -66,7 +66,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      64, 64x64) for ten steps, (b) the bench.py config (bf16 compute, batch
      128; kernels 2 and 3 on their D = 256 wgmma body) through
      `make_diffusion_train_step` for ten steps, each with the three
-     kernels' launches counted over the run; (c) one step's parameter
+     kernels' launches counted over the run, and again for four steps
+     under GMTPU_FLASH_FUSED_BWD=1 (kernel 4 on its D = 256 wgmma body, 3
+     launches a step), its losses against the split run's; (c) one step's parameter
      gradients with seeded random weights, the kernel path against the
      plain attention path, without and with `use_checkpointing`;
   5. 3D sampling: bench.py's 3D UNet (32, 64, 128) in bf16 at 128^3, batch
@@ -322,11 +324,10 @@ THRESHOLD_CASES = ((2, 2, 64, "bfloat16"), (4, 1, 256, "float32"))
 # (csrc/flash_contract.cuh), where bf16 D = 64 in the 2 exp2 contracts is
 # the wgmma body at 64- and 128-row blocks (4) in place of 2 mma.sync ones;
 # kernels 2-4: 3 kernels x the same 20, where each at bf16 D = 64 in the 2
-# exp2 contracts is its wgmma body (6 in all), kernels 2 and 3 at bf16 D =
-# 256 in the 2 exp2 contracts their D = 256 wgmma body (4 in all), and
-# kernels 2 and 3 at f32 D = 64 in the 3 contracts their TF32 wgmma body (6
-# in all) and at f32 D = 128 and 256 their TF32 body streamed over D (12 in
-# all); kernel 5: the
+# exp2 contracts is its wgmma body (6 in all), each at bf16 D = 256 in the
+# 2 exp2 contracts its D = 256 wgmma body (6 in all), each at f32 D = 64 in
+# the 3 contracts its TF32 wgmma body (9 in all), and kernels 2 and 3 at f32
+# D = 128 and 256 their TF32 body streamed over D (12 in all); kernel 5: the
 # f32 kernel at 3 BN, the bf16 kernel at the 3 depth runs of
 # `ops.fused_conv.CONV_RUNS`; kernels 6 and 7: 7 overlap variants and the 4
 # (scale in kernel, bf16 p) pairs), so that a log that stops matching fails
@@ -335,8 +336,9 @@ NO_STACK_KERNELS = ("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel", "flash_fwd_
                     "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "flash_bwd_fused_kernel",
                     "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
                     "flash_bwd_fused_wgmma_kernel", "flash_bwd_dq_tf32_kernel",
-                    "flash_bwd_dkv_tf32_kernel", "flash_bwd_dq_wide_kernel",
-                    "flash_bwd_dkv_wide_kernel", "flash_bwd_dq_stream_kernel",
+                    "flash_bwd_dkv_tf32_kernel", "flash_bwd_fused_tf32_kernel",
+                    "flash_bwd_dq_wide_kernel", "flash_bwd_dkv_wide_kernel",
+                    "flash_bwd_fused_wide_kernel", "flash_bwd_dq_stream_kernel",
                     "flash_bwd_dkv_stream_kernel",
                     "fused_conv_f32_kernel", "fused_conv_mma_kernel",
                     "flash_probe_overlap_kernel", "flash_probe_vpu_kernel")
@@ -345,19 +347,21 @@ NO_STACK_INSTANCES = {"flash_fwd.cu": 24, "flash_bwd.cu": 60, "fused_conv.cu": 6
 # the same counts kernel by kernel for the flash sources: the mma.sync
 # bodies of kernels 1-4 lack bf16 D = 64 in the exp2 contracts (kernel 1's
 # bf16 one: 3 other widths x 2 contracts; kernels 2-4's: 20 - 2), which the
-# wgmma bodies take (kernel 1 at two block heights); those of kernels 2 and
-# 3 also lack bf16 D = 256 in the exp2 contracts and f32 at D = 64, 128 and
-# 256 (20 - 2 - 2 - 9: bf16 D = 32 and 128 and f32 D = 32 are left), which
-# their D = 256 wgmma and TF32 bodies take
+# wgmma bodies take (kernel 1 at two block heights); those of kernels 2-4
+# also lack bf16 D = 256 in the exp2 contracts and f32 at D = 64 (kernels 2
+# and 3 also at 128 and 256: 20 - 2 - 2 - 9, bf16 D = 32 and 128 and f32 D
+# = 32 left; kernel 4: 20 - 2 - 2 - 3), which their D = 256 wgmma and TF32
+# bodies take
 KERNEL_INSTANCES = {
     "flash_fwd.cu": {"flash_fwd_bf16_kernel": 4, "flash_fwd_f32_kernel": 6,
                      "flash_fwd_wgmma_kernel": 4, "flash_fwd_wide_kernel": 4,
                      "flash_fwd_stream_kernel": 6},
     "flash_bwd.cu": {"flash_bwd_dq_kernel": 7, "flash_bwd_dkv_kernel": 7,
-                     "flash_bwd_fused_kernel": 18, "flash_bwd_dq_wgmma_kernel": 2,
+                     "flash_bwd_fused_kernel": 13, "flash_bwd_dq_wgmma_kernel": 2,
                      "flash_bwd_dkv_wgmma_kernel": 2, "flash_bwd_fused_wgmma_kernel": 2,
                      "flash_bwd_dq_wide_kernel": 2, "flash_bwd_dkv_wide_kernel": 2,
-                     "flash_bwd_dq_tf32_kernel": 3, "flash_bwd_dkv_tf32_kernel": 3,
+                     "flash_bwd_fused_wide_kernel": 2, "flash_bwd_dq_tf32_kernel": 3,
+                     "flash_bwd_dkv_tf32_kernel": 3, "flash_bwd_fused_tf32_kernel": 3,
                      "flash_bwd_dq_stream_kernel": 6, "flash_bwd_dkv_stream_kernel": 6},
 }
 # (name, (BH, Sq, Sk, D), dtype name, causal) of the backward kernels
@@ -397,6 +401,8 @@ LAUNCHES_PER_FORWARD = 3
 FORWARD_RTOL = 1e-4  # kernel path vs plain path, one UNet forward, relative to max |out|
 CHAIN_ATOL = 1e-3  # the same for each step of a DDIM-50 chain, absolute
 TRAIN_STEPS = 10
+# phase 4 (b)'s bench.py config again under GMTPU_FLASH_FUSED_BWD=1
+BENCH_FUSED_STEPS = 4
 # bench.py's training config: the recipe's model in bf16 compute at batch 128
 BENCH = dict(channels=(128, 256, 256), size=64, batch=128, lr=2.5e-5)
 GRAD_BATCH = 4
@@ -552,15 +558,15 @@ ROUTE_CASES = (
     ("route_sq_below_sk", (2, 512, 2048, 64), "bfloat16", False, False),
     ("route_sq_above_sk_causal", (2, 700, 300, 64), "bfloat16", True, False),
 )
-# the same cases in f32: kernels 2 and 3's TF32 wgmma body (f32 at D = 64,
+# the same cases in f32: kernels 2-4's TF32 wgmma bodies (f32 at D = 64,
 # 32-row tiles, 128-row blocks) in all three contracts
 ROUTE_CASES_F32 = tuple((f"{name}_f32", shape, "float32", causal, timed)
                         for name, shape, _, causal, timed in ROUTE_CASES)
-# the same shapes at head width 256 in bf16: kernels 1, 2 and 3's D = 256
+# the same shapes at head width 256 in bf16: kernels 1-4's D = 256
 # wgmma bodies (kernel 1: 64- or 128-row blocks, 64-key stages; kernel 2:
-# 128-row blocks, 32-key tiles; kernel 3: 64-key blocks, 64-row q tiles) in
-# both exp2 contracts, kernel 4 on mma.sync (upcast runs them all in f32 on
-# the TF32 bodies below)
+# 128-row blocks, 32-key tiles; kernels 3 and 4: 64-key blocks, 64-row q
+# tiles) in both exp2 contracts (upcast runs them all in f32 on the TF32
+# bodies below, kernel 4 on mma.sync)
 ROUTE_CASES_WIDE = tuple((f"{name}_d256", (bh, sq, sk, 256), dtype_name, causal, timed)
                          for name, (bh, sq, sk, _), dtype_name, causal, timed in ROUTE_CASES)
 # the same shapes in f32 at head widths 128 and 256: kernels 1, 2 and 3's
@@ -682,6 +688,9 @@ LDM3D_LAUNCHES = {
     "fused": (dict(flash_fwd=2, flash_bwd_fused=2), dict(flash_fwd=4, flash_bwd_fused=3)),
 }
 LDM3D_RUNS = (("split", "0", "f32"), ("fused", "1", "f32"), ("split", "0", "bf16"))
+# the head width of its attention (the AEKL's at (2, 32768, 32768, 64), the
+# latent UNet's at (2, 4096, 4096, 64))
+LDM3D_HEAD = 64
 LDM3D_GRAD_SIZE = 64  # the gradient check: the AEKL's attention at 16^3 = 4096 tokens
 # phase 10 (c), (d): the 2D recipes at their defaults (train_vqgan: VQ-VAE
 # (128, 256), 256 codes of 32, PatchGAN 64 channels, batch 16, 64x64;
@@ -954,11 +963,14 @@ def check_kernel(torch, ops) -> dict:
     return results
 
 
-def source_constants(source: str) -> dict:
+def source_constants(source: str, namespace: str | None = None) -> dict:
     """The `constexpr int kName = <number>;` declarations of a csrc/ source
-    (the first of each name)."""
+    (the first of each name), or of the first block of its `namespace`."""
     with open(os.path.join(REPO, CSRC, source)) as f:
         text = f.read()
+    if namespace is not None:
+        start = text.index(f"namespace {namespace} {{")
+        text = text[start:text.index(f"}}  // namespace {namespace}", start)]
     found = {}
     for name, value in re.findall(r"constexpr int (k\w+) = (\d+);", text):
         found.setdefault(name, int(value))
@@ -966,16 +978,23 @@ def source_constants(source: str) -> dict:
 
 
 def dkv_tiles(dtype_name: str, d: int) -> tuple[int, int]:
-    """(q rows of a q tile, keys of a block) of kernel 4 (and of kernel 3
-    where it shares kernel 4's body) for inputs of `dtype_name` and head
-    width `d`, read from the `constexpr int`s of csrc/flash_bwd.cu: on the
-    wgmma route (bf16 at D = 64, its namespace `wg`) a q tile is `kTile`
-    rows and a block `kConsumers` x `kRows` keys, else the mma.sync body's
-    `kBrBf16` or `kBrF32` and `kBcNarrow` or `kBcWide` (kernel 4 keeps
-    mma.sync at bf16 D = 256, where kernel 3 runs namespace `wd`)."""
+    """(q rows of a q tile, keys of a block) of kernel 4 (and of kernel 3,
+    which shares kernel 4's body) for inputs of `dtype_name` and head width
+    `d`, read from the `constexpr int`s of csrc/flash_bwd.cu: on the wgmma
+    route at bf16 D = 64 (namespace `wg`) and on the TF32 route at f32 D =
+    64 (namespace `tf`) a q tile is `kTile` rows and a block `kConsumers` x
+    `kRows` keys; on the wgmma route at bf16 D = 256 (namespace `wd`) a q
+    tile is `kDkvTile` rows and a block `kRows` keys, which both consumers
+    share; else the mma.sync body's `kBrBf16` or `kBrF32` and `kBcNarrow`
+    or `kBcWide`."""
     tiles = source_constants("flash_bwd.cu")
-    if dtype_name == "bfloat16" and d == tiles["kD"]:
-        return tiles["kTile"], tiles["kConsumers"] * tiles["kRows"]
+    for namespace, dtype_of in (("wg", "bfloat16"), ("tf", "float32")):
+        body = source_constants("flash_bwd.cu", namespace)
+        if dtype_name == dtype_of and d == body["kD"]:
+            return body["kTile"], body["kConsumers"] * body["kRows"]
+    wide = source_constants("flash_bwd.cu", "wd")
+    if dtype_name == "bfloat16" and d == wide["kD"]:
+        return wide["kDkvTile"], wide["kRows"]
     rows = tiles["kBrBf16"] if dtype_name == "bfloat16" else tiles["kBrF32"]
     return rows, tiles["kBcNarrow"] if d <= tiles["kNarrowD"] else tiles["kBcWide"]
 
@@ -1038,18 +1057,21 @@ def fused_agree(torch, ops, fused, split, upcast: bool = False,
     """Kernel 4's dq, dk, dv against kernels 2 + 3's on the same inputs, and
     the rule applied, as a case prints it. dk, dv: equal to the bit where
     kernels 3 and 4 run one body (the same dV and dK products in the same
-    order: the mma.sync body `dkv_block`; the wgmma bodies' shared products
-    and probabilities), else within the fused margin. dq: within the fused
-    margin (its parts are summed in another order). Where two kernels run
-    different bodies (kernels 2 and 3 on the TF32 ones at f32 D = 64, 128
-    and 256, kernel 4 on mma.sync), the margin is also taken of `floors`
-    (`grad_scales`: at Sk = 1 dq and dk cancel to rounding, and two bodies'
-    rounding differs); where they share one, of the largest value alone."""
+    order: the mma.sync body `dkv_block`; the wgmma and TF32 bodies' shared
+    products and probabilities), else within the fused margin. dq: within
+    the fused margin (its parts are summed in another order). Where two
+    kernels run different bodies (kernels 2 and 3 on the TF32 ones at f32 D
+    = 128 and 256, kernel 4 on mma.sync), the margin is also taken of
+    `floors` (`grad_scales`: at Sk = 1 dq and dk cancel to rounding, and two
+    bodies' rounding differs), and so is dq's on the TF32 route, where
+    kernel 2 computes s and dp query-major and kernel 4 key-major, each
+    3xTF32 product summing its lo x hi terms in the other order; where they
+    share one, of the largest value alone."""
     dtype, d = split[1].dtype, split[1].shape[-1]
     dq_body, dkv_body, fused_body = (route_name(ops, dtype, d, upcast, kernel) for kernel in
                                      ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused"))
-    ok = within_fused_margin(torch, fused[0], split[0],
-                             floors[0] if dq_body != fused_body else None)
+    dq_rounds_apart = dq_body != fused_body or fused_body == "tf32"
+    ok = within_fused_margin(torch, fused[0], split[0], floors[0] if dq_rounds_apart else None)
     ulp = " + one bf16 ulp" if dtype == torch.bfloat16 else ""
     if dkv_body == fused_body:
         ok = ok and torch.equal(fused[1], split[1]) and torch.equal(fused[2], split[2])
@@ -1058,7 +1080,7 @@ def fused_agree(torch, ops, fused, split, upcast: bool = False,
         ok = (ok and within_fused_margin(torch, fused[1], split[1], floors[1])
               and within_fused_margin(torch, fused[2], split[2], floors[2]))
         dkv_rule = f"within {FUSED_DQ_RTOL:g} of max (or the Sk = 1 floor){ulp}"
-    dq_size = "max (or the Sk = 1 floor)" if dq_body != fused_body else "max"
+    dq_size = "max (or the Sk = 1 floor)" if dq_rounds_apart else "max"
     return ok, (f"bodies {dq_body}/{dkv_body}/{fused_body}: dk, dv {dkv_rule}, dq within "
                 f"{FUSED_DQ_RTOL:g} of {dq_size}{ulp}")
 
@@ -1656,12 +1678,15 @@ def train_recipe(torch, ops, recipe) -> dict:
     return dict(launches=counts, steps_per_sec=sps)
 
 
-def train_bench(torch, ops, nets, parallel, schedulers) -> dict:
+def train_bench(torch, ops, nets, parallel, schedulers, steps: int = TRAIN_STEPS,
+                flag: str = "0") -> dict:
     """Phase 4 (b): bench.py's config (bf16 compute, batch 128) through
-    make_diffusion_train_step; returns the launches (counted from 0 over
-    its TRAIN_STEPS steps) and steps/s over the steps after two. Its
-    attention runs at (128, 1024, 1024, 256) bf16: kernels 1, 2 and 3 on
-    their D = 256 wgmma bodies."""
+    make_diffusion_train_step with GMTPU_FLASH_FUSED_BWD `flag`; returns the
+    launches (counted from 0 over its `steps` steps), steps/s over the steps
+    after two and the losses. Its attention runs at (128, 1024, 1024, 256)
+    bf16: kernels 1, 2 and 3, or 1 and 4 under the flag, on their D = 256
+    wgmma bodies."""
+    fused = flag == "1"
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = nets.DiffusionModelUNet(
@@ -1679,30 +1704,52 @@ def train_bench(torch, ops, nets, parallel, schedulers) -> dict:
                         device=DEVICE)
     reset_launches(ops)
     losses = []
-    for i in range(TRAIN_STEPS):
-        state, loss = step(state, images, g)
-        losses.append(loss)
-        if i == 1:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-    torch.cuda.synchronize()
-    sps = (TRAIN_STEPS - 2) / (time.perf_counter() - t0)
+    with fused_backward(flag):
+        for i in range(steps):
+            state, loss = step(state, images, g)
+            losses.append(loss)
+            if i == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+    sps = (steps - 2) / (time.perf_counter() - t0)
     counts = read_launches(ops)
     losses = [float(x) for x in losses]
+    what = "bench config" + (" (fused backward)" if fused else "")
     log(f"train: bench.py config (bf16 compute, batch {BENCH['batch']}, 64x64) through "
-        f"make_diffusion_train_step: {sps:.3f} steps/s over steps 3-{TRAIN_STEPS}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+        f"make_diffusion_train_step{' under GMTPU_FLASH_FUSED_BWD=1' if fused else ''}: "
+        f"{sps:.3f} steps/s over steps 3-{steps}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
         + ", ".join(f"{x:.5f}" for x in losses))
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"bench-config losses not finite: {losses}")
-    check_launches(counts, expected_launches(TRAIN_STEPS, flash_fwd=3, flash_bwd_dq=3,
-                                             flash_bwd_dkv=3), "bench config")
-    log("train: bench config bodies: " + ", ".join(
+        raise AssertionError(f"{what} losses not finite: {losses}")
+    backward = dict(flash_bwd_fused=3) if fused else dict(flash_bwd_dq=3, flash_bwd_dkv=3)
+    check_launches(counts, expected_launches(steps, flash_fwd=3, **backward), what)
+    log(f"train: {what} bodies: " + ", ".join(
         f"{kernel} {route_name(ops, torch.bfloat16, BENCH['channels'][-1], False, kernel)}"
-        for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")))
+        for kernel in ("flash_fwd", *backward)))
     del state, model
     torch.cuda.empty_cache()
-    return dict(launches=counts, steps_per_sec=sps)
+    return dict(launches=counts, steps_per_sec=sps, losses=losses)
+
+
+def train_bench_fused(torch, ops, nets, parallel, schedulers, split: dict) -> dict:
+    """Phase 4 (b), again: bench.py's config for BENCH_FUSED_STEPS steps under
+    GMTPU_FLASH_FUSED_BWD=1 (kernel 4 on its D = 256 wgmma body, 3 launches a
+    step, no kernel 2 or 3), from the same weights, images and draws as the
+    split run; each step's loss within the bf16 backward tolerance (relative)
+    of the split run's (the first step's forward is the same; the updates
+    differ in the order of dq's f32 sums)."""
+    fused = train_bench(torch, ops, nets, parallel, schedulers, BENCH_FUSED_STEPS, "1")
+    pairs = list(zip(fused["losses"], split["losses"]))
+    rel = max(abs(a - b) / abs(b) for a, b in pairs)
+    tol = BACKWARD_TOLERANCE["bfloat16"]
+    log(f"train: bench config, fused against split backward over {len(pairs)} steps: losses "
+        + ", ".join(f"{a:.5f} / {b:.5f}" for a, b in pairs)
+        + f"; max relative difference {rel:.3e} (tol {tol:g}) -> {'ok' if rel <= tol else 'FAIL'}")
+    if rel > tol:
+        raise AssertionError("bench config: the fused backward's losses depart from the split's")
+    return fused
 
 
 def max_grad_diff(got: dict, want: dict) -> tuple[float, str]:
@@ -2933,6 +2980,11 @@ def run_ldm3d(torch, ops, ldm3d) -> dict:
                 or not bool(torch.isfinite(sample).all())):
             raise AssertionError(f"3D LDM recipe ({dtype}, {label}): losses or sample not finite")
         check_launches(counts, ldm3d_expected(label), f"3D LDM recipe, {dtype}, {label} backward")
+        kernels = ("flash_bwd_fused",) if label == "fused" else ("flash_bwd_dq", "flash_bwd_dkv")
+        attention_dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+        log(f"ldm3d: {dtype}, {label} backward: bodies " + ", ".join(
+            f"{kernel} {route_name(ops, attention_dtype, LDM3D_HEAD, False, kernel)}"
+            for kernel in ("flash_fwd", *kernels)))
         results[f"{dtype}_{label}"] = dict(launches=counts, stage1_s=mean(s1), stage2_s=mean(s2),
                                            peak_gib=peak)
         del out, sample
@@ -4676,6 +4728,7 @@ def main() -> int:
     # phase 4: training through its entry points
     trained = train_recipe(torch, ops, recipe)
     bench = train_bench(torch, ops, nets, parallel, schedulers)
+    train_bench_fused(torch, ops, nets, parallel, schedulers, bench)
     check_gradients(torch, ops, nets, parallel, schedulers, recipe)
 
     # phase 5: 3D sampling through its entry points, then DPM-Solver++ serving

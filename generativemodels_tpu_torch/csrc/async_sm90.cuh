@@ -108,6 +108,12 @@ template <int N>
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// the same until they have read their shared-memory sources (which may then
+// be written again), not until their writes to global memory are complete
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
 // global-memory accesses of this thread ordered against those of the
 // asynchronous proxy (the TMA reductions it issues or has completed)
 __device__ __forceinline__ void fence_proxy_async_global() {
@@ -227,6 +233,15 @@ __device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t bytes) {
   uint64_t moved;
   asm volatile("add.s64 %0, %1, %2;\n" : "=l"(moved) : "l"(desc), "l"(uint64_t{bytes >> 4}));
   return moved;
+}
+
+// x through an opaque move, so that a tile loop computes the shared-memory
+// offsets it derives from x each tile and does not keep them in registers
+// across the loop, where they spill
+__device__ __forceinline__ int opaque(int x) {
+  int y;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
 // before the first wgmma, and between registers written by other
@@ -374,6 +389,31 @@ __device__ __forceinline__ void wgmma_ss_n32_mn(float (&d)[16], uint64_t a, uint
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (+)= a b for a 64 x 64 tile, K = 16: A and B from shared memory by
+// descriptor, both MN-major (transposed: A's rows and B's rows run along K);
+// scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64_mn(float (&d)[32], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

@@ -7,10 +7,10 @@
 // of its largest value plus one bf16 ulp; its dk and dv against kernel 3's
 // to the bit where the two share a body (the same dV and dK products in
 // the same order: dkv_block on the mma.sync route, dkv_tile_probs and
-// products_over_tile on the wgmma route at D = 64), and within that margin
-// where they do not: in f32 at D = 64, 128 and 256, where kernel 3 runs a
-// TF32 body, and at bf16 D = 256, where it runs the D = 256 wgmma body, and
-// kernel 4 the mma.sync one.
+// products_over_tile on the wgmma route at D = 64, kernel 3's consumer code
+// itself in wd::dkv_consume at bf16 D = 256 and tf::dkv_consume at f32 D =
+// 64), and within that margin where they do not: in f32 at D = 128 and 256,
+// where kernel 3 runs the ts body and kernel 4 the mma.sync one.
 //
 // Replaces the Pallas TPU kernels of the backward `_flash_bwd` in
 // generativemodels_tpu/ops/flash_attention.py: the split backward's
@@ -20,11 +20,12 @@
 // GMTPU_FLASH_FUSED_BWD=1) becomes flash_bwd_fused_kernel (kernel 4). The
 // last two share one body, dkv_block. On the wgmma route (below) kernels
 // 2-4 are flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel and
-// flash_bwd_fused_wgmma_kernel at D = 64, and kernels 2 and 3
-// flash_bwd_dq_wide_kernel and flash_bwd_dkv_wide_kernel at D = 256; on
-// the TF32 route kernels 2 and 3 are flash_bwd_dq_tf32_kernel and
-// flash_bwd_dkv_tf32_kernel at D = 64, and flash_bwd_dq_stream_kernel and
-// flash_bwd_dkv_stream_kernel at D = 128 and 256.
+// flash_bwd_fused_wgmma_kernel at D = 64, and flash_bwd_dq_wide_kernel,
+// flash_bwd_dkv_wide_kernel and flash_bwd_fused_wide_kernel at D = 256; on
+// the TF32 route they are flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel
+// and flash_bwd_fused_tf32_kernel at D = 64, and kernels 2 and 3
+// flash_bwd_dq_stream_kernel and flash_bwd_dkv_stream_kernel at D = 128 and
+// 256.
 // Default contract, as flash_fwd.cu: q arrives prescaled by scale*log2(e)
 // (rounded to q's type), dO arrives multiplied by ln2 (rounded to dO's
 // type), lse2 is the forward's log2-domain lse and delta = rowsum(dO ln2 * O)
@@ -52,8 +53,8 @@
 // key blocks' dq parts into an f32 buffer: BH * Sq * D * Sk / 128 adds, 4.3
 // GB of reductions at the 3D shape, ordered across the key blocks.
 //
-// Three bodies of kernels 2 and 3 and two of kernel 4, each (kernel, input)
-// taking one: the `route` argument of their C entries names it
+// Three bodies of each of kernels 2, 3 and 4, each (kernel, input) taking
+// one: the `route` argument of their C entries names it
 // (ops/flash_attention.py::attention_route picks it; an unknown route, or a
 // route the inputs do not take, raises; nothing falls back to another
 // body):
@@ -62,22 +63,21 @@
 //   (wgmma) fed by a TMA ring from a producer warpgroup, below. The
 //   softmax arithmetic between the products (an exp2 on the SFU and a
 //   handful of CUDA-core instructions a score) is what keeps it from the
-//   tensor-core bound. Kernels 2 and 3 take the route at bf16 D = 256 too
+//   tensor-core bound. Kernels 2-4 take the route at bf16 D = 256 too
 //   (the 2D UNets' 256-wide heads: bench.py's training step), on a body of
-//   their own (namespace wd, below); kernel 4 keeps mma.sync there.
+//   their own (namespace wd, below).
 // - kRouteTf32, kernels 2 and 3 on f32 operands at D = 64, 128 and 256 in
-//   all three contracts (the f32 3D LDM recipe's stage-1 and stage-2
-//   attention at D = 64, the 2D f32 recipe's and ControlNet's training
-//   steps at D = 256 and 128, upcast at those widths): warpgroup products
-//   on TF32 operands (wgmma m64nNk8, 3xTF32) fed by a TMA ring and a
-//   converter role, on two bodies below (namespace tf at D = 64, ts at 128
-//   and 256).
+//   all three contracts, kernel 4 at D = 64 (the f32 3D LDM recipe's
+//   stage-1 and stage-2 attention at D = 64, the 2D f32 recipe's and
+//   ControlNet's training steps at D = 256 and 128, upcast at those
+//   widths): warpgroup products on TF32 operands (wgmma m64nNk8, 3xTF32)
+//   fed by a TMA ring and a converter role, on two bodies below (namespace
+//   tf at D = 64, ts at 128 and 256).
 // - kRouteMma, every other case (f32 and upcast as 3xTF32 at D = 32 and in
-//   kernels 1 and 4, bf16 at D = 32 and 128, and kernel 4 at bf16 D = 256;
-//   kernels 2-4 have no mma.sync instance at bf16 D = 64 in the exp2
-//   contracts, kernels 2 and 3 none at bf16 D = 256 there nor in f32 at D
-//   = 64, 128 and 256; kernel 4 keeps it at all of them): the mma.sync
-//   bodies, where
+//   kernel 4 at D = 128 and 256, bf16 at D = 32 and 128; kernels 2-4 have
+//   no mma.sync instance at bf16 D = 64 and 256 in the exp2 contracts nor
+//   in f32 at D = 64, kernels 2 and 3 none in f32 at D = 128 and 256): the
+//   mma.sync bodies, where
 //   the tensor pipe's issue rate (mma.sync, as kernel 1) and the operand
 //   fragments read from shared memory by ldmatrix set the floor.
 // - bf16: mma.sync m16n8k16, bf16 operands, f32 accumulation.
@@ -323,9 +323,35 @@
 //   gives, so the products over d run at ~2/3 of the tensor rate; then the
 //   chunks' waits. Each block also re-reads its head's streamed operands
 //   from L2 (kernel 3: 1 MiB of Q and dO a block).
-// Kernel 4 keeps the mma.sync body (dkv_block) at bf16 D = 256, so its dk
-// and dv there differ from kernel 3's in summation order (within the
-// fused dq margin), not to the bit.
+// Kernel 4 on the wgmma route at bf16 D = 256 (flash_bwd_fused_wide_kernel):
+// kernel 3's block, roles and consumer code (wd::dkv_consume, so its dk and
+// dv have kernel 3's bits) and each q tile's dq part dS K over the block's
+// 64 keys. Nothing of shared memory is free beside kernel 3's layout (984
+// bytes), and a 64 x 256 f32 part is 64 KB; nor are registers (dK and dV
+// take 128 a thread, and the next tile's S^T and dP^T 32 more while the
+// part runs). So:
+// - consumer c computes the part's columns 128c .. 128c + 127 in two
+//   m64n64k16 chunks in its chunk accumulator (kernel 3's): A = dS^T from
+//   the tile's buffer (both consumers' halves, written before named barrier
+//   1) read MN-major, B = atoms 2c and 2c + 1 of the resident K read
+//   MN-major (bf16 transposes either operand);
+// - each chunk is staged over the consumer's own atoms of the q tile's
+//   stage once this consumer's dV and dK chunks, the only products that
+//   read them then, are done: chunk 1 over dO's atoms 2c, 2c + 1 after dV's
+//   two chunks, chunk 0 over Q's after dK's last (32 KB a consumer, two
+//   32-column f32 boxes a chunk in the 128-byte swizzle), each counted on
+//   its own barrier;
+// - the producer warpgroup's third and fourth warps (one thread each, for
+//   the tiles of stage 0 and of stage 1) add the staged part into the
+//   caller's f32 group buffer by TMA reductions in key-block order (wg's
+//   counters and groups, one counter per 64-row q tile; the launcher gives
+//   this body one group: the 16 key blocks a head at the bench shape wait
+//   on one another for less than 8 groups' 1 GB of buffers costs), chunk 1
+//   while the consumers run dK's last chunk, and free the stage for its next load
+//   once the reductions have read it (the stage's empty barrier counts the
+//   reducer, not the consumers' warps). So the next load into a stage waits
+//   for the tile's dq part; a block whose group's blocks before it lag
+//   waits for them only there.
 //
 // Kernels 2 and 3 on the TF32 route (namespace tf, flash_bwd_dq_tf32_kernel
 // and flash_bwd_dkv_tf32_kernel): f32 at D = 64, every contract (kUpcast
@@ -389,9 +415,31 @@
 // past Sq or Sk read as 0 (TMA) and their p is 0 (tile_probs tests each
 // pair only in a tile that reaches past Sq, Sk or the causal diagonal);
 // under the causal mask kernel 3's q loop starts at its first key and
-// kernel 2's key loop ends at its last row. Kernel 4 keeps the mma.sync
-// body at f32 D = 64, so its dk and dv there differ from kernel 3's in
-// summation order (within the fused dq margin), not to the bit.
+// kernel 2's key loop ends at its last row.
+// Kernel 4 on the TF32 route (flash_bwd_fused_tf32_kernel): kernel 3's
+// block, roles and consumer code (tf::dkv_consume, so its dk and dv have
+// kernel 3's bits) and each 32-row q tile's dq part dS K over the block's
+// 128 keys. TF32 has no transposed operand, so dq = dS K would need dS with
+// 64 rows (a q tile has 32) or K^T in shared memory (64 KB in hi and lo,
+// where 2.5 KB are free); transposing is what already sets the body's pace.
+// So each consumer computes the part over its own 64 keys transposed, dq^T
+// = K^T dS^T (m64n32k8, M the 64 columns of d): A = K^T, whose fragments
+// are loaded from the resident K's hi and lo by scalar loads (a fragment's
+// rows are columns of K: no transposed copy), B = the consumer's dS, rows by
+// query, which it writes from its split dS^T fragments over its own half of
+// the q tile's stage: the stage is read once the consumers meet after the
+// probabilities, and its 32 KB are exactly both consumers' dS in hi and lo.
+// Consumer 0 stages its part, rows by query, over its dS hi; consumer 1
+// adds its own to it (named barrier 4) and counts the stage's dq barrier.
+// The producer's first thread adds the staged part by TMA reductions (two
+// 32-column boxes of 32 rows) in key-block order (wg's counters and groups,
+// one counter per 32-row q tile) just before it loads the stage again (in
+// one thread: a lone lane beside the loads in the same warp would spin
+// beside them), frees the stage once the reductions have read it, and
+// counts the block after the next load is issued. The upcast contract's
+// instance loads K^T's fragments two k-steps at a time (more at once, its
+// producer warpgroup spilled: ptxas assigns the registers of the values
+// both roles keep, as the loop bounds, over the whole kernel).
 //
 // Kernels 2 and 3 on the TF32 route at D = 128 and 256 (namespace ts,
 // flash_bwd_dq_stream_kernel and flash_bwd_dkv_stream_kernel, one template
@@ -2094,13 +2142,14 @@ static_assert(kTile == kHalfCols, "a transposed tile row is one 128-byte swizzle
 // operands (Q and dO, or K and V: the A operands of the d products) hi then
 // lo, kStages stages of the two streamed tiles (K and V, or Q and dO: B of
 // the d products) hi then lo, the transposed tiles (each consumer's K^T; or
-// Q^T and dO^T: B of the tile products) hi and lo, kernel 3's lse2 and
-// delta rows of each stage, then the mbarriers
+// Q^T and dO^T: B of the tile products) hi and lo, kernels 3 and 4's lse2
+// and delta rows of each stage, then the mbarriers (kernel 4's dq barriers
+// last)
 constexpr int kSmemNat = 4 * kResPart;
 constexpr int kSmemT = kSmemNat + kStages * kStageBytes;
 constexpr int kSmemRows = kSmemT + 4 * kTPart;
 constexpr int kSmemBars = kSmemRows + kStages * 2 * kTile * 4;
-constexpr int kBars = 3 * kStages + 2;
+constexpr int kBars = 4 * kStages + 2;
 constexpr int kSmemBytes = kSmemBars + kBars * 8 + 1024;  // + alignment
 static_assert(kSmemBytes <= 232448, "shared memory of one block");
 
@@ -2130,12 +2179,15 @@ struct Smem {
   // the resident operands are in (TMA), split
   __device__ uint64_t* res_full() const { return bars + 3 * kStages; }
   __device__ uint64_t* res_ready() const { return bars + 3 * kStages + 1; }
+  // kernel 4: stage st's q tile's dq part is staged (both consumers' keys)
+  __device__ uint64_t* dq_full(int st) const { return bars + 3 * kStages + 2 + st; }
 };
 
 // the layout in this block's dynamic shared memory, its barriers
 // initialised (the one __syncthreads of the kernels: the roles split after
-// it)
-__device__ __forceinline__ Smem make_smem(unsigned char* raw) {
+// it); a stage is freed by the consumers' warps, or (kernel 4, `fused`) by
+// its reducer once it has read the stage's dq part
+__device__ __forceinline__ Smem make_smem(unsigned char* raw, bool fused = false) {
   Smem m;
   m.base = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
   m.bars = reinterpret_cast<uint64_t*>(m.base + kSmemBars);
@@ -2143,7 +2195,8 @@ __device__ __forceinline__ Smem make_smem(unsigned char* raw) {
     for (int st = 0; st < kStages; ++st) {
       mbar_init(m.full(st));
       mbar_init(m.ready(st), kConverterWarps);
-      mbar_init(m.empty(st), kConsumerWarps);
+      mbar_init(m.empty(st), fused ? 1 : kConsumerWarps);
+      mbar_init(m.dq_full(st), kConsumerWarps / kConsumers);
     }
     mbar_init(m.res_full());
     mbar_init(m.res_ready(), kConverterWarps);
@@ -2153,15 +2206,23 @@ __device__ __forceinline__ Smem make_smem(unsigned char* raw) {
   return m;
 }
 
+struct NoHook {
+  __device__ void operator()(int) const {}
+};
+
 // The producer warpgroup's first thread: the block's two resident operands
 // (maps res0, res1 of (64, rows, bh), box 32 columns x kBlockRows rows from
 // row res_row) once, then the two streamed tiles of each stage (maps nat0,
 // nat1, box 32 columns x kTile rows from row nat_row + j kTile), each as
-// two 32-column halves, rows past the tensor's read as 0
+// two 32-column halves, rows past the tensor's read as 0; before and after
+// the loads of tile j it runs `before(j)` and `after(j)` (kernel 4: the
+// reductions of tile j - kStages, whose stage it frees)
+template <class Before = NoHook, class After = NoHook>
 __device__ __forceinline__ void produce(const Smem& m, const CUtensorMap* res0,
                                         const CUtensorMap* res1, const CUtensorMap* nat0,
                                         const CUtensorMap* nat1, int bh, int res_row,
-                                        int nat_row, int tiles) {
+                                        int nat_row, int tiles, Before before = {},
+                                        After after = {}) {
   if (tiles == 0) return;
   mbar_expect(m.res_full(), 4 * kResHalf);
   for (int h = 0; h < 2; ++h) {
@@ -2170,6 +2231,7 @@ __device__ __forceinline__ void produce(const Smem& m, const CUtensorMap* res0,
   }
   for (int j = 0; j < tiles; ++j) {
     const int st = j % kStages;
+    before(j);
     if (j >= kStages) mbar_wait(m.empty(st), (j / kStages - 1) & 1);
     mbar_expect(m.full(st), 4 * kNatHalf);
     const int row = nat_row + j * kTile;
@@ -2177,6 +2239,7 @@ __device__ __forceinline__ void produce(const Smem& m, const CUtensorMap* res0,
       tma_load_3d(m.nat(st, 0, 0) + h * kNatHalf, nat0, m.full(st), h * kHalfCols, row, bh);
       tma_load_3d(m.nat(st, 1, 0) + h * kNatHalf, nat1, m.full(st), h * kHalfCols, row, bh);
     }
+    after(j);
   }
 }
 
@@ -2498,13 +2561,160 @@ __device__ __forceinline__ void dq_consume(const Smem& m, const float* __restric
   store_rows(dq, acc, row, sq, 1.f);
 }
 
-// Kernel 3's consumer warpgroup: its 64 keys (from key0, A rows of the
+// Kernel 4: this consumer's dS^T split fragments (its 64 keys x the q
+// tile's 32 queries) written as dS, rows by query, into its own part of
+// stage st (hi over the Q tile's hi and lo over its lo for consumer 0, over
+// the dO tile's for consumer 1: the stage is read once the consumers meet
+// after the probabilities), in the layout of a streamed tile (two 32-key
+// halves in the 128-byte swizzle): the K-major B operand of its dq part
+__device__ __forceinline__ void store_ds(const Smem& m, int st,
+                                         const uint32_t (&sh)[kTileSteps][4],
+                                         const uint32_t (&sl)[kTileSteps][4]) {
+  const int tid = opaque(threadIdx.x);  // the offsets below computed each tile
+  const int c = tid / 128;
+  const int lane = tid % 32;
+  const int t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < kTileSteps; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {  // register r = 2e + h: key 16w + g + 8h, query 8i + 2t + e
+      const int key = (tid % 128) / 32 * 16 + lane / 4 + 8 * (r % 2);
+      const int off = key / kHalfCols * kNatHalf + swizzle128_f32(8 * i + 2 * t + r / 2,
+                                                                  key % kHalfCols);
+      *reinterpret_cast<uint32_t*>(m.nat(st, c, 0) + off) = sh[i][r];
+      *reinterpret_cast<uint32_t*>(m.nat(st, c, 1) + off) = sl[i][r];
+    }
+  }
+  fence_proxy_async();
+}
+
+// Kernel 4: the q tile's dq part over this consumer's 64 keys, transposed:
+// dq^T = K^T dS^T (m64n32k8 in 3xTF32, M the 64 columns of d, N the tile's
+// 32 queries), from zero: A the consumer's K^T, its fragments loaded from
+// the resident K's hi and lo (a fragment's rows are columns of K: scalar
+// loads), kChunk k-steps at a time (each chunk's lo x hi, hi x lo and hi x
+// hi products in one group: the upcast contract's instance, its consumers'
+// registers fuller, spilled the producer warpgroup's loop bounds with four
+// or eight k-steps' fragments at once), B the consumer's dS from store_ds
+// (hi, lo). Consumer 0 stages its part, rows by query, over its dS hi (as
+// TMA reads two (32, 32) f32 boxes in the 128-byte swizzle) and arrives at
+// named barrier 4; consumer 1 waits there, adds its part to the staged one
+// (keys 0-63, then 64-127: one order run to run) and arrives on the
+// stage's dq barrier.
+template <int K>
+constexpr int kDqChunk = K == kUpcast ? 2 : kDSteps;
+
+template <int kChunk>
+__device__ __forceinline__ void dq_tile(const Smem& m, int st) {
+  const int tid = opaque(threadIdx.x);  // the offsets below computed each tile
+  const int c = tid / 128;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int d0 = (tid % 128) / 32 * 16 + g;  // this thread's A rows d0, d0 + 8
+  const uint64_t bh = wgmma_desc_sw128(smem_addr(m.nat(st, c, 0)));
+  const uint64_t bl = wgmma_desc_sw128(smem_addr(m.nat(st, c, 1)));
+  float x[kSAcc];
+  named_sync(2 + c, 128);  // the warpgroup's dS is written (store_ds)
+#pragma unroll
+  for (int k0 = 0; k0 < kDSteps; k0 += kChunk) {
+    uint32_t ah[kChunk][4], al[kChunk][4];
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // A (d0 + 8 (r % 2), key 8 (k0 + i) + t + 4 (r / 2))
+        const int d = d0 + 8 * (r % 2);
+        const int off = d / kHalfCols * kResHalf +
+                        swizzle128_f32(c * kRows + 8 * (k0 + i) + t + 4 * (r / 2), d % kHalfCols);
+        ah[i][r] = *reinterpret_cast<const uint32_t*>(m.res(0, 0) + off);
+        al[i][r] = *reinterpret_cast<const uint32_t*>(m.res(0, 1) + off);
+      }
+    }
+    auto b_at = [&](uint64_t b, int kk) { return desc_at(b, kk / 4 * kNatHalf + 32 * (kk % 4)); };
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) wgmma_tf32_rs_n32(x, al[i], b_at(bh, k0 + i), k0 + i > 0);
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) wgmma_tf32_rs_n32(x, ah[i], b_at(bl, k0 + i), 1);
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) wgmma_tf32_rs_n32(x, ah[i], b_at(bh, k0 + i), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(x);
+    reg_fence(ah);
+    reg_fence(al);
+  }
+  unsigned char* staged = m.nat(st, 0, 0);
+  if (c == 1) named_sync(4, kConsumerThreads);  // consumer 0's part is staged
+#pragma unroll
+  for (int i = 0; i < kSAcc / 4; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {  // x[4i + r]: d0 + 8 (r / 2), query 8i + 2t + r % 2
+      const int d = d0 + 8 * (r / 2);
+      float* p = reinterpret_cast<float*>(staged + d / kHalfCols * kNatHalf +
+                                          swizzle128_f32(8 * i + 2 * t + r % 2, d % kHalfCols));
+      *p = c == 0 ? x[4 * i + r] : *p + x[4 * i + r];
+    }
+  }
+  if (c == 0) {
+    named_arrive(4, kConsumerThreads);
+  } else {
+    fence_proxy_async();
+    warp_arrive(m.dq_full(st));
+  }
+}
+
+// Kernel 4's ordered adds of q tile j's dq part, by the producer's first
+// thread between its loads (produce's hooks: in one thread, a stage is freed
+// exactly when the next load into it needs it): reduce_start waits until
+// the consumers have staged the part and until `lock` (the q tile's counter
+// of this group's key blocks that have added their part) reads `ahead`, the
+// key blocks of the group before this one, adds the part (two 32-column
+// boxes of 32 rows at stage st's Q hi tile) into the f32 buffer of `dq_map`
+// (coordinates (column, row, gbh)) by TMA reductions and frees the stage once
+// they have read it; reduce_finish, after the next load is issued, waits
+// until they have completed and counts the block. Rows past sq fall outside
+// the map and are dropped.
+struct DqReducer {
+  const Smem* m;
+  const CUtensorMap* dq_map;
+  int* locks;
+  int ahead, gbh, q_begin;
+
+  __device__ int* lock(int j) const { return locks + (q_begin + j * kTile) / kTile; }
+  __device__ void start(int j) const {
+    const int st = j % kStages;
+    mbar_wait(m->dq_full(st), (j / kStages) & 1);
+    while (ld_acquire(lock(j)) < ahead) __nanosleep(32);
+    fence_proxy_async_global();  // the reductions come after the blocks before
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      tma_reduce_add_3d(dq_map, m->nat(st, 0, 0) + h * kNatHalf, h * kHalfCols,
+                        q_begin + j * kTile, gbh);
+    }
+    bulk_commit();
+    bulk_wait_read<0>();
+    mbar_arrive(m->empty(st));  // the stage may be loaded again
+  }
+  __device__ void finish(int j) const {
+    bulk_wait<0>();
+    fence_proxy_async_global();  // the completed reductions come before the count
+    __threadfence();
+    atomicAdd(lock(j), 1);
+  }
+};
+
+// Kernel 3's consumer warpgroup (and kernel 4's, kFused): its 64 keys
+// (from key0, A rows of the
 // resident K, V) over every q tile: S^T and dP^T, P^T and dS^T, then dV's
 // part and dK's part (a group each: one part accumulator between them, so
 // that the consumers need no more than 160 registers of accumulators and
 // fragments; each part summed over the tile's queries from zero, then
-// added in f32).
-template <int K>
+// added in f32). Kernel 4 writes dS^T over the stage (store_ds) in place of
+// freeing it, and after dK's part runs the tile's dq part (dq_tile): the
+// same dV and dK products in the same order, so dk and dv have kernel 3's
+// bits.
+template <int K, bool kFused>
 __device__ __forceinline__ void dkv_consume(const Smem& m, float* __restrict__ dk,
                                             float* __restrict__ dv, int key0, int q_begin,
                                             int sq, int sk, int tiles, int causal, float sscale) {
@@ -2538,7 +2748,11 @@ __device__ __forceinline__ void dkv_consume(const Smem& m, float* __restrict__ d
     tile_probs_at<K, true>(ph, pl, sh, sl, s, dp, m.lse(st), m.delta(st), none, none, key, key0,
                            q_begin + j * kTile, sq, sk, causal, sscale);
     consumers_meet<false>();
-    warp_arrive(m.empty(st));  // the stage's tiles and rows are read
+    if constexpr (kFused) {
+      store_ds(m, st, sh, sl);
+    } else {
+      warp_arrive(m.empty(st));  // the stage's tiles and rows are read
+    }
     wgmma_fence();
     products_over_tile(part, ph, pl, m.tr(1, 0), m.tr(1, 1));  // dV part P^T dO
     wgmma_commit();
@@ -2557,6 +2771,7 @@ __device__ __forceinline__ void dkv_consume(const Smem& m, float* __restrict__ d
     reg_fence(sl);
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) acc_k[i] += part[i];
+    if constexpr (kFused) dq_tile<kDqChunk<K>>(m, st);
   }
   store_rows(dk, acc_k, key, sk, 1.f);
   // dO arrived multiplied by ln2 for ds (not under kUpcast); dv must not carry it
@@ -2635,8 +2850,63 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap k_map,
   } else {
     regs_raise<tf::kConsumerRegs>();
     const size_t head = static_cast<size_t>(bh) * sk * tf::kD;
-    tf::dkv_consume<K>(m, dk + head, dv + head, k0 + threadIdx.x / 128 * tf::kRows, q_begin, sq,
-                       sk, tiles, causal, sscale);
+    tf::dkv_consume<K, false>(m, dk + head, dv + head, k0 + threadIdx.x / 128 * tf::kRows,
+                              q_begin, sq, sk, tiles, causal, sscale);
+  }
+}
+
+// Kernel 4 on the TF32 route. Grid, threads, shared memory, maps and roles
+// as kernel 3's; the producer's first thread also adds the staged dq parts
+// (tf::DqReducer), each before it loads the stage again. The key
+// blocks of a head fall into `groups` interleaved groups, each with its own
+// f32 dq buffer (the map `dq_map` of the caller's zeroed (groups, bh, sq,
+// 64) buffer seen as (64, sq, groups * bh), box 32 columns x 32 rows) and
+// its own counters, dq_lock, int (groups, bh, ceil(sq / 32)), zeroed by the
+// caller, who sums the groups' buffers: as flash_bwd_fused_wgmma_kernel's.
+template <int K>
+__global__ void __launch_bounds__(tf::kThreads, 1)
+flash_bwd_fused_tf32_kernel(const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap do_map,
+                            const __grid_constant__ CUtensorMap dq_map,
+                            const float* __restrict__ lse2, const float* __restrict__ delta,
+                            int* __restrict__ dq_lock, float* __restrict__ dk,
+                            float* __restrict__ dv, int sq, int sk, int num_kb, int causal,
+                            float sscale, int groups) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const tf::Smem m = tf::make_smem(smem_raw, true);
+  const int bh = blockIdx.x / num_kb;
+  const int kbi = blockIdx.x % num_kb;
+  const int k0 = kbi * tf::kBlockRows;
+  const int q_begin = causal ? k0 : 0;
+  const int tiles = q_begin < sq ? (sq - q_begin + tf::kTile - 1) / tf::kTile : 0;
+  const int q_tiles = (sq + tf::kTile - 1) / tf::kTile;
+  // this block's dq buffer and counters: its group's, and in them its head's
+  const int gbh = kbi % groups * (gridDim.x / num_kb) + bh;
+  if (threadIdx.x >= tf::kConsumerThreads) {
+    regs_lower<tf::kProducerRegs>();
+    const int pt = threadIdx.x - tf::kConsumerThreads;
+    if (pt == 0) {  // a block waits for the blocks of its group before it
+      const tf::DqReducer red{&m, &dq_map, dq_lock + static_cast<size_t>(gbh) * q_tiles,
+                              kbi / groups, gbh, q_begin};
+      tf::produce(
+          m, &k_map, &v_map, &q_map, &do_map, bh, k0, q_begin, tiles,
+          [&](int j) { if (j >= tf::kStages) red.start(j - tf::kStages); },
+          [&](int j) { if (j >= tf::kStages) red.finish(j - tf::kStages); });
+      for (int j = max(tiles - tf::kStages, 0); j < tiles; ++j) {
+        red.start(j);
+        red.finish(j);
+      }
+    } else if (pt >= 32) {
+      const size_t rows = static_cast<size_t>(bh) * sq;
+      tf::convert<true>(m, tiles, lse2 + rows, delta + rows, q_begin, sq);
+    }
+  } else {
+    regs_raise<tf::kConsumerRegs>();
+    const size_t head = static_cast<size_t>(bh) * sk * tf::kD;
+    tf::dkv_consume<K, true>(m, dk + head, dv + head, k0 + threadIdx.x / 128 * tf::kRows,
+                             q_begin, sq, sk, tiles, causal, sscale);
   }
 }
 
@@ -2681,15 +2951,17 @@ static_assert(kDkvTile * 2 == 128, "a P^T or dS^T row is one 128-byte swizzle ro
 // (K and V, or Q and dO), each an operand of `rows` x 256 bf16 as four atoms,
 // one per 64-column TMA box (atom a: columns 64a .. 64a + 63 of the rows,
 // 128 bytes a row in the 128-byte swizzle, atoms rows x 128 bytes apart);
-// kernel 3 (kProbs) then two buffers of the q tile's P^T and dS^T (64 keys
-// x 64 queries each, one atom), and the lse2 and delta rows of each stage;
-// then the full and empty mbarriers of each stage and the resident
-// operands' barrier
-template <int kResRows, int kTileRows, int kStages, bool kProbs>
+// kernels 3 and 4 (kProbs) then two buffers of the q tile's P^T and dS^T
+// (64 keys x 64 queries each, one atom), and the lse2 and delta rows of each
+// stage; then the full and empty mbarriers of each stage, the resident
+// operands' barrier and, kernel 4 (kFused), each stage's two barriers of
+// its staged dq part (one for each 64-column chunk of a consumer)
+template <int kResRows, int kTileRows, int kStages, bool kProbs, bool kFused = false>
 struct Layout {
   static constexpr int kResRowsN = kResRows;
   static constexpr int kTileRowsN = kTileRows;
   static constexpr int kStagesN = kStages;
+  static constexpr bool kFusedN = kFused;
   static constexpr int kResBytes = kResRows * kD * 2;    // one resident operand
   static constexpr int kTileBytes = kTileRows * kD * 2;  // one streamed operand
   static constexpr int kStagesAt = 2 * kResBytes;
@@ -2698,15 +2970,19 @@ struct Layout {
   static constexpr int kRowsAt = kBufAt + 2 * 2 * kBufBytes;
   static constexpr int kRowBytes = kProbs ? kTileRows * 4 : 0;  // lse2 or delta of a stage
   static constexpr int kBarsAt = kRowsAt + kStages * 2 * kRowBytes;
-  static constexpr int kBytes = kBarsAt + (2 * kStages + 1) * 8 + 1024;  // + alignment
+  static constexpr int kBars = 2 * kStages + 1 + (kFused ? 2 * kStages : 0);
+  static constexpr int kBytes = kBarsAt + kBars * 8 + 1024;  // + alignment
 };
 using DqLayout = Layout<kDqRows, kDqTile, kDqStages, false>;
 using DkvLayout = Layout<kDkvKeys, kDkvTile, kDkvStages, true>;
+using FusedLayout = Layout<kDkvKeys, kDkvTile, kDkvStages, true, true>;
 // 128 KB of Q and dO + 3 x 32 KB of K, V tiles
 static_assert(DqLayout::kBytes == 230456, "kernel 2's shared memory");
 // 64 KB of K and V + 2 x 64 KB of Q, dO tiles + 2 x 16 KB of P^T, dS^T + 1 KB of rows
 static_assert(DkvLayout::kBytes == 231464, "kernel 3's shared memory");
-static_assert(DkvLayout::kBytes <= 232448 && DqLayout::kBytes <= 232448,
+// kernel 3's and four barriers: the dq parts are staged over the stages' tiles
+static_assert(FusedLayout::kBytes == 231496, "kernel 4's shared memory");
+static_assert(FusedLayout::kBytes <= 232448 && DqLayout::kBytes <= 232448,
               "shared memory of one block");
 
 template <class L>
@@ -2731,11 +3007,16 @@ struct Smem {
   __device__ uint64_t* full(int st) const { return bars + st; }
   __device__ uint64_t* empty(int st) const { return bars + L::kStagesN + st; }
   __device__ uint64_t* res_full() const { return bars + 2 * L::kStagesN; }
+  // kernel 4: both consumers' chunk h of stage st's q tile's dq part are staged
+  __device__ uint64_t* dq_full(int st, int h) const {
+    return bars + 2 * L::kStagesN + 1 + 2 * st + h;
+  }
 };
 
 // the layout in this block's dynamic shared memory, its barriers
-// initialised, `fills` arrivals filling a stage (the one __syncthreads of
-// the kernels: the roles split after it)
+// initialised, `fills` arrivals filling a stage and the consumers' warps
+// emptying it (kernel 4: its reducer, once it has read the stage's dq
+// part; the one __syncthreads of the kernels: the roles split after it)
 template <class L>
 __device__ __forceinline__ Smem<L> make_smem(unsigned char* raw, int fills) {
   Smem<L> m;
@@ -2744,7 +3025,11 @@ __device__ __forceinline__ Smem<L> make_smem(unsigned char* raw, int fills) {
   if (threadIdx.x == 0) {
     for (int st = 0; st < L::kStagesN; ++st) {
       mbar_init(m.full(st), fills);
-      mbar_init(m.empty(st), kConsumerWarps);
+      mbar_init(m.empty(st), L::kFusedN ? 1 : kConsumerWarps);
+      if (L::kFusedN) {
+        mbar_init(m.dq_full(st, 0), kConsumerWarps);
+        mbar_init(m.dq_full(st, 1), kConsumerWarps);
+      }
     }
     mbar_init(m.res_full());
     mbar_fence_init();
@@ -3052,8 +3337,102 @@ __device__ __forceinline__ void dkv_part(float (&part)[kPartAcc], uint64_t a, ui
   }
 }
 
-// Kernel 3's consumer warpgroup c: the block's 64 keys (from key0) over
-// every q tile. Per tile: S^T = K Q^T and dP^T = V dO^T for the tile's
+// Kernel 4: chunk h of the q tile's dq part dS K over the block's 64 keys,
+// this consumer's columns 128 c + 64 h .. + 63 (m64n64k16: A the tile's
+// dS^T in buffer b, both consumers' halves, MN-major; B atom 2c + h of the
+// resident K, MN-major), from zero, waited for and staged over this
+// consumer's own atoms of stage st that its dV and dK chunks have read
+// (chunk 1 over the dO tile's atoms 2c and 2c + 1 once dV's chunks are
+// done, chunk 0 over the Q tile's once dK's are: no other product reads
+// them, and the reducer frees the stage once it has read them), as TMA
+// reads two (32, 64) f32 boxes in the 128-byte swizzle; then each warp
+// arrives on the stage's barrier of chunk h, so the reducer adds chunk 1
+// while the consumers run dK's last chunk. `part` is the consumer's chunk
+// accumulator (dV's and dK's parts are summed in it too).
+constexpr int kDkvAtom = kDkvKeys * 128;  // 8 KB: an atom of K, V or a Q, dO tile (64 rows)
+constexpr int kDqBox = kDkvAtom;          // 8 KB: a staged (32, 64) f32 box of a dq part
+
+__device__ __forceinline__ void stage_dq_chunk(unsigned char* dst, const float (&x)[kPartAcc]) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = (threadIdx.x % 128) / 32 * 16 + g + 8 * h;  // row % 8 == g
+#pragma unroll
+    for (int nb = 0; nb < kPartAcc / 4; ++nb) {  // columns 8 nb + 2t, + 1: box nb / 4
+      unsigned char* box = dst + nb / 4 * kDqBox;
+      const int chunk = 2 * (nb % 4) + t / 2;
+      *reinterpret_cast<float2*>(box + row * 128 + ((chunk ^ g) << 4) + 8 * (t % 2)) =
+          make_float2(x[4 * nb + 2 * h], x[4 * nb + 2 * h + 1]);
+    }
+  }
+}
+
+template <class L>
+__device__ __forceinline__ void dq_chunk(const Smem<L>& m, int st, int b, int h,
+                                         float (&part)[kPartAcc]) {
+  const int c = threadIdx.x / 128;
+  const uint64_t ds = wgmma_desc_sw128(smem_addr(m.probs(b, 1)));
+  const uint64_t kd = wgmma_desc_sw128(smem_addr(m.res(0) + (2 * c + h) * kDkvAtom));
+  wgmma_fence();
+#pragma unroll
+  for (int js = 0; js < kDkvKeys / 16; ++js) {
+    wgmma_ss_n64_mn(part, desc_at(ds, 2048 * js), desc_at(kd, 2048 * js), js > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(part);
+  stage_dq_chunk(m.tile(st, h) + 2 * c * kDkvAtom, part);
+  fence_proxy_async();
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(m.dq_full(st, h));
+}
+
+// Kernel 4's ordered adds, by one thread of the producer warpgroup for the
+// q tiles j of `tiles` in stage `first` (j % kDkvStages == first): it waits
+// until both consumers have staged chunk 1 of the tile's dq part and until
+// `lock` (the q tile's counter of this group's key blocks that have added
+// their part) reads `ahead`, the key blocks of the group before this one;
+// then adds chunk 1, and chunk 0 once staged, into the f32 buffer of
+// `dq_map` (coordinates (column, row, gbh)) by four TMA reductions each,
+// frees the stage once they have read it, waits until they have completed
+// and counts the block. Rows past sq fall outside the map and are dropped.
+__device__ __forceinline__ void reduce_dq(const Smem<FusedLayout>& m, const CUtensorMap* dq_map,
+                                          int* __restrict__ locks, int ahead, int gbh,
+                                          int q_begin, int tiles, int first) {
+  for (int j = first; j < tiles; j += kDkvStages) {
+    const int st = j % kDkvStages;
+    const int q0 = q_begin + j * kDkvTile;
+    int* lock = locks + q0 / kDkvTile;
+    const int parity = (j / kDkvStages) & 1;
+    mbar_wait(m.dq_full(st, 1), parity);
+    while (ld_acquire(lock) < ahead) __nanosleep(32);
+    fence_proxy_async_global();  // the reductions come after the blocks before
+    for (int h = 1; h >= 0; --h) {
+      if (h == 0) mbar_wait(m.dq_full(st, 0), parity);
+#pragma unroll
+      for (int c = 0; c < kConsumers; ++c) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          tma_reduce_add_3d(dq_map, m.tile(st, h) + (2 * c + x) * kDkvAtom,
+                            kDkvCols * c + kAtomCols * h + 32 * x, q0, gbh);
+        }
+      }
+      bulk_commit();
+    }
+    bulk_wait_read<0>();
+    mbar_arrive(m.empty(st));  // the producer may load the stage again
+    bulk_wait<0>();
+    fence_proxy_async_global();  // the completed reductions come before the count
+    __threadfence();
+    atomicAdd(lock, 1);
+  }
+}
+
+// Kernel 3's consumer warpgroup c (and kernel 4's: L = FusedLayout): the
+// block's 64 keys (from key0) over every q tile. Per tile: S^T = K Q^T and
+// dP^T = V dO^T for the tile's
 // queries 32 c .. 32 c + 31 (m64n32, A and B from shared memory), P^T and
 // dS^T of those into the tile's buffers; after both consumers meet at named
 // barrier 1, dV's and dK's parts of its columns 128 c .. 128 c + 127 over
@@ -3062,11 +3441,14 @@ __device__ __forceinline__ void dkv_part(float (&part)[kPartAcc], uint64_t a, ui
 // from zero and added in f32. The next tile's S^T and dP^T are issued with
 // the last chunk, in one group; the buffers alternate between tiles, so
 // one barrier a tile keeps a buffer from being rewritten while read.
-template <int K>
-__device__ __forceinline__ void dkv_consume(const Smem<DkvLayout>& m, bf16* __restrict__ dk,
+// Kernel 4 also runs the tile's dq part (dq_chunk: chunk 1 after dV's
+// chunks, chunk 0 after dK's) and leaves the stage to its reducer: the same
+// dV and dK products in the same order, so dk and dv have kernel 3's bits.
+template <int K, class L>
+__device__ __forceinline__ void dkv_consume(const Smem<L>& m, bf16* __restrict__ dk,
                                             bf16* __restrict__ dv, int key0, int q_begin,
                                             int sq, int sk, int tiles, int causal) {
-  constexpr int kAtom = kDkvKeys * 128;  // 8 KB: an atom of K, V or a Q, dO tile (64 rows)
+  constexpr int kAtom = kDkvAtom;
   const int c = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
   // this thread's keys key and key + 8
@@ -3125,6 +3507,7 @@ __device__ __forceinline__ void dkv_consume(const Smem<DkvLayout>& m, bf16* __re
       const int b = j & 1;
       write_probs(j, st, b);
       first_chunks(st, b);
+      if constexpr (L::kFusedN) dq_chunk(m, st, b, 1, part);
       mbar_wait(m.full(next), ((j + 1) / kDkvStages) & 1);
       wgmma_fence();
       dkv_part(part, buf(b, 1), cols(st, 0, 1));  // dK's chunk 1
@@ -3135,32 +3518,37 @@ __device__ __forceinline__ void dkv_consume(const Smem<DkvLayout>& m, bf16* __re
       reg_fence(part);
       reg_fence(s);
       reg_fence(dp);
-      release(m, st);
+      if constexpr (!L::kFusedN) release(m, st);
       add_part(acc_k, part, 1);
+      if constexpr (L::kFusedN) dq_chunk(m, st, b, 0, part);
     }
     const int last = tiles - 1;
     const int st = last % kDkvStages;
     const int b = last & 1;
     write_probs(last, st, b);
     first_chunks(st, b);
+    if constexpr (L::kFusedN) dq_chunk(m, st, b, 1, part);
     wgmma_fence();
     dkv_part(part, buf(b, 1), cols(st, 0, 1));
     wgmma_commit();
     wgmma_wait<0>();
     reg_fence(part);
-    release(m, st);
+    if constexpr (!L::kFusedN) release(m, st);
     add_part(acc_k, part, 1);
+    if constexpr (L::kFusedN) dq_chunk(m, st, b, 0, part);
   }
   store_rows<kDkvCols>(dk, acc_k, key, kDkvCols * c, sk, 1.f);
   // dO arrived multiplied by ln2 for ds; dv must not carry it
   store_rows<kDkvCols>(dv, acc_v, key, kDkvCols * c, sk, kLog2e);
 }
 
-// The producer warpgroup's second warp in kernel 3: each q tile's lse2 and
-// delta rows (0 past sq) with plain loads and stores, as wg::produce_q_tiles
-// copies them (a head's f32 rows start at any 4-byte offset, where TMA
-// needs 16-byte aligned addresses), one of the stage's two fills
-__device__ __forceinline__ void produce_rows(const Smem<DkvLayout>& m,
+// The producer warpgroup's second warp in kernels 3 and 4: each q tile's
+// lse2 and delta rows (0 past sq) with plain loads and stores, as
+// wg::produce_q_tiles copies them (a head's f32 rows start at any 4-byte
+// offset, where TMA needs 16-byte aligned addresses), one of the stage's two
+// fills
+template <class L>
+__device__ __forceinline__ void produce_rows(const Smem<L>& m,
                                              const float* __restrict__ lse2,
                                              const float* __restrict__ delta, int sq,
                                              int q_begin, int tiles) {
@@ -3245,6 +3633,56 @@ flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap k_map,
     } else if (pt / 32 == 1) {
       const size_t rows = static_cast<size_t>(bh) * sq;
       wd::produce_rows(m, lse2 + rows, delta + rows, sq, q_begin, tiles);
+    }
+  } else {
+    regs_raise<wd::kConsumerRegs>();
+    const size_t head = static_cast<size_t>(bh) * sk * wd::kD;
+    wd::dkv_consume<K>(m, dk + head, dv + head, k0, q_begin, sq, sk, tiles, causal);
+  }
+}
+
+// Kernel 4 on the wgmma route at D = 256. Grid, threads, maps and roles as
+// kernel 3's at D = 256, wd::FusedLayout::kBytes of dynamic shared memory;
+// the producer's third and fourth warps' first threads add the staged dq
+// parts of the q tiles of stage 0 and of stage 1 (wd::reduce_dq). The key
+// blocks of a head fall into `groups` interleaved groups (key block kb in
+// group kb % groups), each with its own f32 dq buffer (the map `dq_map` of
+// the caller's zeroed (groups, bh, sq, 256) buffer seen as (256, sq, groups
+// * bh), box 32 columns x 64 rows in the 128-byte swizzle) and its own
+// counters, dq_lock, int (groups, bh, ceil(sq / 64)), zeroed by the caller,
+// who sums the groups' buffers: as flash_bwd_fused_wgmma_kernel's.
+template <int K>
+__global__ void __launch_bounds__(wd::kThreads, 1)
+flash_bwd_fused_wide_kernel(const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap do_map,
+                            const __grid_constant__ CUtensorMap dq_map,
+                            const float* __restrict__ lse2, const float* __restrict__ delta,
+                            int* __restrict__ dq_lock, bf16* __restrict__ dk,
+                            bf16* __restrict__ dv, int sq, int sk, int num_kb, int causal,
+                            int groups) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const wd::Smem<wd::FusedLayout> m = wd::make_smem<wd::FusedLayout>(smem_raw, 2);
+  const int bh = blockIdx.x / num_kb;
+  const int kbi = blockIdx.x % num_kb;
+  const int k0 = kbi * wd::kDkvKeys;
+  const int q_begin = causal ? k0 : 0;
+  const int tiles = q_begin < sq ? (sq - q_begin + wd::kDkvTile - 1) / wd::kDkvTile : 0;
+  const int q_tiles = (sq + wd::kDkvTile - 1) / wd::kDkvTile;
+  // this block's dq buffer and counters: its group's, and in them its head's
+  const int gbh = kbi % groups * (gridDim.x / num_kb) + bh;
+  if (threadIdx.x >= wd::kConsumerThreads) {
+    regs_lower<wd::kProducerRegs>();
+    const int pt = threadIdx.x - wd::kConsumerThreads;
+    if (pt == 0) {
+      wd::produce(m, &k_map, &v_map, &q_map, &do_map, bh, k0, q_begin, tiles);
+    } else if (pt / 32 == 1) {
+      const size_t rows = static_cast<size_t>(bh) * sq;
+      wd::produce_rows(m, lse2 + rows, delta + rows, sq, q_begin, tiles);
+    } else if (pt % 32 == 0) {  // a block waits for the blocks of its group before it
+      wd::reduce_dq(m, &dq_map, dq_lock + static_cast<size_t>(gbh) * q_tiles, kbi / groups, gbh,
+                    q_begin, tiles, pt / 32 - 2);
     }
   } else {
     regs_raise<wd::kConsumerRegs>();
@@ -4082,19 +4520,56 @@ int launch_stream_entry(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the groups' f32 dq buffers of kernel 4, (groups, bh, sq, d) at a.out0, seen
+// as (d, sq, groups * bh), box 32 columns x `rows` rows in the 128-byte
+// swizzle: what its TMA reductions add into
+inline cudaError_t encode_dq_groups_map(CUtensorMap* map, const Args& a, int d, int rows) {
+  return encode_f32_rows_map(map, a.out0, d, a.sq, a.groups * a.bh, rows);
+}
+
+// kernel 4 on the TF32 route (f32 at D = tf::kD): kernel 3's maps, then the
+// dq buffers' (box kTile rows)
+template <int K>
+int launch_fused_tf32(const Args& a) {
+  CUtensorMap maps[5];
+  cudaError_t err = cudaSuccess;
+  const void* ops[4] = {a.k, a.v, a.q, a.dout};
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i) {
+    err = encode_f32_rows_map(&maps[i], ops[i], tf::kD, i < 2 ? a.sk : a.sq, a.bh,
+                              i < 2 ? tf::kBlockRows : tf::kTile);
+  }
+  if (err == cudaSuccess) err = encode_dq_groups_map(&maps[4], a, tf::kD, tf::kTile);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = flash_bwd_fused_tf32_kernel<K>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tf::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int num_kb = (a.sk + tf::kBlockRows - 1) / tf::kBlockRows;
+  kernel<<<num_kb * a.bh, tf::kThreads, tf::kSmemBytes, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const float*>(a.lse2),
+      static_cast<const float*>(a.delta), static_cast<int*>(a.dq_lock),
+      static_cast<float*>(a.out1), static_cast<float*>(a.out2), a.sq, a.sk, num_kb, a.causal,
+      a.sscale, a.groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // kernel 2 or 3 on the TF32 route in contract K: the tf body at D = tf::kD,
-// the ts body at D = 128 and 256
+// the ts body at D = 128 and 256; kernel 4 the tf body at D = tf::kD
 template <Entry E, int K>
 int launch_tf32_entry_d(const Args& a, int d) {
-  switch (d) {
-    case tf::kD: return launch_tf32_entry<E, K>(a);
-    case 128: return launch_stream_entry<E, 128 / ts::kAtomCols, K>(a);
-    case 256: return launch_stream_entry<E, 256 / ts::kAtomCols, K>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (E == Entry::kFused) {
+    return d == tf::kD ? launch_fused_tf32<K>(a) : static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    switch (d) {
+      case tf::kD: return launch_tf32_entry<E, K>(a);
+      case 128: return launch_stream_entry<E, 128 / ts::kAtomCols, K>(a);
+      case 256: return launch_stream_entry<E, 256 / ts::kAtomCols, K>(a);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
-// Kernels 2 and 3 on the TF32 route: f32 at D = 64, 128 and 256, every contract
+// Kernels 2 and 3 on the TF32 route: f32 at D = 64, 128 and 256, every
+// contract; kernel 4 at D = 64 (it keeps mma.sync at 128 and 256)
 template <Entry E>
 int launch_tf32(const Args& a, int d, int dtype) {
   if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -4151,13 +4626,39 @@ int launch_wide_entry(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// kernel 4 on the wgmma route at D = wd::kD: kernel 3's maps, then the dq
+// buffers' (box a q tile's rows)
+template <int K>
+int launch_fused_wide(const Args& a) {
+  CUtensorMap maps[5];
+  cudaError_t err = cudaSuccess;
+  const void* ops[4] = {a.k, a.v, a.q, a.dout};
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i) {
+    err = encode_head_rows_map(&maps[i], ops[i], wd::kD, i < 2 ? a.sk : a.sq, a.bh,
+                               wd::kAtomCols, i < 2 ? wd::kDkvKeys : wd::kDkvTile);
+  }
+  if (err == cudaSuccess) err = encode_dq_groups_map(&maps[4], a, wd::kD, wd::kDkvTile);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto kernel = flash_bwd_fused_wide_kernel<K>;
+  constexpr int smem = wd::FusedLayout::kBytes;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int num_kb = (a.sk + wd::kDkvKeys - 1) / wd::kDkvKeys;
+  kernel<<<num_kb * a.bh, wd::kThreads, smem, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const float*>(a.lse2),
+      static_cast<const float*>(a.delta), static_cast<int*>(a.dq_lock),
+      static_cast<bf16*>(a.out1), static_cast<bf16*>(a.out2), a.sq, a.sk, num_kb, a.causal,
+      a.groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <Entry E, int K>
 int launch_wgmma_entry(const Args& a, int d) {
-  if (d == wd::kD) {  // kernels 2 and 3 only (kernel 4 keeps mma.sync there)
-    if constexpr (E == Entry::kDq || E == Entry::kDkv) {
-      return launch_wide_entry<E, K>(a);
+  if (d == wd::kD) {
+    if constexpr (E == Entry::kFused) {
+      return launch_fused_wide<K>(a);
     } else {
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_wide_entry<E, K>(a);
     }
   }
   if constexpr (E == Entry::kDq) return launch_dq_wgmma<K>(a);
@@ -4165,8 +4666,8 @@ int launch_wgmma_entry(const Args& a, int d) {
   else return launch_fused_wgmma<K>(a);
 }
 
-// Kernels 2, 3 and 4 on the wgmma route: bf16 at D = wg::kD, and kernels 2
-// and 3 at D = wd::kD, in the exp2 contracts
+// Kernels 2, 3 and 4 on the wgmma route: bf16 at D = wg::kD and wd::kD, in
+// the exp2 contracts
 template <Entry E>
 int launch_wgmma(const Args& a, int d, int dtype) {
   if (dtype != 1 || (d != wg::kD && d != wd::kD)) return static_cast<int>(cudaErrorInvalidValue);
@@ -4177,16 +4678,16 @@ int launch_wgmma(const Args& a, int d, int dtype) {
   }
 }
 
-// bf16 at D = wg::kD in the exp2 contracts: kernels 2, 3 and 4 run only
-// their wgmma bodies there (launch_wgmma), as kernels 2 and 3 do at D =
-// wd::kD; f32 at D = 64, 128 and 256, every contract: kernels 2 and 3 run
-// only their TF32 bodies (launch_tf32). So kRouteMma is refused there, and
-// those mma.sync instances are never built
+// bf16 at D = wg::kD and wd::kD in the exp2 contracts: kernels 2, 3 and 4
+// run only their wgmma bodies there (launch_wgmma); f32, every contract:
+// kernels 2 and 3 at D = 64, 128 and 256 and kernel 4 at D = 64 run only
+// their TF32 bodies (launch_tf32). So kRouteMma is refused there, and those
+// mma.sync instances are never built
 template <Entry E, typename T, int D, int K>
 constexpr bool kWgmmaOnly =
-    (E != Entry::kRoles && sizeof(T) == 2 && D == wg::kD && K != kUpcast) ||
-    ((E == Entry::kDq || E == Entry::kDkv) && sizeof(T) == 2 && D == wd::kD && K != kUpcast) ||
-    ((E == Entry::kDq || E == Entry::kDkv) && sizeof(T) == 4 && D >= tf::kD);
+    (E != Entry::kRoles && sizeof(T) == 2 && (D == wg::kD || D == wd::kD) && K != kUpcast) ||
+    ((E == Entry::kDq || E == Entry::kDkv) && sizeof(T) == 4 && D >= tf::kD) ||
+    (E == Entry::kFused && sizeof(T) == 4 && D == tf::kD);
 
 template <Entry E, typename T, int D, int K>
 int launch_entry(const Args& a) {
@@ -4228,7 +4729,7 @@ template <Entry E>
 int launch(const Args& a, int d, int dtype, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (a.groups < 1 || (a.groups > 1 && a.route != kRouteWgmma)) {
+  if (a.groups < 1 || (a.groups > 1 && a.route == kRouteMma)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a.route == kRouteWgmma) {
@@ -4236,7 +4737,7 @@ int launch(const Args& a, int d, int dtype, int device) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a.route == kRouteTf32) {
-    if constexpr (E == Entry::kDq || E == Entry::kDkv) return launch_tf32<E>(a, d, dtype);
+    if constexpr (E != Entry::kRoles) return launch_tf32<E>(a, d, dtype);
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a.route != kRouteMma) return static_cast<int>(cudaErrorInvalidValue);
@@ -4253,11 +4754,11 @@ int launch(const Args& a, int d, int dtype, int device) {
 // of flash_contract.cuh: under kUpcast (f32 only) q is unscaled, dout has no
 // ln2, lse2 is the natural-log lse and sscale the softmax scale (sscale is
 // not read otherwise). route is a Route (ops/flash_attention.py::
-// attention_route): kRouteWgmma runs the wgmma body, which takes bf16 at
-// d = 64 in the two exp2 contracts (and, in the dq and dkv entries, at d =
-// 256), kRouteTf32 (dq and dkv entries only)
-// the TF32 wgmma bodies, which take f32 at d = 64, 128 and 256 in every contract,
-// kRouteMma the mma.sync body, which takes every other type, width and
+// attention_route): kRouteWgmma runs the wgmma bodies, which take bf16 at
+// d = 64 and 256 in the two exp2 contracts, kRouteTf32 the TF32 wgmma
+// bodies, which take f32 at d = 64 in every contract (and, in the dq and
+// dkv entries, at d = 128 and 256), kRouteMma the mma.sync body, which
+// takes every other type, width and
 // contract; any other route, or a route on inputs it does not take,
 // returns cudaErrorInvalidValue and launches nothing. Launches on `stream`
 // of `device` and returns the first CUDA error of the tensor maps'
@@ -4285,10 +4786,11 @@ extern "C" int gm_flash_bwd_dkv(const void* q, const void* k, const void* v, con
 // bh, sq, d) and zeroed by the caller (key block kb into group kb % groups;
 // the caller sums the groups), in the order kept by `dq_lock`, int32,
 // zeroed by the caller, at least groups * bh * ceil(sq / Br) of them (Br =
-// kBrBf16 or kBrF32 by input type on the mma.sync route, wg::kTile on the
-// wgmma route), and writes dk and dv (bh, sk, d) in the input type. groups
-// is 1 on the mma.sync route, at least 1 on the wgmma route; another value
-// returns cudaErrorInvalidValue.
+// kBrBf16 or kBrF32 by input type on the mma.sync route, wg::kTile or
+// wd::kDkvTile on the wgmma route, tf::kTile on the TF32 route), and writes
+// dk and dv (bh, sk, d) in the input type. groups is 1 on the mma.sync
+// route, at least 1 on the wgmma and TF32 routes; another value returns
+// cudaErrorInvalidValue.
 extern "C" int gm_flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse2, const void* delta, void* dq_acc,
                                   void* dq_lock, void* dk, void* dv, int bh, int sq, int sk, int d,

@@ -1601,16 +1601,6 @@ __device__ __forceinline__ void convert(const Smem<L>& m, int tiles) {
   }
 }
 
-// x through an opaque move, so that the tile loop computes tile_probs's
-// shared-memory offsets from it each tile and does not keep them in
-// registers across the loop (without it ptxas spilled the running-max
-// contracts at D = 256)
-__device__ __forceinline__ int opaque(int x) {
-  int y;
-  asm volatile("mov.b32 %0, %1;\n" : "=r"(y) : "r"(x));
-  return y;
-}
-
 // The probabilities of one tile from its S accumulator x (element 4i + 2h
 // + e: the block's query row rw + 8h, key key0 + 8i + 2t + e; kUpcast's
 // scale applied). kMasked: keys past sk, and under the causal mask keys
@@ -1767,6 +1757,7 @@ __device__ __forceinline__ void consume(const Smem<L>& m, float (&acc)[L::kSlabs
     }
     float* alpha = m.alpha(c, n & 1);
     if (k0 + kTile > sk || (causal && k0 + kTile - 1 > row0)) {
+      // (opaque: without it ptxas spilled the running-max contracts at D = 256)
       tile_probs<K, true>(m.buf(c, 0), m.buf(c, 1), alpha, x, mr, lr, opaque(rw), opaque(t), row0,
                           k0, sk, causal);
     } else {

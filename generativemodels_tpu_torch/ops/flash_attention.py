@@ -294,26 +294,30 @@ ROUTE_MMA, ROUTE_WGMMA, ROUTE_TF32 = 0, 1, 2
 # the head widths of each kernel's bf16 wgmma bodies (the exp2 contracts)
 # and of its TF32 bodies (f32 operands, every contract); mma.sync elsewhere
 _WGMMA_D = {"flash_fwd": (64, 256), "flash_bwd_dq": (64, 256), "flash_bwd_dkv": (64, 256),
-            "flash_bwd_fused": (64,)}
+            "flash_bwd_fused": (64, 256)}
 _TF32_D = {"flash_fwd": (128, 256), "flash_bwd_dq": (64, 128, 256),
-           "flash_bwd_dkv": (64, 128, 256), "flash_bwd_fused": ()}
-# kernel 4's groups of key blocks on the wgmma route, each adding into its
-# own dq buffer in its own key-block order (the 3D shape's 256 key blocks a
-# head in 8 chains of 32)
-FUSED_DQ_GROUPS = 8
+           "flash_bwd_dkv": (64, 128, 256), "flash_bwd_fused": (64,)}
+# kernel 4's groups of key blocks on its Hopper bodies (the wgmma and TF32
+# routes), by head width: each group adds into its own f32 dq buffer in its
+# own key-block order, so more groups mean shorter chains of blocks that
+# wait on one another (the 3D shape's 256 key blocks a head in 8 chains of
+# 32) and more buffers to zero and sum (at (128, 1024, 1024, 256) bf16 on
+# an NVIDIA H100 80GB HBM3 at 700.00 W, 1.44 ms a call with one group and
+# 2.32 with 8, whose 1 GB of buffers take 0.79 ms to zero and sum)
+FUSED_DQ_GROUPS = {64: 8, 256: 1}
 
 
 def attention_route(dtype: torch.dtype, d: int, upcast: bool = False, *, kernel: str) -> int:
     """The body that `kernel` (the name of kernel 1, 2, 3 or 4's launcher,
     which every caller gives) runs for inputs of `dtype` at head width `d`
     under the contract `upcast` names: on bf16 operands (the exp2
-    contracts) ROUTE_WGMMA at D = 64, and at D = 256 in kernels 1-3; on f32
-    operands (f32 inputs, or any inputs under upcast, which runs f32)
-    ROUTE_TF32 at D = 128 and 256 in kernels 1-3, and at D = 64 in kernels
-    2 and 3; ROUTE_MMA for everything else (kernel 4 but at bf16 D = 64,
-    kernel 1 on f32 at D = 32 and 64, and D = 32 and bf16 D = 128 in every
-    kernel). The four launchers pass it to their C entries, which raise on
-    a route they do not run for the inputs they get."""
+    contracts) ROUTE_WGMMA at D = 64 and 256; on f32 operands (f32 inputs,
+    or any inputs under upcast, which runs f32) ROUTE_TF32 at D = 128 and
+    256 in kernels 1-3, and at D = 64 in kernels 2-4; ROUTE_MMA for
+    everything else (kernel 4 on f32 at D = 128 and 256, kernel 1 on f32 at
+    D = 32 and 64, and D = 32 and bf16 D = 128 in every kernel). The four
+    launchers pass it to their C entries, which raise on a route they do
+    not run for the inputs they get."""
     if kernel not in _WGMMA_D:
         raise ValueError(f"no flash kernel {kernel!r}; one of {tuple(_WGMMA_D)}")
     if dtype == torch.bfloat16 and not upcast:
@@ -398,15 +402,16 @@ class FlashBackwardFusedKernel(_FlashBackwardKernel):
         launch. The kernel's key blocks add their dq parts into zeroed f32
         buffers in key-block order, kept by zeroed int32 counters, one per
         (bh, q tile) (the kernel's q tiles hold at least _BLOCK rows on
-        either route, so ceil(Sq / _BLOCK) counters a head are enough), in
+        every route, so ceil(Sq / _BLOCK) counters a head are enough), in
         place of the TPU kernel's f32 partial slab per kv tile: one buffer
-        on the mma.sync route, FUSED_DQ_GROUPS on the wgmma route (key
-        block kb adds into buffer kb % FUSED_DQ_GROUPS, so fewer blocks wait
-        on one another), summed here in one torch.sum (no atomics). dq is
-        the same to the bit from run to run; it is cast once to the input
-        type here."""
+        on the mma.sync route, FUSED_DQ_GROUPS of the head width on the
+        wgmma and TF32 routes (key block kb adds into buffer kb % groups,
+        so fewer blocks wait on one another), summed here in one torch.sum
+        (no atomics). dq is the same to the bit from run to run; it is
+        cast once to the input type here."""
         route = attention_route(q.dtype, q.shape[2], upcast, kernel="flash_bwd_fused")
-        groups = FUSED_DQ_GROUPS if route == ROUTE_WGMMA else 1
+        # (a route that these inputs do not take gets one, and the C entry refuses it)
+        groups = FUSED_DQ_GROUPS.get(q.shape[2], 1) if route != ROUTE_MMA else 1
         dq = torch.zeros((groups, *q.shape), dtype=torch.float32, device=q.device)
         lock = torch.zeros((groups, q.shape[0], -(-q.shape[1] // _BLOCK)), dtype=torch.int32,
                            device=q.device)

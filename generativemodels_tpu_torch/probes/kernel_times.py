@@ -52,7 +52,9 @@ HERE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fi
 # kernels 2 and 3 at the f32 D = 128 and 256 contract shapes of phase 2 (d)
 # (the 2D serving shape, and the causal case's shape without the mask);
 # kernel 1 at the 2D f32 recipe's training shape and at the serving shape
-# in bf16
+# in bf16; kernel 4 in f32 at the 3D LDM's three D = 64 shapes (its TF32
+# body), ControlNet's training shape and the f32 D = 128 and 256 contract
+# shapes (its mma.sync body)
 CASES = (
     ("flash_fwd", (2, 32768, 32768, 64), "bfloat16"),
     ("flash_fwd", (2, 4096, 4096, 64), "bfloat16"),
@@ -94,6 +96,12 @@ CASES = (
     ("flash_bwd_dkv", (4, 1024, 1024, 128), "float32"),
     ("flash_fwd", (64, 1024, 1024, 256), "float32"),
     ("flash_fwd", (4, 1024, 1024, 256), "bfloat16"),
+    ("flash_bwd_fused", (2, 32768, 32768, 64), "float32"),
+    ("flash_bwd_fused", (2, 4096, 4096, 64), "float32"),
+    ("flash_bwd_fused", (2, 16384, 32768, 64), "float32"),
+    ("flash_bwd_fused", (16, 1024, 1024, 128), "float32"),
+    ("flash_bwd_fused", (4, 1024, 1024, 128), "float32"),
+    ("flash_bwd_fused", (4, 1024, 1024, 256), "float32"),
 )
 # (multiply-adds a (query, key) pair and head column, (sq, sk) rows of
 # inputs and outputs of width D) of kernels 1-4: the forward's two products

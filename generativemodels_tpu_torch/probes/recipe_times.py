@@ -2,9 +2,10 @@
 checkouts can be compared on one card in one call:
 
 - `stage1`: the f32 3D LDM stage-1 G+D step of `recipes/train_3d_ldm.py`
-  at 128^3, batch 2, split backward (chip_smoke.py's phase 10 (a)): the
-  recipe's own seconds a step (host clock ending in a synchronize) over the
-  steps after the warm-up ones;
+  at 128^3, batch 2, split backward, or fused with GMTPU_FLASH_FUSED_BWD=1
+  in the environment (chip_smoke.py's phase 10 (a)): the recipe's own
+  seconds a step (host clock ending in a synchronize) over the steps after
+  the warm-up ones;
 - `export2d`: `recipes.serve.export_sampler` on the 2D serving sampler at
   its serving config (chip_smoke.py's SERVE: 64x64, UNet (128, 256, 256),
   batch 4, DDIM-50; phase 14 (b) exports it with the chain cut to
@@ -32,8 +33,9 @@ checkouts can be compared on one card in one call:
 imported (default: the checkout holding this file); its kernels are built
 from its own sources. Run it on two checkouts in turns (A, B, B, A) and
 compare within the call. Prints one JSON object per measurement with the
-card's name and power limit and, with `--out`, appends them to FILE. Needs
-a card.
+card's name and power limit (and `fused_backward`: whether
+GMTPU_FLASH_FUSED_BWD=1 was set) and, with `--out`, appends them to FILE.
+Needs a card.
 """
 from __future__ import annotations
 
@@ -184,7 +186,8 @@ def main(argv=None) -> list[dict]:
     root = os.path.dirname(os.path.dirname(os.path.abspath(generativemodels_tpu_torch.__file__)))
     results = []
     for what in args.what:
-        line = dict(root=root, what=what, **MEASURES[what](torch), card=card)
+        line = dict(root=root, what=what, **MEASURES[what](torch), card=card,
+                    fused_backward=os.environ.get("GMTPU_FLASH_FUSED_BWD") == "1")
         print(json.dumps(line), flush=True)
         results.append(line)
         torch.cuda.empty_cache()

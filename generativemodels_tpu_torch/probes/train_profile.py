@@ -16,9 +16,11 @@ level 3 at 32^3 tokens in heads of 64: kernels 1-3 at (2, 32768, 32768, 64)
 bf16). Each is built from seed 0, runs two warm-up steps of
 `make_diffusion_train_step` with Adam (lr 2.5e-5), then one step under
 torch.profiler (CUDA activity) with the host clock around it, ending in a
-synchronize. TF32 is off, as in the recipe. Prints one JSON line a config:
-device and wall ms, busy share, ms by group and the largest kernels, with
-the card's name and power limit; `--out` appends the lines to FILE. Needs a
+synchronize. TF32 is off, as in the recipe. The backward is the split one,
+or the fused one (kernel 4) with GMTPU_FLASH_FUSED_BWD=1 in the
+environment. Prints one JSON line a config: device and wall ms, busy
+share, ms by group and the largest kernels, with the card's name and power
+limit and `fused_backward`; `--out` appends the lines to FILE. Needs a
 card. chip_smoke.py's phase 6 (c) profiles the 3D step through
 `profile_step(torch, "bench3d_bf16")`, once with each backward.
 """
@@ -134,7 +136,8 @@ def main(argv=None) -> list[dict]:
     ).stdout.strip().splitlines()[0]
     results = []
     for name in args.configs:
-        line = dict(profile_step(torch, name), card=card)
+        line = dict(profile_step(torch, name), card=card,
+                    fused_backward=os.environ.get("GMTPU_FLASH_FUSED_BWD") == "1")
         print(json.dumps(line), flush=True)
         results.append(line)
         torch.cuda.empty_cache()

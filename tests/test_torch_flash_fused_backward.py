@@ -128,6 +128,30 @@ def test_fused_backward_matches_jax_bf16_masked(name, monkeypatch):
         assert np.abs(x - w).max() <= BF16_REL * np.abs(w).max(), label
 
 
+# the bf16, head width 256 cases that the fused kernel runs on its D = 256
+# wgmma body on the card (64-key blocks, 64-row q tiles): (numpy seed, BH,
+# Sq, Sk, D, causal, q multiplier), two kv tiles of the JAX kernel, a causal
+# square whose rows are no multiple of 128, and a padded last kv tile
+BF16_WIDE_CASES = {
+    "plain": (11, 2, 128, 256, 256, False, 1.0),
+    "causal": (11, 2, 192, 192, 256, True, 1.0),
+    "ragged_kv": (12, 2, 128, 200, 256, False, 1.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_WIDE_CASES))
+def test_fused_backward_matches_jax_bf16_wide(name, monkeypatch):
+    """As test_fused_backward_matches_jax_bf16, at head width 256."""
+    monkeypatch.setenv("GMTPU_FLASH_FUSED_BWD", "1")
+    seed, bh, sq, sk, d, causal, mult = BF16_WIDE_CASES[name]
+    q, k, v = _inputs(seed, bh, sq, sk, d, mult)
+    want = _jax_grads(q, k, v, causal=causal, dtype=jnp.bfloat16)
+    got = _port_grads(q, k, v, causal=causal, dtype=torch.bfloat16)
+    for w, x, label in zip(want, got, ("dq", "dk", "dv")):
+        assert np.abs(w).max() > 1e-3, label  # the check is not empty
+        assert np.abs(x - w).max() <= BF16_REL * np.abs(w).max(), label
+
+
 def test_fused_switch_launches_no_kernel_on_cpu(monkeypatch):
     """On CPU tensors the switch changes nothing: the plain backward, no launch."""
     q, k, v = _inputs(2, 2, 96, 80, 32, 1.0)
@@ -154,7 +178,9 @@ def _chip_smoke():
 def test_launcher_tiles_follow_the_kernel_source(dtype, d):
     """chip_smoke's tiles of kernels 3 and 4 are the `constexpr`s that
     csrc/flash_bwd.cu declares, chosen as the kernel chooses them (the wgmma
-    bodies' 64-row q tiles and 128-key blocks at bf16 D = 64, the mma.sync
+    body's 64-row q tiles and 128-key blocks at bf16 D = 64, the D = 256
+    wgmma body's 64-row q tiles and 64-key blocks at bf16 D = 256, the TF32
+    body's 32-row q tiles and 128-key blocks at f32 D = 64, the mma.sync
     body's otherwise); the launcher's kernel-4 counters (one per _BLOCK rows
     a head) cover every q tile the kernel counts (a lock too small means
     counters out of bounds or a wait that never ends); chip_smoke's count of
@@ -165,19 +191,35 @@ def test_launcher_tiles_follow_the_kernel_source(dtype, d):
     blocks in clusters of two that split the keys where one block a row
     block leaves half of them idle)."""
     text = (REPO / "generativemodels_tpu_torch" / "csrc" / "flash_bwd.cu").read_text()
-    tiles = {}
-    for name, value in re.findall(r"constexpr int (k\w+) = (\d+);", text):
-        tiles.setdefault(name, int(value))
+
+    def constants(text):
+        found = {}
+        for name, value in re.findall(r"constexpr int (k\w+) = (\d+);", text):
+            found.setdefault(name, int(value))
+        return found
+
+    def namespace(name):  # the first block of `namespace name`
+        start = text.index(f"namespace {name} {{")
+        return constants(text[start:text.index(f"}}  // namespace {name}", start)])
+
+    tiles, wg, wd, tf = constants(text), namespace("wg"), namespace("wd"), namespace("tf")
     assert "kBr = kBf16 ? kBrBf16 : kBrF32;" in text
     assert "kBc = D <= kNarrowD ? kBcNarrow : kBcWide;" in text
     assert "constexpr int kBlockRows = kConsumers * kRows;" in text
-    # the wgmma body's counters: ceil(sq / kTile) a head in each group
-    assert "const int q_tiles = (sq + wg::kTile - 1) / wg::kTile;" in text
-    assert "dq_lock + static_cast<size_t>(gbh) * q_tiles" in text
-    wgmma = dtype == "bfloat16" and d == tiles["kD"]
-    if wgmma:
-        rows, keys = tiles["kTile"], tiles["kConsumers"] * tiles["kRows"]
+    assert "constexpr int kDkvKeys = kRows;" in text
+    # the Hopper bodies' counters: ceil(sq / q tile) a head in each group
+    for tile in ("wg::kTile", "wd::kDkvTile", "tf::kTile"):
+        assert f"const int q_tiles = (sq + {tile} - 1) / {tile};" in text
+    assert text.count("dq_lock + static_cast<size_t>(gbh) * q_tiles") == 3
+    if dtype == "bfloat16" and d == wg["kD"]:
+        rows, keys = wg["kTile"], wg["kConsumers"] * wg["kRows"]
         assert (rows, keys) == (64, 128)
+    elif dtype == "bfloat16" and d == wd["kD"]:
+        rows, keys = wd["kDkvTile"], wd["kRows"]
+        assert (rows, keys) == (64, 64)
+    elif dtype == "float32" and d == tf["kD"]:
+        rows, keys = tf["kTile"], tf["kConsumers"] * tf["kRows"]
+        assert (rows, keys) == (32, 128)
     else:
         rows = tiles["kBrBf16"] if dtype == "bfloat16" else tiles["kBrF32"]
         keys = tiles["kBcNarrow"] if d <= tiles["kNarrowD"] else tiles["kBcWide"]

@@ -16,11 +16,11 @@ relative to the largest gradient: 1e-4 for f32 (summation order over up to
 1024 keys), 2e-2 for bf16. Kernel 4 against kernels 2 + 3 on the same
 inputs: dk and dv equal to the bit where the two run one body of
 `attention_route` (the mma.sync body the two share, and on the wgmma
-route, bf16 at D = 64, the same dV and dK products in the same order), and
-where they do not (f32 D = 64, 128 and 256, where kernel 3 runs its TF32
-wgmma bodies and kernel 4 mma.sync; bf16 D = 256, where kernel 3 runs its
-D = 256 wgmma body), within the fused margin below (the same products summed in another
-order); dq within 1e-5 of its
+routes, bf16 at D = 64 and 256, and the TF32 route at f32 D = 64, the
+same dV and dK products in the same order), and where they do not (f32 D
+= 128 and 256, where kernel 3 runs its TF32 wgmma body and kernel 4
+mma.sync), within the fused margin below (the same products summed in
+another order); dq within 1e-5 of its
 largest value in f32 (f32 sums of the key blocks' parts in key-block
 order), and in bf16 within one bf16 ulp of its value (those sums may round
 to the other side of a bf16 tie) plus that 1e-5 (sums that cancel). The
@@ -312,9 +312,10 @@ def _assert_within_fused_margin(got, want, size=None):
 def _assert_fused_dkv_agree(fused, split, dtype, d, upcast=False, sizes=(None,) * 3):
     """Kernel 4's dk, dv against kernel 3's: equal to the bit where the two
     run one body (each runs kernel 3's dV and dK products in kernel 3's
-    order); at f32 D = 64 (kernel 3 on its TF32 body, kernel 4 on
-    mma.sync) within the fused margin, as kernel 4's dq is held (`sizes`:
-    `_gradient_sizes`, where dk cancels to rounding)."""
+    order: the mma.sync, wgmma and TF32 routes at f32 D = 64); at f32 D =
+    128 and 256 (kernel 3 on its TF32 body, kernel 4 on mma.sync) within
+    the fused margin, as kernel 4's dq is held (`sizes`: `_gradient_sizes`,
+    where dk cancels to rounding)."""
     if (attention_route(dtype, d, upcast, kernel="flash_bwd_dkv")
             == attention_route(dtype, d, upcast, kernel="flash_bwd_fused")):
         torch.testing.assert_close(fused[1], split[1], rtol=0, atol=0)
@@ -586,38 +587,42 @@ def test_wgmma_route_backward_kernels_on_gpu(cuda_device, contract, case):
 @pytest.mark.parametrize("case", sorted(WGMMA_SHAPES))
 @pytest.mark.parametrize("contract", ["no_max", "running_max"])
 def test_wide_route_backward_kernels_on_gpu(cuda_device, contract, case):
-    """Kernels 2 and 3 on their D = 256 wgmma body (bf16 at head width 256,
-    both exp2 contracts), at the wgmma route's shapes (Sq and Sk no
-    multiples of kernel 2's 32-key tiles and 128-row blocks or kernel 3's
-    64-row q tiles and 64-key blocks): against the plain backward at
-    BWD_TOL (relative to `_gradient_sizes`), two launches equal to the bit
-    (no atomics; a dq row belongs to one warpgroup, a dk, dv element to
-    one); kernel 4 (mma.sync there) within the fused margin of them."""
+    """Kernels 2, 3 and 4 on their D = 256 wgmma bodies (bf16 at head width
+    256, both exp2 contracts), at the wgmma route's shapes (Sq and Sk no
+    multiples of kernel 2's 32-key tiles and 128-row blocks or kernels 3
+    and 4's 64-row q tiles and 64-key blocks): against the plain backward
+    at BWD_TOL (relative to `_gradient_sizes`), two launches equal to the
+    bit (no atomics; a dq row belongs to one warpgroup, a dk, dv element to
+    one; kernel 4 adds its dq parts in key-block order); kernel 4's dk, dv
+    equal kernel 3's to the bit and its dq is within the fused margin of
+    kernel 2's."""
     bh, sq, sk, causal = WGMMA_SHAPES[case]
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert attention_route(torch.bfloat16, 256, kernel=kernel) == ROUTE_WGMMA
-    assert attention_route(torch.bfloat16, 256, kernel="flash_bwd_fused") == ROUTE_MMA
+    assert attention_route(torch.bfloat16, 256, kernel="flash_bwd_fused") == ROUTE_WGMMA
     args, kw = _contract_backward_inputs(cuda_device, bh, sq, sk, 256, torch.bfloat16, causal,
                                          False, contract == "no_max")
     q_in, k, v, out, lse2, dout = args
     do2, delta = _backward_rows(out, dout)
     bkw = dict(causal=causal, no_max=kw["no_max"])
-    counters = (FLASH_BWD_DQ, FLASH_BWD_DKV)
+    counters = (FLASH_BWD_DQ, FLASH_BWD_DKV, FLASH_BWD_FUSED)
     before = [c.launches for c in counters]
     first = (FLASH_BWD_DQ(q_in, k, v, do2, lse2, delta, **bkw),
              *FLASH_BWD_DKV(q_in, k, v, do2, lse2, delta, **bkw))
     again = (FLASH_BWD_DQ(q_in, k, v, do2, lse2, delta, **bkw),
              *FLASH_BWD_DKV(q_in, k, v, do2, lse2, delta, **bkw))
     fused = FLASH_BWD_FUSED(q_in, k, v, do2, lse2, delta, **bkw)
+    fused_again = FLASH_BWD_FUSED(q_in, k, v, do2, lse2, delta, **bkw)
     want = flash_attention_backward_reference(*args, **kw)
     torch.cuda.synchronize()
     assert [c.launches for c in counters] == [n + 2 for n in before]
     sizes = _gradient_sizes(args, kw, want)
-    for a, a2, b, size in zip(first, again, want, sizes):
-        assert a.dtype == torch.bfloat16 and a.shape == b.shape
-        assert bool(torch.isfinite(a.float()).all())
-        assert (a.float() - b.float()).abs().max().item() <= BWD_TOL[torch.bfloat16] * size
-        assert torch.equal(a.view(torch.int16), a2.view(torch.int16))
+    for got, repeat in ((first, again), (fused, fused_again)):
+        for a, a2, b, size in zip(got, repeat, want, sizes):
+            assert a.dtype == torch.bfloat16 and a.shape == b.shape
+            assert bool(torch.isfinite(a.float()).all())
+            assert (a.float() - b.float()).abs().max().item() <= BWD_TOL[torch.bfloat16] * size
+            assert torch.equal(a.view(torch.int16), a2.view(torch.int16))
     _assert_fused_dkv_agree(fused, first, torch.bfloat16, 256, sizes=sizes)
     _assert_within_fused_margin(fused[0], first[0], sizes[0])
 
@@ -649,6 +654,28 @@ def test_wide_route_runs_its_own_kernel_on_gpu(cuda_device, kernel, dtype, d, bo
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype, d, body", [(torch.bfloat16, 256, "wide"),
+                                            (torch.float32, 64, "tf32")],
+                         ids=["bf16_d256", "f32_d64"])
+def test_fused_route_runs_its_own_kernel_on_gpu(cuda_device, dtype, d, body):
+    """Which kernel ran, as the profiler names it: at bf16 D = 256 the fused
+    launcher launches `flash_bwd_fused_wide_kernel` (kernel 3's D = 256
+    wgmma body and the dq parts), at f32 D = 64 `flash_bwd_fused_tf32_kernel`
+    (kernel 3's TF32 body and the dq parts), and no mma.sync body."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args, _ = _contract_backward_inputs(cuda_device, 2, 300, 300, d, dtype, False, False, True)
+    q_in, k, v, out, lse2, dout = args
+    do2, delta = _backward_rows(out, dout)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        FLASH_BWD_FUSED(q_in, k, v, do2, lse2, delta)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "flash_bwd_fused_" in e.name]
+    assert names and all(f"flash_bwd_fused_{body}_kernel" in name for name in names), names
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("case", sorted(WGMMA_SHAPES))
 @pytest.mark.parametrize("contract", ["no_max", "running_max", "upcast"])
@@ -659,32 +686,38 @@ def test_tf32_route_backward_kernels_on_gpu(cuda_device, contract, case, d):
     tiles or 64- and 128-row blocks): against the plain backward at BWD_TOL
     (relative to `_gradient_sizes`), two launches equal to the bit (no
     atomics; a dq row belongs to one warpgroup, a dk, dv element to one);
-    kernel 4 (mma.sync there) within the fused margin of them."""
+    kernel 4 (its TF32 body at D = 64, mma.sync at 128 and 256) against the
+    plain backward too, two launches equal to the bit, its dk, dv equal to
+    kernel 3's at D = 64 and its dq within the fused margin of kernel 2's."""
     bh, sq, sk, causal = WGMMA_SHAPES[case]
     upcast = contract == "upcast"
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert attention_route(torch.float32, d, upcast, kernel=kernel) == ROUTE_TF32
+    assert (attention_route(torch.float32, d, upcast, kernel="flash_bwd_fused")
+            == (ROUTE_TF32 if d == 64 else ROUTE_MMA))
     args, kw = _contract_backward_inputs(cuda_device, bh, sq, sk, d, torch.float32, causal,
                                          upcast, contract != "running_max")
     q_in, k, v, out, lse, dout = args
     do_k, delta = _backward_rows(out, dout, upcast)
     bkw = dict(causal=causal, upcast=upcast, no_max=kw["no_max"], scale=kw["scale"])
-    counters = (FLASH_BWD_DQ, FLASH_BWD_DKV)
+    counters = (FLASH_BWD_DQ, FLASH_BWD_DKV, FLASH_BWD_FUSED)
     before = [c.launches for c in counters]
     first = (FLASH_BWD_DQ(q_in, k, v, do_k, lse, delta, **bkw),
              *FLASH_BWD_DKV(q_in, k, v, do_k, lse, delta, **bkw))
     again = (FLASH_BWD_DQ(q_in, k, v, do_k, lse, delta, **bkw),
              *FLASH_BWD_DKV(q_in, k, v, do_k, lse, delta, **bkw))
     fused = FLASH_BWD_FUSED(q_in, k, v, do_k, lse, delta, **bkw)
+    fused_again = FLASH_BWD_FUSED(q_in, k, v, do_k, lse, delta, **bkw)
     want = flash_attention_backward_reference(*args, **kw)
     torch.cuda.synchronize()
     assert [c.launches for c in counters] == [n + 2 for n in before]
     sizes = _gradient_sizes(args, kw, want)
-    for a, a2, b, size in zip(first, again, want, sizes):
-        assert a.dtype == torch.float32 and a.shape == b.shape
-        assert bool(torch.isfinite(a).all())
-        assert (a - b).abs().max().item() <= BWD_TOL[torch.float32] * size
-        assert torch.equal(a.view(torch.int32), a2.view(torch.int32))
+    for got, repeat in ((first, again), (fused, fused_again)):
+        for a, a2, b, size in zip(got, repeat, want, sizes):
+            assert a.dtype == torch.float32 and a.shape == b.shape
+            assert bool(torch.isfinite(a).all())
+            assert (a - b).abs().max().item() <= BWD_TOL[torch.float32] * size
+            assert torch.equal(a.view(torch.int32), a2.view(torch.int32))
     _assert_fused_dkv_agree(fused, first, torch.float32, d, upcast, sizes)
     _assert_within_fused_margin(fused[0], first[0], sizes[0])
 
@@ -833,11 +866,11 @@ ALL_FOUR = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
     "dtype, route, refusing, d",
     [(torch.bfloat16, ROUTE_MMA, ALL_FOUR, 64), (torch.float32, ROUTE_WGMMA, ALL_FOUR, 64),
      (torch.bfloat16, UNKNOWN_ROUTE, ALL_FOUR, 64),
-     (torch.float32, ROUTE_MMA, ("flash_bwd_dq", "flash_bwd_dkv"), 64),
-     (torch.float32, ROUTE_TF32, ("flash_fwd", "flash_bwd_fused"), 64),
+     (torch.float32, ROUTE_MMA, ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused"), 64),
+     (torch.float32, ROUTE_TF32, ("flash_fwd",), 64),
      (torch.bfloat16, ROUTE_TF32, ALL_FOUR, 64),
-     (torch.bfloat16, ROUTE_MMA, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 256),
-     (torch.bfloat16, ROUTE_WGMMA, ("flash_bwd_fused",), 256),
+     (torch.bfloat16, ROUTE_MMA, ALL_FOUR, 256),
+     (torch.float32, ROUTE_TF32, ("flash_bwd_fused",), 128),
      (torch.float32, ROUTE_WGMMA, ALL_FOUR, 256),
      (torch.float32, ROUTE_MMA, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 128),
      (torch.float32, ROUTE_MMA, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 256),
@@ -845,18 +878,18 @@ ALL_FOUR = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused")
      (torch.bfloat16, ROUTE_TF32, ALL_FOUR, 256),
      (torch.float32, ROUTE_WGMMA, ALL_FOUR, 128),
      (torch.bfloat16, ROUTE_WGMMA, ALL_FOUR, 128)],
-    ids=["mma_at_bf16_d64", "wgmma_at_f32", "unknown", "mma_at_f32_d64_split",
-         "tf32_in_kernels_1_and_4", "tf32_at_bf16", "mma_at_bf16_d256_split",
-         "wgmma_in_kernel_4_at_d256", "wgmma_at_f32_d256", "mma_at_f32_d128_split",
+    ids=["mma_at_bf16_d64", "wgmma_at_f32", "unknown", "mma_at_f32_d64",
+         "tf32_in_kernel_1_at_d64", "tf32_at_bf16", "mma_at_bf16_d256",
+         "tf32_in_kernel_4_at_d128", "wgmma_at_f32_d256", "mma_at_f32_d128_split",
          "mma_at_f32_d256_split", "tf32_in_kernel_4_at_d256", "tf32_at_bf16_d256",
          "wgmma_at_f32_d128", "wgmma_at_bf16_d128"])
 def test_backward_route_refused_on_gpu(cuda_device, monkeypatch, dtype, route, refusing, d):
     """Each (kernel, input) of kernels 1-4 takes one body: their C entries
-    refuse the mma.sync route at bf16 D = 64 (exp2 contracts), in kernels
-    1-3 at bf16 D = 256 and f32 D = 128 and 256 and in kernels 2 and 3 at
-    f32 D = 64; the wgmma route at f32, at bf16 D = 128 and in kernel 4 at
-    D = 256; the TF32 route in kernel 4, in kernel 1 at D = 64 and at bf16;
-    and an unknown route. The launcher raises and counts no launch."""
+    refuse the mma.sync route at bf16 D = 64 and 256 (exp2 contracts), in
+    kernels 1-3 at f32 D = 128 and 256 and in kernels 2-4 at f32 D = 64;
+    the wgmma route at f32 and at bf16 D = 128; the TF32 route in kernel 4
+    at D = 128 and 256, in kernel 1 at D = 64 and at bf16; and an unknown
+    route. The launcher raises and counts no launch."""
     args, _ = _contract_backward_inputs(cuda_device, 2, 128, 128, d, dtype, False, False, True)
     q_in, k, v, out, lse2, dout = args
     do2, delta = _backward_rows(out, dout)
